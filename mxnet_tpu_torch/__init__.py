@@ -1,0 +1,25 @@
+"""mxnet_tpu_torch: the MXNet 1.0 API of ``mxnet_tpu`` in PyTorch and CUDA.
+
+The port of the JAX package to one NVIDIA H100, slice by slice.  This
+slice serves symbol graphs: ``Server`` -> ``ServedModel`` -> ``Predictor``
+-> ``Symbol.simple_bind`` -> ``Executor.forward``, with the attention of
+``multi_head_attention`` in a hand-written CUDA flash-attention kernel.
+
+Entry points run on the card (``gpu(0)``) unless given ``cpu()``; without
+a card they raise ``MXNetError`` rather than fall back to the host.
+"""
+from __future__ import annotations
+
+from .base import MXNetError, __version__  # noqa: F401
+from .context import Context, cpu, current_context, gpu, num_gpus  # noqa: F401
+from . import ops  # noqa: F401
+from . import ndarray  # noqa: F401
+from . import ndarray as nd  # noqa: F401
+from . import symbol  # noqa: F401
+from . import symbol as sym  # noqa: F401
+from . import executor, executor_cache  # noqa: F401
+from .predict import Predictor  # noqa: F401
+from . import serving  # noqa: F401
+from . import models  # noqa: F401
+from . import convert  # noqa: F401
+from . import threads  # noqa: F401

@@ -1,0 +1,5 @@
+"""Operator library: importing the package registers every op."""
+from . import registry  # noqa: F401
+from . import tensor  # noqa: F401
+from . import nn  # noqa: F401
+from . import attention  # noqa: F401

@@ -1,0 +1,230 @@
+"""Admission control: the bounded queue in front of the batcher.
+
+Counterpart of ``mxnet_tpu/serving/admission.py``.  The queue is bounded
+(``MXNET_TPU_SERVING_QUEUE_DEPTH``, default 256): a full queue rejects a
+new request with ``Overloaded`` at submit time.  Every request carries a
+deadline (per-request override, else
+``MXNET_TPU_SERVING_DEFAULT_DEADLINE_MS``); expired requests are rejected
+with ``DeadlineExceeded`` during batch assembly, before they would occupy
+a slot in a dispatched batch.
+
+``take_batch`` is the single consumer interface: it blocks for work,
+sweeps expirations, groups by model, honors the batch window, and
+returns only live requests.  Rejection callbacks fire outside the queue
+lock.
+"""
+from __future__ import annotations
+
+import os
+import time
+
+from .. import threads as _threads
+from .errors import DeadlineExceeded, Overloaded, ServerClosed
+
+ENV_QUEUE_DEPTH = "MXNET_TPU_SERVING_QUEUE_DEPTH"
+ENV_DEFAULT_DEADLINE_MS = "MXNET_TPU_SERVING_DEFAULT_DEADLINE_MS"
+
+DEFAULT_QUEUE_DEPTH = 256
+
+
+def default_queue_depth():
+    return int(os.environ.get(ENV_QUEUE_DEPTH, str(DEFAULT_QUEUE_DEPTH)))
+
+
+def default_deadline_ms():
+    """Process-default per-request deadline; 0 (the default) disables
+    deadlines for requests that don't set one."""
+    return float(os.environ.get(ENV_DEFAULT_DEADLINE_MS, "0"))
+
+
+class Request:
+    """One queued inference request: input arrays (leading dim = rows),
+    the future its caller holds, and its admission-time metadata."""
+
+    __slots__ = ("model", "inputs", "n_rows", "future", "t_submit",
+                 "deadline", "t_dispatch", "dispatch_bucket")
+
+    def __init__(self, model, inputs, n_rows, future, deadline_ms=None):
+        self.model = model
+        self.inputs = inputs
+        self.n_rows = n_rows
+        self.future = future
+        self.t_submit = time.monotonic()
+        if deadline_ms is None:
+            deadline_ms = default_deadline_ms()
+        # <=0 means "no deadline" (the env default), not "already expired"
+        self.deadline = (self.t_submit + deadline_ms / 1e3
+                         if deadline_ms and deadline_ms > 0 else None)
+        self.t_dispatch = None
+        # set by the batcher at dispatch: the padded batch shape this
+        # request actually ran in (replaying a response exactly means
+        # replaying its bucket)
+        self.dispatch_bucket = None
+
+    def expired(self, now=None):
+        if self.deadline is None:
+            return False
+        return (time.monotonic() if now is None else now) > self.deadline
+
+
+class AdmissionController:
+    """Bounded FIFO of :class:`Request` with deadline sweeping.
+
+    ``offer`` is the producer side (any number of submitter threads);
+    ``take_batch`` is the consumer side (the batcher's dispatch thread).
+    """
+
+    def __init__(self, queue_depth=None):
+        self.queue_depth = (default_queue_depth() if queue_depth is None
+                            else int(queue_depth))
+        self._queue = []  # FIFO; list because assembly removes mid-queue
+        self._cond = _threads.package_condition("AdmissionController._cond")
+        self._closed = False
+
+    def pending(self):
+        """Requests currently queued (including not-yet-swept expired
+        ones) — the ``serving.queue_depth`` gauge reads this."""
+        with self._cond:
+            return len(self._queue)
+
+    @property
+    def closed(self):
+        return self._closed
+
+    def offer(self, request):
+        """Admit ``request`` or raise a typed rejection (``Overloaded``
+        when the queue is at depth, ``ServerClosed`` after close)."""
+        with self._cond:
+            if self._closed:
+                raise ServerClosed("server is draining/closed; request "
+                                   "for model %r not admitted"
+                                   % request.model)
+            if len(self._queue) >= self.queue_depth:
+                raise Overloaded(
+                    "admission queue full (%d queued, depth %d); retry "
+                    "with backoff or raise %s"
+                    % (len(self._queue), self.queue_depth, ENV_QUEUE_DEPTH))
+            self._queue.append(request)
+            self._cond.notify()
+
+    def close(self):
+        """Stop admitting; wake the consumer so it can drain and exit."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+
+    def drain_remaining(self):
+        """Take every still-queued request out of the queue (the
+        drain-deadline path: the dispatch thread did not get to them in
+        time and the caller rejects each with a typed ``ServerClosed``).
+        Call after :meth:`close`; wakes the consumer so it observes the
+        empty queue and exits."""
+        with self._cond:
+            remaining = list(self._queue)
+            self._queue.clear()
+            self._cond.notify_all()
+        return remaining
+
+    def _sweep_locked(self, expired_out):
+        """Move expired requests from the queue into ``expired_out``."""
+        now = time.monotonic()
+        live = []
+        for r in self._queue:
+            (expired_out if r.expired(now) else live).append(r)
+        if len(live) != len(self._queue):
+            self._queue[:] = live
+
+    def take_batch(self, max_rows, batch_window_ms, reject):
+        """Block until a batch is ready; return its live requests.
+
+        Returns ``None`` exactly once the controller is closed AND
+        drained (the consumer's exit signal).  ``reject(request, exc)``
+        is called — outside the lock — for every request whose deadline
+        expired while queued; such a request is never part of the
+        returned batch.  The returned requests are all for ONE model,
+        in arrival order, totalling at most ``max_rows`` rows; after
+        the first request is claimed, assembly waits up to
+        ``batch_window_ms`` for more rows unless the controller is
+        draining (drain ships partial batches immediately).
+        """
+        while True:
+            expired = []
+            batch = self._assemble(max_rows, batch_window_ms, expired)
+            for r in expired:
+                reject(r, DeadlineExceeded(
+                    "deadline expired after %.1f ms in queue (model %r)"
+                    % ((time.monotonic() - r.t_submit) * 1e3, r.model)))
+            if batch is None:
+                return None
+            if batch:
+                now = time.monotonic()
+                for r in batch:
+                    r.t_dispatch = now
+                return batch
+            # every claimed request expired during the window: loop
+
+    def _assemble(self, max_rows, batch_window_ms, expired_out):
+        """One assembly attempt under the lock.  Returns None (closed and
+        drained), or a possibly-empty list (empty = all candidates
+        expired; caller fires rejections and retries)."""
+        with self._cond:
+            while True:
+                self._sweep_locked(expired_out)
+                if self._queue:
+                    break
+                if self._closed:
+                    return None
+                if expired_out:
+                    # the sweep just emptied the queue: the rejections
+                    # must fire NOW, not after the next traffic event —
+                    # an indefinite wait here would hold the expired
+                    # futures' DeadlineExceeded hostage on an idle queue
+                    return []
+                self._cond.wait()
+            model = self._queue[0].model
+            taken, rows = [], 0
+
+            def claim():
+                nonlocal rows
+                i = 0
+                while i < len(self._queue) and rows < max_rows:
+                    r = self._queue[i]
+                    if r.model != model or rows + r.n_rows > max_rows:
+                        # keep per-model arrival order: never skip ahead
+                        # past a same-model request that doesn't fit
+                        if r.model == model:
+                            if not taken:
+                                # wider than max_rows on its own (server
+                                # admitted more than it assembles —
+                                # misconfigured shared registry): claim
+                                # it SOLO so the queue stays live; the
+                                # batcher serves it from the model's own
+                                # buckets or fails its future typed,
+                                # never this loop spinning forever
+                                del self._queue[i]
+                                taken.append(r)
+                                rows += r.n_rows
+                            break
+                        i += 1
+                        continue
+                    del self._queue[i]
+                    taken.append(r)
+                    rows += r.n_rows
+                return rows
+
+            claim()
+            window_end = time.monotonic() + batch_window_ms / 1e3
+            while rows < max_rows and not self._closed:
+                remaining = window_end - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._cond.wait(remaining)
+                self._sweep_locked(expired_out)
+                claim()
+            # final sweep: a request that expired while the window was
+            # open must not ride into the dispatched batch
+            now = time.monotonic()
+            live = []
+            for r in taken:
+                (expired_out if r.expired(now) else live).append(r)
+            return live
