@@ -54,6 +54,17 @@ def str_to_attr(s):
     return _parse_scalar(t)
 
 
+def shape_attr(value):
+    """Coerce an attr to a shape tuple of ints (accepts int, str, tuple)."""
+    if value is None:
+        return None
+    if isinstance(value, str):
+        value = str_to_attr(value)
+    if isinstance(value, int):
+        return (value,)
+    return tuple(int(v) for v in value)
+
+
 _TORCH_DTYPES = {
     "float32": torch.float32, "float64": torch.float64,
     "float16": torch.float16, "bfloat16": torch.bfloat16,

@@ -11,11 +11,15 @@ from __future__ import annotations
 
 import torch
 
-from ..base import MXNetError, dtype_name, str_to_attr, torch_dtype
+from ..base import MXNetError, dtype_name, shape_attr, str_to_attr, torch_dtype
 
 # ---------------------------------------------------------------------------
 # Attr type converters (dmlc::Parameter reflection)
 # ---------------------------------------------------------------------------
+
+
+def pShape(v):
+    return shape_attr(v)
 
 
 def pInt(v):
