@@ -8,19 +8,39 @@ CUDA toolkit.  Phases, each of which raises on failure:
 
 1. Card: the card's name and power limit, torch and CUDA versions, and
    the build of every kernel source (one ``nvcc`` each, in parallel).
-2. Kernels against their plain PyTorch versions on the card: the
-   flash-attention forward at the serving shape (B 4, S 1024, H 12, D 64,
-   causal, f32) and at S 1000 non-causal, ragged ``kv_lens`` with a 0,
-   D 128, and bf16; with the kernel's, the plain version's and
-   ``torch.nn.functional.scaled_dot_product_attention``'s times (the last
-   as a yardstick only: the port never calls it) beside the bound.
-3. The slice: a GPT-2-small-width TransformerLM (vocab 50257, context
+2. Kernels against their plain PyTorch versions on the card:
+   - the flash-attention forward at the serving shape (B 4, S 1024, H 12,
+     D 64, causal, f32) and at S 1000 non-causal, ragged ``kv_lens`` with
+     a 0, D 128, and bf16;
+   - ``bn_channel_sums``, single and paired, at ResNet-50's BatchNorm
+     inputs (32, 3, 224, 224), (32, 64, 112, 112), (32, 2048, 7, 7), an
+     odd (3, 5, 7, 9), and in bf16;
+   - ``max_pool_backward`` at the stem (3x3/s2/p1 over (32, 64, 112, 112)
+     post-ReLU, many tied zeros), a ``full``-convention case and bf16;
+   - ``avg_pool_backward`` at the global 7x7 pool, 3x3/s2/p1 with
+     ``count_include_pad=False`` and ``full``, and ``sum``;
+   each with the kernel's and the plain version's times beside the bound,
+   and one PyTorch call computing the same function as a yardstick
+   (``scaled_dot_product_attention``, ``batch_norm_stats``, the aten
+   pooling backwards: timed only, the port never calls them).
+3. Serving: a GPT-2-small-width TransformerLM (vocab 50257, context
    1024, width 768, 12 heads, 12 layers, FFN 3072; random weights from
    ``--seed``) served by ``Server(max_batch_size=4)``: warmup with its
    zero-rebuild verify, 8 concurrent requests of 1-3 rows, output shapes
    and finiteness, the flash launch count (12 per forward), and 2 served
    rows against the same model run through the port on the host.
-4. The ``kernels`` JSON line, then the result line.
+4. Training: ResNet-50 v2 at full depth and width (f32, TF32 off) through
+   ``Module.fit`` for one epoch of 4 batches of 32 (random images and
+   labels from ``--seed``), SGD with momentum: finite per-batch
+   cross-entropy, every parameter and BatchNorm moving statistic moved,
+   per step exactly the kernel launches the graph implies (2 channel-sums
+   per BatchNorm, 1 max- and 1 avg-pool backward), 0 launches in a
+   following ``score``, one batch-2 forward and backward on the card
+   against the host (gradients within 1e-3 relative L2, or within 4
+   times the host's own largest change when its input moves by one ulp),
+   and ms
+   per step with its forward/backward/update split.
+5. The ``kernels`` JSON line, then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is not beside this script.
@@ -52,7 +72,23 @@ PEAK_BYTES = 3.35e12
 
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=2e-2, rtol=0.0)
+# sums of bf16 inputs are f32 outputs summed in f32 from the same inputs,
+# so they keep the f32 relative tolerance beside the bf16 absolute one
+BF16_SUM_TOL = dict(atol=2e-2, rtol=1e-4)
 SERVE_TOL = dict(atol=2e-3, rtol=2e-3)
+
+# training configuration: ResNet-50 v2 (He et al. 2016, "Identity Mappings
+# in Deep Residual Networks"; depths and widths of MXNet's
+# example/image-classification/symbols/resnet.py), batch 32 as bench.py
+RESNET = dict(num_classes=1000, num_layers=50, image_shape="3,224,224")
+TRAIN_BATCH = 32
+TRAIN_BATCHES = 4
+TIMED_STEPS = 5
+SGD = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
+HOST_BATCH = 2
+HOST_OUT_TOL = dict(atol=1e-3, rtol=1e-3)
+HOST_GRAD_REL = 1e-3
+HOST_AUX_TOL = 1e-4
 
 
 def card_line():
@@ -105,9 +141,9 @@ def flash_bound(q, sk, causal, kv_lens):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_kernels(seed):
-    """Phase 2: every kernel against its plain version on the card.
-    Returns the slice-shape record for the kernels line."""
+def check_flash(seed):
+    """Phase 2a: the flash kernel against its plain version on the card.
+    Returns its record for the kernels line."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import kernels as K
@@ -165,7 +201,170 @@ def check_kernels(seed):
                   "launches": 0, "max_abs_err": max_err, "ms": ms,
                   "plain_ms": plain_ms, "bound_ms": bound_ms,
                   "bound_by": bound_by, "library_ms": library_ms}
-    return [record]
+    return record
+
+
+def bytes_bound(nbytes):
+    """Least ms to move ``nbytes`` at the card's memory rate."""
+    return nbytes / PEAK_BYTES * 1e3, "bytes"
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _agree(got, want, tol):
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= tol["atol"] + tol["rtol"] * want.float().abs()).all())
+    return float(err.max()) if err.numel() else 0.0, ok
+
+
+def _report(line, rec_ms, plain_ms, lib_ms, bound):
+    print("%s: %.4f ms, plain %.4f ms, library %.4f ms, bound %.4f ms "
+          "(%s), roofline share %.1f%%; card %s"
+          % (line, rec_ms, plain_ms, lib_ms, bound[0], bound[1],
+             100.0 * bound[0] / rec_ms, card_line()))
+
+
+def check_bn_sums(seed):
+    """Phase 2b: bn_channel_sums against its plain version; timed at the
+    input of BatchNorm bn0 (the stats form).  Inputs have a nonzero mean
+    so that no channel sum sits near 0, where only atol would hold."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    cases = [((32, 3, 224, 224), torch.float32),
+             ((32, 64, 112, 112), torch.float32),
+             ((32, 2048, 7, 7), torch.float32),
+             ((3, 5, 7, 9), torch.float32),
+             ((32, 64, 112, 112), torch.bfloat16)]
+    record = None
+    for shape, dtype in cases:
+        a = (torch.randn(*shape, generator=gen, device=dev) + 0.5).to(dtype)
+        b = (torch.randn(*shape, generator=gen, device=dev) + 0.5).to(dtype)
+        tol = F32_TOL if dtype == torch.float32 else BF16_SUM_TOL
+        for pair in (None, b):
+            got = K.bn_channel_sums(a, pair)
+            want = K._plain_channel_sums(a, pair)
+            torch.cuda.synchronize()
+            errs = [_agree(g, w, tol) for g, w in zip(got, want)]
+            max_err = max(e for e, _ in errs)
+            ok = all(o for _, o in errs)
+            print("kernel bn_channel_sums %-18s %-6s %s: max_abs_err %.3g "
+                  "(atol %g rtol %g) %s"
+                  % ("x".join(map(str, shape)),
+                     "single" if pair is None else "paired",
+                     str(dtype).replace("torch.", ""), max_err, tol["atol"],
+                     tol["rtol"], "ok" if ok else "FAIL"))
+            if not ok:
+                raise AssertionError("bn_channel_sums disagrees with its "
+                                     "plain version at %s" % (shape,))
+            if shape != (32, 64, 112, 112) or dtype != torch.float32:
+                continue
+            ms = time_ms(lambda: K.bn_channel_sums(a, pair))
+            plain_ms = time_ms(lambda: K._plain_channel_sums(a, pair))
+            ins = (a,) if pair is None else (a, pair)
+            bound = bytes_bound(_nbytes(*ins) + 2 * 4 * shape[1])
+            name = "bn_channel_sums bn0 %s" % (
+                "stats" if pair is None else "pair")
+            if pair is None:
+                lib_ms = time_ms(lambda: torch.batch_norm_stats(a, 1e-5))
+                record = {"name": "bn_channel_sums", "route": "cuda",
+                          "source": "mxnet_tpu_torch/csrc/bn_channel_sums.cu",
+                          "replaces": "mxnet_tpu/ops/pallas_kernels.py:699",
+                          "launches": 0, "max_abs_err": max_err, "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": bound[0],
+                          "bound_by": bound[1], "library_ms": lib_ms}
+            else:
+                lib_ms = float("nan")
+            _report("kernel " + name, ms, plain_ms, lib_ms, bound)
+    return record
+
+
+def check_pool_bwd(seed):
+    """Phase 2c: the pooling backwards against their plain versions,
+    exactly (each pixel's sum has the same terms in the same order);
+    timed at ResNet-50's stem max pool and global average pool."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    aten = torch.ops.aten
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    cases = [  # label, pool, shape, kernel, stride, pad, convention,
+        #        count_include_pad, dtype, timed
+        ("stem", "max", (32, 64, 112, 112), (3, 3), (2, 2), (1, 1),
+         "valid", True, torch.float32, True),
+        ("full", "max", (8, 16, 27, 31), (3, 3), (2, 2), (1, 1), "full",
+         True, torch.float32, False),
+        ("stem-bf16", "max", (32, 64, 112, 112), (3, 3), (2, 2), (1, 1),
+         "valid", True, torch.bfloat16, False),
+        ("global7", "avg", (32, 2048, 7, 7), (7, 7), (1, 1), (0, 0),
+         "valid", True, torch.float32, True),
+        ("excl-pad-full", "avg", (8, 16, 27, 31), (3, 3), (2, 2), (1, 1),
+         "full", False, torch.float32, False),
+        ("sum", "sum", (8, 16, 27, 31), (2, 3), (2, 1), (0, 1), "valid",
+         True, torch.float32, False),
+    ]
+    records = {}
+    for (label, pool, shape, kernel, stride, pad, conv, cip, dtype,
+         timed) in cases:
+        x = torch.randn(*shape, generator=gen, device=dev)
+        if pool == "max":
+            x = torch.clamp_min(x, 0.0)  # post-ReLU: windows of tied zeros
+        x = x.to(dtype)
+        pads = nn_ops._pool_spatial_pads(shape[2:], kernel, stride, pad,
+                                         conv)
+        out_shape = tuple(nn_ops._pool_out_dim(shape[2 + i], kernel[i],
+                                               stride[i], pad[i], conv)
+                          for i in range(2))
+        dy = torch.randn(shape[:2] + out_shape, generator=gen,
+                         device=dev).to(dtype)
+        if pool == "max":
+            name = "max_pool_backward"
+            run = lambda: K.max_pool_backward(x, dy, kernel, stride, pads)  # noqa: E731
+            plain = lambda: K._plain_max_pool_backward(  # noqa: E731
+                x, dy, kernel, stride, pads)
+            _, idx = aten.max_pool2d_with_indices(x, kernel, stride, pad)
+            lib = lambda: aten.max_pool2d_with_indices_backward(  # noqa: E731
+                dy, x, kernel, stride, pad, (1, 1), False, idx)
+            nbytes = _nbytes(x, dy) + x.numel() * x.element_size()
+        else:
+            name = "avg_pool_backward"
+            div = nn_ops._pool_divisor(pool, cip, shape, kernel, stride,
+                                       pads, out_shape, dev)
+            run = lambda: K.avg_pool_backward(  # noqa: E731
+                dy, div, shape, kernel, stride, pads)
+            plain = lambda: K._plain_avg_pool_backward(  # noqa: E731
+                dy, div, shape, kernel, stride, pads, dtype)
+            lib = lambda: aten.avg_pool2d_backward(  # noqa: E731
+                dy, x, kernel, stride, pad, False, True, None)
+            nbytes = _nbytes(dy, div) + x.numel() * x.element_size()
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        max_err = float((got.float() - want.float()).abs().max())
+        ok = bool(torch.equal(got, want))
+        print("kernel %s %-13s %s %s: max_abs_err %.3g (exact) %s"
+              % (name, label, "x".join(map(str, shape)),
+                 str(dtype).replace("torch.", ""), max_err,
+                 "ok" if ok else "FAIL"))
+        if not ok:
+            raise AssertionError("%s disagrees with its plain version on "
+                                 "case %s" % (name, label))
+        if not timed:
+            continue
+        ms, plain_ms, lib_ms = time_ms(run), time_ms(plain), time_ms(lib)
+        bound = bytes_bound(nbytes)
+        _report("kernel %s %s" % (name, label), ms, plain_ms, lib_ms, bound)
+        records[name] = {
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/pool_bwd.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:580",
+            "launches": 0, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": lib_ms}
+    return [records["max_pool_backward"], records["avg_pool_backward"]]
 
 
 def gpt2s_params(symbol, seed):
@@ -323,6 +522,273 @@ def serve(mx, seed):
     return launches
 
 
+def expected_train_launches(symbol):
+    """Kernel launches one training step of ``symbol`` makes, read off the
+    graph: two bn_channel_sums (statistics, backward pair) per train-mode
+    BatchNorm over NCHW, and one pooling backward per 2-D Pooling node of
+    at most 64 taps."""
+    counts = {"bn_channel_sums": 0, "max_pool_backward": 0,
+              "avg_pool_backward": 0}
+    for node in symbol._topo():
+        if node.op_name == "BatchNorm":
+            counts["bn_channel_sums"] += 2
+        elif node.op_name == "Pooling":
+            kind = node.attrs.get("pool_type", "max")
+            counts["max_pool_backward" if kind == "max"
+                   else "avg_pool_backward"] += 1
+    return counts
+
+
+def train(mx, seed):
+    """Phase 4: fit ResNet-50 v2 on the card.  Returns the kernel launches
+    of the main path (the fit)."""
+    import torch
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import kernels as K
+
+    symbol = resnet.get_symbol(**RESNET)
+    per_step = expected_train_launches(symbol)
+    print("train: ResNet-50 v2, %d arguments, %d aux states; expected "
+          "launches per step %s" % (len(symbol.list_arguments()),
+                                    len(symbol.list_auxiliary_states()),
+                                    per_step))
+    rng = np.random.default_rng(seed + 2)
+    n = TRAIN_BATCH * TRAIN_BATCHES
+    shape = tuple(int(d) for d in RESNET["image_shape"].split(","))
+    images = rng.random((n,) + shape, dtype=np.float32)
+    labels = rng.integers(0, RESNET["num_classes"], n).astype(np.float32)
+    train_iter = mx.io.NDArrayIter(images, labels, batch_size=TRAIN_BATCH)
+    mod = mx.mod.Module(symbol, context=mx.gpu(0))
+    mod.bind(train_iter.provide_data, train_iter.provide_label)
+    mx.random.seed(seed)
+    mod.init_params(mx.initializer.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2))
+    arg0, aux0 = (
+        {k: v.asnumpy().copy() for k, v in table.items()}
+        for table in mod.get_params())
+
+    losses, step_launches, step_ms = [], [], []
+    marks = {"t": None, "counts": None}
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), K.launch_counts()
+        prob = mod.get_outputs()[0].asnumpy()
+        lab = param.locals["batch"].label[0].asnumpy().astype(np.int64)
+        losses.append(float(-np.log(prob[np.arange(len(lab)), lab]
+                                    + 1e-12).mean()))
+        step_launches.append({k: counts[k] - marks["counts"][k]
+                              for k in per_step})
+        step_ms.append((now - marks["t"]) * 1e3)
+        marks["t"], marks["counts"] = now, counts
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    marks["t"], marks["counts"] = time.perf_counter(), K.launch_counts()
+    mod.fit(train_iter, num_epoch=1, batch_end_callback=on_batch,
+            optimizer_params=SGD, eval_metric="ce")
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    print("train: fit of %d batches of %d: cross-entropy per batch %s; "
+          "host-clock ms per step (synchronized) %s; card %s"
+          % (TRAIN_BATCHES, TRAIN_BATCH, ", ".join("%.4f" % v
+                                                   for v in losses),
+             ", ".join("%.1f" % v for v in step_ms), card_line()))
+    print("train: launches per step %s; total %s" % (step_launches,
+                                                     launches))
+    if not all(np.isfinite(losses)) or len(losses) != TRAIN_BATCHES:
+        raise AssertionError("non-finite or missing batch losses %s"
+                             % losses)
+    if any(d != per_step for d in step_launches):
+        raise AssertionError("launches per step %s, expected %s"
+                             % (step_launches, per_step))
+    arg1, aux1 = mod.get_params()
+    frozen = [k for k in arg0 if np.array_equal(arg0[k], arg1[k].asnumpy())]
+    still = [k for k in aux0 if np.array_equal(aux0[k], aux1[k].asnumpy())]
+    print("train: parameters changed %d/%d, moving stats changed %d/%d"
+          % (len(arg0) - len(frozen), len(arg0), len(aux0) - len(still),
+             len(aux0)))
+    if frozen or still:
+        raise AssertionError("unchanged after fit: %s" % (frozen + still))
+
+    before = K.launch_counts()
+    score = mod.score(train_iter, "acc")
+    torch.cuda.synchronize()
+    added = {k: K.launch_counts()[k] - before[k] for k in per_step}
+    print("train: score %s added launches %s" % (score, added))
+    if any(added.values()):
+        raise AssertionError("the eval forward launched training kernels")
+
+    train_step_split(mod, train_iter)
+    host_check(mx, symbol, arg0, aux0, images[:HOST_BATCH],
+               labels[:HOST_BATCH], seed)
+    return launches
+
+
+def train_step_split(mod, train_iter):
+    """Median synchronized host-clock ms of forward (is_train), backward
+    and update, and of a whole step, over TIMED_STEPS batches (launches
+    here come after the main path's counts were read)."""
+    import torch
+    train_iter.reset()
+    batch = next(train_iter)
+    parts = {"forward": [], "backward": [], "update": [], "step": []}
+    for _ in range(TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward(batch, is_train=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mod.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        mod.update()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, v in (("forward", t1 - t0), ("backward", t2 - t1),
+                     ("update", t3 - t2), ("step", t3 - t0)):
+            parts[k].append(v * 1e3)
+    med = {k: float(np.median(v[1:])) for k, v in parts.items()}
+    profile_step(mod, batch)
+    print("train: ms per step %.2f (median of %d, synchronized), %.1f "
+          "images/s; forward %.2f ms, backward %.2f ms, update %.2f ms; "
+          "peak memory %.2f GB; card %s"
+          % (med["step"], TIMED_STEPS, TRAIN_BATCH / med["step"] * 1e3,
+             med["forward"], med["backward"], med["update"],
+             torch.cuda.max_memory_allocated() / 1e9, card_line()))
+
+
+HAND_KERNELS = ("partial_sums_kernel", "combine_kernel",
+                "window_argmax_kernel", "max_pool_gather_kernel",
+                "avg_pool_bwd_kernel")
+KERNEL_GROUPS = (  # (label, substrings of a device kernel's name)
+    ("hand-written (bn sums, pool backward)", HAND_KERNELS),
+    ("convolution and matmul (cuDNN, cuBLAS)",
+     ("conv", "cudnn", "xmma", "gemm", "sm90", "sm80", "cutlass", "wgrad",
+      "dgrad", "fprop")),
+    ("elementwise and reductions (torch)",
+     ("elementwise", "vectorized", "reduce", "unrolled", "fill", "copy")),
+)
+
+
+def profile_step(mod, batch):
+    """One training step (forward, backward, update) under torch.profiler:
+    device time by kernel group, the busy share of the step's wall time,
+    and the largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+
+    busy = sum(dev_ms(e) for e in device)
+    if busy <= 0:
+        print("train: profiled step %.2f ms; device time not measured (the "
+              "profiler saw no device events)" % wall_ms)
+        return
+    groups = {label: 0.0 for label, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    for e in device:
+        name = e.key.lower()
+        label = next((lab for lab, keys in KERNEL_GROUPS
+                      if any(k.lower() in name for k in keys)), "other")
+        groups[label] += dev_ms(e)
+    print("train: profiled step %.2f ms wall, device busy %.2f ms (%.1f%%, "
+          "idle %.1f%%); by group: %s; card %s"
+          % (wall_ms, busy, 100 * busy / wall_ms, 100 - 100 * busy / wall_ms,
+             "; ".join("%s %.2f ms" % kv for kv in groups.items()),
+             card_line()))
+    for e in sorted(device, key=dev_ms, reverse=True)[:8]:
+        print("train:   %8.3f ms x%-4d %s" % (dev_ms(e), e.count,
+                                               e.key[:90]))
+
+
+def host_check(mx, symbol, arg0, aux0, images, labels, seed):
+    """One batch-2 training forward and backward on the card and on the
+    host (plain versions) from the same parameters: outputs, every
+    parameter's gradient and the moving statistics.
+
+    The parameters are the fit's initial ones with every BatchNorm gamma
+    and beta drawn away from Xavier's 1 and 0: with beta 0 the loss does
+    not depend on bn0's gamma (relu and max pooling commute with a
+    positive per-channel scale, and the next BatchNorm removes it), so
+    that gradient is rounding noise.  Even so, at initialization the
+    backward of this 50-layer BatchNorm net amplifies f32 rounding: the
+    host's own gradients move by ~1% when a few input pixels move by one
+    ulp.  So a third run, on the host with the input perturbed by one
+    relative 1e-7, measures that floor, and every gradient passes within
+    HOST_GRAD_REL or within 4 times the largest floor.  (A wrong formula
+    or routing shows as an O(1) error; the kernels themselves are held
+    against their plain versions in phase 2.)"""
+    rng = np.random.default_rng(seed + 3)
+    arg0 = dict(arg0)
+    for k, v in arg0.items():
+        if k.endswith("_gamma"):
+            arg0[k] = (1.0 + 0.1 * rng.standard_normal(v.shape)).astype(
+                np.float32)
+        elif k.endswith("_beta"):
+            arg0[k] = (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+    nudged = (images * (1 + 1e-7 * rng.standard_normal(images.shape))
+              ).astype(np.float32)
+    results = []
+    for ctx, data in ((mx.gpu(0), images), (mx.cpu(), images),
+                      (mx.cpu(), nudged)):
+        exe = symbol.simple_bind(
+            ctx, grad_req={k: "write" for k in arg0},
+            data=data.shape, softmax_label=labels.shape)
+        args, auxs = mx.convert.params_from_numpy(
+            dict(arg0, **{"aux:" + k: v for k, v in aux0.items()}), ctx)
+        exe.copy_params_from(args, auxs)
+        exe.forward(is_train=True, data=data, softmax_label=labels)
+        exe.backward()
+        results.append((exe.outputs[0].asnumpy(),
+                        {k: exe.grad_dict[k].asnumpy() for k in arg0},
+                        {k: exe.aux_dict[k].asnumpy() for k in aux0}))
+    (out_g, grad_g, aux_g), (out_h, grad_h, aux_h), (_, grad_n, _) = results
+
+    def rel(a, b):
+        return {k: float(np.linalg.norm(a[k] - b[k])
+                         / np.linalg.norm(b[k]))
+                for k in b if np.linalg.norm(b[k]) > 0}
+
+    err, floor = rel(grad_g, grad_h), rel(grad_n, grad_h)
+    limit = max(HOST_GRAD_REL, 4.0 * max(floor.values()))
+    worst = max(err, key=err.get)
+    out_err = np.abs(out_g - out_h)
+    out_ok = bool((out_err <= HOST_OUT_TOL["atol"]
+                   + HOST_OUT_TOL["rtol"] * np.abs(out_h)).all())
+    aux_err = {k: float(np.abs(aux_g[k] - aux_h[k]).max()) for k in aux_h}
+    worst_aux = max(aux_err, key=aux_err.get)
+    print("train: batch-%d forward+backward card vs host: outputs "
+          "max_abs_err %.3g (atol %g rtol %g); gradients relative L2: "
+          "largest %.3g (%s), median %.3g, %d/%d within %g; the host's own "
+          "floor (input moved by 1e-7) largest %.3g, median %.3g, so the "
+          "limit is %.3g; worst moving stat %.3g (%s, limit %g)"
+          % (len(labels), float(out_err.max()), HOST_OUT_TOL["atol"],
+             HOST_OUT_TOL["rtol"], max(err.values()), max(err, key=err.get),
+             float(np.median(list(err.values()))),
+             sum(v <= HOST_GRAD_REL for v in err.values()), len(err),
+             HOST_GRAD_REL, max(floor.values()),
+             float(np.median(list(floor.values()))), limit,
+             aux_err[worst_aux], worst_aux, HOST_AUX_TOL))
+    if not out_ok or err[worst] > limit \
+            or aux_err[worst_aux] > HOST_AUX_TOL:
+        raise AssertionError("the card's training step disagrees with the "
+                             "host's")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -346,16 +812,19 @@ def main():
     print("torch %s, CUDA %s, %d device(s)"
           % (torch.__version__, torch.version.cuda, torch.cuda.device_count()))
     t0 = time.perf_counter()
-    _build.build_all(["flash_attn_fwd"])
+    _build.build_all(["flash_attn_fwd", "bn_channel_sums", "pool_bwd"])
     print("kernels built in %.1f s" % (time.perf_counter() - t0))
     for name, info in sorted(_build.BUILD_INFO.items()):
         regs = [ln.strip() for ln in info["ptxas"].splitlines()
                 if "registers" in ln]
         print("  %s: %.1f s; %s" % (name, info["seconds"], "; ".join(regs)))
 
-    records = check_kernels(args.seed)
-    launches = serve(mx, args.seed)
-    records[0]["launches"] = launches
+    records = [check_flash(args.seed), check_bn_sums(args.seed),
+               *check_pool_bwd(args.seed)]
+    records[0]["launches"] = serve(mx, args.seed)
+    launches = train(mx, args.seed)
+    for rec in records[1:]:
+        rec["launches"] = launches[rec["name"]]
     print(card_line())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

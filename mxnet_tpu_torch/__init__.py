@@ -1,9 +1,12 @@
 """mxnet_tpu_torch: the MXNet 1.0 API of ``mxnet_tpu`` in PyTorch and CUDA.
 
-The port of the JAX package to one NVIDIA H100, slice by slice.  This
-slice serves symbol graphs: ``Server`` -> ``ServedModel`` -> ``Predictor``
--> ``Symbol.simple_bind`` -> ``Executor.forward``, with the attention of
-``multi_head_attention`` in a hand-written CUDA flash-attention kernel.
+The port of the JAX package to one NVIDIA H100, slice by slice.  It
+serves symbol graphs (``Server`` -> ``ServedModel`` -> ``Predictor`` ->
+``Symbol.simple_bind`` -> ``Executor.forward``, with the attention of
+``multi_head_attention`` in a hand-written CUDA flash-attention kernel)
+and trains them (``Module.fit`` -> ``Executor.forward_backward`` -> SGD,
+with BatchNorm's channel sums and the pooling input gradients in
+hand-written CUDA kernels).
 
 Entry points run on the card (``gpu(0)``) unless given ``cpu()``; without
 a card they raise ``MXNetError`` rather than fall back to the host.
@@ -18,6 +21,13 @@ from . import ndarray as nd  # noqa: F401
 from . import symbol  # noqa: F401
 from . import symbol as sym  # noqa: F401
 from . import executor, executor_cache  # noqa: F401
+from . import random  # noqa: F401
+from . import initializer  # noqa: F401
+from . import optimizer  # noqa: F401
+from . import metric  # noqa: F401
+from . import io  # noqa: F401
+from . import module  # noqa: F401
+from . import module as mod  # noqa: F401
 from .predict import Predictor  # noqa: F401
 from . import serving  # noqa: F401
 from . import models  # noqa: F401

@@ -1,11 +1,19 @@
-"""Executor: binds a Symbol to a device and runs its forward.
+"""Executor: binds a Symbol to a device and runs its forward and backward.
 
-Counterpart of ``mxnet_tpu/executor.py`` (forward only: the backward and
-the fused forward-backward come with the training slice).  Where the JAX
-package jits the whole graph into one XLA program, the port builds a plan
-once per bind signature (``_Program``, cached by ``executor_cache``) and
-runs it eagerly op by op under ``torch.inference_mode``; the ops launch
-their own kernels (cuBLAS products, the hand-written flash attention).
+Counterpart of ``mxnet_tpu/executor.py``.  Where the JAX package jits the
+whole graph into one XLA program and takes gradients as its ``jax.vjp``,
+the port builds a plan once per bind signature (``_Program``, cached by
+``executor_cache``) and runs it eagerly op by op; the ops launch their
+own kernels (cuDNN convolutions, cuBLAS products, the hand-written
+flash-attention, BatchNorm-sums and pooling-backward kernels).
+
+A forward with ``is_train=False`` runs under ``torch.inference_mode``.
+A training forward of an executor with gradients records torch autograd
+over detached leaf views of the arguments that take a gradient, and
+``backward`` differentiates that recording: the aux values the forward
+consumed are the ones differentiated, even though the forward has
+already written the advanced BatchNorm moving statistics back into
+``aux_dict``.
 """
 from __future__ import annotations
 
@@ -50,53 +58,96 @@ class _Program:
             n_out = op.str_outputs(attrs)
             for i in range(n_out):
                 slot[(id(node), i)] = first + i
-            raw.append((op, attrs, ins, first, n_out))
+            # state outputs past the visible ones rebind these variables
+            # (BatchNorm's moving statistics)
+            mutates = tuple((k, node.inputs[i][0].name)
+                            for k, i in enumerate(op.mutate_map)
+                            if node.inputs[i][0].is_var)
+            raw.append((op, attrs, ins, first, n_out, mutates))
         self.n_slots = len(slot)
         self.out_slots = [slot[(id(n), i)] for n, i in symbol._entries]
         keep = set(self.out_slots)
         last_use = {}
-        for step, (_, _, ins, _, _) in enumerate(raw):
+        for step, (_, _, ins, _, _, _) in enumerate(raw):
             for s in ins:
                 last_use[s] = step
         self.steps = []
-        for step, (op, attrs, ins, first, n_out) in enumerate(raw):
+        for step, (op, attrs, ins, first, n_out, mutates) in enumerate(raw):
             free = tuple(sorted({s for s in ins if last_use[s] == step
                                  and s not in keep}))
-            self.steps.append((op, attrs, tuple(ins), first, n_out, free))
+            self.steps.append((op, attrs, tuple(ins), first, n_out, free,
+                               mutates))
 
-    def evaluate(self, values):
-        """Run the plan; ``values`` maps variable name -> tensor."""
+    def evaluate(self, values, train=False):
+        """Run the plan; ``values`` maps variable name -> tensor.  Returns
+        (outputs, {aux name: new value}) — the state outputs of the ops
+        with a ``mutate_map``."""
         env = [None] * self.n_slots
         for name, s in self.var_slots:
             if name not in values:
                 raise MXNetError("unbound variable %r" % name)
             env[s] = values[name]
-        for op, attrs, ins, first, n_out, free in self.steps:
+        new_aux = {}
+        for op, attrs, ins, first, n_out, free, mutates in self.steps:
+            if op.takes_train_flag:
+                attrs = dict(attrs, _train=train)
             out = op.impl(*[env[s] for s in ins], **attrs)
             if not isinstance(out, tuple):
                 out = (out,)
             env[first:first + n_out] = out[:n_out]
+            for k, name in mutates:
+                new_aux[name] = out[n_out + k]
             for s in free:
                 env[s] = None
-        return [env[s] for s in self.out_slots]
+        return [env[s] for s in self.out_slots], new_aux
+
+
+def _req_table(arg_names, grad_req):
+    """grad_req as a {name: 'write'|'add'|'null'} table from a string, a
+    list in argument order or a dict (missing names are 'null')."""
+    if grad_req is None:
+        grad_req = "null"
+    if isinstance(grad_req, str):
+        table = {n: grad_req for n in arg_names}
+    elif isinstance(grad_req, (list, tuple)):
+        table = dict(zip(arg_names, grad_req))
+    else:
+        table = {n: grad_req.get(n, "null") for n in arg_names}
+    for n, r in table.items():
+        if r not in ("write", "add", "null"):
+            raise MXNetError("grad_req %r of %r: one of write, add, null"
+                             % (r, n))
+    return table
 
 
 class Executor:
-    def __init__(self, symbol, ctx, arg_dict, aux_dict):
+    def __init__(self, symbol, ctx, arg_dict, aux_dict, grad_dict=None,
+                 grad_req=None):
         self._symbol = symbol
         self._ctx = ctx
         self._device = ctx.torch_device()
         self.arg_dict = arg_dict
         self.aux_dict = aux_dict
+        self.grad_dict = dict(grad_dict or {})
+        self._grad_req = _req_table(list(arg_dict), grad_req)
+        self._grad_names = [n for n in arg_dict
+                            if self._grad_req[n] != "null"
+                            and self.grad_dict.get(n) is not None]
         self.outputs = []
-        self._prog = executor_cache.get_program(symbol, arg_dict, aux_dict,
-                                                self._device)
+        # the last training forward's autograd recording: (outputs, {name:
+        # leaf}); dropped at the next forward
+        self._recorded = None
+        self._prog = executor_cache.get_program(
+            symbol, arg_dict, aux_dict, self._device,
+            tuple(self._grad_names))
 
     def forward(self, is_train=False, **kwargs):
         """Run the graph; ``kwargs`` (NDArrays or array-likes) are copied
-        into the bound arguments first.  The ops of this slice behave the
-        same in train and predict mode; gradients wait for the training
-        slice."""
+        into the bound arguments first.  Under ``is_train`` the ops run in
+        training mode, the BatchNorm moving statistics are written back
+        into ``aux_dict``, and, when the executor takes gradients, the
+        run is recorded for ``backward``."""
+        self._recorded = None
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError("unknown argument %r" % k)
@@ -105,11 +156,76 @@ class Executor:
                 else _to_tensor(np.asarray(v), dst.context, None)
             with torch.inference_mode():
                 dst.tensor.copy_(src)
+        train = bool(is_train)
         values = {n: a.tensor for n, a in self.arg_dict.items()}
         values.update((n, a.tensor) for n, a in self.aux_dict.items())
-        with torch.inference_mode():
-            outs = self._prog.evaluate(values)
-        self.outputs = [NDArray(o) for o in outs]
+        if train and self._grad_names:
+            # leaves share storage with the bound arrays: no copy
+            leaves = {n: values[n].detach().requires_grad_(True)
+                      for n in self._grad_names}
+            values.update(leaves)
+            with torch.enable_grad():
+                outs, new_aux = self._prog.evaluate(values, train=True)
+            self._recorded = (outs, leaves)
+        else:
+            with torch.inference_mode():
+                outs, new_aux = self._prog.evaluate(values, train=train)
+        if train:
+            with torch.no_grad():
+                for name, value in new_aux.items():
+                    dst = self.aux_dict[name].tensor
+                    if value is not dst:
+                        dst.copy_(value)
+        self.outputs = [NDArray(o.detach()) for o in outs]
+        return self.outputs
+
+    def backward(self, out_grads=None):
+        """Gradients of the last training forward into ``grad_dict``
+        (honoring grad_req write/add).  ``out_grads``: head gradients, one
+        per output (an NDArray, a list, None entries meaning ones);
+        by default ones.  An argument the outputs do not depend on (a
+        fixed BatchNorm gamma) gets a zero gradient."""
+        if not self.outputs:
+            raise MXNetError("backward() called before forward()")
+        if not self._grad_names:
+            return
+        if self._recorded is None:
+            raise MXNetError("backward() needs a forward(is_train=True) "
+                             "first")
+        outs, leaves = self._recorded
+        if isinstance(out_grads, NDArray):
+            out_grads = [out_grads]
+        heads = [None] * len(outs) if out_grads is None else list(out_grads)
+        if len(heads) != len(outs):
+            raise MXNetError("backward: %d head gradients for %d outputs"
+                             % (len(heads), len(outs)))
+        ys, gs = [], []
+        for o, h in zip(outs, heads):
+            if not o.requires_grad:
+                continue
+            ys.append(o)
+            gs.append(torch.ones_like(o) if h is None
+                      else h.tensor.to(device=o.device, dtype=o.dtype))
+        names = list(leaves)
+        grads = torch.autograd.grad(ys, [leaves[n] for n in names], gs,
+                                    retain_graph=True, allow_unused=True) \
+            if ys else [None] * len(names)
+        with torch.no_grad():
+            for n, g in zip(names, grads):
+                dst = self.grad_dict[n].tensor
+                if g is None:
+                    if self._grad_req[n] == "write":
+                        dst.zero_()
+                elif self._grad_req[n] == "add":
+                    dst.add_(g)
+                else:
+                    dst.copy_(g)
+
+    def forward_backward(self, is_train=True, out_grads=None):
+        """forward(is_train) then, when training, backward(out_grads)."""
+        self.forward(is_train=is_train)
+        if is_train:
+            self.backward(out_grads=out_grads)
         return self.outputs
 
     def copy_params_from(self, arg_params, aux_params=None,
@@ -130,7 +246,7 @@ class Executor:
         ``partial_shaping=True``, and an array that grows needs
         ``allow_up_sizing=True``."""
         arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
-        new = {}
+        new, grads = {}, {}
         for names, shapes, table, kind in (
                 (self._prog.arg_names, arg_shapes, self.arg_dict, "argument"),
                 (self._prog.aux_names, aux_shapes, self.aux_dict,
@@ -138,8 +254,11 @@ class Executor:
             for name, shape in zip(names, shapes):
                 cur = table[name]
                 shape = tuple(int(d) for d in shape)
+                grad = self.grad_dict.get(name)
                 if cur.shape == shape:
                     new[name] = cur
+                    if grad is not None:
+                        grads[name] = grad
                     continue
                 if not partial_shaping and name not in kwargs:
                     raise MXNetError(
@@ -155,18 +274,19 @@ class Executor:
                                                    cur.shape))
                 new[name] = nd_zeros(shape, cur.context,
                                      dtype=cur.tensor.dtype)
+                if grad is not None:
+                    grads[name] = nd_zeros(shape, cur.context,
+                                           dtype=cur.tensor.dtype)
         return Executor(self._symbol, self._ctx,
                         {n: new[n] for n in self._prog.arg_names},
-                        {n: new[n] for n in self._prog.aux_names})
+                        {n: new[n] for n in self._prog.aux_names},
+                        grads, self._grad_req)
 
     @staticmethod
     def _simple_bind(symbol, ctx, grad_req, type_dict, shape_kwargs,
                      shared_args=None):
-        if grad_req not in ("null", None) and not (
-                isinstance(grad_req, dict)
-                and all(r == "null" for r in grad_req.values())):
-            raise MXNetError("gradients are not ported yet: bind with "
-                             "grad_req='null'")
+        arg_names = symbol.list_arguments()
+        req = _req_table(arg_names, grad_req)
         arg_shapes, _, aux_shapes = symbol.infer_shape(**shape_kwargs)
         type_dict = dict(type_dict or {})
         arg_types, _, aux_types = symbol.infer_type(**type_dict)
@@ -185,7 +305,10 @@ class Executor:
                     out[name] = nd_zeros(shape, ctx, dtype=dt)
             return out
 
+        args = alloc(arg_names, arg_shapes, arg_types)
+        grads = {n: nd_zeros(a.shape, ctx, dtype=a.tensor.dtype)
+                 for n, a in args.items() if req[n] != "null"}
         return Executor(
-            symbol, ctx,
-            alloc(symbol.list_arguments(), arg_shapes, arg_types),
-            alloc(symbol.list_auxiliary_states(), aux_shapes, aux_types))
+            symbol, ctx, args,
+            alloc(symbol.list_auxiliary_states(), aux_shapes, aux_types),
+            grads, req)

@@ -10,7 +10,7 @@ freed as soon as nothing reads them (``executor._Program``).
 Entries are keyed by
 
     (structural graph hash, arg shapes+dtypes, aux shapes+dtypes,
-     device, kernel_signature(device))
+     gradient names, device, kernel_signature(device))
 
 and one plan build counts as one "trace" (``note_trace``), so the
 serving layer's zero-rebuild warmup check (``watch_traces``) measures the
@@ -37,18 +37,19 @@ def note_trace(kind):
         _stats["traces_" + kind] += 1
 
 
-def _signature(symbol, arg_dict, aux_dict, device):
+def _signature(symbol, arg_dict, aux_dict, device, grad_names):
     def sig(d):
         return tuple(sorted((n, tuple(a.shape), str(a.tensor.dtype))
                             for n, a in d.items()))
     return (symbol.structural_hash(), sig(arg_dict), sig(aux_dict),
-            str(device), _kernels.kernel_signature(device))
+            tuple(grad_names), str(device),
+            _kernels.kernel_signature(device))
 
 
-def get_program(symbol, arg_dict, aux_dict, device):
+def get_program(symbol, arg_dict, aux_dict, device, grad_names=()):
     """The shared plan for this bind signature, built on first sight."""
     from .executor import _Program
-    key = _signature(symbol, arg_dict, aux_dict, device)
+    key = _signature(symbol, arg_dict, aux_dict, device, grad_names)
     with _lock:
         prog = _entries.get(key)
         if prog is not None:

@@ -1,0 +1,137 @@
+"""BaseModule: the high-level train/score interface.
+
+Counterpart of ``mxnet_tpu/module/base_module.py``: ``fit`` binds,
+initializes the parameters and the optimizer, then runs epochs of
+``forward_backward`` -> ``update`` -> ``update_metric`` with the batch-end
+callbacks; ``score`` runs predict-mode forwards over an iterator.  The
+JAX package's step telemetry, health sentinel and elastic checkpoint
+hooks wait for the runtime-services slice.
+"""
+from __future__ import annotations
+
+import logging
+import time
+
+from .. import metric as metric_mod
+from ..initializer import Uniform
+
+
+class BatchEndParam:
+    """The object handed to batch-end callbacks (Speedometer et al.)."""
+
+    def __init__(self, epoch, nbatch, eval_metric, locals=None):
+        self.epoch = epoch
+        self.nbatch = nbatch
+        self.eval_metric = eval_metric
+        self.locals = locals
+
+
+def _each_callback(callbacks, arg):
+    """Invoke one callback or a list of them with a single argument."""
+    if callbacks is None:
+        return
+    if not isinstance(callbacks, (list, tuple)):
+        callbacks = [callbacks]
+    for cb in callbacks:
+        cb(arg)
+
+
+class BaseModule:
+    """Abstract train/predict driver over a bound computation."""
+
+    def __init__(self, logger=logging):
+        self.logger = logger
+        self.binded = False
+        self.for_training = False
+        self.inputs_need_grad = False
+        self.params_initialized = False
+        self.optimizer_initialized = False
+        self._symbol = None
+
+    @property
+    def symbol(self):
+        return self._symbol
+
+    def forward_backward(self, data_batch):
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0):
+        """Evaluate on a data iterator; returns name/value pairs."""
+        if not (self.binded and self.params_initialized):
+            raise AssertionError("score() needs bind() and init_params()")
+        if reset:
+            eval_data.reset()
+        eval_metric = metric_mod.create(eval_metric)
+        eval_metric.reset()
+        seen = 0
+        for nbatch, batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(batch, is_train=False)
+            self.update_metric(eval_metric, batch.label)
+            _each_callback(batch_end_callback, BatchEndParam(
+                epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
+                locals=locals()))
+            seen += 1
+        _each_callback(score_end_callback, BatchEndParam(
+            epoch=epoch, nbatch=seen, eval_metric=eval_metric,
+            locals=locals()))
+        return eval_metric.get_name_value()
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None, kvstore="local",
+            optimizer="sgd", optimizer_params=(("learning_rate", 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=Uniform(0.01), arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None):
+        """Bind, initialize, and train for ``num_epoch`` epochs."""
+        if num_epoch is None:
+            raise AssertionError("fit() needs num_epoch")
+        if monitor is not None:
+            raise NotImplementedError("monitors are not ported yet")
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+        validation_metric = metric_mod.create(
+            validation_metric if validation_metric is not None
+            else eval_metric)
+        eval_metric = metric_mod.create(eval_metric)
+        for epoch in range(begin_epoch, num_epoch):
+            tic = time.time()
+            eval_metric.reset()
+            for nbatch, batch in enumerate(train_data):
+                self.forward_backward(batch)
+                self.update()
+                self.update_metric(eval_metric, batch.label)
+                _each_callback(batch_end_callback, BatchEndParam(
+                    epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
+                    locals=locals()))
+            for name, val in eval_metric.get_name_value():
+                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                             time.time() - tic)
+            arg_now, aux_now = self.get_params()
+            if epoch_end_callback is not None:
+                for cb in (epoch_end_callback
+                           if isinstance(epoch_end_callback, (list, tuple))
+                           else [epoch_end_callback]):
+                    cb(epoch, self.symbol, arg_now, aux_now)
+            if eval_data:
+                for name, val in self.score(
+                        eval_data, validation_metric,
+                        score_end_callback=eval_end_callback,
+                        batch_end_callback=eval_batch_end_callback,
+                        epoch=epoch):
+                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                     name, val)
+            train_data.reset()

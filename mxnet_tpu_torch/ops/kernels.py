@@ -1,8 +1,15 @@
 """Hand-written CUDA kernels for hot ops, each beside its plain version.
 
-Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``.  First kernel:
-flash-attention forward (``csrc/flash_attn_fwd.cu``), which replaces the
-Pallas kernel of ``pallas_kernels.py:63/338``.
+Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``, one CUDA source per
+Pallas kernel:
+
+- ``flash_attention``: ``csrc/flash_attn_fwd.cu``, the forward of the
+  Pallas kernel of ``pallas_kernels.py:63/338``;
+- ``bn_channel_sums``: ``csrc/bn_channel_sums.cu``, the per-channel
+  ``(sum a, sum a*b)`` of ``pallas_kernels.py:643/699``;
+- ``max_pool_backward`` and ``avg_pool_backward``: the two entries of
+  ``csrc/pool_bwd.cu``, the pooling input gradients of
+  ``pallas_kernels.py:515/544/580``.
 
 Dispatch follows the tensor, never a flag: a CUDA tensor launches the
 kernel (or raises when the kernel cannot take it), and a CPU tensor runs
@@ -13,6 +20,7 @@ path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -21,7 +29,8 @@ from . import _build
 
 _NEG_INF = -1e30
 
-LAUNCHES = {"flash_attn_fwd": 0}
+LAUNCHES = {"flash_attn_fwd": 0, "bn_channel_sums": 0,
+            "max_pool_backward": 0, "avg_pool_backward": 0}
 
 FLASH_HEAD_DIMS = (64, 128)
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
@@ -95,12 +104,7 @@ _FLASH_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
 
 
 def _flash_lib():
-    lib = _build.load("flash_attn_fwd")
-    fn = lib.mxtt_flash_attn_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _FLASH_ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+    return _lib_fn("flash_attn_fwd", "mxtt_flash_attn_fwd", _FLASH_ARGTYPES)
 
 
 def flash_attention(q, k, v, causal=False, scale=None, kv_lens=None):
@@ -136,7 +140,269 @@ def flash_attention(q, k, v, causal=False, scale=None, kv_lens=None):
     return out
 
 
-KERNEL_FAMILIES = ("attn",)
+# ---------------------------------------------------------------------------
+# BatchNorm channel sums
+# ---------------------------------------------------------------------------
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# blocks the channel-sums grid aims at, per SM (a few waves of 256 threads)
+_BN_BLOCKS_PER_SM = 8
+_BN_MIN_CHUNK = 2048  # fewest elements one block sums
+
+
+def _plain_channel_sums(a, b=None):
+    """The plain version of ``bn_channel_sums``: f32 ``(sum a, sum a*b)``
+    over every axis but 1."""
+    a32 = a.float()
+    b32 = a32 if b is None else b.float()
+    return a32.sum(dim=(0, 2, 3)), (a32 * b32).sum(dim=(0, 2, 3))
+
+
+def _check_kernel_device(name, tensors):
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise MXNetError("%s: inputs on different devices" % name)
+    if dev.type == "cuda" and tensors[0].dtype not in KERNEL_DTYPES:
+        raise MXNetError("%s: dtype %s unsupported on the card (one of %s)"
+                         % (name, tensors[0].dtype, KERNEL_DTYPES))
+    if dev.type not in ("cpu", "cuda"):
+        raise MXNetError("%s: no kernel for device %s" % (name, dev))
+    return dev
+
+
+def _bn_splits(nhw, c, device):
+    """How many blocks share one channel's N*H*W elements: enough for a
+    few waves of blocks on the card, none summing fewer than
+    ``_BN_MIN_CHUNK`` elements."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = -(-_BN_BLOCKS_PER_SM * sms // max(c, 1))
+    return max(1, min(want, -(-nhw // _BN_MIN_CHUNK)))
+
+
+_BN_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                + [ctypes.c_longlong] * 8 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p])
+
+
+def _lib_fn(source, symbol, argtypes):
+    fn = getattr(_build.load(source), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def bn_channel_sums(a, b=None):
+    """Per-channel f32 ``(sum a, sum a*b)`` of an NCHW tensor, with
+    ``b = a`` when ``b`` is None: BatchNorm's forward statistics (sum and
+    sum of squares), or with ``(dy, x)`` its backward pair.  float32 or
+    bfloat16 inputs of one dtype and shape.  CUDA tensors run the
+    hand-written kernel (one launch, both passes), CPU tensors its plain
+    version."""
+    ins = (a,) if b is None else (a, b)
+    if a.ndim != 4 or (b is not None and b.shape != a.shape):
+        raise MXNetError("bn_channel_sums takes NCHW tensors of one shape, "
+                         "got %s" % [tuple(t.shape) for t in ins])
+    if not a.is_floating_point() or any(t.dtype != a.dtype for t in ins):
+        raise MXNetError("bn_channel_sums takes floating inputs of one "
+                         "dtype, got %s" % [t.dtype for t in ins])
+    dev = _check_kernel_device("bn_channel_sums", ins)
+    if dev.type == "cpu":
+        return _plain_channel_sums(a, b)
+    n, c, h, w = a.shape
+    splits = _bn_splits(n * h * w, c, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    partial = torch.empty(2 * c * splits, **f32)
+    out1, out2 = torch.empty(c, **f32), torch.empty(c, **f32)
+    bb = a if b is None else b
+    fn = _lib_fn("bn_channel_sums", "mxtt_bn_channel_sums", _BN_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(a.data_ptr(), None if b is None else b.data_ptr(),
+                 partial.data_ptr(), out1.data_ptr(), out2.data_ptr(),
+                 n, c, h, w, *a.stride(), *bb.stride(), splits,
+                 int(a.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise MXNetError("bn_channel_sums launch failed: CUDA error %d"
+                         % err)
+    LAUNCHES["bn_channel_sums"] += 1
+    return out1, out2
+
+
+# ---------------------------------------------------------------------------
+# Pooling backward
+# ---------------------------------------------------------------------------
+
+MAX_POOL_TAPS = 64  # the reference's eligibility bound (ops/nn.py)
+
+
+def _pool_taps(kernel):
+    """Window taps (i, j) in row-major order: the tie-break order of the
+    recomputed argmax, and the order every pixel's sum is formed in."""
+    return [(i, j) for i in range(kernel[0]) for j in range(kernel[1])]
+
+
+def _padded_extent(size, lo, hi, out, k, s):
+    return max(size + lo + hi, (out - 1) * s + k)
+
+
+def _tap_view(t, out_shape, stride, i, j):
+    """The (N, C, OH, OW) strided view of padded tensor ``t`` that tap
+    (i, j) of every window reads."""
+    oh, ow = out_shape
+    sh, sw = stride
+    return t[:, :, i:i + sh * (oh - 1) + 1:sh, j:j + sw * (ow - 1) + 1:sw]
+
+
+def _padded(x, pads, out_shape, kernel, stride, fill):
+    n, c, h, w = x.shape
+    (pt, pb), (pl, pr) = pads
+    hp = _padded_extent(h, pt, pb, out_shape[0], kernel[0], stride[0])
+    wp = _padded_extent(w, pl, pr, out_shape[1], kernel[1], stride[1])
+    out = torch.full((n, c, hp, wp), fill, dtype=torch.float32,
+                     device=x.device)
+    out[:, :, pt:pt + h, pl:pl + w] = x.float()
+    return out
+
+
+def _plain_max_pool_backward(x, dy, kernel, stride, pads):
+    """The plain version of ``max_pool_backward``: each window's first
+    maximal tap in row-major order (padding is -inf) takes the window's
+    cotangent; the sums run in f32 in tap order and cast once."""
+    out_shape = tuple(dy.shape[2:])
+    xp = _padded(x, pads, out_shape, kernel, stride, float("-inf"))
+    taps = [_tap_view(xp, out_shape, stride, i, j)
+            for i, j in _pool_taps(kernel)]
+    m = taps[0]
+    for v in taps[1:]:
+        m = torch.maximum(m, v)
+    n_taps = len(taps)
+    am = torch.full(m.shape, n_taps, dtype=torch.int32, device=x.device)
+    for t, v in enumerate(taps):
+        am = torch.where((v == m) & (am == n_taps), t, am)
+    dyf = dy.float()
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    dxp = torch.zeros_like(xp)
+    for t, (i, j) in enumerate(_pool_taps(kernel)):
+        _tap_view(dxp, out_shape, stride, i, j).add_(
+            torch.where(am == t, dyf, zero))
+    (pt, _), (pl, _) = pads
+    h, w = x.shape[2:]
+    return dxp[:, :, pt:pt + h, pl:pl + w].to(x.dtype)
+
+
+def _plain_avg_pool_backward(dy, div, x_shape, kernel, stride, pads, dtype):
+    """The plain version of ``avg_pool_backward``: every tap of a window
+    takes ``dy * div``, summed in f32 in tap order."""
+    out_shape = tuple(dy.shape[2:])
+    contrib = dy.float() * div
+    n, c, h, w = x_shape
+    (pt, pb), (pl, pr) = pads
+    hp = _padded_extent(h, pt, pb, out_shape[0], kernel[0], stride[0])
+    wp = _padded_extent(w, pl, pr, out_shape[1], kernel[1], stride[1])
+    dxp = torch.zeros((n, c, hp, wp), dtype=torch.float32, device=dy.device)
+    for i, j in _pool_taps(kernel):
+        _tap_view(dxp, out_shape, stride, i, j).add_(contrib)
+    return dxp[:, :, pt:pt + h, pl:pl + w].to(dtype)
+
+
+def _check_pool_args(name, x_shape, dy, kernel, stride, pads):
+    if len(x_shape) != 4 or dy.ndim != 4 or tuple(dy.shape[:2]) != \
+            tuple(x_shape[:2]):
+        raise MXNetError("%s takes NCHW x and dy of one (N, C), got %s and "
+                         "%s" % (name, tuple(x_shape), tuple(dy.shape)))
+    if len(kernel) != 2 or len(stride) != 2 or len(pads) != 2:
+        raise MXNetError("%s: a 2-D window, got kernel %s stride %s pads %s"
+                         % (name, kernel, stride, pads))
+    if math.prod(kernel) > MAX_POOL_TAPS:
+        raise MXNetError("%s: %d taps, the kernel takes at most %d"
+                         % (name, math.prod(kernel), MAX_POOL_TAPS))
+    if not dy.is_floating_point():
+        raise MXNetError("%s: floating dy, got %s" % (name, dy.dtype))
+
+
+_POOL_GEOMETRY_ARGTYPES = [ctypes.c_int] * 12
+_MAX_POOL_ARGTYPES = ([ctypes.c_void_p] * 4 + _POOL_GEOMETRY_ARGTYPES
+                      + [ctypes.c_longlong] * 8
+                      + [ctypes.c_int, ctypes.c_void_p])
+_AVG_POOL_ARGTYPES = ([ctypes.c_void_p] * 3 + _POOL_GEOMETRY_ARGTYPES
+                      + [ctypes.c_longlong] * 4
+                      + [ctypes.c_int, ctypes.c_void_p])
+
+
+def _geometry(x_shape, dy, kernel, stride, pads):
+    (pt, _), (pl, _) = pads
+    return (*x_shape, *dy.shape[2:], *kernel, *stride, pt, pl)
+
+
+def max_pool_backward(x, dy, kernel, stride, pads):
+    """Input gradient of 2-D max pooling.  x: (N, C, H, W); dy: (N, C, OH,
+    OW); ``pads`` the ((top, bottom), (left, right)) padding the forward
+    used.  Ties go to the first tap in row-major window order; padding
+    never wins.  Returns dx shaped and typed like x.  CUDA tensors run the
+    hand-written kernel, CPU tensors its plain version."""
+    kernel, stride = tuple(kernel), tuple(stride)
+    _check_pool_args("max_pool_backward", x.shape, dy, kernel, stride, pads)
+    if dy.dtype != x.dtype:
+        raise MXNetError("max_pool_backward: x %s and dy %s differ in dtype"
+                         % (x.dtype, dy.dtype))
+    dev = _check_kernel_device("max_pool_backward", (x, dy))
+    if dev.type == "cpu":
+        return _plain_max_pool_backward(x, dy, kernel, stride, pads)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    # scratch: each window's first argmax tap (the kernel's first pass)
+    argmax = torch.empty(dy.shape, dtype=torch.uint8, device=dev)
+    fn = _lib_fn("pool_bwd", "mxtt_max_pool_bwd", _MAX_POOL_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                 argmax.data_ptr(),
+                 *_geometry(x.shape, dy, kernel, stride, pads),
+                 *x.stride(), *dy.stride(),
+                 int(x.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise MXNetError("max_pool_backward launch failed: CUDA error %d"
+                         % err)
+    LAUNCHES["max_pool_backward"] += 1
+    return dx
+
+
+def avg_pool_backward(dy, div, x_shape, kernel, stride, pads, dtype=None):
+    """Input gradient of 2-D avg/sum pooling: ``div`` is the (OH, OW)
+    float32 map each cotangent is multiplied by — 1 for sum pooling,
+    1/prod(kernel) for avg, 1/valid-count under count_include_pad=False.
+    Never reads x.  Returns dx of ``x_shape`` in ``dtype`` (default dy's).
+    CUDA tensors run the hand-written kernel, CPU tensors its plain
+    version."""
+    kernel, stride = tuple(kernel), tuple(stride)
+    dtype = dy.dtype if dtype is None else dtype
+    _check_pool_args("avg_pool_backward", x_shape, dy, kernel, stride, pads)
+    if div.dtype != torch.float32 or tuple(div.shape) != tuple(dy.shape[2:]):
+        raise MXNetError("avg_pool_backward: div must be a float32 (OH, OW) "
+                         "map, got %s %s" % (div.dtype, tuple(div.shape)))
+    dev = _check_kernel_device("avg_pool_backward", (dy, div))
+    if dev.type == "cpu":
+        return _plain_avg_pool_backward(dy, div, x_shape, kernel, stride,
+                                        pads, dtype)
+    if dtype != dy.dtype:
+        raise MXNetError("avg_pool_backward: the kernel writes dx in dy's "
+                         "dtype %s, asked for %s" % (dy.dtype, dtype))
+    div = div.contiguous()
+    dx = torch.empty(tuple(x_shape), dtype=dtype, device=dev)
+    fn = _lib_fn("pool_bwd", "mxtt_avg_pool_bwd", _AVG_POOL_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(dy.data_ptr(), div.data_ptr(), dx.data_ptr(),
+                 *_geometry(x_shape, dy, kernel, stride, pads),
+                 *dy.stride(), int(dy.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise MXNetError("avg_pool_backward launch failed: CUDA error %d"
+                         % err)
+    LAUNCHES["avg_pool_backward"] += 1
+    return dx
+
+
+KERNEL_FAMILIES = ("attn", "bn", "pool")
 
 
 def kernel_mode(kind, device):

@@ -1,19 +1,29 @@
-"""Neural-network operators (the slice the symbol-graph LM server runs).
+"""Neural-network operators (the serving and training slices).
 
 Counterpart of part of ``mxnet_tpu/ops/nn.py``: ``FullyConnected`` (with
 its two-way shape rule and ``flatten=False``), ``LeakyReLU`` (with the
-exact-erf ``gelu``), ``LayerNorm`` and ``Embedding``.  The products are
-plain ``torch.matmul``: the JAX package leaves them to XLA, and the port
-leaves them to cuBLAS.
+exact-erf ``gelu``), ``LayerNorm``, ``Embedding``, and the conv-net ops
+``Convolution``, ``Activation``, ``Pooling``, ``BatchNorm`` and
+``SoftmaxOutput``.  Products and convolutions are plain ``torch``
+calls: the JAX package leaves them to XLA, and the port leaves them to
+cuBLAS and cuDNN.  Where the JAX package has a Pallas kernel, the port's
+op is a ``torch.autograd.Function`` around the hand-written kernel of
+``kernels.py``: BatchNorm's training statistics and their backward pair
+(``bn_channel_sums``), and the max/avg pooling input gradients.  Outside
+the reference's own eligibility for those kernels, torch autograd
+differentiates the plain forward, as XLA's autodiff does there.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..base import MXNetError
-from .registry import pBool, pDtype, pFloat, pInt, pStr, register
+from ..base import MXNetError, dtype_name
+from . import kernels as _kernels
+from .registry import pBool, pDtype, pFloat, pInt, pShape, pStr, register
 
 
 def _leaky_relu(x, act_type="leaky", slope=0.25, lower_bound=0.125,
@@ -140,3 +150,464 @@ register("Embedding", _embedding, input_names=("data", "weight"),
          infer_shape=_embedding_infer_shape,
          params={"input_dim": (pInt, 1), "output_dim": (pInt, 1),
                  "dtype": (pDtype, "float32"), "sparse_grad": (pBool, False)})
+
+
+# ---------------------------------------------------------------------------
+# Activation
+# ---------------------------------------------------------------------------
+
+
+def _relu(x):
+    # jnp.maximum(x, 0), whose gradient at x == 0 is 0.5; torch.maximum
+    # splits a tie the same way (torch.relu would give 0 there)
+    return torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+_ACTS = {
+    "relu": _relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "softrelu": F.softplus,
+    "softsign": F.softsign,
+}
+
+
+def _activation(x, act_type="relu"):
+    return _ACTS[act_type](x)
+
+
+register("Activation", _activation, num_inputs=1,
+         params={"act_type": (pStr, "relu")})
+
+
+# ---------------------------------------------------------------------------
+# Convolution (cuDNN; the JAX package leaves it to XLA)
+# ---------------------------------------------------------------------------
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def _convolution(data, weight, *rest, kernel=(1, 1), stride=None,
+                 dilate=None, pad=None, num_filter=1, num_group=1,
+                 no_bias=False, workspace=1024, cudnn_tune=None,
+                 cudnn_off=False, layout=None, _train=False):
+    nd = len(kernel)
+    return _CONV[nd](data, weight, None if no_bias else rest[0],
+                     stride=tuple(stride or (1,) * nd),
+                     padding=tuple(pad or (0,) * nd),
+                     dilation=tuple(dilate or (1,) * nd),
+                     groups=int(num_group))
+
+
+def _conv_out_dim(d, k, s, p, dil):
+    return (d + 2 * p - (dil * (k - 1) + 1)) // s + 1
+
+
+def _conv_infer_shape(in_shapes, attrs):
+    kernel = attrs["kernel"]
+    nd = len(kernel)
+    stride = attrs.get("stride") or (1,) * nd
+    dilate = attrs.get("dilate") or (1,) * nd
+    pad = attrs.get("pad") or (0,) * nd
+    num_filter = int(attrs["num_filter"])
+    num_group = int(attrs.get("num_group", 1))
+    dshape = in_shapes[0]
+    if dshape is None:
+        return in_shapes, [None]
+    filled = list(in_shapes)
+    filled[1] = (num_filter, dshape[1] // num_group) + tuple(kernel)
+    if not attrs.get("no_bias", False):
+        filled[2] = (num_filter,)
+    spatial = tuple(_conv_out_dim(dshape[2 + i], kernel[i], stride[i],
+                                  pad[i], dilate[i]) for i in range(nd))
+    return filled, [(dshape[0], num_filter) + spatial]
+
+
+register("Convolution", _convolution, input_names=("data", "weight", "bias"),
+         infer_shape=_conv_infer_shape, takes_train_flag=True,
+         aliases=("Convolution_v1",),
+         params={"kernel": (pShape, (1, 1)), "stride": (pShape, None),
+                 "dilate": (pShape, None), "pad": (pShape, None),
+                 "num_filter": (pInt, 1), "num_group": (pInt, 1),
+                 "no_bias": (pBool, False), "workspace": (pInt, 1024),
+                 "cudnn_tune": (pStr, None), "cudnn_off": (pBool, False),
+                 "layout": (pStr, None)})
+
+
+# ---------------------------------------------------------------------------
+# Pooling.  The forward pads explicitly with the reference's (lo, hi) pads
+# (``pooling_convention="full"`` widens only the right pad, which is not
+# torch's ceil_mode) and pools with padding 0.
+# ---------------------------------------------------------------------------
+
+
+def _pool_spatial_pads(spatial, kernel, stride, pad, convention):
+    """Per-axis (lo, hi) spatial padding honoring the 'full' ceil mode
+    (widen the right pad so ceil division is covered)."""
+    if convention != "full":
+        return tuple((p, p) for p in pad)
+    pads = []
+    for d, k, s, p in zip(spatial, kernel, stride, pad):
+        out_full = int(np.ceil((d + 2 * p - k) / s)) + 1
+        needed = (out_full - 1) * s + k - d - p
+        pads.append((p, max(needed, p)))
+    return tuple(pads)
+
+
+def _pool_out_dim(d, k, s, p, convention):
+    span = d + 2 * p - k
+    return (int(np.ceil(span / s)) if convention == "full"
+            else span // s) + 1
+
+
+def _pool_window_counts(spatial, kernel, stride, pads, out_shape, device):
+    """(OH, ...) float32 map of valid (non-padded) elements per window,
+    at least 1 — the count_include_pad=False divisor."""
+    cnt = None
+    for d, k, s, (lo, _), o in zip(spatial, kernel, stride, pads, out_shape):
+        start = np.arange(o) * s - lo
+        axis = np.clip(start + k, 0, d) - np.clip(start, 0, d)
+        cnt = axis if cnt is None else np.multiply.outer(cnt, axis)
+    return torch.from_numpy(np.maximum(cnt, 1).astype(np.float32)).to(device)
+
+
+def _pool_forward(x, pool_type, kernel, stride, pads, count_include_pad):
+    nd = len(kernel)
+    flat = [p for lo_hi in reversed(pads) for p in lo_hi]  # F.pad order
+    if pool_type == "max":
+        fill = float("-inf") if x.is_floating_point() \
+            else torch.iinfo(x.dtype).min
+        xp = F.pad(x, flat, value=fill)
+        return (F.max_pool1d, F.max_pool2d, F.max_pool3d)[nd - 1](
+            xp, kernel, stride)
+    xp = F.pad(x, flat)
+    if nd == 1:  # avg_pool1d has no divisor_override
+        total = F.avg_pool2d(xp.unsqueeze(-2), (1,) + kernel, (1,) + stride,
+                             divisor_override=1).squeeze(-2)
+    else:
+        total = (F.avg_pool2d, F.avg_pool3d)[nd - 2](
+            xp, kernel, stride, divisor_override=1)
+    if pool_type == "sum":
+        return total
+    if count_include_pad:
+        return (total / float(math.prod(kernel))).to(x.dtype)
+    cnt = _pool_window_counts(x.shape[2:], kernel, stride, pads,
+                              total.shape[2:], x.device)
+    return (total / cnt).to(x.dtype)
+
+
+def _pool_divisor(pool_type, count_include_pad, x_shape, kernel, stride,
+                  pads, out_shape, device):
+    if pool_type == "sum":
+        return torch.ones(out_shape, dtype=torch.float32, device=device)
+    if count_include_pad:
+        return torch.full(out_shape, 1.0 / float(math.prod(kernel)),
+                          dtype=torch.float32, device=device)
+    return 1.0 / _pool_window_counts(x_shape[2:], kernel, stride, pads,
+                                     out_shape, device)
+
+
+class _PoolFn(torch.autograd.Function):
+    """2-D pooling whose input gradient is the hand-written kernel
+    (``max_pool_backward`` recomputes the argmax from the saved input;
+    ``avg_pool_backward`` never reads it)."""
+
+    @staticmethod
+    def forward(ctx, x, pool_type, kernel, stride, pads, count_include_pad):
+        out = _pool_forward(x, pool_type, kernel, stride, pads,
+                            count_include_pad)
+        ctx.cfg = (pool_type, kernel, stride, pads, count_include_pad)
+        ctx.x_meta = (tuple(x.shape), x.dtype)
+        if pool_type == "max":
+            ctx.save_for_backward(x)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        pool_type, kernel, stride, pads, count_include_pad = ctx.cfg
+        x_shape, x_dtype = ctx.x_meta
+        if pool_type == "max":
+            (x,) = ctx.saved_tensors
+            dx = _kernels.max_pool_backward(x, dy.to(x_dtype), kernel,
+                                            stride, pads)
+        else:
+            div = _pool_divisor(pool_type, count_include_pad, x_shape,
+                                kernel, stride, pads, tuple(dy.shape[2:]),
+                                dy.device)
+            dx = _kernels.avg_pool_backward(dy.to(x_dtype), div, x_shape,
+                                            kernel, stride, pads, x_dtype)
+        return dx, None, None, None, None, None
+
+
+def _pooling(data, pool_type="max", kernel=(1, 1), stride=None, pad=None,
+             global_pool=False, pooling_convention="valid", cudnn_off=False,
+             count_include_pad=True):
+    if global_pool:
+        kernel = tuple(data.shape[2:])
+        stride = (1,) * len(kernel)
+        pad = (0,) * len(kernel)
+    kernel = tuple(int(k) for k in kernel)
+    nd = len(kernel)
+    stride = tuple(stride or (1,) * nd)
+    pad = tuple(pad or (0,) * nd)
+    if pool_type not in ("max", "avg", "sum"):
+        raise MXNetError("unknown pool_type %s" % pool_type)
+    pads = _pool_spatial_pads(tuple(data.shape[2:]), kernel, stride, pad,
+                              str(pooling_convention))
+    # the reference's kernel eligibility (ops/nn.py:531-535)
+    if data.ndim == 4 and nd == 2 and data.is_floating_point() \
+            and math.prod(kernel) <= _kernels.MAX_POOL_TAPS:
+        return _PoolFn.apply(data, pool_type, kernel, stride, pads,
+                             bool(count_include_pad))
+    return _pool_forward(data, pool_type, kernel, stride, pads,
+                         bool(count_include_pad))
+
+
+def _pool_infer_shape(in_shapes, attrs):
+    dshape = in_shapes[0]
+    if dshape is None:
+        return in_shapes, [None]
+    kernel = attrs["kernel"]
+    nd = len(kernel)
+    if attrs.get("global_pool", False):
+        return in_shapes, [tuple(dshape[:2]) + (1,) * (len(dshape) - 2)]
+    stride = attrs.get("stride") or (1,) * nd
+    pad = attrs.get("pad") or (0,) * nd
+    conv = attrs.get("pooling_convention", "valid")
+    return in_shapes, [tuple(dshape[:2]) + tuple(
+        _pool_out_dim(dshape[2 + i], kernel[i], stride[i], pad[i], conv)
+        for i in range(nd))]
+
+
+register("Pooling", _pooling, num_inputs=1, infer_shape=_pool_infer_shape,
+         aliases=("Pooling_v1",),
+         params={"pool_type": (pStr, "max"), "kernel": (pShape, (1, 1)),
+                 "stride": (pShape, None), "pad": (pShape, None),
+                 "global_pool": (pBool, False),
+                 "pooling_convention": (pStr, "valid"),
+                 "cudnn_off": (pBool, False),
+                 "count_include_pad": (pBool, True)})
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm.  Inputs data, gamma, beta; aux moving_mean, moving_var.  The
+# impl returns (out[, mean, var], new_moving_mean, new_moving_var); the
+# last two are state outputs the executor writes back into the aux arrays.
+# ---------------------------------------------------------------------------
+
+
+def _bn_affine(x, g, b, mean, inv, bshape):
+    """y = x*A + B with per-channel A = g*inv, B = b - mean*g*inv, in f32,
+    cast to x's dtype (the reference's scale/shift form)."""
+    g32 = g.float()
+    a = (g32 * inv).reshape(bshape)
+    shift = (b.float() - mean * g32 * inv).reshape(bshape)
+    return (x.float() * a + shift).to(x.dtype)
+
+
+class _BNTrainFn(torch.autograd.Function):
+    """Training-mode BatchNorm over NCHW with the reference's hand-written
+    backward (``_bn_train_core``): one-pass f32 statistics
+    ``E[x^2] - E[x]^2`` from one ``bn_channel_sums`` call, and a backward
+    that takes ``(sum dy, sum dy*x)`` from one more, including the
+    cotangents of the returned batch mean and variance."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, eps):
+        n, c, h, w = x.shape
+        count = n * h * w
+        s1, s2 = _kernels.bn_channel_sums(x)
+        mean = s1 / count
+        var = torch.clamp_min(s2 / count - mean * mean, 0.0)
+        inv = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, g, mean, inv)
+        return _bn_affine(x, g, b, mean, inv, (1, c, 1, 1)), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, dmean, dvar):
+        x, g, mean, inv = ctx.saved_tensors
+        n, c, h, w = x.shape
+        count = n * h * w
+        bshape = (1, c, 1, 1)
+        # one fused pass: sum dy*(x - mean) = sum dy*x - mean*sum dy
+        sum_dy, sum_dy_x = _kernels.bn_channel_sums(dy.to(x.dtype), x)
+        sum_dy_xc = sum_dy_x - mean * sum_dy
+        xc = x.float() - mean.reshape(bshape)
+        g32 = g.float()
+        dx = (g32 * inv).reshape(bshape) * (
+            dy.float() - (sum_dy / count).reshape(bshape)
+            - xc * (inv * inv * sum_dy_xc / count).reshape(bshape))
+        dx = dx + (dmean / count).reshape(bshape) \
+            + xc * (2.0 * dvar / count).reshape(bshape)
+        return (dx.to(x.dtype), (sum_dy_xc * inv).to(g.dtype),
+                sum_dy.to(g.dtype), None)
+
+
+def _bn_train_plain(x, g, b, ax, eps):
+    """Training-mode BatchNorm outside the kernel's NCHW domain, in plain
+    torch ops that autograd differentiates."""
+    red = tuple(i for i in range(x.ndim) if i != ax)
+    bshape = tuple(-1 if i == ax else 1 for i in range(x.ndim))
+    x32 = x.float()
+    mean = x32.mean(dim=red)
+    var = torch.clamp_min((x32 * x32).mean(dim=red) - mean * mean, 0.0)
+    inv = torch.rsqrt(var + eps)
+    return _bn_affine(x, g, b, mean, inv, bshape), mean, var
+
+
+def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                momentum=0.9, fix_gamma=True, use_global_stats=False,
+                output_mean_var=False, axis=1, cudnn_off=False, _train=False):
+    ax = int(axis) % data.ndim
+    bshape = tuple(data.shape[ax] if i == ax else 1 for i in range(data.ndim))
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    if _train and not use_global_stats:
+        # the reference's kernel eligibility (ops/nn.py:679-682)
+        if data.ndim == 4 and ax == 1 and data.is_floating_point():
+            out, mean, var = _BNTrainFn.apply(data, g, beta, float(eps))
+        else:
+            out, mean, var = _bn_train_plain(data, g, beta, ax, float(eps))
+        with torch.no_grad():  # the moving statistics take no gradient
+            new_mm = moving_mean * momentum \
+                + mean.to(moving_mean.dtype) * (1 - momentum)
+            new_mv = moving_var * momentum \
+                + var.to(moving_var.dtype) * (1 - momentum)
+    else:
+        mean, var = moving_mean.float(), moving_var.float()
+        new_mm, new_mv = moving_mean, moving_var
+        inv = torch.rsqrt(var + eps)
+        out = (data.float() - mean.reshape(bshape)) * inv.reshape(bshape)
+        out = (out.to(data.dtype) * g.reshape(bshape)
+               + beta.reshape(bshape)).to(data.dtype)
+    if output_mean_var:
+        return (out, mean.to(data.dtype), var.to(data.dtype), new_mm,
+                new_mv)
+    return out, new_mm, new_mv
+
+
+def _bn_infer_type(in_dtypes, attrs):
+    """gamma/beta/moving stats stay float32 when data is half-width."""
+    d = in_dtypes[0]
+    if d is None:
+        return in_dtypes, None
+    pt = "float32" if dtype_name(d) in ("float16", "bfloat16") else d
+    filled = [d, pt, pt, pt, pt][:len(in_dtypes)]
+    n_out = 3 if attrs.get("output_mean_var") else 1
+    return filled, [d] * n_out
+
+
+def _bn_infer_shape(in_shapes, attrs):
+    dshape = in_shapes[0]
+    if dshape is None:
+        return in_shapes, [None]
+    ax = int(attrs.get("axis", 1)) % len(dshape)
+    c = (dshape[ax],)
+    filled = [dshape] + [c, c, c, c]
+    if attrs.get("output_mean_var"):
+        return filled, [dshape, c, c, c, c]
+    return filled, [dshape, c, c]
+
+
+register("BatchNorm", _batch_norm,
+         input_names=("data", "gamma", "beta"),
+         aux_names=("moving_mean", "moving_var"),
+         num_outputs=lambda attrs: 3 if attrs.get("output_mean_var") else 1,
+         mutate_map=(3, 4), takes_train_flag=True,
+         infer_shape=_bn_infer_shape, infer_type=_bn_infer_type,
+         aliases=("BatchNorm_v1",),
+         params={"eps": (pFloat, 1e-3), "momentum": (pFloat, 0.9),
+                 "fix_gamma": (pBool, True),
+                 "use_global_stats": (pBool, False),
+                 "output_mean_var": (pBool, False), "axis": (pInt, 1),
+                 "cudnn_off": (pBool, False)})
+
+
+# ---------------------------------------------------------------------------
+# SoftmaxOutput: the loss head.  Its backward ignores the head gradient and
+# is (softmax - onehot) * grad_scale with the reference's ignore_label and
+# normalization (ref: softmax_output-inl.h).
+# ---------------------------------------------------------------------------
+
+
+def _softmax_fwd(data, multi_output, preserve_shape):
+    if multi_output:
+        return torch.softmax(data, dim=1)
+    if preserve_shape:
+        return torch.softmax(data, dim=-1)
+    return torch.softmax(data.reshape(data.shape[0], -1),
+                         dim=-1).reshape(data.shape)
+
+
+def _one_hot(lab, k, axis, dtype):
+    """One-hot along ``axis``; labels outside [0, k) give a zero row (as
+    ``jax.nn.one_hot`` does), so an ignored -1 label is safe."""
+    classes = torch.arange(k, device=lab.device)
+    shape = [1] * (lab.ndim + 1)
+    shape[axis] = k
+    return (lab.unsqueeze(axis) == classes.reshape(shape)).to(dtype)
+
+
+def _softmax_output_grad(out, label, grad_scale, ignore_label, use_ignore,
+                         normalization, multi_output):
+    lab = label.to(torch.int64)
+    if multi_output:  # data (n, k, x...), label (n, x...)
+        grad = out - _one_hot(lab, out.shape[1], 1, out.dtype)
+        expand = (slice(None), None)
+    else:
+        onehot = _one_hot(lab, out.shape[-1], lab.ndim, out.dtype)
+        grad = out - onehot.reshape(out.shape)
+        expand = (Ellipsis,) + (None,) * (grad.ndim - lab.ndim)
+    valid = torch.ones(lab.shape, dtype=out.dtype, device=out.device)
+    if use_ignore:
+        valid = (label != ignore_label).to(out.dtype)
+        grad = grad * valid[expand]
+    if normalization == "batch":
+        grad = grad / out.shape[0]
+    elif normalization == "valid":
+        grad = grad / torch.clamp_min(valid.sum(), 1.0)
+    return grad * grad_scale
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, cfg):
+        out = _softmax_fwd(data, cfg[4], cfg[5])
+        ctx.save_for_backward(out, label)
+        ctx.cfg = cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        out, label = ctx.saved_tensors
+        grad = _softmax_output_grad(out, label, *ctx.cfg[:5])
+        return grad.to(out.dtype), None, None
+
+
+def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                    multi_output=False, use_ignore=False,
+                    preserve_shape=False, normalization="null",
+                    out_grad=False, smooth_alpha=0.0):
+    cfg = (float(grad_scale), float(ignore_label), bool(use_ignore),
+           str(normalization), bool(multi_output), bool(preserve_shape))
+    return _SoftmaxOutputFn.apply(data, label, cfg)
+
+
+def _softmax_output_infer_shape(in_shapes, attrs):
+    dshape = in_shapes[0]
+    if dshape is None:
+        return in_shapes, [None]
+    filled = list(in_shapes)
+    if attrs.get("multi_output", False):
+        filled[1] = (dshape[0],) + tuple(dshape[2:])
+    else:
+        filled[1] = (dshape[0],)
+    return filled, [dshape]
+
+
+register("SoftmaxOutput", _softmax_output, input_names=("data", "label"),
+         infer_shape=_softmax_output_infer_shape, aliases=("Softmax",),
+         params={"grad_scale": (pFloat, 1.0), "ignore_label": (pFloat, -1.0),
+                 "multi_output": (pBool, False), "use_ignore": (pBool, False),
+                 "preserve_shape": (pBool, False),
+                 "normalization": (pStr, "null"), "out_grad": (pBool, False),
+                 "smooth_alpha": (pFloat, 0.0)})

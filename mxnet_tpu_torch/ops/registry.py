@@ -53,11 +53,21 @@ class Op:
         shapes from known ones — how MXNet infers weight shapes from data.
     bidirectional_infer: infer_shape also takes the current output shapes.
     infer_type: optional fn(in_dtypes, attrs) -> (filled, out_dtypes).
+    num_outputs: an int, or a function of the normalized attrs — the
+        visible outputs (symbol entries).
+    mutate_map: input indices rebound by the impl's trailing outputs
+        beyond the visible ones — in-place state updates such as
+        BatchNorm's moving statistics (ref: FMutateInputs); the executor
+        writes them back into the aux arrays under ``is_train``.
+    takes_train_flag: the impl takes a ``_train`` kwarg distinguishing
+        train and predict mode.
+    aliases: further names the op is registered under.
     """
 
     def __init__(self, name, impl, params=None, num_inputs=None, num_outputs=1,
                  infer_shape=None, infer_type=None, input_names=None,
-                 aux_names=(), bidirectional_infer=False, doc=""):
+                 aux_names=(), bidirectional_infer=False, mutate_map=(),
+                 takes_train_flag=False, aliases=(), doc=""):
         self.name = name
         self.impl = impl
         self.params = params or {}
@@ -70,6 +80,9 @@ class Op:
         self.bidirectional_infer = bidirectional_infer
         self.input_names = input_names
         self.aux_names = tuple(aux_names)
+        self.mutate_map = tuple(mutate_map)
+        self.takes_train_flag = takes_train_flag
+        self.aliases = tuple(aliases)
         self.doc = doc
 
     def normalize_attrs(self, attrs):
@@ -101,7 +114,9 @@ def register(name, impl=None, **kwargs):
     """Register an op.  Usable as a decorator or a direct call."""
 
     def _do(impl_fn):
-        _REGISTRY[name] = Op(name, impl_fn, **kwargs)
+        op = Op(name, impl_fn, **kwargs)
+        for key in (name,) + op.aliases:
+            _REGISTRY[key] = op
         return impl_fn
 
     if impl is not None:

@@ -134,6 +134,11 @@ class Symbol:
                 out.append("%s_output%d" % (node.name, idx))
         return out
 
+    def attr_dict(self):
+        """{node name: its attrs} for every node that has attrs."""
+        return {node.name: dict(node.attrs) for node in self._topo()
+                if node.attrs}
+
     @property
     def name(self):
         if len(self._entries) == 1:
@@ -438,7 +443,8 @@ def _create(op_name, sym_inputs, attrs, name=None):
         nattrs = op.normalize_attrs(attrs)
         n_expected = op.num_inputs(nattrs) if callable(op.num_inputs) \
             else len(full)
-        if op_name == "FullyConnected" and nattrs.get("no_bias"):
+        if op_name in ("FullyConnected", "Convolution") \
+                and nattrs.get("no_bias"):
             n_expected -= 1
         while len(entries) < n_expected:
             vname = "%s_%s" % (name, full[len(entries)])

@@ -3,9 +3,11 @@
 Marked ``cuda``: on a machine without a CUDA device every test here skips
 (the decision is made inside a fixture, at run time).  On the card, run
 ``python -m pytest tests/test_torch_cuda.py -q``; the first test builds
-the kernels with nvcc (a few seconds).  Tolerances: f32 atol=rtol=1e-4
-(f32 sums in another order); bf16 compared in f32 at atol=2e-2 (output
-rounding to bf16).
+the kernels with nvcc (a few seconds).  Tolerances: flash attention and
+the channel sums f32 atol=rtol=1e-4 (f32 sums in another order); bf16
+compared in f32 at atol=2e-2 (output rounding to bf16); the pooling
+gradients exactly, since kernel and plain version form each pixel's sum
+from the same terms in the same order.
 """
 import numpy as np
 import pytest
@@ -79,3 +81,126 @@ def test_small_lm_on_the_card_matches_the_host(card):
         pred.forward(data=x)
         outs.append(pred.get_output(0).asnumpy())
     np.testing.assert_allclose(outs[0], outs[1], atol=1e-4, rtol=1e-4)
+
+
+def _pos(g, shape, card, dtype=torch.float32):
+    """Inputs with a nonzero mean, so that no channel sum sits near 0 where
+    only the absolute tolerance would hold."""
+    return (torch.randn(*shape, generator=g, device=card) + 0.5).to(dtype)
+
+
+BN_CASES = [  # shape, dtype
+    ((4, 3, 20, 20), torch.float32),
+    ((4, 6, 5, 7), torch.float32),
+    ((3, 5, 7, 9), torch.float32),
+    ((2, 64, 9, 9), torch.float32),
+    ((8, 16, 12, 12), torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", BN_CASES, ids=lambda c: "x".join(
+    map(str, c[0])) + "-" + str(c[1]).replace("torch.", ""))
+@pytest.mark.parametrize("paired", [False, True], ids=["single", "paired"])
+def test_bn_channel_sums_matches_plain(card, case, paired):
+    shape, dtype = case
+    g = torch.Generator(device=card).manual_seed(2)
+    a = _pos(g, shape, card, dtype)
+    b = _pos(g, shape, card, dtype) if paired else None
+    before = K.launch_counts()["bn_channel_sums"]
+    got = K.bn_channel_sums(a, b)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bn_channel_sums"] == before + 1
+    want = K._plain_channel_sums(a, b)
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 \
+        else dict(atol=2e-2, rtol=1e-4)
+    for x, y in zip(got, want):
+        assert x.dtype == torch.float32 and x.shape == (shape[1],)
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), **tol)
+    again = K.bn_channel_sums(a, b)  # deterministic: no atomics
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_bn_channel_sums_reads_strided_views(card):
+    g = torch.Generator(device=card).manual_seed(3)
+    base = _pos(g, (4, 6, 10, 16), card)
+    a = base[:, :, ::2, 3:11]           # plane not contiguous
+    b = _pos(g, (6, 4, 5, 8), card).transpose(0, 1)  # N, C swapped
+    got = K.bn_channel_sums(a, b)
+    want = K._plain_channel_sums(a, b)
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+
+
+POOL_CUDA_CASES = [  # pool_type, shape, kernel, stride, pad, convention,
+    #                  count_include_pad, dtype, post-ReLU
+    ("max", (2, 4, 16, 16), (3, 3), (2, 2), (1, 1), "valid", True,
+     torch.float32, True),
+    ("max", (2, 3, 11, 13), (3, 3), (2, 2), (1, 1), "full", True,
+     torch.float32, False),
+    ("max", (2, 4, 12, 12), (3, 3), (2, 2), (1, 1), "valid", True,
+     torch.bfloat16, True),
+    ("avg", (2, 8, 7, 7), (7, 7), (1, 1), (0, 0), "valid", True,
+     torch.float32, False),
+    ("avg", (2, 3, 11, 13), (3, 3), (2, 2), (1, 1), "full", False,
+     torch.float32, False),
+    ("sum", (2, 3, 11, 13), (2, 3), (2, 1), (0, 1), "valid", True,
+     torch.float32, False),
+]
+
+
+@pytest.mark.parametrize("case", POOL_CUDA_CASES,
+                         ids=lambda c: "-".join(map(str, c[:1] + c[2:7])))
+def test_pool_backward_kernel_matches_plain(card, case):
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    pool, shape, kernel, stride, pad, conv, cip, dtype, relu = case
+    g = torch.Generator(device=card).manual_seed(4)
+    x = torch.randn(*shape, generator=g, device=card)
+    if relu:
+        x = torch.clamp_min(x, 0.0)  # windows full of tied zeros
+    x = x.to(dtype)
+    pads = nn_ops._pool_spatial_pads(shape[2:], kernel, stride, pad, conv)
+    out_shape = tuple(nn_ops._pool_out_dim(shape[2 + i], kernel[i],
+                                           stride[i], pad[i], conv)
+                      for i in range(2))
+    dy = torch.randn(shape[:2] + out_shape, generator=g,
+                     device=card).to(dtype)
+    name = "max_pool_backward" if pool == "max" else "avg_pool_backward"
+    before = K.launch_counts()[name]
+    if pool == "max":
+        got = K.max_pool_backward(x, dy, kernel, stride, pads)
+        want = K._plain_max_pool_backward(x, dy, kernel, stride, pads)
+    else:
+        div = nn_ops._pool_divisor(pool, cip, shape, kernel, stride, pads,
+                                   out_shape, card)
+        got = K.avg_pool_backward(dy, div, shape, kernel, stride, pads)
+        want = K._plain_avg_pool_backward(dy, div, shape, kernel, stride,
+                                          pads, dtype)
+    torch.cuda.synchronize()
+    assert K.launch_counts()[name] == before + 1
+    assert got.dtype == dtype and got.shape == shape
+    assert torch.equal(got, want)
+
+
+def test_small_convnet_trains_alike_on_card_and_host(card):
+    torch.backends.cudnn.allow_tf32 = False
+    from mxnet_tpu_torch.models import resnet
+    sym = resnet.get_symbol(10, 18, "3,40,40")
+    r = np.random.RandomState(0)
+    x = r.rand(4, 3, 40, 40).astype(np.float32)
+    y = r.randint(0, 10, (4,)).astype(np.float32)
+    params = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        mx.random.seed(0)
+        mod = mx.mod.Module(sym, context=ctx)
+        mod.fit(mx.io.NDArrayIter(x, y, batch_size=2), num_epoch=1,
+                initializer=mx.initializer.Xavier(magnitude=2),
+                optimizer_params={"learning_rate": 0.01, "momentum": 0.9})
+        params.append(mod.get_params())
+    (ag, xg), (ac, xc) = params
+    for k in ac:
+        np.testing.assert_allclose(ag[k].asnumpy(), ac[k].asnumpy(),
+                                   atol=1e-4, rtol=1e-4)
+    for k in xc:
+        np.testing.assert_allclose(xg[k].asnumpy(), xc[k].asnumpy(),
+                                   atol=1e-4, rtol=1e-4)

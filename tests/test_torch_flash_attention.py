@@ -56,7 +56,8 @@ def test_launch_counter_stays_zero_on_cpu():
     K.reset_launch_counts()
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 16, 2, 64, seed=0))
     K.attention(q, k, v, causal=True)
-    assert K.launch_counts() == {"flash_attn_fwd": 0}
+    assert K.launch_counts()["flash_attn_fwd"] == 0
+    assert K.launch_counts() == dict.fromkeys(K.LAUNCHES, 0)
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "lens_dtype",
@@ -88,5 +89,8 @@ def test_plain_bf16_rounds_like_f32_within_bf16_tolerance():
 
 
 def test_kernel_signature_follows_the_device():
-    assert K.kernel_signature(torch.device("cpu")) == (("attn", "plain"),)
-    assert K.kernel_signature("cuda:0") == (("attn", "cuda"),)
+    assert K.kernel_signature(torch.device("cpu")) == tuple(
+        (k, "plain") for k in K.KERNEL_FAMILIES)
+    assert K.kernel_signature("cuda:0") == tuple(
+        (k, "cuda") for k in K.KERNEL_FAMILIES)
+    assert K.KERNEL_FAMILIES[0] == "attn"
