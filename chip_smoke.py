@@ -40,7 +40,18 @@ CUDA toolkit.  Phases, each of which raises on failure:
    times the host's own largest change when its input moves by one ulp),
    and ms
    per step with its forward/backward/update split.
-5. The ``kernels`` JSON line, then the result line.
+5. Gluon training: the zoo TransformerLM at GPT-2 small's widths,
+   hybridized, f32 with TF32 off, batch 8 of 1024 random tokens from
+   ``--seed``, ``autograd.record()`` -> ``SoftmaxCrossEntropyLoss`` ->
+   ``backward`` -> ``Trainer(..., "adam", lr 6e-4).step``: 2 warm-up and
+   5 timed steps and 1 profiled step on one batch, finite falling losses,
+   every parameter moved (the q/k/v projections included), exactly 12
+   LSE flash launches per step and 12 LSE-less ones (no LSE) in a
+   ``predict_mode`` forward, ms per step, tokens/s, the forward/backward/
+   update split, the device-busy share and peak memory, and a 2-layer
+   full-width copy's batch-1 gradients on the card against the host's
+   (1e-3 relative L2 each).
+6. The ``kernels`` JSON line, then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is not beside this script.
@@ -90,6 +101,16 @@ HOST_OUT_TOL = dict(atol=1e-3, rtol=1e-3)
 HOST_GRAD_REL = 1e-3
 HOST_AUX_TOL = 1e-4
 
+# Gluon training configuration: the same GPT-2-small widths, batch 8
+GLUON_BATCH = 8
+GLUON_WARMUP, GLUON_TIMED = 2, 5
+ADAM = {"learning_rate": 6e-4}
+GLUON_HOST_LAYERS = 2
+GLUON_GRAD_REL = 1e-3
+LSE_TOL = dict(atol=1e-4, rtol=1e-4)
+# flash backward (f32): the same f32 math in another order
+FLASH_GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+
 
 def card_line():
     return subprocess.run(
@@ -115,11 +136,11 @@ def time_ms(fn, reps=30, warmup=3):
     return float(np.median(times))
 
 
-def flash_bound(q, sk, causal, kv_lens):
+def flash_bound(q, sk, causal, kv_lens, extra_bytes=0):
     """Least time (ms) the card needs for this attention call, and what
     bounds it: 4*D*H operations per valid (row, key) pair of these
     inputs, at the peak of the input type, against q, k, v read once and
-    o written once."""
+    o (and ``extra_bytes`` more output) written once."""
     import torch
     b, sq, h, d = q.shape
     lens = [sk] * b if kv_lens is None else \
@@ -136,6 +157,7 @@ def flash_bound(q, sk, causal, kv_lens):
     nbytes = q.element_size() * (2 * q.numel() + 2 * b * sk * h * d)
     if kv_lens is not None:
         nbytes += 4 * b
+    nbytes += extra_bytes
     peak = PEAK_F32_FLOPS if q.dtype == torch.float32 else PEAK_BF16_FLOPS
     t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -201,6 +223,117 @@ def check_flash(seed):
                   "launches": 0, "max_abs_err": max_err, "ms": ms,
                   "plain_ms": plain_ms, "bound_ms": bound_ms,
                   "bound_by": bound_by, "library_ms": library_ms}
+    return record
+
+
+def flash_bwd_bound(q, causal):
+    """Least time (ms) of the flash backward at these shapes: 10*D*H
+    operations per valid (row, key) pair (recomputed scores, dP, dV, dQ,
+    dK) in f32, against q, k, v, o, dO and the LSE read once and dq, dk, dv
+    written once."""
+    b, s, h, d = q.shape
+    pairs = b * (s * (s + 1) // 2 if causal else s * s)
+    t_ops = 10 * d * h * pairs / PEAK_F32_FLOPS * 1e3
+    nbytes = 4 * (8 * q.numel() + b * h * s)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_flash_lse(seed):
+    """Phase 2a': the kernel's LSE variant and the differentiable
+    attention (``_FlashAttnFn``) against their plain versions on the
+    card.  Returns the LSE variant's record for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import kernels as K
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    cases = [  # name, B, S, H, D, causal, dtype, kv_lens
+        ("train", GLUON_BATCH, 1024, 12, 64, True, torch.float32, None),
+        ("d128-bf16", 2, 512, 8, 128, True, torch.bfloat16, None),
+        ("ragged-lens", 4, 256, 12, 64, True, torch.float32,
+         [256, 0, 77, 130]),
+    ]
+    record = None
+    for name, b, s, h, d, causal, dtype, lens in cases:
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        kl = None if lens is None else \
+            torch.tensor(lens, dtype=torch.int32, device=dev)
+        scale = 1.0 / d ** 0.5
+        out, lse = K.flash_attention(q, k, v, causal=causal, scale=scale,
+                                     kv_lens=kl, with_lse=True)
+        ref_out, ref_lse = K._reference_attention_lse(q, k, v, causal, scale,
+                                                      kl)
+        torch.cuda.synchronize()
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        err_o, ok_o = _agree(out, ref_out, tol)
+        err_l, ok_l = _agree(lse, ref_lse, LSE_TOL)
+        # the gradients: kernel LSE forward + flash backward, against the
+        # plain forward's (out, lse) through the same backward and against
+        # torch autograd through the plain forward
+        dout = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        got = torch.autograd.grad(
+            K.attention(qg, kg, vg, causal=causal, scale=scale, kv_lens=kl),
+            (qg, kg, vg), dout)
+        plain = K._flash_backward(q, k, v, ref_out, ref_lse, dout, causal,
+                                  scale, kl)
+        qa, ka, va = (t.float().clone().requires_grad_() for t in (q, k, v))
+        auto = torch.autograd.grad(
+            K._reference_attention(qa, ka, va, causal, scale, kl),
+            (qa, ka, va), dout.float())
+        torch.cuda.synchronize()
+        gtol = FLASH_GRAD_TOL if dtype == torch.float32 else \
+            dict(atol=3e-2, rtol=3e-2)
+        errs = [_agree(g, w, gtol) for g, w in zip(got, plain)] \
+            + [_agree(g, w, gtol) for g, w in zip(got, auto)]
+        err_g = max(e for e, _ in errs)
+        ok = ok_o and ok_l and all(o for _, o in errs)
+        print("kernel flash_attn_fwd_lse %-11s B%d S%d H%d D%d %s: out "
+              "max_abs_err %.3g, lse %.3g (atol %g rtol %g), dq/dk/dv vs "
+              "plain and vs autograd %.3g (atol %g rtol %g) %s"
+              % (name, b, s, h, d, str(dtype).replace("torch.", ""), err_o,
+                 err_l, LSE_TOL["atol"], LSE_TOL["rtol"], err_g,
+                 gtol["atol"], gtol["rtol"], "ok" if ok else "FAIL"))
+        if not ok:
+            raise AssertionError("the LSE variant or its backward disagrees "
+                                 "with the plain version on case %s" % name)
+        if name != "train":
+            continue
+        del qa, ka, va, auto
+        ms = time_ms(lambda: K.flash_attention(q, k, v, causal=True,
+                                               scale=scale, with_lse=True))
+        plain_ms = time_ms(lambda: K._reference_attention_lse(
+            q, k, v, True, scale))
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale))
+        # the LSE output adds its f32 [B, H, S] to the bytes written
+        bound_ms, bound_by = flash_bound(q, s, True, None,
+                                         extra_bytes=4 * b * h * s)
+        _report("kernel flash_attn_fwd_lse train", ms, plain_ms, library_ms,
+                (bound_ms, bound_by))
+        record = {"name": "flash_attn_fwd_lse", "route": "cuda",
+                  "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
+                  "replaces": "mxnet_tpu/ops/pallas_kernels.py:338",
+                  "launches": 0, "max_abs_err": max(err_o, err_l),
+                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "library_ms": library_ms}
+        bwd_ms = time_ms(lambda: K._flash_backward(q, k, v, out, lse, dout,
+                                                   True, scale))
+        st = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            scale=scale)
+        dt = dout.transpose(1, 2)
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            st, (qt, kt, vt), dt, retain_graph=True))
+        bwd_bound = flash_bwd_bound(q, True)
+        print("flash backward (torch ops, not a TPU kernel) train: %.4f ms, "
+              "sdpa backward %.4f ms, bound %.4f ms (%s), roofline share "
+              "%.1f%%; card %s"
+              % (bwd_ms, sdpa_bwd_ms, bwd_bound[0], bwd_bound[1],
+                 100.0 * bwd_bound[0] / bwd_ms, card_line()))
     return record
 
 
@@ -660,14 +793,15 @@ def train_step_split(mod, train_iter):
 
 HAND_KERNELS = ("partial_sums_kernel", "combine_kernel",
                 "window_argmax_kernel", "max_pool_gather_kernel",
-                "avg_pool_bwd_kernel")
+                "avg_pool_bwd_kernel", "flash_fwd_kernel")
 KERNEL_GROUPS = (  # (label, substrings of a device kernel's name)
-    ("hand-written (bn sums, pool backward)", HAND_KERNELS),
+    ("hand-written (flash, bn sums, pool backward)", HAND_KERNELS),
     ("convolution and matmul (cuDNN, cuBLAS)",
      ("conv", "cudnn", "xmma", "gemm", "sm90", "sm80", "cutlass", "wgrad",
       "dgrad", "fprop")),
     ("elementwise and reductions (torch)",
-     ("elementwise", "vectorized", "reduce", "unrolled", "fill", "copy")),
+     ("elementwise", "vectorized", "reduce", "unrolled", "fill", "copy",
+      "softmax")),
 )
 
 
@@ -675,15 +809,24 @@ def profile_step(mod, batch):
     """One training step (forward, backward, update) under torch.profiler:
     device time by kernel group, the busy share of the step's wall time,
     and the largest kernels."""
+    def run():
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+
+    profile_run(run, "train")
+
+
+def profile_run(run, tag):
+    """``run()`` once under torch.profiler, synchronized: device time by
+    kernel group, the busy share of its wall time, the largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        mod.forward(batch, is_train=True)
-        mod.backward()
-        mod.update()
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.key_averages()
@@ -695,8 +838,8 @@ def profile_step(mod, batch):
 
     busy = sum(dev_ms(e) for e in device)
     if busy <= 0:
-        print("train: profiled step %.2f ms; device time not measured (the "
-              "profiler saw no device events)" % wall_ms)
+        print("%s: profiled step %.2f ms; device time not measured (the "
+              "profiler saw no device events)" % (tag, wall_ms))
         return
     groups = {label: 0.0 for label, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
@@ -705,14 +848,15 @@ def profile_step(mod, batch):
         label = next((lab for lab, keys in KERNEL_GROUPS
                       if any(k.lower() in name for k in keys)), "other")
         groups[label] += dev_ms(e)
-    print("train: profiled step %.2f ms wall, device busy %.2f ms (%.1f%%, "
+    print("%s: profiled step %.2f ms wall, device busy %.2f ms (%.1f%%, "
           "idle %.1f%%); by group: %s; card %s"
-          % (wall_ms, busy, 100 * busy / wall_ms, 100 - 100 * busy / wall_ms,
+          % (tag, wall_ms, busy, 100 * busy / wall_ms,
+             100 - 100 * busy / wall_ms,
              "; ".join("%s %.2f ms" % kv for kv in groups.items()),
              card_line()))
     for e in sorted(device, key=dev_ms, reverse=True)[:8]:
-        print("train:   %8.3f ms x%-4d %s" % (dev_ms(e), e.count,
-                                               e.key[:90]))
+        print("%s:   %8.3f ms x%-4d %s" % (tag, dev_ms(e), e.count,
+                                           e.key[:90]))
 
 
 def host_check(mx, symbol, arg0, aux0, images, labels, seed):
@@ -789,6 +933,169 @@ def host_check(mx, symbol, arg0, aux0, images, labels, seed):
                              "host's")
 
 
+def gluon_net(mx, layers, arrays, ctx):
+    """The zoo TransformerLM at GPT-2 small's widths with ``layers``
+    blocks, its parameters set from ``arrays`` on ``ctx``, hybridized."""
+    from mxnet_tpu_torch import gluon
+    with mx.sym.NameManager():  # names as transformer_lm_symbol's
+        net = gluon.model_zoo.TransformerLM(**dict(GPT2S, num_layers=layers))
+    mx.convert.set_gluon_params(net, arrays, ctx=ctx)
+    net.hybridize()
+    return net
+
+
+def lm_batch(mx, rng, batch, ctx):
+    """Random tokens and next-token labels, (batch, seq_len) each."""
+    shape = (batch, GPT2S["seq_len"])
+    return [mx.nd.array(rng.integers(0, GPT2S["vocab_size"], shape),
+                        ctx=ctx, dtype="float32") for _ in range(2)]
+
+
+def train_gluon(mx, seed):
+    """Phase 5: train the GPT-2-small-width zoo TransformerLM through
+    Gluon on the card.  Returns the kernel launches of the main path (the
+    warm-up and timed steps)."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.models import transformer_lm_symbol
+    from mxnet_tpu_torch.ops import kernels as K
+
+    layers = GPT2S["num_layers"]
+    t0 = time.perf_counter()
+    arrays = gpt2s_params(transformer_lm_symbol(**GPT2S), seed)
+    dev = mx.gpu(0)
+    net = gluon_net(mx, layers, arrays, dev)
+    params = net.collect_params()
+    x, y = lm_batch(mx, np.random.default_rng(seed + 4), GLUON_BATCH, dev)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(params, "adam", dict(ADAM))
+    tokens = GLUON_BATCH * GPT2S["seq_len"]
+    print("gluon: TransformerLM %d parameters in %d Parameters, set from "
+          "seed %d and hybridized in %.1f s; batch %d x %d tokens"
+          % (sum(a.size for a in arrays.values()), len(params.keys()), seed,
+             time.perf_counter() - t0, GLUON_BATCH, GPT2S["seq_len"]))
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        trainer.step(GLUON_BATCH)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        return (float(loss.asnumpy().mean()),
+                {"forward": (t1 - t0) * 1e3, "backward": (t2 - t1) * 1e3,
+                 "update": (t3 - t2) * 1e3, "step": (t3 - t0) * 1e3})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, parts, per_step = [], [], []
+    for _ in range(GLUON_WARMUP + GLUON_TIMED):
+        before = K.launch_counts()
+        loss, t = step()
+        after = K.launch_counts()
+        losses.append(loss)
+        parts.append(t)
+        per_step.append({k: after[k] - before[k]
+                         for k in ("flash_attn_fwd", "flash_attn_fwd_lse")})
+    launches = K.launch_counts()
+    timed = parts[GLUON_WARMUP:]
+    med = {k: float(np.median([t[k] for t in timed])) for k in timed[0]}
+    print("gluon: losses per step %s; launches per step %s"
+          % (", ".join("%.4f" % v for v in losses), per_step))
+    print("gluon: ms per step %.2f (median of %d, synchronized), %.0f "
+          "tokens/s; forward %.2f ms, backward %.2f ms, update %.2f ms; "
+          "peak memory %.2f GB; card %s"
+          % (med["step"], GLUON_TIMED, tokens / med["step"] * 1e3,
+             med["forward"], med["backward"], med["update"],
+             torch.cuda.max_memory_allocated() / 1e9, card_line()))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("gluon losses not finite and falling: %s"
+                             % losses)
+    want = {"flash_attn_fwd": 0, "flash_attn_fwd_lse": layers}
+    if any(d != want for d in per_step):
+        raise AssertionError("flash launches per step %s, expected %s"
+                             % (per_step, want))
+
+    def last_step():
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(GLUON_BATCH)
+
+    profile_run(last_step, "gluon")
+    frozen = [k for k, p in params.items()
+              if np.array_equal(p.data().asnumpy(), arrays[k])]
+    print("gluon: parameters changed %d/%d"
+          % (len(arrays) - len(frozen), len(arrays)))
+    if frozen:
+        raise AssertionError("unchanged after training: %s" % frozen)
+
+    before = K.launch_counts()
+    with autograd.predict_mode():
+        logits = net(x)
+    torch.cuda.synchronize()
+    added = {k: K.launch_counts()[k] - before[k]
+             for k in ("flash_attn_fwd", "flash_attn_fwd_lse")}
+    print("gluon: predict_mode forward launches %s" % added)
+    if added != {"flash_attn_fwd": layers, "flash_attn_fwd_lse": 0}:
+        raise AssertionError("predict forward launches %s" % added)
+    if logits.shape != (GLUON_BATCH, GPT2S["seq_len"], GPT2S["vocab_size"]) \
+            or not bool(torch.isfinite(logits.tensor).all()):
+        raise AssertionError("predict forward gave %s or non-finite logits"
+                             % (logits.shape,))
+    del net, trainer, params, logits
+    gluon_host_check(mx, seed)
+    return launches
+
+
+def gluon_host_check(mx, seed):
+    """A 2-layer full-width copy: one batch-1 forward and backward on the
+    card and on the host (plain versions) from the same weights; every
+    gradient within GLUON_GRAD_REL relative L2.  The key biases are held
+    apart: a constant added to every score of a row changes no
+    probability, so their gradient is zero up to rounding in both runs,
+    and a relative error between two roundings says nothing."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.models import transformer_lm_symbol
+    t0 = time.perf_counter()
+    arrays = gpt2s_params(transformer_lm_symbol(
+        **dict(GPT2S, num_layers=GLUON_HOST_LAYERS)), seed + 9)
+    rng_seed = seed + 10
+    grads = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        net = gluon_net(mx, GLUON_HOST_LAYERS, arrays, ctx)
+        x, y = lm_batch(mx, np.random.default_rng(rng_seed), 1, ctx)
+        with autograd.record():
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+        loss.backward()
+        grads.append({k: p.grad().asnumpy()
+                      for k, p in net.collect_params().items()})
+    card, host = grads
+    rel = {k: float(np.linalg.norm(card[k] - host[k])
+                    / np.linalg.norm(host[k]))
+           for k in host if not k.endswith("key_bias")}
+    worst = max(rel, key=rel.get)
+    ref = min(float(np.linalg.norm(host[k])) for k in rel)
+    key_bias = max(max(float(np.linalg.norm(g[k])) for g in grads)
+                   for k in host if k.endswith("key_bias"))
+    print("gluon: %d-layer batch-1 forward+backward card vs host (%.1f s): "
+          "gradients relative L2 largest %.3g (%s), median %.3g, limit %g; "
+          "key-bias gradient norms at most %.3g (smallest other %.3g)"
+          % (GLUON_HOST_LAYERS, time.perf_counter() - t0, rel[worst], worst,
+             float(np.median(list(rel.values()))), GLUON_GRAD_REL, key_bias,
+             ref))
+    if rel[worst] > GLUON_GRAD_REL or key_bias > 1e-3 * ref:
+        raise AssertionError("the card's Gluon gradients disagree with the "
+                             "host's")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -819,12 +1126,13 @@ def main():
                 if "registers" in ln]
         print("  %s: %.1f s; %s" % (name, info["seconds"], "; ".join(regs)))
 
-    records = [check_flash(args.seed), check_bn_sums(args.seed),
-               *check_pool_bwd(args.seed)]
+    records = [check_flash(args.seed), check_flash_lse(args.seed),
+               check_bn_sums(args.seed), *check_pool_bwd(args.seed)]
     records[0]["launches"] = serve(mx, args.seed)
     launches = train(mx, args.seed)
-    for rec in records[1:]:
+    for rec in records[2:]:
         rec["launches"] = launches[rec["name"]]
+    records[1]["launches"] = train_gluon(mx, args.seed)["flash_attn_fwd_lse"]
     print(card_line())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,10 @@ serves symbol graphs (``Server`` -> ``ServedModel`` -> ``Predictor`` ->
 ``multi_head_attention`` in a hand-written CUDA flash-attention kernel)
 and trains them (``Module.fit`` -> ``Executor.forward_backward`` -> SGD,
 with BatchNorm's channel sums and the pooling input gradients in
-hand-written CUDA kernels).
+hand-written CUDA kernels).  Gluon trains imperatively or hybridized
+(``autograd.record()`` -> ``loss.backward()`` -> ``gluon.Trainer.step``),
+with attention in the flash kernel's LSE variant and its blockwise
+backward.
 
 Entry points run on the card (``gpu(0)``) unless given ``cpu()``; without
 a card they raise ``MXNetError`` rather than fall back to the host.
@@ -16,6 +19,7 @@ from __future__ import annotations
 from .base import MXNetError, __version__  # noqa: F401
 from .context import Context, cpu, current_context, gpu, num_gpus  # noqa: F401
 from . import ops  # noqa: F401
+from . import autograd  # noqa: F401
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from . import symbol  # noqa: F401
@@ -31,5 +35,6 @@ from . import module as mod  # noqa: F401
 from .predict import Predictor  # noqa: F401
 from . import serving  # noqa: F401
 from . import models  # noqa: F401
+from . import gluon  # noqa: F401
 from . import convert  # noqa: F401
 from . import threads  # noqa: F401

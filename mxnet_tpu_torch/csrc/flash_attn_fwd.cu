@@ -1,13 +1,21 @@
 // Flash-attention forward for Hopper (sm_90a), CUDA C++ with a plain C entry.
 //
 // Replaces the TPU kernel `_flash_kernel` / `pl.pallas_call` of
-// mxnet_tpu/ops/pallas_kernels.py:63 and :338 (forward, no LSE output).
-// Computes, for q [B, Sq, H, D] and k, v [B, Sk, H, D]:
+// mxnet_tpu/ops/pallas_kernels.py:63 and :338, with and without its
+// `emit_lse` output (:138-145).  Computes, for q [B, Sq, H, D] and k, v
+// [B, Sk, H, D]:
 //
 //   o[b, i, h, :] = sum_j softmax_j(scale * q[b, i, h, :] . k[b, j, h, :]) v[b, j, h, :]
 //
 // over the keys j < kv_len[b] (and j <= i when causal).  A row with no valid
-// key gives 0, as the TPU kernel's `l == 0 -> 1` does.  Any Sq and Sk: the
+// key gives 0, as the TPU kernel's `l == 0 -> 1` does.  When `lse` is not
+// null, the differentiated forward also writes each row's log-sum-exp
+// m + log(l), f32, in the compact layout [B, H, Sq] (the TPU kernel's
+// lane-broadcast [BH, Sq, 128] exists only for Mosaic's tiling): m and l are
+// the very registers that normalised the row's output, so the backward's
+// exp(s - lse) reproduces its probabilities.  A row with no valid key gets
+// -1e30 there, as the TPU kernel's m + log(1) does; the backward re-masks
+// p, so that row takes zero gradient.  Any Sq and Sk: the
 // ragged tails are masked here, not padded by the caller.  q, k and v are
 // read through their [B, S, H, D] strides (the last dim contiguous), so the
 // caller needs no transpose copy; o is written through its own strides.
@@ -80,7 +88,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 const int* __restrict__ kv_lens, int H, int Sq, int Sk,
+                 const int* __restrict__ kv_lens, float* __restrict__ lse,
+                 int H, int Sq, int Sk,
                  Strides qs, Strides ks, Strides vs, Strides os,
                  float scale, int causal) {
   constexpr int DP = D + 1;
@@ -197,12 +206,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* dst = o + b * os.b + row * os.s + h * os.h;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) dst[tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
+    // every lane of the row holds the same m and l after the shuffles
+    if (lse != nullptr && tx == 0)
+      lse[(long long)blockIdx.y * Sq + row] = l[i] > 0.f ? m[i] + logf(l[i]) : NEG_INF;
   }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const int* kv_lens, int B, int Sq, int Sk, int H, Strides qs,
+           const int* kv_lens, float* lse, int B, int Sq, int Sk, int H, Strides qs,
            Strides ks, Strides vs, Strides os, float scale, int causal,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
@@ -212,7 +224,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), kv_lens, H, Sq, Sk, qs, ks, vs, os, scale, causal);
+      static_cast<T*>(o), kv_lens, lse, H, Sq, Sk, qs, ks, vs, os, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -220,10 +232,11 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 // Returns the cudaGetLastError() code of the launch (0 on success); an
 // unsupported head_dim returns cudaErrorInvalidValue.  Strides are in
-// elements.  kv_lens is an int32 device pointer of length B, or null.
+// elements.  kv_lens is an int32 device pointer of length B, or null; lse a
+// contiguous f32 [B, H, Sq] device buffer, or null for the forward alone.
 extern "C" int mxtt_flash_attn_fwd(
     const void* q, const void* k, const void* v, void* o, const int* kv_lens,
-    int B, int Sq, int Sk, int H, int D,
+    float* lse, int B, int Sq, int Sk, int H, int D,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -234,12 +247,12 @@ extern "C" int mxtt_flash_attn_fwd(
   const Strides vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64) {
-    return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, o, kv_lens, B, Sq, Sk, H, qs, ks, vs, os, scale, causal, st)
-                   : launch<float, 64>(q, k, v, o, kv_lens, B, Sq, Sk, H, qs, ks, vs, os, scale, causal, st);
+    return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, o, kv_lens, lse, B, Sq, Sk, H, qs, ks, vs, os, scale, causal, st)
+                   : launch<float, 64>(q, k, v, o, kv_lens, lse, B, Sq, Sk, H, qs, ks, vs, os, scale, causal, st);
   }
   if (D == 128) {
-    return is_bf16 ? launch<__nv_bfloat16, 128>(q, k, v, o, kv_lens, B, Sq, Sk, H, qs, ks, vs, os, scale, causal, st)
-                   : launch<float, 128>(q, k, v, o, kv_lens, B, Sq, Sk, H, qs, ks, vs, os, scale, causal, st);
+    return is_bf16 ? launch<__nv_bfloat16, 128>(q, k, v, o, kv_lens, lse, B, Sq, Sk, H, qs, ks, vs, os, scale, causal, st)
+                   : launch<float, 128>(q, k, v, o, kv_lens, lse, B, Sq, Sk, H, qs, ks, vs, os, scale, causal, st);
   }
   return (int)cudaErrorInvalidValue;
 }

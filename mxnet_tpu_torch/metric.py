@@ -3,7 +3,8 @@
 Counterpart of part of ``mxnet_tpu/metric.py``: the ``EvalMetric`` base
 (a running weighted average of a per-batch ``_measure(label, pred) ->
 (contribution, weight)`` over numpy arrays), the registry and ``create``,
-``CompositeEvalMetric``, ``Accuracy`` and ``CrossEntropy``.  Labels and
+``CompositeEvalMetric``, ``Accuracy``, ``CrossEntropy`` and
+``Perplexity``.  Labels and
 predictions come to the host once per batch at the measure boundary.
 """
 from __future__ import annotations
@@ -169,3 +170,46 @@ class CrossEntropy(EvalMetric):
         assert label.shape[0] == pred.shape[0], (label.shape, pred.shape)
         prob = pred[np.arange(label.shape[0]), label]
         return float(-np.log(prob + self.eps).sum()), prob.shape[0]
+
+
+@register
+class Perplexity(EvalMetric):
+    """exp(mean negative log prob of the true class), optionally masking
+    one ignore label (ref: metric.py:302).  Accumulates ``perplexity *
+    tokens`` so batches of unequal size combine as a token-weighted
+    mean."""
+
+    def __init__(self, ignore_label, axis=-1, name="perplexity",
+                 output_names=None, label_names=None):
+        super().__init__(name, ignore_label=ignore_label, axis=axis,
+                         output_names=output_names, label_names=label_names)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def _pair_nll(self, label, pred):
+        """(total nll, token count) for one output/label pair."""
+        classes = pred.shape[-1]
+        if label.size * classes != pred.size:
+            raise ValueError("shape mismatch: %s vs. %s"
+                             % (label.shape, pred.shape))
+        flat = label.astype(np.int64).ravel()
+        prob = pred.reshape(-1, classes)[np.arange(flat.size), flat]
+        tokens = flat.size
+        if self.ignore_label is not None:
+            keep = flat != self.ignore_label
+            prob = np.where(keep, prob, 1.0)
+            tokens = int(keep.sum())
+        return float(-np.log(np.maximum(prob, 1e-10)).sum()), tokens
+
+    def update(self, labels, preds):
+        # pool nll and tokens over every pair BEFORE exponentiating: exp is
+        # nonlinear, so per-pair perplexities cannot be averaged
+        check_label_shapes(labels, preds)
+        nll, tokens = 0.0, 0
+        for label, pred in zip(labels, preds):
+            pair_nll, pair_tokens = self._pair_nll(_host(label), _host(pred))
+            nll += pair_nll
+            tokens += pair_tokens
+        if tokens > 0:
+            self.sum_metric += float(np.exp(nll / tokens)) * tokens
+            self.num_inst += tokens

@@ -1,10 +1,12 @@
 """Decoder-only transformer LM as a symbol graph.
 
 The symbol-path counterpart of ``mxnet_tpu/gluon/model_zoo/transformer.py``
-(``TransformerLM``) until Gluon is ported: :func:`transformer_lm_symbol`
-emits, node for node, the graph that ``TransformerLM.export()`` writes —
-the same ops, node names, attrs, argument names and order — so its JSON
-loads in either package and a Gluon export serves here unchanged.
+(``TransformerLM``), kept as a check on the port's Gluon:
+:func:`transformer_lm_symbol` writes, node for node, the graph that
+``TransformerLM.export()`` writes — the same ops, node names, attrs,
+argument names and order — and the tests hold the port's Gluon export
+(``gluon.model_zoo.TransformerLM``) to it, so an export of either
+package serves here unchanged.
 
 Architecture: token embedding plus learned positions, ``num_layers``
 pre-LN blocks (LN -> multi_head_attention (causal) -> +x, LN -> FFN with

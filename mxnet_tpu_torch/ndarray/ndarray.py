@@ -3,7 +3,15 @@
 Counterpart of ``mxnet_tpu/ndarray/ndarray.py``.  The JAX package holds an
 immutable ``jax.Array`` in a one-slot ``_Handle`` and rebinds it on
 mutation; here the handle holds a ``torch.Tensor`` and writes into it in
-place (``copyto`` copies into the destination's storage).
+place (``copyto``, ``x[:] = v``, ``x += v`` outside recording), so every
+holder of the NDArray and of its tensor sees the write.
+
+Imperative ops (``mx.nd.<op>``, the operators) dispatch through
+:func:`_invoke`: the registered op's torch function runs with torch
+autograd on exactly while ``autograd.record()`` is active, so the
+recording is torch's own graph.  ``attach_grad`` makes the tensor a
+leaf that requires grad and ``backward`` fills the gradient buffer (see
+``autograd.py``).
 
 ``save``/``load``/``loads`` use the JAX package's ``.params`` container
 byte for byte (``MXTPU001`` magic, then per array: name, dtype name,
@@ -22,6 +30,8 @@ import torch
 
 from ..base import MXNetError, dtype_name, np_dtype, torch_dtype
 from ..context import Context, context_of, cpu, current_context
+from ..ops.registry import get_op
+from .. import autograd as ag
 
 
 class _Handle:
@@ -34,10 +44,12 @@ class _Handle:
 
 
 class NDArray:
-    __slots__ = ("_h", "__weakref__")
+    __slots__ = ("_h", "_grad", "_grad_req", "__weakref__")
 
     def __init__(self, tensor):
         self._h = tensor if isinstance(tensor, _Handle) else _Handle(tensor)
+        self._grad = None
+        self._grad_req = "null"
 
     @property
     def tensor(self):
@@ -49,6 +61,14 @@ class NDArray:
         return tuple(self._h.tensor.shape)
 
     @property
+    def ndim(self):
+        return self._h.tensor.ndim
+
+    @property
+    def size(self):
+        return self._h.tensor.numel()
+
+    @property
     def dtype(self):
         return np_dtype(self._h.tensor.dtype)
 
@@ -58,11 +78,24 @@ class NDArray:
 
     ctx = context
 
+    @property
+    def grad(self):
+        return self._grad
+
+    # -- host transfer and copies --------------------------------------------
     def asnumpy(self):
         t = self._h.tensor.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy()
+
+    def asscalar(self):
+        if self.size != 1:
+            raise MXNetError("The current array is not a scalar")
+        return self.asnumpy().reshape(-1)[0]
+
+    def astype(self, dtype, copy=True):
+        return _invoke("Cast", [self], {"dtype": dtype_name(dtype)})
 
     def copyto(self, other):
         """Copy into ``other``: an NDArray (its storage, dtype and device
@@ -73,22 +106,146 @@ class NDArray:
             if other.shape != self.shape:
                 raise MXNetError("copyto: shape %s into %s"
                                  % (self.shape, other.shape))
-            with torch.inference_mode():
+            with torch.no_grad():
                 other._h.tensor.copy_(self._h.tensor)
             return other
         if isinstance(other, Context):
-            return NDArray(self._h.tensor.to(other.torch_device(), copy=True))
+            return NDArray(self._h.tensor.detach().to(other.torch_device(),
+                                                      copy=True))
         raise TypeError("copyto does not support type " + str(type(other)))
 
+    def as_in_context(self, context):
+        if self.context == context:
+            return self
+        return self.copyto(context)
+
+    # -- autograd --------------------------------------------------------------
+    def attach_grad(self, grad_req="write", stype=None):
+        """Give this array a gradient buffer (``.grad``), filled by
+        ``backward`` according to ``grad_req``."""
+        grad = NDArray(torch.zeros_like(self._h.tensor.detach()))
+        ag.mark_variables([self], [grad], grad_req)
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        ag.backward([self], [out_grad] if out_grad is not None else None,
+                    retain_graph, train_mode)
+
+    # -- shape and reductions --------------------------------------------------
+    def reshape(self, *shape, **kwargs):
+        if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
+            shape = tuple(shape[0])
+        if kwargs.get("shape"):
+            shape = tuple(kwargs["shape"])
+        return _invoke("Reshape", [self], {"shape": shape})
+
+    def sum(self, axis=None, keepdims=False):
+        return _invoke("sum", [self], {"axis": axis, "keepdims": keepdims})
+
+    def mean(self, axis=None, keepdims=False):
+        return _invoke("mean", [self], {"axis": axis, "keepdims": keepdims})
+
+    def norm(self):
+        return _invoke("norm", [self], {})
+
+    # -- python protocol -------------------------------------------------------
     def __repr__(self):
         return "\n%s\n<NDArray %s @%s>" % (
             self.asnumpy(), "x".join(str(d) for d in self.shape),
             self.context)
 
+    # arithmetic: broadcasting like the reference's broadcast_* family
+    def _binary(self, other, op_nd, op_sc, reverse=False):
+        if isinstance(other, NDArray):
+            lhs, rhs = (other, self) if reverse else (self, other)
+            return _invoke(op_nd, [lhs, rhs], {})
+        return _invoke(op_sc, [self], {"scalar": float(other)})
+
+    def __add__(self, o):
+        return self._binary(o, "broadcast_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binary(o, "broadcast_sub", "_minus_scalar")
+
+    def __rsub__(self, o):
+        return self._binary(o, "broadcast_sub", "_rminus_scalar",
+                            reverse=True)
+
+    def __mul__(self, o):
+        return self._binary(o, "broadcast_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binary(o, "broadcast_div", "_div_scalar")
+
+    def __rtruediv__(self, o):
+        return self._binary(o, "broadcast_div", "_rdiv_scalar", reverse=True)
+
+    def __neg__(self):
+        return _invoke("negative", [self], {})
+
+    def __abs__(self):
+        return _invoke("abs", [self], {})
+
+    def _inplace(self, result):
+        """``x op= y``: while recording, rebind the handle to the recorded
+        result (the JAX package's semantics); otherwise write the result
+        into this array's storage, which every holder shares."""
+        if ag.is_recording():
+            self._h.tensor = result.tensor
+        else:
+            with torch.no_grad():
+                self._h.tensor.copy_(result.tensor)
+        return self
+
+    def __iadd__(self, o):
+        return self._inplace(self.__add__(o))
+
+    def __isub__(self, o):
+        return self._inplace(self.__sub__(o))
+
+    def __imul__(self, o):
+        return self._inplace(self.__mul__(o))
+
+    def __itruediv__(self, o):
+        return self._inplace(self.__truediv__(o))
+
+    def __getstate__(self):
+        return {"data": self.asnumpy(), "dtype": dtype_name(self.tensor.dtype),
+                "ctx": (self.context.device_typeid, self.context.device_id)}
+
+    def __setstate__(self, state):
+        ctx = Context(*state["ctx"])
+        self._h = _Handle(_to_tensor(state["data"], ctx, state["dtype"]))
+        self._grad = None
+        self._grad_req = "null"
+
+    # -- indexing --------------------------------------------------------------
+    def __getitem__(self, key):
+        if isinstance(key, NDArray):
+            key = key.tensor.to(torch.int64)
+        with torch.set_grad_enabled(ag.is_recording()):
+            return NDArray(self._h.tensor[key])
+
+    def __setitem__(self, key, value):
+        dst = self._h.tensor
+        if isinstance(value, NDArray):
+            value = value.tensor
+        elif not isinstance(value, (int, float, bool)):
+            value = torch.as_tensor(np.asarray(value))
+        if isinstance(value, torch.Tensor):
+            value = value.to(device=dst.device, dtype=dst.dtype)
+        if isinstance(key, NDArray):
+            key = key.tensor.to(torch.int64)
+        with torch.no_grad():
+            dst[key] = value
+
 
 def _to_tensor(source, ctx, dtype):
     if isinstance(source, NDArray):
-        t = source.tensor
+        t = source.tensor.detach()
         if dtype is not None:
             t = t.to(torch_dtype(dtype))
         return t.to(ctx.torch_device(), copy=True)
@@ -105,18 +262,87 @@ def _to_tensor(source, ctx, dtype):
     return t.to(device=ctx.torch_device(), dtype=torch_dtype(name))
 
 
+# ---------------------------------------------------------------------------
+# Imperative dispatch (ref: MXImperativeInvokeEx -> Imperative::Invoke)
+# ---------------------------------------------------------------------------
+
+def _invoke(op_name, inputs, attrs, out=None):
+    """Run a registered op on NDArrays: normalize attrs, run its torch
+    function (recorded by torch autograd while ``autograd.record()`` is
+    active), write state outputs back into the inputs they update
+    (BatchNorm's moving statistics), and honour ``out=``."""
+    op = get_op(op_name)
+    nattrs = op.normalize_attrs(attrs)
+    if op.takes_train_flag:
+        nattrs["_train"] = ag.is_training()
+    recording = ag.is_recording()
+    with torch.set_grad_enabled(recording):
+        outs = op.impl(*[i.tensor for i in inputs], **nattrs)
+    if not isinstance(outs, tuple):
+        outs = (outs,)
+    n_vis = op.str_outputs(nattrs)
+    with torch.no_grad():
+        for value, idx in zip(outs[n_vis:], op.mutate_map):
+            if idx < len(inputs) and value is not inputs[idx].tensor:
+                inputs[idx].tensor.copy_(value)
+    out_nds = [NDArray(v) for v in outs[:n_vis]]
+    if out is not None:
+        given = [out] if isinstance(out, NDArray) else list(out)
+        for dst, src in zip(given, out_nds):
+            if recording or dst.shape != src.shape:
+                dst._h.tensor = src.tensor
+            else:
+                with torch.no_grad():
+                    dst.tensor.copy_(src.tensor)
+        return out
+    return out_nds[0] if len(out_nds) == 1 else out_nds
+
+
+# ---------------------------------------------------------------------------
+# Creation
+# ---------------------------------------------------------------------------
+
 def array(source_array, ctx=None, dtype=None):
     ctx = ctx or current_context()
     return NDArray(_to_tensor(source_array, ctx, dtype))
 
 
-def zeros(shape, ctx=None, dtype="float32"):
-    ctx = ctx or current_context()
+def _shape_tuple(shape):
     if isinstance(shape, int):
         shape = (shape,)
-    return NDArray(torch.zeros(tuple(int(d) for d in shape),
-                               dtype=torch_dtype(dtype),
+    return tuple(int(d) for d in shape)
+
+
+def full(shape, val, ctx=None, dtype="float32", out=None):
+    ctx = ctx or current_context()
+    nd = NDArray(torch.full(_shape_tuple(shape), val,
+                            dtype=torch_dtype(dtype),
+                            device=ctx.torch_device()))
+    if out is not None:
+        nd.copyto(out)
+        return out
+    return nd
+
+
+def zeros(shape, ctx=None, dtype="float32", **kwargs):
+    return full(shape, 0, ctx, dtype)
+
+
+def ones(shape, ctx=None, dtype="float32", **kwargs):
+    return full(shape, 1, ctx, dtype)
+
+
+def empty(shape, ctx=None, dtype="float32"):
+    ctx = ctx or current_context()
+    return NDArray(torch.empty(_shape_tuple(shape), dtype=torch_dtype(dtype),
                                device=ctx.torch_device()))
+
+
+def waitall():
+    """Block until every queued device operation has finished (ref:
+    MXNDArrayWaitAll)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------

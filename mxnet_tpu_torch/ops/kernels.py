@@ -4,7 +4,11 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``, one CUDA source per
 Pallas kernel:
 
 - ``flash_attention``: ``csrc/flash_attn_fwd.cu``, the forward of the
-  Pallas kernel of ``pallas_kernels.py:63/338``;
+  Pallas kernel of ``pallas_kernels.py:63/338``, with its per-row
+  log-sum-exp output when ``with_lse`` (the differentiated forward);
+  :class:`_FlashAttnFn` pairs that forward with the blockwise backward of
+  ``pallas_kernels.py:240-302`` (torch ops: the JAX package computes it
+  in XLA, not in Pallas);
 - ``bn_channel_sums``: ``csrc/bn_channel_sums.cu``, the per-channel
   ``(sum a, sum a*b)`` of ``pallas_kernels.py:643/699``;
 - ``max_pool_backward`` and ``avg_pool_backward``: the two entries of
@@ -29,11 +33,14 @@ from . import _build
 
 _NEG_INF = -1e30
 
-LAUNCHES = {"flash_attn_fwd": 0, "bn_channel_sums": 0,
-            "max_pool_backward": 0, "avg_pool_backward": 0}
+LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_fwd_lse": 0,
+            "bn_channel_sums": 0, "max_pool_backward": 0,
+            "avg_pool_backward": 0}
 
 FLASH_HEAD_DIMS = (64, 128)
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
+# query rows per step of the flash backward (the JAX package's block_q)
+FLASH_BWD_BLOCK_Q = 128
 
 
 def launch_counts():
@@ -45,12 +52,14 @@ def reset_launch_counts():
         LAUNCHES[name] = 0
 
 
-def _reference_attention(q, k, v, causal, scale, kv_lens=None):
+def _reference_attention_lse(q, k, v, causal, scale, kv_lens=None):
     """[B, S, H, D] exact attention, in f32 — the plain version of the
-    flash kernel.  ``kv_lens``: optional (B,) valid KV length per
-    sequence.  A row with no valid key gives 0, as the kernel does (the
-    JAX package's reference would give the mean of v there; its flash
-    kernel gives 0)."""
+    flash kernel — and the f32 [B, H, Sq] log-sum-exp of each row's
+    valid scores, the kernel's LSE output.  ``kv_lens``: optional (B,)
+    valid KV length per sequence.  A row with no valid key gives 0 and
+    an LSE of -1e30, as the kernel does (the JAX package's reference
+    would give the mean of v there; its flash kernel gives 0 and
+    m + log(1) = -1e30)."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     n_q, n_k = q.shape[1], k.shape[1]
     valid = torch.ones((n_q, n_k), dtype=torch.bool, device=q.device)
@@ -62,8 +71,16 @@ def _reference_attention(q, k, v, causal, scale, kv_lens=None):
         valid = valid & (cols[None, :] < kv_lens.to(torch.int64)[:, None]
                          )[:, None, None, :]
     s = s.masked_fill(~valid, _NEG_INF)
-    p = torch.softmax(s, dim=-1) * valid.any(dim=-1, keepdim=True)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    lse = torch.where(valid.any(dim=-1), torch.logsumexp(s, dim=-1),
+                      torch.full((), _NEG_INF, device=q.device))
+    p = torch.exp(s - lse[..., None]) * valid
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    return out, lse
+
+
+def _reference_attention(q, k, v, causal, scale, kv_lens=None):
+    """The plain version of the LSE-less forward: the output alone."""
+    return _reference_attention_lse(q, k, v, causal, scale, kv_lens)[0]
 
 
 def _check_flash_args(q, k, v, kv_lens):
@@ -97,7 +114,7 @@ def _check_flash_args(q, k, v, kv_lens):
                             kv_lens.device))
 
 
-_FLASH_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+_FLASH_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
@@ -107,28 +124,36 @@ def _flash_lib():
     return _lib_fn("flash_attn_fwd", "mxtt_flash_attn_fwd", _FLASH_ARGTYPES)
 
 
-def flash_attention(q, k, v, causal=False, scale=None, kv_lens=None):
+def flash_attention(q, k, v, causal=False, scale=None, kv_lens=None,
+                    with_lse=False):
     """Flash-attention forward.  q: [batch, seq_q, heads, head_dim], k and
     v: [batch, seq_k, heads, head_dim]; head_dim 64 or 128; float32 or
     bfloat16 (f32 accumulate, output in the input dtype); ``kv_lens`` an
-    optional int32 (batch,) tensor of valid KV lengths.  CUDA tensors run
-    the hand-written kernel, CPU tensors its plain version."""
+    optional int32 (batch,) tensor of valid KV lengths.  With
+    ``with_lse`` returns ``(out, lse)``, ``lse`` the f32 [batch, heads,
+    seq_q] row log-sum-exp the backward needs.  CUDA tensors run the
+    hand-written kernel, CPU tensors its plain version."""
     _check_flash_args(q, k, v, kv_lens)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if scale is None:
         scale = 1.0 / d ** 0.5
     if q.device.type == "cpu":
+        if with_lse:
+            return _reference_attention_lse(q, k, v, causal, scale, kv_lens)
         return _reference_attention(q, k, v, causal, scale, kv_lens)
     if q.device.type != "cuda":
         raise MXNetError("flash_attention: no kernel for device %s"
                          % q.device)
     fn = _flash_lib()
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if kv_lens is None else kv_lens.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  b, sq, sk, h, d,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3],
@@ -136,8 +161,77 @@ def flash_attention(q, k, v, causal=False, scale=None, kv_lens=None):
                  int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise MXNetError("flash_attn_fwd launch failed: CUDA error %d" % err)
+    if with_lse:
+        LAUNCHES["flash_attn_fwd_lse"] += 1
+        return out, lse
     LAUNCHES["flash_attn_fwd"] += 1
     return out
+
+
+def _flash_backward(q, k, v, out, lse, d_out, causal, scale, kv_lens=None):
+    """(dq, dk, dv) of flash attention from the forward's output and row
+    log-sum-exp: the blockwise backward of ``_flash_bwd_jitted``
+    (``pallas_kernels.py:240-302``), the same code for CPU and CUDA
+    tensors.  Blockwise over ``FLASH_BWD_BLOCK_Q`` query rows, so it holds
+    O(block * seq_k) scores per (batch, head) and never the seq_q x
+    seq_k matrix; under ``causal`` a block reads only the keys up to its
+    last row (the rest carry zero weight).  All arithmetic is f32
+    (``D = rowsum(dO * O)`` in particular, which enters ``ds`` by
+    cancellation); gradients return in the inputs' dtypes."""
+    sq, sk = q.shape[1], k.shape[1]
+
+    def heads_first(t):  # [B, S, H, D] -> contiguous f32 [B, H, S, D]
+        return t.float().transpose(1, 2).contiguous()
+
+    qf, kf, vf, dof = (heads_first(t) for t in (q, k, v, d_out))
+    delta = (d_out.float() * out.float()).sum(-1).transpose(1, 2)  # [B,H,Sq]
+    kv_len = torch.full((q.shape[0],), sk, device=q.device) \
+        if kv_lens is None else kv_lens.to(torch.int64).clamp(0, sk)
+    cols = torch.arange(sk, device=q.device)
+    dq = torch.empty_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for s0 in range(0, sq, FLASH_BWD_BLOCK_Q):
+        s1 = min(s0 + FLASH_BWD_BLOCK_Q, sq)
+        kend = min(sk, s1) if causal else sk
+        qb, dob = qf[:, :, s0:s1], dof[:, :, s0:s1]
+        kb, vb = kf[:, :, :kend], vf[:, :, :kend]
+        valid = (cols[:kend][None, :] < kv_len[:, None])[:, None, None, :]
+        if causal:
+            rows = torch.arange(s0, s1, device=q.device)
+            valid = valid & (rows[:, None] >= cols[None, :kend])[None, None]
+        sij = torch.matmul(qb, kb.transpose(-1, -2)) * scale
+        # explicit re-mask: a row with no valid key has lse -1e30, and
+        # exp(s - lse) would resurrect every masked column
+        p = torch.where(valid, torch.exp(sij - lse[:, :, s0:s1, None]),
+                        torch.zeros((), device=q.device))
+        dp = torch.matmul(dob, vb.transpose(-1, -2))
+        ds = p * (dp - delta[:, :, s0:s1, None])
+        dq[:, :, s0:s1] = torch.matmul(ds, kb) * scale
+        dk[:, :, :kend] += torch.matmul(ds.transpose(-1, -2), qb) * scale
+        dv[:, :, :kend] += torch.matmul(p.transpose(-1, -2), dob)
+    return tuple(g.transpose(1, 2).to(t.dtype)
+                 for g, t in ((dq, q), (dk, k), (dv, v)))
+
+
+class _FlashAttnFn(torch.autograd.Function):
+    """Differentiable flash attention (``_flash_vjp_wrapped`` of the JAX
+    package): the forward is the kernel's LSE variant (its plain version
+    on CPU tensors), the backward :func:`_flash_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, causal, scale):
+        out, lse = flash_attention(q, k, v, causal=causal, scale=scale,
+                                   kv_lens=kv_lens, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, kv_lens)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse, kv_lens = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, out, lse, d_out, ctx.causal,
+                                     ctx.scale, kv_lens)
+        return dq, dk, dv, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -423,10 +517,16 @@ def kernel_signature(device):
 def attention(q, k, v, causal=False, scale=None, kv_lens=None):
     """The attention ops' entry to the ``attn`` kernel family.
     q/k/v: [batch, seq, heads, head_dim]; ``kv_lens`` may be any numeric
-    (batch,) tensor and is truncated to int32 here."""
+    (batch,) tensor and is truncated to int32 here.  Under grad mode with
+    any of q, k, v requiring grad the call is differentiable
+    (:class:`_FlashAttnFn`, the kernel's LSE variant); otherwise it is the
+    LSE-less forward, as the JAX package's undifferentiated primal is."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if kv_lens is not None:
         kv_lens = kv_lens.to(device=q.device, dtype=torch.int32)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttnFn.apply(q, k, v, kv_lens, bool(causal),
+                                  float(scale))
     return flash_attention(q, k, v, causal=causal, scale=float(scale),
                            kv_lens=kv_lens)

@@ -1,8 +1,9 @@
 """Neural-network operators (the serving and training slices).
 
-Counterpart of part of ``mxnet_tpu/ops/nn.py``: ``FullyConnected`` (with
-its two-way shape rule and ``flatten=False``), ``LeakyReLU`` (with the
-exact-erf ``gelu``), ``LayerNorm``, ``Embedding``, and the conv-net ops
+Counterpart of part of ``mxnet_tpu/ops/nn.py``: ``log_softmax``,
+``FullyConnected`` (with its two-way shape rule and
+``flatten=False``), ``LeakyReLU`` (with the exact-erf ``gelu``),
+``LayerNorm``, ``Dropout``, ``Embedding``, and the conv-net ops
 ``Convolution``, ``Activation``, ``Pooling``, ``BatchNorm`` and
 ``SoftmaxOutput``.  Products and convolutions are plain ``torch``
 calls: the JAX package leaves them to XLA, and the port leaves them to
@@ -22,8 +23,42 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError, dtype_name
+from .. import random as _random
 from . import kernels as _kernels
-from .registry import pBool, pDtype, pFloat, pInt, pShape, pStr, register
+from .registry import (pAny, pBool, pDtype, pFloat, pInt, pShape, pStr,
+                       register)
+
+
+def _log_softmax(x, axis=-1, temperature=None):
+    if temperature:
+        x = x / temperature
+    return torch.log_softmax(x, dim=int(axis))
+
+
+register("log_softmax", _log_softmax, num_inputs=1,
+         params={"axis": (pAny, -1), "temperature": (pAny, None)})
+
+
+def _dropout(data, p=0.5, mode="training", axes=None, _train=False):
+    """Inverted dropout: in training (or ``mode='always'``) keep each
+    element (or each slice along the axes not in ``axes``) with
+    probability 1 - p and scale by 1 / (1 - p).  The mask is drawn from the
+    device's generator (``mx.random.seed``), so it differs from the JAX
+    package's bits."""
+    if (not _train and mode != "always") or p <= 0.0:
+        return data
+    shape = data.shape
+    if axes:
+        shape = tuple(1 if i in axes else n for i, n in enumerate(shape))
+    keep = 1.0 - p
+    mask = torch.rand(shape, device=data.device,
+                      generator=_random.generator(data.device)) < keep
+    return data * (mask.to(data.dtype) / keep)
+
+
+register("Dropout", _dropout, num_inputs=1, takes_train_flag=True,
+         params={"p": (pFloat, 0.5), "mode": (pStr, "training"),
+                 "axes": (pShape, None)})
 
 
 def _leaky_relu(x, act_type="leaky", slope=0.25, lower_bound=0.125,

@@ -38,6 +38,10 @@ def pStr(v):
     return str(v)
 
 
+def pAny(v):
+    return str_to_attr(v)
+
+
 def pDtype(v):
     return dtype_name(v) if v is not None else None
 

@@ -145,11 +145,38 @@ class Symbol:
             return self._entries[0][0].name
         return None
 
-    def __add__(self, other):
-        if not isinstance(other, Symbol):
-            raise MXNetError("Symbol + %s: only Symbol + Symbol is ported"
-                             % type(other).__name__)
-        return _create("elemwise_add", [self, other], {})
+    # arithmetic: elementwise ops between Symbols, scalar ops with numbers
+    def _binary(self, other, op_sym, op_sc, reverse=False):
+        if isinstance(other, Symbol):
+            lhs, rhs = (other, self) if reverse else (self, other)
+            return _create(op_sym, [lhs, rhs], {})
+        return _create(op_sc, [self], {"scalar": float(other)})
+
+    def __add__(self, o):
+        return self._binary(o, "elemwise_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binary(o, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, o):
+        return self._binary(o, "elemwise_sub", "_rminus_scalar",
+                            reverse=True)
+
+    def __mul__(self, o):
+        return self._binary(o, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binary(o, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, o):
+        return self._binary(o, "elemwise_div", "_rdiv_scalar", reverse=True)
+
+    def __neg__(self):
+        return _create("negative", [self], {})
 
     def __repr__(self):
         return "<Symbol %s>" % (self.name or "Grouped")
@@ -403,8 +430,10 @@ class Symbol:
                                      shared_args=shared_args)
 
 
-def var(name, attr=None, shape=None, dtype=None, init=None, **kwargs):
-    """Create a variable symbol (ref: mx.sym.Variable)."""
+def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
+        init=None, **kwargs):
+    """Create a variable symbol (ref: mx.sym.Variable).  ``init`` is an
+    initializer's ``dumps()`` string or an initializer."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
     attrs = dict(attr or {})
@@ -412,8 +441,12 @@ def var(name, attr=None, shape=None, dtype=None, init=None, **kwargs):
         attrs["__shape__"] = str(tuple(shape))
     if dtype is not None:
         attrs["__dtype__"] = dtype_name(dtype)
+    if lr_mult is not None:
+        attrs["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        attrs["__wd_mult__"] = str(wd_mult)
     if init is not None:
-        attrs["__init__"] = init
+        attrs["__init__"] = init if isinstance(init, str) else init.dumps()
     attrs.update({k: str(v) for k, v in kwargs.items()})
     return Symbol([(_Node(None, name, attrs), 0)])
 

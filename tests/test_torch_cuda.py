@@ -204,3 +204,101 @@ def test_small_convnet_trains_alike_on_card_and_host(card):
     for k in xc:
         np.testing.assert_allclose(xg[k].asnumpy(), xc[k].asnumpy(),
                                    atol=1e-4, rtol=1e-4)
+
+
+LSE_CASES = [  # B, S, H, D, causal, dtype, kv_lens
+    (2, 130, 3, 64, True, torch.float32, None),
+    (3, 96, 2, 128, False, torch.float32, [96, 0, 41]),
+    (2, 100, 4, 64, True, torch.bfloat16, [100, 63]),
+]
+
+
+@pytest.mark.parametrize("case", LSE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_lse_variant_matches_plain(card, case):
+    """The kernel's LSE output: f32 [B, H, Sq] at atol=rtol=1e-4 (bf16
+    inputs too: the kernel and the plain version both work in f32 from
+    the same inputs); -1e30 for a row with no valid key."""
+    b, s, h, d, causal, dtype, lens = case
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=card).to(dtype)
+               for _ in range(3))
+    kl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=card)
+    before = K.launch_counts()
+    out, lse = K.flash_attention(q, k, v, causal=causal, kv_lens=kl,
+                                 with_lse=True)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert after["flash_attn_fwd_lse"] == before["flash_attn_fwd_lse"] + 1
+    assert after["flash_attn_fwd"] == before["flash_attn_fwd"]
+    ref_out, ref_lse = K._reference_attention_lse(q, k, v, causal,
+                                                  1.0 / d ** 0.5, kl)
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 \
+        else dict(atol=2e-2, rtol=0)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref_out.float().cpu().numpy(), **tol)
+    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", LSE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_attn_fn_grads_on_the_card_match_the_host(card, case):
+    """``attention()`` under grad on CUDA tensors is differentiable (the
+    LSE kernel and the flash backward): its gradients against torch
+    autograd through the plain forward, on the card, at f32
+    atol=rtol=1e-4 (bf16: 3e-2, as the JAX package holds its kernel)."""
+    b, s, h, d, causal, dtype, lens = case
+    g = torch.Generator(device=card).manual_seed(6)
+    base = [torch.randn(b, s, h, d, generator=g, device=card).to(dtype)
+            for _ in range(3)]
+    w = torch.randn(b, s, h, d, generator=g, device=card)
+    kl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=card)
+    grads = []
+    for fn in (lambda q, k, v: K.attention(q, k, v, causal, None, kl),
+               lambda q, k, v: K._reference_attention(q, k, v, causal,
+                                                      1.0 / d ** 0.5, kl)):
+        q, k, v = (t.clone().requires_grad_() for t in base)
+        out = fn(q, k, v)
+        grads.append(torch.autograd.grad((out.float() * w).sum(), (q, k, v)))
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 \
+        else dict(atol=3e-2, rtol=3e-2)
+    for got, want in zip(*grads):
+        assert got.abs().max() > 0
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **tol)
+
+
+def test_mha_module_gradients_on_the_card_match_the_host(card):
+    """Module.forward_backward through ``multi_head_attention`` (the
+    graph of tests/test_attention.py:212): the q/k/v weight and bias
+    gradients on the card are nonzero and equal the host's at
+    atol=rtol=1e-4 (f32, TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = mx.sym.var("data")
+    attn = mx.sym.multi_head_attention(data, data, data, num_heads=2,
+                                       causal=True, name="attn0")
+    net = mx.sym.FullyConnected(mx.sym.Flatten(data + attn), num_hidden=3,
+                                name="fc")
+    sym = mx.sym.SoftmaxOutput(net, name="softmax")
+    r = np.random.RandomState(7)
+    x = r.normal(0, 1, (2, 8, 128)).astype(np.float32)
+    y = r.randint(0, 3, (2,)).astype(np.float32)
+    grads = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        mod = mx.mod.Module(sym, context=ctx)
+        mod.bind([("data", x.shape)], [("softmax_label", y.shape)])
+        mx.random.seed(0)
+        mod.init_params(mx.initializer.Xavier())
+        batch = mx.io.DataBatch([mx.nd.array(x, ctx=ctx)],
+                                [mx.nd.array(y, ctx=ctx)])
+        mod.forward_backward(batch)
+        exe = mod._exec_group.execs[0]
+        grads.append({n: g.asnumpy() for n, g in exe.grad_dict.items()})
+    for side in ("query", "key", "value"):
+        for part in ("weight", "bias"):
+            name = "attn0_%s_%s" % (side, part)
+            if part == "weight" or side != "key":  # the key bias: ~0
+                assert np.abs(grads[0][name]).max() > 1e-6, name
+            np.testing.assert_allclose(grads[0][name], grads[1][name],
+                                       atol=1e-4, rtol=1e-4, err_msg=name)

@@ -17,6 +17,7 @@ import torch
 
 import mxnet_tpu as jmx
 from mxnet_tpu.gluon.model_zoo.transformer import TransformerLM
+from mxnet_tpu.symbol.symbol import NameManager as JNameManager
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import threads
@@ -30,9 +31,12 @@ LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 
 @pytest.fixture(scope="module")
 def exported(tmp_path_factory):
-    """The JAX Gluon export: (symbol json text, params path, {name: np})."""
+    """The JAX Gluon export: (symbol json text, params path, {name: np}).
+    Built under a fresh name scope, so its prefix is ``transformerlm0_``
+    whatever another test file built before it in this process."""
     jmx.random.seed(3)
-    lm = TransformerLM(VOCAB, **CFG)
+    with JNameManager():
+        lm = TransformerLM(VOCAB, **CFG)
     lm.initialize(jmx.initializer.Xavier())
     lm.hybridize()
     lm(jmx.nd.array(np.zeros((1, CFG["seq_len"]), np.float32)))
