@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit.  Phases, each of which raises on failure:
 
 1. Card: the card's name and power limit, torch and CUDA versions, and
-   the build of every kernel source (one ``nvcc`` each, in parallel).
+   the build of every kernel source (one ``nvcc`` each, in parallel),
+   with each compiled kernel's registers and spills from ``ptxas``.
 2. Kernels against their plain PyTorch versions on the card:
    - the flash-attention forward at the serving shape (B 4, S 1024, H 12,
      D 64, causal, f32) and at S 1000 non-causal, ragged ``kv_lens`` with
@@ -19,10 +20,13 @@ CUDA toolkit.  Phases, each of which raises on failure:
      post-ReLU, many tied zeros), a ``full``-convention case and bf16;
    - ``avg_pool_backward`` at the global 7x7 pool, 3x3/s2/p1 with
      ``count_include_pad=False`` and ``full``, and ``sum``;
-   each with the kernel's and the plain version's times beside the bound,
-   and one PyTorch call computing the same function as a yardstick
-   (``scaled_dot_product_attention``, ``batch_norm_stats``, the aten
-   pooling backwards: timed only, the port never calls them).
+   each with the kernel's and the plain version's times beside the bound
+   (for f32 attention: f32-accurate work on the tensor cores, three TF32
+   passes, printed beside the CUDA cores' f32 figure), and one PyTorch
+   call computing the same function as a yardstick
+   (``scaled_dot_product_attention``, whose device kernel
+   ``torch.profiler`` names, ``batch_norm_stats``, the aten pooling
+   backwards: timed only, the port never calls them).
 3. Serving: a GPT-2-small-width TransformerLM (vocab 50257, context
    1024, width 768, 12 heads, 12 layers, FFN 3072; random weights from
    ``--seed``) served by ``Server(max_batch_size=4)``: warmup with its
@@ -77,9 +81,12 @@ MAX_BATCH = 4
 REQUEST_ROWS = (1, 2, 3, 1, 2, 3, 1, 2)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
-PEAK_F32_FLOPS = 67e12
+PEAK_F32_FLOPS = 67e12      # CUDA cores
+PEAK_TF32_FLOPS = 494.7e12  # tensor cores
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# f32-accurate products on the tensor cores: three TF32 passes (3xTF32)
+PEAK_TF32X3_FLOPS = PEAK_TF32_FLOPS / 3
 
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=2e-2, rtol=0.0)
@@ -136,11 +143,40 @@ def time_ms(fn, reps=30, warmup=3):
     return float(np.median(times))
 
 
+def _bound(ops, nbytes, peak):
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def time_ms_back_to_back(fn, launches=20, reps=10):
+    """Median over ``reps`` runs of ``launches`` calls in a row between two
+    CUDA events, per call: the kernel's own time, with the host's launch
+    overhead hidden behind the queued work (``time_ms`` times one call
+    and so also counts the wrapper's host time)."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(launches):
+            fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / launches)
+    return float(np.median(times))
+
+
 def flash_bound(q, sk, causal, kv_lens, extra_bytes=0):
     """Least time (ms) the card needs for this attention call, and what
     bounds it: 4*D*H operations per valid (row, key) pair of these
-    inputs, at the peak of the input type, against q, k, v read once and
-    o (and ``extra_bytes`` more output) written once."""
+    inputs, at f32 accuracy on the tensor cores (three TF32 passes) for
+    f32 and at the bf16 rate for bf16, against q, k, v read once and o
+    (and ``extra_bytes`` more output) written once.  Also returns the
+    bound at the CUDA cores' f32 rate, the figure used before the kernel
+    ran on the tensor cores."""
     import torch
     b, sq, h, d = q.shape
     lens = [sk] * b if kv_lens is None else \
@@ -158,9 +194,11 @@ def flash_bound(q, sk, causal, kv_lens, extra_bytes=0):
     if kv_lens is not None:
         nbytes += 4 * b
     nbytes += extra_bytes
-    peak = PEAK_F32_FLOPS if q.dtype == torch.float32 else PEAK_BF16_FLOPS
-    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    if q.dtype != torch.float32:
+        bound = _bound(ops, nbytes, PEAK_BF16_FLOPS)
+        return bound, bound
+    return (_bound(ops, nbytes, PEAK_TF32X3_FLOPS),
+            _bound(ops, nbytes, PEAK_F32_FLOPS))
 
 
 def check_flash(seed):
@@ -212,11 +250,24 @@ def check_flash(seed):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, scale=scale))
-        bound_ms, bound_by = flash_bound(q, sk, True, None)
+        (bound_ms, bound_by), old = flash_bound(q, sk, True, None)
         print("kernel flash_attn_fwd serving: %.4f ms, plain %.4f ms, "
-              "sdpa %.4f ms, bound %.4f ms (%s), roofline share %.1f%%"
+              "sdpa %.4f ms, bound %.4f ms (%s, 3xTF32), roofline share "
+              "%.1f%%; at the CUDA cores' f32 rate the bound is %.4f ms "
+              "(share %.1f%%); card %s"
               % (ms, plain_ms, library_ms, bound_ms, bound_by,
-                 100.0 * bound_ms / ms))
+                 100.0 * bound_ms / ms, old[0], 100.0 * old[0] / ms,
+                 card_line()))
+        print("kernel flash_attn_fwd serving, %d calls back to back: %.4f ms "
+              "a call, sdpa %.4f ms"
+              % (20, time_ms_back_to_back(lambda: K.flash_attention(
+                  q, k, v, causal=True, scale=scale)),
+                 time_ms_back_to_back(lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, is_causal=True, scale=scale))))
+        sdpa_kernels = profile_kernels(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale))
+        print("sdpa at the serving shape runs: %s"
+              % "; ".join("%s (%.4f ms)" % kv for kv in sdpa_kernels))
         record = {"name": "flash_attn_fwd", "route": "cuda",
                   "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
                   "replaces": "mxnet_tpu/ops/pallas_kernels.py:338",
@@ -229,14 +280,15 @@ def check_flash(seed):
 def flash_bwd_bound(q, causal):
     """Least time (ms) of the flash backward at these shapes: 10*D*H
     operations per valid (row, key) pair (recomputed scores, dP, dV, dQ,
-    dK) in f32, against q, k, v, o, dO and the LSE read once and dq, dk, dv
-    written once."""
+    dK) at f32 accuracy on the tensor cores (3xTF32), against q, k, v, o,
+    dO and the LSE read once and dq, dk, dv written once; and the same at
+    the CUDA cores' f32 rate, the figure used before."""
     b, s, h, d = q.shape
     pairs = b * (s * (s + 1) // 2 if causal else s * s)
-    t_ops = 10 * d * h * pairs / PEAK_F32_FLOPS * 1e3
+    ops = 10 * d * h * pairs
     nbytes = 4 * (8 * q.numel() + b * h * s)
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return (_bound(ops, nbytes, PEAK_TF32X3_FLOPS),
+            _bound(ops, nbytes, PEAK_F32_FLOPS))
 
 
 def check_flash_lse(seed):
@@ -311,10 +363,18 @@ def check_flash_lse(seed):
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, scale=scale))
         # the LSE output adds its f32 [B, H, S] to the bytes written
-        bound_ms, bound_by = flash_bound(q, s, True, None,
-                                         extra_bytes=4 * b * h * s)
+        (bound_ms, bound_by), old = flash_bound(q, s, True, None,
+                                                extra_bytes=4 * b * h * s)
         _report("kernel flash_attn_fwd_lse train", ms, plain_ms, library_ms,
                 (bound_ms, bound_by))
+        print("kernel flash_attn_fwd_lse train: at the CUDA cores' f32 rate "
+              "the bound is %.4f ms (share %.1f%%); %d calls back to back: "
+              "%.4f ms a call, sdpa forward %.4f ms"
+              % (old[0], 100.0 * old[0] / ms, 20,
+                 time_ms_back_to_back(lambda: K.flash_attention(
+                     q, k, v, causal=True, scale=scale, with_lse=True)),
+                 time_ms_back_to_back(lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, is_causal=True, scale=scale))))
         record = {"name": "flash_attn_fwd_lse", "route": "cuda",
                   "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
                   "replaces": "mxnet_tpu/ops/pallas_kernels.py:338",
@@ -328,12 +388,14 @@ def check_flash_lse(seed):
         dt = dout.transpose(1, 2)
         sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
             st, (qt, kt, vt), dt, retain_graph=True))
-        bwd_bound = flash_bwd_bound(q, True)
+        bwd_bound, bwd_old = flash_bwd_bound(q, True)
         print("flash backward (torch ops, not a TPU kernel) train: %.4f ms, "
-              "sdpa backward %.4f ms, bound %.4f ms (%s), roofline share "
-              "%.1f%%; card %s"
+              "sdpa backward %.4f ms, bound %.4f ms (%s, 3xTF32), roofline "
+              "share %.1f%%; at the CUDA cores' f32 rate the bound is %.4f ms "
+              "(share %.1f%%); card %s"
               % (bwd_ms, sdpa_bwd_ms, bwd_bound[0], bwd_bound[1],
-                 100.0 * bwd_bound[0] / bwd_ms, card_line()))
+                 100.0 * bwd_bound[0] / bwd_ms, bwd_old[0],
+                 100.0 * bwd_old[0] / bwd_ms, card_line()))
     return record
 
 
@@ -489,7 +551,13 @@ def check_pool_bwd(seed):
             continue
         ms, plain_ms, lib_ms = time_ms(run), time_ms(plain), time_ms(lib)
         bound = bytes_bound(nbytes)
-        _report("kernel %s %s" % (name, label), ms, plain_ms, lib_ms, bound)
+        # the max-pool backward is one launch with no argmax scratch
+        _report("kernel %s %s%s" % (name, label, " (one launch, no scratch)"
+                                    if pool == "max" else ""),
+                ms, plain_ms, lib_ms, bound)
+        print("kernel %s %s, %d calls back to back: %.4f ms a call, library "
+              "%.4f ms" % (name, label, 20, time_ms_back_to_back(run),
+                           time_ms_back_to_back(lib)))
         records[name] = {
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/pool_bwd.cu",
@@ -792,8 +860,8 @@ def train_step_split(mod, train_iter):
 
 
 HAND_KERNELS = ("partial_sums_kernel", "combine_kernel",
-                "window_argmax_kernel", "max_pool_gather_kernel",
-                "avg_pool_bwd_kernel", "flash_fwd_kernel")
+                "max_pool_bwd_band_kernel", "avg_pool_bwd_kernel",
+                "flash_fwd_kernel")
 KERNEL_GROUPS = (  # (label, substrings of a device kernel's name)
     ("hand-written (flash, bn sums, pool backward)", HAND_KERNELS),
     ("convolution and matmul (cuDNN, cuBLAS)",
@@ -815,6 +883,23 @@ def profile_step(mod, batch):
         mod.update()
 
     profile_run(run, "train")
+
+
+def profile_kernels(run):
+    """(device kernel name, ms) of the kernels ``run()`` launches, from
+    torch.profiler, largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = [(e.key, getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)) / 1e3)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(out, key=lambda kv: -kv[1])
 
 
 def profile_run(run, tag):
@@ -1096,6 +1181,33 @@ def gluon_host_check(mx, seed):
                              "host's")
 
 
+def ptxas_entries(text):
+    """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
+    per compiled entry of an ``nvcc -Xptxas=-v`` report.  The kernel is
+    read off its mangled name: the function's name, then its template
+    arguments as mangled (``IfLi64EE``: float, 64; ``I13__nv_bfloat16Li3E
+    Li3ELi2ELi2EE``: bf16 and a 3x3/s2 window)."""
+    import re
+    out, entry, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"entry function '_ZN(\d+)", line)
+        if m:
+            rest = line[m.end() + int(m.group(1)):]  # past the namespace
+            n = re.match(r"\d+", rest)
+            name = rest[n.end():n.end() + int(n.group())]
+            tail = rest[n.end() + len(name):]
+            entry = name + (tail[:tail.index("EEv") + 1]
+                            if tail.startswith("I") and "EEv" in tail else "")
+            spill = ""
+        elif "spill stores" in line:
+            spill = ", ".join(p.strip() for p in line.split(",")[1:])
+        elif "registers" in line and entry:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append((entry, "%s registers, %s" % (regs, spill)))
+            entry = None
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1122,9 +1234,9 @@ def main():
     _build.build_all(["flash_attn_fwd", "bn_channel_sums", "pool_bwd"])
     print("kernels built in %.1f s" % (time.perf_counter() - t0))
     for name, info in sorted(_build.BUILD_INFO.items()):
-        regs = [ln.strip() for ln in info["ptxas"].splitlines()
-                if "registers" in ln]
-        print("  %s: %.1f s; %s" % (name, info["seconds"], "; ".join(regs)))
+        print("  %s: %.1f s" % (name, info["seconds"]))
+        for entry, report in ptxas_entries(info["ptxas"]):
+            print("    %s: %s" % (entry, report))
 
     records = [check_flash(args.seed), check_flash_lse(args.seed),
                check_bn_sums(args.seed), *check_pool_bwd(args.seed)]

@@ -16,34 +16,45 @@
 //        where div is the (OH, OW) f32 divisor map (1 for sum pooling,
 //        1/prod(kernel), or 1/valid-count under count_include_pad=False).
 //
-// Design (a simple first kernel).  The TPU kernel views the padded input
-// phase-major (space to depth by the stride) so that every tap is a
-// contiguous lane slice, and scatters each window's cotangent into its
-// taps.  Neither is needed here: one thread owns one input pixel (a
-// gather), finds the range of windows covering it along each axis with
-// two divisions, and walks them so that its tap (i, j) in each runs in
-// row-major order, adding each window's share in f32.  For max pooling a
-// first pass (one thread per window) writes each window's first argmax
-// tap into a byte map, the select of select-and-scatter, so that the
-// gather reads one byte per covering window instead of recomputing the
-// window.  Each pixel's sum is formed by one thread in a fixed order (no
-// atomics, deterministic), and that order is the plain version's tap
-// loop, so the two agree bit for bit in f32.  The
-// avg sum uses explicitly rounded multiply and add so that the compiler
-// does not contract them into an FMA the plain version does not make.
-// Pixels that no window covers get 0.
+// Design.  Max: one launch; each block owns a band of input rows and a
+// column tile of one (n, c) plane (at ResNet-50's stem, 56 rows x 112).  It
+// finds the windows covering its band once, from the band's first and last
+// rows (a few divisions per block, not per element), and stages into shared
+// memory, with coalesced loads, the x rows those windows read (the band
+// plus a halo, -inf outside the input) and those windows' dy.  It computes
+// each covering window's first maximal tap, in row-major order, as one byte
+// in shared memory (the select of select-and-scatter: a strict `>` keeps
+// the earlier of tied taps, a NaN routes the window's gradient nowhere).
+// Then each thread owns 4 consecutive pixels of a row and sums dy over the
+// windows covering each, walking them so that its tap (i, j) in each runs
+// in row-major order, with the covering ranges from per-row and per-column
+// tables the block built once; it writes the 4 pixels with one vector store
+// where the row is aligned.  Windows in the halo are recomputed by the two
+// neighbouring blocks: a little arithmetic, no global traffic.  Avg: one
+// thread owns one input pixel (a gather), finds the range of windows
+// covering it along each axis with two divisions, and walks them in the
+// same order, adding each window's dy * div.  Each pixel's sum is formed by
+// one thread in a fixed order (no atomics, deterministic), and that order
+// is the plain version's tap loop, so the two agree bit for bit in f32.
+// The avg sum uses explicitly rounded multiply and add so that the
+// compiler does not contract them into an FMA the plain version does not
+// make.  Pixels that no window covers get 0.
 //
 // Bound on an H100 SXM: bytes, over 3.35 TB/s.  Max: x read once, dy read
 // once, dx written once; at ResNet-50's stem (x (32, 64, 112, 112), dy
-// (32, 64, 56, 56), f32) that is 231 MB, 0.069 ms.  Avg: dy, div and dx;
-// at the global 7 x 7 pool (dy (32, 2048, 1, 1), dx (32, 2048, 7, 7), f32)
-// 13.1 MB, 0.004 ms, which launch latency exceeds.  The argmax map adds
-// N*C*OH*OW bytes written and read once (6.4 MB at the stem).
+// (32, 64, 56, 56), f32) that is 231 MB, 0.069 ms.  The banded design reads
+// x once plus a halo of a few rows per band (3 per 56 at the stem, mostly
+// from L2) and dy about once; there is no global argmax map.  Avg: dy, div
+// and dx; at the global 7 x 7 pool (dy (32, 2048, 1, 1), dx (32, 2048, 7,
+// 7), f32) 13.1 MB, 0.004 ms, which launch latency exceeds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -75,74 +86,283 @@ __device__ __forceinline__ void covering(int p, int k, int s, int out, int* lo, 
 }
 
 constexpr unsigned char NO_TAP = 255;  // a window holding a NaN
+constexpr int NWARPS = NTHREADS / 32;
+constexpr int BAND_PIXELS = 8192;     // input pixels a block aims to own
+constexpr int MAX_TILE_W = 256;       // widest column tile
+constexpr int BAND_SMEM = 48 * 1024;  // shared memory a block may stage
 
-// Pass 1: one thread per window writes its first maximal tap, in
-// row-major order (-inf outside x, so padding never wins), or NO_TAP.
+// A block's share of a plane: `rows` x `cols` input pixels; the plane has
+// n_bands x n_tiles of them.
+struct Band {
+  int rows, cols, n_bands, n_tiles;
+};
+
+__device__ __forceinline__ void store4(float* p, const float (&a)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&a)[4]) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a[0], a[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(a[2], a[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+constexpr int ROWS_IN_FLIGHT = 4;  // staged rows a warp loads before storing
+
+// x[gc .. gc + 3] of one row as f32, -inf outside the input.  `vec`: the
+// row and its stride allow one aligned load of the 4 (gc is a multiple of
+// 4 and W too, so the 4 are all inside or all outside).
 template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-window_argmax_kernel(const T* __restrict__ x, unsigned char* __restrict__ arg_out,
-                     Geometry g, Strides4 xs) {
-  const unsigned int idx = blockIdx.x * NTHREADS + threadIdx.x;
-  if (idx >= (unsigned int)g.N * g.C * g.OH * g.OW) return;
-  const unsigned int rows = idx / (unsigned int)g.OW;
-  const int ow = (int)(idx - rows * g.OW);
-  const unsigned int plane = rows / (unsigned int)g.OH;
-  const int oh = (int)(rows - plane * g.OH);
+__device__ __forceinline__ float4 load4(const T* __restrict__ row, int gc, int W,
+                                        long long sw, bool row_in, bool vec) {
+  float4 f = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+  if (!row_in || gc >= W || gc + 3 < 0) return f;
+  if (vec) {
+    if constexpr (std::is_same<T, float>::value) {
+      return *reinterpret_cast<const float4*>(row + gc);
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(row + gc);
+      const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+      const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+      return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
+    }
+  }
+  if (gc >= 0) f.x = to_f32(row[gc * sw]);
+  if (gc + 1 >= 0 && gc + 1 < W) f.y = to_f32(row[(gc + 1) * sw]);
+  if (gc + 2 >= 0 && gc + 2 < W) f.z = to_f32(row[(gc + 2) * sw]);
+  if (gc + 3 < W) f.w = to_f32(row[(gc + 3) * sw]);
+  return f;
+}
+
+// KH, KW, SH, SW: the window and stride when known at compile time (the
+// loops over taps and covering windows then unroll and the divisions by the
+// stride become shifts), else 0 and read from g.
+template <typename T, int KH, int KW, int SH, int SW>
+__global__ void __launch_bounds__(NTHREADS, 6)
+max_pool_bwd_band_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                         T* __restrict__ dx, Geometry g, Strides4 xs, Strides4 ys,
+                         Band band, int vec_load, int vec_store) {
+  if constexpr (KH > 0) {
+    g.kh = KH;
+    g.kw = KW;
+    g.sh = SH;
+    g.sw = SW;
+  }
+  // most windows covering one pixel along each axis, when known
+  constexpr int MWH = KH > 0 ? (KH + SH - 1) / SH : 0;
+  constexpr int MWW = KH > 0 ? (KW + SW - 1) / SW : 0;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned int rest = blockIdx.x / band.n_tiles;
+  const int tile = (int)(blockIdx.x - rest * band.n_tiles);
+  const unsigned int plane = rest / band.n_bands;
+  const int bnd = (int)(rest - plane * band.n_bands);
   const int n = (int)(plane / (unsigned int)g.C);
   const int c = (int)(plane - n * g.C);
+  const int h0 = bnd * band.rows, nrows = min(band.rows, g.H - h0);
+  const int w0 = tile * band.cols, ncols = min(band.cols, g.W - w0);
+
+  // the windows covering the band, and the x rows and columns they read
+  int oh_lo, oh_hi, ow_lo, ow_hi, unused;
+  covering(h0 + g.pt, g.kh, g.sh, g.OH, &oh_lo, &unused);
+  covering(h0 + nrows - 1 + g.pt, g.kh, g.sh, g.OH, &unused, &oh_hi);
+  covering(w0 + g.pl, g.kw, g.sw, g.OW, &ow_lo, &unused);
+  covering(w0 + ncols - 1 + g.pl, g.kw, g.sw, g.OW, &unused, &ow_hi);
+  const bool any = oh_hi >= oh_lo && ow_hi >= ow_lo;
+  const int nwh = any ? oh_hi - oh_lo + 1 : 0, nww = any ? ow_hi - ow_lo + 1 : 0;
+  const int xrows = any ? (nwh - 1) * g.sh + g.kh : 0;
+  const int xcols = any ? (nww - 1) * g.sw + g.kw : 0;
+  const int xr0 = oh_lo * g.sh - g.pt, xc0 = ow_lo * g.sw - g.pl;
+  // staged rows start at the multiple of 4 at or below xc0, so that each
+  // 4-column chunk is one aligned load
+  const int xa = xc0 & ~3, xoff = xc0 - xa;
+  const int xw = any ? (xoff + xcols + 3) & ~3 : 0;
+
+  float* sx = reinterpret_cast<float*>(smem);  // [xrows][xw]
+  float* sdy = sx + xrows * xw;                // [nwh][nww]
+  int* rlo = reinterpret_cast<int*>(sdy + nwh * nww);
+  int* rhi = rlo + band.rows;
+  int* clo = rhi + band.rows;
+  int* chi = clo + band.cols;
+  unsigned char* sarg = reinterpret_cast<unsigned char*>(chi + band.cols);  // [nwh][nww]
+
+  // stage x (-inf outside the input) and dy: a warp per row, lanes along
+  // it, ROWS_IN_FLIGHT rows' loads issued before their stores
   const T* xp = x + n * xs.n + c * xs.c;
-  const int h0 = oh * g.sh - g.pt, w0 = ow * g.sw - g.pl;
-  float best = -INFINITY;
-  int arg = 0;
-  bool has_nan = false;
-  for (int ti = 0; ti < g.kh; ++ti) {
-    const int hi = h0 + ti;
-    const bool row_in = hi >= 0 && hi < g.H;
-    for (int tj = 0; tj < g.kw; ++tj) {
-      const int wj = w0 + tj;
-      const float v = (row_in && wj >= 0 && wj < g.W) ? to_f32(xp[hi * xs.h + wj * xs.w])
-                                                       : -INFINITY;
-      const int t = ti * g.kw + tj;
-      if (v != v) has_nan = true;
-      if (t == 0 || v > best) {  // strict: a tie keeps the earlier tap
-        best = v;
-        arg = t;
+  const int chunks = xw >> 2;
+  for (int r0 = warp; r0 < xrows; r0 += NWARPS * ROWS_IN_FLIGHT) {
+    for (int q0 = 0; q0 < chunks; q0 += 32) {
+      const int q = q0 + lane;
+      float4 vals[ROWS_IN_FLIGHT];
+#pragma unroll
+      for (int u = 0; u < ROWS_IN_FLIGHT; ++u) {
+        const int hr = xr0 + r0 + u * NWARPS;
+        const bool row_in = r0 + u * NWARPS < xrows && q < chunks && hr >= 0 && hr < g.H;
+        vals[u] = load4(xp + (row_in ? (long long)hr * xs.h : 0), xa + 4 * q, g.W, xs.w,
+                        row_in, vec_load);
+      }
+#pragma unroll
+      for (int u = 0; u < ROWS_IN_FLIGHT; ++u) {
+        const int r = r0 + u * NWARPS;
+        if (r < xrows && q < chunks) *reinterpret_cast<float4*>(sx + r * xw + 4 * q) = vals[u];
       }
     }
   }
-  arg_out[idx] = has_nan ? NO_TAP : (unsigned char)arg;
-}
-
-// Pass 2: one thread per input pixel sums dy over the covering windows
-// whose first maximal tap it is.
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-max_pool_gather_kernel(const unsigned char* __restrict__ arg, const T* __restrict__ dy,
-                       T* __restrict__ dx, Geometry g, Strides4 ys) {
-  // 32-bit index arithmetic: the entry refuses more than 2^31 - 1 pixels
-  const unsigned int idx = blockIdx.x * NTHREADS + threadIdx.x;
-  if (idx >= (unsigned int)g.N * g.C * g.H * g.W) return;
-  const unsigned int rows = idx / (unsigned int)g.W;
-  const int w = (int)(idx - rows * g.W);
-  const unsigned int plane = rows / (unsigned int)g.H;
-  const int h = (int)(rows - plane * g.H);
-  const int n = (int)(plane / (unsigned int)g.C);
-  const int c = (int)(plane - n * g.C);
-  const unsigned char* ap = arg + (size_t)plane * g.OH * g.OW;
   const T* yp = dy + n * ys.n + c * ys.c;
-  int oh_lo, oh_hi, ow_lo, ow_hi;
-  covering(h + g.pt, g.kh, g.sh, g.OH, &oh_lo, &oh_hi);
-  covering(w + g.pl, g.kw, g.sw, g.OW, &ow_lo, &ow_hi);
-  float acc = 0.f;
-  // taps (i, j) in row-major order: windows by descending oh, then ow
-  for (int oh = oh_hi; oh >= oh_lo; --oh) {
-    const int i = h + g.pt - oh * g.sh;
-    for (int ow = ow_hi; ow >= ow_lo; --ow) {
-      const int j = w + g.pl - ow * g.sw;
-      if (ap[oh * g.OW + ow] == i * g.kw + j) acc += to_f32(yp[oh * ys.h + ow * ys.w]);
+  for (int r0 = warp; r0 < nwh; r0 += NWARPS * ROWS_IN_FLIGHT) {
+    for (int c0 = 0; c0 < nww; c0 += 32) {
+      const int cc = c0 + lane;
+      float vals[ROWS_IN_FLIGHT];
+#pragma unroll
+      for (int u = 0; u < ROWS_IN_FLIGHT; ++u) {
+        const int r = r0 + u * NWARPS;
+        vals[u] = r < nwh && cc < nww
+                      ? to_f32(yp[(long long)(oh_lo + r) * ys.h + (long long)(ow_lo + cc) * ys.w])
+                      : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < ROWS_IN_FLIGHT; ++u) {
+        const int r = r0 + u * NWARPS;
+        if (r < nwh && cc < nww) sdy[r * nww + cc] = vals[u];
+      }
     }
   }
-  dx[idx] = from_f32<T>(acc);
+  // each band row's and tile column's covering windows, relative to the
+  // band's first
+  for (int r = threadIdx.x; r < nrows; r += NTHREADS) {
+    int lo, hi;
+    covering(h0 + r + g.pt, g.kh, g.sh, g.OH, &lo, &hi);
+    rlo[r] = lo - oh_lo;
+    rhi[r] = hi - oh_lo;
+  }
+  for (int cc = threadIdx.x; cc < ncols; cc += NTHREADS) {
+    int lo, hi;
+    covering(w0 + cc + g.pl, g.kw, g.sw, g.OW, &lo, &hi);
+    clo[cc] = lo - ow_lo;
+    chi[cc] = hi - ow_lo;
+  }
+  __syncthreads();
+
+  // each covering window's first maximal tap in row-major order
+  for (int wh = warp; wh < nwh; wh += NWARPS) {
+    for (int ww = lane; ww < nww; ww += 32) {
+      const float* win = sx + wh * g.sh * xw + xoff + ww * g.sw;
+      float best = -INFINITY;
+      int arg = 0;
+      bool has_nan = false;
+      for (int ti = 0; ti < g.kh; ++ti) {
+        for (int tj = 0; tj < g.kw; ++tj) {
+          const float v = win[ti * xw + tj];
+          const int t = ti * g.kw + tj;
+          if (v != v) has_nan = true;
+          if (t == 0 || v > best) {  // strict: a tie keeps the earlier tap
+            best = v;
+            arg = t;
+          }
+        }
+      }
+      sarg[wh * nww + ww] = has_nan ? NO_TAP : (unsigned char)arg;
+    }
+  }
+  __syncthreads();
+
+  // gather: 4 consecutive pixels a lane, a warp per row
+  T* dxp = dx + (long long)plane * g.H * g.W;
+  for (int r = warp; r < nrows; r += NWARPS) {
+    const int h = h0 + r;
+    const int wlo = rlo[r], whi = rhi[r];
+    const int ib = h + g.pt - oh_lo * g.sh;  // tap row in window wh: ib - wh * sh
+    T* drow = dxp + (long long)h * g.W + w0;
+    for (int c4 = lane * 4; c4 < ncols; c4 += 4 * 32) {
+      float acc[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[e] = 0.f;
+        const int cc = c4 + e;
+        if (cc >= ncols) continue;
+        const int jb = w0 + cc + g.pl - ow_lo * g.sw;
+        const int vlo = clo[cc], vhi = chi[cc];
+        auto take = [&](int wh, int ww) {
+          const int i = ib - wh * g.sh, j = jb - ww * g.sw;
+          if (sarg[wh * nww + ww] == i * g.kw + j) acc[e] += sdy[wh * nww + ww];
+        };
+        // taps (i, j) in row-major order: windows by descending oh, then ow
+        if constexpr (KH > 0) {
+#pragma unroll
+          for (int a = 0; a < MWH; ++a) {
+#pragma unroll
+            for (int b = 0; b < MWW; ++b)
+              if (whi - a >= wlo && vhi - b >= vlo) take(whi - a, vhi - b);
+          }
+        } else {
+          for (int wh = whi; wh >= wlo; --wh)
+            for (int ww = vhi; ww >= vlo; --ww) take(wh, ww);
+        }
+      }
+      if (vec_store && c4 + 4 <= ncols) {
+        store4(drow + c4, acc);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c4 + e < ncols) drow[c4 + e] = from_f32<T>(acc[e]);
+      }
+    }
+  }
+}
+
+// Windows along one axis that can cover `span` consecutive positions.
+int windows_over(int span, int k, int s, int out) {
+  return out < 1 ? 0 : std::min(out, (span + k - 2) / s + 1);
+}
+
+// Shared memory a block of `rows` x `cols` pixels stages, at most.
+size_t band_smem(const Geometry& g, int rows, int cols) {
+  const long long wh = windows_over(rows, g.kh, g.sh, g.OH);
+  const long long ww = windows_over(cols, g.kw, g.sw, g.OW);
+  const long long xr = wh > 0 ? (wh - 1) * g.sh + g.kh : 0;
+  // + 6: the staged row starts up to 3 columns early and is padded to 4
+  const long long xc = ww > 0 ? (ww - 1) * g.sw + g.kw + 6 : 0;
+  return (size_t)(4 * (xr * xc + wh * ww) + 8 * (rows + cols) + wh * ww);
+}
+
+// About BAND_PIXELS pixels a block, whole rows up to MAX_TILE_W wide,
+// halved until the staged halo fits in BAND_SMEM, then evened out over
+// the plane's rows.
+Band choose_band(const Geometry& g) {
+  Band b;
+  b.cols = std::min(g.W, MAX_TILE_W);
+  b.rows = std::max(1, std::min(g.H, BAND_PIXELS / b.cols));
+  while (band_smem(g, b.rows, b.cols) > BAND_SMEM) {
+    if (b.rows > 1) {
+      b.rows = (b.rows + 1) / 2;
+    } else if (b.cols > 4) {
+      b.cols = std::max(4, b.cols / 2 / 4 * 4);
+    } else {
+      break;  // a 64-tap window over 1 x 4 pixels stages well under the budget
+    }
+  }
+  b.n_bands = (g.H + b.rows - 1) / b.rows;
+  b.rows = (g.H + b.n_bands - 1) / b.n_bands;
+  b.n_tiles = (g.W + b.cols - 1) / b.cols;
+  return b;
+}
+
+template <typename T>
+void launch_max(bool stem, unsigned int blocks, size_t smem, cudaStream_t st, const void* x,
+                const void* dy, void* dx, const Geometry& g, const Strides4& xs,
+                const Strides4& ys, const Band& band, int vec_load, int vec_store) {
+  const T* xt = static_cast<const T*>(x);
+  const T* yt = static_cast<const T*>(dy);
+  T* dt = static_cast<T*>(dx);
+  if (stem) {
+    max_pool_bwd_band_kernel<T, 3, 3, 2, 2><<<blocks, NTHREADS, smem, st>>>(
+        xt, yt, dt, g, xs, ys, band, vec_load, vec_store);
+  } else {
+    max_pool_bwd_band_kernel<T, 0, 0, 0, 0><<<blocks, NTHREADS, smem, st>>>(
+        xt, yt, dt, g, xs, ys, band, vec_load, vec_store);
+  }
 }
 
 template <typename T>
@@ -182,11 +402,10 @@ bool too_large(const Geometry& g) {
 
 }  // namespace
 
-// Both entries return the cudaGetLastError() code of the launches (0 on
-// success).  Strides are in elements; dx is a contiguous NCHW output;
-// argmax is uint8 scratch of N*C*OH*OW bytes.
+// Both entries return the cudaGetLastError() code of the launch (0 on
+// success).  Strides are in elements; dx is a contiguous NCHW output.
 extern "C" int mxtt_max_pool_bwd(
-    const void* x, const void* dy, void* dx, unsigned char* argmax,
+    const void* x, const void* dy, void* dx,
     int N, int C, int H, int W, int OH, int OW, int kh, int kw, int sh, int sw,
     int pad_top, int pad_left,
     long long x_sn, long long x_sc, long long x_sh, long long x_sw,
@@ -194,27 +413,26 @@ extern "C" int mxtt_max_pool_bwd(
     int is_bf16, void* stream) {
   const Geometry g{N, C, H, W, OH, OW, kh, kw, sh, sw, pad_top, pad_left};
   if (blocks_for(g) == 0) return 0;
-  if (too_large(g)) return (int)cudaErrorInvalidValue;
+  if (too_large(g) || kh * kw > NO_TAP) return (int)cudaErrorInvalidValue;
   const Strides4 xs{x_sn, x_sc, x_sh, x_sw}, ys{y_sn, y_sc, y_sh, y_sw};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long windows = (long long)N * C * OH * OW;
-  if (kh * kw > NO_TAP || windows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const unsigned int wblocks = (unsigned int)((windows + NTHREADS - 1) / NTHREADS);
+  const Band band = choose_band(g);
+  const long long blocks = (long long)N * C * band.n_bands * band.n_tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = band_smem(g, band.rows, band.cols);
+  // 4 elements per access: aligned rows and planes, contiguous along w
+  const size_t quad = 4 * (is_bf16 ? 2 : 4);
+  const int vec_load = W % 4 == 0 && x_sw == 1 && x_sh % 4 == 0 && x_sc % 4 == 0 &&
+                       x_sn % 4 == 0 && reinterpret_cast<uintptr_t>(x) % quad == 0;
+  const int vec_store = W % 4 == 0 && band.cols % 4 == 0 &&
+                        reinterpret_cast<uintptr_t>(dx) % quad == 0;
+  const bool stem = kh == 3 && kw == 3 && sh == 2 && sw == 2;  // ResNet's
   if (is_bf16) {
-    window_argmax_kernel<__nv_bfloat16><<<wblocks, NTHREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), argmax, g, xs);
+    launch_max<__nv_bfloat16>(stem, (unsigned int)blocks, smem, st, x, dy, dx, g, xs, ys, band,
+                              vec_load, vec_store);
   } else {
-    window_argmax_kernel<float><<<wblocks, NTHREADS, 0, st>>>(
-        static_cast<const float*>(x), argmax, g, xs);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (is_bf16) {
-    max_pool_gather_kernel<__nv_bfloat16><<<blocks_for(g), NTHREADS, 0, st>>>(
-        argmax, static_cast<const __nv_bfloat16*>(dy), static_cast<__nv_bfloat16*>(dx), g, ys);
-  } else {
-    max_pool_gather_kernel<float><<<blocks_for(g), NTHREADS, 0, st>>>(
-        argmax, static_cast<const float*>(dy), static_cast<float*>(dx), g, ys);
+    launch_max<float>(stem, (unsigned int)blocks, smem, st, x, dy, dx, g, xs, ys, band,
+                      vec_load, vec_store);
   }
   return (int)cudaGetLastError();
 }

@@ -416,7 +416,7 @@ def _check_pool_args(name, x_shape, dy, kernel, stride, pads):
 
 
 _POOL_GEOMETRY_ARGTYPES = [ctypes.c_int] * 12
-_MAX_POOL_ARGTYPES = ([ctypes.c_void_p] * 4 + _POOL_GEOMETRY_ARGTYPES
+_MAX_POOL_ARGTYPES = ([ctypes.c_void_p] * 3 + _POOL_GEOMETRY_ARGTYPES
                       + [ctypes.c_longlong] * 8
                       + [ctypes.c_int, ctypes.c_void_p])
 _AVG_POOL_ARGTYPES = ([ctypes.c_void_p] * 3 + _POOL_GEOMETRY_ARGTYPES
@@ -444,13 +444,10 @@ def max_pool_backward(x, dy, kernel, stride, pads):
     if dev.type == "cpu":
         return _plain_max_pool_backward(x, dy, kernel, stride, pads)
     dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
-    # scratch: each window's first argmax tap (the kernel's first pass)
-    argmax = torch.empty(dy.shape, dtype=torch.uint8, device=dev)
     fn = _lib_fn("pool_bwd", "mxtt_max_pool_bwd", _MAX_POOL_ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                 argmax.data_ptr(),
                  *_geometry(x.shape, dy, kernel, stride, pads),
                  *x.stride(), *dy.stride(),
                  int(x.dtype == torch.bfloat16), stream)

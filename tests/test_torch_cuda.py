@@ -33,6 +33,17 @@ CASES = [  # B, Sq, Sk, H, D, causal, dtype, kv_lens
     (3, 130, 130, 2, 128, True, torch.float32, [130, 0, 41]),
     (2, 40, 96, 2, 128, False, torch.float32, [96, 50]),
     (2, 100, 100, 4, 64, True, torch.bfloat16, [100, 63]),
+    # many q-tiles under causal, Sq not a tile multiple
+    (1, 1000, 1000, 2, 64, True, torch.float32, None),
+    # causal with Sq != Sk, both ways
+    (2, 200, 77, 2, 64, True, torch.float32, None),
+    (2, 70, 300, 2, 128, True, torch.float32, None),
+    # kv_len shorter than one KV tile, and 0
+    (3, 150, 150, 2, 64, False, torch.float32, [5, 0, 150]),
+    (2, 96, 96, 2, 128, True, torch.float32, [17, 0]),
+    # D 128 in bf16
+    (2, 300, 300, 3, 128, True, torch.bfloat16, None),
+    (2, 64, 130, 2, 128, False, torch.bfloat16, [130, 9]),
 ]
 
 
@@ -56,14 +67,42 @@ def test_flash_kernel_matches_plain(card, case):
                                ref.float().cpu().numpy(), **tol)
 
 
-def test_flash_kernel_reads_strided_inputs(card):
-    g = torch.Generator(device=card).manual_seed(1)
-    qkv = torch.randn(2, 64, 3, 4, 64, generator=g, device=card)
-    q, k, v = qkv.unbind(2)  # [B, S, H, D] views, row stride 3*H*D
-    out = K.flash_attention(q, k, v, causal=True)
-    ref = K._reference_attention(q, k, v, True, 1.0 / 8.0)
-    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
-                               atol=1e-4, rtol=1e-4)
+def _strided_qkv(card, layout, d, dtype, seed):
+    """[B, S, H, D] views of one buffer: ``fused`` slices a [B, S, 3, H,
+    D] projection (16-byte aligned strides: the kernel's asynchronous
+    copies), ``offset`` starts each view one element into a [B, S, H,
+    D + 1] buffer (unaligned: the kernel's plain loads)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    if layout == "fused":
+        qkv = torch.randn(2, 150, 3, 3, d, generator=g, device=card)
+        return list(qkv.to(dtype).unbind(2))
+    return [torch.randn(2, 150, 3, d + 1, generator=g, device=card)
+            .to(dtype)[..., 1:] for _ in range(3)]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["fused", "offset"])
+@pytest.mark.parametrize("with_lse", [False, True], ids=["fwd", "lse"])
+def test_flash_kernel_reads_strided_inputs(card, layout, dtype, d, with_lse):
+    q, k, v = _strided_qkv(card, layout, d, dtype, 1)
+    assert not q.is_contiguous() and q.stride(-1) == 1
+    name = "flash_attn_fwd_lse" if with_lse else "flash_attn_fwd"
+    before = K.launch_counts()[name]
+    got = K.flash_attention(q, k, v, causal=True, with_lse=with_lse)
+    torch.cuda.synchronize()
+    assert K.launch_counts()[name] == before + 1
+    ref_out, ref_lse = K._reference_attention_lse(q, k, v, True, d ** -0.5)
+    out = got[0] if with_lse else got
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 \
+        else dict(atol=2e-2, rtol=0)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref_out.float().cpu().numpy(), **tol)
+    if with_lse:
+        np.testing.assert_allclose(got[1].cpu().numpy(),
+                                   ref_lse.cpu().numpy(), atol=1e-4,
+                                   rtol=1e-4)
 
 
 def test_small_lm_on_the_card_matches_the_host(card):
@@ -146,6 +185,22 @@ POOL_CUDA_CASES = [  # pool_type, shape, kernel, stride, pad, convention,
      torch.float32, False),
     ("sum", (2, 3, 11, 13), (2, 3), (2, 1), (0, 1), "valid", True,
      torch.float32, False),
+    # the stem's geometry across several bands
+    ("max", (2, 3, 112, 112), (3, 3), (2, 2), (1, 1), "valid", True,
+     torch.float32, True),
+    ("max", (2, 3, 112, 112), (3, 3), (2, 2), (1, 1), "valid", True,
+     torch.bfloat16, True),
+    # heavy overlap: 49 windows cover most pixels
+    ("max", (2, 3, 23, 29), (7, 7), (1, 1), (3, 3), "valid", True,
+     torch.float32, True),
+    # stride past the window: pixels no window covers
+    ("max", (2, 3, 17, 20), (2, 2), (3, 3), (0, 0), "valid", True,
+     torch.float32, False),
+    # a plane wider than one shared-memory column tile
+    ("max", (1, 2, 9, 1030), (3, 3), (2, 2), (1, 1), "valid", True,
+     torch.float32, True),
+    ("max", (1, 2, 40, 600), (3, 2), (1, 2), (1, 0), "full", True,
+     torch.bfloat16, False),
 ]
 
 
@@ -182,6 +237,44 @@ def test_pool_backward_kernel_matches_plain(card, case):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_max_pool_backward_routes_nan_windows_nowhere(card, dtype):
+    """A window holding a NaN gives its gradient to no tap (the plain
+    version's max-then-equality test); the other windows are unchanged."""
+    g = torch.Generator(device=card).manual_seed(8)
+    x = torch.clamp_min(torch.randn(2, 3, 30, 34, generator=g, device=card),
+                        0.0)
+    x[0, 1, 4, 7] = float("nan")
+    x[1, 2, 29, 0] = float("nan")
+    x = x.to(dtype)
+    dy = torch.randn(2, 3, 15, 17, generator=g, device=card).to(dtype)
+    pads = ((1, 1), (1, 1))
+    before = K.launch_counts()["max_pool_backward"]
+    got = K.max_pool_backward(x, dy, (3, 3), (2, 2), pads)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["max_pool_backward"] == before + 1
+    want = K._plain_max_pool_backward(x, dy, (3, 3), (2, 2), pads)
+    assert torch.equal(got, want)
+    assert got[0, 1, 4, 7] == 0 and got[1, 2, 29, 0] == 0
+
+
+def test_max_pool_backward_reads_non_contiguous_inputs(card):
+    g = torch.Generator(device=card).manual_seed(9)
+    base = torch.clamp_min(torch.randn(4, 2, 27, 50, generator=g,
+                                       device=card), 0.0)
+    x = base.transpose(0, 1)[:, :, :, 3:46]   # (2, 4, 27, 43), N and C swapped
+    dy = torch.randn(2, 4, 28, 15, generator=g, device=card)[:, :, ::2]
+    pads = ((1, 1), (1, 1))
+    assert not x.is_contiguous() and not dy.is_contiguous()
+    before = K.launch_counts()["max_pool_backward"]
+    got = K.max_pool_backward(x, dy, (3, 3), (2, 3), pads)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["max_pool_backward"] == before + 1
+    want = K._plain_max_pool_backward(x, dy, (3, 3), (2, 3), pads)
+    assert got.shape == x.shape and torch.equal(got, want)
+
+
 def test_small_convnet_trains_alike_on_card_and_host(card):
     torch.backends.cudnn.allow_tf32 = False
     from mxnet_tpu_torch.models import resnet
@@ -210,6 +303,9 @@ LSE_CASES = [  # B, S, H, D, causal, dtype, kv_lens
     (2, 130, 3, 64, True, torch.float32, None),
     (3, 96, 2, 128, False, torch.float32, [96, 0, 41]),
     (2, 100, 4, 64, True, torch.bfloat16, [100, 63]),
+    (1, 1000, 2, 64, True, torch.float32, None),
+    (3, 150, 2, 64, True, torch.float32, [7, 0, 150]),
+    (2, 300, 3, 128, True, torch.bfloat16, [300, 33]),
 ]
 
 
