@@ -15,12 +15,23 @@ CUDA toolkit.  Phases, each of which raises on failure:
      a 0, D 128, and bf16;
    - ``bn_channel_sums``, single and paired, at ResNet-50's BatchNorm
      inputs (32, 3, 224, 224), (32, 64, 112, 112), (32, 2048, 7, 7), an
-     odd (3, 5, 7, 9), and in bf16;
+     odd (3, 5, 7, 9), and in bf16; at bn0 timed one call, back to back,
+     on the device alone (torch.profiler) and on the host per wrapper
+     call, beside ``batch_norm_stats`` (stats) and
+     ``batch_norm_backward_reduce`` with mean 0 and invstd 1 (the pair);
+     then all 13 BatchNorm input shapes of ResNet-50 v2 at batch 32,
+     single and paired, back to back against the library calls, summed
+     over the 51 BatchNorms into ms per training step beside the step's
+     aggregate bound;
    - ``max_pool_backward`` at the stem (3x3/s2/p1 over (32, 64, 112, 112)
      post-ReLU, many tied zeros), a ``full``-convention case and bf16;
-   - ``avg_pool_backward`` at the global 7x7 pool, 3x3/s2/p1 with
-     ``count_include_pad=False`` and ``full``, and ``sum``;
+   - ``avg_pool_backward`` at the global 7x7 pool (f32 and bf16),
+     3x3/s2/p1 with ``count_include_pad=False`` and ``full``, and
+     ``sum``; the global pool's backward through autograd launches its
+     kernel and nothing else;
    each with the kernel's and the plain version's times beside the bound
+   (the pooling backwards and bn0 also back to back, on the device alone
+   and as host time per wrapper call)
    (for f32 attention: f32-accurate work on the tensor cores, three TF32
    passes, printed beside the CUDA cores' f32 figure), and one PyTorch
    call computing the same function as a yardstick
@@ -38,7 +49,9 @@ CUDA toolkit.  Phases, each of which raises on failure:
    labels from ``--seed``), SGD with momentum: finite per-batch
    cross-entropy, every parameter and BatchNorm moving statistic moved,
    per step exactly the kernel launches the graph implies (2 channel-sums
-   per BatchNorm, 1 max- and 1 avg-pool backward), 0 launches in a
+   per BatchNorm, 1 max- and 1 avg-pool backward, each one device kernel:
+   the profiled step's hand-written device time is split by kernel with
+   its device launch count), 0 launches in a
    following ``score``, one batch-2 forward and backward on the card
    against the host (gradients within 1e-3 relative L2, or within 4
    times the host's own largest change when its input moves by one ulp),
@@ -169,6 +182,39 @@ def time_ms_back_to_back(fn, launches=20, reps=10):
     return float(np.median(times))
 
 
+def host_us(fn, calls=1000):
+    """Host microseconds per call of ``fn`` over ``calls`` calls in a row,
+    the stream not synchronized: the wrapper's own cost, as long as the
+    device keeps up (a kernel longer than the wrapper makes the launch
+    queue, and this figure, wait for it)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def device_ms_per_call(fn, calls=20):
+    """(device ms, device kernels) per call of ``fn``, from torch.profiler
+    over ``calls`` calls in a row: the kernels' own time, no host time.
+    None when the profiler saw no device events."""
+    rows = profile_kernels(lambda: [fn() for _ in range(calls)])
+    if not rows:
+        return None
+    return (sum(ms for _, ms, _ in rows) / calls,
+            sum(n for _, _, n in rows) / calls)
+
+
+def _device_text(dev):
+    return "not measured" if dev is None else \
+        "%.4f ms (%.0f kernel%s a call)" % (dev[0], dev[1],
+                                           "" if dev[1] == 1 else "s")
+
+
 def flash_bound(q, sk, causal, kv_lens, extra_bytes=0):
     """Least time (ms) the card needs for this attention call, and what
     bounds it: 4*D*H operations per valid (row, key) pair of these
@@ -267,7 +313,7 @@ def check_flash(seed):
         sdpa_kernels = profile_kernels(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, scale=scale))
         print("sdpa at the serving shape runs: %s"
-              % "; ".join("%s (%.4f ms)" % kv for kv in sdpa_kernels))
+              % "; ".join("%s (%.4f ms)" % kv[:2] for kv in sdpa_kernels))
         record = {"name": "flash_attn_fwd", "route": "cuda",
                   "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
                   "replaces": "mxnet_tpu/ops/pallas_kernels.py:338",
@@ -421,10 +467,41 @@ def _report(line, rec_ms, plain_ms, lib_ms, bound):
              100.0 * bound[0] / rec_ms, card_line()))
 
 
+# ResNet-50 v2's train-mode BatchNorm inputs at batch 32 (f32), each with
+# the number of BatchNorms that see it: 51 in all (MXNet's resnet.py v2
+# bottleneck graph, models/resnet.py)
+BN_STEP_SHAPES = [
+    ((32, 3, 224, 224), 1), ((32, 64, 112, 112), 1), ((32, 64, 56, 56), 7),
+    ((32, 128, 56, 56), 1), ((32, 256, 56, 56), 3), ((32, 128, 28, 28), 7),
+    ((32, 256, 28, 28), 1), ((32, 512, 28, 28), 4), ((32, 256, 14, 14), 11),
+    ((32, 512, 14, 14), 1), ((32, 1024, 14, 14), 6), ((32, 512, 7, 7), 5),
+    ((32, 2048, 7, 7), 3)]
+
+
+def bn_library(a, pair):
+    """One PyTorch call over the same inputs: ``batch_norm_stats`` for the
+    statistics (mean and invstd, the same reads), and for the pair
+    ``batch_norm_backward_reduce`` with mean 0 and invstd 1, whose
+    (sum dy, sum dy * (x - mean)) is the kernel's (sum a, sum a * b)."""
+    import torch
+    if pair is None:
+        return lambda: torch.batch_norm_stats(a, 1e-5)
+    c = a.shape[1]
+    zero = torch.zeros(c, device=a.device)
+    one = torch.ones(c, device=a.device)
+    return lambda: torch.batch_norm_backward_reduce(a, pair, zero, one, None,
+                                                    True, False, False)
+
+
+def bn_bytes(a, pair):
+    return _nbytes(a) * (1 if pair is None else 2) + 2 * 4 * a.shape[1]
+
+
 def check_bn_sums(seed):
     """Phase 2b: bn_channel_sums against its plain version; timed at the
-    input of BatchNorm bn0 (the stats form).  Inputs have a nonzero mean
-    so that no channel sum sits near 0, where only atol would hold."""
+    input of BatchNorm bn0 (stats and pair), then the 13-shape sweep.
+    Inputs have a nonzero mean so that no channel sum sits near 0, where
+    only atol would hold."""
     import torch
     from mxnet_tpu_torch.ops import kernels as K
     dev = torch.device("cuda", 0)
@@ -442,39 +519,109 @@ def check_bn_sums(seed):
         for pair in (None, b):
             got = K.bn_channel_sums(a, pair)
             want = K._plain_channel_sums(a, pair)
+            again = K.bn_channel_sums(a, pair)
             torch.cuda.synchronize()
             errs = [_agree(g, w, tol) for g, w in zip(got, want)]
             max_err = max(e for e, _ in errs)
-            ok = all(o for _, o in errs)
+            same = all(torch.equal(g, h) for g, h in zip(got, again))
+            ok = all(o for _, o in errs) and same
             print("kernel bn_channel_sums %-18s %-6s %s: max_abs_err %.3g "
-                  "(atol %g rtol %g) %s"
+                  "(atol %g rtol %g), rerun bit-identical %s %s"
                   % ("x".join(map(str, shape)),
                      "single" if pair is None else "paired",
                      str(dtype).replace("torch.", ""), max_err, tol["atol"],
-                     tol["rtol"], "ok" if ok else "FAIL"))
+                     tol["rtol"], same, "ok" if ok else "FAIL"))
             if not ok:
                 raise AssertionError("bn_channel_sums disagrees with its "
                                      "plain version at %s" % (shape,))
             if shape != (32, 64, 112, 112) or dtype != torch.float32:
                 continue
-            ms = time_ms(lambda: K.bn_channel_sums(a, pair))
-            plain_ms = time_ms(lambda: K._plain_channel_sums(a, pair))
-            ins = (a,) if pair is None else (a, pair)
-            bound = bytes_bound(_nbytes(*ins) + 2 * 4 * shape[1])
-            name = "bn_channel_sums bn0 %s" % (
-                "stats" if pair is None else "pair")
+            run = lambda: K.bn_channel_sums(a, pair)  # noqa: E731
+            lib = bn_library(a, pair)
             if pair is None:
-                lib_ms = time_ms(lambda: torch.batch_norm_stats(a, 1e-5))
+                lib_note = "batch_norm_stats"
+            else:  # the yardstick computes the kernel's function
+                lib_note = ("batch_norm_backward_reduce, whose sums are "
+                            "max_abs_err %.3g from the plain version"
+                            % max(_agree(r, w, F32_TOL)[0]
+                                  for r, w in zip(lib()[:2], want)))
+            ms = time_ms(run)
+            plain_ms = time_ms(lambda: K._plain_channel_sums(a, pair))
+            lib_ms = time_ms(lib)
+            bound = bytes_bound(bn_bytes(a, pair))
+            form = "stats" if pair is None else "pair"
+            _report("kernel bn_channel_sums bn0 %s" % form, ms, plain_ms,
+                    lib_ms, bound)
+            b2b, lib_b2b = time_ms_back_to_back(run), \
+                time_ms_back_to_back(lib)
+            print("kernel bn_channel_sums bn0 %s, %d calls back to back: "
+                  "%.4f ms a call (%.1f%% of the bound), library %.4f ms "
+                  "(%s); device only: kernel %s, library %s"
+                  % (form, 20, b2b, 100.0 * bound[0] / b2b, lib_b2b,
+                     lib_note, _device_text(device_ms_per_call(run)),
+                     _device_text(device_ms_per_call(lib))))
+            if pair is None:
                 record = {"name": "bn_channel_sums", "route": "cuda",
                           "source": "mxnet_tpu_torch/csrc/bn_channel_sums.cu",
                           "replaces": "mxnet_tpu/ops/pallas_kernels.py:699",
                           "launches": 0, "max_abs_err": max_err, "ms": ms,
                           "plain_ms": plain_ms, "bound_ms": bound[0],
                           "bound_by": bound[1], "library_ms": lib_ms}
-            else:
-                lib_ms = float("nan")
-            _report("kernel " + name, ms, plain_ms, lib_ms, bound)
+    small = torch.randn(32, 512, 7, 7, generator=gen, device=dev)
+    print("kernel bn_channel_sums host time per wrapper call at (32, 512, "
+          "7, 7) over 1000 calls: stats %.1f us (batch_norm_stats %.1f us), "
+          "pair %.1f us (batch_norm_backward_reduce %.1f us)"
+          % (host_us(lambda: K.bn_channel_sums(small)),
+             host_us(bn_library(small, None)),
+             host_us(lambda: K.bn_channel_sums(small, small)),
+             host_us(bn_library(small, small))))
+    bn_sweep(gen)
     return record
+
+
+def bn_sweep(gen):
+    """All 13 BatchNorm input shapes of ResNet-50 v2 at batch 32, f32,
+    single (statistics) and paired (backward), each against its plain
+    version and timed back to back beside its library call; weighted by
+    the BatchNorms that see each shape into ms per training step."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    dev = torch.device("cuda", 0)
+    step = {"kernel": 0.0, "device": 0.0, "library": 0.0, "bound": 0.0}
+    for shape, count in BN_STEP_SHAPES:
+        a = torch.randn(*shape, generator=gen, device=dev) + 0.5
+        b = torch.randn(*shape, generator=gen, device=dev) + 0.5
+        for pair in (None, b):
+            errs = [_agree(g, w, F32_TOL) for g, w in zip(
+                K.bn_channel_sums(a, pair), K._plain_channel_sums(a, pair))]
+            if not all(o for _, o in errs):
+                raise AssertionError("bn_channel_sums disagrees with its "
+                                     "plain version at %s" % (shape,))
+            run = lambda: K.bn_channel_sums(a, pair)  # noqa: E731
+            ms = time_ms_back_to_back(run)
+            lib_ms = time_ms_back_to_back(bn_library(a, pair))
+            dev_ms = device_ms_per_call(run)
+            bound = bytes_bound(bn_bytes(a, pair))[0]
+            print("bn sweep %-18s x%-2d %-6s: %.4f ms back to back, device "
+                  "only %s, bound %.4f ms (%.1f%% of the device time), "
+                  "library %.4f ms back to back, max_abs_err %.3g"
+                  % ("x".join(map(str, shape)), count,
+                     "stats" if pair is None else "pair", ms,
+                     _device_text(dev_ms), bound,
+                     100.0 * bound / dev_ms[0] if dev_ms else float("nan"),
+                     lib_ms, max(e for e, _ in errs)))
+            step["kernel"] += count * ms
+            step["device"] += count * (dev_ms[0] if dev_ms else float("nan"))
+            step["library"] += count * lib_ms
+            step["bound"] += count * bound
+        del a, b
+    print("bn sweep: per ResNet-50 step (%d BatchNorms, stats + pair) "
+          "device only %.4f ms against a bound of %.4f ms (%.1f%%); back to "
+          "back %.4f ms (the smaller shapes wait on the host), the library "
+          "calls %.4f ms; card %s"
+          % (sum(n for _, n in BN_STEP_SHAPES), step["device"], step["bound"],
+             100.0 * step["bound"] / step["device"], step["kernel"],
+             step["library"], card_line()))
 
 
 def check_pool_bwd(seed):
@@ -497,6 +644,8 @@ def check_pool_bwd(seed):
          "valid", True, torch.bfloat16, False),
         ("global7", "avg", (32, 2048, 7, 7), (7, 7), (1, 1), (0, 0),
          "valid", True, torch.float32, True),
+        ("global7-bf16", "avg", (32, 2048, 7, 7), (7, 7), (1, 1), (0, 0),
+         "valid", True, torch.bfloat16, True),
         ("excl-pad-full", "avg", (8, 16, 27, 31), (3, 3), (2, 2), (1, 1),
          "full", False, torch.float32, False),
         ("sum", "sum", (8, 16, 27, 31), (2, 3), (2, 1), (0, 1), "valid",
@@ -555,17 +704,45 @@ def check_pool_bwd(seed):
         _report("kernel %s %s%s" % (name, label, " (one launch, no scratch)"
                                     if pool == "max" else ""),
                 ms, plain_ms, lib_ms, bound)
-        print("kernel %s %s, %d calls back to back: %.4f ms a call, library "
-              "%.4f ms" % (name, label, 20, time_ms_back_to_back(run),
-                           time_ms_back_to_back(lib)))
-        records[name] = {
+        b2b = time_ms_back_to_back(run)
+        print("kernel %s %s, %d calls back to back: %.4f ms a call (%.1f%% "
+              "of the bound), library %.4f ms; device only: kernel %s, "
+              "library %s; host per wrapper call over 1000 calls: kernel "
+              "%.1f us, library %.1f us"
+              % (name, label, 20, b2b, 100.0 * bound[0] / b2b,
+                 time_ms_back_to_back(lib),
+                 _device_text(device_ms_per_call(run)),
+                 _device_text(device_ms_per_call(lib)), host_us(run),
+                 host_us(lib)))
+        if label == "global7":
+            global_pool_launches_only_its_kernel(x, dy)
+        records.setdefault(name, {
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/pool_bwd.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:580",
             "launches": 0, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": lib_ms}
+            "bound_by": bound[1], "library_ms": lib_ms})
     return [records["max_pool_backward"], records["avg_pool_backward"]]
+
+
+def global_pool_launches_only_its_kernel(x, dy):
+    """The global average pool's backward through autograd, as the
+    training step runs it (``_PoolFn``, the cached divisor map): one
+    device kernel, the kernel's own."""
+    import torch
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    xr = x.detach().requires_grad_()
+    y = nn_ops._pooling(xr, pool_type="avg", global_pool=True)
+    rows = profile_kernels(lambda: torch.autograd.grad(y, xr, dy,
+                                                       retain_graph=True))
+    print("kernel avg_pool_backward global7 through autograd launches: %s"
+          % ("; ".join("%s x%d" % (k[:60], n) for k, _, n in rows)
+             or "not measured (the profiler saw no device events)"))
+    if rows and (len(rows) != 1 or rows[0][2] != 1
+                 or "avg_pool_bwd_global_kernel" not in rows[0][0]):
+        raise AssertionError("the global pool's backward launched more than "
+                             "its kernel: %s" % rows)
 
 
 def gpt2s_params(symbol, seed):
@@ -820,13 +997,13 @@ def train(mx, seed):
     if any(added.values()):
         raise AssertionError("the eval forward launched training kernels")
 
-    train_step_split(mod, train_iter)
+    train_step_split(mod, train_iter, per_step)
     host_check(mx, symbol, arg0, aux0, images[:HOST_BATCH],
                labels[:HOST_BATCH], seed)
     return launches
 
 
-def train_step_split(mod, train_iter):
+def train_step_split(mod, train_iter, per_step):
     """Median synchronized host-clock ms of forward (is_train), backward
     and update, and of a whole step, over TIMED_STEPS batches (launches
     here come after the main path's counts were read)."""
@@ -850,7 +1027,7 @@ def train_step_split(mod, train_iter):
                      ("update", t3 - t2), ("step", t3 - t0)):
             parts[k].append(v * 1e3)
     med = {k: float(np.median(v[1:])) for k, v in parts.items()}
-    profile_step(mod, batch)
+    profile_step(mod, batch, per_step)
     print("train: ms per step %.2f (median of %d, synchronized), %.1f "
           "images/s; forward %.2f ms, backward %.2f ms, update %.2f ms; "
           "peak memory %.2f GB; card %s"
@@ -859,9 +1036,11 @@ def train_step_split(mod, train_iter):
              torch.cuda.max_memory_allocated() / 1e9, card_line()))
 
 
-HAND_KERNELS = ("partial_sums_kernel", "combine_kernel",
-                "max_pool_bwd_band_kernel", "avg_pool_bwd_kernel",
-                "flash_fwd_kernel")
+# device kernel name of each hand-written kernel's launches
+HAND_SPLIT = (("bn_channel_sums", "channel_sums_kernel"),
+              ("max_pool_backward", "max_pool_bwd_band_kernel"),
+              ("avg_pool_backward", "avg_pool_bwd"))
+HAND_KERNELS = tuple(k for _, k in HAND_SPLIT) + ("flash_fwd_kernel",)
 KERNEL_GROUPS = (  # (label, substrings of a device kernel's name)
     ("hand-written (flash, bn sums, pool backward)", HAND_KERNELS),
     ("convolution and matmul (cuDNN, cuBLAS)",
@@ -873,21 +1052,37 @@ KERNEL_GROUPS = (  # (label, substrings of a device kernel's name)
 )
 
 
-def profile_step(mod, batch):
+def profile_step(mod, batch, per_step):
     """One training step (forward, backward, update) under torch.profiler:
     device time by kernel group, the busy share of the step's wall time,
-    and the largest kernels."""
+    the largest kernels, and the hand-written kernels' device time and
+    device launches, which must be one per wrapper call."""
     def run():
         mod.forward(batch, is_train=True)
         mod.backward()
         mod.update()
 
-    profile_run(run, "train")
+    table = profile_run(run, "train")
+    if table is None:
+        return
+    parts, total = [], 0.0
+    for name, key in HAND_SPLIT:
+        ms = sum(v[0] for k, v in table.items() if key in k)
+        n = sum(v[1] for k, v in table.items() if key in k)
+        total += ms
+        parts.append("%s %.4f ms over %d device launches" % (name, ms, n))
+        if n != per_step[name]:
+            raise AssertionError("%s: %d device launches in the step, %d "
+                                 "wrapper calls" % (name, n, per_step[name]))
+    print("train: the profiled step's hand-written kernels %.4f ms: %s; "
+          "card %s" % (total, "; ".join(parts), card_line()))
+    if any("combine_kernel" in k for k in table):
+        raise AssertionError("a second channel-sums launch ran")
 
 
 def profile_kernels(run):
-    """(device kernel name, ms) of the kernels ``run()`` launches, from
-    torch.profiler, largest first."""
+    """(device kernel name, ms, launches) of the kernels ``run()``
+    launches, from torch.profiler, largest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     run()
@@ -895,16 +1090,21 @@ def profile_kernels(run):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    out = [(e.key, getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0)) / 1e3)
-           for e in prof.key_averages()
+    out = [(e.key, _dev_ms(e), e.count) for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     return sorted(out, key=lambda kv: -kv[1])
 
 
+def _dev_ms(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+
+
 def profile_run(run, tag):
     """``run()`` once under torch.profiler, synchronized: device time by
-    kernel group, the busy share of its wall time, the largest kernels."""
+    kernel group, the busy share of its wall time, the largest kernels.
+    Returns {device kernel name: (ms, launches)}, None when the profiler
+    saw no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -916,32 +1116,28 @@ def profile_run(run, tag):
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_ms(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-
-    busy = sum(dev_ms(e) for e in device)
+    busy = sum(_dev_ms(e) for e in device)
     if busy <= 0:
         print("%s: profiled step %.2f ms; device time not measured (the "
               "profiler saw no device events)" % (tag, wall_ms))
-        return
+        return None
     groups = {label: 0.0 for label, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
     for e in device:
         name = e.key.lower()
         label = next((lab for lab, keys in KERNEL_GROUPS
                       if any(k.lower() in name for k in keys)), "other")
-        groups[label] += dev_ms(e)
+        groups[label] += _dev_ms(e)
     print("%s: profiled step %.2f ms wall, device busy %.2f ms (%.1f%%, "
           "idle %.1f%%); by group: %s; card %s"
           % (tag, wall_ms, busy, 100 * busy / wall_ms,
              100 - 100 * busy / wall_ms,
              "; ".join("%s %.2f ms" % kv for kv in groups.items()),
              card_line()))
-    for e in sorted(device, key=dev_ms, reverse=True)[:8]:
-        print("%s:   %8.3f ms x%-4d %s" % (tag, dev_ms(e), e.count,
+    for e in sorted(device, key=_dev_ms, reverse=True)[:8]:
+        print("%s:   %8.3f ms x%-4d %s" % (tag, _dev_ms(e), e.count,
                                            e.key[:90]))
+    return {e.key: (_dev_ms(e), e.count) for e in device}
 
 
 def host_check(mx, symbol, arg0, aux0, images, labels, seed):

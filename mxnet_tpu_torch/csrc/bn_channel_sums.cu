@@ -5,30 +5,48 @@
 // mxnet_tpu/ops/pallas_kernels.py:643 and :699 (`bn_channel_sums`).
 // Computes, for a and b of shape [N, C, H, W] (b = a when b is null):
 //
-//   out1[c] = sum_{n,h,w} a[n, c, h, w]
-//   out2[c] = sum_{n,h,w} a[n, c, h, w] * b[n, c, h, w]
+//   out[0][c] = sum_{n,h,w} a[n, c, h, w]
+//   out[1][c] = sum_{n,h,w} a[n, c, h, w] * b[n, c, h, w]
 //
 // in f32 from f32 or bf16 inputs.  With b = a that is BatchNorm's forward
 // statistics (sum, sum of squares); (dy, x) gives its backward pair
 // (sum dy, sum dy * x).  Inputs are read through their 4-D strides.
 //
-// Design (a simple first kernel).  The TPU kernel walks the batch as a
-// sequential grid axis and keeps whole H x W planes of a channel block in
-// VMEM; here blocks run in parallel and in no order, and a channel count as
-// small as 3 (BatchNorm over the raw image) would leave the card idle if the
-// grid were split over channels alone.  So the grid is (split, channel): the
-// wrapper picks the number of splits of each channel's N*H*W elements from
-// the SM count so that the card holds a few waves of blocks.  Each block of
-// 256 threads walks its contiguous range of (n, h*w) positions, consecutive
-// threads on consecutive addresses, with one f32 running pair per thread,
-// then reduces the pair with warp shuffles and one shared-memory step into
-// a partial-sum buffer.  A second small launch sums each channel's partials
-// in split order.  No atomics: a rerun gives bit-identical sums.
-//
 // Bound on an H100 SXM: bytes.  One read of a (and b) at 3.35 TB/s; the
 // arithmetic is one or two FMAs per element.  At BatchNorm bn0's input of
 // ResNet-50 at batch 32 ((32, 64, 112, 112) f32) that is 102.8 MB for the
-// single form (0.031 ms) and 205.5 MB for the pair (0.061 ms).
+// single form (0.031 ms) and 205.5 MB for the pair (0.061 ms).  Half of
+// ResNet-50's 51 BatchNorm inputs are 3-13 MB, where a launch and its
+// tail, not the bytes, set the time.
+//
+// Design.  One launch per call.  The TPU kernel walks the batch as a
+// sequential grid axis and keeps whole H x W planes of a channel block in
+// VMEM; here blocks run in parallel and in no order.  The wrapper's
+// planner (`_bn_plan` in ops/kernels.py) cuts each channel's N*H*W
+// elements, seen as one flat range of N planes, into `splits` equal chunks
+// when a channel is large (bn0 of 3 channels still fills the card), or
+// gives one block `group` whole channels when channels are small (the
+// 7 x 7 and 14 x 14 stages: no block sums a few hundred elements).
+//
+// A block walks its range in units of VEC elements: 16-byte loads (4 f32
+// or 8 bf16) where every plane, stride and the base are VEC-aligned, else
+// one element.  A unit's plane comes from a multiply-high division by the
+// plane's units (precomputed on the host), not a loop or a divide, so
+// planes of 49 or 196 elements keep every thread busy; each thread keeps
+// UNROLL loads in flight.  Threads reduce with warp shuffles and one
+// shared-memory step.  A channel of one block writes its sums directly.
+// A split channel's blocks each write their partial pair, fence, and
+// count their arrival on the channel's int32 counter with one integer
+// atomicAdd; the block that arrives last sums the channel's partials in
+// split order (fixed, whatever the arrival order), writes the output and
+// resets the counter to 0 for the next call.  No float atomics: a rerun
+// gives bit-identical sums.
+//
+// The counters belong to one stream: calls in one stream run one after
+// the other and each leaves every counter at 0, but calls in flight on
+// two streams at once would add their arrivals to one counter, so the
+// last block of one call could combine the partials of another.  The
+// wrapper keeps a counter buffer per (device, stream).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,125 +56,245 @@ namespace {
 
 constexpr int NTHREADS = 256;
 constexpr int NWARPS = NTHREADS / 32;
+constexpr int UNROLL = 4;
+
+struct View {
+  long long sn, sc, sh, sw;
+};
+
+// How the wrapper cut the work (units are VEC elements; see _bn_plan).
+struct Plan {
+  int C, splits, group;
+  unsigned int chunk;    // units per split
+  unsigned int plane;    // units per plane (H*W / VEC)
+  unsigned int total;    // units per channel (N*H*W / VEC)
+  unsigned int magic;    // unit / plane == (umulhi(unit, magic) + unit) >> shift
+  int shift, W;
+};
+
+__device__ __forceinline__ unsigned int plane_of(unsigned int u, const Plan& p) {
+  return (__umulhi(u, p.magic) + u) >> p.shift;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-struct View {
-  long long sn, sc, sh, sw;
-  int plane_contiguous;  // sh == W * sw: (h, w) flattens to r * sw
-};
-
-__device__ __forceinline__ long long offset(const View& v, int n, int c, int r, int W) {
-  if (v.plane_contiguous) return n * v.sn + c * v.sc + r * v.sw;
-  const int h = r / W;
-  return n * v.sn + c * v.sc + h * v.sh + (r - h * W) * v.sw;
-}
-
-template <typename T, bool PAIR>
-__global__ void __launch_bounds__(NTHREADS)
-partial_sums_kernel(const T* __restrict__ a, const T* __restrict__ b, View av, View bv,
-                    float* __restrict__ partial, int N, int HW, int W, int splits,
-                    long long chunk) {
-  const int s = blockIdx.x, c = blockIdx.y;
-  const long long total = (long long)N * HW;
-  const long long p0 = s * chunk;
-  const long long p1 = p0 + chunk < total ? p0 + chunk : total;
-  float s1 = 0.f, s2 = 0.f;
-  long long p = p0 + threadIdx.x;
-  if (p < p1) {
-    int n = (int)(p / HW);
-    int r = (int)(p - (long long)n * HW);
-    for (; p < p1; p += NTHREADS) {
-      const float x = to_f32(a[offset(av, n, c, r, W)]);
-      const float y = PAIR ? to_f32(b[offset(bv, n, c, r, W)]) : x;
-      s1 += x;
-      s2 = fmaf(x, y, s2);
-      r += NTHREADS;
-      while (r >= HW) {
-        r -= HW;
-        ++n;
-      }
+// VEC consecutive elements of plane n at unit r of channel base `ch`.
+// FLAT: the plane is contiguous along w and h (sh == W * sw), so unit r
+// is at r * VEC * sw; else (VEC == 1) h and w are unflattened.
+template <typename T, int VEC, bool FLAT>
+__device__ __forceinline__ void load_unit(const T* __restrict__ ch, const View& v,
+                                          unsigned int n, unsigned int r, int W,
+                                          float (&out)[VEC]) {
+  const T* p = ch + (long long)n * v.sn;
+  if constexpr (VEC == 1) {
+    if constexpr (FLAT) {
+      out[0] = to_f32(p[(long long)r * v.sw]);
+    } else {
+      const unsigned int h = r / (unsigned int)W;
+      out[0] = to_f32(p[(long long)h * v.sh + (long long)(r - h * W) * v.sw]);
+    }
+  } else if constexpr (sizeof(T) == 4) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p) + r);
+    out[0] = f.x;
+    out[1] = f.y;
+    out[2] = f.z;
+    out[3] = f.w;
+  } else {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + r);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(&w[k]);
+      out[2 * k] = __low2float(b2);
+      out[2 * k + 1] = __high2float(b2);
     }
   }
+}
+
+// Sum of (t1, t2) over the block, in thread 0 (fixed order).
+__device__ __forceinline__ void block_sum(float& t1, float& t2, float (*sm)[NWARPS]) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+    t1 += __shfl_xor_sync(0xffffffffu, t1, off);
+    t2 += __shfl_xor_sync(0xffffffffu, t2, off);
   }
-  __shared__ float sm[2][NWARPS];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (lane == 0) {
-    sm[0][warp] = s1;
-    sm[1][warp] = s2;
+    sm[0][warp] = t1;
+    sm[1][warp] = t2;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    float t1 = 0.f, t2 = 0.f;
+    t1 = 0.f;
+    t2 = 0.f;
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) {
       t1 += sm[0][w];
       t2 += sm[1][w];
     }
-    float* dst = partial + 2 * ((long long)c * splits + s);
-    dst[0] = t1;
-    dst[1] = t2;
   }
+  __syncthreads();  // sm is free again for the next channel
 }
 
-// One thread per channel sums that channel's partials in split order.
-__global__ void combine_kernel(const float* __restrict__ partial, float* __restrict__ out1,
-                               float* __restrict__ out2, int C, int splits) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const float* src = partial + 2 * (long long)c * splits;
-  float t1 = 0.f, t2 = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    t1 += src[2 * s];
-    t2 += src[2 * s + 1];
-  }
-  out1[c] = t1;
-  out2[c] = t2;
-}
-
-template <typename T>
-int launch(const void* a, const void* b, View av, View bv, float* partial, float* out1,
-           float* out2, int N, int C, int H, int W, int splits, cudaStream_t stream) {
-  const int HW = H * W;
-  const long long total = (long long)N * HW;
-  const long long chunk = (total + splits - 1) / splits;
-  dim3 grid(splits, C);
-  if (b != nullptr) {
-    partial_sums_kernel<T, true><<<grid, NTHREADS, 0, stream>>>(
-        static_cast<const T*>(a), static_cast<const T*>(b), av, bv, partial, N, HW, W, splits,
-        chunk);
+template <typename T, int VEC, bool PAIR, bool FLAT>
+__global__ void __launch_bounds__(NTHREADS)
+channel_sums_kernel(const T* __restrict__ a, const T* __restrict__ b, View av, View bv,
+                    float* __restrict__ partial, int* __restrict__ counters,
+                    float* __restrict__ out, Plan p) {
+  __shared__ float sm[2][NWARPS];
+  __shared__ bool last;
+  int c0, c1;
+  unsigned int u0, u1;
+  const int split = p.group > 1 ? 0 : (int)(blockIdx.x % (unsigned int)p.splits);
+  if (p.group > 1) {
+    c0 = blockIdx.x * p.group;
+    c1 = min(p.C, c0 + p.group);
+    u0 = 0;
+    u1 = p.total;
   } else {
-    partial_sums_kernel<T, false><<<grid, NTHREADS, 0, stream>>>(
-        static_cast<const T*>(a), static_cast<const T*>(a), av, av, partial, N, HW, W, splits,
-        chunk);
+    c0 = blockIdx.x / p.splits;
+    c1 = c0 + 1;
+    u0 = split * p.chunk;
+    u1 = min(p.total, u0 + p.chunk);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  combine_kernel<<<(C + 255) / 256, 256, 0, stream>>>(partial, out1, out2, C, splits);
-  return (int)cudaGetLastError();
+  for (int c = c0; c < c1; ++c) {
+    const T* ac = a + (long long)c * av.sc;
+    const T* bc = b + (long long)c * bv.sc;
+    float t1 = 0.f, t2 = 0.f;
+    for (unsigned int u = u0 + threadIdx.x; u < u1; u += NTHREADS * UNROLL) {
+      float x[UNROLL][VEC], y[PAIR ? UNROLL : 1][VEC];
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k) {
+        const unsigned int uk = u + k * NTHREADS;
+        if (uk < u1) {
+          const unsigned int n = plane_of(uk, p), r = uk - n * p.plane;
+          load_unit<T, VEC, FLAT>(ac, av, n, r, p.W, x[k]);
+          if constexpr (PAIR) load_unit<T, VEC, FLAT>(bc, bv, n, r, p.W, y[k]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            x[k][e] = 0.f;
+            if constexpr (PAIR) y[k][e] = 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          t1 += x[k][e];
+          t2 = fmaf(x[k][e], PAIR ? y[PAIR ? k : 0][e] : x[k][e], t2);
+        }
+      }
+    }
+    block_sum(t1, t2, sm);
+    if (p.splits == 1) {
+      if (threadIdx.x == 0) {
+        out[c] = t1;
+        out[p.C + c] = t2;
+      }
+      continue;
+    }
+    // a split channel: publish the partial, count the arrival
+    if (threadIdx.x == 0) {
+      float* dst = partial + 2 * ((long long)c * p.splits + split);
+      dst[0] = t1;
+      dst[1] = t2;
+      __threadfence();
+      last = atomicAdd(counters + c, 1) == p.splits - 1;
+    }
+    __syncthreads();
+    if (last && threadIdx.x < 32) {
+      __threadfence();
+      const float* src = partial + 2 * (long long)c * p.splits;
+      float s1 = 0.f, s2 = 0.f;
+      for (int k = threadIdx.x; k < p.splits; k += 32) {
+        s1 += __ldcg(src + 2 * k);
+        s2 += __ldcg(src + 2 * k + 1);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+      }
+      if (threadIdx.x == 0) {
+        out[c] = s1;
+        out[p.C + c] = s2;
+        counters[c] = 0;
+      }
+    }
+  }
+}
+
+template <typename T, int VEC, bool FLAT>
+void launch(const void* a, const void* b, const View& av, const View& bv, float* partial,
+            int* counters, float* out, const Plan& p, unsigned int blocks, cudaStream_t st) {
+  const T* at = static_cast<const T*>(a);
+  if (b != nullptr) {
+    channel_sums_kernel<T, VEC, true, FLAT><<<blocks, NTHREADS, 0, st>>>(
+        at, static_cast<const T*>(b), av, bv, partial, counters, out, p);
+  } else {
+    channel_sums_kernel<T, VEC, false, FLAT><<<blocks, NTHREADS, 0, st>>>(
+        at, at, av, av, partial, counters, out, p);
+  }
 }
 
 }  // namespace
 
-// Returns the cudaGetLastError() code of the launches (0 on success).
-// Strides are in elements.  b may be null (then b = a).  partial is f32
-// scratch of 2 * C * splits floats; out1 and out2 are f32 (C,).
-extern "C" int mxtt_bn_channel_sums(
-    const void* a, const void* b, float* partial, float* out1, float* out2,
-    int N, int C, int H, int W,
-    long long a_sn, long long a_sc, long long a_sh, long long a_sw,
-    long long b_sn, long long b_sc, long long b_sh, long long b_sw,
-    int splits, int is_bf16, void* stream) {
+// The launch's arguments, as the wrapper packs them: int64s in this order
+// (`_BN_ARGS` in ops/kernels.py), one pointer through ctypes.  Strides
+// are in elements; b may be 0 (then b = a).  `vec` is 1, 4 (f32) or 8
+// (bf16): the elements of one load, which the wrapper chooses only where
+// both views are plane-contiguous and VEC-aligned; `flat` says both views
+// are plane-contiguous (sh == W * sw).  `partial` is f32 scratch of
+// 2 * C * splits floats (unused when splits == 1), `counters` C int32
+// zeros that the launch leaves zero, `out` f32 (2, C).  splits, group,
+// chunk, magic and shift are _bn_plan's.
+struct BnArgs {
+  long long a, b, partial, counters, out;
+  long long N, C, H, W;
+  long long a_sn, a_sc, a_sh, a_sw, b_sn, b_sc, b_sh, b_sw;
+  long long vec, flat, splits, group, chunk, magic, shift, is_bf16, stream;
+};
+static_assert(sizeof(BnArgs) == 26 * 8, "BnArgs is 26 int64s");
+
+// Returns the cudaGetLastError() code of the launch (0 on success).
+extern "C" int mxtt_bn_channel_sums(const BnArgs* x) {
+  const int C = (int)x->C, H = (int)x->H, W = (int)x->W, vec = (int)x->vec;
+  const int splits = (int)x->splits, group = (int)x->group;
   if (C == 0) return 0;
-  if (splits < 1) return (int)cudaErrorInvalidValue;
-  const View av{a_sn, a_sc, a_sh, a_sw, a_sh == (long long)W * a_sw};
-  const View bv{b_sn, b_sc, b_sh, b_sw, b_sh == (long long)W * b_sw};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(a, b, av, bv, partial, out1, out2, N, C, H, W, splits, st)
-                 : launch<float>(a, b, av, bv, partial, out1, out2, N, C, H, W, splits, st);
+  if (splits < 1 || group < 1 || (splits > 1 && group > 1) || (vec > 1 && !x->flat))
+    return (int)cudaErrorInvalidValue;
+  if (vec != 1 && vec != (x->is_bf16 ? 8 : 4)) return (int)cudaErrorInvalidValue;
+  const long long plane = (long long)H * W / vec, total = x->N * plane;
+  if (total > 0x7fffffffLL || (long long)H * W % vec != 0) return (int)cudaErrorInvalidValue;
+  const Plan p{C, splits, group, (unsigned int)x->chunk,
+               (unsigned int)(plane > 0 ? plane : 1), (unsigned int)total,
+               (unsigned int)x->magic, (int)x->shift, W};
+  const View av{x->a_sn, x->a_sc, x->a_sh, x->a_sw}, bv{x->b_sn, x->b_sc, x->b_sh, x->b_sw};
+  const unsigned int blocks =
+      group > 1 ? (unsigned int)((C + group - 1) / group) : (unsigned int)C * splits;
+  const void* a = reinterpret_cast<const void*>(x->a);
+  const void* b = reinterpret_cast<const void*>(x->b);
+  float* partial = reinterpret_cast<float*>(x->partial);
+  int* counters = reinterpret_cast<int*>(x->counters);
+  float* out = reinterpret_cast<float*>(x->out);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(x->stream);
+  if (x->is_bf16) {
+    if (vec > 1)
+      launch<__nv_bfloat16, 8, true>(a, b, av, bv, partial, counters, out, p, blocks, st);
+    else if (x->flat)
+      launch<__nv_bfloat16, 1, true>(a, b, av, bv, partial, counters, out, p, blocks, st);
+    else
+      launch<__nv_bfloat16, 1, false>(a, b, av, bv, partial, counters, out, p, blocks, st);
+  } else {
+    if (vec > 1)
+      launch<float, 4, true>(a, b, av, bv, partial, counters, out, p, blocks, st);
+    else if (x->flat)
+      launch<float, 1, true>(a, b, av, bv, partial, counters, out, p, blocks, st);
+    else
+      launch<float, 1, false>(a, b, av, bv, partial, counters, out, p, blocks, st);
+  }
+  return (int)cudaGetLastError();
 }

@@ -30,15 +30,18 @@
 // in row-major order, with the covering ranges from per-row and per-column
 // tables the block built once; it writes the 4 pixels with one vector store
 // where the row is aligned.  Windows in the halo are recomputed by the two
-// neighbouring blocks: a little arithmetic, no global traffic.  Avg: one
-// thread owns one input pixel (a gather), finds the range of windows
-// covering it along each axis with two divisions, and walks them in the
-// same order, adding each window's dy * div.  Each pixel's sum is formed by
-// one thread in a fixed order (no atomics, deterministic), and that order
-// is the plain version's tap loop, so the two agree bit for bit in f32.
-// The avg sum uses explicitly rounded multiply and add so that the
-// compiler does not contract them into an FMA the plain version does not
-// make.  Pixels that no window covers get 0.
+// neighbouring blocks: a little arithmetic, no global traffic.  Avg, the
+// general case: each thread owns 4 consecutive pixels of a row (a gather),
+// finds the windows covering the row once and each pixel's columns, and
+// walks them in the same order, adding each window's dy * div.  Avg, the
+// global pool (one window over the whole plane, ResNet's): a broadcast
+// store, 16 bytes a thread in a grid-stride loop sized from the SM count,
+// each element's plane from a multiply-high division.  Each pixel's sum is
+// formed by one thread in a fixed order (no atomics, deterministic), and
+// that order is the plain version's tap loop, so the two agree bit for
+// bit in f32.  The avg sum uses explicitly rounded multiply and add so
+// that the compiler does not contract them into an FMA the plain version
+// does not make.  Pixels that no window covers get 0.
 //
 // Bound on an H100 SXM: bytes, over 3.35 TB/s.  Max: x read once, dy read
 // once, dx written once; at ResNet-50's stem (x (32, 64, 112, 112), dy
@@ -46,7 +49,8 @@
 // x once plus a halo of a few rows per band (3 per 56 at the stem, mostly
 // from L2) and dy about once; there is no global argmax map.  Avg: dy, div
 // and dx; at the global 7 x 7 pool (dy (32, 2048, 1, 1), dx (32, 2048, 7,
-// 7), f32) 13.1 MB, 0.004 ms, which launch latency exceeds.
+// 7), f32) 13.1 MB, 0.004 ms, about the time a launch takes: the global
+// path's stores are the whole of its work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -365,30 +369,119 @@ void launch_max(bool stem, unsigned int blocks, size_t smem, cudaStream_t st, co
   }
 }
 
+// x / d for x < 2^31 by a multiply-high (the divider of PyTorch's
+// IntDivider): shift is the least s with 2^s >= d.
+struct Divider {
+  unsigned int d, magic;
+  int shift;
+  __device__ __forceinline__ unsigned int div(unsigned int x) const {
+    return (__umulhi(x, magic) + x) >> shift;
+  }
+};
+
+Divider make_divider(unsigned int d) {
+  int s = 0;
+  while ((1ull << s) < d) ++s;
+  const unsigned long long magic = ((1ull << 32) * ((1ull << s) - d)) / d + 1;
+  return Divider{d, (unsigned int)magic, s};
+}
+
+// 16 bytes of dx: 4 f32 or 8 bf16, rounded as from_f32 rounds.
+__device__ __forceinline__ void store16(float* p, const float (&a)[4]) { store4(p, a); }
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float (&a)[8]) {
+  uint4 u;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    __nv_bfloat162 b2 = __floats2bfloat162_rn(a[2 * k], a[2 * k + 1]);
+    w[k] = *reinterpret_cast<uint32_t*>(&b2);
+  }
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// The global pool (one window covering the whole unpadded plane): every
+// dx element of plane (n, c) is 0 + dy[n, c] * div, a broadcast store.
+// Each thread writes 16 bytes of the contiguous dx per step of a
+// grid-stride loop; a vector may straddle two planes (H * W = 49 is no
+// multiple of 4), so each element's plane is counted on from the first's.
+// The sum is rounded as the plain version's (0 + dy * div, so dy = -0
+// gives +0).  `vec`: dx is 16-byte aligned; a tail of fewer than 16 bytes
+// is written an element a thread.
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+avg_pool_bwd_global_kernel(const T* __restrict__ dy, const float* __restrict__ div,
+                           T* __restrict__ dx, unsigned int total, Divider by_hw,
+                           Divider by_c, long long ysn, long long ysc, int vec) {
+  constexpr int VEC = 16 / sizeof(T);
+  const float d = __ldg(div);
+  auto value = [&](unsigned int plane) {
+    const unsigned int n = by_c.div(plane), c = plane - n * by_c.d;
+    return __fadd_rn(0.f, __fmul_rn(to_f32(dy[n * ysn + c * ysc]), d));
+  };
+  const unsigned int step = gridDim.x * NTHREADS;
+  const unsigned int nvec = vec ? total / VEC : 0;
+  for (unsigned int q = blockIdx.x * NTHREADS + threadIdx.x; q < nvec; q += step) {
+    const unsigned int p0 = q * VEC;
+    unsigned int plane = by_hw.div(p0), r = p0 - plane * by_hw.d;
+    float v = value(plane), vals[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      if (r == by_hw.d) {
+        r = 0;
+        v = value(++plane);
+      }
+      vals[e] = v;
+      ++r;
+    }
+    store16(dx + p0, vals);
+  }
+  for (unsigned int p = nvec * VEC + blockIdx.x * NTHREADS + threadIdx.x; p < total; p += step)
+    dx[p] = from_f32<T>(value(by_hw.div(p)));
+}
+
+// The general case: each thread owns 4 consecutive pixels of one row,
+// finds the row's covering windows once, each pixel's columns, and sums
+// dy * div over them in the plain version's tap order (explicitly
+// rounded, no FMA contraction); one vector store where the row allows.
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 avg_pool_bwd_kernel(const T* __restrict__ dy, const float* __restrict__ div,
-                    T* __restrict__ dx, Geometry g, Strides4 ys) {
+                    T* __restrict__ dx, Geometry g, Strides4 ys, int vec_store) {
   // 32-bit index arithmetic: the entry refuses more than 2^31 - 1 pixels
+  const unsigned int quads = (g.W + 3) / 4;
   const unsigned int idx = blockIdx.x * NTHREADS + threadIdx.x;
-  if (idx >= (unsigned int)g.N * g.C * g.H * g.W) return;
-  const unsigned int rows = idx / (unsigned int)g.W;
-  const int w = (int)(idx - rows * g.W);
-  const unsigned int plane = rows / (unsigned int)g.H;
-  const int h = (int)(rows - plane * g.H);
+  if (idx >= (unsigned int)g.N * g.C * g.H * quads) return;
+  const unsigned int row = idx / quads;
+  const int w0 = (int)(idx - row * quads) * 4;
+  const unsigned int plane = row / (unsigned int)g.H;
+  const int h = (int)(row - plane * g.H);
   const int n = (int)(plane / (unsigned int)g.C);
   const int c = (int)(plane - n * g.C);
   const T* yp = dy + n * ys.n + c * ys.c;
-  int oh_lo, oh_hi, ow_lo, ow_hi;
+  int oh_lo, oh_hi;
   covering(h + g.pt, g.kh, g.sh, g.OH, &oh_lo, &oh_hi);
-  covering(w + g.pl, g.kw, g.sw, g.OW, &ow_lo, &ow_hi);
-  float acc = 0.f;
-  for (int oh = oh_hi; oh >= oh_lo; --oh) {
-    for (int ow = ow_hi; ow >= ow_lo; --ow) {
-      acc = __fadd_rn(acc, __fmul_rn(to_f32(yp[oh * ys.h + ow * ys.w]), div[oh * g.OW + ow]));
+  float acc[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    acc[e] = 0.f;
+    if (w0 + e >= g.W) continue;
+    int ow_lo, ow_hi;
+    covering(w0 + e + g.pl, g.kw, g.sw, g.OW, &ow_lo, &ow_hi);
+    for (int oh = oh_hi; oh >= oh_lo; --oh) {
+      for (int ow = ow_hi; ow >= ow_lo; --ow) {
+        acc[e] = __fadd_rn(acc[e], __fmul_rn(to_f32(yp[oh * ys.h + ow * ys.w]),
+                                             div[oh * g.OW + ow]));
+      }
     }
   }
-  dx[idx] = from_f32<T>(acc);
+  T* drow = dx + (long long)row * g.W;
+  if (vec_store && w0 + 4 <= g.W) {
+    store4(drow + w0, acc);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (w0 + e < g.W) drow[w0 + e] = from_f32<T>(acc[e]);
+  }
 }
 
 unsigned int blocks_for(const Geometry& g) {
@@ -437,23 +530,60 @@ extern "C" int mxtt_max_pool_bwd(
   return (int)cudaGetLastError();
 }
 
-extern "C" int mxtt_avg_pool_bwd(
-    const void* dy, const float* div, void* dx,
-    int N, int C, int H, int W, int OH, int OW, int kh, int kw, int sh, int sw,
-    int pad_top, int pad_left,
-    long long y_sn, long long y_sc, long long y_sh, long long y_sw,
-    int is_bf16, void* stream) {
+// The avg entry's arguments, as the wrapper packs them: int64s in this
+// order (`_AVG_POOL_ARGS` in ops/kernels.py), one pointer through ctypes.
+// `sms` sizes the global pool's grid.
+struct AvgArgs {
+  long long dy, div, dx;
+  long long N, C, H, W, OH, OW, kh, kw, sh, sw, pad_top, pad_left;
+  long long y_sn, y_sc, y_sh, y_sw;
+  long long sms, is_bf16, stream;
+};
+static_assert(sizeof(AvgArgs) == 22 * 8, "AvgArgs is 22 int64s");
+
+extern "C" int mxtt_avg_pool_bwd(const AvgArgs* x) {
+  const void* dy = reinterpret_cast<const void*>(x->dy);
+  const float* div = reinterpret_cast<const float*>(x->div);
+  void* dx = reinterpret_cast<void*>(x->dx);
+  const int N = (int)x->N, C = (int)x->C, H = (int)x->H, W = (int)x->W;
+  const int OH = (int)x->OH, OW = (int)x->OW, kh = (int)x->kh, kw = (int)x->kw;
+  const int sh = (int)x->sh, sw = (int)x->sw, pad_top = (int)x->pad_top;
+  const int pad_left = (int)x->pad_left, sms = (int)x->sms, is_bf16 = (int)x->is_bf16;
+  const long long y_sn = x->y_sn, y_sc = x->y_sc, y_sh = x->y_sh, y_sw = x->y_sw;
+  void* stream = reinterpret_cast<void*>(x->stream);
   const Geometry g{N, C, H, W, OH, OW, kh, kw, sh, sw, pad_top, pad_left};
   if (blocks_for(g) == 0) return 0;
   if (too_large(g)) return (int)cudaErrorInvalidValue;
-  const Strides4 ys{y_sn, y_sc, y_sh, y_sw};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool aligned = reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  if (OH == 1 && OW == 1 && kh == H && kw == W && pad_top == 0 && pad_left == 0) {
+    const unsigned int total = (unsigned int)((long long)N * C * H * W);
+    const unsigned int per_block = NTHREADS * (aligned ? 16 / (is_bf16 ? 2 : 4) : 1);
+    const unsigned int blocks = std::min<unsigned int>((total + per_block - 1) / per_block,
+                                                       (unsigned int)std::max(sms, 1) * 8);
+    const Divider by_hw = make_divider((unsigned int)(H * W)), by_c = make_divider(C);
+    if (is_bf16) {
+      avg_pool_bwd_global_kernel<__nv_bfloat16><<<blocks, NTHREADS, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(dy), div, static_cast<__nv_bfloat16*>(dx), total,
+          by_hw, by_c, y_sn, y_sc, aligned);
+    } else {
+      avg_pool_bwd_global_kernel<float><<<blocks, NTHREADS, 0, st>>>(
+          static_cast<const float*>(dy), div, static_cast<float*>(dx), total, by_hw, by_c,
+          y_sn, y_sc, aligned);
+    }
+    return (int)cudaGetLastError();
+  }
+  const Strides4 ys{y_sn, y_sc, y_sh, y_sw};
+  const long long units = (long long)N * C * H * ((W + 3) / 4);
+  const unsigned int blocks = (unsigned int)((units + NTHREADS - 1) / NTHREADS);
+  const int vec_store = W % 4 == 0 && aligned;
   if (is_bf16) {
-    avg_pool_bwd_kernel<__nv_bfloat16><<<blocks_for(g), NTHREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(dy), div, static_cast<__nv_bfloat16*>(dx), g, ys);
+    avg_pool_bwd_kernel<__nv_bfloat16><<<blocks, NTHREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(dy), div, static_cast<__nv_bfloat16*>(dx), g, ys,
+        vec_store);
   } else {
-    avg_pool_bwd_kernel<float><<<blocks_for(g), NTHREADS, 0, st>>>(
-        static_cast<const float*>(dy), div, static_cast<float*>(dx), g, ys);
+    avg_pool_bwd_kernel<float><<<blocks, NTHREADS, 0, st>>>(
+        static_cast<const float*>(dy), div, static_cast<float*>(dx), g, ys, vec_store);
   }
   return (int)cudaGetLastError();
 }

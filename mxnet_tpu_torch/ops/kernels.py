@@ -23,8 +23,11 @@ path went through the kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import math
+import struct
 
 import torch
 
@@ -114,6 +117,59 @@ def _check_flash_args(q, k, v, kv_lens):
                             kv_lens.device))
 
 
+_FNS = {}  # C entry name -> its ctypes function, argtypes set
+
+
+def _lib_fn(source, symbol, argtypes):
+    """The ctypes function ``symbol`` of ``csrc/<source>.cu``: built, loaded
+    and given its argtypes on first use, then a dict lookup (no lock)."""
+    fn = _FNS.get(symbol)
+    if fn is None:
+        fn = getattr(_build.load(source), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[symbol] = fn
+    return fn
+
+
+def _on_device(dev):
+    """A context in which ``dev`` is the CUDA runtime's current device (a
+    launch goes to the current device): nothing to do when it already is."""
+    if torch.cuda.current_device() == dev.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+# the current stream's handle without building a torch.cuda.Stream
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(dev):
+    if _raw_stream is not None:
+        return _raw_stream(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch(name, fn, *args):
+    """Call C entry ``fn``, raise on the CUDA error it returns, count the
+    launch under ``name``."""
+    err = fn(*args)
+    if err != 0:
+        raise MXNetError("%s launch failed: CUDA error %d" % (name, err))
+    LAUNCHES[name] += 1
+
+
+_SMS = {}  # device index -> streaming multiprocessors
+
+
+def _sm_count(dev):
+    sms = _SMS.get(dev.index)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _SMS[dev.index] = sms
+    return sms
+
+
 _FLASH_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -145,27 +201,21 @@ def flash_attention(q, k, v, causal=False, scale=None, kv_lens=None,
     if q.device.type != "cuda":
         raise MXNetError("flash_attention: no kernel for device %s"
                          % q.device)
-    fn = _flash_lib()
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None if kv_lens is None else kv_lens.data_ptr(),
-                 None if lse is None else lse.data_ptr(),
-                 b, sq, sk, h, d,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *out.stride()[:3],
-                 float(scale), int(bool(causal)),
-                 int(q.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise MXNetError("flash_attn_fwd launch failed: CUDA error %d" % err)
-    if with_lse:
-        LAUNCHES["flash_attn_fwd_lse"] += 1
-        return out, lse
-    LAUNCHES["flash_attn_fwd"] += 1
-    return out
+    with _on_device(q.device):
+        _launch("flash_attn_fwd_lse" if with_lse else "flash_attn_fwd",
+                _flash_lib(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if kv_lens is None else kv_lens.data_ptr(),
+                None if lse is None else lse.data_ptr(),
+                b, sq, sk, h, d,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *out.stride()[:3],
+                float(scale), int(bool(causal)),
+                int(q.dtype == torch.bfloat16), _stream(q.device))
+    return (out, lse) if with_lse else out
 
 
 def _flash_backward(q, k, v, out, lse, d_out, causal, scale, kv_lens=None):
@@ -239,9 +289,11 @@ class _FlashAttnFn(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# blocks the channel-sums grid aims at, per SM (a few waves of 256 threads)
+# blocks the channel-sums grid aims at, per SM (8 blocks of 256 threads
+# fill one)
 _BN_BLOCKS_PER_SM = 8
-_BN_MIN_CHUNK = 2048  # fewest elements one block sums
+_BN_MIN_BLOCK = 4096  # fewest elements one block sums, where it can
+_BN_MIN_COUNTERS = 4096  # arrival counters a stream's buffer holds at least
 
 
 def _plain_channel_sums(a, b=None):
@@ -254,8 +306,9 @@ def _plain_channel_sums(a, b=None):
 
 def _check_kernel_device(name, tensors):
     dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
-        raise MXNetError("%s: inputs on different devices" % name)
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise MXNetError("%s: inputs on different devices" % name)
     if dev.type == "cuda" and tensors[0].dtype not in KERNEL_DTYPES:
         raise MXNetError("%s: dtype %s unsupported on the card (one of %s)"
                          % (name, tensors[0].dtype, KERNEL_DTYPES))
@@ -264,26 +317,85 @@ def _check_kernel_device(name, tensors):
     return dev
 
 
-def _bn_splits(nhw, c, device):
-    """How many blocks share one channel's N*H*W elements: enough for a
-    few waves of blocks on the card, none summing fewer than
-    ``_BN_MIN_CHUNK`` elements."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-_BN_BLOCKS_PER_SM * sms // max(c, 1))
-    return max(1, min(want, -(-nhw // _BN_MIN_CHUNK)))
+def _fast_divider(d):
+    """(magic, shift) with ``x // d == (umulhi(x, magic) + x) >> shift`` for
+    every 0 <= x < 2**31 (the multiply-high division of PyTorch's
+    IntDivider): shift is the least s with 2**s >= d."""
+    shift = (d - 1).bit_length()
+    return (1 << 32) * ((1 << shift) - d) // d + 1, shift
 
 
-_BN_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                + [ctypes.c_longlong] * 8 + [ctypes.c_int] * 2
-                + [ctypes.c_void_p])
+@functools.lru_cache(maxsize=256)
+def _bn_plan(n, c, h, w, vec, sms):
+    """How ``csrc/bn_channel_sums.cu`` cuts an (n, c, h, w) input: returns
+    ``(splits, group, chunk, magic, shift)``.  Each block sums about
+    ``n*c*h*w / (_BN_BLOCKS_PER_SM * sms)`` elements, and at least
+    ``_BN_MIN_BLOCK`` where the input allows: a channel larger than that
+    is cut into ``splits`` chunks of ``chunk`` units (``vec`` elements
+    each) of its flat (n, h*w) range, combined by the last block to
+    arrive; smaller channels go ``group`` whole ones to a block.  ``magic``
+    and ``shift`` divide a unit index by the units of one plane."""
+    per_channel = n * h * w
+    target = max(_BN_MIN_BLOCK,
+                 -(-c * per_channel // (_BN_BLOCKS_PER_SM * sms)))
+    if per_channel > target:
+        chunk = -(-per_channel // -(-per_channel // target))
+        chunk = -(-chunk // vec) * vec
+        splits, group = -(-per_channel // chunk), 1
+    else:
+        chunk, splits = per_channel, 1
+        group = max(1, min(c, target // max(per_channel, 1)))
+    magic, shift = _fast_divider(max(h * w // vec, 1))
+    return splits, group, chunk // vec, magic, shift
 
 
-def _lib_fn(source, symbol, argtypes):
-    fn = getattr(_build.load(source), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+@functools.lru_cache(maxsize=256)
+def _bn_layout(h, w, vec, strides):
+    """``(vec, flat)`` for views of these strides whose bases are 16-byte
+    aligned (see :func:`_bn_vec`)."""
+    if h * w % vec == 0 and all(
+            sw == 1 and sh == w and sc % vec == 0 and sn % vec == 0
+            for sn, sc, sh, sw in strides):
+        return vec, True
+    return 1, all(sh == w * sw for _, _, sh, sw in strides)
+
+
+def _bn_vec(tensors, h, w):
+    """``(vec, flat)``: the elements of one load, 16 bytes where every view
+    is contiguous along its planes and every plane, stride and base is a
+    multiple of them, else 1; and whether every plane is contiguous in
+    (h, w) order (``stride(2) == w * stride(3)``)."""
+    vec, flat = _bn_layout(h, w, 16 // tensors[0].element_size(),
+                           tuple(map(torch.Tensor.stride, tensors)))
+    if vec > 1:
+        for t in tensors:
+            if t.data_ptr() % 16:
+                return 1, flat
+    return vec, flat
+
+
+# (device index, stream handle) -> int32 arrival counters, all 0 between
+# launches.  One buffer per stream: two calls in flight on two streams
+# would count their blocks on one counter and combine each other's
+# partial sums (csrc/bn_channel_sums.cu).
+_BN_COUNTERS = {}
+
+
+def _bn_counters(dev, stream, c):
+    buf = _BN_COUNTERS.get((dev.index, stream))
+    if buf is None or buf.numel() < c:
+        buf = torch.zeros(max(c, _BN_MIN_COUNTERS), dtype=torch.int32,
+                          device=dev)
+        _BN_COUNTERS[(dev.index, stream)] = buf
+    return buf
+
+
+# The C entries that run on the main path take their arguments packed as
+# int64s (one ctypes argument: converting twenty-odd costs more host time
+# than the launch): `BnArgs` of csrc/bn_channel_sums.cu, `AvgArgs` of
+# csrc/pool_bwd.cu, field for field.
+_BN_ARGS = struct.Struct("<26q")
+_PACKED_ARGTYPES = [ctypes.c_char_p]
 
 
 def bn_channel_sums(a, b=None):
@@ -291,8 +403,7 @@ def bn_channel_sums(a, b=None):
     ``b = a`` when ``b`` is None: BatchNorm's forward statistics (sum and
     sum of squares), or with ``(dy, x)`` its backward pair.  float32 or
     bfloat16 inputs of one dtype and shape.  CUDA tensors run the
-    hand-written kernel (one launch, both passes), CPU tensors its plain
-    version."""
+    hand-written kernel (one launch), CPU tensors its plain version."""
     ins = (a,) if b is None else (a, b)
     if a.ndim != 4 or (b is not None and b.shape != a.shape):
         raise MXNetError("bn_channel_sums takes NCHW tensors of one shape, "
@@ -304,23 +415,26 @@ def bn_channel_sums(a, b=None):
     if dev.type == "cpu":
         return _plain_channel_sums(a, b)
     n, c, h, w = a.shape
-    splits = _bn_splits(n * h * w, c, dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    partial = torch.empty(2 * c * splits, **f32)
-    out1, out2 = torch.empty(c, **f32), torch.empty(c, **f32)
-    bb = a if b is None else b
-    fn = _lib_fn("bn_channel_sums", "mxtt_bn_channel_sums", _BN_ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(a.data_ptr(), None if b is None else b.data_ptr(),
-                 partial.data_ptr(), out1.data_ptr(), out2.data_ptr(),
-                 n, c, h, w, *a.stride(), *bb.stride(), splits,
-                 int(a.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise MXNetError("bn_channel_sums launch failed: CUDA error %d"
-                         % err)
-    LAUNCHES["bn_channel_sums"] += 1
-    return out1, out2
+    if n * h * w >= 2 ** 31:
+        raise MXNetError("bn_channel_sums: %d elements a channel, the kernel "
+                         "takes fewer than 2**31" % (n * h * w))
+    vec, flat = _bn_vec(ins, h, w)
+    splits, group, chunk, magic, shift = _bn_plan(n, c, h, w, vec,
+                                                  _sm_count(dev))
+    # the two outputs, then the split channels' partial sums
+    out = torch.empty(2 * c * (1 + (splits if splits > 1 else 0)),
+                      dtype=torch.float32, device=dev)
+    fn = _lib_fn("bn_channel_sums", "mxtt_bn_channel_sums", _PACKED_ARGTYPES)
+    with _on_device(dev):
+        stream = _stream(dev)
+        base = out.data_ptr()
+        _launch("bn_channel_sums", fn, _BN_ARGS.pack(
+            a.data_ptr(), 0 if b is None else b.data_ptr(), base + 8 * c,
+            _bn_counters(dev, stream, c).data_ptr(), base, n, c, h, w,
+            *a.stride(), *(a if b is None else b).stride(), vec, flat,
+            splits, group, chunk, magic, shift, a.dtype == torch.bfloat16,
+            stream))
+    return out[:c], out[c:2 * c]
 
 
 # ---------------------------------------------------------------------------
@@ -419,9 +533,7 @@ _POOL_GEOMETRY_ARGTYPES = [ctypes.c_int] * 12
 _MAX_POOL_ARGTYPES = ([ctypes.c_void_p] * 3 + _POOL_GEOMETRY_ARGTYPES
                       + [ctypes.c_longlong] * 8
                       + [ctypes.c_int, ctypes.c_void_p])
-_AVG_POOL_ARGTYPES = ([ctypes.c_void_p] * 3 + _POOL_GEOMETRY_ARGTYPES
-                      + [ctypes.c_longlong] * 4
-                      + [ctypes.c_int, ctypes.c_void_p])
+_AVG_POOL_ARGS = struct.Struct("<22q")  # `AvgArgs` of csrc/pool_bwd.cu
 
 
 def _geometry(x_shape, dy, kernel, stride, pads):
@@ -444,17 +556,13 @@ def max_pool_backward(x, dy, kernel, stride, pads):
     if dev.type == "cpu":
         return _plain_max_pool_backward(x, dy, kernel, stride, pads)
     dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
-    fn = _lib_fn("pool_bwd", "mxtt_max_pool_bwd", _MAX_POOL_ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                 *_geometry(x.shape, dy, kernel, stride, pads),
-                 *x.stride(), *dy.stride(),
-                 int(x.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise MXNetError("max_pool_backward launch failed: CUDA error %d"
-                         % err)
-    LAUNCHES["max_pool_backward"] += 1
+    with _on_device(dev):
+        _launch("max_pool_backward",
+                _lib_fn("pool_bwd", "mxtt_max_pool_bwd", _MAX_POOL_ARGTYPES),
+                x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                *_geometry(x.shape, dy, kernel, stride, pads),
+                *x.stride(), *dy.stride(),
+                int(x.dtype == torch.bfloat16), _stream(dev))
     return dx
 
 
@@ -478,18 +586,15 @@ def avg_pool_backward(dy, div, x_shape, kernel, stride, pads, dtype=None):
     if dtype != dy.dtype:
         raise MXNetError("avg_pool_backward: the kernel writes dx in dy's "
                          "dtype %s, asked for %s" % (dy.dtype, dtype))
-    div = div.contiguous()
+    if not div.is_contiguous():
+        div = div.contiguous()
     dx = torch.empty(tuple(x_shape), dtype=dtype, device=dev)
-    fn = _lib_fn("pool_bwd", "mxtt_avg_pool_bwd", _AVG_POOL_ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(dy.data_ptr(), div.data_ptr(), dx.data_ptr(),
-                 *_geometry(x_shape, dy, kernel, stride, pads),
-                 *dy.stride(), int(dy.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise MXNetError("avg_pool_backward launch failed: CUDA error %d"
-                         % err)
-    LAUNCHES["avg_pool_backward"] += 1
+    fn = _lib_fn("pool_bwd", "mxtt_avg_pool_bwd", _PACKED_ARGTYPES)
+    with _on_device(dev):
+        _launch("avg_pool_backward", fn, _AVG_POOL_ARGS.pack(
+            dy.data_ptr(), div.data_ptr(), dx.data_ptr(),
+            *_geometry(x_shape, dy, kernel, stride, pads), *dy.stride(),
+            _sm_count(dev), dy.dtype == torch.bfloat16, _stream(dev)))
     return dx
 
 

@@ -16,6 +16,7 @@ differentiates the plain forward, as XLA's autodiff does there.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -331,8 +332,9 @@ def _pool_forward(x, pool_type, kernel, stride, pads, count_include_pad):
     return (total / cnt).to(x.dtype)
 
 
-def _pool_divisor(pool_type, count_include_pad, x_shape, kernel, stride,
-                  pads, out_shape, device):
+def _make_pool_divisor(pool_type, count_include_pad, x_shape, kernel,
+                       stride, pads, out_shape, device):
+    """The (OH, OW) float32 map each pooling cotangent is multiplied by."""
     if pool_type == "sum":
         return torch.ones(out_shape, dtype=torch.float32, device=device)
     if count_include_pad:
@@ -340,6 +342,11 @@ def _pool_divisor(pool_type, count_include_pad, x_shape, kernel, stride,
                           dtype=torch.float32, device=device)
     return 1.0 / _pool_window_counts(x_shape[2:], kernel, stride, pads,
                                      out_shape, device)
+
+
+# The backward of every step reads the same map: built once per geometry
+# and device, so a step launches no fill for it.  Callers never write it.
+_pool_divisor = functools.lru_cache(maxsize=256)(_make_pool_divisor)
 
 
 class _PoolFn(torch.autograd.Function):

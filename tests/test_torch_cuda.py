@@ -155,7 +155,7 @@ def test_bn_channel_sums_matches_plain(card, case, paired):
     for x, y in zip(got, want):
         assert x.dtype == torch.float32 and x.shape == (shape[1],)
         np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), **tol)
-    again = K.bn_channel_sums(a, b)  # deterministic: no atomics
+    again = K.bn_channel_sums(a, b)  # deterministic: no float atomics
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
@@ -169,6 +169,90 @@ def test_bn_channel_sums_reads_strided_views(card):
     for x, y in zip(got, want):
         np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
                                    atol=1e-4, rtol=1e-4)
+
+
+# ResNet-50 v2's 13 train-mode BatchNorm input shapes at batch 32
+RESNET_BN_SHAPES = [
+    (32, 3, 224, 224), (32, 64, 112, 112), (32, 64, 56, 56),
+    (32, 128, 56, 56), (32, 256, 56, 56), (32, 128, 28, 28),
+    (32, 256, 28, 28), (32, 512, 28, 28), (32, 256, 14, 14),
+    (32, 512, 14, 14), (32, 1024, 14, 14), (32, 512, 7, 7),
+    (32, 2048, 7, 7)]
+
+
+def _check_bn(a, b, tol=dict(atol=1e-4, rtol=1e-4)):
+    """One launch, within ``tol`` of the plain version, and a second call
+    bit-identical to the first (the arrival counters were reset)."""
+    before = K.launch_counts()["bn_channel_sums"]
+    got = K.bn_channel_sums(a, b)
+    again = K.bn_channel_sums(a, b)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bn_channel_sums"] == before + 2
+    want = K._plain_channel_sums(a, b)
+    for x, y, z in zip(got, want, again):
+        assert x.dtype == torch.float32 and x.shape == (a.shape[1],)
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), **tol)
+        assert torch.equal(x, z)
+
+
+@pytest.mark.parametrize("shape", RESNET_BN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("paired", [False, True], ids=["single", "paired"])
+def test_bn_channel_sums_at_every_resnet50_shape(card, shape, paired):
+    g = torch.Generator(device=card).manual_seed(10)
+    a = _pos(g, shape, card)
+    _check_bn(a, _pos(g, shape, card) if paired else None)
+
+
+@pytest.mark.parametrize("shape", [(32, 512, 7, 7), (32, 3, 224, 224),
+                                   (4, 1, 9, 9), (2, 3, 5, 5), (3, 1, 1, 1),
+                                   (32, 1, 56, 56)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bn_channel_sums_small_and_bf16(card, shape, dtype):
+    """bf16 at H*W 49 and 224^2; one channel, three, and N*H*W below one
+    block's share."""
+    g = torch.Generator(device=card).manual_seed(11)
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 \
+        else dict(atol=2e-2, rtol=1e-4)
+    for paired in (False, True):
+        a = _pos(g, shape, card, dtype)
+        _check_bn(a, _pos(g, shape, card, dtype) if paired else None, tol)
+
+
+def test_bn_channel_sums_misaligned_view_takes_the_scalar_path(card):
+    g = torch.Generator(device=card).manual_seed(12)
+    shape = (32, 64, 28, 28)
+    flat = _pos(g, (int(np.prod(shape)) + 1,), card)
+    a = flat[1:].view(shape)          # 4 bytes past a 16-byte boundary
+    b = _pos(g, shape, card)
+    assert K._bn_vec((a, b), 28, 28) == (1, True)
+    assert K._bn_vec((b,), 28, 28) == (4, True)
+    _check_bn(a, b)
+    _check_bn(a, None)
+
+
+def test_bn_channel_sums_on_two_streams(card):
+    """Calls in flight on two streams at once each keep their own arrival
+    counters: both agree with the plain version, call after call."""
+    g = torch.Generator(device=card).manual_seed(13)
+    xs = [_pos(g, (32, 64, 56, 56), card) for _ in range(2)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    outs = [[], []]
+    for _ in range(5):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(K.bn_channel_sums(xs[i], xs[1 - i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        want = K._plain_channel_sums(xs[i], xs[1 - i])
+        for got in outs[i]:
+            for x, y in zip(got, want):
+                np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
+                                           atol=1e-4, rtol=1e-4)
+            assert all(torch.equal(x, y) for x, y in zip(got, outs[i][0]))
 
 
 POOL_CUDA_CASES = [  # pool_type, shape, kernel, stride, pad, convention,
@@ -200,6 +284,19 @@ POOL_CUDA_CASES = [  # pool_type, shape, kernel, stride, pad, convention,
     ("max", (1, 2, 9, 1030), (3, 3), (2, 2), (1, 1), "valid", True,
      torch.float32, True),
     ("max", (1, 2, 40, 600), (3, 2), (1, 2), (1, 0), "full", True,
+     torch.bfloat16, False),
+    # the global pool's own path: ResNet's, bf16, a plane narrower than a
+    # vector, and an N*C*H*W tail shorter than one
+    ("avg", (32, 2048, 7, 7), (7, 7), (1, 1), (0, 0), "valid", True,
+     torch.float32, False),
+    ("avg", (32, 2048, 7, 7), (7, 7), (1, 1), (0, 0), "valid", True,
+     torch.bfloat16, False),
+    ("avg", (3, 5, 7, 7), (7, 7), (1, 1), (0, 0), "valid", True,
+     torch.float32, False),
+    ("sum", (3, 7, 1, 3), (1, 3), (1, 1), (0, 0), "valid", True,
+     torch.bfloat16, False),
+    # the general path: a row width that is no multiple of 4, bf16
+    ("avg", (2, 3, 9, 10), (3, 3), (1, 1), (1, 1), "valid", False,
      torch.bfloat16, False),
 ]
 
@@ -235,6 +332,29 @@ def test_pool_backward_kernel_matches_plain(card, case):
     assert K.launch_counts()[name] == before + 1
     assert got.dtype == dtype and got.shape == shape
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_global_avg_pool_backward_keeps_the_sign_of_zero(card, dtype):
+    """The plain version forms 0 + dy * div, so dy = -0 gives +0: the
+    kernel's dx equals it bit for bit, signs of zero included."""
+    g = torch.Generator(device=card).manual_seed(14)
+    dy = torch.randn(4, 6, 1, 1, generator=g, device=card)
+    dy[0, :3] = -0.0
+    dy[2, 5] = 0.0
+    dy = dy.to(dtype)
+    shape, pads = (4, 6, 7, 7), ((0, 0), (0, 0))
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    div = nn_ops._pool_divisor("avg", True, shape, (7, 7), (1, 1), pads,
+                               (1, 1), card)
+    got = K.avg_pool_backward(dy, div, shape, (7, 7), (1, 1), pads)
+    want = K._plain_avg_pool_backward(dy, div, shape, (7, 7), (1, 1), pads,
+                                      dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+    assert not torch.signbit(got[0, 0]).any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
