@@ -9,7 +9,9 @@ with BatchNorm's channel sums and the pooling input gradients in
 hand-written CUDA kernels).  Gluon trains imperatively or hybridized
 (``autograd.record()`` -> ``loss.backward()`` -> ``gluon.Trainer.step``),
 with attention in the flash kernel's LSE variant and its blockwise
-backward.
+backward, and the Gluon vision zoo's conv nets train through the same
+path with BatchNorm's channel sums and the 2-D pooling gradients in the
+hand-written kernels; an exported graph runs again as a ``SymbolBlock``.
 
 Entry points run on the card (``gpu(0)``) unless given ``cpu()``; without
 a card they raise ``MXNetError`` rather than fall back to the host.

@@ -171,3 +171,66 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     out = [NDArray(torch.zeros_like(v.tensor.detach()) if g is None else g)
            for v, g in zip(variables, grads)]
     return out[0] if single else out
+
+
+def get_symbol(x):
+    """Not supported, as in the JAX package: the recording is torch's
+    graph, not a Symbol."""
+    raise MXNetError("autograd.get_symbol is not supported in "
+                     "mxnet_tpu_torch")
+
+
+class Function:
+    """Custom differentiable function (ref: autograd.py:381): subclass it
+    and write ``forward`` and ``backward`` in NDArray ops.  Recording is
+    paused inside both; ``backward`` receives the outputs' gradients and
+    returns the inputs'.  ``save_for_backward``/``saved_tensors`` carry
+    NDArrays from one to the other.  Under ``record()`` a call is one
+    node of torch's graph (a ``torch.autograd.Function`` whose backward
+    calls this one's), so a loss after it differentiates through it."""
+
+    def __init__(self):
+        self._saved = None
+
+    def save_for_backward(self, *args):
+        self._saved = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def __call__(self, *inputs):
+        from .ndarray import NDArray
+        if not is_recording():
+            with pause():
+                return self.forward(*inputs)
+        func, fmt = self, {}
+
+        class _Node(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, *tensors):
+                with pause():
+                    outs = func.forward(*[NDArray(t) for t in tensors])
+                fmt["single"] = not isinstance(outs, (list, tuple))
+                outs = [outs] if fmt["single"] else list(outs)
+                return tuple(o.tensor for o in outs)
+
+            @staticmethod
+            def backward(ctx, *grads):
+                with pause():
+                    in_grads = func.backward(*[NDArray(g) for g in grads])
+                if not isinstance(in_grads, (list, tuple)):
+                    in_grads = [in_grads]
+                return tuple(None if g is None else g.tensor
+                             for g in in_grads)
+
+        with torch.enable_grad():
+            outs = _Node.apply(*[i.tensor for i in inputs])
+        outs = [NDArray(t) for t in outs]
+        return outs[0] if fmt["single"] else outs
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError

@@ -8,7 +8,8 @@
 //   out[0][c] = sum_{n,h,w} a[n, c, h, w]
 //   out[1][c] = sum_{n,h,w} a[n, c, h, w] * b[n, c, h, w]
 //
-// in f32 from f32 or bf16 inputs.  With b = a that is BatchNorm's forward
+// in f32 from f32, bf16, f16 or f64 inputs (f64 elements are rounded to
+// f32 and summed in f32, as the TPU kernel and the plain version do).  With b = a that is BatchNorm's forward
 // statistics (sum, sum of squares); (dy, x) gives its backward pair
 // (sum dy, sum dy * x).  Inputs are read through their 4-D strides.
 //
@@ -28,8 +29,8 @@
 // gives one block `group` whole channels when channels are small (the
 // 7 x 7 and 14 x 14 stages: no block sums a few hundred elements).
 //
-// A block walks its range in units of VEC elements: 16-byte loads (4 f32
-// or 8 bf16) where every plane, stride and the base are VEC-aligned, else
+// A block walks its range in units of VEC elements: 16-byte loads (4 f32,
+// 8 bf16 or f16, 2 f64) where every plane, stride and the base are VEC-aligned, else
 // one element.  A unit's plane comes from a multiply-high division by the
 // plane's units (precomputed on the host), not a loop or a divide, so
 // planes of 49 or 196 elements keep every thread busy; each thread keeps
@@ -49,8 +50,11 @@
 // wrapper keeps a counter buffer per (device, stream).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -78,6 +82,8 @@ __device__ __forceinline__ unsigned int plane_of(unsigned int u, const Plan& p) 
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f32(double x) { return (float)x; }
 
 // VEC consecutive elements of plane n at unit r of channel base `ch`.
 // FLAT: the plane is contiguous along w and h (sh == W * sw), so unit r
@@ -94,20 +100,26 @@ __device__ __forceinline__ void load_unit(const T* __restrict__ ch, const View& 
       const unsigned int h = r / (unsigned int)W;
       out[0] = to_f32(p[(long long)h * v.sh + (long long)(r - h * W) * v.sw]);
     }
-  } else if constexpr (sizeof(T) == 4) {
+  } else if constexpr (std::is_same<T, float>::value) {
     const float4 f = __ldg(reinterpret_cast<const float4*>(p) + r);
     out[0] = f.x;
     out[1] = f.y;
     out[2] = f.z;
     out[3] = f.w;
+  } else if constexpr (std::is_same<T, double>::value) {
+    const double2 f = __ldg(reinterpret_cast<const double2*>(p) + r);
+    out[0] = (float)f.x;
+    out[1] = (float)f.y;
   } else {
+    using T2 = typename std::conditional<std::is_same<T, __half>::value, __half2,
+                                         __nv_bfloat162>::type;
     const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + r);
     const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(&w[k]);
-      out[2 * k] = __low2float(b2);
-      out[2 * k + 1] = __high2float(b2);
+      const T2 h2 = *reinterpret_cast<const T2*>(&w[k]);
+      out[2 * k] = __low2float(h2);
+      out[2 * k + 1] = __high2float(h2);
     }
   }
 }
@@ -240,22 +252,43 @@ void launch(const void* a, const void* b, const View& av, const View& bv, float*
   }
 }
 
+// The launch for one element type: VEC-wide loads where the wrapper
+// chose them, else element by element, plane-flat or not.
+template <typename T>
+void launch_type(int vec, bool flat, const void* a, const void* b, const View& av,
+                 const View& bv, float* partial, int* counters, float* out, const Plan& p,
+                 unsigned int blocks, cudaStream_t st) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  if (vec > 1)
+    launch<T, VEC, true>(a, b, av, bv, partial, counters, out, p, blocks, st);
+  else if (flat)
+    launch<T, 1, true>(a, b, av, bv, partial, counters, out, p, blocks, st);
+  else
+    launch<T, 1, false>(a, b, av, bv, partial, counters, out, p, blocks, st);
+}
+
+// The element types, as the wrapper codes them (`_DTYPE_CODES` in
+// ops/kernels.py).
+enum DType { F32 = 0, BF16 = 1, F16 = 2, F64 = 3 };
+constexpr int ELEM_BYTES[4] = {4, 2, 2, 8};
+
 }  // namespace
 
 // The launch's arguments, as the wrapper packs them: int64s in this order
 // (`_BN_ARGS` in ops/kernels.py), one pointer through ctypes.  Strides
-// are in elements; b may be 0 (then b = a).  `vec` is 1, 4 (f32) or 8
-// (bf16): the elements of one load, which the wrapper chooses only where
+// are in elements; b may be 0 (then b = a).  `vec` is 1 or the elements
+// of 16 bytes (4 f32, 8 bf16 or f16, 2 f64): the elements of one load,
+// which the wrapper chooses only where
 // both views are plane-contiguous and VEC-aligned; `flat` says both views
 // are plane-contiguous (sh == W * sw).  `partial` is f32 scratch of
 // 2 * C * splits floats (unused when splits == 1), `counters` C int32
 // zeros that the launch leaves zero, `out` f32 (2, C).  splits, group,
-// chunk, magic and shift are _bn_plan's.
+// chunk, magic and shift are _bn_plan's; `dtype` a DType.
 struct BnArgs {
   long long a, b, partial, counters, out;
   long long N, C, H, W;
   long long a_sn, a_sc, a_sh, a_sw, b_sn, b_sc, b_sh, b_sw;
-  long long vec, flat, splits, group, chunk, magic, shift, is_bf16, stream;
+  long long vec, flat, splits, group, chunk, magic, shift, dtype, stream;
 };
 static_assert(sizeof(BnArgs) == 26 * 8, "BnArgs is 26 int64s");
 
@@ -264,9 +297,10 @@ extern "C" int mxtt_bn_channel_sums(const BnArgs* x) {
   const int C = (int)x->C, H = (int)x->H, W = (int)x->W, vec = (int)x->vec;
   const int splits = (int)x->splits, group = (int)x->group;
   if (C == 0) return 0;
+  if (x->dtype < F32 || x->dtype > F64) return (int)cudaErrorInvalidValue;
   if (splits < 1 || group < 1 || (splits > 1 && group > 1) || (vec > 1 && !x->flat))
     return (int)cudaErrorInvalidValue;
-  if (vec != 1 && vec != (x->is_bf16 ? 8 : 4)) return (int)cudaErrorInvalidValue;
+  if (vec != 1 && vec != 16 / ELEM_BYTES[x->dtype]) return (int)cudaErrorInvalidValue;
   const long long plane = (long long)H * W / vec, total = x->N * plane;
   if (total > 0x7fffffffLL || (long long)H * W % vec != 0) return (int)cudaErrorInvalidValue;
   const Plan p{C, splits, group, (unsigned int)x->chunk,
@@ -281,20 +315,19 @@ extern "C" int mxtt_bn_channel_sums(const BnArgs* x) {
   int* counters = reinterpret_cast<int*>(x->counters);
   float* out = reinterpret_cast<float*>(x->out);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(x->stream);
-  if (x->is_bf16) {
-    if (vec > 1)
-      launch<__nv_bfloat16, 8, true>(a, b, av, bv, partial, counters, out, p, blocks, st);
-    else if (x->flat)
-      launch<__nv_bfloat16, 1, true>(a, b, av, bv, partial, counters, out, p, blocks, st);
-    else
-      launch<__nv_bfloat16, 1, false>(a, b, av, bv, partial, counters, out, p, blocks, st);
-  } else {
-    if (vec > 1)
-      launch<float, 4, true>(a, b, av, bv, partial, counters, out, p, blocks, st);
-    else if (x->flat)
-      launch<float, 1, true>(a, b, av, bv, partial, counters, out, p, blocks, st);
-    else
-      launch<float, 1, false>(a, b, av, bv, partial, counters, out, p, blocks, st);
+  const bool flat = x->flat != 0;
+  switch (x->dtype) {
+    case BF16:
+      launch_type<__nv_bfloat16>(vec, flat, a, b, av, bv, partial, counters, out, p, blocks, st);
+      break;
+    case F16:
+      launch_type<__half>(vec, flat, a, b, av, bv, partial, counters, out, p, blocks, st);
+      break;
+    case F64:
+      launch_type<double>(vec, flat, a, b, av, bv, partial, counters, out, p, blocks, st);
+      break;
+    default:
+      launch_type<float>(vec, flat, a, b, av, bv, partial, counters, out, p, blocks, st);
   }
   return (int)cudaGetLastError();
 }

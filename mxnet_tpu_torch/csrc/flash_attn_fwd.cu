@@ -85,6 +85,10 @@ struct Strides {
 
 // Per (type, head_dim): keys per KV tile, the padded shared-memory row
 // stride in elements, and whether the Q fragments live in registers.
+// head_dim is 32, 64 or 128: a multiple of 16, so the TF32 products take
+// D / 8 k-steps, the bf16 ones D / 16, the bf16 P V walks the output's
+// n-tiles in ldmatrix pairs, and every row copies as whole 16-byte chunks
+// (at D 32 a tile is 512 f32 or 256 bf16 chunks, whole per thread).
 template <typename T, int D>
 struct Tile {
   static constexpr bool F32 = std::is_same<T, float>::value;
@@ -463,8 +467,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// Returns the cudaGetLastError() code of the launch (0 on success); an
-// unsupported head_dim returns cudaErrorInvalidValue.  Strides are in
+// Returns the cudaGetLastError() code of the launch (0 on success); a
+// head_dim other than 32, 64 or 128 returns cudaErrorInvalidValue.  Strides are in
 // elements.  kv_lens is an int32 device pointer of length B, or null; lse a
 // contiguous f32 [B, H, Sq] device buffer, or null for the forward alone.
 extern "C" int mxtt_flash_attn_fwd(
@@ -479,6 +483,10 @@ extern "C" int mxtt_flash_attn_fwd(
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh};
   const Strides vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 32) {
+    return is_bf16 ? launch<__nv_bfloat16, 32>(q, k, v, o, kv_lens, lse, B, Sq, Sk, H, qs, ks, vs, os, scale, causal, st)
+                   : launch<float, 32>(q, k, v, o, kv_lens, lse, B, Sq, Sk, H, qs, ks, vs, os, scale, causal, st);
+  }
   if (D == 64) {
     return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, o, kv_lens, lse, B, Sq, Sk, H, qs, ks, vs, os, scale, causal, st)
                    : launch<float, 64>(q, k, v, o, kv_lens, lse, B, Sq, Sk, H, qs, ks, vs, os, scale, causal, st);

@@ -52,7 +52,7 @@ class _Program:
                 self.var_slots.append((node.name, slot[(id(node), 0)]))
                 continue
             op = get_op(node.op_name)
-            attrs = op.normalize_attrs(node.attrs)
+            attrs = op.normalize_attrs(node.attrs, len(node.inputs))
             ins = [slot[(id(src), idx)] for src, idx in node.inputs]
             first = len(slot)
             n_out = op.str_outputs(attrs)
@@ -88,9 +88,12 @@ class _Program:
                 raise MXNetError("unbound variable %r" % name)
             env[s] = values[name]
         new_aux = {}
+        device = next((v.device for v in values.values()), None)
         for op, attrs, ins, first, n_out, free, mutates in self.steps:
             if op.takes_train_flag:
                 attrs = dict(attrs, _train=train)
+            if op.takes_device:
+                attrs = dict(attrs, _device=device)
             out = op.impl(*[env[s] for s in ins], **attrs)
             if not isinstance(out, tuple):
                 out = (out,)

@@ -1,6 +1,6 @@
 """Gluon: the imperative and hybrid neural-network API (ref:
 python/mxnet/gluon/)."""
-from .block import Block, HybridBlock  # noqa: F401
+from .block import Block, HybridBlock, SymbolBlock  # noqa: F401
 from .parameter import (  # noqa: F401
     Constant, DeferredInitializationError, Parameter, ParameterDict,
 )

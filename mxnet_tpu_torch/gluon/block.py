@@ -9,13 +9,16 @@ A Block runs eagerly through the imperative ops (``mx.nd``), recorded by
 torch autograd inside ``autograd.record()``.  ``hybridize()`` makes a
 HybridBlock trace its ``hybrid_forward`` once into a Symbol and run that
 graph's plan (``executor._Program``, cached by ``executor_cache``) — the
-CachedOp.  The plan runs on the Parameters' own tensors, which are the
+CachedOp.  A :class:`SymbolBlock` runs a given Symbol (an exported graph)
+through the same plan, its arguments and auxiliary states registered as
+Parameters.  The plan runs on the Parameters' own tensors, which are the
 torch leaves ``autograd`` differentiates, with grad mode on while
 recording; so a hybridized forward sits in the same torch graph as the
 loss after it, and its gradients are the imperative run's.
 """
 from __future__ import annotations
 
+import copy
 import re
 import threading
 
@@ -208,6 +211,13 @@ class Block:
         for cld in self._children:
             cld.hybridize(active, **kwargs)
 
+    def cast(self, dtype):
+        """Cast this block's and its children's Parameters to ``dtype``."""
+        for child in self._children:
+            child.cast(dtype)
+        for _, param in self.params.items():
+            param.cast(dtype)
+
     def __call__(self, *args):
         return self.forward(*args)
 
@@ -242,6 +252,10 @@ class HybridBlock(Block):
         self._active = active
         self._clear_cached_op()
         super().hybridize(active, **kwargs)
+
+    def cast(self, dtype):
+        self._clear_cached_op()
+        super().cast(dtype)
 
     def _clear_cached_op(self):
         self._cached_graph = ()
@@ -375,3 +389,68 @@ class HybridBlock(Block):
             elif name in aux_names:
                 arg_dict["aux:%s" % name] = param._reduce()
         nd_mod.save("%s-%04d.params" % (path, epoch), arg_dict)
+
+
+class SymbolBlock(HybridBlock):
+    """A Block over a given Symbol (ref: block.py:598), such as a graph
+    that ``export`` wrote: every argument that is not an input becomes a
+    Parameter, every auxiliary state one with ``grad_req='null'``, all
+    named as in the graph, and a call runs the graph's plan (the
+    CachedOp of a hybridized block)."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix=None, params=params)
+        self._prefix = ""
+        self._params = ParameterDict("", params)
+        if isinstance(inputs, Symbol) and len(inputs.list_outputs()) == 1:
+            inputs = [inputs]
+        if isinstance(outputs, (list, tuple)) and len(outputs) == 1:
+            outputs = outputs[0]
+        if isinstance(outputs, (list, tuple)):
+            outputs = sym_mod.Group(outputs)
+        syms, self._in_format = _flatten(inputs)
+        _, self._out_format = _flatten(outputs)
+        input_names = {i.name for i in syms}
+        for i in outputs.list_arguments():
+            if i not in input_names:
+                self.params.get(i, allow_deferred_init=True)
+        for i in outputs.list_auxiliary_states():
+            if i not in input_names:
+                self.params.get(i, grad_req="null", allow_deferred_init=True)
+        self._cached_graph = syms, outputs
+        prefix = _common_prefix(list(self._params.keys()))
+        self._reg_params = {k[len(prefix):]: v
+                            for k, v in self._params.items()}
+        self._prefix = prefix
+
+    def forward(self, x, *args):
+        if isinstance(x, NDArray):
+            try:
+                return self._call_cached_op(x, *args)
+            except DeferredInitializationError:
+                self._finish_deferred(x, *args)
+                return self._call_cached_op(x, *args)
+        if not isinstance(x, Symbol):
+            raise TypeError("SymbolBlock takes NDArray or Symbol inputs, "
+                            "got %s" % type(x))
+        return copy.copy(self._cached_graph[1])
+
+    def _clear_cached_op(self):
+        # the graph is the block itself: only the plans are dropped
+        self._cached_plans = {}
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError
+
+
+def _common_prefix(names):
+    """The longest string every name starts with."""
+    if not names:
+        return ""
+    prefix = names[0]
+    for name in names:
+        i = 0
+        while i < len(prefix) and i < len(name) and prefix[i] == name[i]:
+            i += 1
+        prefix = prefix[:i]
+    return prefix

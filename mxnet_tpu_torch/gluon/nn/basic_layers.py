@@ -2,21 +2,22 @@
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py`` (ref:
 python/mxnet/gluon/nn/basic_layers.py): Sequential/HybridSequential,
-Dense, Dropout, Embedding, BatchNorm, LayerNorm, Flatten, the Lambda
-wrappers and the activations, each over the port's registered ops so
-that imperative and hybridized runs compute the same functions.
-``InstanceNorm`` waits for its op.
+Dense, Dropout, Embedding, BatchNorm, InstanceNorm, LayerNorm, Flatten,
+the Lambda wrappers and the activations, each over the port's registered
+ops so that imperative and hybridized runs compute the same functions.
 """
 from __future__ import annotations
 
 import warnings
 
+import numpy as np
+
 from ..block import Block, HybridBlock
 from ..utils import _indent
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "Embedding", "BatchNorm", "LayerNorm", "Flatten", "Lambda",
-           "HybridLambda", "Activation", "LeakyReLU"]
+           "Embedding", "BatchNorm", "InstanceNorm", "LayerNorm", "Flatten",
+           "Lambda", "HybridLambda", "Activation", "LeakyReLU"]
 
 
 def _resolve_init(init):
@@ -187,6 +188,13 @@ class BatchNorm(HybridBlock):
                 init=_resolve_init(init), allow_deferred_init=True,
                 differentiable=False))
 
+    def cast(self, dtype):
+        # f16 statistics lose too much precision: the BatchNorm type rule
+        # keeps gamma, beta and the moving statistics f32 for f16 data
+        if np.dtype(dtype).name == "float16":
+            dtype = "float32"
+        super().cast(dtype)
+
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         return F.BatchNorm(x, gamma, beta, running_mean, running_var,
                            name="fwd", **self._kwargs)
@@ -196,6 +204,21 @@ class BatchNorm(HybridBlock):
         opts = ", ".join("%s=%r" % kv for kv in self._kwargs.items())
         return "%s(%s, in_channels=%s)" % (
             type(self).__name__, opts, channels if channels else None)
+
+
+class InstanceNorm(HybridBlock):
+    """Normalization over each sample's spatial axes, per channel."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"eps": epsilon}
+        _affine_pair(self, in_channels, scale, center, gamma_initializer,
+                     beta_initializer)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, name="fwd", **self._kwargs)
 
 
 class LayerNorm(HybridBlock):

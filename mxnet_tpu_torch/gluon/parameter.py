@@ -282,6 +282,18 @@ class Parameter:
             if slot[2] is not None:
                 slot[2][:] = 0
 
+    def cast(self, dtype):
+        """Convert the data (and so the gradient) to ``dtype``."""
+        self.dtype = dtype
+        self._var = None
+        if self._slots is None:
+            return
+        with autograd.pause():
+            for slot in self._slots:
+                slot[1] = slot[1].astype(dtype)
+                slot[2] = None
+            self._attach_grads()
+
     def _reduce(self):
         """Mean of all replicas, on cpu (the checkpoint representation)."""
         replicas = self.list_data()
@@ -436,7 +448,9 @@ class ParameterDict:
                     raise AssertionError(
                         "restore_prefix is %r but Parameter %s does not "
                         "start with it" % (restore_prefix, name))
-        loaded = {restore_prefix + k: v
+        # an export's names carry "arg:"/"aux:" (MXNet's loader strips them)
+        loaded = {restore_prefix + (k[4:] if k.startswith(("arg:", "aux:"))
+                                    else k): v
                   for k, v in nd_load(filename).items()}
         if not allow_missing:
             absent = [n for n in self.keys() if n not in loaded]

@@ -266,13 +266,26 @@ def _to_tensor(source, ctx, dtype):
 # Imperative dispatch (ref: MXImperativeInvokeEx -> Imperative::Invoke)
 # ---------------------------------------------------------------------------
 
+def _parse_ctx(text):
+    """A Context from its string form (``"gpu(0)"``, ``"cpu"``)."""
+    name, _, rest = text.partition("(")
+    return Context(Context.devstr2type[name.strip()],
+                   int(rest.rstrip(")") or 0))
+
+
 def _invoke(op_name, inputs, attrs, out=None):
     """Run a registered op on NDArrays: normalize attrs, run its torch
     function (recorded by torch autograd while ``autograd.record()`` is
     active), write state outputs back into the inputs they update
     (BatchNorm's moving statistics), and honour ``out=``."""
     op = get_op(op_name)
-    nattrs = op.normalize_attrs(attrs)
+    if op.takes_device:  # the output's device: the ctx attr, else current
+        ctx = attrs.pop("ctx", None) or current_context()
+        if isinstance(ctx, str):
+            ctx = _parse_ctx(ctx)
+    nattrs = op.normalize_attrs(attrs, len(inputs))
+    if op.takes_device:
+        nattrs["_device"] = ctx.torch_device()
     if op.takes_train_flag:
         nattrs["_train"] = ag.is_training()
     recording = ag.is_recording()

@@ -3,3 +3,4 @@ from . import registry  # noqa: F401
 from . import tensor  # noqa: F401
 from . import nn  # noqa: F401
 from . import attention  # noqa: F401
+from . import optimizer_ops  # noqa: F401

@@ -40,7 +40,7 @@ LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_fwd_lse": 0,
             "bn_channel_sums": 0, "max_pool_backward": 0,
             "avg_pool_backward": 0}
 
-FLASH_HEAD_DIMS = (64, 128)
+FLASH_HEAD_DIMS = (32, 64, 128)
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 # query rows per step of the flash backward (the JAX package's block_q)
 FLASH_BWD_BLOCK_Q = 128
@@ -55,15 +55,22 @@ def reset_launch_counts():
         LAUNCHES[name] = 0
 
 
+def _acc_dtype(dtype):
+    """The type the plain versions compute in: f64 for f64 inputs, else
+    f32 (the kernels' accumulator)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def _reference_attention_lse(q, k, v, causal, scale, kv_lens=None):
-    """[B, S, H, D] exact attention, in f32 — the plain version of the
-    flash kernel — and the f32 [B, H, Sq] log-sum-exp of each row's
-    valid scores, the kernel's LSE output.  ``kv_lens``: optional (B,)
-    valid KV length per sequence.  A row with no valid key gives 0 and
-    an LSE of -1e30, as the kernel does (the JAX package's reference
-    would give the mean of v there; its flash kernel gives 0 and
-    m + log(1) = -1e30)."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    """[B, S, H, D] exact attention, in f32 (f64 for f64 inputs) — the
+    plain version of the flash kernel — and the [B, H, Sq] log-sum-exp
+    of each row's valid scores, the kernel's LSE output.  ``kv_lens``:
+    optional (B,) valid KV length per sequence.  A row with no valid key
+    gives 0 and an LSE of -1e30, as the kernel does (the JAX package's
+    reference would give the mean of v there; its flash kernel gives 0
+    and m + log(1) = -1e30)."""
+    acc = _acc_dtype(q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
     n_q, n_k = q.shape[1], k.shape[1]
     valid = torch.ones((n_q, n_k), dtype=torch.bool, device=q.device)
     if causal:
@@ -77,7 +84,7 @@ def _reference_attention_lse(q, k, v, causal, scale, kv_lens=None):
     lse = torch.where(valid.any(dim=-1), torch.logsumexp(s, dim=-1),
                       torch.full((), _NEG_INF, device=q.device))
     p = torch.exp(s - lse[..., None]) * valid
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(acc)).to(q.dtype)
     return out, lse
 
 
@@ -87,6 +94,7 @@ def _reference_attention(q, k, v, causal, scale, kv_lens=None):
 
 
 def _check_flash_args(q, k, v, kv_lens):
+    """The arguments' agreement with each other, for every device."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise MXNetError("flash_attention takes [batch, seq, heads, "
                          "head_dim] tensors, got %s, %s, %s"
@@ -95,19 +103,12 @@ def _check_flash_args(q, k, v, kv_lens):
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise MXNetError("flash_attention: q %s, k %s and v %s disagree"
                          % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
-    if d not in FLASH_HEAD_DIMS:
-        raise MXNetError("flash_attention: head_dim %d unsupported (the "
-                         "kernel takes %s)" % (d, FLASH_HEAD_DIMS))
-    if q.dtype not in FLASH_DTYPES or k.dtype != q.dtype \
+    if not q.is_floating_point() or k.dtype != q.dtype \
             or v.dtype != q.dtype:
-        raise MXNetError("flash_attention: dtypes %s, %s, %s unsupported "
-                         "(one of %s for all three)"
-                         % (q.dtype, k.dtype, v.dtype, FLASH_DTYPES))
+        raise MXNetError("flash_attention: q, k, v take one floating dtype, "
+                         "got %s, %s, %s" % (q.dtype, k.dtype, v.dtype))
     if not (q.device == k.device == v.device):
         raise MXNetError("flash_attention: q, k, v on different devices")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise MXNetError("flash_attention: the head_dim axis must be "
-                         "contiguous")
     if kv_lens is not None and (kv_lens.dtype != torch.int32
                                 or tuple(kv_lens.shape) != (b,)
                                 or kv_lens.device != q.device):
@@ -115,6 +116,20 @@ def _check_flash_args(q, k, v, kv_lens):
                          "tensor on q's device, got %s %s on %s"
                          % (kv_lens.dtype, tuple(kv_lens.shape),
                             kv_lens.device))
+
+
+def _check_flash_kernel_args(q, k, v):
+    """What the CUDA kernel takes beyond :func:`_check_flash_args`."""
+    d = q.shape[-1]
+    if d not in FLASH_HEAD_DIMS:
+        raise MXNetError("flash_attention: head_dim %d unsupported on the "
+                         "card (the kernel takes %s)" % (d, FLASH_HEAD_DIMS))
+    if q.dtype not in FLASH_DTYPES:
+        raise MXNetError("flash_attention: dtype %s unsupported on the card "
+                         "(the kernel takes %s)" % (q.dtype, FLASH_DTYPES))
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise MXNetError("flash_attention: the head_dim axis must be "
+                         "contiguous")
 
 
 _FNS = {}  # C entry name -> its ctypes function, argtypes set
@@ -183,12 +198,14 @@ def _flash_lib():
 def flash_attention(q, k, v, causal=False, scale=None, kv_lens=None,
                     with_lse=False):
     """Flash-attention forward.  q: [batch, seq_q, heads, head_dim], k and
-    v: [batch, seq_k, heads, head_dim]; head_dim 64 or 128; float32 or
-    bfloat16 (f32 accumulate, output in the input dtype); ``kv_lens`` an
+    v: [batch, seq_k, heads, head_dim], one floating dtype (accumulated
+    in f32, output in the input dtype); ``kv_lens`` an
     optional int32 (batch,) tensor of valid KV lengths.  With
     ``with_lse`` returns ``(out, lse)``, ``lse`` the f32 [batch, heads,
     seq_q] row log-sum-exp the backward needs.  CUDA tensors run the
-    hand-written kernel, CPU tensors its plain version."""
+    hand-written kernel, which takes head_dim 32, 64 or 128 and float32
+    or bfloat16 (anything else raises); CPU tensors run its plain
+    version, for every head_dim and floating dtype."""
     _check_flash_args(q, k, v, kv_lens)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -201,6 +218,7 @@ def flash_attention(q, k, v, causal=False, scale=None, kv_lens=None,
     if q.device.type != "cuda":
         raise MXNetError("flash_attention: no kernel for device %s"
                          % q.device)
+    _check_flash_kernel_args(q, k, v)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
@@ -225,16 +243,18 @@ def _flash_backward(q, k, v, out, lse, d_out, causal, scale, kv_lens=None):
     tensors.  Blockwise over ``FLASH_BWD_BLOCK_Q`` query rows, so it holds
     O(block * seq_k) scores per (batch, head) and never the seq_q x
     seq_k matrix; under ``causal`` a block reads only the keys up to its
-    last row (the rest carry zero weight).  All arithmetic is f32
-    (``D = rowsum(dO * O)`` in particular, which enters ``ds`` by
-    cancellation); gradients return in the inputs' dtypes."""
+    last row (the rest carry zero weight).  All arithmetic is f32 (f64
+    for f64 inputs), ``D = rowsum(dO * O)`` in particular, which enters
+    ``ds`` by cancellation; gradients return in the inputs' dtypes."""
     sq, sk = q.shape[1], k.shape[1]
 
-    def heads_first(t):  # [B, S, H, D] -> contiguous f32 [B, H, S, D]
-        return t.float().transpose(1, 2).contiguous()
+    acc = _acc_dtype(q.dtype)
+
+    def heads_first(t):  # [B, S, H, D] -> contiguous [B, H, S, D]
+        return t.to(acc).transpose(1, 2).contiguous()
 
     qf, kf, vf, dof = (heads_first(t) for t in (q, k, v, d_out))
-    delta = (d_out.float() * out.float()).sum(-1).transpose(1, 2)  # [B,H,Sq]
+    delta = (d_out.to(acc) * out.to(acc)).sum(-1).transpose(1, 2)  # [B,H,Sq]
     kv_len = torch.full((q.shape[0],), sk, device=q.device) \
         if kv_lens is None else kv_lens.to(torch.int64).clamp(0, sk)
     cols = torch.arange(sk, device=q.device)
@@ -253,7 +273,7 @@ def _flash_backward(q, k, v, out, lse, d_out, causal, scale, kv_lens=None):
         # explicit re-mask: a row with no valid key has lse -1e30, and
         # exp(s - lse) would resurrect every masked column
         p = torch.where(valid, torch.exp(sij - lse[:, :, s0:s1, None]),
-                        torch.zeros((), device=q.device))
+                        torch.zeros((), dtype=acc, device=q.device))
         dp = torch.matmul(dob, vb.transpose(-1, -2))
         ds = p * (dp - delta[:, :, s0:s1, None])
         dq[:, :, s0:s1] = torch.matmul(ds, kb) * scale
@@ -288,7 +308,10 @@ class _FlashAttnFn(torch.autograd.Function):
 # BatchNorm channel sums
 # ---------------------------------------------------------------------------
 
-KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
+# the element-type codes of the training kernels' C entries (`DType` of
+# csrc/bn_channel_sums.cu and csrc/pool_bwd.cu)
+_DTYPE_CODES = dict(zip(KERNEL_DTYPES, range(len(KERNEL_DTYPES))))
 # blocks the channel-sums grid aims at, per SM (8 blocks of 256 threads
 # fill one)
 _BN_BLOCKS_PER_SM = 8
@@ -401,9 +424,10 @@ _PACKED_ARGTYPES = [ctypes.c_char_p]
 def bn_channel_sums(a, b=None):
     """Per-channel f32 ``(sum a, sum a*b)`` of an NCHW tensor, with
     ``b = a`` when ``b`` is None: BatchNorm's forward statistics (sum and
-    sum of squares), or with ``(dy, x)`` its backward pair.  float32 or
-    bfloat16 inputs of one dtype and shape.  CUDA tensors run the
-    hand-written kernel (one launch), CPU tensors its plain version."""
+    sum of squares), or with ``(dy, x)`` its backward pair.  Floating
+    inputs of one dtype and shape (float64 elements are summed in f32).
+    CUDA tensors run the hand-written kernel (one launch), CPU tensors its
+    plain version."""
     ins = (a,) if b is None else (a, b)
     if a.ndim != 4 or (b is not None and b.shape != a.shape):
         raise MXNetError("bn_channel_sums takes NCHW tensors of one shape, "
@@ -432,7 +456,7 @@ def bn_channel_sums(a, b=None):
             a.data_ptr(), 0 if b is None else b.data_ptr(), base + 8 * c,
             _bn_counters(dev, stream, c).data_ptr(), base, n, c, h, w,
             *a.stride(), *(a if b is None else b).stride(), vec, flat,
-            splits, group, chunk, magic, shift, a.dtype == torch.bfloat16,
+            splits, group, chunk, magic, shift, _DTYPE_CODES[a.dtype],
             stream))
     return out[:c], out[c:2 * c]
 
@@ -463,20 +487,22 @@ def _tap_view(t, out_shape, stride, i, j):
 
 
 def _padded(x, pads, out_shape, kernel, stride, fill):
+    """x padded with ``fill``, in the type it is computed in."""
     n, c, h, w = x.shape
     (pt, pb), (pl, pr) = pads
     hp = _padded_extent(h, pt, pb, out_shape[0], kernel[0], stride[0])
     wp = _padded_extent(w, pl, pr, out_shape[1], kernel[1], stride[1])
-    out = torch.full((n, c, hp, wp), fill, dtype=torch.float32,
-                     device=x.device)
-    out[:, :, pt:pt + h, pl:pl + w] = x.float()
+    acc = _acc_dtype(x.dtype)
+    out = torch.full((n, c, hp, wp), fill, dtype=acc, device=x.device)
+    out[:, :, pt:pt + h, pl:pl + w] = x.to(acc)
     return out
 
 
 def _plain_max_pool_backward(x, dy, kernel, stride, pads):
     """The plain version of ``max_pool_backward``: each window's first
     maximal tap in row-major order (padding is -inf) takes the window's
-    cotangent; the sums run in f32 in tap order and cast once."""
+    cotangent; the comparisons and the sums, in tap order, run in f32 (f64
+    for f64 inputs), and the sums are cast once."""
     out_shape = tuple(dy.shape[2:])
     xp = _padded(x, pads, out_shape, kernel, stride, float("-inf"))
     taps = [_tap_view(xp, out_shape, stride, i, j)
@@ -488,8 +514,8 @@ def _plain_max_pool_backward(x, dy, kernel, stride, pads):
     am = torch.full(m.shape, n_taps, dtype=torch.int32, device=x.device)
     for t, v in enumerate(taps):
         am = torch.where((v == m) & (am == n_taps), t, am)
-    dyf = dy.float()
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    dyf = dy.to(xp.dtype)
+    zero = torch.zeros((), dtype=xp.dtype, device=x.device)
     dxp = torch.zeros_like(xp)
     for t, (i, j) in enumerate(_pool_taps(kernel)):
         _tap_view(dxp, out_shape, stride, i, j).add_(
@@ -501,14 +527,15 @@ def _plain_max_pool_backward(x, dy, kernel, stride, pads):
 
 def _plain_avg_pool_backward(dy, div, x_shape, kernel, stride, pads, dtype):
     """The plain version of ``avg_pool_backward``: every tap of a window
-    takes ``dy * div``, summed in f32 in tap order."""
+    takes ``dy * div``, summed in f32 (f64 for f64 dy) in tap order."""
     out_shape = tuple(dy.shape[2:])
-    contrib = dy.float() * div
+    acc = _acc_dtype(dy.dtype)
+    contrib = dy.to(acc) * div.to(acc)
     n, c, h, w = x_shape
     (pt, pb), (pl, pr) = pads
     hp = _padded_extent(h, pt, pb, out_shape[0], kernel[0], stride[0])
     wp = _padded_extent(w, pl, pr, out_shape[1], kernel[1], stride[1])
-    dxp = torch.zeros((n, c, hp, wp), dtype=torch.float32, device=dy.device)
+    dxp = torch.zeros((n, c, hp, wp), dtype=acc, device=dy.device)
     for i, j in _pool_taps(kernel):
         _tap_view(dxp, out_shape, stride, i, j).add_(contrib)
     return dxp[:, :, pt:pt + h, pl:pl + w].to(dtype)
@@ -562,23 +589,27 @@ def max_pool_backward(x, dy, kernel, stride, pads):
                 x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                 *_geometry(x.shape, dy, kernel, stride, pads),
                 *x.stride(), *dy.stride(),
-                int(x.dtype == torch.bfloat16), _stream(dev))
+                _DTYPE_CODES[x.dtype], _stream(dev))
     return dx
 
 
 def avg_pool_backward(dy, div, x_shape, kernel, stride, pads, dtype=None):
     """Input gradient of 2-D avg/sum pooling: ``div`` is the (OH, OW)
-    float32 map each cotangent is multiplied by — 1 for sum pooling,
-    1/prod(kernel) for avg, 1/valid-count under count_include_pad=False.
+    map each cotangent is multiplied by — 1 for sum pooling,
+    1/prod(kernel) for avg, 1/valid-count under count_include_pad=False —
+    in float32, or float64 for float64 dy.
     Never reads x.  Returns dx of ``x_shape`` in ``dtype`` (default dy's).
     CUDA tensors run the hand-written kernel, CPU tensors its plain
     version."""
     kernel, stride = tuple(kernel), tuple(stride)
     dtype = dy.dtype if dtype is None else dtype
     _check_pool_args("avg_pool_backward", x_shape, dy, kernel, stride, pads)
-    if div.dtype != torch.float32 or tuple(div.shape) != tuple(dy.shape[2:]):
-        raise MXNetError("avg_pool_backward: div must be a float32 (OH, OW) "
-                         "map, got %s %s" % (div.dtype, tuple(div.shape)))
+    if div.dtype != _acc_dtype(dy.dtype) \
+            or tuple(div.shape) != tuple(dy.shape[2:]):
+        raise MXNetError("avg_pool_backward: div must be a %s (OH, OW) map "
+                         "for %s dy, got %s %s"
+                         % (_acc_dtype(dy.dtype), dy.dtype, div.dtype,
+                            tuple(div.shape)))
     dev = _check_kernel_device("avg_pool_backward", (dy, div))
     if dev.type == "cpu":
         return _plain_avg_pool_backward(dy, div, x_shape, kernel, stride,
@@ -594,7 +625,7 @@ def avg_pool_backward(dy, div, x_shape, kernel, stride, pads, dtype=None):
         _launch("avg_pool_backward", fn, _AVG_POOL_ARGS.pack(
             dy.data_ptr(), div.data_ptr(), dx.data_ptr(),
             *_geometry(x_shape, dy, kernel, stride, pads), *dy.stride(),
-            _sm_count(dev), dy.dtype == torch.bfloat16, _stream(dev)))
+            _sm_count(dev), _DTYPE_CODES[dy.dtype], _stream(dev)))
     return dx
 
 

@@ -1,11 +1,14 @@
 """Neural-network operators (the serving and training slices).
 
 Counterpart of part of ``mxnet_tpu/ops/nn.py``: ``log_softmax``,
-``FullyConnected`` (with its two-way shape rule and
-``flatten=False``), ``LeakyReLU`` (with the exact-erf ``gelu``),
-``LayerNorm``, ``Dropout``, ``Embedding``, and the conv-net ops
-``Convolution``, ``Activation``, ``Pooling``, ``BatchNorm`` and
-``SoftmaxOutput``.  Products and convolutions are plain ``torch``
+``softmax``, ``SoftmaxActivation``, ``_PReLU``, ``FullyConnected`` (with
+its two-way shape rule and ``flatten=False``), ``LeakyReLU`` (with the
+exact-erf ``gelu``),
+``LayerNorm``, ``InstanceNorm``, ``L2Normalization``, ``LRN``,
+``Dropout``, ``Embedding``, the conv-net ops ``Convolution``,
+``Deconvolution``, ``Activation``, ``Pooling``, ``BatchNorm`` and
+``SoftmaxOutput``, and the losses ``softmax_cross_entropy`` and
+``MakeLoss``.  Products and convolutions are plain ``torch``
 calls: the JAX package leaves them to XLA, and the port leaves them to
 cuBLAS and cuDNN.  Where the JAX package has a Pallas kernel, the port's
 op is a ``torch.autograd.Function`` around the hand-written kernel of
@@ -38,6 +41,34 @@ def _log_softmax(x, axis=-1, temperature=None):
 
 register("log_softmax", _log_softmax, num_inputs=1,
          params={"axis": (pAny, -1), "temperature": (pAny, None)})
+
+
+def _softmax(x, axis=-1, temperature=None):
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    return torch.softmax(x, dim=int(axis))
+
+
+register("softmax", _softmax, num_inputs=1,
+         params={"axis": (pAny, -1), "temperature": (pAny, None)})
+
+
+def _softmax_activation(x, mode="instance"):
+    if mode == "channel":
+        return torch.softmax(x, dim=1)
+    return torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)
+
+
+register("SoftmaxActivation", _softmax_activation, num_inputs=1,
+         params={"mode": (pStr, "instance")})
+
+
+def _prelu(x, gamma):
+    g = gamma.reshape((1, -1) + (1,) * (x.ndim - 2)) if x.ndim > 1 else gamma
+    return torch.where(x > 0, x, g * x)
+
+
+register("_PReLU", _prelu, num_inputs=2)
 
 
 def _dropout(data, p=0.5, mode="training", axes=None, _train=False):
@@ -271,6 +302,86 @@ register("Convolution", _convolution, input_names=("data", "weight", "bias"),
 
 
 # ---------------------------------------------------------------------------
+# Deconvolution: the transposed convolution (cuDNN), with the reference's
+# crop semantics out = (in - 1) * s + ke - 2 * pad + adj, ke the dilated
+# kernel extent, and ``target_shape`` overriding pad and adj
+# ---------------------------------------------------------------------------
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _deconv_pad_adj(in_spatial, ke, stride, pad, adj, target_shape):
+    """Effective (pad, adj) per spatial dim.  target_shape overrides both
+    with a centered crop (ref: deconvolution-inl.h InferPad — total =
+    s(i-1)+ke-t, pad=(total+1)/2, adj=total%2)."""
+    if not target_shape:
+        return tuple(pad), (tuple(adj) if adj else (0,) * len(ke))
+    pads, adjs = [], []
+    for t, i, s, k in zip(target_shape, in_spatial, stride, ke):
+        total = s * (int(i) - 1) + k - int(t)
+        if total < 0:
+            raise MXNetError("Deconvolution: target_shape %s exceeds the "
+                             "full output size" % (tuple(target_shape),))
+        adjs.append(total % 2)
+        pads.append((total + 1) // 2)
+    return tuple(pads), tuple(adjs)
+
+
+def _deconvolution(data, weight, *rest, kernel=(1, 1), stride=None,
+                   dilate=None, pad=None, adj=None, target_shape=None,
+                   num_filter=1, num_group=1, no_bias=True, workspace=1024,
+                   cudnn_tune=None, cudnn_off=False, layout=None):
+    nd = len(kernel)
+    stride = tuple(stride or (1,) * nd)
+    dilate = tuple(dilate or (1,) * nd)
+    ke = [(k - 1) * d + 1 for k, d in zip(kernel, dilate)]
+    pad, adj = _deconv_pad_adj(data.shape[2:], ke, stride,
+                               tuple(pad or (0,) * nd), adj, target_shape)
+    # the weight is (C_in, num_filter / g, k...), torch's layout for a
+    # transposed convolution
+    return _CONV_T[nd](data, weight, None if no_bias else rest[0],
+                       stride=stride, padding=pad, output_padding=adj,
+                       groups=int(num_group), dilation=dilate)
+
+
+def _deconv_infer_shape(in_shapes, attrs):
+    kernel = attrs["kernel"]
+    nd = len(kernel)
+    stride = attrs.get("stride") or (1,) * nd
+    dilate = attrs.get("dilate") or (1,) * nd
+    pad = attrs.get("pad") or (0,) * nd
+    num_filter = int(attrs["num_filter"])
+    num_group = int(attrs.get("num_group", 1))
+    dshape = in_shapes[0]
+    if dshape is None:
+        return in_shapes, [None]
+    filled = list(in_shapes)
+    filled[1] = (dshape[1], num_filter // num_group) + tuple(kernel)
+    if not attrs.get("no_bias", True):
+        filled[2] = (num_filter,)
+    ke = [(kernel[i] - 1) * dilate[i] + 1 for i in range(nd)]
+    pad_eff, adj_eff = _deconv_pad_adj(dshape[2:], ke, stride, pad,
+                                       attrs.get("adj"),
+                                       attrs.get("target_shape"))
+    spatial = tuple(stride[i] * (dshape[2 + i] - 1) + ke[i]
+                    - 2 * pad_eff[i] + adj_eff[i] for i in range(nd))
+    return filled, [(dshape[0], num_filter) + spatial]
+
+
+register("Deconvolution", _deconvolution,
+         input_names=("data", "weight", "bias"),
+         infer_shape=_deconv_infer_shape,
+         params={"kernel": (pShape, (1, 1)), "stride": (pShape, None),
+                 "dilate": (pShape, None), "pad": (pShape, None),
+                 "adj": (pShape, None), "target_shape": (pShape, None),
+                 "num_filter": (pInt, 1), "num_group": (pInt, 1),
+                 "no_bias": (pBool, True), "workspace": (pInt, 1024),
+                 "cudnn_tune": (pStr, None), "cudnn_off": (pBool, False),
+                 "layout": (pStr, None)})
+
+
+# ---------------------------------------------------------------------------
 # Pooling.  The forward pads explicitly with the reference's (lo, hi) pads
 # (``pooling_convention="full"`` widens only the right pad, which is not
 # torch's ceil_mode) and pools with padding 0.
@@ -333,15 +444,17 @@ def _pool_forward(x, pool_type, kernel, stride, pads, count_include_pad):
 
 
 def _make_pool_divisor(pool_type, count_include_pad, x_shape, kernel,
-                       stride, pads, out_shape, device):
-    """The (OH, OW) float32 map each pooling cotangent is multiplied by."""
+                       stride, pads, out_shape, device,
+                       dtype=torch.float32):
+    """The (OH, OW) map each pooling cotangent is multiplied by, in
+    ``dtype`` (float32, or float64 for float64 data)."""
     if pool_type == "sum":
-        return torch.ones(out_shape, dtype=torch.float32, device=device)
+        return torch.ones(out_shape, dtype=dtype, device=device)
     if count_include_pad:
         return torch.full(out_shape, 1.0 / float(math.prod(kernel)),
-                          dtype=torch.float32, device=device)
+                          dtype=dtype, device=device)
     return 1.0 / _pool_window_counts(x_shape[2:], kernel, stride, pads,
-                                     out_shape, device)
+                                     out_shape, device).to(dtype)
 
 
 # The backward of every step reads the same map: built once per geometry
@@ -375,7 +488,7 @@ class _PoolFn(torch.autograd.Function):
         else:
             div = _pool_divisor(pool_type, count_include_pad, x_shape,
                                 kernel, stride, pads, tuple(dy.shape[2:]),
-                                dy.device)
+                                dy.device, _kernels._acc_dtype(x_dtype))
             dx = _kernels.avg_pool_backward(dy.to(x_dtype), div, x_shape,
                                             kernel, stride, pads, x_dtype)
         return dx, None, None, None, None, None
@@ -564,6 +677,58 @@ register("BatchNorm", _batch_norm,
                  "cudnn_off": (pBool, False)})
 
 
+def _instance_norm(data, gamma, beta, eps=1e-3):
+    axes = tuple(range(2, data.ndim))
+    mean = torch.mean(data, dim=axes, keepdim=True)
+    var = torch.var(data, dim=axes, keepdim=True, correction=0)
+    bshape = (1, -1) + (1,) * (data.ndim - 2)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+def _in_infer_shape(in_shapes, attrs):
+    dshape = in_shapes[0]
+    if dshape is None:
+        return in_shapes, [None]
+    return [dshape, (dshape[1],), (dshape[1],)], [dshape]
+
+
+register("InstanceNorm", _instance_norm,
+         input_names=("data", "gamma", "beta"),
+         infer_shape=_in_infer_shape, params={"eps": (pFloat, 1e-3)})
+
+
+def _l2_normalization(data, eps=1e-10, mode="instance"):
+    if mode == "instance":
+        n = torch.sqrt(torch.sum(torch.square(
+            data.reshape(data.shape[0], -1)), dim=1) + eps)
+        return data / n.reshape((-1,) + (1,) * (data.ndim - 1))
+    # "channel", and "spatial" as the reference computes it: over axis 1
+    return data / torch.sqrt(torch.sum(torch.square(data), dim=1,
+                                       keepdim=True) + eps)
+
+
+register("L2Normalization", _l2_normalization, num_inputs=1,
+         params={"eps": (pFloat, 1e-10), "mode": (pStr, "instance")})
+
+
+def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response normalization across channels: data / (knorm +
+    alpha * the sum of squares over the nsize channels around each)."""
+    sq = torch.square(data)
+    half = int(nsize) // 2
+    padded = F.pad(sq, (0, 0, 0, 0, half, half))
+    window = torch.zeros_like(sq)
+    for i in range(int(nsize)):
+        window = window + padded[:, i:i + sq.shape[1]]
+    return data / torch.pow(knorm + alpha * window, beta)
+
+
+register("LRN", _lrn, num_inputs=1,
+         params={"alpha": (pFloat, 1e-4), "beta": (pFloat, 0.75),
+                 "knorm": (pFloat, 2.0), "nsize": (pInt, 5)})
+
+
 # ---------------------------------------------------------------------------
 # SoftmaxOutput: the loss head.  Its backward ignores the head gradient and
 # is (softmax - onehot) * grad_scale with the reference's ignore_label and
@@ -653,3 +818,46 @@ register("SoftmaxOutput", _softmax_output, input_names=("data", "label"),
                  "preserve_shape": (pBool, False),
                  "normalization": (pStr, "null"), "out_grad": (pBool, False),
                  "smooth_alpha": (pFloat, 0.0)})
+
+
+def _softmax_cross_entropy(data, label):
+    """Summed cross-entropy of softmax(data) at integer labels (ref:
+    loss_binary_op.cc softmax_cross_entropy: 2-D data, 1-D label, a (1,)
+    output; its backward is autograd's softmax minus one-hot)."""
+    logp = torch.log_softmax(data.float(), dim=-1)
+    idx = label.detach().to(torch.int64)
+    picked = torch.gather(logp, -1, idx[:, None])
+    return (-torch.sum(picked)).reshape(1).to(data.dtype)
+
+
+def _sce_infer_shape(in_shapes, attrs):
+    d, _ = in_shapes
+    filled = list(in_shapes)
+    if d is not None and in_shapes[1] is None:
+        filled[1] = (d[0],)
+    return filled, [(1,)]
+
+
+register("softmax_cross_entropy", _softmax_cross_entropy,
+         input_names=("data", "label"), infer_shape=_sce_infer_shape)
+
+
+class _MakeLossFn(torch.autograd.Function):
+    """Identity forward; the backward ignores the head gradient and gives
+    ``grad_scale`` everywhere (ref: make_loss-inl.h)."""
+
+    @staticmethod
+    def forward(ctx, data, grad_scale):
+        ctx.grad_scale = grad_scale
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        return torch.full_like(_head_grad, ctx.grad_scale), None
+
+
+register("MakeLoss", lambda data, grad_scale=1.0, valid_thresh=0.0,
+         normalization="null": _MakeLossFn.apply(data, float(grad_scale)),
+         num_inputs=1,
+         params={"grad_scale": (pFloat, 1.0), "valid_thresh": (pFloat, 0.0),
+                 "normalization": (pStr, "null")})

@@ -22,6 +22,17 @@ def pShape(v):
     return shape_attr(v)
 
 
+def pShapeN(v):
+    """A shape whose elements may be None (``slice``'s begin/end/step:
+    None means from the start, to the end, step 1)."""
+    v = str_to_attr(v)
+    if v is None:
+        return None
+    if isinstance(v, int):
+        return (v,)
+    return tuple(None if e is None else int(e) for e in v)
+
+
 def pInt(v):
     return int(str_to_attr(v))
 
@@ -65,13 +76,19 @@ class Op:
         writes them back into the aux arrays under ``is_train``.
     takes_train_flag: the impl takes a ``_train`` kwarg distinguishing
         train and predict mode.
+    takes_device: the impl has no tensor input and takes the device to
+        create its output on as a ``_device`` kwarg (the init ops).
+    key_var_num_args: the attr that counts a variadic op's inputs
+        (``num_args`` of ``Concat``, ``stack``, ``add_n``); when a node or
+        call leaves it unset, it is filled from the number of inputs.
     aliases: further names the op is registered under.
     """
 
     def __init__(self, name, impl, params=None, num_inputs=None, num_outputs=1,
                  infer_shape=None, infer_type=None, input_names=None,
                  aux_names=(), bidirectional_infer=False, mutate_map=(),
-                 takes_train_flag=False, aliases=(), doc=""):
+                 takes_train_flag=False, takes_device=False,
+                 key_var_num_args=None, aliases=(), doc=""):
         self.name = name
         self.impl = impl
         self.params = params or {}
@@ -86,11 +103,14 @@ class Op:
         self.aux_names = tuple(aux_names)
         self.mutate_map = tuple(mutate_map)
         self.takes_train_flag = takes_train_flag
+        self.takes_device = takes_device
+        self.key_var_num_args = key_var_num_args
         self.aliases = tuple(aliases)
         self.doc = doc
 
-    def normalize_attrs(self, attrs):
-        """Convert raw (possibly string) attrs into typed python values."""
+    def normalize_attrs(self, attrs, num_inputs=None):
+        """Convert raw (possibly string) attrs into typed python values;
+        ``num_inputs`` fills an unset ``key_var_num_args`` attr."""
         out = {}
         for k, v in attrs.items():
             if k == "name" or (k.startswith("__") and k.endswith("__")):
@@ -101,6 +121,9 @@ class Op:
             out[k] = conv(v) if v is not None else None
         for k, (_, default) in self.params.items():
             out.setdefault(k, default)
+        key = self.key_var_num_args
+        if key and num_inputs is not None and not out.get(key):
+            out[key] = num_inputs
         return out
 
     def str_outputs(self, attrs):
@@ -169,7 +192,8 @@ def eval_shape_op(op, in_shapes, in_dtypes, attrs):
         metas = [torch.empty(tuple(int(d) for d in s), dtype=torch_dtype(d),
                              device="meta")
                  for s, d in zip(in_shapes, in_dtypes)]
-        out = apply_op(op, metas, attrs)
+        out = apply_op(op, metas, dict(attrs, _device="meta")
+                       if op.takes_device else attrs)
         hit = ([tuple(o.shape) for o in out],
                [dtype_name(o.dtype) for o in out])
         if len(_SHAPE_MEMO) >= _SHAPE_MEMO_MAX:

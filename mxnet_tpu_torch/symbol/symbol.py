@@ -134,6 +134,21 @@ class Symbol:
                 out.append("%s_output%d" % (node.name, idx))
         return out
 
+    def __getitem__(self, index):
+        """One output of a multi-output symbol, by position or name."""
+        if isinstance(index, str):
+            outs = self.list_outputs()
+            if index not in outs:
+                raise MXNetError("cannot find output %r" % index)
+            index = outs.index(index)
+        return Symbol([self._entries[index]])
+
+    def __len__(self):
+        return len(self._entries)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self._entries)))
+
     def attr_dict(self):
         """{node name: its attrs} for every node that has attrs."""
         return {node.name: dict(node.attrs) for node in self._topo()
@@ -286,7 +301,8 @@ class Symbol:
         for node in order:
             if not node.is_var:
                 op = get_op(node.op_name)
-                node_info[node] = (op, op.normalize_attrs(node.attrs),
+                node_info[node] = (op, op.normalize_attrs(node.attrs,
+                                                         len(node.inputs)),
                                    node.num_outputs())
 
         for _ in range(len(order) + 10):
@@ -476,7 +492,7 @@ def _create(op_name, sym_inputs, attrs, name=None):
         nattrs = op.normalize_attrs(attrs)
         n_expected = op.num_inputs(nattrs) if callable(op.num_inputs) \
             else len(full)
-        if op_name in ("FullyConnected", "Convolution") \
+        if op_name in ("FullyConnected", "Convolution", "Deconvolution") \
                 and nattrs.get("no_bias"):
             n_expected -= 1
         while len(entries) < n_expected:

@@ -44,6 +44,10 @@ CASES = [  # B, Sq, Sk, H, D, causal, dtype, kv_lens
     # D 128 in bf16
     (2, 300, 300, 3, 128, True, torch.bfloat16, None),
     (2, 64, 130, 2, 128, False, torch.bfloat16, [130, 9]),
+    # D 32 (the zoo TransformerLM's default head), f32 and bf16
+    (2, 200, 200, 4, 32, True, torch.float32, None),
+    (3, 77, 150, 2, 32, False, torch.float32, [150, 0, 33]),
+    (2, 130, 130, 4, 32, True, torch.bfloat16, [130, 64]),
 ]
 
 
@@ -80,7 +84,7 @@ def _strided_qkv(card, layout, d, dtype, seed):
             .to(dtype)[..., 1:] for _ in range(3)]
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("layout", ["fused", "offset"])
@@ -208,14 +212,16 @@ def test_bn_channel_sums_at_every_resnet50_shape(card, shape, paired):
                                    (4, 1, 9, 9), (2, 3, 5, 5), (3, 1, 1, 1),
                                    (32, 1, 56, 56)],
                          ids=lambda s: "x".join(map(str, s)))
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.float64],
+                         ids=["f32", "bf16", "f16", "f64"])
 def test_bn_channel_sums_small_and_bf16(card, shape, dtype):
-    """bf16 at H*W 49 and 224^2; one channel, three, and N*H*W below one
-    block's share."""
+    """bf16, f16 and f64 at H*W 49 and 224^2; one channel, three, and
+    N*H*W below one block's share.  f16 and f64 inputs are summed in f32
+    from the same elements on both sides, so they keep f32's tolerance."""
     g = torch.Generator(device=card).manual_seed(11)
-    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 \
-        else dict(atol=2e-2, rtol=1e-4)
+    tol = dict(atol=2e-2, rtol=1e-4) if dtype == torch.bfloat16 \
+        else dict(atol=1e-4, rtol=1e-4)
     for paired in (False, True):
         a = _pos(g, shape, card, dtype)
         _check_bn(a, _pos(g, shape, card, dtype) if paired else None, tol)
@@ -298,16 +304,38 @@ POOL_CUDA_CASES = [  # pool_type, shape, kernel, stride, pad, convention,
     # the general path: a row width that is no multiple of 4, bf16
     ("avg", (2, 3, 9, 10), (3, 3), (1, 1), (1, 1), "valid", False,
      torch.bfloat16, False),
+    # f16 and f64: the stem, the global pool and the general paths
+    ("max", (2, 3, 112, 112), (3, 3), (2, 2), (1, 1), "valid", True,
+     torch.float16, True),
+    ("max", (2, 3, 112, 112), (3, 3), (2, 2), (1, 1), "valid", True,
+     torch.float64, True),
+    ("max", (2, 3, 23, 29), (7, 7), (1, 1), (3, 3), "valid", True,
+     torch.float16, False),
+    ("max", (2, 3, 11, 13), (3, 3), (2, 2), (1, 1), "full", True,
+     torch.float64, False),
+    ("avg", (32, 2048, 7, 7), (7, 7), (1, 1), (0, 0), "valid", True,
+     torch.float16, False),
+    ("avg", (32, 2048, 7, 7), (7, 7), (1, 1), (0, 0), "valid", True,
+     torch.float64, False),
+    ("avg", (3, 5, 7, 7), (7, 7), (1, 1), (0, 0), "valid", True,
+     torch.float16, False),
+    ("avg", (2, 3, 11, 13), (3, 3), (2, 2), (1, 1), "full", False,
+     torch.float16, False),
+    ("sum", (2, 3, 12, 16), (2, 3), (2, 1), (0, 1), "valid", True,
+     torch.float64, False),
 ]
 
 
 @pytest.mark.parametrize("case", POOL_CUDA_CASES,
                          ids=lambda c: "-".join(map(str, c[:1] + c[2:7])))
 def test_pool_backward_kernel_matches_plain(card, case):
+    """Bit for bit; f64 inputs are drawn in f64 (values an f32 draw cast
+    up could not hold)."""
     from mxnet_tpu_torch.ops import nn as nn_ops
     pool, shape, kernel, stride, pad, conv, cip, dtype, relu = case
     g = torch.Generator(device=card).manual_seed(4)
-    x = torch.randn(*shape, generator=g, device=card)
+    draw = torch.float64 if dtype == torch.float64 else torch.float32
+    x = torch.randn(*shape, generator=g, device=card, dtype=draw)
     if relu:
         x = torch.clamp_min(x, 0.0)  # windows full of tied zeros
     x = x.to(dtype)
@@ -315,8 +343,8 @@ def test_pool_backward_kernel_matches_plain(card, case):
     out_shape = tuple(nn_ops._pool_out_dim(shape[2 + i], kernel[i],
                                            stride[i], pad[i], conv)
                       for i in range(2))
-    dy = torch.randn(shape[:2] + out_shape, generator=g,
-                     device=card).to(dtype)
+    dy = torch.randn(shape[:2] + out_shape, generator=g, device=card,
+                     dtype=draw).to(dtype)
     name = "max_pool_backward" if pool == "max" else "avg_pool_backward"
     before = K.launch_counts()[name]
     if pool == "max":
@@ -324,7 +352,7 @@ def test_pool_backward_kernel_matches_plain(card, case):
         want = K._plain_max_pool_backward(x, dy, kernel, stride, pads)
     else:
         div = nn_ops._pool_divisor(pool, cip, shape, kernel, stride, pads,
-                                   out_shape, card)
+                                   out_shape, card, K._acc_dtype(dtype))
         got = K.avg_pool_backward(dy, div, shape, kernel, stride, pads)
         want = K._plain_avg_pool_backward(dy, div, shape, kernel, stride,
                                           pads, dtype)
@@ -334,8 +362,9 @@ def test_pool_backward_kernel_matches_plain(card, case):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.float64],
+                         ids=["f32", "bf16", "f16", "f64"])
 def test_global_avg_pool_backward_keeps_the_sign_of_zero(card, dtype):
     """The plain version forms 0 + dy * div, so dy = -0 gives +0: the
     kernel's dx equals it bit for bit, signs of zero included."""
@@ -347,7 +376,7 @@ def test_global_avg_pool_backward_keeps_the_sign_of_zero(card, dtype):
     shape, pads = (4, 6, 7, 7), ((0, 0), (0, 0))
     from mxnet_tpu_torch.ops import nn as nn_ops
     div = nn_ops._pool_divisor("avg", True, shape, (7, 7), (1, 1), pads,
-                               (1, 1), card)
+                               (1, 1), card, K._acc_dtype(dtype))
     got = K.avg_pool_backward(dy, div, shape, (7, 7), (1, 1), pads)
     want = K._plain_avg_pool_backward(dy, div, shape, (7, 7), (1, 1), pads,
                                       dtype)
@@ -357,8 +386,9 @@ def test_global_avg_pool_backward_keeps_the_sign_of_zero(card, dtype):
     assert not torch.signbit(got[0, 0]).any()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.float64],
+                         ids=["f32", "bf16", "f16", "f64"])
 def test_max_pool_backward_routes_nan_windows_nowhere(card, dtype):
     """A window holding a NaN gives its gradient to no tap (the plain
     version's max-then-equality test); the other windows are unchanged."""
@@ -377,6 +407,35 @@ def test_max_pool_backward_routes_nan_windows_nowhere(card, dtype):
     want = K._plain_max_pool_backward(x, dy, (3, 3), (2, 2), pads)
     assert torch.equal(got, want)
     assert got[0, 1, 4, 7] == 0 and got[1, 2, 29, 0] == 0
+
+
+@pytest.mark.parametrize("kernel,stride", [((3, 3), (2, 2)), ((2, 2), (2, 2))],
+                         ids=["stem", "general"])
+def test_double_max_pool_backward_routes_near_ties_to_the_larger_tap(
+        card, kernel, stride):
+    """f64 compares doubles on the card, in the stem's compiled 3x3/s2
+    instance and in the general one: in the one window holding pixel
+    (2, 2), taps 1 and 1 + 2**-40 (equal in f32) and 1e300 and 2e300
+    (both inf in f32) send the gradient to the larger, bit for bit as the
+    plain version."""
+    g = torch.Generator(device=card).manual_seed(16)
+    x = torch.randn(2, 3, 12, 12, generator=g, device=card,
+                    dtype=torch.float64) * 1e-3
+    x[0, 0, 2, 2], x[0, 0, 2, 3] = 1.0, 1.0 + 2.0 ** -40
+    x[1, 2, 2, 2], x[1, 2, 3, 3] = 1e300, 2e300
+    pad = 1 if kernel[0] == 3 else 0
+    pads = ((pad, pad), (pad, pad))
+    out = (12 + 2 * pad - kernel[0]) // stride[0] + 1
+    dy = torch.randn(2, 3, out, out, generator=g, device=card,
+                     dtype=torch.float64)
+    before = K.launch_counts()["max_pool_backward"]
+    got = K.max_pool_backward(x, dy, kernel, stride, pads)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["max_pool_backward"] == before + 1
+    want = K._plain_max_pool_backward(x, dy, kernel, stride, pads)
+    assert torch.equal(got, want)
+    assert got[0, 0, 2, 2] == 0 and got[0, 0, 2, 3] != 0
+    assert got[1, 2, 2, 2] == 0 and got[1, 2, 3, 3] != 0
 
 
 def test_max_pool_backward_reads_non_contiguous_inputs(card):
@@ -426,6 +485,8 @@ LSE_CASES = [  # B, S, H, D, causal, dtype, kv_lens
     (1, 1000, 2, 64, True, torch.float32, None),
     (3, 150, 2, 64, True, torch.float32, [7, 0, 150]),
     (2, 300, 3, 128, True, torch.bfloat16, [300, 33]),
+    (2, 140, 4, 32, True, torch.float32, [140, 70]),
+    (2, 96, 4, 32, False, torch.bfloat16, None),
 ]
 
 
@@ -518,3 +579,80 @@ def test_mha_module_gradients_on_the_card_match_the_host(card):
                 assert np.abs(grads[0][name]).max() > 1e-6, name
             np.testing.assert_allclose(grads[0][name], grads[1][name],
                                        atol=1e-4, rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("bad", ["d48", "d80", "f16", "f64"])
+def test_flash_kernel_raises_outside_its_limits(card, bad):
+    """On the card a head_dim or dtype the kernel does not take raises an
+    MXNetError naming the limit: no silent fallback to the plain
+    version.  The same tensors on the host take the plain version."""
+    d = int(bad[1:]) if bad.startswith("d") else 64
+    dtype = {"f16": torch.float16, "f64": torch.float64}.get(
+        bad, torch.float32)
+    q = torch.randn(2, 16, 2, d, device=card).to(dtype)
+    before = K.launch_counts()
+    with pytest.raises(mx.MXNetError,
+                       match="head_dim %d unsupported" % d
+                       if bad.startswith("d") else "dtype .* unsupported"):
+        K.attention(q, q, q, causal=True)
+    assert K.launch_counts() == before
+    assert K.attention(q.cpu(), q.cpu(), q.cpu(), causal=True).shape \
+        == q.shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64],
+                         ids=["f16", "f64"])
+def test_half_and_double_batchnorm_and_pooling_run_the_kernels(card, dtype):
+    """Train-mode BatchNorm and 2-D max/avg pooling in f16 and f64 on the
+    card launch the hand-written kernels (2 channel sums, 1 of each pool
+    backward) and agree with the host: the pool gradients bit for bit
+    given the same upstream gradient, BatchNorm within f16's rounding
+    (atol=rtol=1e-2) and, in f64, within f32 sums' (atol=rtol=1e-4: its
+    statistics and backward pair are summed in f32, as the reference's
+    are, by blocks on the card and in one pass on the host)."""
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    r = np.random.RandomState(15)
+    x0 = r.normal(0.5, 1, (4, 6, 14, 14))
+    g0, b0 = r.normal(1, 0.1, 6), r.normal(0, 0.1, 6)
+    dys = [r.normal(0, 1, s) for s in ((4, 6, 14, 14), (4, 6, 7, 7),
+                                       (4, 6, 1, 1))]
+    res = {}
+    for dev in (card, torch.device("cpu")):
+        x = torch.tensor(x0, dtype=dtype, device=dev, requires_grad=True)
+        g = torch.tensor(g0, dtype=torch.float32, device=dev,
+                         requires_grad=True)
+        b = torch.tensor(b0, dtype=torch.float32, device=dev,
+                         requires_grad=True)
+        mm = torch.zeros(6, device=dev)
+        mv = torch.ones(6, device=dev)
+        before = K.launch_counts()
+        y, _, _ = nn_ops._batch_norm(x, g, b, mm, mv, fix_gamma=False,
+                                     _train=True)
+        ybn = torch.autograd.grad(y, (x, g, b), torch.tensor(
+            dys[0], dtype=dtype, device=dev))
+        xp = x.detach().clamp_min(0).requires_grad_()
+        mp = nn_ops._pooling(xp, "max", (3, 3), (2, 2), (1, 1))
+        dmax = torch.autograd.grad(mp, xp, torch.tensor(
+            dys[1], dtype=dtype, device=dev))[0]
+        # the global pool of a 7 x 7 plane (49 taps, in the kernel's reach)
+        xa = mp.detach().requires_grad_()
+        gp = nn_ops._pooling(xa, "avg", global_pool=True)
+        davg = torch.autograd.grad(gp, xa, torch.tensor(
+            dys[2], dtype=dtype, device=dev))[0]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            after = K.launch_counts()
+            assert {n: after[n] - before[n] for n in after} == {
+                "flash_attn_fwd": 0, "flash_attn_fwd_lse": 0,
+                "bn_channel_sums": 2, "max_pool_backward": 1,
+                "avg_pool_backward": 1}
+        assert y.dtype == dtype and ybn[0].dtype == dtype
+        assert ybn[1].dtype == torch.float32
+        res[dev.type] = [t.detach().cpu() for t in (y, *ybn, dmax, davg)]
+    tol = dict(atol=1e-2, rtol=1e-2) if dtype == torch.float16 \
+        else dict(atol=1e-4, rtol=1e-4)
+    for got, want in zip(res["cuda"][:4], res["cpu"][:4]):
+        np.testing.assert_allclose(got.double().numpy(),
+                                   want.double().numpy(), **tol)
+    for got, want in zip(res["cuda"][4:], res["cpu"][4:]):
+        assert torch.equal(got, want)

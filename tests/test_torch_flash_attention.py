@@ -63,10 +63,15 @@ def test_launch_counter_stays_zero_on_cpu():
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "lens_dtype",
                                  "lens_shape", "stride"])
 def test_wrapper_rejects_what_the_kernel_cannot_take(bad):
+    """Malformed arguments raise on every device.  What only the CUDA
+    kernel cannot take (a head_dim other than 32/64/128, a dtype other
+    than f32/bf16, a strided head_dim axis) raises in the check the CUDA
+    path applies, while host tensors take the plain version (the card's
+    raising is tests/test_torch_cuda.py's)."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(2, 16, 2, 64, seed=1))
     lens = None
     if bad == "head_dim":
-        q, k, v = (torch.from_numpy(a) for a in _qkv(2, 16, 2, 32, seed=1))
+        q, k, v = (torch.from_numpy(a) for a in _qkv(2, 16, 2, 48, seed=1))
     elif bad == "dtype":
         q, k, v = (t.double() for t in (q, k, v))
     elif bad == "lens_dtype":
@@ -75,8 +80,16 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(bad):
         lens = torch.tensor([16], dtype=torch.int32)
     else:
         q = q.transpose(2, 3).contiguous().transpose(2, 3)
-    with pytest.raises(mx.MXNetError):
-        K.flash_attention(q, k, v, kv_lens=lens)
+    if bad.startswith("lens"):
+        with pytest.raises(mx.MXNetError):
+            K.flash_attention(q, k, v, kv_lens=lens)
+        return
+    with pytest.raises(mx.MXNetError, match="unsupported on the card"
+                       if bad != "stride" else "contiguous"):
+        K._check_flash_kernel_args(q, k, v)
+    out = K.flash_attention(q, k, v)
+    want = K._reference_attention(q, k, v, False, q.shape[-1] ** -0.5)
+    assert out.dtype == q.dtype and torch.equal(out, want)
 
 
 def test_plain_bf16_rounds_like_f32_within_bf16_tolerance():

@@ -24,9 +24,10 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 def _run_both(name, inputs, attrs, train=False, n_diff=None, seed=9):
-    """(jax outputs, port outputs, jax grads, port grads) of op ``name``;
-    gradients of the visible outputs under one random cotangent with
-    respect to the first ``n_diff`` inputs (default: all)."""
+    """(jax outputs, port outputs, jax grads, port grads) of op ``name``,
+    as float64 arrays; gradients of the visible outputs under one random
+    cotangent (f32 normals, rounded to each output's dtype) with respect
+    to the first ``n_diff`` inputs (default: all)."""
     oj, ot = jax_op(name), port_op(name)
     aj, at = oj.normalize_attrs(attrs), ot.normalize_attrs(attrs)
     if oj.takes_train_flag:
@@ -49,23 +50,24 @@ def _run_both(name, inputs, attrs, train=False, n_diff=None, seed=9):
 
     outs_j, vjp = jax.vjp(fj, *[jnp.asarray(x) for x in inputs[:n_diff]])
     r = np.random.RandomState(seed)
-    cts = [r.randn(*o.shape).astype(np.float32) for o in outs_j]
-    grads_j = vjp(tuple(jnp.asarray(c) for c in cts))
+    cts = [np.asarray(r.randn(*o.shape), np.float32) for o in outs_j]
+    grads_j = vjp(tuple(jnp.asarray(c, dtype=o.dtype)
+                        for c, o in zip(cts, outs_j)))
     ts = [torch.tensor(x, requires_grad=i < n_diff)
           for i, x in enumerate(inputs)]
     full_t = ot.impl(*ts, **at)
     full_t = full_t if isinstance(full_t, tuple) else (full_t,)
     # outputs that carry no gradient (eval-mode mean/var are the moving
     # statistics) take their cotangent nowhere, as under jax.vjp
-    live = [(o, torch.from_numpy(c)) for o, c in zip(full_t[:n_vis], cts)
-            if o.requires_grad]
+    live = [(o, torch.from_numpy(c).to(o.dtype))
+            for o, c in zip(full_t[:n_vis], cts) if o.requires_grad]
     grads_t = torch.autograd.grad([o for o, _ in live], ts[:n_diff],
                                   [c for _, c in live], allow_unused=True)
-    grads_t = [np.zeros(x.shape, np.float32) if g is None else g.numpy()
+    grads_t = [np.zeros(x.shape) if g is None else g.double().numpy()
                for g, x in zip(grads_t, inputs)]
-    return ([np.asarray(o, dtype=np.float32) for o in full_j],
-            [o.detach().float().numpy() for o in full_t],
-            [np.asarray(g, dtype=np.float32) for g in grads_j], grads_t)
+    return ([np.asarray(o, dtype=np.float64) for o in full_j],
+            [o.detach().double().numpy() for o in full_t],
+            [np.asarray(g, dtype=np.float64) for g in grads_j], grads_t)
 
 
 def _check(results, tol=TOL):
