@@ -85,7 +85,29 @@ CUDA toolkit.  Phases, each of which raises on failure:
    exported and loaded back as a ``SymbolBlock`` (the same predict
    forward, the same launches in a Trainer step); and a batch-2 card-vs-
    host gradient check by phase 4's rule.
-7. The ``kernels`` JSON line (each kernel's record with its launches on
+7. Gluon recurrent training: Zaremba, Sutskever and Vinyals' medium LSTM
+   language model (the Gluon word-language-model example's ``RNNModel``:
+   vocabulary 10,000, embedding 650, 2 LSTM layers of 650, dropout 0.5,
+   untied decoder; 19,780,400 parameters, uniform +-0.05 from ``--seed``),
+   f32 with TF32 off, random token ids read through ``gluon.data.
+   DataLoader(ArrayDataset(...), batch_size=20, last_batch="discard",
+   num_workers=2)`` in the example's batchify order, bptt 35, the state
+   carried and detached between batches, ``autograd.record()`` ->
+   ``SoftmaxCrossEntropyLoss`` -> ``backward`` -> ``clip_global_norm``
+   (5 * 35 * 20) -> ``Trainer(..., "sgd", lr 1.0).step(20)``: 2 warm-up,
+   5 timed and 1 profiled step; finite losses, every parameter moved,
+   peak memory flat from the 3rd to the 7th step, no hand-written kernel
+   launched, ms per step, tokens/s, the forward/backward/clip/update
+   split, the device-busy share and device time by kernel and by host
+   op; one LSTM-layer forward beside ``torch.nn.LSTM`` on a packed
+   weight buffer (the cost of the flat weight layout); a batch-2 card-vs-
+   host check with dropout off (the LSTM output atol=rtol=1e-4, every
+   gradient 1e-3 relative L2); a 2-layer GRU and a bidirectional
+   ``rnn_tanh`` layer at width 256, T 35, card against host, and
+   ``LSTMCell.unroll`` against the fused LSTM on the card; ``CTCLoss`` at
+   N 32, T 200, 29 classes, labels up to 50, card against host (loss and
+   gradient atol=rtol=1e-4), timed beside ``torch.nn.functional.ctc_loss``.
+8. The ``kernels`` JSON line (each kernel's record with its launches on
    every path and its f16/f64 and head_dim 32 instances), then the
    result line.
 
@@ -1199,9 +1221,14 @@ def _dev_ms(e):
                    getattr(e, "self_cuda_time_total", 0.0)) / 1e3
 
 
-def profile_run(run, tag):
+def profile_run(run, tag, kernel_groups=KERNEL_GROUPS, op_groups=None):
     """``run()`` once under torch.profiler, synchronized: device time by
-    kernel group, the busy share of its wall time, the largest kernels.
+    kernel group (the first of ``kernel_groups`` whose substrings a
+    kernel's name holds), the busy share of its wall time, the largest
+    kernels; with ``op_groups``, also the device time of the kernels each
+    outermost host op (an aten op, or an autograd node in the backward)
+    launched, itself or through the ops under it, by the first group
+    whose substrings its name holds.
     Returns {device kernel name: (ms, launches)}, None when the profiler
     saw no device events."""
     import torch
@@ -1220,11 +1247,11 @@ def profile_run(run, tag):
         print("%s: profiled step %.2f ms; device time not measured (the "
               "profiler saw no device events)" % (tag, wall_ms))
         return None
-    groups = {label: 0.0 for label, _ in KERNEL_GROUPS}
+    groups = {label: 0.0 for label, _ in kernel_groups}
     groups["other"] = 0.0
     for e in device:
         name = e.key.lower()
-        label = next((lab for lab, keys in KERNEL_GROUPS
+        label = next((lab for lab, keys in kernel_groups
                       if any(k.lower() in name for k in keys)), "other")
         groups[label] += _dev_ms(e)
     print("%s: profiled step %.2f ms wall, device busy %.2f ms (%.1f%%, "
@@ -1236,6 +1263,19 @@ def profile_run(run, tag):
     for e in sorted(device, key=_dev_ms, reverse=True)[:8]:
         print("%s:   %8.3f ms x%-4d %s" % (tag, _dev_ms(e), e.count,
                                            e.key[:90]))
+    if op_groups:
+        by_op = {label: 0.0 for label, _ in op_groups}
+        by_op["other"] = 0.0
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CPU \
+                    or e.cpu_parent is not None:
+                continue
+            name = e.name.lower()
+            label = next((lab for lab, keys in op_groups
+                          if any(k in name for k in keys)), "other")
+            by_op[label] += e.device_time_total / 1e3
+        print("%s: device time by the host op that launched it: %s"
+              % (tag, "; ".join("%s %.2f ms" % kv for kv in by_op.items())))
     return {e.key: (_dev_ms(e), e.count) for e in device}
 
 
@@ -1809,6 +1849,422 @@ def vision_host_check(mx, seed):
                              "with the host's")
 
 
+# Gluon LSTM language model: Zaremba, Sutskever & Vinyals 2014, "Recurrent
+# Neural Network Regularization", the medium configuration, as MXNet's Gluon
+# example/gluon/word_language_model trains it (untied decoder)
+LM = dict(vocab=10000, embed=650, hidden=650, layers=2, bptt=35, batch=20,
+          dropout=0.5, init=0.05, lr=1.0, clip=5.0)
+LM_PARAMETERS = 19780400
+LM_WARMUP, LM_TIMED = 2, 5
+LM_HOST_BATCH = 2
+LM_OUT_TOL = dict(atol=1e-4, rtol=1e-4)
+LM_GRAD_REL = 1e-3
+# the other recurrent layers and the cells at a smaller width
+RNN_CHECK = dict(width=256, steps=35, batch=16)
+# CTC at a speech shape: Deep Speech 2's English alphabet (28 characters
+# and the blank), 200 frames, transcripts up to 50 characters
+CTC = dict(batch=32, steps=200, alphabet=29, max_label=50)
+CTC_TOL = dict(atol=1e-4, rtol=1e-4)
+LM_GROUPS = (  # by kernel name, first match wins
+    ("cuDNN RNN gate kernels", ("rnn", "lstm", "persist")),
+    ("softmax", ("softmax",)),
+    ("GEMMs (cuBLAS)", ("gemm", "xmma", "sm90", "sm80", "cutlass")),
+    ("elementwise and reductions (torch)",
+     ("elementwise", "vectorized", "reduce", "unrolled", "fill", "copy",
+      "index", "gather", "scatter", "embedding")),
+)
+LM_OP_GROUPS = (  # by the host op that launched the kernel
+    ("cuDNN RNN (its GEMMs, gates and weight copies)", ("rnn", "lstm")),
+    ("decoder GEMM and softmax cross-entropy",
+     ("matmul", "mm", "softmax", "pick", "gather")),
+    ("embedding", ("embedding",)),
+)
+
+
+def lstm_lm(mx, dropout):
+    """The word-language-model example's ``RNNModel``: Embedding ->
+    Dropout -> 2-layer LSTM -> Dropout -> Dense (untied), at ``LM``'s
+    widths, under a fresh NameManager."""
+    from mxnet_tpu_torch import gluon
+
+    class RNNModel(gluon.Block):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.encoder = gluon.nn.Embedding(LM["vocab"], LM["embed"])
+                self.drop = gluon.nn.Dropout(dropout)
+                self.rnn = gluon.rnn.LSTM(
+                    LM["hidden"], num_layers=LM["layers"], dropout=dropout,
+                    input_size=LM["embed"])
+                self.decoder = gluon.nn.Dense(LM["vocab"], flatten=False,
+                                              in_units=LM["hidden"])
+
+        def forward(self, inputs, hidden):
+            output, hidden = self.rnn(self.drop(self.encoder(inputs)), hidden)
+            return self.decoder(self.drop(output)), hidden
+
+    with mx.sym.NameManager():
+        return RNNModel()
+
+
+def lm_windows(seed, batches):
+    """Random token ids from ``seed`` as (inputs, targets), each
+    (batches * batch, bptt) float32: the stream is cut into ``batch`` rows
+    as the example's ``batchify`` does, and window k of row r is item
+    k * batch + r, so that row r of batch k continues row r of batch
+    k - 1 in a sequential DataLoader."""
+    b, t = LM["batch"], LM["bptt"]
+    rows = np.random.default_rng(seed).integers(
+        0, LM["vocab"], (b, batches * t + 1)).astype(np.float32)
+    idx = np.arange(batches)[:, None] * t + np.arange(t)
+    cut = [rows[:, idx + shift].transpose(1, 0, 2).reshape(-1, t)
+           for shift in (0, 1)]
+    return cut[0], cut[1]
+
+
+def train_lstm_lm(mx, seed):
+    """Phase 7: train the medium LSTM LM through DataLoader -> Gluon ->
+    Trainer on the card, then check the recurrent layers, the cells and
+    CTC against the host.  Returns the hand-written kernels' launches of
+    the main path (the LM's 8 steps; none is expected)."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ops import kernels as K
+
+    dev = mx.gpu(0)
+    b, t = LM["batch"], LM["bptt"]
+    tokens = b * t
+    t0 = time.perf_counter()
+    net = lstm_lm(mx, LM["dropout"])
+    mx.random.seed(seed)
+    net.initialize(mx.initializer.Uniform(LM["init"]), ctx=dev)
+    params = net.collect_params()
+    initial = {k: p.data().asnumpy() for k, p in params.items()}
+    n_params = sum(v.size for v in initial.values())
+    if n_params != LM_PARAMETERS:
+        raise AssertionError("the LM has %d parameters, not %d"
+                             % (n_params, LM_PARAMETERS))
+    steps = LM_WARMUP + LM_TIMED + 1
+    inputs, targets = lm_windows(seed + 70, steps)
+    loader = gluon.data.DataLoader(
+        gluon.data.ArrayDataset(inputs, targets), batch_size=b,
+        shuffle=False, last_batch="discard", num_workers=2)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(params, "sgd", {"learning_rate": LM["lr"]})
+    grads = [p.grad() for p in params.values()]
+    print("lstm-lm: %d parameters in %d Parameters (uniform +-%g from seed "
+          "%d) in %.1f s; %d batches of %d x %d tokens through a "
+          "DataLoader with 2 workers"
+          % (n_params, len(initial), LM["init"], seed,
+             time.perf_counter() - t0, len(loader), b, t))
+
+    state = {"hidden": net.rnn.begin_state(b, ctx=dev)}
+
+    def step(x, y):
+        # truncated BPTT: the carried state leaves the previous graph
+        hidden = [h.detach() for h in state["hidden"]]
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        with autograd.record():
+            logits, hidden = net(mx.nd.transpose(x), hidden)
+            loss = loss_fn(logits.reshape((-3, -1)),
+                           mx.nd.transpose(y).reshape((-1,)))
+        torch.cuda.synchronize()
+        c1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        c2 = time.perf_counter()
+        norm = gluon.utils.clip_global_norm(grads, LM["clip"] * t * b)
+        torch.cuda.synchronize()
+        c3 = time.perf_counter()
+        trainer.step(b)
+        torch.cuda.synchronize()
+        c4 = time.perf_counter()
+        state["hidden"] = hidden
+        return (float(loss.asnumpy().mean()), norm,
+                {"forward": (c1 - c0) * 1e3, "backward": (c2 - c1) * 1e3,
+                 "clip": (c3 - c2) * 1e3, "update": (c4 - c3) * 1e3,
+                 "step": (c4 - c0) * 1e3})
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()  # the weights, and earlier phases'
+    K.reset_launch_counts()
+    losses, norms, parts, peaks, seen = [], [], [], [], []
+    for i, (x, y) in enumerate(loader):
+        if x.context != dev or x.shape != (b, t):
+            raise AssertionError("batch %d: %s on %s" % (i, x.shape,
+                                                         x.context))
+        seen.append((x.asnumpy(), y.asnumpy()))
+        if i == steps - 1:
+            break  # the last batch is the profiled step's
+        torch.cuda.reset_peak_memory_stats()
+        loss, norm, part = step(x, y)
+        peaks.append(torch.cuda.max_memory_allocated())
+        losses.append(loss)
+        norms.append(norm)
+        parts.append(part)
+    last = {}
+    profile_run(lambda: last.update(zip(("loss", "norm", "parts"),
+                                        step(x, y))),
+                "lstm-lm", LM_GROUPS, LM_OP_GROUPS)
+    losses.append(last["loss"])
+    launches = K.launch_counts()
+    for k in range(1, len(seen)):  # row r of batch k continues batch k-1
+        if not np.array_equal(seen[k][0][:, 0], seen[k - 1][1][:, -1]):
+            raise AssertionError("batch %d does not continue batch %d"
+                                 % (k, k - 1))
+    if not np.array_equal(np.concatenate([s[0] for s in seen]), inputs):
+        raise AssertionError("the DataLoader's batches are not the data")
+    timed = parts[LM_WARMUP:]
+    med = {k: float(np.median([p[k] for p in timed])) for k in timed[0]}
+    print("lstm-lm: per-token losses %s (perplexity %.1f at the end); "
+          "gradient norms before clipping %s"
+          % (", ".join("%.4f" % v for v in losses), np.exp(losses[-1]),
+             ", ".join("%.2f" % v for v in norms)))
+    print("lstm-lm: ms per step %.2f (median of %d, synchronized), %.0f "
+          "tokens/s; forward %.2f ms, backward %.2f ms, clip %.2f ms, "
+          "update %.2f ms; peak memory per step %s GB, of which %.4f GB "
+          "was allocated before the first step; card %s"
+          % (med["step"], LM_TIMED, tokens / med["step"] * 1e3,
+             med["forward"], med["backward"], med["clip"], med["update"],
+             ", ".join("%.4f" % (v / 1e9) for v in peaks), held / 1e9,
+             card_line()))
+    if not all(np.isfinite(losses)):
+        raise AssertionError("lstm-lm losses not finite: %s" % losses)
+    flat = peaks[2:LM_WARMUP + LM_TIMED]  # steps 3 to 7
+    if max(flat) - min(flat) > max(2 ** 20, 0.005 * max(flat)):
+        raise AssertionError("peak memory grows from step 3 to 7: %s"
+                             % flat)
+    frozen = [k for k, p in params.items()
+              if np.array_equal(p.data().asnumpy(), initial[k])]
+    print("lstm-lm: parameters changed %d/%d; hand-written kernel launches "
+          "%s" % (len(initial) - len(frozen), len(initial), launches))
+    if frozen:
+        raise AssertionError("unchanged after training: %s" % frozen)
+    if any(launches.values()):
+        raise AssertionError("the LM path launched %s" % launches)
+    lstm_flatten_cost(mx, net, seed)
+    lstm_lm_host_check(mx, net, seed)
+    del net, trainer, params, grads, state
+    rnn_layers_check(mx, seed)
+    ctc_check(mx, seed)
+    return launches
+
+
+def lstm_flatten_cost(mx, net, seed):
+    """One forward of the LM's LSTM layer, no gradient, through the port
+    (``_flat_params`` concatenates the Parameters; cuDNN copies the views
+    of that flat vector into its own layout) against ``torch.nn.LSTM``
+    holding the same weights in cuDNN's packed buffer, timed only as a
+    yardstick: the weight layout's cost, host and device."""
+    import torch
+    dev = mx.gpu(0).torch_device()
+    h = LM["hidden"]
+    ref = torch.nn.LSTM(LM["embed"], h, LM["layers"]).to(dev)
+    with torch.no_grad():
+        for layer in range(LM["layers"]):
+            for ours, theirs in (("i2h_weight", "weight_ih"),
+                                 ("h2h_weight", "weight_hh"),
+                                 ("i2h_bias", "bias_ih"),
+                                 ("h2h_bias", "bias_hh")):
+                getattr(ref, "%s_l%d" % (theirs, layer)).copy_(getattr(
+                    net.rnn, "l%d_%s" % (layer, ours)).data().tensor)
+    ref.flatten_parameters()
+    rng = np.random.default_rng(seed + 72)
+    shape = (LM["bptt"], LM["batch"], LM["embed"])
+    x = mx.nd.array(rng.standard_normal(shape, np.float32), ctx=mx.gpu(0))
+    hidden = net.rnn.begin_state(LM["batch"], ctx=mx.gpu(0))
+    with torch.no_grad():
+        ours = net.rnn(x, hidden)[0].tensor
+        theirs = ref(x.tensor)[0]
+        err = float((ours - theirs).abs().max())
+        port_ms = time_ms(lambda: net.rnn(x, hidden), reps=20)
+        ref_ms = time_ms(lambda: ref(x.tensor), reps=20)
+        port_host = host_us(lambda: net.rnn(x, hidden), calls=100)
+        ref_host = host_us(lambda: ref(x.tensor), calls=100)
+    print("lstm-lm: LSTM layer forward (T %d, N %d, 2 x %d), one call: "
+          "port %.4f ms (%.0f us host a call) against torch.nn.LSTM on a "
+          "packed buffer %.4f ms (%.0f us host); max abs difference %.3g; "
+          "card %s" % (LM["bptt"], LM["batch"], h, port_ms, port_host,
+                       ref_ms, ref_host, err, card_line()))
+    if err > 1e-5:
+        raise AssertionError("the LSTM layer disagrees with torch.nn.LSTM")
+
+
+def _rel(card, host):
+    return {k: float(np.linalg.norm(card[k] - host[k])
+                     / max(np.linalg.norm(host[k]), 1e-30)) for k in host}
+
+
+def lstm_lm_host_check(mx, net, seed):
+    """The trained LM at full width, batch 2, dropout off, the same
+    weights: one forward and backward on the card and on the host; the
+    LSTM output within LM_OUT_TOL, every gradient within LM_GRAD_REL
+    relative L2."""
+    from mxnet_tpu_torch import autograd, gluon
+    t0 = time.perf_counter()
+    weights = {k: p.data().asnumpy() for k, p in
+               net.collect_params().items()}
+    rng = np.random.default_rng(seed + 73)
+    shape = (LM["bptt"], LM_HOST_BATCH)
+    x0, y0 = (rng.integers(0, LM["vocab"], shape).astype(np.float32)
+              for _ in range(2))
+    h0 = [rng.standard_normal((LM["layers"], LM_HOST_BATCH, LM["hidden"]),
+                              np.float32) * 0.1 for _ in range(2)]
+    runs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        m = lstm_lm(mx, 0.0)
+        mx.convert.set_gluon_params(m, weights, ctx=ctx)
+        hidden = [mx.nd.array(h, ctx=ctx) for h in h0]
+        with autograd.record():
+            out, _ = m.rnn(m.encoder(mx.nd.array(x0, ctx=ctx)), hidden)
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(
+                m.decoder(out).reshape((-3, -1)),
+                mx.nd.array(y0.reshape(-1), ctx=ctx))
+        loss.backward()
+        runs.append((out.asnumpy(), {k: p.grad().asnumpy() for k, p in
+                                     m.collect_params().items()}))
+    (out, card), (hout, host) = runs
+    err = float(np.abs(out - hout).max())
+    rel = _rel(card, host)
+    worst = max(rel, key=rel.get)
+    print("lstm-lm: batch-%d forward+backward card vs host (%.1f s): LSTM "
+          "output max abs difference %.3g (tolerance %s); gradients "
+          "relative L2 largest %.3g (%s), limit %g"
+          % (LM_HOST_BATCH, time.perf_counter() - t0, err, LM_OUT_TOL,
+             rel[worst], worst, LM_GRAD_REL))
+    if not np.allclose(out, hout, **LM_OUT_TOL) or rel[worst] > LM_GRAD_REL:
+        raise AssertionError("the card's LSTM LM disagrees with the host's")
+
+
+def rnn_layers_check(mx, seed):
+    """At RNN_CHECK's width: a 2-layer GRU and a bidirectional 2-layer
+    rnn_tanh layer, forward and backward on the card against the host
+    (outputs within LM_OUT_TOL, gradients within LM_GRAD_REL relative
+    L2); then ``LSTMCell.unroll`` against the fused one-layer LSTM with
+    the same weights, on the card (LM_OUT_TOL)."""
+    from mxnet_tpu_torch import autograd, gluon
+    w, t, n = RNN_CHECK["width"], RNN_CHECK["steps"], RNN_CHECK["batch"]
+    rng = np.random.default_rng(seed + 74)
+    x0 = rng.standard_normal((t, n, w), np.float32)
+    for name, make in (
+            ("gru", lambda: gluon.rnn.GRU(w, num_layers=2, input_size=w)),
+            ("bidirectional rnn_tanh", lambda: gluon.rnn.RNN(
+                w, num_layers=2, activation="tanh", bidirectional=True,
+                input_size=w))):
+        runs, weights = [], None
+        for ctx in (mx.gpu(0), mx.cpu()):
+            with mx.sym.NameManager():
+                layer = make()
+            if weights is None:
+                mx.random.seed(seed)
+                layer.initialize(mx.initializer.Uniform(0.1), ctx=ctx)
+                weights = {k: p.data().asnumpy()
+                           for k, p in layer.collect_params().items()}
+            else:
+                mx.convert.set_gluon_params(layer, weights, ctx=ctx)
+            x = mx.nd.array(x0, ctx=ctx)
+            x.attach_grad()
+            with autograd.record():
+                out = layer(x)
+                loss = (out * out).sum()
+            loss.backward()
+            grads = {k: p.grad().asnumpy()
+                     for k, p in layer.collect_params().items()}
+            grads["data"] = x.grad.asnumpy()
+            runs.append((out.asnumpy(), grads))
+        (out, card), (hout, host) = runs
+        rel = _rel(card, host)
+        worst = max(rel, key=rel.get)
+        print("rnn: %s (T %d, N %d, width %d) card vs host: output max abs "
+              "difference %.3g; gradients relative L2 largest %.3g (%s)"
+              % (name, t, n, w, float(np.abs(out - hout).max()), rel[worst],
+                 worst))
+        if not np.allclose(out, hout, **LM_OUT_TOL) or \
+                rel[worst] > LM_GRAD_REL:
+            raise AssertionError("%s: the card disagrees with the host"
+                                 % name)
+    dev = mx.gpu(0)
+    with mx.sym.NameManager():
+        fused = gluon.rnn.LSTM(w, input_size=w, layout="NTC")
+        cell = gluon.rnn.LSTMCell(w, input_size=w)
+    mx.random.seed(seed + 1)
+    fused.initialize(mx.initializer.Uniform(0.1), ctx=dev)
+    cell.initialize(ctx=dev)
+    for name in ("i2h_weight", "h2h_weight", "i2h_bias", "h2h_bias"):
+        getattr(cell, name).set_data(getattr(fused, "l0_" + name).data())
+    x = mx.nd.array(x0.transpose(1, 0, 2), ctx=dev)
+    outs, _ = cell.unroll(t, x, layout="NTC", merge_outputs=True)
+    ref = fused(x)
+    err = float(np.abs(outs.asnumpy() - ref.asnumpy()).max())
+    print("rnn: LSTMCell.unroll against the fused LSTM on the card (T %d, N "
+          "%d, width %d): max abs difference %.3g" % (t, n, w, err))
+    if not np.allclose(outs.asnumpy(), ref.asnumpy(), **LM_OUT_TOL):
+        raise AssertionError("LSTMCell.unroll disagrees with the fused LSTM")
+
+
+def ctc_check(mx, seed):
+    """``CTCLoss`` at CTC's shape (blank first, labels padded with 0):
+    loss and data gradient on the card against the host (CTC_TOL), timed
+    forward and backward beside ``torch.nn.functional.ctc_loss`` on the
+    same inputs (a yardstick, never the port's path)."""
+    import torch
+    import torch.nn.functional as TF
+    from mxnet_tpu_torch import autograd
+    n, t, a, lmax = CTC["batch"], CTC["steps"], CTC["alphabet"], \
+        CTC["max_label"]
+    rng = np.random.default_rng(seed + 75)
+    data = rng.standard_normal((t, n, a), np.float32) * 2
+    lengths = rng.integers(10, lmax + 1, n)
+    labels = np.zeros((n, lmax), np.float32)
+    for i, k in enumerate(lengths):
+        labels[i, :k] = rng.integers(1, a, k)
+    res = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        d = mx.nd.array(data, ctx=ctx)
+        y = mx.nd.array(labels, ctx=ctx)
+        d.attach_grad()
+
+        def fwd_bwd():
+            with autograd.record():
+                loss = mx.nd.CTCLoss(d, y)
+            loss.backward()
+            return loss
+
+        loss = fwd_bwd()
+        res[str(ctx)] = (loss.asnumpy(), d.grad.asnumpy())
+        if ctx == mx.gpu(0):
+            port_ms = time_ms(fwd_bwd, reps=10, warmup=2)
+    (loss, grad), (hloss, hgrad) = res[str(mx.gpu(0))], res[str(mx.cpu())]
+    dev = mx.gpu(0).torch_device()
+    logits = torch.tensor(data, device=dev, requires_grad=True)
+    targets = torch.tensor(labels, device=dev).long()
+    in_lens = torch.full((n,), t, dtype=torch.long, device=dev)
+    tgt_lens = torch.tensor(lengths, device=dev)
+
+    def torch_ctc():
+        out = TF.ctc_loss(torch.log_softmax(logits, -1), targets, in_lens,
+                          tgt_lens, blank=0, reduction="none")
+        out.sum().backward()
+        return out
+
+    lib = torch_ctc().detach().cpu().numpy()
+    lib_ms = time_ms(torch_ctc, reps=10, warmup=2)
+    print("ctc: N %d, T %d, alphabet %d, labels %d-%d: card vs host loss "
+          "max relative difference %.3g, gradient max abs difference %.3g "
+          "(tolerance %s); forward+backward %.3f ms on the card, "
+          "torch.nn.functional.ctc_loss %.3f ms (its loss within %.3g "
+          "relative); card %s"
+          % (n, t, a, lengths.min(), lengths.max(),
+             float(np.max(np.abs(loss - hloss) / np.abs(hloss))),
+             float(np.abs(grad - hgrad).max()), CTC_TOL, port_ms, lib_ms,
+             float(np.max(np.abs(loss - lib) / np.abs(lib))), card_line()))
+    if not (np.allclose(loss, hloss, **CTC_TOL)
+            and np.allclose(grad, hgrad, **CTC_TOL)
+            and np.isfinite(grad).all()):
+        raise AssertionError("CTC on the card disagrees with the host")
+
+
 def ptxas_entries(text):
     """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
     per compiled entry of an ``nvcc -Xptxas=-v`` report.  The kernel is
@@ -1895,6 +2351,8 @@ def main():
     lap("5 (Gluon TransformerLM)")
     paths["gluon_resnet50"] = train_gluon_vision(mx, args.seed)
     lap("6 (Gluon vision ResNet-50 v2, SymbolBlock)")
+    paths["gluon_lstm_lm"] = train_lstm_lm(mx, args.seed)
+    lap("7 (Gluon LSTM LM, recurrent layers and cells, CTC)")
     # "launches": the path each kernel serves in this script (the serving
     # forward, the LM's training, and this slice's Gluon vision training)
     main_path = {"flash_attn_fwd": "serve", "flash_attn_fwd_lse": "gluon_lm",

@@ -12,6 +12,9 @@ with attention in the flash kernel's LSE variant and its blockwise
 backward, and the Gluon vision zoo's conv nets train through the same
 path with BatchNorm's channel sums and the 2-D pooling gradients in the
 hand-written kernels; an exported graph runs again as a ``SymbolBlock``.
+``gluon.rnn``'s layers run the ``RNN`` op on cuDNN's recurrent kernels,
+``gluon.data`` feeds batches from worker threads, and ``gluon.loss`` has
+every loss of the JAX package, CTC included.
 
 Entry points run on the card (``gpu(0)``) unless given ``cpu()``; without
 a card they raise ``MXNetError`` rather than fall back to the host.

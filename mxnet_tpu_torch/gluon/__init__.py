@@ -6,6 +6,8 @@ from .parameter import (  # noqa: F401
 )
 from .trainer import Trainer  # noqa: F401
 from . import nn  # noqa: F401
+from . import rnn  # noqa: F401
+from . import data  # noqa: F401
 from . import loss  # noqa: F401
 from . import utils  # noqa: F401
 from . import model_zoo  # noqa: F401

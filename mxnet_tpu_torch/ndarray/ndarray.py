@@ -84,9 +84,13 @@ class NDArray:
 
     # -- host transfer and copies --------------------------------------------
     def asnumpy(self):
+        """A numpy copy: later writes to this array (an optimizer's
+        in-place update, ``clip_global_norm``) leave it as it was."""
         t = self._h.tensor.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
+        if t.device.type == "cpu":
+            return t.numpy().copy()  # a host tensor's numpy() is a view
         return t.cpu().numpy()
 
     def asscalar(self):
@@ -120,6 +124,11 @@ class NDArray:
         return self.copyto(context)
 
     # -- autograd --------------------------------------------------------------
+    def detach(self):
+        """The same values, cut from the recorded graph (a carried RNN
+        state between truncated-BPTT batches)."""
+        return NDArray(self._h.tensor.detach())
+
     def attach_grad(self, grad_req="write", stype=None):
         """Give this array a gradient buffer (``.grad``), filled by
         ``backward`` according to ``grad_req``."""
@@ -148,6 +157,9 @@ class NDArray:
         return _invoke("norm", [self], {})
 
     # -- python protocol -------------------------------------------------------
+    def __len__(self):
+        return self.shape[0]
+
     def __repr__(self):
         return "\n%s\n<NDArray %s @%s>" % (
             self.asnumpy(), "x".join(str(d) for d in self.shape),
@@ -188,6 +200,22 @@ class NDArray:
 
     def __abs__(self):
         return _invoke("abs", [self], {})
+
+    # ordering comparisons give 0/1 arrays of the operand's dtype; ``==``
+    # and ``!=`` keep Python's identity meaning
+    def __gt__(self, o):
+        return self._binary(o, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, o):
+        return self._binary(o, "broadcast_greater_equal",
+                            "_greater_equal_scalar")
+
+    def __lt__(self, o):
+        return self._binary(o, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, o):
+        return self._binary(o, "broadcast_lesser_equal",
+                            "_lesser_equal_scalar")
 
     def _inplace(self, result):
         """``x op= y``: while recording, rebind the handle to the recorded

@@ -4,3 +4,5 @@ from . import tensor  # noqa: F401
 from . import nn  # noqa: F401
 from . import attention  # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import rnn_op  # noqa: F401
+from . import contrib_ops  # noqa: F401

@@ -193,6 +193,18 @@ class Symbol:
     def __neg__(self):
         return _create("negative", [self], {})
 
+    def __gt__(self, o):
+        return self._binary(o, "_greater", "_greater_scalar")
+
+    def __ge__(self, o):
+        return self._binary(o, "_greater_equal", "_greater_equal_scalar")
+
+    def __lt__(self, o):
+        return self._binary(o, "_lesser", "_lesser_scalar")
+
+    def __le__(self, o):
+        return self._binary(o, "_lesser_equal", "_lesser_equal_scalar")
+
     def __repr__(self):
         return "<Symbol %s>" % (self.name or "Grouped")
 

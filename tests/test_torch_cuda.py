@@ -656,3 +656,82 @@ def test_half_and_double_batchnorm_and_pooling_run_the_kernels(card, dtype):
                                    want.double().numpy(), **tol)
     for got, want in zip(res["cuda"][4:], res["cpu"][4:]):
         assert torch.equal(got, want)
+
+
+# -- the fused RNN op and the CTC loss (cuDNN and torch ops, no kernel of
+# the port's own): the card against the host, f32 with TF32 off --------------
+
+@pytest.fixture
+def no_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _rnn_op_run(ctx, mode, bid, p, seed=0):
+    from mxnet_tpu_torch.ops.rnn_op import rnn_param_size
+    r = np.random.RandomState(seed)
+    T, N, C, H, L = 7, 5, 12, 16, 2
+    dirs = 2 if bid else 1
+    ins = [r.normal(size=(T, N, C)),
+           r.uniform(-0.3, 0.3, rnn_param_size(L, C, H, bid, mode))]
+    ins += [r.normal(size=(L * dirs, N, H))
+            for _ in range(2 if mode == "lstm" else 1)]
+    nds = [mx.nd.array(a.astype(np.float32), ctx=ctx) for a in ins]
+    for a in nds:
+        a.attach_grad()
+    with mx.autograd.record():
+        outs = mx.nd.RNN(*nds, state_size=H, num_layers=L, bidirectional=bid,
+                         mode=mode, state_outputs=True, p=p)
+        loss = sum((o * o).sum() for o in outs)
+    loss.backward()
+    return [o.asnumpy() for o in outs] + [a.grad.asnumpy() for a in nds]
+
+
+@pytest.mark.parametrize("mode", ["rnn_relu", "rnn_tanh", "lstm", "gru"])
+@pytest.mark.parametrize("bid", [False, True], ids=["uni", "bi"])
+def test_rnn_op_on_the_card_matches_the_host(card, no_tf32, mode, bid):
+    got = _rnn_op_run(mx.gpu(0), mode, bid, 0.0)
+    want = _rnn_op_run(mx.cpu(), mode, bid, 0.0)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=1e-4)
+
+
+def test_rnn_op_dropout_on_the_card_follows_the_seed(card, no_tf32):
+    with mx.autograd.train_mode():
+        mx.random.seed(3)
+        a = _rnn_op_run(mx.gpu(0), "lstm", False, 0.5)
+        mx.random.seed(3)
+        b = _rnn_op_run(mx.gpu(0), "lstm", False, 0.5)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    plain = _rnn_op_run(mx.gpu(0), "lstm", False, 0.0)
+    assert not np.allclose(a[0], plain[0])
+
+
+@pytest.mark.parametrize("blank", ["first", "last"])
+def test_ctc_loss_on_the_card_matches_the_host(card, blank):
+    r = np.random.RandomState(1)
+    T, N, A, L = 40, 6, 9, 12
+    lo, hi = (1, A) if blank == "first" else (0, A - 1)
+    labels = r.randint(lo, hi, (N, L)).astype(np.float32)
+    labels[1, 5:] = 0 if blank == "first" else -1
+    labels[2] = labels[2, 0]  # 12 repeats need 23 steps
+    data = r.normal(size=(T, N, A)).astype(np.float32) * 2
+    res = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        d = mx.nd.array(data, ctx=ctx)
+        d.attach_grad()
+        with mx.autograd.record():
+            loss = mx.nd.CTCLoss(d, mx.nd.array(labels, ctx=ctx),
+                                 blank_label=blank)
+        loss.backward()
+        res.append((loss.asnumpy(), d.grad.asnumpy()))
+    (loss, grad), (hloss, hgrad) = res
+    np.testing.assert_allclose(loss, hloss, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(grad, hgrad, atol=1e-4, rtol=1e-4)
+    assert np.isfinite(grad).all() and loss.max() < 1e3

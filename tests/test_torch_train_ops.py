@@ -41,18 +41,25 @@ def _run_both(name, inputs, attrs, train=False, n_diff=None, seed=9):
         out = out if isinstance(out, tuple) else (out,)
         return out[:n_vis]
 
-    full_j = oj.impl(*[jnp.asarray(x) for x in inputs], **aj)
-    full_j = full_j if isinstance(full_j, tuple) else (full_j,)
+    def fj(diff, rest):
+        return visible(oj.impl(*diff, *rest, **aj))
 
-    def fj(*diff):
-        return visible(oj.impl(*diff, *[jnp.asarray(x)
-                                        for x in inputs[n_diff:]], **aj))
+    def program(diff, rest, cts):
+        # the JAX side of a case as one jitted program: its full outputs
+        # and the visible outputs' vjp, compiled once rather than
+        # dispatched primitive by primitive
+        full = oj.impl(*diff, *rest, **aj)
+        outs, vjp = jax.vjp(lambda *d: fj(d, rest), *diff)
+        return (full if isinstance(full, tuple) else (full,)), vjp(
+            tuple(c.astype(o.dtype) for c, o in zip(cts, outs)))
 
-    outs_j, vjp = jax.vjp(fj, *[jnp.asarray(x) for x in inputs[:n_diff]])
+    diff = [jnp.asarray(x) for x in inputs[:n_diff]]
+    rest = [jnp.asarray(x) for x in inputs[n_diff:]]
     r = np.random.RandomState(seed)
-    cts = [np.asarray(r.randn(*o.shape), np.float32) for o in outs_j]
-    grads_j = vjp(tuple(jnp.asarray(c, dtype=o.dtype)
-                        for c, o in zip(cts, outs_j)))
+    cts = [np.asarray(r.randn(*o.shape), np.float32)
+           for o in jax.eval_shape(fj, diff, rest)]
+    full_j, grads_j = jax.jit(program)(diff, rest,
+                                       [jnp.asarray(c) for c in cts])
     ts = [torch.tensor(x, requires_grad=i < n_diff)
           for i, x in enumerate(inputs)]
     full_t = ot.impl(*ts, **at)
