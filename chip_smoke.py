@@ -42,7 +42,10 @@ CUDA toolkit.  Phases, each of which raises on failure:
    f32 and bf16, both variants and the gradients), ``bn_channel_sums`` in
    f16 and f64 at (32, 64, 112, 112) and (32, 2048, 7, 7), and both pool
    backwards in f16 and f64 at the stem and the global pool (bit for
-   bit), each timed beside its bound and the library call in its dtype.
+   bit), each timed beside its bound and the library call in its dtype;
+   and the bf16 instances phase 8's main path launches (``bn_channel_
+   sums`` at bn0, the max pool at the stem, the global avg pool), timed
+   the same way.
 3. Serving: a GPT-2-small-width TransformerLM (vocab 50257, context
    1024, width 768, 12 heads, 12 layers, FFN 3072; random weights from
    ``--seed``) served by ``Server(max_batch_size=4)``: warmup with its
@@ -51,17 +54,18 @@ CUDA toolkit.  Phases, each of which raises on failure:
    rows against the same model run through the port on the host.
 4. Training: ResNet-50 v2 at full depth and width (f32, TF32 off) through
    ``Module.fit`` for one epoch of 4 batches of 32 (random images and
-   labels from ``--seed``), SGD with momentum: finite per-batch
+   labels from ``--seed``), SGD with momentum, on the fused train step
+   (one eager step, then one CUDA graph replayed): finite per-batch
    cross-entropy, every parameter and BatchNorm moving statistic moved,
    per step exactly the kernel launches the graph implies (2 channel-sums
-   per BatchNorm, 1 max- and 1 avg-pool backward, each one device kernel:
-   the profiled step's hand-written device time is split by kernel with
-   its device launch count), 0 launches in a
-   following ``score``, one batch-2 forward and backward on the card
-   against the host (gradients within 1e-3 relative L2, or within 4
-   times the host's own largest change when its input moves by one ulp),
-   and ms
-   per step with its forward/backward/update split.
+   per BatchNorm, 1 max- and 1 avg-pool backward), 0 launches in a
+   following ``score``; ms per step of the fused graph; then, on the
+   general path (the fused step left explicitly), ms per step with its
+   forward/backward/update split and a profiled step (each hand-written
+   kernel one device kernel, its device time and launches), and one
+   batch-2 forward and backward on the card against the host (gradients
+   within 1e-3 relative L2, or within 4 times the host's own largest
+   change when its input moves by one ulp).
 5. Gluon training: the zoo TransformerLM at GPT-2 small's widths,
    hybridized, f32 with TF32 off, batch 8 of 1024 random tokens from
    ``--seed``, ``autograd.record()`` -> ``SoftmaxCrossEntropyLoss`` ->
@@ -107,8 +111,28 @@ CUDA toolkit.  Phases, each of which raises on failure:
    ``LSTMCell.unroll`` against the fused LSTM on the card; ``CTCLoss`` at
    N 32, T 200, 29 classes, labels up to 50, card against host (loss and
    gradient atol=rtol=1e-4), timed beside ``torch.nn.functional.ctc_loss``.
-8. The ``kernels`` JSON line (each kernel's record with its launches on
-   every path and its f16/f64 and head_dim 32 instances), then the
+8. bf16 fused Module training: ResNet-50 v2 built with ``dtype=
+   "bfloat16"`` (bf16 conv/FC weights, f32 BatchNorm parameters and
+   statistics), Xavier (gaussian, in, 2) from ``--seed``, batch 32 of
+   random images through ``NDArrayIter``, ``Module.fit`` for 2 epochs of 6
+   batches with SGD lr 0.1, momentum 0.9, wd 1e-4, ``multi_precision``
+   (f32 masters), ``MultiFactorScheduler(step=[4], factor=0.1)``,
+   ``Speedometer(32, 2)`` and ``module_checkpoint(..., save_optimizer_
+   states=True)``, cuDNN deterministic: the fused step ran, one capture
+   replayed for every batch after the first, ``num_update`` a batch, the
+   lr down at update 5, finite losses, every master and moving statistic
+   moved, bf16 storage and f32 masters, the Speedometer lines in the JAX
+   package's format; per step and per profiled replay exactly the bf16
+   kernel launches the graph implies; 1 eager + 3 graph steps against 4
+   steps of the eager general path from one state (``mp_sgd_mom_update``)
+   and ``Module.load(prefix, 1, load_optimizer_states=True)`` + ``fit(
+   begin_epoch=1)`` against the uninterrupted run (masters and momenta
+   within 1e-6 relative L2, the bit-for-bit count printed); a batch-2
+   bf16 step on the card against the host by phase 4's rule; ms per step
+   and images/s of the bf16 graph and the bf16 general path, capture
+   time, device-busy shares, device time by kernel group and peak memory.
+9. The ``kernels`` JSON line (each kernel's record with its launches on
+   every path and its bf16/f16/f64 and head_dim 32 instances), then the
    result line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
@@ -570,8 +594,9 @@ def bn_bytes(a, pair):
 def check_bn_sums(seed):
     """Phase 2b: bn_channel_sums against its plain version; timed at the
     input of BatchNorm bn0 (stats and pair; the record for the kernels
-    line), in f16 and f64 at bn0's input and at (32, 2048, 7, 7) beside
-    ``batch_norm_stats`` in the same dtype (its instances), then the
+    line), in bf16 at bn0's input, at (32, 256, 14, 14) and at (32, 2048,
+    7, 7), in f16 and f64 at bn0's input and at (32, 2048, 7, 7), each
+    beside ``batch_norm_stats`` in the same dtype (its instances), then the
     13-shape sweep.  Inputs have a nonzero mean so that no channel sum sits
     near 0, where only atol would hold; f16 and f64 inputs are summed in
     f32, so their sums keep the f32 tolerance.  Returns ([record],
@@ -585,7 +610,10 @@ def check_bn_sums(seed):
         ((32, 64, 112, 112), torch.float32, "record"),
         ((32, 2048, 7, 7), torch.float32, None),
         ((3, 5, 7, 9), torch.float32, None),
-        ((32, 64, 112, 112), torch.bfloat16, None),
+        # bf16: bn0's input takes the 8-wide loads; the 14x14 and 7x7
+        # planes of the later stages take the one-element ones
+        *((shape, torch.bfloat16, "instance") for shape in (
+            (32, 64, 112, 112), (32, 256, 14, 14), (32, 2048, 7, 7))),
         *((shape, dtype, "instance") for dtype in (torch.float16,
                                                    torch.float64)
           for shape in ((32, 64, 112, 112), (32, 2048, 7, 7)))]
@@ -747,7 +775,7 @@ def check_pool_bwd(seed):
         ("stem", *stem, torch.float32, "record"),
         ("full", "max", (8, 16, 27, 31), (3, 3), (2, 2), (1, 1), "full",
          True, torch.float32, None),
-        ("stem-bf16", *stem, torch.bfloat16, None),
+        ("stem-bf16", *stem, torch.bfloat16, "instance"),
         ("global7", *glob, torch.float32, "record"),
         ("global7-bf16", *glob, torch.bfloat16, "instance"),
         ("excl-pad-full", "avg", (8, 16, 27, 31), (3, 3), (2, 2), (1, 1),
@@ -1118,10 +1146,44 @@ def train(mx, seed):
     if any(added.values()):
         raise AssertionError("the eval forward launched training kernels")
 
+    from mxnet_tpu_torch.module.fused_step import WARMUP_STEPS
+    fused = mod._fused_step
+    if fused is None or fused.captures != 1 \
+            or fused.replays != TRAIN_BATCHES - WARMUP_STEPS \
+            or fused.graph_launches != per_step:
+        raise AssertionError("the f32 fit did not run as one captured CUDA "
+                             "graph a step after its warm-up")
+    train_iter.reset()
+    batch = next(train_iter)
+    ms = time_steps(mod, batch)
+    print("train: path fused f32 (Module.fit's default: one CUDA graph "
+          "replay a step after %d eager step): ms per step %.2f (median of "
+          "%d after warm-up, synchronized), %.1f images/s; capture %.1f ms; "
+          "card %s" % (WARMUP_STEPS, ms, TIMED_STEPS, TRAIN_BATCH / ms * 1e3,
+                       fused.capture_seconds * 1e3, card_line()))
+    # the split below calls forward, backward and update one at a time,
+    # which retires the fused step (the JAX package's semantics): leave it
+    # explicitly, so the numbers are the general path's
+    mod._fused_step = None
     train_step_split(mod, train_iter, per_step)
     host_check(mx, symbol, arg0, aux0, images[:HOST_BATCH],
                labels[:HOST_BATCH], seed)
     return launches
+
+
+def time_steps(mod, batch, steps=TIMED_STEPS, warmup=2):
+    """Median synchronized host-clock ms of ``forward_backward`` +
+    ``update`` on one batch over ``steps`` steps after ``warmup``."""
+    import torch
+    times = []
+    for _ in range(warmup + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[warmup:]))
 
 
 def train_step_split(mod, train_iter, per_step):
@@ -1149,7 +1211,8 @@ def train_step_split(mod, train_iter, per_step):
             parts[k].append(v * 1e3)
     med = {k: float(np.median(v[1:])) for k, v in parts.items()}
     profile_step(mod, batch, per_step)
-    print("train: ms per step %.2f (median of %d, synchronized), %.1f "
+    print("train: path general f32 (eager): ms per step %.2f (median of "
+          "%d, synchronized), %.1f "
           "images/s; forward %.2f ms, backward %.2f ms, update %.2f ms; "
           "peak memory %.2f GB; card %s"
           % (med["step"], TIMED_STEPS, TRAIN_BATCH / med["step"] * 1e3,
@@ -1175,7 +1238,7 @@ KERNEL_GROUPS = (  # (label, substrings of a device kernel's name)
 
 def profile_step(mod, batch, per_step):
     """One training step (forward, backward, update) under torch.profiler:
-    device time by kernel group, the busy share of the step's wall time,
+    device time by kernel group, the device's busy share of the step,
     the largest kernels, and the hand-written kernels' device time and
     device launches, which must be one per wrapper call."""
     def run():
@@ -1221,16 +1284,51 @@ def _dev_ms(e):
                    getattr(e, "self_cuda_time_total", 0.0)) / 1e3
 
 
+class Profile(dict):
+    """{device kernel name: (ms, launches)} of one profiled run, with the
+    run's ``busy_ms`` (the union of its device activity intervals) and
+    ``span_ms`` (from its first event to its last), both read off the one
+    trace."""
+    busy_ms = span_ms = None
+
+    def share(self):
+        return "device busy %.2f ms of the profiled run's %.2f ms span " \
+            "(%.1f%%, idle %.1f%%)" % (self.busy_ms, self.span_ms,
+                                      100.0 * self.busy_ms / self.span_ms,
+                                      100.0 - 100.0 * self.busy_ms
+                                      / self.span_ms)
+
+
+def _trace_share(events):
+    """(busy ms, span ms) of a trace: the union of the device events'
+    intervals, and the span from the first event (host or device) to the
+    last."""
+    import torch
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    ranges = [(e.time_range.start, e.time_range.end) for e in events]
+    span = max(b for _, b in ranges) - min(a for a, _ in ranges)
+    return busy / 1e3, span / 1e3
+
+
 def profile_run(run, tag, kernel_groups=KERNEL_GROUPS, op_groups=None):
     """``run()`` once under torch.profiler, synchronized: device time by
     kernel group (the first of ``kernel_groups`` whose substrings a
-    kernel's name holds), the busy share of its wall time, the largest
-    kernels; with ``op_groups``, also the device time of the kernels each
-    outermost host op (an aten op, or an autograd node in the backward)
-    launched, itself or through the ops under it, by the first group
-    whose substrings its name holds.
-    Returns {device kernel name: (ms, launches)}, None when the profiler
-    saw no device events."""
+    kernel's name holds), the device's busy share of the run's span (both
+    from the trace: see ``Profile``), the largest kernels; with
+    ``op_groups``, also the device time of the kernels each outermost
+    host op (an aten op, or an autograd node in the backward) launched,
+    itself or through the ops under it, by the first group whose
+    substrings its name holds.
+    Returns a ``Profile``, None when the profiler saw no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1254,10 +1352,11 @@ def profile_run(run, tag, kernel_groups=KERNEL_GROUPS, op_groups=None):
         label = next((lab for lab, keys in kernel_groups
                       if any(k.lower() in name for k in keys)), "other")
         groups[label] += _dev_ms(e)
-    print("%s: profiled step %.2f ms wall, device busy %.2f ms (%.1f%%, "
-          "idle %.1f%%); by group: %s; card %s"
-          % (tag, wall_ms, busy, 100 * busy / wall_ms,
-             100 - 100 * busy / wall_ms,
+    table = Profile((e.key, (_dev_ms(e), e.count)) for e in device)
+    table.busy_ms, table.span_ms = _trace_share(prof.events())
+    print("%s: profiled step %.2f ms wall (host clock), device time %.2f ms "
+          "in all; %s; by group: %s; card %s"
+          % (tag, wall_ms, busy, table.share(),
              "; ".join("%s %.2f ms" % kv for kv in groups.items()),
              card_line()))
     for e in sorted(device, key=_dev_ms, reverse=True)[:8]:
@@ -1276,7 +1375,7 @@ def profile_run(run, tag, kernel_groups=KERNEL_GROUPS, op_groups=None):
             by_op[label] += e.device_time_total / 1e3
         print("%s: device time by the host op that launched it: %s"
               % (tag, "; ".join("%s %.2f ms" % kv for kv in by_op.items())))
-    return {e.key: (_dev_ms(e), e.count) for e in device}
+    return table
 
 
 def host_check(mx, symbol, arg0, aux0, images, labels, seed):
@@ -2265,6 +2364,505 @@ def ctc_check(mx, seed):
         raise AssertionError("CTC on the card disagrees with the host")
 
 
+# Phase 8: ResNet-50 v2 in bf16 with f32 masters through Module.fit and the
+# fused train step (one CUDA graph replay a batch), with a learning-rate
+# schedule, the Speedometer, checkpoints with optimizer states and resume
+FUSED_BATCHES = 6  # an epoch
+FUSED_EPOCHS = 2
+FUSED_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+             "multi_precision": True}
+FUSED_LR_STEP, FUSED_LR_FACTOR = 4, 0.1
+# graph against eager, and a resumed run against the uninterrupted one:
+# relative L2 per parameter (bit for bit expected: the same arithmetic)
+FUSED_SAME_REL = 1e-6
+# the card's bf16 step against the host's: relative L2 of each
+# parameter's first momentum, or 4x the host's own largest change when its
+# input moves by one bf16 ulp (phase 4's rule)
+FUSED_HOST_REL = 1e-3
+# the path check of bn_channel_sums: |kernel - plain| per channel over the
+# channel's sum of absolute terms.  Both sum the same f32 terms (products
+# of bf16 values are exact in f32) in two orders, which rounding sets
+# apart by at most about 2**-24 x the longest serial chain of additions
+# (a few hundred terms here) of that absolute sum, 1e-5 or less; a term
+# missed or read from the wrong place moves it by about that term.
+PATH_SUM_REL = 1e-4
+# the Speedometer line of the JAX package (tools/parse_log.py scrapes it)
+SPEED_LINE = r"^Epoch\[(\d+)\] Batch \[(\d+)\]\tSpeed: ([\d.]+) " \
+    r"samples/sec((\t[\w-]+=[-\d.e]+)*)$"
+
+
+def fused_state(mod):
+    """{name: (f32 master, momentum)} of a module's fused step, on the
+    host."""
+    fs = mod._fused_step
+    return {n: (fs._masters[j].float().cpu().clone(),
+                fs.states[j].float().cpu().clone())
+            for j, n in enumerate(fs.param_names)}
+
+
+def state_gap(got, want):
+    """(largest relative L2 of the masters, of the momenta, parameters
+    whose master and momentum are bit for bit equal).  Raises where a
+    master or momentum on either side is not finite: a NaN difference
+    would read as none."""
+    import torch
+    if set(got) != set(want):
+        raise AssertionError("the two states name different parameters")
+    for side in (got, want):
+        bad = [k for k, (m, s) in side.items()
+               if not (bool(torch.isfinite(m).all())
+                       and bool(torch.isfinite(s).all()))]
+        if bad:
+            raise AssertionError("non-finite masters or momenta: %s" % bad)
+    worst_m = worst_s = 0.0
+    same = 0
+    for k, (m, s) in want.items():
+        gm, gs = got[k]
+        worst_m = max(worst_m, float((gm - m).norm() / m.norm()))
+        worst_s = max(worst_s, float((gs - s).norm()
+                                     / max(float(s.norm()), 1e-30)))
+        same += int(torch.equal(gm, m) and torch.equal(gs, s))
+    return worst_m, worst_s, same
+
+
+def bf16_iter(mx, seed, batch=TRAIN_BATCH, batches=FUSED_BATCHES):
+    rng = np.random.default_rng(seed + 8)
+    n = batch * batches
+    shape = tuple(int(d) for d in RESNET["image_shape"].split(","))
+    images = rng.random((n,) + shape, dtype=np.float32)
+    labels = rng.integers(0, RESNET["num_classes"], n).astype(np.float32)
+    return mx.io.NDArrayIter(images, labels, batch_size=batch)
+
+
+def bf16_module(mx, symbol, it, seed, ctx=None):
+    """A bound module, Xavier (gaussian, in, 2) from ``seed``."""
+    mod = mx.mod.Module(symbol, context=ctx or mx.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mx.random.seed(seed)
+    mod.init_params(mx.initializer.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2))
+    return mod
+
+
+def fused_optimizer(mx):
+    return dict(FUSED_SGD, lr_scheduler=mx.lr_scheduler.MultiFactorScheduler(
+        step=[FUSED_LR_STEP], factor=FUSED_LR_FACTOR))
+
+
+def train_bf16_fused(mx, seed):
+    """Phase 8.  Returns the kernel launches of the main path (the
+    fit)."""
+    import logging
+    import re
+    import tempfile
+    import torch
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.module.fused_step import WARMUP_STEPS
+    from mxnet_tpu_torch.ops import kernels as K
+
+    symbol = resnet.get_symbol(dtype="bfloat16", **RESNET)
+    per_step = expected_train_launches(symbol)
+    it = bf16_iter(mx, seed)
+    mod = bf16_module(mx, symbol, it, seed)
+    arg0 = {k: v.asnumpy().copy() for k, v in mod.get_params()[0].items()}
+    aux0 = {k: v.asnumpy().copy() for k, v in mod.get_params()[1].items()}
+    losses, lrs, step_launches, step_ms_ = [], [], [], []
+    marks = {"t": None, "counts": None}
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), K.launch_counts()
+        prob = mod.get_outputs()[0].asnumpy()
+        lab = param.locals["batch"].label[0].asnumpy().astype(np.int64)
+        losses.append(float(-np.log(prob[np.arange(len(lab)), lab]
+                                    + 1e-12).mean()))
+        lrs.append(mod._optimizer._get_lr(0))
+        step_launches.append({k: counts[k] - marks["counts"][k]
+                              for k in per_step})
+        step_ms_.append((now - marks["t"]) * 1e3)
+        marks["t"], marks["counts"] = now, counts
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    speed = Lines()
+    root = logging.getLogger()
+    level = root.level
+    root.setLevel(logging.INFO)
+    root.addHandler(speed)
+    snapshots = {}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_fused_")
+    prefix = os.path.join(workdir, "resnet50-bf16")
+    # deterministic cuDNN for the runs compared bit for bit below (graph
+    # against eager, the resumed epoch against the uninterrupted one)
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()  # earlier phases' tensors
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        marks["t"], marks["counts"] = time.perf_counter(), K.launch_counts()
+        mod.fit(it, num_epoch=FUSED_EPOCHS, eval_metric="ce",
+                optimizer_params=fused_optimizer(mx),
+                batch_end_callback=[on_batch,
+                                    mx.callback.Speedometer(TRAIN_BATCH, 2)],
+                epoch_end_callback=[
+                    mx.callback.module_checkpoint(
+                        mod, prefix, save_optimizer_states=True),
+                    lambda epoch, *_: snapshots.__setitem__(
+                        epoch, fused_state(mod))])
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        root.removeHandler(speed)
+        root.setLevel(level)
+    fs = mod._fused_step
+    n = FUSED_BATCHES * FUSED_EPOCHS
+    print("fused: ResNet-50 v2 bf16 (f32 masters) fit of %d epochs x %d "
+          "batches of %d: cross-entropy per batch %s; lr per step %s; "
+          "host-clock ms per step (synchronized) %s; card %s"
+          % (FUSED_EPOCHS, FUSED_BATCHES, TRAIN_BATCH,
+             ", ".join("%.4f" % v for v in losses),
+             ", ".join("%g" % v for v in lrs),
+             ", ".join("%.1f" % v for v in step_ms_), card_line()))
+    print("fused: %d parameters (%d with f32 masters), captures %d, "
+          "replays %d, capture %.1f ms, num_update %d; launches per step "
+          "%s; per replay from the capture record %s; total %s; peak "
+          "memory over the fit %.2f GB allocated (%.2f GB held before it: "
+          "the fit's own %.2f GB, the eager step's and the capture's "
+          "allocations in the graph's pool included), %.2f GB reserved"
+          % (len(fs.param_names), sum(fs.mixed), fs.captures, fs.replays,
+             fs.capture_seconds * 1e3, mod._optimizer.num_update,
+             step_launches[-1], fs.graph_launches, launches, peak / 1e9,
+             held / 1e9, (peak - held) / 1e9,
+             torch.cuda.memory_reserved() / 1e9))
+    want_lrs = [FUSED_SGD["learning_rate"] * (FUSED_LR_FACTOR if t >
+                                              FUSED_LR_STEP else 1.0)
+                for t in range(1, n + 1)]
+    if fs is None or not fs.ran or fs.captures != 1 \
+            or fs.replays != n - WARMUP_STEPS:
+        raise AssertionError("the fit did not run as one captured CUDA "
+                             "graph replayed for every later batch")
+    if mod._optimizer.num_update != n or len(losses) != n \
+            or not np.allclose(lrs, want_lrs, rtol=1e-12, atol=0):
+        raise AssertionError("num_update %d or the lr schedule %s is off"
+                             % (mod._optimizer.num_update, lrs))
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite losses %s" % losses)
+    if any(d != per_step for d in step_launches) \
+            or fs.graph_launches != per_step:
+        raise AssertionError("launches per step %s, expected %s"
+                             % (step_launches, per_step))
+    arg1, aux1 = mod.get_params()
+    end = fused_state(mod)
+    frozen = [k for k, (m, _) in end.items()
+              if np.array_equal(m.numpy(), arg0[k].astype(np.float32))]
+    still = [k for k in aux0 if np.array_equal(aux0[k], aux1[k].asnumpy())]
+    bf16 = [k for k, v in arg1.items() if v.dtype == torch.bfloat16]
+    exe = mod._exec_group.execs[0]
+    storage = {str(exe.arg_dict[k].tensor.dtype) for k in bf16}
+    masters = {str(m.dtype) for m, mixed in zip(fs._masters, fs.mixed)
+               if mixed}
+    print("fused: masters moved %d/%d, moving stats moved %d/%d; bf16 "
+          "parameters %d, their storage %s, their masters %s"
+          % (len(end) - len(frozen), len(end), len(aux0) - len(still),
+             len(aux0), len(bf16), storage, masters))
+    if frozen or still or storage != {"torch.bfloat16"} \
+            or masters != {"torch.float32"} or len(bf16) != sum(fs.mixed):
+        raise AssertionError("unchanged or mistyped after fit: %s"
+                             % (frozen + still))
+    parsed = [re.match(SPEED_LINE, m) for m in speed.lines
+              if "\tSpeed: " in m]
+    print("fused: Speedometer lines %s" % [m.group(0) if m else None
+                                           for m in parsed])
+    # one line at batches 2, 4, ... of every epoch (batch 0 starts the clock)
+    if len(parsed) != FUSED_EPOCHS * len(range(2, FUSED_BATCHES, 2)) or \
+            not all(parsed):
+        raise AssertionError("Speedometer lines off the JAX format: %s"
+                             % speed.lines)
+
+    # 2. launches of one profiled replay, by device kernel
+    it.reset()
+    batch = next(it)
+    table = profile_run(lambda: (mod.forward_backward(batch), mod.update()),
+                        "fused replay")
+    if table is not None:
+        seen = {name: sum(v[1] for k, v in table.items() if key in k)
+                for name, key in HAND_SPLIT}
+        bf16 = sorted({re.search(r"(\w+)<__nv_bfloat16", k).group(1)
+                       for k in table if "<__nv_bfloat16" in k and any(
+                           key in k for _, key in HAND_SPLIT)})
+        print("fused: the profiled replay's hand-written device launches %s, "
+              "bf16 instances of %s" % (seen, bf16))
+        if seen != per_step:
+            raise AssertionError("the replay's device launches %s, expected "
+                                 "%s" % (seen, per_step))
+    fused_same_path_checks(mx, symbol, seed, prefix, snapshots, end)
+    fused_host_check(mx, symbol, arg0, aux0, seed)
+    fused_numbers(mod, batch, table)
+    check_path_bn_sums(mod, batch)
+    return launches
+
+
+def fused_same_path_checks(mx, symbol, seed, prefix, snapshots, end):
+    """3. Graph against eager from one state on the same batches; 4. the
+    checkpoint of epoch 1 resumed for epoch 2 against the uninterrupted
+    run.  Both under deterministic cuDNN (set by the caller)."""
+    import torch
+    it = bf16_iter(mx, seed)
+    batches = list(it)[:1 + 3]
+    states = {}
+    for path in ("graph", "eager"):
+        mod = bf16_module(mx, symbol, it, seed)
+        mod.init_optimizer(optimizer_params=FUSED_SGD)
+        if path == "eager":
+            mod._fused_step = None  # the Updater, mp_sgd_mom_update
+        for b in batches:
+            mod.forward_backward(b)
+            mod.update()
+        torch.cuda.synchronize()
+        if path == "graph":
+            fs = mod._fused_step
+            if fs.replays != 3:
+                raise AssertionError("the graph ran %d steps" % fs.replays)
+            states[path] = fused_state(mod)
+        else:
+            states[path] = {}
+            for i, st in mod._updater.states.items():
+                if isinstance(st, tuple):  # multi-precision: (mom, w32)
+                    mom, master = st
+                else:
+                    mom, master = st, mod._exec_group.param_arrays[i][0]
+                states[path][mod._param_names[i]] = (
+                    master.tensor.float().cpu().clone(),
+                    mom.tensor.float().cpu().clone())
+        del mod
+    gap = state_gap(states["graph"], states["eager"])
+    print("fused: 1 eager + 3 graph steps against 4 general-path steps, "
+          "deterministic cuDNN: masters largest relative L2 %.3g, momenta "
+          "%.3g, bit for bit %d/%d (limit %g)"
+          % (gap[0], gap[1], gap[2], len(states["eager"]), FUSED_SAME_REL))
+    if max(gap[:2]) > FUSED_SAME_REL:
+        raise AssertionError("the graph's step disagrees with the eager "
+                             "general path")
+    # 4. resume: MXNet's fit.py _get_lr_scheduler: the lr already decayed
+    # for the epochs done, the remaining steps shifted by begin_epoch x
+    # epoch size (none remain here)
+    begin = 1
+    lr = FUSED_SGD["learning_rate"] * (
+        FUSED_LR_FACTOR if begin * FUSED_BATCHES > FUSED_LR_STEP else 1.0)
+    steps = [FUSED_LR_STEP - begin * FUSED_BATCHES] \
+        if FUSED_LR_STEP > begin * FUSED_BATCHES else []
+    opt = dict(FUSED_SGD, learning_rate=lr)
+    if steps:
+        opt["lr_scheduler"] = mx.lr_scheduler.MultiFactorScheduler(
+            step=steps, factor=FUSED_LR_FACTOR)
+    mod = mx.mod.Module.load(prefix, begin, load_optimizer_states=True,
+                             context=mx.gpu(0))
+    it.reset()
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_optimizer(optimizer_params=opt)
+    loaded = state_gap(fused_state(mod), snapshots[begin - 1])
+    mod.fit(it, begin_epoch=begin, num_epoch=FUSED_EPOCHS,
+            optimizer_params=opt, eval_metric="ce")
+    torch.cuda.synchronize()
+    resumed = state_gap(fused_state(mod), end)
+    print("fused: resume from epoch %d (lr %g, schedule steps %s): loaded "
+          "masters and momenta bit for bit %d/%d (largest relative L2 %.3g, "
+          "%.3g); after epoch %d against the uninterrupted run: masters "
+          "%.3g, momenta %.3g, bit for bit %d/%d (limit %g)"
+          % (begin, lr, steps, loaded[2], len(end), loaded[0], loaded[1],
+             FUSED_EPOCHS, resumed[0], resumed[1], resumed[2], len(end),
+             FUSED_SAME_REL))
+    if loaded[2] != len(end) or max(resumed[:2]) > FUSED_SAME_REL:
+        raise AssertionError("the resumed run does not reproduce the "
+                             "uninterrupted one")
+    del mod
+
+
+def bf16_ulp_up(images, pixels):
+    """``images`` as bf16 values, with the flat ``pixels`` of every image
+    moved to the next bf16 value up."""
+    import torch
+    t = torch.from_numpy(images).bfloat16().reshape(len(images), -1)
+    bits = t.view(torch.int16)
+    bits[:, pixels] += 1  # positive values: the next one up
+    return t.float().reshape(images.shape).numpy()
+
+
+def fused_host_check(mx, symbol, arg0, aux0, seed):
+    """5. One batch-2 bf16 fused step on the card against the same step on
+    the host: the step's outputs by max abs error, within HOST_OUT_TOL's
+    atol or 4x the host's own floor, and each parameter's first momentum
+    (-lr * (gradient / batch + wd * weight)) by relative L2, within
+    FUSED_HOST_REL or 4x the host's
+    own largest change when a few pixels of its input move by one bf16
+    ulp.  BatchNorm gammas and betas drawn away from 1 and 0, as phase 4's
+    check.
+
+    In bf16 at Xavier init this floor is near 1: a one-ulp change of the
+    input flips the bf16 rounding of activations throughout the 50
+    layers, and the chaotic BatchNorm net carries that to the whole
+    gradient.  So this check catches only gross faults (non-finite
+    values, wrong shapes, an error far beyond the host's own); the bf16
+    kernels on the path are held to their plain versions by phase 2 and
+    ``check_path_bn_sums``."""
+    rng = np.random.default_rng(seed + 9)
+    arg = dict(arg0)
+    for k, v in arg.items():
+        if k.endswith("_gamma"):
+            arg[k] = (1.0 + 0.1 * rng.standard_normal(v.shape)).astype(
+                np.float32)
+        elif k.endswith("_beta"):
+            arg[k] = (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+    images = rng.random((HOST_BATCH, 3, 224, 224), dtype=np.float32)
+    labels = rng.integers(0, RESNET["num_classes"], HOST_BATCH).astype(
+        np.float32)
+    # a few pixels of each image one bf16 ulp up (the graph casts its
+    # input to bf16 first)
+    nudged = bf16_ulp_up(images, rng.choice(images[0].size, 16,
+                                            replace=False))
+    moms, outs = [], []
+    for ctx, data in ((mx.gpu(0), images), (mx.cpu(), images),
+                      (mx.cpu(), nudged)):
+        it = mx.io.NDArrayIter(data, labels, batch_size=HOST_BATCH)
+        mod = mx.mod.Module(symbol, context=ctx)
+        mod.bind(it.provide_data, it.provide_label)
+        types = dict(zip(symbol.list_arguments(),
+                         symbol.infer_type(data="float32")[0]))
+        mod.init_params(
+            arg_params={k: mx.nd.array(v, ctx=mx.cpu()).astype(
+                mx.base.dtype_name(types[k])) for k, v in arg.items()},
+            aux_params={k: mx.nd.array(v, ctx=mx.cpu())
+                        for k, v in aux0.items()})
+        mod.init_optimizer(optimizer_params=FUSED_SGD)
+        mod.forward_backward(next(it))
+        mod.update()
+        moms.append({k: s for k, (_, s) in fused_state(mod).items()})
+        outs.append(mod.get_outputs()[0].asnumpy())
+
+    def rel(a, b):
+        return {k: float((a[k] - b[k]).norm() / b[k].norm())
+                for k in b if float(b[k].norm()) > 0}
+
+    err, floor = rel(moms[0], moms[1]), rel(moms[2], moms[1])
+    if not all(np.isfinite(o).all() for o in outs) or not all(
+            np.isfinite(v) for v in [*err.values(), *floor.values()]):
+        raise AssertionError("non-finite outputs or momenta in the bf16 "
+                             "step on the card or the host")
+    limit = max(FUSED_HOST_REL, 4.0 * max(floor.values()))
+    worst = max(err, key=err.get)
+    out_err = float(np.abs(outs[0] - outs[1]).max())
+    out_floor = float(np.abs(outs[2] - outs[1]).max())
+    out_limit = max(HOST_OUT_TOL["atol"], 4.0 * out_floor)
+    print("fused: batch-%d bf16 step card vs host: the step's outputs "
+          "max_abs_err %.3g, the host's own floor %.3g, so the limit is %.3g"
+          % (HOST_BATCH, out_err, out_floor, out_limit))
+    print("fused: batch-%d bf16 step card vs host: first momenta relative "
+          "L2 largest %.3g (%s), median %.3g, %d/%d within %g; the host's "
+          "own floor (16 pixels an image moved by one bf16 ulp) largest "
+          "%.3g, median "
+          "%.3g, so the limit is %.3g"
+          % (HOST_BATCH, err[worst], worst, float(np.median(list(
+              err.values()))), sum(v <= FUSED_HOST_REL for v in err.values()),
+             len(err), FUSED_HOST_REL, max(floor.values()),
+             float(np.median(list(floor.values()))), limit))
+    if not (err[worst] <= limit and out_err <= out_limit):
+        raise AssertionError("the card's bf16 step disagrees with the host's")
+
+
+def fused_numbers(mod, batch, replay):
+    """6. ms a step and images/s of the bf16 fused graph and the bf16
+    general path (median of TIMED_STEPS unprofiled steps after warm-up,
+    deterministic cuDNN off), and the device's busy share of one profiled
+    replay and of one profiled general step, each from its own trace."""
+    import torch
+    torch.backends.cudnn.deterministic = False
+    graph_ms = time_steps(mod, batch)
+    mod._fused_step = None  # the general path from here
+    eager_ms = time_steps(mod, batch)
+    eager = profile_run(lambda: (mod.forward_backward(batch), mod.update()),
+                        "bf16 general step")
+
+    def share(table):
+        return "not measured" if table is None else table.share()
+
+    print("fused: path fused bf16 (graph) ms per step %.2f, %.1f images/s, "
+          "profiled replay: %s; path general bf16 (eager) %.2f ms, %.1f "
+          "images/s, profiled step: %s; card %s"
+          % (graph_ms, TRAIN_BATCH / graph_ms * 1e3, share(replay), eager_ms,
+             TRAIN_BATCH / eager_ms * 1e3, share(eager), card_line()))
+
+
+def check_path_bn_sums(mod, batch):
+    """bn_channel_sums on the tensors the bf16 path gives it: one general
+    step (the same graph, dtypes and layouts as the fused step's) records
+    a copy of the inputs of the first call of each distinct case (shape,
+    dtype, strides, single or paired), then each case runs the kernel and
+    its plain version on those copies, which keep the originals' strides,
+    storage offsets and so the wrapper's choice of loads (8-wide or one
+    element).  Within PATH_SUM_REL of each channel's absolute sum."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+
+    def like(t):
+        buf = torch.empty(t.untyped_storage().nbytes() // t.element_size(),
+                          dtype=t.dtype, device=t.device)
+        return buf.as_strided(t.size(), t.stride(),
+                              t.storage_offset()).copy_(t)
+
+    wrapper, cases, calls = K.bn_channel_sums, {}, []
+
+    def record(a, b=None):
+        ins = (a,) if b is None else (a, b)
+        key = (tuple(a.shape), a.dtype, tuple(t.stride() for t in ins))
+        calls.append(key)
+        if key not in cases:
+            cases[key] = (tuple(like(t) for t in ins),
+                          K._bn_vec(ins, a.shape[2], a.shape[3]))
+        return wrapper(a, b)
+
+    K.bn_channel_sums = record
+    try:
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+    finally:
+        K.bn_channel_sums = wrapper
+    worst, by_load = 0.0, {}
+    for key, (ins, vec) in cases.items():
+        h, w = key[0][2:]
+        if K._bn_vec(ins, h, w) != vec:
+            raise AssertionError("the copy of %s takes other loads" % (key,))
+        got = wrapper(*ins)
+        want = K._plain_channel_sums(*ins)
+        scale = K._plain_channel_sums(*(t.abs() for t in ins))
+        torch.cuda.synchronize()
+        err = max(float(((g - w_) / s.clamp_min(1e-30)).abs().max())
+                  for g, w_, s in zip(got, want, scale))
+        if not err <= PATH_SUM_REL:
+            raise AssertionError("bn_channel_sums disagrees with its plain "
+                                 "version on the path's %s: %.3g of the "
+                                 "absolute sum" % (key, err))
+        worst = max(worst, err)
+        load = "%s %d-wide%s" % (str(key[1]).replace("torch.", ""), vec[0],
+                                 "" if vec[1] else " unflattened")
+        n = sum(1 for k in calls if k == key)
+        by_load[load] = by_load.get(load, 0) + n
+    print("path bn_channel_sums: %d calls in one bf16 step, %d distinct "
+          "cases (shape, dtype, strides, single or paired), each against "
+          "its plain version on copies of the path's own tensors: largest "
+          "|kernel - plain| %.3g of the channel's absolute sum (limit %g); "
+          "calls by load %s" % (len(calls), len(cases), worst, PATH_SUM_REL,
+                                by_load))
+
+
 def ptxas_entries(text):
     """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
     per compiled entry of an ``nvcc -Xptxas=-v`` report.  The kernel is
@@ -2353,12 +2951,14 @@ def main():
     lap("6 (Gluon vision ResNet-50 v2, SymbolBlock)")
     paths["gluon_lstm_lm"] = train_lstm_lm(mx, args.seed)
     lap("7 (Gluon LSTM LM, recurrent layers and cells, CTC)")
+    paths["module_bf16_fused"] = train_bf16_fused(mx, args.seed)
+    lap("8 (bf16 fused Module training)")
     # "launches": the path each kernel serves in this script (the serving
-    # forward, the LM's training, and this slice's Gluon vision training)
+    # forward, the LM's training, and this slice's bf16 fused training)
     main_path = {"flash_attn_fwd": "serve", "flash_attn_fwd_lse": "gluon_lm",
-                 "bn_channel_sums": "gluon_resnet50",
-                 "max_pool_backward": "gluon_resnet50",
-                 "avg_pool_backward": "gluon_resnet50"}
+                 "bn_channel_sums": "module_bf16_fused",
+                 "max_pool_backward": "module_bf16_fused",
+                 "avg_pool_backward": "module_bf16_fused"}
     for rec in records:
         name = rec["name"]
         rec["launches"] = paths[main_path[name]].get(name, 0)

@@ -4,9 +4,12 @@ The port of the JAX package to one NVIDIA H100, slice by slice.  It
 serves symbol graphs (``Server`` -> ``ServedModel`` -> ``Predictor`` ->
 ``Symbol.simple_bind`` -> ``Executor.forward``, with the attention of
 ``multi_head_attention`` in a hand-written CUDA flash-attention kernel)
-and trains them (``Module.fit`` -> ``Executor.forward_backward`` -> SGD,
-with BatchNorm's channel sums and the pooling input gradients in
-hand-written CUDA kernels).  Gluon trains imperatively or hybridized
+and trains them (``Module.fit`` -> the fused train step, forward,
+backward and update as one CUDA graph replay a batch, in bf16 with f32
+master weights under ``multi_precision``, with BatchNorm's channel sums
+and the pooling input gradients in hand-written CUDA kernels; the
+optimizers, learning-rate schedulers, callbacks and checkpoints with
+optimizer states of the JAX package).  Gluon trains imperatively or hybridized
 (``autograd.record()`` -> ``loss.backward()`` -> ``gluon.Trainer.step``),
 with attention in the flash kernel's LSE variant and its blockwise
 backward, and the Gluon vision zoo's conv nets train through the same
@@ -32,11 +35,15 @@ from . import symbol as sym  # noqa: F401
 from . import executor, executor_cache  # noqa: F401
 from . import random  # noqa: F401
 from . import initializer  # noqa: F401
+from . import lr_scheduler  # noqa: F401
 from . import optimizer  # noqa: F401
+from .optimizer import Optimizer  # noqa: F401
 from . import metric  # noqa: F401
 from . import io  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
+from . import model  # noqa: F401
+from . import callback  # noqa: F401
 from .predict import Predictor  # noqa: F401
 from . import serving  # noqa: F401
 from . import models  # noqa: F401

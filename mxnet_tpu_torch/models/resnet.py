@@ -11,12 +11,13 @@ The port's copy of ``mxnet_tpu/models/resnet.py`` over the port's
 ``symbol``: the same graph, names and op sequence, so weights and BN
 moving statistics carry across between the two packages by name.  The
 conv workspace and memonger knobs are accepted and ignored, as there.
-Only float32 is built here: the ``Cast`` op of the half-width graph has
-not been ported.
+A ``dtype`` other than float32 casts the input to it after ``data`` and
+the logits back to float32 before ``SoftmaxOutput``: type inference then
+gives half-width conv and FC weights and float32 BatchNorm parameters
+and moving statistics.
 """
 from __future__ import annotations
 
-from ..base import MXNetError
 from .. import symbol as sym
 
 _BN = dict(fix_gamma=False, eps=2e-5, momentum=0.9)
@@ -119,10 +120,9 @@ def get_symbol(num_classes, num_layers, image_shape, conv_workspace=256,
     height = shape[1]
     units, filters, bottle_neck = depth_config(num_layers, height)
 
-    if dtype != "float32":
-        raise MXNetError("resnet.get_symbol: dtype %r needs the Cast op, "
-                         "which is not ported; build float32" % (dtype,))
     net = sym.var("data")
+    if dtype != "float32":
+        net = sym.Cast(net, dtype=dtype)
     # v2 normalizes the raw input with a scale-frozen BN before conv0
     net = sym.BatchNorm(net, fix_gamma=True, eps=2e-5, momentum=0.9,
                         name="bn_data")
@@ -143,4 +143,6 @@ def get_symbol(num_classes, num_layers, image_shape, conv_workspace=256,
                       name="pool1")
     net = sym.FullyConnected(sym.Flatten(net), num_hidden=num_classes,
                              name="fc1")
+    if dtype != "float32":
+        net = sym.Cast(net, dtype="float32")
     return sym.SoftmaxOutput(net, name="softmax")

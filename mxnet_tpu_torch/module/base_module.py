@@ -1,18 +1,25 @@
 """BaseModule: the high-level train/score interface.
 
 Counterpart of ``mxnet_tpu/module/base_module.py``: ``fit`` binds,
-initializes the parameters and the optimizer, then runs epochs of
-``forward_backward`` -> ``update`` -> ``update_metric`` with the batch-end
-callbacks; ``score`` runs predict-mode forwards over an iterator.  The
-JAX package's step telemetry, health sentinel and elastic checkpoint
-hooks wait for the runtime-services slice.
+initializes the parameters and the optimizer, then runs epochs
+``begin_epoch`` to ``num_epoch - 1`` of ``forward_backward`` ->
+``update`` -> ``update_metric`` with the batch-end callbacks, syncing the
+trained values into the module's parameter dicts before the epoch-end
+callbacks (a checkpoint); ``score``, ``iter_predict`` and ``predict``
+run predict-mode forwards over an iterator; ``save_params`` /
+``load_params`` use the ``.params`` format with ``arg:``/``aux:`` names.
+The JAX package's batch lookahead, step telemetry, health sentinel and
+elastic checkpoint hooks wait for the runtime-services slice.
 """
 from __future__ import annotations
 
 import logging
 import time
 
+import torch
+
 from .. import metric as metric_mod
+from ..context import cpu
 from ..initializer import Uniform
 
 
@@ -24,6 +31,17 @@ class BatchEndParam:
         self.nbatch = nbatch
         self.eval_metric = eval_metric
         self.locals = locals
+
+
+def _as_list(obj):
+    return obj if isinstance(obj, (list, tuple)) else [obj]
+
+
+def _trim_pad(outputs, pad):
+    """Drop the iterator's pad rows from each output array."""
+    if not pad:
+        return list(outputs)
+    return [out[:out.shape[0] - pad] for out in outputs]
 
 
 def _each_callback(callbacks, arg):
@@ -81,6 +99,39 @@ class BaseModule:
             locals=locals()))
         return eval_metric.get_name_value()
 
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Generator over (outputs, nbatch, batch) for each batch."""
+        if not (self.binded and self.params_initialized):
+            raise AssertionError("iter_predict() needs bind() and "
+                                 "init_params()")
+        if reset:
+            eval_data.reset()
+        for nbatch, batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                return
+            self.forward(batch, is_train=False)
+            yield _trim_pad(self.get_outputs(), batch.pad), nbatch, batch
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False):
+        """Run inference over an iterator and collect the outputs."""
+        per_batch = [
+            [o.copyto(o.context) for o in outs]
+            for outs, _, _ in self.iter_predict(eval_data, num_batch, reset)]
+        if not per_batch or not merge_batches:
+            return per_batch
+        widths = {len(outs) for outs in per_batch}
+        if len(widths) != 1:
+            raise AssertionError(
+                "cannot merge: batches produced differing output counts %s "
+                "(bucketing?); pass merge_batches=False" % sorted(widths))
+        from ..ndarray import NDArray
+        merged = [NDArray(torch.cat([outs[i].tensor for outs in per_batch]))
+                  for i in range(widths.pop())]
+        if len(merged) == 1 and not always_output_list:
+            return merged[0]
+        return merged
+
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None, kvstore="local",
             optimizer="sgd", optimizer_params=(("learning_rate", 0.01),),
@@ -89,7 +140,8 @@ class BaseModule:
             allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None,
             monitor=None):
-        """Bind, initialize, and train for ``num_epoch`` epochs."""
+        """Bind, initialize, and train epochs ``begin_epoch`` to
+        ``num_epoch - 1``."""
         if num_epoch is None:
             raise AssertionError("fit() needs num_epoch")
         if monitor is not None:
@@ -120,11 +172,12 @@ class BaseModule:
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
                              time.time() - tic)
+            # the trained values into the module's parameter dicts, so that
+            # the callbacks and the next epoch see the same tensors
             arg_now, aux_now = self.get_params()
+            self.set_params(arg_now, aux_now)
             if epoch_end_callback is not None:
-                for cb in (epoch_end_callback
-                           if isinstance(epoch_end_callback, (list, tuple))
-                           else [epoch_end_callback]):
+                for cb in _as_list(epoch_end_callback):
                     cb(epoch, self.symbol, arg_now, aux_now)
             if eval_data:
                 for name, val in self.score(
@@ -135,3 +188,24 @@ class BaseModule:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
             train_data.reset()
+
+    # -- parameter files -----------------------------------------------------
+    def save_params(self, fname):
+        from ..ndarray import save
+        arg_params, aux_params = self.get_params()
+        blob = {"arg:" + k: v.as_in_context(cpu())
+                for k, v in arg_params.items()}
+        blob.update({"aux:" + k: v.as_in_context(cpu())
+                     for k, v in aux_params.items()})
+        save(fname, blob)
+
+    def load_params(self, fname):
+        from ..ndarray import load
+        split = {"arg": {}, "aux": {}}
+        for key, value in load(fname).items():
+            kind, _, name = key.partition(":")
+            if kind not in split or not name:
+                raise ValueError("%s is not a Module param file (bad key %r)"
+                                 % (fname, key))
+            split[kind][name] = value
+        self.set_params(split["arg"], split["aux"])

@@ -6,7 +6,8 @@ grad_req a Module wants (parameters ``write`` unless fixed, data only
 with ``inputs_need_grad``, labels ``null``), loads each batch into the
 bound arrays, runs forward/backward, and exposes the parameter, gradient
 and aux arrays in the layout the updater walks (one replica per
-parameter).  Splitting a batch over several devices waits for the
+parameter); ``reshape`` rebinds to new data shapes, sharing the
+parameters.  Splitting a batch over several devices waits for the
 multi-device slice.
 """
 from __future__ import annotations
@@ -72,7 +73,10 @@ class DataParallelExecutorGroup:
             raise ValueError("invalid grad_req %r" % (grad_req,))
         self.bind_exec(data_shapes, label_shapes)
 
-    def bind_exec(self, data_shapes, label_shapes):
+    def bind_exec(self, data_shapes, label_shapes, reshape=False):
+        """Bind the executor to these shapes; with ``reshape``, a new
+        executor that shares every array whose shape is unchanged (the
+        parameters, their gradients and the aux states)."""
         self.data_shapes = list(data_shapes)
         self.label_shapes = list(label_shapes) if label_shapes else None
         self.data_names = _names(self.data_shapes)
@@ -81,9 +85,13 @@ class DataParallelExecutorGroup:
         self.batch_size = shapes[self.data_names[0]][0]
         types = {d.name: d.dtype for d in self.data_shapes
                  + (self.label_shapes or []) if isinstance(d, DataDesc)}
-        self.execs = [self.symbol.simple_bind(
-            ctx=self.contexts[0], grad_req=self.grad_req, type_dict=types,
-            **shapes)]
+        if reshape:
+            self.execs = [self.execs[0].reshape(allow_up_sizing=True,
+                                                **shapes)]
+        else:
+            self.execs = [self.symbol.simple_bind(
+                ctx=self.contexts[0], grad_req=self.grad_req,
+                type_dict=types, **shapes)]
         exe = self.execs[0]
         self.data_arrays = [exe.arg_dict[n] for n in self.data_names]
         self.label_arrays = [exe.arg_dict[n] for n in self.label_names
@@ -92,6 +100,12 @@ class DataParallelExecutorGroup:
         self.grad_arrays = [[exe.grad_dict[n]] for n in self.param_names
                             if n in exe.grad_dict]
         self.aux_arrays = [[exe.aux_dict[n]] for n in self.aux_names]
+
+    def reshape(self, data_shapes, label_shapes):
+        if data_shapes == self.data_shapes \
+                and label_shapes == self.label_shapes:
+            return
+        self.bind_exec(data_shapes, label_shapes, reshape=True)
 
     def set_params(self, arg_params, aux_params, allow_extra=False):
         self.execs[0].copy_params_from(arg_params, aux_params,

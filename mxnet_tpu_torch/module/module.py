@@ -1,23 +1,29 @@
 """Module: the symbolic training interface over one device.
 
 Counterpart of ``mxnet_tpu/module/module.py``: ``bind`` (through the
-executor group's ``simple_bind``), ``init_params`` with host masters
-filled by the initializer's name rules or from given dicts,
+executor group's ``simple_bind``) and ``reshape``, ``init_params`` with
+host masters filled by the initializer's name rules or from given dicts,
 ``set_params``/``get_params``, ``init_optimizer`` (one context with
 ``kvstore`` "local" or None updates locally, ``rescale_grad = 1 /
 batch_size``), ``forward``, ``backward``, ``forward_backward``,
-``update`` and ``update_metric``.
+``update`` and ``update_metric``; checkpoints (``save_checkpoint``, the
+static ``load``) and optimizer-state files in both of the JAX package's
+formats: ``fused_v2`` from the fused step, the ``Updater``'s pickle from
+the general path.
 
-The JAX package's ``FusedTrainStep`` (forward, backward and update in
-one XLA program) has no counterpart here: on one device its math is the
-general path's, and its own contract makes the ``update()`` after a
-fused step a no-op, so ``fit`` gives the same parameters either way.
-Key-value stores, checkpoints and optimizer-state files wait for later
-slices.
+``init_optimizer`` engages the fused train step (``fused_step.py``:
+forward, backward and update as one CUDA graph replay a batch on the
+card) whenever the JAX package's single-device gating allows, and logs
+why when it does not.  ``forward_backward`` then runs the whole step and
+the matching ``update()`` is a no-op; a loop that calls ``update()``
+without it, or a batch of another shape, retires the fused step, its
+optimizer state handed to the ``Updater``.  Key-value stores wait for
+the multi-device slice.
 """
 from __future__ import annotations
 
 import logging
+import pickle
 import warnings
 
 from ..base import MXNetError
@@ -26,8 +32,10 @@ from ..initializer import InitDesc, Uniform
 from ..io import DataDesc
 from ..ndarray import zeros as nd_zeros
 from .. import optimizer as opt
+from ..model import load_checkpoint
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
+from .fused_step import FusedTrainStep
 
 
 def _descs(shapes):
@@ -62,7 +70,35 @@ class Module(BaseModule):
         self._output_names = symbol.list_outputs()
         self._arg_params = self._aux_params = None
         self._optimizer = self._updater = None
+        self._preload_opt_states = None
+        self._fused_step = None
+        self._fused_pending = False
         self._exec_group = None
+        self._data_shapes = self._label_shapes = None
+
+    # -- checkpoints ---------------------------------------------------------
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module over a checkpoint's symbol with its parameters set;
+        with ``load_optimizer_states``, ``init_optimizer`` restores
+        ``prefix-%04d.states``."""
+        sym, args, auxs = load_checkpoint(prefix, epoch)
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params, mod._aux_params = args, auxs
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        self._symbol.save("%s-symbol.json" % prefix)
+        param_file = "%s-%04d.params" % (prefix, epoch)
+        self.save_params(param_file)
+        self.logger.info('Saved checkpoint to "%s"', param_file)
+        if save_optimizer_states:
+            state_file = "%s-%04d.states" % (prefix, epoch)
+            self.save_optimizer_states(state_file)
+            self.logger.info('Saved optimizer state to "%s"', state_file)
 
     @property
     def data_names(self):
@@ -89,9 +125,11 @@ class Module(BaseModule):
             raise MXNetError("shared_module is not ported yet")
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
+        self._data_shapes = _descs(data_shapes)
+        self._label_shapes = _descs(label_shapes) or None
         self._exec_group = DataParallelExecutorGroup(
-            self._symbol, self._context, _descs(data_shapes),
-            _descs(label_shapes) or None, self._param_names, for_training,
+            self._symbol, self._context, self._data_shapes,
+            self._label_shapes, self._param_names, for_training,
             inputs_need_grad, fixed_param_names=self._fixed_param_names,
             grad_req=grad_req)
         self.binded = True
@@ -108,6 +146,14 @@ class Module(BaseModule):
                 n: nd_zeros(a[0].shape, cpu(), dtype=a[0].tensor.dtype)
                 for n, a in zip(self._aux_names,
                                 self._exec_group.aux_arrays)}
+
+    def reshape(self, data_shapes, label_shapes=None):
+        """Rebind to new input shapes, sharing the parameters."""
+        if not self.binded:
+            raise AssertionError("reshape() needs bind()")
+        self._data_shapes = _descs(data_shapes)
+        self._label_shapes = _descs(label_shapes) or None
+        self._exec_group.reshape(self._data_shapes, self._label_shapes)
 
     def init_params(self, initializer=Uniform(0.01), arg_params=None,
                     aux_params=None, allow_missing=False, force_init=False,
@@ -183,20 +229,73 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
+        why = FusedTrainStep.refusal(self)
+        self._fused_step = FusedTrainStep(self) if why is None else None
+        self._fused_pending = False
+        if why is not None:
+            self.logger.info("fused train step unavailable (%s); using the "
+                             "general path", why)
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
+
+    def _retire_fused_step(self, why):
+        """Leave the fused step for the general path, the optimizer state
+        carried over to the Updater."""
+        self.logger.info("%s; disabling the fused train step", why)
+        self._fused_step.transfer_to_updater(self._updater)
+        self._fused_step = None
+
+    def _rebind_for_batch(self, data_batch):
+        """Reshape the bound executor when a batch arrives with new
+        shapes."""
+        incoming = tuple(tuple(a.shape) for a in data_batch.data)
+        if incoming == tuple(tuple(d.shape) for d in self._data_shapes):
+            return
+        dshapes = data_batch.provide_data or [
+            DataDesc(d.name, shape, d.dtype, d.layout)
+            for d, shape in zip(self._data_shapes, incoming)]
+        lshapes = data_batch.provide_label
+        if not lshapes and data_batch.label and self._label_shapes:
+            lshapes = [DataDesc(d.name, a.shape, d.dtype, d.layout)
+                       for d, a in zip(self._label_shapes, data_batch.label)]
+        self.reshape(dshapes, lshapes or None)
 
     def forward(self, data_batch, is_train=None):
+        self._rebind_for_batch(data_batch)
         self._exec_group.forward(data_batch, is_train)
 
     def backward(self, out_grads=None):
         self._exec_group.backward(out_grads=out_grads)
 
     def forward_backward(self, data_batch):
+        """One training step's forward and backward; with the fused step,
+        the whole step, whose ``update()`` then does nothing."""
+        if self._fused_step is not None:
+            shapes = tuple(tuple(a.shape) for a in data_batch.data)
+            if self._fused_pending or shapes != tuple(
+                    tuple(d.shape) for d in self._data_shapes):
+                self._retire_fused_step(
+                    "repeated forward_backward or a batch shape change")
+            else:
+                self._fused_step.run(data_batch)
+                self._fused_pending = True
+                return
+        self._fused_pending = False
+        self._rebind_for_batch(data_batch)
         self._exec_group.forward_backward(data_batch)
 
     def update(self):
         """One optimizer step of every parameter from its gradient."""
         if not self.optimizer_initialized:
             raise AssertionError("update() needs init_optimizer()")
+        if self._fused_pending:
+            # the fused forward_backward applied this update already
+            self._fused_pending = False
+            return
+        if self._fused_step is not None:
+            self._retire_fused_step("update() without a fused "
+                                    "forward_backward")
         group = self._exec_group
         for index, (name, (weight,)) in enumerate(
                 zip(self._param_names, group.param_arrays)):
@@ -209,3 +308,44 @@ class Module(BaseModule):
 
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)
+
+    # -- optimizer-state files -----------------------------------------------
+    def save_optimizer_states(self, fname):
+        """``fused_v2`` after the fused step has run, else the Updater's
+        pickled states."""
+        if not self.optimizer_initialized:
+            raise AssertionError("save_optimizer_states() needs "
+                                 "init_optimizer()")
+        if self._fused_step is not None and self._fused_step.ran:
+            blob = pickle.dumps({"format": "fused_v2",
+                                 "states": self._fused_step.export_states()})
+        else:
+            blob = self._updater.get_states()
+        with open(fname, "wb") as fout:
+            fout.write(blob)
+
+    def load_optimizer_states(self, fname):
+        """Either format, written by either package."""
+        if not self.optimizer_initialized:
+            raise AssertionError("load_optimizer_states() needs "
+                                 "init_optimizer()")
+        with open(fname, "rb") as f:
+            raw = f.read()
+        obj = opt.load_states(raw)
+        # only the explicit format tag identifies fused states: a bare
+        # dict is the Updater's
+        if isinstance(obj, dict) and obj.get("format") in ("fused_v1",
+                                                           "fused_v2"):
+            if self._fused_step is not None:
+                self._fused_step.load_states(obj["states"])
+            else:
+                self.logger.warning(
+                    "fused-format optimizer states loaded without a fused "
+                    "step; momentum not restored")
+            return
+        if self._fused_step is not None:
+            self.logger.warning(
+                "updater-format optimizer states with a fused step active; "
+                "disabling the fused step to restore them faithfully")
+            self._fused_step = None
+        self._updater.set_states(raw)

@@ -245,8 +245,13 @@ class NDArray:
                 "ctx": (self.context.device_typeid, self.context.device_id)}
 
     def __setstate__(self, state):
-        ctx = Context(*state["ctx"])
-        self._h = _Handle(_to_tensor(state["data"], ctx, state["dtype"]))
+        if "ctx" in state:
+            ctx, dtype = Context(*state["ctx"]), state["dtype"]
+        else:  # the JAX package's layout: data, ctx_type, ctx_id
+            dtype = None
+            ctx = Context(state["ctx_type"], state["ctx_id"]) \
+                if state["ctx_type"] in Context.devtype2str else cpu()
+        self._h = _Handle(_to_tensor(state["data"], ctx, dtype))
         self._grad = None
         self._grad_req = "null"
 

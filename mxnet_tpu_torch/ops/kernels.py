@@ -55,6 +55,30 @@ def reset_launch_counts():
         LAUNCHES[name] = 0
 
 
+@contextlib.contextmanager
+def captured_launches():
+    """Around the capture of a CUDA graph, which calls the wrappers but
+    launches nothing: yields a dict that holds, once the block ends
+    without error, the wrapper calls made inside it (the graph's launches
+    at each replay), and sets the counts back to what they were before the
+    block in any case."""
+    before = dict(LAUNCHES)
+    recorded = {}
+    try:
+        yield recorded
+        recorded.update((k, n - before[k]) for k, n in LAUNCHES.items()
+                        if n != before[k])
+    finally:
+        LAUNCHES.update(before)
+
+
+def add_launch_counts(counts):
+    """Count the launches of one replay of a captured CUDA graph: the
+    wrapper calls ``captured_launches`` recorded."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
+
+
 def _acc_dtype(dtype):
     """The type the plain versions compute in: f64 for f64 inputs, else
     f32 (the kernels' accumulator)."""

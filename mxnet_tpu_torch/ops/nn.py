@@ -407,9 +407,13 @@ def _pool_out_dim(d, k, s, p, convention):
             else span // s) + 1
 
 
+@functools.lru_cache(maxsize=256)
 def _pool_window_counts(spatial, kernel, stride, pads, out_shape, device):
     """(OH, ...) float32 map of valid (non-padded) elements per window,
-    at least 1 — the count_include_pad=False divisor."""
+    at least 1 — the count_include_pad=False divisor.  Built once per
+    geometry and device: its host-to-device copy cannot run inside a
+    CUDA graph capture, and a step reads the same map every time.
+    Callers never write it."""
     cnt = None
     for d, k, s, (lo, _), o in zip(spatial, kernel, stride, pads, out_shape):
         start = np.arange(o) * s - lo
@@ -438,8 +442,8 @@ def _pool_forward(x, pool_type, kernel, stride, pads, count_include_pad):
         return total
     if count_include_pad:
         return (total / float(math.prod(kernel))).to(x.dtype)
-    cnt = _pool_window_counts(x.shape[2:], kernel, stride, pads,
-                              total.shape[2:], x.device)
+    cnt = _pool_window_counts(tuple(x.shape[2:]), kernel, stride, pads,
+                              tuple(total.shape[2:]), x.device)
     return (total / cnt).to(x.dtype)
 
 
@@ -453,8 +457,8 @@ def _make_pool_divisor(pool_type, count_include_pad, x_shape, kernel,
     if count_include_pad:
         return torch.full(out_shape, 1.0 / float(math.prod(kernel)),
                           dtype=dtype, device=device)
-    return 1.0 / _pool_window_counts(x_shape[2:], kernel, stride, pads,
-                                     out_shape, device).to(dtype)
+    return 1.0 / _pool_window_counts(tuple(x_shape[2:]), kernel, stride,
+                                     pads, out_shape, device).to(dtype)
 
 
 # The backward of every step reads the same map: built once per geometry

@@ -1,22 +1,39 @@
 """Optimizer update operators.
 
-Counterpart of ``sgd_update``, ``sgd_mom_update`` and ``adam_update`` of
-``mxnet_tpu/ops/optimizer_ops.py`` (ref: optimizer_op-inl.h).  The JAX
+Counterpart of ``mxnet_tpu/ops/optimizer_ops.py`` (ref:
+optimizer_op-inl.h): ``sgd_update``, ``sgd_mom_update``, their
+multi-precision forms ``mp_sgd_update``/``mp_sgd_mom_update`` (f32
+master weights beside half-width storage), ``adam_update``,
+``rmsprop_update``, ``rmspropalex_update`` (centered RMSProp),
+``ftrl_update``, ``signsgd_update`` and ``signum_update``.  The JAX
 package returns new arrays and rebinds the handles; here the functions
 the optimizers call are in-place tensor arithmetic on the weight and
-momentum storage, which saves a copy of every parameter per step.  The
-registered ops (``mx.nd.sgd_mom_update(w, g, mom, out=w, ...)``) run the
-same arithmetic on copies and return the new weight, with the new states
-as state outputs that ``mutate_map`` writes back into the state inputs,
-as the reference's do.  The math is the reference's, operation for
+state storage, which saves a copy of every parameter per step.  Their
+scalar arguments may be Python floats or 0-d tensors: the fused train
+step passes the learning rate and weight decay as device tensors, so
+that a CUDA graph of the step reads them as data.  The registered ops
+(``mx.nd.sgd_mom_update(w, g, mom, out=w, ...)``) run the same
+arithmetic on copies and return the new weight, with the new states as
+state outputs that ``mutate_map`` writes back into the state inputs, as
+the reference's do.  The math is the reference's, operation for
 operation:
 
     g = clip(grad * rescale_grad, clip_gradient)
-    sgd:     weight -= lr * (g + wd * weight)
-    sgd_mom: mom = momentum * mom - lr * (g + wd * weight); weight += mom
-    adam:    g += wd * weight; mean = beta1 * mean + (1 - beta1) * g;
-             var = beta2 * var + (1 - beta2) * g**2;
-             weight -= lr * mean / (sqrt(var) + epsilon)
+    sgd:      weight -= lr * (g + wd * weight)
+    sgd_mom:  mom = momentum * mom - lr * (g + wd * weight); weight += mom
+    mp_*:     the same on the f32 copy ``weight32`` of a half-width
+              weight, with g taken in f32; then weight = weight32
+    adam:     g += wd * weight; mean = beta1 * mean + (1 - beta1) * g;
+              var = beta2 * var + (1 - beta2) * g**2;
+              weight -= lr * mean / (sqrt(var) + epsilon)
+    rmsprop:  g += wd * weight; n = (1 - gamma1) * g**2 + gamma1 * n;
+              weight -= lr * g / sqrt(n + epsilon)
+    ftrl:     n' = n + g**2; z += g - (sqrt(n') - sqrt(n)) / lr * weight;
+              weight = -(z - sign(z) * lamda1) / ((beta + sqrt(n')) / lr
+              + wd) where |z| > lamda1, else 0
+    signsgd:  weight -= lr * (sign(g) + wd * weight)
+    signum:   mom = momentum * mom - (1 - momentum) * (g + wd * weight);
+              weight = (1 - lr * wd_lh) * weight + lr * sign(mom)
 """
 from __future__ import annotations
 
@@ -30,6 +47,11 @@ def _clipped(grad, rescale_grad, clip_gradient):
     if clip_gradient is not None and clip_gradient >= 0:
         g = torch.clamp(g, -clip_gradient, clip_gradient)
     return g
+
+
+def _clip_weights(weight, clip_weights):
+    if clip_weights is not None and clip_weights > 0:
+        weight.clamp_(-clip_weights, clip_weights)
 
 
 @torch.no_grad()
@@ -51,6 +73,27 @@ def sgd_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
 
 
 @torch.no_grad()
+def mp_sgd_update(weight, grad, weight32, lr=0.01, wd=0.0, rescale_grad=1.0,
+                  clip_gradient=-1.0):
+    """``sgd_update`` of the f32 master ``weight32`` from the gradient
+    taken in f32, then ``weight = weight32`` in weight's dtype."""
+    sgd_update(weight32, grad.float(), lr=lr, wd=wd,
+               rescale_grad=rescale_grad, clip_gradient=clip_gradient)
+    weight.copy_(weight32)
+
+
+@torch.no_grad()
+def mp_sgd_mom_update(weight, grad, mom, weight32, lr=0.01, momentum=0.0,
+                      wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """``sgd_mom_update`` of the f32 master ``weight32`` (f32 momentum)
+    from the gradient taken in f32, then ``weight = weight32``."""
+    sgd_mom_update(weight32, grad.float(), mom, lr=lr, momentum=momentum,
+                   wd=wd, rescale_grad=rescale_grad,
+                   clip_gradient=clip_gradient)
+    weight.copy_(weight32)
+
+
+@torch.no_grad()
 def adam_update(weight, grad, mean, var, lr=0.001, beta1=0.9, beta2=0.999,
                 epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
     """In place on weight, mean and var (``lr`` carries the optimizer's
@@ -61,9 +104,68 @@ def adam_update(weight, grad, mean, var, lr=0.001, beta1=0.9, beta2=0.999,
     weight.sub_(lr * mean / (torch.sqrt(var) + epsilon))
 
 
+@torch.no_grad()
+def rmsprop_update(weight, grad, n, lr=0.001, gamma1=0.95, epsilon=1e-8,
+                   wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                   clip_weights=-1.0):
+    """In place on weight and n (Tieleman and Hinton's RMSProp)."""
+    g = _clipped(grad, rescale_grad, clip_gradient) + wd * weight
+    n.mul_(gamma1).add_((1 - gamma1) * torch.square(g))
+    weight.sub_(lr * g / torch.sqrt(n + epsilon))
+    _clip_weights(weight, clip_weights)
+
+
+@torch.no_grad()
+def rmspropalex_update(weight, grad, n, g_state, delta, lr=0.001,
+                       gamma1=0.95, gamma2=0.9, epsilon=1e-8, wd=0.0,
+                       rescale_grad=1.0, clip_gradient=-1.0,
+                       clip_weights=-1.0):
+    """In place on weight, n, g_state and delta (Graves' centered
+    RMSProp)."""
+    grd = _clipped(grad, rescale_grad, clip_gradient) + wd * weight
+    n.mul_(gamma1).add_((1 - gamma1) * torch.square(grd))
+    g_state.mul_(gamma1).add_((1 - gamma1) * grd)
+    delta.mul_(gamma2).sub_(
+        lr * grd / torch.sqrt(n - torch.square(g_state) + epsilon))
+    weight.add_(delta)
+    _clip_weights(weight, clip_weights)
+
+
+@torch.no_grad()
+def ftrl_update(weight, grad, z, n, lr=0.1, lamda1=0.01, beta=1.0, wd=0.0,
+                rescale_grad=1.0, clip_gradient=-1.0):
+    """In place on weight, z and n (McMahan et al.'s FTRL-proximal)."""
+    g = _clipped(grad, rescale_grad, clip_gradient)
+    new_n = n + torch.square(g)
+    z.copy_(z + g - (torch.sqrt(new_n) - torch.sqrt(n)) / lr * weight)
+    n.copy_(new_n)
+    weight.copy_(torch.where(
+        torch.abs(z) > lamda1,
+        -(z - torch.sign(z) * lamda1) / ((beta + torch.sqrt(new_n)) / lr
+                                         + wd),
+        torch.zeros_like(weight)))
+
+
+@torch.no_grad()
+def signsgd_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=-1.0):
+    """In place: ``weight -= lr * (sign(g) + wd * weight)``."""
+    g = _clipped(grad, rescale_grad, clip_gradient)
+    weight.sub_(lr * (torch.sign(g) + wd * weight))
+
+
+@torch.no_grad()
+def signum_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
+                  rescale_grad=1.0, clip_gradient=-1.0, wd_lh=0.0):
+    """In place on weight and mom (Bernstein et al.'s Signum)."""
+    g = _clipped(grad, rescale_grad, clip_gradient)
+    mom.mul_(momentum).sub_((1 - momentum) * (g + wd * weight))
+    weight.mul_(1 - lr * wd_lh).add_(lr * torch.sign(mom))
+
+
 _COMMON = {"lr": (pFloat, 0.01), "wd": (pFloat, 0.0),
-           "rescale_grad": (pFloat, 1.0), "clip_gradient": (pFloat, -1.0),
-           "lazy_update": (pBool, True)}
+           "rescale_grad": (pFloat, 1.0), "clip_gradient": (pFloat, -1.0)}
+_LAZY = dict(_COMMON, lazy_update=(pBool, True))
 
 
 def _functional(update, n_states):
@@ -76,11 +178,28 @@ def _functional(update, n_states):
     return impl
 
 
-register("sgd_update", _functional(sgd_update, 0), num_inputs=2,
-         params=_COMMON)
-register("sgd_mom_update", _functional(sgd_mom_update, 1), num_inputs=3,
-         mutate_map=(2,), params=dict(_COMMON, momentum=(pFloat, 0.0)))
-register("adam_update", _functional(adam_update, 2), num_inputs=4,
-         mutate_map=(2, 3),
-         params=dict(_COMMON, lr=(pFloat, 0.001), beta1=(pFloat, 0.9),
-                     beta2=(pFloat, 0.999), epsilon=(pFloat, 1e-8)))
+def _register(name, update, n_states, params):
+    register(name, _functional(update, n_states), num_inputs=2 + n_states,
+             mutate_map=tuple(range(2, 2 + n_states)), params=params)
+
+
+_register("sgd_update", sgd_update, 0, _LAZY)
+_register("sgd_mom_update", sgd_mom_update, 1,
+          dict(_LAZY, momentum=(pFloat, 0.0)))
+_register("mp_sgd_update", mp_sgd_update, 1, _LAZY)
+_register("mp_sgd_mom_update", mp_sgd_mom_update, 2,
+          dict(_LAZY, momentum=(pFloat, 0.0)))
+_register("adam_update", adam_update, 2,
+          dict(_LAZY, lr=(pFloat, 0.001), beta1=(pFloat, 0.9),
+               beta2=(pFloat, 0.999), epsilon=(pFloat, 1e-8)))
+_RMSPROP = dict(_COMMON, lr=(pFloat, 0.001), gamma1=(pFloat, 0.95),
+                epsilon=(pFloat, 1e-8), clip_weights=(pFloat, -1.0))
+_register("rmsprop_update", rmsprop_update, 1, _RMSPROP)
+_register("rmspropalex_update", rmspropalex_update, 3,
+          dict(_RMSPROP, gamma2=(pFloat, 0.9)))
+_register("ftrl_update", ftrl_update, 2,
+          dict(_COMMON, lr=(pFloat, 0.1), lamda1=(pFloat, 0.01),
+               beta=(pFloat, 1.0)))
+_register("signsgd_update", signsgd_update, 0, _COMMON)
+_register("signum_update", signum_update, 1,
+          dict(_COMMON, momentum=(pFloat, 0.0), wd_lh=(pFloat, 0.0)))

@@ -735,3 +735,236 @@ def test_ctc_loss_on_the_card_matches_the_host(card, blank):
     np.testing.assert_allclose(loss, hloss, atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(grad, hgrad, atol=1e-4, rtol=1e-4)
     assert np.isfinite(grad).all() and loss.max() < 1e3
+
+
+# -- the fused train step as a CUDA graph ------------------------------------
+
+FUSED_KERNELS = ("bn_channel_sums", "max_pool_backward", "avg_pool_backward")
+
+
+def _graph_net(dtype, dropout=0.0):
+    """conv -> BN -> relu -> 3x3/s2 max pool -> conv -> BN -> relu ->
+    [dropout] -> global avg pool -> FC -> softmax, cast to ``dtype``
+    after the data and back to f32 before the loss."""
+    s = mx.sym
+    net = s.Variable("data")
+    if dtype != "float32":
+        net = s.Cast(net, dtype=dtype)
+    for i, (width, stride) in enumerate(((8, 1), (16, 2))):
+        net = s.Convolution(net, num_filter=width, kernel=(3, 3),
+                            stride=(stride, stride), pad=(1, 1),
+                            no_bias=True, name="conv%d" % i)
+        net = s.Activation(s.BatchNorm(net, fix_gamma=False,
+                                       name="bn%d" % i), act_type="relu")
+        if i == 0:
+            net = s.Pooling(net, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                            pool_type="max")
+    if dropout:
+        net = s.Dropout(net, p=dropout)
+    net = s.Pooling(net, global_pool=True, kernel=(1, 1), pool_type="avg")
+    net = s.FullyConnected(s.Flatten(net), num_hidden=5, name="fc")
+    if dtype != "float32":
+        net = s.Cast(net, dtype="float32")
+    return s.SoftmaxOutput(net, name="softmax")
+
+
+def _graph_module(dtype, batches=4, batch=8, momentum=0.9, lr=0.1,
+                  dropout=0.0, seed=0):
+    r = np.random.RandomState(seed)
+    x = r.rand(batch * batches, 3, 16, 16).astype(np.float32)
+    y = r.randint(0, 5, batch * batches).astype(np.float32)
+    it = mx.io.NDArrayIter(x, y, batch_size=batch)
+    mod = mx.mod.Module(_graph_net(dtype, dropout), context=mx.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mx.random.seed(seed)
+    mod.init_params(mx.initializer.Xavier(magnitude=2))
+    mod.init_optimizer(optimizer_params={
+        "learning_rate": lr, "momentum": momentum, "wd": 1e-4,
+        "multi_precision": True})
+    return mod, list(it)
+
+
+def _steps(mod, batches):
+    for b in batches:
+        mod.forward_backward(b)
+        mod.update()
+    torch.cuda.synchronize()
+
+
+@pytest.fixture
+def deterministic():
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = saved
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_replays_match_the_eager_general_path(card, deterministic,
+                                                    dtype):
+    """One eager fused step and three graph replays against four steps of
+    the general path (the Updater; ``mp_sgd_mom_update`` in bf16) from one
+    state on the same batches: the same arithmetic, so masters, momenta
+    and moving statistics agree bit for bit."""
+    graph, batches = _graph_module(dtype)
+    eager, _ = _graph_module(dtype)
+    eager._fused_step = None
+    _steps(graph, batches)
+    _steps(eager, batches)
+    fs = graph._fused_step
+    assert fs.captures == 1 and fs.replays == 3
+    for j, name in enumerate(fs.param_names):
+        i = eager._param_names.index(name)
+        st = eager._updater.states[i]
+        mom, master = st if isinstance(st, tuple) else \
+            (st, eager._exec_group.param_arrays[i][0])
+        assert torch.equal(fs._masters[j].float(), master.tensor.float())
+        assert torch.equal(fs.states[j].float(), mom.tensor.float())
+    for k, v in graph.get_params()[1].items():
+        np.testing.assert_array_equal(v.asnumpy(),
+                                      eager.get_params()[1][k].asnumpy())
+
+
+def test_lr_change_between_replays_takes_effect(card):
+    """With the graph captured, a learning rate of 0 leaves the weights as
+    they are and 0.1 moves them again, with no new capture."""
+    mod, batches = _graph_module("bfloat16", momentum=0.0)
+    _steps(mod, batches[:2])
+    fs = mod._fused_step
+    assert fs.captures == 1
+    before = [m.clone() for m in fs._masters]
+    mod._optimizer.lr = 0.0
+    _steps(mod, batches[2:3])
+    assert all(torch.equal(a, b) for a, b in zip(before, fs._masters))
+    mod._optimizer.lr = 0.1
+    _steps(mod, batches[3:4])
+    assert all(not torch.equal(a, b) for a, b in zip(before, fs._masters))
+    assert fs.captures == 1 and fs.replays == 3
+
+
+def test_reshape_recaptures_and_carries_the_masters(card):
+    """A reshape to batch 4: the step carries its f32 masters and momenta
+    to the new executor, runs one eager step and captures anew."""
+    mod, batches = _graph_module("bfloat16")
+    _steps(mod, batches[:3])
+    fs = mod._fused_step
+    masters = [m.clone() for m in fs._masters]
+    small = mx.io.NDArrayIter(
+        np.random.RandomState(5).rand(8, 3, 16, 16).astype(np.float32),
+        np.zeros(8, np.float32), batch_size=4)
+    mod.reshape(small.provide_data, small.provide_label)
+    first = next(small)
+    mod.forward_backward(first)
+    mod.update()
+    torch.cuda.synchronize()
+    assert mod._fused_step is fs and fs.exe is mod._exec_group.execs[0]
+    for j, m in enumerate(masters):  # SGD: w += mom
+        assert torch.equal(fs._masters[j], m + fs.states[j])
+    _steps(mod, [first] + list(small))  # the rest of the iterator
+    assert fs.captures == 1 and fs.replays == 2
+    assert all(bool(torch.isfinite(m).all()) for m in fs._masters)
+
+
+def test_set_params_between_replays_is_honoured(card, deterministic):
+    """set_params into the captured tensors between replays: the next
+    replay trains from the new values, as a fresh module's first step
+    from them does (bit for bit: the same arithmetic)."""
+    mod, batches = _graph_module("bfloat16", momentum=0.0)
+    _steps(mod, batches[:2])
+    fresh, _ = _graph_module("bfloat16", momentum=0.0, seed=7)
+    arg, aux = fresh.get_params()
+    arg = {k: v.copyto(mx.cpu()) for k, v in arg.items()}
+    aux = {k: v.copyto(mx.cpu()) for k, v in aux.items()}
+    mod.set_params(arg, aux)
+    _steps(mod, batches[2:3])
+    _steps(fresh, batches[2:3])
+    assert mod._fused_step.replays == 2
+    got, want = mod.get_params()[0], fresh.get_params()[0]
+    for k in want:
+        np.testing.assert_array_equal(got[k].asnumpy(), want[k].asnumpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rebound_parameter_keeps_training_across_replays(card, dtype):
+    """A parameter rebound to a new tensor between replays (``w += 1``
+    under ``autograd.record()``): the step captures anew, and the next
+    step moves the new tensor by exactly its momentum (w += mom), from a
+    master re-derived from it where the parameter has one."""
+    mod, batches = _graph_module(dtype)
+    _steps(mod, batches[:3])
+    fs = mod._fused_step
+    name = next(n for n in fs.param_names if n.endswith("_weight"))
+    j = fs.param_names.index(name)
+    w = mod._exec_group.execs[0].arg_dict[name]
+    old = w.tensor
+    with mx.autograd.record():
+        w += 1.0
+    assert w.tensor is not old
+    rebound = w.tensor.detach().float().clone()
+    _steps(mod, batches[3:4])
+    want = rebound + fs.states[j].float()
+    assert torch.equal(fs._masters[j].float(), want)
+    assert torch.equal(w.tensor, want.to(w.tensor.dtype))
+    assert fs.captures == 1 and fs.graph is None  # recaptured at the next
+    _steps(mod, batches[:2])
+    assert fs.captures == 2
+    assert all(bool(torch.isfinite(m).all()) for m in fs._masters)
+
+
+def test_launch_counts_across_replays(card):
+    """Each replay counts the launches its capture recorded: per step
+    exactly the graph's kernels, none for the capture itself."""
+    mod, batches = _graph_module("bfloat16", batches=5)
+    K.reset_launch_counts()
+    per_step = []
+    for b in batches:
+        before = K.launch_counts()
+        _steps(mod, [b])
+        now = K.launch_counts()
+        per_step.append({k: now[k] - before[k] for k in FUSED_KERNELS})
+    want = {"bn_channel_sums": 4, "max_pool_backward": 1,
+            "avg_pool_backward": 1}
+    assert per_step == [want] * 5
+    assert mod._fused_step.graph_launches == want
+
+
+def test_replays_draw_fresh_dropout_masks(card):
+    """The port's generator is registered with the graph: two replays of
+    a Dropout net at lr 0 (the weights fixed) give different outputs on
+    the same batch, and the same seed gives the same first replay."""
+    outs = []
+    for _ in range(2):
+        mod, batches = _graph_module("float32", momentum=0.0, dropout=0.5)
+        _steps(mod, batches[:2])
+        mod._optimizer.lr = 0.0
+        mod._optimizer.wd = 0.0
+        run = []
+        for _ in range(2):
+            _steps(mod, batches[2:3])
+            run.append(mod.get_outputs()[0].asnumpy())
+        assert mod._fused_step.replays == 3
+        assert not np.array_equal(run[0], run[1])
+        outs.append(run)
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])
+
+
+def test_capture_failure_raises(card, monkeypatch):
+    """A step that cannot be captured (here, one that reads a value back
+    to the host) raises MXNetError instead of leaving for the general
+    path, and counts no launches."""
+    mod, batches = _graph_module("float32")
+    fs = mod._fused_step
+    compute = fs._compute
+
+    def host_sync():
+        outs = compute()
+        if torch.cuda.is_current_stream_capturing():
+            outs[0].sum().item()
+        return outs
+
+    monkeypatch.setattr(fs, "_compute", host_sync)
+    _steps(mod, batches[:1])
+    before = K.launch_counts()
+    with pytest.raises(mx.MXNetError, match="CUDA graph"):
+        mod.forward_backward(batches[1])
+    assert K.launch_counts() == before
