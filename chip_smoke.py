@@ -131,7 +131,35 @@ CUDA toolkit.  Phases, each of which raises on failure:
    bf16 step on the card against the host by phase 4's rule; ms per step
    and images/s of the bf16 graph and the bf16 general path, capture
    time, device-busy shares, device time by kernel group and peak memory.
-9. The ``kernels`` JSON line (each kernel's record with its launches on
+9. Bucketed training: BASELINE config 4's LSTM language model
+   (``examples/rnn/lstm_bucketing.py`` at ``bench.py``'s ``_bench_lstm``
+   widths: vocabulary 10,000, embedding 200, 2 LSTM layers of 200 in a
+   ``FusedRNNCell``, batch 32; 4,653,200 parameters) on 4,000 sentences
+   of lengths 5-39 drawn from ``--seed`` by the example's generator,
+   split 4:1, through ``mx.rnn.BucketSentenceIter`` (buckets 10, 20, 30,
+   40) and ``BucketingModule.fit`` for 2 epochs with the example's SGD
+   (lr 0.01, wd 1e-5), Xavier (in, 2.34), ``Perplexity(0)`` on the eval
+   split and the Speedometer, cuDNN deterministic: every bucket trained
+   through a fused step of its own, captured once and replayed for every
+   later batch of it, over one set of parameter tensors and one optimizer
+   state; ``num_update`` a batch; finite losses and eval perplexities;
+   the eval split's perplexity over every label (the objective, padding
+   included) below its value before the fit after each epoch (which
+   learning the padding label alone achieves); no hand-written kernel
+   launched; the same fit from the same state on the same batches with
+   every bucket on the eager general path, its per-batch cross-entropy
+   and eval perplexities within 1e-5 relative.  Then 3 rounds over the
+   buckets from one state with SGD momentum 0.9 through the graphs
+   against the eager general path (one Updater), and the same with a
+   ``Monitor(1)`` installed before the last round (every bucket's step
+   retired, every op output reported), masters and momenta within 1e-6
+   relative L2 under deterministic cuDNN; a bucket-10 step at batch 32 on
+   the card against the host (outputs within 1e-5 and gradients within
+   1e-3 relative L2); ms per step and tokens/s per bucket of the graph replay
+   and of the eager general path, capture time and graph-pool memory per
+   bucket, the fit's time, the busy share and device time by group of a
+   profiled replay and eager step, and peak memory.
+10. The ``kernels`` JSON line (each kernel's record with its launches on
    every path and its bf16/f16/f64 and head_dim 32 instances), then the
    result line.
 
@@ -143,6 +171,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import random
 import subprocess
 import sys
 import time
@@ -2863,6 +2892,485 @@ def check_path_bn_sums(mod, batch):
                                 by_load))
 
 
+# phase 9: BASELINE config 4's LSTM LM (examples/rnn/lstm_bucketing.py at
+# bench.py's _bench_lstm widths) through mx.rnn and BucketingModule
+BUCKET_LM = dict(vocab=10000, embed=200, hidden=200, layers=2, batch=32)
+BUCKET_LM_PARAMETERS = 4653200
+BUCKET_KEYS = [10, 20, 30, 40]
+BUCKET_SENTENCES = 4000  # split 4:1 into train and eval
+BUCKET_EPOCHS = 2
+BUCKET_SGD = {"learning_rate": 0.01, "momentum": 0.0, "wd": 1e-5}
+# graph against eager and the monitor handover: SGD with momentum, so that
+# one shared optimizer state is what is compared
+BUCKET_MOM_SGD = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-5}
+BUCKET_ROUNDS = 3  # batches per bucket in the graph-against-eager run
+BUCKET_SAME_REL = 1e-6
+# the fit against the eager fit of the same batches: both run the same
+# kernels under deterministic cuDNN, but the graphs' stream may get other
+# cuBLAS splits than the default stream's
+BUCKET_FIT_REL = 1e-5
+# card against host: the softmax outputs (about 1e-4 each over 10,000
+# classes) and the gradients by relative L2
+BUCKET_OUT_REL = 1e-5
+BUCKET_GRAD_REL = LM_GRAD_REL
+BUCKET_GROUPS = (  # by kernel name, first match wins
+    ("cuDNN RNN", ("rnn", "lstm", "persist")),
+    ("cuBLAS", ("gemm", "xmma", "sm90", "sm80", "cutlass")),
+    ("elementwise and reductions (torch)",
+     ("elementwise", "vectorized", "reduce", "unrolled", "fill", "copy",
+      "index", "gather", "scatter", "embedding", "softmax")),
+)
+
+
+def bucket_sentences(n, vocab, seed):
+    """``examples/rnn/lstm_bucketing.py``'s synthetic_sentences: lengths
+    5-39, each word a Markov step from the last, ids in [1, vocab)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        length = rng.randint(5, 40)
+        s = [int(rng.randint(1, vocab))]
+        for _ in range(length - 1):
+            s.append(int((s[-1] * 7 + rng.randint(0, 3)) % vocab) or 1)
+        out.append(s)
+    return out
+
+
+def bucket_sym_gen(mx):
+    """The example's sym_gen: Embedding -> FusedRNNCell.unroll ->
+    Reshape -> FullyConnected -> SoftmaxOutput."""
+    cfg = BUCKET_LM
+    stack = mx.rnn.FusedRNNCell(cfg["hidden"], num_layers=cfg["layers"],
+                                mode="lstm")
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data=data, input_dim=cfg["vocab"],
+                                 output_dim=cfg["embed"], name="embed")
+        stack.reset()
+        outputs, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, cfg["hidden"]))
+        pred = mx.sym.FullyConnected(data=pred, num_hidden=cfg["vocab"],
+                                     name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(data=pred, label=label, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def bucket_batch(mx, key, seed):
+    """A batch of bucket ``key``: random ids, next-token labels."""
+    rng = np.random.RandomState(seed)
+    b, v = BUCKET_LM["batch"], BUCKET_LM["vocab"]
+    data = rng.randint(1, v, (b, key)).astype(np.float32)
+    label = np.concatenate([data[:, 1:], np.zeros((b, 1), np.float32)], 1)
+    return mx.io.DataBatch(
+        [mx.nd.array(data, ctx=mx.cpu())], [mx.nd.array(label, ctx=mx.cpu())],
+        pad=0, bucket_key=key,
+        provide_data=[mx.io.DataDesc("data", (b, key))],
+        provide_label=[mx.io.DataDesc("softmax_label", (b, key))])
+
+
+def bucket_module(mx, seed, ctx, optimizer_params):
+    """A BucketingModule with every bucket bound, Xavier (in, 2.34) from
+    ``seed``, its optimizer initialized."""
+    mod = mx.mod.BucketingModule(bucket_sym_gen(mx),
+                                 default_bucket_key=max(BUCKET_KEYS),
+                                 context=ctx)
+    first = bucket_batch(mx, max(BUCKET_KEYS), 0)
+    mod.bind(first.provide_data, first.provide_label)
+    mx.random.seed(seed)
+    mod.init_params(mx.initializer.Xavier(factor_type="in", magnitude=2.34))
+    mod.init_optimizer(optimizer_params=dict(optimizer_params))
+    for key in BUCKET_KEYS:
+        mod.prepare(bucket_batch(mx, key, 0))
+    return mod
+
+
+def bucket_state(mod):
+    """{name: (master, momentum)} on the host: the shared fused state, or
+    the Updater's after the fused steps are gone."""
+    anchor = mod._buckets[max(BUCKET_KEYS)]
+    fs = anchor._fused_step
+    if fs is not None:
+        shared = fs.shared
+        return {n: (shared.masters[n].float().cpu().clone(),
+                    shared.states[n].float().cpu().clone())
+                for n in shared.index}
+    exe = anchor._exec_group.execs[0]
+    return {n: (exe.arg_dict[n].tensor.float().cpu().clone(),
+                anchor._updater.states[i].tensor.float().cpu().clone())
+            for i, n in enumerate(anchor._param_names)}
+
+
+def bucket_fit_setup(mx, seed, sentences):
+    """The example's fit on the card, made ready: its iterators (shuffled
+    from ``seed``), a BucketingModule bound and initialized with Xavier
+    (in, 2.34) from ``seed``, and the eval split's perplexity over every
+    label before training.  Returns the module, the train iterator and a
+    record whose ``fit(*batch_end_callbacks)`` runs ``fit`` and fills in
+    the per-batch cross-entropy over the real words, the batches' bucket
+    keys, and each epoch's eval Perplexity(0) and perplexity over every
+    label."""
+    random.seed(seed)
+    np.random.seed(seed)
+    cfg = BUCKET_LM
+    split = len(sentences) * 4 // 5
+    train_it = mx.rnn.BucketSentenceIter(sentences[:split], cfg["batch"],
+                                         buckets=BUCKET_KEYS,
+                                         invalid_label=0)
+    eval_it = mx.rnn.BucketSentenceIter(sentences[split:], cfg["batch"],
+                                        buckets=BUCKET_KEYS, invalid_label=0)
+    mod = mx.mod.BucketingModule(bucket_sym_gen(mx),
+                                 default_bucket_key=train_it.default_bucket_key,
+                                 context=mx.gpu(0))
+    mod.bind(train_it.provide_data, train_it.provide_label)
+    mx.random.seed(seed)
+    mod.init_params(mx.initializer.Xavier(factor_type="in", magnitude=2.34))
+    rec = {"eval_it": eval_it, "losses": [], "keys": [], "evals": [],
+           "objective": []}
+    marks = {"sum": 0.0, "n": 0}
+
+    def objective():
+        return dict(mod.score(eval_it, mx.metric.Perplexity(None)))[
+            "perplexity"]
+
+    def on_batch(param):
+        m = param.eval_metric
+        if param.nbatch == 0 or m.num_inst < marks["n"]:
+            # a new epoch, or the Speedometer reset the metric after the
+            # last batch
+            marks["sum"], marks["n"] = 0.0, 0
+        d_sum, d_n = m.sum_metric - marks["sum"], m.num_inst - marks["n"]
+        marks["sum"], marks["n"] = m.sum_metric, m.num_inst
+        rec["losses"].append(float(np.log(d_sum / d_n)) if d_n
+                             else float("nan"))
+        rec["keys"].append(param.locals["batch"].bucket_key)
+
+    def fit(*batch_end_callbacks):
+        mod.fit(train_it, eval_data=eval_it,
+                eval_metric=mx.metric.Perplexity(0), optimizer="sgd",
+                optimizer_params=dict(BUCKET_SGD),
+                initializer=mx.initializer.Xavier(factor_type="in",
+                                                  magnitude=2.34),
+                num_epoch=BUCKET_EPOCHS,
+                batch_end_callback=[on_batch, *batch_end_callbacks],
+                epoch_end_callback=lambda *_: rec["objective"].append(
+                    objective()),
+                eval_end_callback=lambda p: rec["evals"].append(
+                    dict(p.eval_metric.get_name_value())["perplexity"]))
+
+    rec["start"] = objective()
+    rec["fit"] = fit
+    return mod, train_it, rec
+
+
+def bucket_fit_witness(mx, seed, sentences, fused):
+    """The fit again from the same state on the same batches in the same
+    order, every bucket on the eager general path (the anchor's fused
+    step retired before ``fit``): its per-batch cross-entropy, eval
+    perplexities and objective must be the graphs' within BUCKET_FIT_REL,
+    whatever the model learns in two epochs."""
+    import torch
+    mod, _, rec = bucket_fit_setup(mx, seed, sentences)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(BUCKET_SGD))
+    mod._buckets[max(BUCKET_KEYS)]._retire_fused_step("the eager witness")
+    t0 = time.perf_counter()
+    rec["fit"](mx.callback.Speedometer(BUCKET_LM["batch"], 20))
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    if any(m._fused_step is not None for m in mod._buckets.values()):
+        raise AssertionError("a bucket of the eager witness ran fused")
+    gaps = {}
+    for k in ("start", "losses", "evals", "objective"):
+        a = np.atleast_1d(np.asarray(fused[k], np.float64))
+        b = np.atleast_1d(np.asarray(rec[k], np.float64))
+        gaps[k] = float(np.max(np.abs(a - b) / np.abs(b))) \
+            if a.shape == b.shape else float("inf")
+    same = sum(a == b for a, b in zip(fused["losses"], rec["losses"]))
+    print("bucketing: the fit against an eager fit of the same %d batches "
+          "(every bucket on the general path, %.2f s, %.2f batches/s, host "
+          "clock): largest relative difference of the per-batch "
+          "cross-entropy %.3g (%d/%d bit for bit), of the eval "
+          "perplexities %.3g, of the objective %.3g (limit %g); eager eval "
+          "perplexity per epoch %s"
+          % (len(rec["losses"]), eager_s, len(rec["losses"]) / eager_s,
+             gaps["losses"], same, len(rec["losses"]), gaps["evals"],
+             gaps["objective"], BUCKET_FIT_REL,
+             ", ".join("%.2f" % v for v in rec["evals"])))
+    if fused["keys"] != rec["keys"] or max(gaps.values()) > BUCKET_FIT_REL:
+        raise AssertionError("the fit disagrees with the eager fit of the "
+                             "same batches: %s" % gaps)
+    del mod
+
+
+def train_bucketing(mx, seed):
+    """Phase 9.  Returns the kernel launches of the main path (the fit;
+    none of the hand-written kernels lies on it)."""
+    import torch
+    from mxnet_tpu_torch.module import fused_step as F
+    from mxnet_tpu_torch.ops import kernels as K
+
+    cfg = BUCKET_LM
+    t0 = time.perf_counter()
+    sentences = bucket_sentences(BUCKET_SENTENCES, cfg["vocab"], seed + 90)
+    mod, train_it, rec = bucket_fit_setup(mx, seed, sentences)
+    per_bucket = {k: 0 for k in BUCKET_KEYS}
+    for b, _ in train_it.idx:
+        per_bucket[BUCKET_KEYS[b]] += 1
+    # each capture's memory: what its graph's private pool still holds
+    captured = {}
+    capture = F.FusedTrainStep._capture
+
+    def measured_capture(step):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        capture(step)
+        torch.cuda.synchronize()
+        captured[tuple(step.exe.arg_dict["data"].shape)] = \
+            torch.cuda.memory_allocated() - before
+
+    print("bucketing: %d sentences of lengths 5-39 (vocabulary %d, seed "
+          "%d) in %.1f s; %d train batches a epoch by bucket %s, %d eval "
+          "batches" % (len(sentences), cfg["vocab"], seed + 90,
+                       time.perf_counter() - t0, len(train_it.idx),
+                       per_bucket, len(rec["eval_it"].idx)))
+    F.FusedTrainStep._capture = measured_capture
+    # deterministic cuDNN, so that the eager witness below may repeat the
+    # fit's every batch
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        f0 = time.perf_counter()
+        rec["fit"](mx.callback.Speedometer(cfg["batch"], 20))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - f0
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        F.FusedTrainStep._capture = capture
+    losses, keys, evals, objective, start = (
+        rec[k] for k in ("losses", "keys", "evals", "objective", "start"))
+    n = len(train_it.idx) * BUCKET_EPOCHS
+    anchor = mod._buckets[train_it.default_bucket_key]
+    n_params = sum(v.size for v in mod.get_params()[0].values())
+    steps = {k: m._fused_step for k, m in mod._buckets.items()}
+    print("bucketing: %d parameters; fit of %d epochs: %d batches in %.2f s "
+          "(%.2f batches/s, host clock, eval and the first batch's "
+          "captures included, deterministic cuDNN); per-batch cross-entropy "
+          "first %s, last %s; eval perplexity per epoch %s (the padding "
+          "label 0 ignored); over every label (the objective SGD lowers) "
+          "%.2f before the fit, then %s; card %s"
+          % (n_params, BUCKET_EPOCHS, n, fit_s, n / fit_s,
+             ", ".join("%.3f" % v for v in losses[:4]),
+             ", ".join("%.3f" % v for v in losses[-4:]),
+             ", ".join("%.2f" % v for v in evals), start,
+             ", ".join("%.2f" % v for v in objective), card_line()))
+    if n_params != BUCKET_LM_PARAMETERS:
+        raise AssertionError("the LM has %d parameters, not %d"
+                             % (n_params, BUCKET_LM_PARAMETERS))
+    if sorted(mod._buckets) != BUCKET_KEYS or any(
+            s is None or not s.ran for s in steps.values()):
+        raise AssertionError("a bucket did not train through the fused "
+                             "step: %s" % steps)
+    counts = {k: keys.count(k) for k in BUCKET_KEYS}
+    for k, s in steps.items():
+        print("bucketing: bucket %d: %d batches, captures %d, replays %d, "
+              "capture %.1f ms, graph memory %.1f MB"
+              % (k, counts[k], s.captures, s.replays, s.capture_seconds * 1e3,
+                 captured.get((cfg["batch"], k), float("nan")) / 1e6))
+        if s.captures != 1 or s.replays != counts[k] - F.WARMUP_STEPS:
+            raise AssertionError("bucket %d was not captured once and "
+                                 "replayed for every later batch" % k)
+    shared = anchor._fused_step.shared
+    for k, m in mod._buckets.items():
+        exe = m._exec_group.execs[0]
+        s = steps[k]
+        for name in shared.index:
+            ptr = anchor._exec_group.execs[0].arg_dict[name].tensor.data_ptr()
+            if exe.arg_dict[name].tensor.data_ptr() != ptr or \
+                    s.shared is not shared or not any(
+                        t.data_ptr() == ptr for t in s._bound):
+                raise AssertionError("bucket %d does not hold the anchor's "
+                                     "%s" % (k, name))
+    if mod._optimizer.num_update != n or len(losses) != n:
+        raise AssertionError("num_update %d for %d batches"
+                             % (mod._optimizer.num_update, n))
+    # The example trains the padding label 0 too (SoftmaxOutput without
+    # use_ignore).  At this width and learning rate two epochs learn little
+    # beyond it, and learning it moves probability off the real words, so
+    # Perplexity(0) on the eval split need not fall.  What SGD lowers is
+    # the perplexity over every label, which must end each epoch below
+    # where it started; note that this check passes whenever the padding
+    # label alone is learned.  That the fit computes what it should is
+    # held below against an eager fit of the same batches.
+    if not (all(np.isfinite(losses)) and all(np.isfinite(evals))
+            and len(evals) == len(objective) == BUCKET_EPOCHS
+            and max(objective) < start):
+        raise AssertionError("losses %s, eval perplexities %s or %s from %s"
+                             % (losses, evals, objective, start))
+    print("bucketing: peak memory over the fit %.3f GB allocated (%.3f GB "
+          "held before it; the graphs' pools included), %.3f GB reserved"
+          % (peak / 1e9, held / 1e9, torch.cuda.memory_reserved() / 1e9))
+    if any(launches.values()):
+        raise AssertionError("the bucketing path launched %s" % launches)
+    bucket_fit_witness(mx, seed, sentences, rec)
+    torch.backends.cudnn.deterministic = False
+    bucket_numbers(mx, mod)
+    del mod, anchor, steps, shared
+    bucket_same_path_checks(mx, seed)
+    bucket_host_check(mx, seed)
+    return launches
+
+
+def bucket_numbers(mx, mod):
+    """ms per step and tokens/s per bucket (median of TIMED_STEPS after
+    warm-up) of the graph replay and of the eager general path; the busy
+    share and device time by group of one profiled replay and one
+    profiled eager step at the largest bucket, each from its own trace."""
+    import torch
+    torch.backends.cudnn.deterministic = False
+    b = BUCKET_LM["batch"]
+    batches = {k: bucket_batch(mx, k, 900 + k) for k in BUCKET_KEYS}
+    graph = {k: time_steps(mod, batches[k]) for k in BUCKET_KEYS}
+    big = batches[max(BUCKET_KEYS)]
+    replay = profile_run(lambda: (mod.forward_backward(big), mod.update()),
+                         "bucketing replay (bucket %d)" % max(BUCKET_KEYS),
+                         BUCKET_GROUPS)
+    anchor = mod._buckets[max(BUCKET_KEYS)]
+    anchor._retire_fused_step("timing the general path")
+    eager = {k: time_steps(mod, batches[k]) for k in BUCKET_KEYS}
+    general = profile_run(lambda: (mod.forward_backward(big), mod.update()),
+                          "bucketing eager (bucket %d)" % max(BUCKET_KEYS),
+                          BUCKET_GROUPS)
+
+    def share(table):
+        return "not measured" if table is None else table.share()
+
+    for k in BUCKET_KEYS:
+        print("bucketing: bucket %d: graph replay %.3f ms per step, %.0f "
+              "tokens/s; eager general path %.3f ms, %.0f tokens/s"
+              % (k, graph[k], b * k / graph[k] * 1e3, eager[k],
+                 b * k / eager[k] * 1e3))
+    print("bucketing: at bucket %d the profiled replay: %s; the profiled "
+          "eager step: %s; card %s" % (max(BUCKET_KEYS), share(replay),
+                                       share(general), card_line()))
+
+
+def bucket_same_path_checks(mx, seed):
+    """2. Graph against eager: BUCKET_ROUNDS rounds over the buckets from
+    one state, once through the fused graphs and once on the eager general
+    path (one Updater), SGD with momentum, deterministic cuDNN; 3. the
+    same run with a Monitor(1) installed after all but the last round:
+    every bucket's step retires, the monitor sees every op output, and the
+    end state is the eager run's."""
+    import torch
+    torch.backends.cudnn.deterministic = True
+    dev = mx.gpu(0)
+    order = BUCKET_KEYS * BUCKET_ROUNDS
+    batches = [bucket_batch(mx, k, 500 + i) for i, k in enumerate(order)]
+    states, rows = {}, []
+    for path in ("graph", "eager", "monitor"):
+        mod = bucket_module(mx, seed, dev, BUCKET_MOM_SGD)
+        if path == "eager":
+            mod._buckets[max(BUCKET_KEYS)]._retire_fused_step("eager path")
+        mon = mx.Monitor(1)
+        for i, batch in enumerate(batches):
+            if path == "monitor" and i == len(order) - len(BUCKET_KEYS):
+                mod.install_monitor(mon)
+                if any(m._fused_step is not None
+                       for m in mod._buckets.values()):
+                    raise AssertionError("a bucket's fused step survived "
+                                         "the monitor")
+            if path == "monitor" and i >= len(order) - len(BUCKET_KEYS):
+                mon.tic()
+            mod.forward_backward(batch)
+            mod.update()
+            if path == "monitor" and i >= len(order) - len(BUCKET_KEYS):
+                rows.append((batch.bucket_key, mon.toc()))
+        torch.cuda.synchronize()
+        if path == "graph":
+            reps = {k: m._fused_step.replays for k, m in mod._buckets.items()}
+            if set(reps.values()) != {BUCKET_ROUNDS - 1}:
+                raise AssertionError("replays per bucket %s" % reps)
+        states[path] = bucket_state(mod)
+        if path == "monitor":
+            for key, stats in rows:
+                sym = mod._buckets[key].symbol
+                want = {node.name + ("_output" if i == 0 else "_output%d" % i)
+                        for node in sym._topo() if not node.is_var
+                        for i in range(node.num_outputs())}
+                got = {name for _, name, _ in stats}
+                if not want <= got or not all(
+                        np.isfinite(float(v.split(",")[0]))
+                        for _, _, v in stats):
+                    raise AssertionError("the monitor missed %s at bucket "
+                                         "%d" % (sorted(want - got), key))
+        del mod
+    gap = state_gap(states["graph"], states["eager"])
+    mon_gap = state_gap(states["monitor"], states["eager"])
+    print("bucketing: %d batches over buckets %s (%d rounds; per bucket 1 "
+          "eager step, then graph replays), SGD momentum 0.9, "
+          "deterministic cuDNN: graph against the eager general path: "
+          "masters largest relative L2 %.3g, momenta %.3g, bit for bit "
+          "%d/%d; with a Monitor(1) from batch %d: %.3g, %.3g, bit for bit "
+          "%d/%d, %d stats over the %d monitored batches (limit %g)"
+          % (len(order), BUCKET_KEYS, BUCKET_ROUNDS, gap[0], gap[1], gap[2],
+             len(states["eager"]), len(order) - len(BUCKET_KEYS) + 1,
+             mon_gap[0], mon_gap[1], mon_gap[2], len(states["eager"]),
+             sum(len(s) for _, s in rows), len(rows), BUCKET_SAME_REL))
+    if max(gap[:2] + mon_gap[:2]) > BUCKET_SAME_REL:
+        raise AssertionError("the graphs or the monitor handover disagree "
+                             "with the eager general path")
+    torch.backends.cudnn.deterministic = False
+
+
+def bucket_host_check(mx, seed):
+    """4. One bucket-10 step at batch 32 on the card against the host:
+    the softmax outputs within BUCKET_OUT_REL and every gradient within
+    BUCKET_GRAD_REL, by relative L2."""
+    key = min(BUCKET_KEYS)
+    batch = bucket_batch(mx, key, 77)
+    sym, data_names, label_names = bucket_sym_gen(mx)(key)
+    params = None
+    got = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        mod = mx.mod.Module(sym, data_names, label_names, context=ctx)
+        mod.bind(batch.provide_data, batch.provide_label)
+        if params is None:
+            mx.random.seed(seed)
+            mod.init_params(mx.initializer.Xavier(factor_type="in",
+                                                  magnitude=2.34))
+            params = {k: v.copyto(mx.cpu())
+                      for k, v in mod.get_params()[0].items()}
+        else:
+            mod.init_params(arg_params=params)
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        exe = mod._exec_group.execs[0]
+        got.append((mod.get_outputs()[0].asnumpy(),
+                    {n: exe.grad_dict[n].asnumpy() for n in params}))
+    (out_c, grad_c), (out_h, grad_h) = got
+    out_err = float(np.abs(out_c - out_h).max())
+    out_rel = float(np.linalg.norm(out_c - out_h) / np.linalg.norm(out_h))
+    rel = {n: float(np.linalg.norm(grad_c[n] - grad_h[n])
+                    / max(np.linalg.norm(grad_h[n]), 1e-30))
+           for n in grad_h}
+    worst = max(rel, key=rel.get)
+    print("bucketing: bucket-%d step at batch %d, card against host: "
+          "outputs relative L2 %.3g (limit %g, max_abs_err %.3g); gradients "
+          "largest relative L2 %.3g (%s), limit %g"
+          % (key, BUCKET_LM["batch"], out_rel, BUCKET_OUT_REL, out_err,
+             rel[worst], worst, BUCKET_GRAD_REL))
+    if not (out_rel <= BUCKET_OUT_REL and rel[worst] <= BUCKET_GRAD_REL):
+        raise AssertionError("the card's bucket step disagrees with the "
+                             "host's")
+
+
 def ptxas_entries(text):
     """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
     per compiled entry of an ``nvcc -Xptxas=-v`` report.  The kernel is
@@ -2953,6 +3461,8 @@ def main():
     lap("7 (Gluon LSTM LM, recurrent layers and cells, CTC)")
     paths["module_bf16_fused"] = train_bf16_fused(mx, args.seed)
     lap("8 (bf16 fused Module training)")
+    paths["module_bucketing"] = train_bucketing(mx, args.seed)
+    lap("9 (bucketed LSTM LM through BucketingModule)")
     # "launches": the path each kernel serves in this script (the serving
     # forward, the LM's training, and this slice's bf16 fused training)
     main_path = {"flash_attn_fwd": "serve", "flash_attn_fwd_lse": "gluon_lm",

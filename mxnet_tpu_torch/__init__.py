@@ -17,7 +17,10 @@ path with BatchNorm's channel sums and the 2-D pooling gradients in the
 hand-written kernels; an exported graph runs again as a ``SymbolBlock``.
 ``gluon.rnn``'s layers run the ``RNN`` op on cuDNN's recurrent kernels,
 ``gluon.data`` feeds batches from worker threads, and ``gluon.loss`` has
-every loss of the JAX package, CTC included.
+every loss of the JAX package, CTC included.  ``mx.rnn``'s symbol cells
+and ``BucketSentenceIter`` train variable-length sequences through
+``mx.mod.BucketingModule``: one bound executor and one CUDA graph of the
+fused step per bucket, over one set of parameters and optimizer states.
 
 Entry points run on the card (``gpu(0)``) unless given ``cpu()``; without
 a card they raise ``MXNetError`` rather than fall back to the host.
@@ -32,9 +35,14 @@ from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from . import symbol  # noqa: F401
 from . import symbol as sym  # noqa: F401
+from .symbol import AttrScope  # noqa: F401
+from .symbol.symbol import NameManager  # noqa: F401
 from . import executor, executor_cache  # noqa: F401
+from .executor import Executor  # noqa: F401
 from . import random  # noqa: F401
+from .random import seed  # noqa: F401
 from . import initializer  # noqa: F401
+from .initializer import Initializer  # noqa: F401
 from . import lr_scheduler  # noqa: F401
 from . import optimizer  # noqa: F401
 from .optimizer import Optimizer  # noqa: F401
@@ -43,7 +51,13 @@ from . import io  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import model  # noqa: F401
+from .model import FeedForward  # noqa: F401
 from . import callback  # noqa: F401
+from . import monitor  # noqa: F401
+from .monitor import Monitor  # noqa: F401
+from . import rnn  # noqa: F401
+from . import attribute  # noqa: F401
+from . import name  # noqa: F401
 from .predict import Predictor  # noqa: F401
 from . import serving  # noqa: F401
 from . import models  # noqa: F401

@@ -22,7 +22,7 @@ import math
 import numpy as np
 import torch
 
-from .base import MXNetError, torch_dtype
+from .base import MXNetError, dtype_name, torch_dtype
 from .ndarray import NDArray, zeros as nd_zeros
 from .ndarray.ndarray import _to_tensor
 from .ops.registry import get_op
@@ -38,13 +38,16 @@ class _Program:
     normalized attrs, its input slots, its first output slot and the
     slots whose last reader it is (freed right after it runs)."""
 
-    def __init__(self, symbol):
+    def __init__(self, symbol, known_shapes=None):
         order = symbol._topo()
         symbol._mark_aux(order)
+        resolved = _resolve_init_shapes(symbol, order, known_shapes or {})
         self.arg_names = [n.name for n in order if n.is_var and not n._is_aux]
         self.aux_names = [n.name for n in order if n.is_var and n._is_aux]
         slot = {}
         self.var_slots = []  # (name, slot) for every variable
+        # per step: the node's name and its inputs' monitor names
+        self.taps = []
         raw = []
         for node in order:
             if node.is_var:
@@ -53,6 +56,8 @@ class _Program:
                 continue
             op = get_op(node.op_name)
             attrs = op.normalize_attrs(node.attrs, len(node.inputs))
+            if node in resolved:
+                attrs["shape"] = resolved[node]
             ins = [slot[(id(src), idx)] for src, idx in node.inputs]
             first = len(slot)
             n_out = op.str_outputs(attrs)
@@ -64,6 +69,11 @@ class _Program:
                             for k, i in enumerate(op.mutate_map)
                             if node.inputs[i][0].is_var)
             raw.append((op, attrs, ins, first, n_out, mutates))
+            self.taps.append((node.name, tuple(
+                "%s_%s" % (node.name, op.input_names[i]
+                           if op.input_names and i < len(op.input_names)
+                           else "input%d" % i)
+                for i in range(len(ins)))))
         self.n_slots = len(slot)
         self.out_slots = [slot[(id(n), i)] for n, i in symbol._entries]
         keep = set(self.out_slots)
@@ -78,10 +88,13 @@ class _Program:
             self.steps.append((op, attrs, tuple(ins), first, n_out, free,
                                mutates))
 
-    def evaluate(self, values, train=False):
+    def evaluate(self, values, train=False, tap=None, tap_inputs=False):
         """Run the plan; ``values`` maps variable name -> tensor.  Returns
         (outputs, {aux name: new value}) — the state outputs of the ops
-        with a ``mutate_map``."""
+        with a ``mutate_map``.  ``tap(name, tensor)`` sees every op's
+        visible outputs (``<node>_output``, then ``<node>_output<i>``
+        for i >= 1, the JAX package's names), and
+        with ``tap_inputs`` its inputs (``<node>_<input name>``) first."""
         env = [None] * self.n_slots
         for name, s in self.var_slots:
             if name not in values:
@@ -89,7 +102,11 @@ class _Program:
             env[s] = values[name]
         new_aux = {}
         device = next((v.device for v in values.values()), None)
-        for op, attrs, ins, first, n_out, free, mutates in self.steps:
+        for k, (op, attrs, ins, first, n_out, free, mutates) in enumerate(
+                self.steps):
+            if tap is not None and tap_inputs:
+                for in_name, s in zip(self.taps[k][1], ins):
+                    tap(in_name, env[s])
             if op.takes_train_flag:
                 attrs = dict(attrs, _train=train)
             if op.takes_device:
@@ -98,11 +115,46 @@ class _Program:
             if not isinstance(out, tuple):
                 out = (out,)
             env[first:first + n_out] = out[:n_out]
-            for k, name in mutates:
-                new_aux[name] = out[n_out + k]
+            if tap is not None:
+                node_name = self.taps[k][0]
+                for i in range(n_out):
+                    tap(node_name + ("_output" if i == 0
+                                     else "_output%d" % i), out[i])
+            for j, name in mutates:
+                new_aux[name] = out[n_out + j]
             for s in free:
                 env[s] = None
         return [env[s] for s in self.out_slots], new_aux
+
+
+def _resolve_init_shapes(symbol, order, known_shapes):
+    """{node: shape} for the init ops (``_zeros``, ...) whose ``shape``
+    attr has unknown (0) dims, such as an RNN's begin state of batch 0:
+    their shape comes from inference over the bound argument shapes, as
+    the JAX package's ``finalize_shapes`` does."""
+    needs = []
+    for node in order:
+        if node.is_var or not node.attrs.get("shape"):
+            continue
+        op = get_op(node.op_name)
+        if "shape" in op.params and any(
+                int(d) == 0 for d in
+                op.normalize_attrs(node.attrs).get("shape") or ()):
+            needs.append(node)
+    if not needs:
+        return {}
+    shapes, _ = symbol._infer(dict(known_shapes), {})
+    out = {}
+    for node in needs:
+        s = shapes.get((node, 0))
+        if s is None or any(int(d) == 0 for d in s):
+            raise MXNetError(
+                "cannot resolve unknown dims of init op %r (shape %s) from "
+                "bound argument shapes %s; pass full shapes to bind/"
+                "simple_bind" % (node.op_name, node.attrs.get("shape"),
+                                 dict(known_shapes)))
+        out[node] = tuple(int(d) for d in s)
+    return out
 
 
 def _req_table(arg_names, grad_req):
@@ -137,12 +189,33 @@ class Executor:
                             if self._grad_req[n] != "null"
                             and self.grad_dict.get(n) is not None]
         self.outputs = []
+        self._monitor_callback = None
+        self._monitor_all = False
         # the last training forward's autograd recording: (outputs, {name:
         # leaf}); dropped at the next forward
         self._recorded = None
         self._prog = executor_cache.get_program(
             symbol, arg_dict, aux_dict, self._device,
             tuple(self._grad_names))
+
+    @property
+    def arg_arrays(self):
+        return [self.arg_dict[n] for n in self._prog.arg_names]
+
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """Call ``callback(name, NDArray)`` on every op output of each
+        forward (and on every op input too under ``monitor_all``)."""
+        self._monitor_callback = callback
+        self._monitor_all = monitor_all
+
+    def _tap(self):
+        callback = self._monitor_callback
+        if callback is None:
+            return {}
+
+        def tap(name, value):
+            callback(name, NDArray(value.detach()))
+        return {"tap": tap, "tap_inputs": self._monitor_all}
 
     def forward(self, is_train=False, **kwargs):
         """Run the graph; ``kwargs`` (NDArrays or array-likes) are copied
@@ -168,11 +241,13 @@ class Executor:
                       for n in self._grad_names}
             values.update(leaves)
             with torch.enable_grad():
-                outs, new_aux = self._prog.evaluate(values, train=True)
+                outs, new_aux = self._prog.evaluate(values, train=True,
+                                                    **self._tap())
             self._recorded = (outs, leaves)
         else:
             with torch.inference_mode():
-                outs, new_aux = self._prog.evaluate(values, train=train)
+                outs, new_aux = self._prog.evaluate(values, train=train,
+                                                    **self._tap())
         if train:
             with torch.no_grad():
                 for name, value in new_aux.items():
@@ -287,31 +362,53 @@ class Executor:
 
     @staticmethod
     def _simple_bind(symbol, ctx, grad_req, type_dict, shape_kwargs,
-                     shared_args=None):
+                     shared_args=None, shared_grads=None, logger=None):
+        """``shared_args`` (arguments and aux states by name) are bound as
+        given wherever their shape, dtype and context fit, and with them
+        the ``shared_grads`` of the same names; the rest is allocated
+        zeroed, with a warning to ``logger`` for a shared name that no
+        longer fits (its values cannot carry over)."""
         arg_names = symbol.list_arguments()
         req = _req_table(arg_names, grad_req)
         arg_shapes, _, aux_shapes = symbol.infer_shape(**shape_kwargs)
         type_dict = dict(type_dict or {})
         arg_types, _, aux_types = symbol.infer_type(**type_dict)
         shared = shared_args or {}
+        shared_grads = shared_grads or {}
 
-        def alloc(names, shapes, types):
+        def alloc(names, shapes, types, kind):
             out = {}
             for name, shape, dt in zip(names, shapes, types):
+                shape = tuple(int(d) for d in shape)
                 dt = torch_dtype(type_dict.get(name, dt or "float32"))
                 have = shared.get(name)
-                if have is not None and have.shape == tuple(shape) \
+                if have is not None and have.shape == shape \
                         and have.tensor.dtype == dt \
                         and have.context == ctx:
                     out[name] = have
-                else:
-                    out[name] = nd_zeros(shape, ctx, dtype=dt)
+                    continue
+                if have is not None and logger is not None:
+                    # loud: it usually means a mis-specified bucket
+                    logger.warning(
+                        "%s %r changed from %s %s to %s %s across the "
+                        "shared bind; reallocating it ZEROED (its values "
+                        "cannot carry over)", kind, name, have.shape,
+                        dtype_name(have.tensor.dtype), shape,
+                        dtype_name(dt))
+                out[name] = nd_zeros(shape, ctx, dtype=dt)
             return out
 
-        args = alloc(arg_names, arg_shapes, arg_types)
-        grads = {n: nd_zeros(a.shape, ctx, dtype=a.tensor.dtype)
-                 for n, a in args.items() if req[n] != "null"}
+        args = alloc(arg_names, arg_shapes, arg_types, "parameter")
+        grads = {}
+        for name, arr in args.items():
+            if req[name] == "null":
+                continue
+            have = shared_grads.get(name)
+            grads[name] = have if have is not None \
+                and shared.get(name) is arr else \
+                nd_zeros(arr.shape, ctx, dtype=arr.tensor.dtype)
         return Executor(
             symbol, ctx, args,
-            alloc(symbol.list_auxiliary_states(), aux_shapes, aux_types),
+            alloc(symbol.list_auxiliary_states(), aux_shapes, aux_types,
+                  "auxiliary state"),
             grads, req)

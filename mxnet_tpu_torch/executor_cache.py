@@ -55,7 +55,7 @@ def get_program(symbol, arg_dict, aux_dict, device, grad_names=()):
         if prog is not None:
             _entries.move_to_end(key)
             return prog
-    prog = _Program(symbol)
+    prog = _Program(symbol, {n: a.shape for n, a in arg_dict.items()})
     note_trace("fwd")
     with _lock:
         # a concurrent bind may have built the same signature; the first

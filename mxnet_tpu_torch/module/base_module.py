@@ -5,11 +5,14 @@ initializes the parameters and the optimizer, then runs epochs
 ``begin_epoch`` to ``num_epoch - 1`` of ``forward_backward`` ->
 ``update`` -> ``update_metric`` with the batch-end callbacks, syncing the
 trained values into the module's parameter dicts before the epoch-end
-callbacks (a checkpoint); ``score``, ``iter_predict`` and ``predict``
-run predict-mode forwards over an iterator; ``save_params`` /
-``load_params`` use the ``.params`` format with ``arg:``/``aux:`` names.
-The JAX package's batch lookahead, step telemetry, health sentinel and
-elastic checkpoint hooks wait for the runtime-services slice.
+callbacks (a checkpoint); a ``monitor`` is installed right after
+``bind`` (so the fused step turns it down) and ticks around each batch; the next batch is fetched during the step
+and handed to ``prepare`` (a BucketingModule binds its bucket ahead).
+``score``, ``iter_predict`` and ``predict`` run predict-mode forwards
+over an iterator; ``save_params`` / ``load_params`` use the ``.params``
+format with ``arg:``/``aux:`` names.  The JAX package's step telemetry,
+health sentinel and elastic checkpoint hooks wait for the
+runtime-services slice.
 """
 from __future__ import annotations
 
@@ -44,6 +47,25 @@ def _trim_pad(outputs, pad):
     return [out[:out.shape[0] - pad] for out in outputs]
 
 
+_PARAM_SUFFIXES = ("_weight", "_bias", "_gamma", "_beta")
+
+
+def _check_input_names(symbol, names, typename, throw):
+    """Warn or raise when a declared data/label name is not an argument
+    of the symbol."""
+    args = symbol.list_arguments()
+    for name in names:
+        if name in args:
+            continue
+        likely_inputs = [a for a in args if not a.endswith(_PARAM_SUFFIXES)]
+        msg = ("the Module was created with %s_names=%s, but %r is not an "
+               "argument of the symbol. Inputs the symbol does declare: %s"
+               % (typename, list(names), name, ", ".join(likely_inputs)))
+        if throw:
+            raise ValueError(msg)
+        logging.getLogger(__name__).warning(msg)
+
+
 def _each_callback(callbacks, arg):
     """Invoke one callback or a list of them with a single argument."""
     if callbacks is None:
@@ -70,9 +92,38 @@ class BaseModule:
     def symbol(self):
         return self._symbol
 
+    def _ready(self, optimizer=False, grads=False):
+        """The delegation precondition: bound and initialized."""
+        if not (self.binded and self.params_initialized):
+            raise AssertionError("needs bind() and init_params()")
+        if optimizer and not self.optimizer_initialized:
+            raise AssertionError("needs init_optimizer()")
+        if grads and not self.inputs_need_grad:
+            raise AssertionError("needs bind(inputs_need_grad=True)")
+
     def forward_backward(self, data_batch):
         self.forward(data_batch, is_train=True)
         self.backward()
+
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True, allow_extra=False):
+        self.init_params(initializer=None, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init, allow_extra=allow_extra)
+
+    def get_states(self, merge_multi_context=True):
+        self._ready()
+        if merge_multi_context:
+            raise AssertionError("no states to merge")
+        return []
+
+    def set_states(self, states=None, value=None):
+        self._ready()
+        if states or value:
+            raise AssertionError("this module has no states")
+
+    def prepare(self, data_batch):
+        """Get ready for ``data_batch`` before its step (a no-op here)."""
 
     def score(self, eval_data, eval_metric, num_batch=None,
               batch_end_callback=None, score_end_callback=None, reset=True,
@@ -144,11 +195,11 @@ class BaseModule:
         ``num_epoch - 1``."""
         if num_epoch is None:
             raise AssertionError("fit() needs num_epoch")
-        if monitor is not None:
-            raise NotImplementedError("monitors are not ported yet")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -161,13 +212,25 @@ class BaseModule:
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
-            for nbatch, batch in enumerate(train_data):
+            it = iter(train_data)
+            batch = next(it, None)
+            nbatch = 0
+            while batch is not None:
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(batch)
                 self.update()
+                upcoming = next(it, None)
+                if upcoming is not None:
+                    self.prepare(upcoming)
                 self.update_metric(eval_metric, batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 _each_callback(batch_end_callback, BatchEndParam(
                     epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
                     locals=locals()))
+                batch = upcoming
+                nbatch += 1
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,

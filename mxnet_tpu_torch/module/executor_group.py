@@ -7,10 +7,15 @@ with ``inputs_need_grad``, labels ``null``), loads each batch into the
 bound arrays, runs forward/backward, and exposes the parameter, gradient
 and aux arrays in the layout the updater walks (one replica per
 parameter); ``reshape`` rebinds to new data shapes, sharing the
-parameters.  Splitting a batch over several devices waits for the
-multi-device slice.
+parameters.  With a ``shared_group`` (bucketing), the executor binds the
+sharer's parameter, gradient and aux arrays by name: the very same
+NDArrays, so every bucket trains one set of tensors; an array whose
+shape differs is allocated anew, zeroed, with a warning.  Splitting a
+batch over several devices waits for the multi-device slice.
 """
 from __future__ import annotations
+
+import logging
 
 from ..base import MXNetError
 from ..context import cpu
@@ -41,13 +46,15 @@ def _load(sources, targets):
 class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
-                 fixed_param_names=None, grad_req="write"):
+                 shared_group=None, logger=logging, fixed_param_names=None,
+                 grad_req="write"):
         if len(contexts) != 1:
             raise MXNetError("the port's executor group binds one context; "
                              "got %s (multi-device waits for its slice)"
                              % (contexts,))
         self.symbol = symbol
         self.contexts = contexts
+        self.logger = logger
         self.param_names = param_names
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
@@ -71,9 +78,10 @@ class DataParallelExecutorGroup:
                              for k in self.arg_names}
         else:
             raise ValueError("invalid grad_req %r" % (grad_req,))
-        self.bind_exec(data_shapes, label_shapes)
+        self.bind_exec(data_shapes, label_shapes, shared_group=shared_group)
 
-    def bind_exec(self, data_shapes, label_shapes, reshape=False):
+    def bind_exec(self, data_shapes, label_shapes, reshape=False,
+                  shared_group=None):
         """Bind the executor to these shapes; with ``reshape``, a new
         executor that shares every array whose shape is unchanged (the
         parameters, their gradients and the aux states)."""
@@ -89,9 +97,19 @@ class DataParallelExecutorGroup:
             self.execs = [self.execs[0].reshape(allow_up_sizing=True,
                                                 **shapes)]
         else:
+            shared_args = shared_grads = None
+            if shared_group is not None:
+                # the sharer's parameters (never its data or labels), their
+                # gradients and its aux states
+                sharer = shared_group.execs[0]
+                shared_args = {n: a for n, a in sharer.arg_dict.items()
+                               if n in self.param_names}
+                shared_args.update(sharer.aux_dict)
+                shared_grads = sharer.grad_dict
             self.execs = [self.symbol.simple_bind(
                 ctx=self.contexts[0], grad_req=self.grad_req,
-                type_dict=types, **shapes)]
+                type_dict=types, shared_args=shared_args,
+                shared_grads=shared_grads, logger=self.logger, **shapes)]
         exe = self.execs[0]
         self.data_arrays = [exe.arg_dict[n] for n in self.data_names]
         self.label_arrays = [exe.arg_dict[n] for n in self.label_names
@@ -100,6 +118,8 @@ class DataParallelExecutorGroup:
         self.grad_arrays = [[exe.grad_dict[n]] for n in self.param_names
                             if n in exe.grad_dict]
         self.aux_arrays = [[exe.aux_dict[n]] for n in self.aux_names]
+        self.input_grad_arrays = [exe.grad_dict[n] for n in self.data_names
+                                  if n in exe.grad_dict]
 
     def reshape(self, data_shapes, label_shapes):
         if data_shapes == self.data_shapes \
@@ -143,6 +163,29 @@ class DataParallelExecutorGroup:
                              "backward")
         self._load_batch(data_batch)
         self.execs[0].forward_backward(is_train=True)
+
+    def get_output_shapes(self):
+        """[(output name, shape)]: the last forward's, or inferred from the
+        bound inputs before the first (a SequentialModule binds stage i+1
+        off stage i's output shapes)."""
+        outputs = self.execs[0].outputs
+        if outputs:
+            shapes = [out.shape for out in outputs]
+        else:
+            known = _shapes(self.data_shapes + (self.label_shapes or []))
+            _, shapes, _ = self.symbol.infer_shape(**known)
+        return [(name, tuple(shape)) for name, shape in
+                zip(self.symbol.list_outputs(), shapes)]
+
+    def get_input_grads(self, merge_multi_context=True):
+        if not self.inputs_need_grad:
+            raise AssertionError("bind with inputs_need_grad=True")
+        grads = list(self.input_grad_arrays)
+        return grads if merge_multi_context else [[g] for g in grads]
+
+    def install_monitor(self, mon):
+        for exe in self.execs:
+            mon.install(exe)
 
     def get_outputs(self, merge_multi_context=True):
         outs = self.execs[0].outputs

@@ -34,6 +34,17 @@ one launch from the host a step in place of ~2,000.
   the epoch-end ``set_params`` of ``fit`` keeps the f32 masters.  A
   ``reshape`` rebuilds the executor: the step carries its masters and
   states to it and captures anew.
+- **Shared state (bucketing).** A module bound with ``shared_module=``
+  gets a step of its own, built with ``share=`` the sharer's step: its
+  own executor, ``_scalars``, stream and graph, over the sharer's
+  ``_SharedState`` — the same master and optimizer-state tensors (by
+  parameter name), one record of the storage seen after the last step of
+  any sharer (an eager step bumps the shared storage's version counters;
+  that is no write from outside), and one ``ran`` flag.  Every graph
+  reads and writes the same tensors; each keeps its own memory pool, and
+  its outputs are copied out after each replay.  ``transfer_to_updater``,
+  ``export_states`` and ``load_states`` act once on the shared state,
+  and ``retire`` leaves the fused path in every sharer.
 
 The JAX package's multi-device paths, overlapped collectives, health
 sentinel, memory profiler and program cache wait for later slices.
@@ -63,6 +74,22 @@ def _map_state(fn, state):
     return None if state is None else fn(state)
 
 
+class _SharedState:
+    """What every module sharing one fused step trains, by parameter
+    name: the masters (an f32 copy, or the storage itself), the optimizer
+    states, the Updater index, and the storage (tensor, version) seen
+    after the last step of any sharer."""
+
+    def __init__(self):
+        self.masters = {}
+        self.states = {}
+        self.mixed = {}
+        self.index = {}
+        self.seen = {}
+        self.steps = []
+        self.ran = False
+
+
 class FusedTrainStep:
     @staticmethod
     def refusal(module):
@@ -77,6 +104,8 @@ class FusedTrainStep:
             return "optimizer %s has no fused update of its own" \
                 % type(opt).__name__
         exe = group.execs[0]
+        if exe._monitor_callback is not None:
+            return "monitor installed"
         if any(req == "add" for req in exe._grad_req.values()):
             return "grad_req 'add'"
         if module.inputs_need_grad:
@@ -89,12 +118,22 @@ class FusedTrainStep:
                     "register a generator with a CUDA graph")
         return None
 
-    def __init__(self, module, _carry=None):
+    def join_refusal(self, module):
+        """Why ``module`` cannot share this step's state (None when it
+        can): each of its trained parameters that this state trains must
+        be bound to the very tensor this state trains."""
+        exe = module._exec_group.execs[0]
+        for name in exe._grad_names:
+            have = self.shared.seen.get(name)
+            if have is not None and have[0] is not exe.arg_dict[name].tensor:
+                return "parameter %s is bound to a tensor of its own" % name
+        return None
+
+    def __init__(self, module, share=None):
         self.module = module
         exe = module._exec_group.execs[0]
         self.exe = exe
         self.opt = opt = module._optimizer
-        self.ran = False
         self.device = exe._device
         self.param_names = list(exe._grad_names)
         idx_of = {n: i for i, n in enumerate(module._exec_group.param_names)}
@@ -107,18 +146,22 @@ class FusedTrainStep:
                       for dt in self.param_dtypes]
         self.master_dtypes = [torch.float32 if m else dt
                               for m, dt in zip(self.mixed, self.param_dtypes)]
-        if _carry is not None:
-            # a reshape rebuild: the carried f32 masters and the states are
-            # authoritative; a parameter without a master updates the new
-            # executor's storage
-            masters, self.states = _carry
-            self._masters = [c if m else t for c, t, m in zip(
-                masters, storage, self.mixed)]
-        else:
-            self._masters = [t.detach().float().clone() if m else t
-                             for t, m in zip(storage, self.mixed)]
-            self.states = [self._init_state(j)
-                           for j in range(len(self.param_names))]
+        # a reshape rebuild (share is self) or a new sharer: the shared f32
+        # masters and states are authoritative, and a parameter without a
+        # master updates this executor's storage
+        shared = share.shared if share is not None else _SharedState()
+        self.shared = shared
+        if self not in shared.steps:
+            shared.steps.append(self)
+        for j, (name, t) in enumerate(zip(self.param_names, storage)):
+            if name not in shared.states:
+                shared.mixed[name] = self.mixed[j]
+                shared.index[name] = self.param_idx[j]
+                shared.masters[name] = t.detach().float().clone() \
+                    if self.mixed[j] else t
+                shared.states[name] = self._init_state(j)
+            elif not self.mixed[j]:
+                shared.masters[name] = t
         n = len(self.param_names)
         self._n_extra = int(opt.fused_n_scalars)
         self._scalars = torch.zeros((n, 2 + self._n_extra),
@@ -130,7 +173,12 @@ class FusedTrainStep:
         self._key = _random.generator(self.device) \
             if opt.fused_needs_rng else None
         self._bound = self._bound_tensors()
-        self._seen = self._storage_seen()
+        # a sharer's record stands (a write since its last step is still
+        # to be honoured); a reshape rebuild starts from its new storage
+        for n in self.param_names:
+            if share is self or n not in shared.seen:
+                t = exe.arg_dict[n].tensor
+                shared.seen[n] = (t, t._version)
         # the CUDA graph and what it captured
         self.graph = None
         self.captures = 0
@@ -142,10 +190,28 @@ class FusedTrainStep:
         self._stream = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
 
+    @property
+    def ran(self):
+        """Whether any step sharing this state has run."""
+        return self.shared.ran
+
+    @ran.setter
+    def ran(self, value):
+        self.shared.ran = bool(value)
+
+    @property
+    def _masters(self):
+        return [self.shared.masters[n] for n in self.param_names]
+
+    @property
+    def states(self):
+        return [self.shared.states[n] for n in self.param_names]
+
     def _init_state(self, j):
         """create_state-shaped optimizer state in the master dtype."""
-        st = self.opt.create_state(self.param_idx[j],
-                                   NDArray(self._masters[j]))
+        st = self.opt.create_state(
+            self.param_idx[j],
+            NDArray(self.shared.masters[self.param_names[j]]))
         return _opt.state_tensors(st)
 
     def _bound_tensors(self):
@@ -153,10 +219,12 @@ class FusedTrainStep:
         return [a.tensor for a in exe.arg_dict.values()] + \
             [a.tensor for a in exe.aux_dict.values()]
 
-    def _storage_seen(self):
-        """(tensor, version counter) of each parameter's storage."""
-        return [(t, t._version) for t in (self.exe.arg_dict[n].tensor
-                                          for n in self.param_names)]
+    def _note_seen(self):
+        """Record the (tensor, version counter) of each parameter's
+        storage in the shared state."""
+        for n in self.param_names:
+            t = self.exe.arg_dict[n].tensor
+            self.shared.seen[n] = (t, t._version)
 
     # -- the step ------------------------------------------------------------
     def _compute(self):
@@ -174,18 +242,19 @@ class FusedTrainStep:
         grads = torch.autograd.grad(
             ys, leaves, [torch.ones_like(y) for y in ys],
             allow_unused=True) if ys else [None] * len(leaves)
+        masters, states = self._masters, self.states
         with torch.no_grad():
             for name, value in new_aux.items():
                 dst = exe.aux_dict[name].tensor
                 if value is not dst:
                     dst.copy_(value)
             for j, g in enumerate(grads):
-                w = self._masters[j]
+                w = masters[j]
                 if g is None:  # the outputs do not depend on it
                     g = torch.zeros_like(w)
                 elif self.mixed[j]:
                     g = g.float()  # the one f32 cast on the gradient path
-                _opt.apply_update(opt, w, g, self.states[j], self._lr[j],
+                _opt.apply_update(opt, w, g, states[j], self._lr[j],
                                   self._wd[j], self._ex[j], key=self._key)
                 if self.mixed[j]:
                     exe.arg_dict[self.param_names[j]].tensor.copy_(w)
@@ -237,8 +306,9 @@ class FusedTrainStep:
             self._bound = self._bound_tensors()
             self.graph, self._outs = None, None
             self._eager_on_card = 0
-        for j, (n, (was, version)) in enumerate(zip(self.param_names,
-                                                    self._seen)):
+        shared = self.shared
+        for j, n in enumerate(self.param_names):
+            was, version = shared.seen[n]
             t = self.exe.arg_dict[n].tensor
             if t is not was:
                 if t.shape != was.shape or t.dtype != was.dtype:
@@ -248,20 +318,21 @@ class FusedTrainStep:
                             n, t.dtype, tuple(t.shape), was.dtype,
                             tuple(was.shape)))
                 if not self.mixed[j]:
-                    self._masters[j] = t.detach()
+                    shared.masters[n] = t.detach()
             elif t._version == version:
                 continue
             if self.mixed[j]:
+                master = shared.masters[n]
                 with torch.no_grad():
-                    if not torch.equal(t, self._masters[j].to(t.dtype)):
-                        self._masters[j].copy_(t)
+                    if not torch.equal(t, master.to(t.dtype)):
+                        master.copy_(t)
 
     def run(self, data_batch):
         module = self.module
         if module._exec_group.execs[0] is not self.exe:
-            # a reshape rebuilt the executor: carry the masters and the
-            # optimizer state over (same symbol, same parameter list)
-            self.__init__(module, _carry=(self._masters, self.states))
+            # a reshape rebuilt the executor: keep the shared masters and
+            # optimizer state (same symbol, same parameter list)
+            self.__init__(module, share=self)
         self.ran = True
         self._refresh()
         self._load(data_batch)
@@ -280,7 +351,7 @@ class FusedTrainStep:
             self.replays += 1
             _kernels.add_launch_counts(self.graph_launches)
             exe.outputs = [NDArray(o.clone()) for o in self._outs]
-        self._seen = self._storage_seen()
+        self._note_seen()
 
     def _eager_on_stream(self):
         cur = torch.cuda.current_stream(self.device)
@@ -312,18 +383,27 @@ class FusedTrainStep:
         self.captures += 1
 
     # -- handing state over --------------------------------------------------
+    def retire(self, updater):
+        """Leave the fused path in every module sharing this state, the
+        state handed to ``updater`` (None drops it)."""
+        self.transfer_to_updater(updater)
+        for step in self.shared.steps:
+            if step.module._fused_step is step:
+                step.module._fused_step = None
+        self.shared.steps = []
+
     def transfer_to_updater(self, updater):
-        """Seed a local Updater's per-index state from the step's tensors,
+        """Seed a local Updater's per-index state from the shared tensors,
         so that retiring the fused path keeps the optimizer state (and the
         f32 masters under multi_precision)."""
         if updater is None:
             return
-        for j in range(len(self.param_names)):
-            idx = self.param_idx[j]
-            st = _map_state(NDArray, self.states[j])
-            if self.mixed[j]:
-                st = self.opt.fused_wrap_mp_state(st,
-                                                  NDArray(self._masters[j]))
+        shared = self.shared
+        for name, idx in shared.index.items():
+            st = _map_state(NDArray, shared.states[name])
+            if shared.mixed[name]:
+                st = self.opt.fused_wrap_mp_state(
+                    st, NDArray(shared.masters[name]))
             updater.states[idx] = st
             updater.states_synced[idx] = True
 
@@ -334,30 +414,31 @@ class FusedTrainStep:
             t = t.detach()
             return (t.float() if t.dtype == torch.bfloat16 else t
                     ).cpu().numpy()
+        shared = self.shared
         out = {}
-        for j, name in enumerate(self.param_names):
-            entry = {"state": _map_state(host, self.states[j])}
-            if self.mixed[j]:
-                entry["master"] = host(self._masters[j])
+        for name in shared.index:
+            entry = {"state": _map_state(host, shared.states[name])}
+            if shared.mixed[name]:
+                entry["master"] = host(shared.masters[name])
             out[name] = entry
         return out
 
     def load_states(self, states):
         """Restore ``fused_v2`` (or ``fused_v1``: a bare momentum array per
         name) states in place; a restored master is authoritative."""
+        shared = self.shared
         with torch.no_grad():
             for name, v in states.items():
-                if name not in self.param_names:
+                if name not in shared.states:
                     continue
-                j = self.param_names.index(name)
                 if isinstance(v, dict):
                     st = v["state"]
-                    if self.mixed[j] and v.get("master") is not None:
-                        self._masters[j].copy_(
+                    if shared.mixed[name] and v.get("master") is not None:
+                        shared.masters[name].copy_(
                             torch.from_numpy(np.asarray(v["master"])))
                 else:
                     st = v
-                cur = _opt.state_leaves(self.states[j])
+                cur = _opt.state_leaves(shared.states[name])
                 new = _opt.state_leaves(st)
                 if len(cur) != len(new) or any(
                         tuple(a.shape) != tuple(np.shape(b))
@@ -365,4 +446,5 @@ class FusedTrainStep:
                     continue
                 for dst, src in zip(cur, new):
                     dst.copy_(torch.from_numpy(np.asarray(src)))
-        self._seen = self._storage_seen()
+        for step in shared.steps:
+            step._note_seen()

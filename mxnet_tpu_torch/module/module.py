@@ -16,9 +16,17 @@ forward, backward and update as one CUDA graph replay a batch on the
 card) whenever the JAX package's single-device gating allows, and logs
 why when it does not.  ``forward_backward`` then runs the whole step and
 the matching ``update()`` is a no-op; a loop that calls ``update()``
-without it, or a batch of another shape, retires the fused step, its
-optimizer state handed to the ``Updater``.  Key-value stores wait for
-the multi-device slice.
+without it, a batch of another shape, or a monitor retires the fused
+step, its optimizer state handed to the ``Updater``.
+
+``bind(shared_module=)`` (bucketing) binds the sharer's parameter
+arrays and adopts its host masters and, once it has one, its optimizer
+(``borrow_optimizer``).  When the sharer trains through a fused step,
+the new module gets a step of its own (its own executor and, on the
+card, its own graph) over the sharer's masters and optimizer states: one
+state per parameter, whichever module a batch goes through.  Retiring
+the step of one module retires every module that shares it.  Key-value
+stores wait for the multi-device slice.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ from ..io import DataDesc
 from ..ndarray import zeros as nd_zeros
 from .. import optimizer as opt
 from ..model import load_checkpoint
-from .base_module import BaseModule
+from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
 from .fused_step import FusedTrainStep
 
@@ -57,14 +65,13 @@ class Module(BaseModule):
         self._data_names = list(data_names or [])
         self._label_names = list(label_names or [])
         self._fixed_param_names = list(fixed_param_names or [])
+        self._state_names = list(state_names or [])
         args = symbol.list_arguments()
-        for name in self._data_names:
-            if name not in args:
-                raise ValueError("data name %r is not an argument of the "
-                                 "symbol" % name)
+        _check_input_names(symbol, self._data_names, "data", True)
+        _check_input_names(symbol, self._state_names, "state", True)
         self._label_names = [n for n in self._label_names if n in args]
         inputs = set(self._data_names + self._label_names
-                     + list(state_names or []))
+                     + self._state_names)
         self._param_names = [a for a in args if a not in inputs]
         self._aux_names = symbol.list_auxiliary_states()
         self._output_names = symbol.list_outputs()
@@ -112,6 +119,24 @@ class Module(BaseModule):
     def output_names(self):
         return self._output_names
 
+    @property
+    def data_shapes(self):
+        if not self.binded:
+            raise AssertionError("data_shapes needs bind()")
+        return self._data_shapes
+
+    @property
+    def label_shapes(self):
+        if not self.binded:
+            raise AssertionError("label_shapes needs bind()")
+        return self._label_shapes
+
+    @property
+    def output_shapes(self):
+        if not self.binded:
+            raise AssertionError("output_shapes needs bind()")
+        return self._exec_group.get_output_shapes()
+
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
@@ -121,8 +146,16 @@ class Module(BaseModule):
         if self.binded:
             self.logger.warning("Already bound, ignoring bind()")
             return
+        if not for_training and inputs_need_grad:
+            raise AssertionError("inputs_need_grad needs for_training")
+        shared_group = None
         if shared_module is not None:
-            raise MXNetError("shared_module is not ported yet")
+            if not (isinstance(shared_module, Module)
+                    and shared_module.binded
+                    and shared_module.params_initialized):
+                raise AssertionError("shared_module must be a bound Module "
+                                     "with initialized parameters")
+            shared_group = shared_module._exec_group
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self._data_shapes = _descs(data_shapes)
@@ -130,10 +163,17 @@ class Module(BaseModule):
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._data_shapes,
             self._label_shapes, self._param_names, for_training,
-            inputs_need_grad, fixed_param_names=self._fixed_param_names,
-            grad_req=grad_req)
+            inputs_need_grad, shared_group=shared_group, logger=self.logger,
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
         self.binded = True
-        if self.params_initialized:
+        if shared_module is not None:
+            # the sharer's masters, outright (bucketing trains one set)
+            self.params_initialized = True
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+            if shared_module.optimizer_initialized:
+                self.borrow_optimizer(shared_module)
+        elif self.params_initialized:
             # rebind after set_params: push the masters to the device
             self._exec_group.set_params(self._arg_params, self._aux_params)
         else:
@@ -181,12 +221,6 @@ class Module(BaseModule):
                     initializer(InitDesc(name, attrs.get(name)), arr)
         self.params_initialized = True
         self._exec_group.set_params(self._arg_params, self._aux_params)
-
-    def set_params(self, arg_params, aux_params, allow_missing=False,
-                   force_init=True, allow_extra=False):
-        self.init_params(initializer=None, arg_params=arg_params,
-                         aux_params=aux_params, allow_missing=allow_missing,
-                         force_init=force_init, allow_extra=allow_extra)
 
     def get_params(self):
         """(arg_params, aux_params): host copies of the trained state."""
@@ -239,12 +273,47 @@ class Module(BaseModule):
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
 
+    def borrow_optimizer(self, shared_module):
+        """Train with ``shared_module``'s optimizer and Updater; when it
+        trains through a fused step, through a step of this module's own
+        that shares that step's state."""
+        if not shared_module.optimizer_initialized:
+            raise AssertionError("borrow_optimizer() needs a sharer with "
+                                 "an initialized optimizer")
+        self._optimizer = shared_module._optimizer
+        self._updater = shared_module._updater
+        self.optimizer_initialized = True
+        self._fused_pending = False
+        anchor = shared_module._fused_step
+        if anchor is None:
+            self._fused_step = None
+            return
+        why = FusedTrainStep.refusal(self) or anchor.join_refusal(self)
+        if why is None:
+            self._fused_step = FusedTrainStep(self, share=anchor)
+        else:
+            # one optimizer state per parameter: the sharers leave the
+            # fused step rather than keep a second state beside it
+            shared_module._retire_fused_step(
+                "a module sharing the fused step cannot join it (%s)" % why)
+
+    def install_monitor(self, mon):
+        """Tap every op output of this module's executor; the fused step,
+        which has no tap points, retires with its sharers."""
+        if not self.binded:
+            raise AssertionError("install_monitor() needs bind()")
+        self._exec_group.install_monitor(mon)
+        if self._fused_step is not None:
+            # _fused_pending stays: a fused forward_backward that applied
+            # its update already still turns the next update() into a no-op
+            self._retire_fused_step("monitor installed")
+
     def _retire_fused_step(self, why):
         """Leave the fused step for the general path, the optimizer state
-        carried over to the Updater."""
+        carried over to the Updater, in this module and every module that
+        shares its step."""
         self.logger.info("%s; disabling the fused train step", why)
-        self._fused_step.transfer_to_updater(self._updater)
-        self._fused_step = None
+        self._fused_step.retire(self._updater)
 
     def _rebind_for_batch(self, data_batch):
         """Reshape the bound executor when a batch arrives with new
@@ -306,6 +375,13 @@ class Module(BaseModule):
     def get_outputs(self, merge_multi_context=True):
         return self._exec_group.get_outputs(merge_multi_context)
 
+    def get_input_grads(self, merge_multi_context=True):
+        if not (self.binded and self.params_initialized
+                and self.inputs_need_grad):
+            raise AssertionError("get_input_grads() needs bind("
+                                 "inputs_need_grad=True) and init_params()")
+        return self._exec_group.get_input_grads(merge_multi_context)
+
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)
 
@@ -347,5 +423,5 @@ class Module(BaseModule):
             self.logger.warning(
                 "updater-format optimizer states with a fused step active; "
                 "disabling the fused step to restore them faithfully")
-            self._fused_step = None
+            self._fused_step.retire(None)
         self._updater.set_states(raw)

@@ -8,8 +8,8 @@ import sys as _sys
 
 from ..ops import registry as _registry
 from .ndarray import (  # noqa: F401
-    NDArray, _invoke, array, empty, full, load, loads, ones, save, waitall,
-    zeros,
+    NDArray, _invoke, array, concatenate, empty, full, load, loads, ones,
+    save, waitall, zeros,
 )
 
 

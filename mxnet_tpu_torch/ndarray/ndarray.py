@@ -82,6 +82,15 @@ class NDArray:
     def grad(self):
         return self._grad
 
+    @property
+    def T(self):
+        return _invoke("transpose", [self], {})
+
+    def wait_to_read(self):
+        """Block until the array's pending device work has finished."""
+        if self._h.tensor.is_cuda:
+            torch.cuda.synchronize(self._h.tensor.device)
+
     # -- host transfer and copies --------------------------------------------
     def asnumpy(self):
         """A numpy copy: later writes to this array (an optimizer's
@@ -100,6 +109,9 @@ class NDArray:
 
     def astype(self, dtype, copy=True):
         return _invoke("Cast", [self], {"dtype": dtype_name(dtype)})
+
+    def copy(self):
+        return _invoke("_copy", [self], {})
 
     def copyto(self, other):
         """Copy into ``other``: an NDArray (its storage, dtype and device
@@ -382,6 +394,15 @@ def empty(shape, ctx=None, dtype="float32"):
     ctx = ctx or current_context()
     return NDArray(torch.empty(_shape_tuple(shape), dtype=torch_dtype(dtype),
                                device=ctx.torch_device()))
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    """The arrays joined along ``axis``; a single array is returned as it
+    is unless ``always_copy`` (ref: mx.nd.concatenate)."""
+    arrays = list(arrays)
+    if len(arrays) == 1 and not always_copy:
+        return arrays[0]
+    return _invoke("Concat", arrays, {"dim": axis})
 
 
 def waitall():

@@ -113,7 +113,8 @@ class Op:
         ``num_inputs`` fills an unset ``key_var_num_args`` attr."""
         out = {}
         for k, v in attrs.items():
-            if k == "name" or (k.startswith("__") and k.endswith("__")):
+            if k in ("name", "ctx_group") \
+                    or (k.startswith("__") and k.endswith("__")):
                 continue
             if k not in self.params:
                 raise MXNetError("%s: unknown attr %r" % (self.name, k))

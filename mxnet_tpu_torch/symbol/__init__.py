@@ -6,13 +6,15 @@ import sys as _sys
 
 from ..ops import registry as _registry
 from .symbol import (  # noqa: F401
-    Group, NameManager, Symbol, Variable, _create, load, load_json, var,
+    AttrScope, Group, NameManager, Symbol, Variable, _create, load,
+    load_json, ones, var, zeros,
 )
 
 
 def _make_sym_func(name, op):
     def fn(*args, **kwargs):
         node_name = kwargs.pop("name", None)
+        attr_extra = kwargs.pop("attr", None)
         inputs = [a for a in args if isinstance(a, Symbol)]
         named = {k: v for k, v in kwargs.items() if isinstance(v, Symbol)}
         attrs = {k: v for k, v in kwargs.items() if not isinstance(v, Symbol)}
@@ -20,7 +22,10 @@ def _make_sym_func(name, op):
             if n in named:
                 inputs.append(named.pop(n))
         inputs.extend(named.values())
-        return _create(name, inputs, attrs, name=node_name)
+        out = _create(name, inputs, attrs, name=node_name)
+        if attr_extra:
+            out._set_attr(**attr_extra)
+        return out
 
     fn.__name__ = name
     fn.__doc__ = op.doc or ("%s (generated symbol op)" % name)

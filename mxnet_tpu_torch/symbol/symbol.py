@@ -55,6 +55,42 @@ class NameManager:
         NameManager._current.value = self._old
 
 
+class AttrScope:
+    """Attributes given to every variable and op composed inside the
+    scope: ``with mx.AttrScope(ctx_group="dev1"): ...`` (ref:
+    python/mxnet/attribute.py).  Nested scopes merge, the inner winning."""
+
+    _current = threading.local()
+
+    def __init__(self, **kwargs):
+        self._attr = kwargs
+
+    def get(self, attr):
+        """The scope's attributes updated with ``attr``, as a new dict."""
+        base = dict(AttrScope._current.value._attr) \
+            if hasattr(AttrScope._current, "value") else {}
+        if attr:
+            base.update(attr)
+        return base
+
+    @classmethod
+    def current(cls):
+        if not hasattr(cls._current, "value"):
+            cls._current.value = AttrScope()
+        return cls._current.value
+
+    def __enter__(self):
+        self._old = AttrScope.current()
+        merged = dict(self._old._attr)
+        merged.update(self._attr)
+        self._attr = merged
+        AttrScope._current.value = self
+        return self
+
+    def __exit__(self, *args):
+        AttrScope._current.value = self._old
+
+
 class _Node:
     """Graph node: op application or variable (op_name None)."""
 
@@ -148,6 +184,11 @@ class Symbol:
 
     def __iter__(self):
         return (self[i] for i in range(len(self._entries)))
+
+    def _set_attr(self, **kwargs):
+        for node, _ in self._entries:
+            node.attrs.update({k: str(v) for k, v in kwargs.items()})
+        self._shash = None
 
     def attr_dict(self):
         """{node name: its attrs} for every node that has attrs."""
@@ -447,15 +488,21 @@ class Symbol:
 
     # -- binding -------------------------------------------------------------
     def simple_bind(self, ctx=None, grad_req="null", type_dict=None,
-                    shared_args=None, **kwargs):
+                    shared_args=None, shared_grads=None, logger=None,
+                    **kwargs):
         """Bind with freshly allocated arrays shaped by inference from the
-        ``name=shape`` kwargs.  ``shared_args`` ({name: NDArray}) are
-        bound as given wherever their shape and dtype fit, instead of
-        being allocated (how bucket executors share one set of weights)."""
+        ``name=shape`` kwargs.  ``shared_args`` ({name: NDArray}, arguments
+        and aux states) are bound as given wherever their shape and dtype
+        fit, instead of being allocated, and with them ``shared_grads`` of
+        the same names (how bucket executors share one set of weights); a
+        shared name that no longer fits is allocated zeroed, with a
+        warning to ``logger``."""
         from ..executor import Executor
         return Executor._simple_bind(self, ctx or current_context(),
                                      grad_req, type_dict, kwargs,
-                                     shared_args=shared_args)
+                                     shared_args=shared_args,
+                                     shared_grads=shared_grads,
+                                     logger=logger)
 
 
 def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
@@ -464,7 +511,7 @@ def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
     initializer's ``dumps()`` string or an initializer."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
-    attrs = dict(attr or {})
+    attrs = AttrScope.current().get(attr)
     if shape is not None:
         attrs["__shape__"] = str(tuple(shape))
     if dtype is not None:
@@ -509,9 +556,12 @@ def _create(op_name, sym_inputs, attrs, name=None):
             n_expected -= 1
         while len(entries) < n_expected:
             vname = "%s_%s" % (name, full[len(entries)])
-            entries.append((_Node(None, vname), 0))
+            entries.append((_Node(None, vname, AttrScope.current().get(None)),
+                            0))
     str_attrs = {k: v if isinstance(v, str) else attr_to_str(v)
                  for k, v in attrs.items() if v is not None}
+    for k, v in AttrScope.current().get(None).items():
+        str_attrs.setdefault(k, v)
     node = _Node(op_name, name, str_attrs, entries)
     return Symbol([(node, i) for i in range(node.num_outputs())])
 
@@ -534,3 +584,14 @@ def load_json(json_str):
 def load(fname):
     with open(fname) as f:
         return load_json(f.read())
+
+
+def zeros(shape, dtype="float32", **kwargs):
+    """A ``_zeros`` node; like the JAX package's, it takes no ``name``, so
+    auto names (``zeros0``, ...) and the JSON match.  A 0 dim is filled in
+    by shape inference at bind (an RNN's begin state of batch 0)."""
+    return _create("_zeros", [], {"shape": shape, "dtype": dtype})
+
+
+def ones(shape, dtype="float32", **kwargs):
+    return _create("_ones", [], {"shape": shape, "dtype": dtype})

@@ -968,3 +968,110 @@ def test_capture_failure_raises(card, monkeypatch):
     with pytest.raises(mx.MXNetError, match="CUDA graph"):
         mod.forward_backward(batches[1])
     assert K.launch_counts() == before
+
+
+# -- bucketing: one CUDA graph per bucket over one shared state --------------
+
+def _bucket_module(fused=True, momentum=0.9):
+    """A 2-layer LSTM LM (vocabulary 30, hidden 16) bucketed at 5 and 10
+    on the card, from seeded weights."""
+    hidden, vocab = 16, 30
+    stack = mx.rnn.FusedRNNCell(hidden, num_layers=2, mode="lstm")
+
+    def sym_gen(seq_len):
+        embed = mx.sym.Embedding(data=mx.sym.Variable("data"),
+                                 input_dim=vocab, output_dim=12, name="embed")
+        stack.reset()
+        out, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mx.sym.FullyConnected(mx.sym.Reshape(out, shape=(-1, hidden)),
+                                     num_hidden=vocab, name="pred")
+        label = mx.sym.Reshape(mx.sym.Variable("softmax_label"), shape=(-1,))
+        return (mx.sym.SoftmaxOutput(pred, label, name="softmax"),
+                ("data",), ("softmax_label",))
+
+    mod = mx.mod.BucketingModule(sym_gen, default_bucket_key=10,
+                                 context=mx.gpu(0))
+    batches = [_bucket_batch(k, i) for i, k in enumerate([10, 5] * 3)]
+    mod.bind(batches[0].provide_data, batches[0].provide_label)
+    mx.random.seed(3)
+    mod.init_params(mx.initializer.Xavier(factor_type="in", magnitude=2.34))
+    mod.init_optimizer(optimizer_params={"learning_rate": 0.1,
+                                         "momentum": momentum})
+    mod.prepare(batches[1])
+    if not fused:
+        mod._buckets[10]._retire_fused_step("the eager general path")
+    return mod, batches
+
+
+def _bucket_batch(key, seed, n=8, vocab=30):
+    r = np.random.RandomState(seed)
+    data = r.randint(1, vocab, (n, key)).astype(np.float32)
+    label = np.roll(data, -1, axis=1)
+    return mx.io.DataBatch(
+        [mx.nd.array(data, ctx=mx.cpu())], [mx.nd.array(label, ctx=mx.cpu())],
+        bucket_key=key, provide_data=[mx.io.DataDesc("data", (n, key))],
+        provide_label=[mx.io.DataDesc("softmax_label", (n, key))])
+
+
+def _bucket_run(mod, batches):
+    outs = []
+    for b in batches:
+        mod.forward_backward(b)
+        mod.update()
+        outs.append(mod.get_outputs()[0].asnumpy())
+    return outs
+
+
+def test_bucket_graphs_match_the_eager_general_path(card, deterministic,
+                                                    no_tf32):
+    """Buckets 10 and 5 alternating: per bucket one eager step, one
+    capture and replay, one more replay, against the eager general path
+    from one state (one Updater).  Masters, momenta and every batch's
+    outputs agree bit for bit: the same arithmetic on the same tensors.
+    Each bucket's replay follows the other bucket's, so an output read
+    from a graph's pool after another graph ran is checked too."""
+    graph, batches = _bucket_module()
+    eager, _ = _bucket_module(fused=False)
+    got, want = _bucket_run(graph, batches), _bucket_run(eager, batches)
+    steps = {k: m._fused_step for k, m in graph._buckets.items()}
+    assert all(s.captures == 1 and s.replays == 2 for s in steps.values())
+    assert steps[10].shared is steps[5].shared
+    assert steps[10].graph is not steps[5].graph
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    shared = steps[10].shared
+    anchor = eager._buckets[10]
+    for i, name in enumerate(anchor._param_names):
+        assert torch.equal(shared.masters[name],
+                           anchor._exec_group.execs[0].arg_dict[name].tensor)
+        assert torch.equal(shared.states[name],
+                           anchor._updater.states[i].tensor)
+    assert graph._optimizer.num_update == len(batches)
+
+
+def test_bucket_replay_outputs_survive_the_other_buckets_replay(card,
+                                                                no_tf32):
+    """The outputs a bucket's replay hands back are copies: a later replay
+    of the other bucket's graph leaves them as they were."""
+    mod, batches = _bucket_module()
+    _bucket_run(mod, batches[:4])  # both buckets captured
+    mod.forward_backward(batches[4])
+    mod.update()
+    first = mod.get_outputs()[0]
+    kept = first.asnumpy()
+    mod.forward_backward(batches[5])
+    mod.update()
+    np.testing.assert_array_equal(first.asnumpy(), kept)
+    assert mod._buckets[5]._fused_step.replays == 2
+
+
+def test_bucket_graphs_share_the_parameter_tensors(card):
+    mod, batches = _bucket_module()
+    _bucket_run(mod, batches[:4])
+    a, b = (mod._buckets[k]._exec_group.execs[0] for k in (10, 5))
+    fa, fb = (mod._buckets[k]._fused_step for k in (10, 5))
+    for name in fa.param_names:
+        ptr = a.arg_dict[name].tensor.data_ptr()
+        assert b.arg_dict[name].tensor.data_ptr() == ptr
+        assert any(t.data_ptr() == ptr for t in fa._bound)
+        assert any(t.data_ptr() == ptr for t in fb._bound)
