@@ -159,9 +159,54 @@ CUDA toolkit.  Phases, each of which raises on failure:
    and of the eager general path, capture time and graph-pool memory per
    bucket, the fit's time, the busy share and device time by group of a
    profiled replay and eager step, and peak memory.
-10. The ``kernels`` JSON line (each kernel's record with its launches on
-   every path and its bf16/f16/f64 and head_dim 32 instances), then the
-   result line.
+10. The rest of serving, f32 with TF32 off:
+   a. paged-KV decode of the zoo TransformerLM at GPT-2 small's widths
+      (weights as phase 3's, through ``decode_param_arrays()``): slot
+      count 8, pages of 16 tokens, a 512-page pool; one stream of 900 +
+      100 tokens, 16 streams of 16-512 prompt and 32-128 new tokens
+      submitted two steps apart, a 256-token head with 4 different
+      16-token tails (the first fills the prefix cache), then the head
+      whole (a copy-on-write).  Checks: 0 plan builds and 0 captures
+      after ``warmup()``; the tail and whole resubmissions hit 16 prefix
+      pages, the whole one clones one page; 3 streams bit for bit (tokens
+      and logits) their decode alone on a fresh decoder of the same slot
+      count and pool; their logits within 2e-3 of the zoo net's full-
+      sequence forward over the same tokens on the card and on the host;
+      the same traffic through a graph decoder and an eager one bit for
+      bit.  Prints tokens/s, ms per 8-slot step (replay, eager), capture
+      ms, the logits copy to the host apart, the busy share of a profiled
+      replay, pages high water, prefix hits and clones.
+   b. BASELINE config 4's LSTM LM (vocabulary 10,000, embedding 200, two
+      ``LSTMCell``s of 200, FC 10,000) as one step symbol with four
+      states through ``ContinuousBatcher`` (8 slots, 32 streams of 10-40
+      tokens joining and leaving): 0 plan builds after warmup, 3 streams
+      bit for bit their solo decodes, card vs host atol=rtol=1e-4;
+      steps/s.
+   c. int8 ResNet-50 v2 (1000 classes, 3x224x224, He-normal weights from
+      ``--seed``, trained-like BatchNorm statistics: each layer's batch
+      statistics over a calibration batch; its logits, the graph below
+      ``SoftmaxOutput``) through
+      ``Server(max_batch_size=32).add_model(quantize="int8")``, dynamic
+      and calibrated over 4 batches of 32, beside the f32 model: 0 plan
+      builds after warmup across buckets 1-32; the
+      ``torch._int_mm`` route's int32 accumulators bit for bit the plain
+      version's at every distinct convolution shape and the FC; 2 served
+      rows of each model against the port's int8 on the host (relative
+      L2 within 1e-2); per quantized layer, the op run on the card over
+      the host's own input: int8 activations equal but at exact .5 ties,
+      outputs within 1e-5, and whether the card's own input equals the
+      host's; prints int8 vs f32 (max deviation, relative L2, top-1
+      agreement), ms per bucket of both and images/s.
+   d. ``FleetServer(ctxs=[gpu(0), gpu(0)], max_batch_size=8)`` over that
+      int8 model: bucket costs measured at warmup, 16 concurrent
+      requests of 1-8 rows, every response bit for bit a serverless
+      replay of its dispatch bucket, both replicas dispatched.
+   e. ``save_checkpoint`` -> ``Server.load_model(..., quantize="int8")``
+      with the HTTP front end: one image POSTed under both route
+      spellings equals ``submit`` bit for bit; ``/healthz``, ``/metrics``.
+11. The ``kernels`` JSON line (each kernel's record with its launches on
+   every path, phase 10's five with 0 of each, and its bf16/f16/f64 and
+   head_dim 32 instances), then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is not beside this script.
@@ -3371,6 +3416,750 @@ def bucket_host_check(mx, seed):
                              "host's")
 
 
+# phase 10: the rest of serving.  (a) paged-KV decode of the zoo
+# TransformerLM at GPT-2 small's widths (gpt2s-serve's configuration)
+DECODE_SLOTS = 8
+DECODE_PAGE = 16
+DECODE_PAGES = 512
+DECODE_STREAMS = 16
+DECODE_PROMPT = (16, 512)     # prompt tokens, uniform
+DECODE_NEW = (32, 128)        # new tokens, uniform
+DECODE_LONG = (900, 100)      # one stream near the full context
+DECODE_HEAD, DECODE_TAIL = 256, 16
+DECODE_TAILS = 4              # the head with 4 different tails, then whole
+DECODE_HEAD_NEW = 32
+DECODE_SOLO = 3               # streams held to a solo decode, bit for bit
+DECODE_FWD_TOL = 2e-3         # decode vs the full-sequence forward
+# (b) BASELINE config 4's LSTM LM (bench.py's _bench_lstm widths) as one
+# step symbol of two LSTMCells, through the continuous batcher
+CB_LM = dict(vocab=10000, embed=200, hidden=200)
+CB_SLOTS = 8
+CB_STREAMS = 32               # of 10-40 tokens, joining and leaving
+CB_SOLO = 3
+CB_HOST_TOL = dict(atol=1e-4, rtol=1e-4)
+# (c) int8 ResNet-50 v2 served at batch up to 32; (d) a 2-replica fleet
+INT8_MAX_BATCH = 32
+INT8_CAL_BATCHES = 4
+INT8_HOST_ROWS = 2
+INT8_HOST_REL = 1e-2          # served card logits vs host, relative L2
+INT8_LAYER_TOL = 1e-5         # a quantized op on the host's input, card
+FLEET_MAX_BATCH = 8
+FLEET_REQUESTS = 16           # of 1-8 rows, concurrent
+
+
+def _image_shape():
+    return tuple(int(d) for d in RESNET["image_shape"].split(","))
+
+
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def decode_traffic(dec, rng):
+    """Phase 10a's traffic: the long stream, then DECODE_STREAMS streams
+    submitted two steps apart, drained; then the shared head with
+    DECODE_TAILS tails (the first fills the prefix cache) and the head
+    whole (the copy-on-write case).  Returns (streams by name, steps,
+    appended tokens, clones of the whole-head resubmission)."""
+    vocab = dec.vocab_size
+    streams, steps, appended = {}, 0, 0
+
+    def step():
+        nonlocal steps, appended
+        appended += dec.step()
+        steps += 1
+
+    streams["long"] = dec.submit(rng.integers(0, vocab, DECODE_LONG[0]),
+                                 max_new_tokens=DECODE_LONG[1])
+    for i in range(DECODE_STREAMS):
+        streams["s%d" % i] = dec.submit(
+            rng.integers(0, vocab, int(rng.integers(DECODE_PROMPT[0],
+                                                    DECODE_PROMPT[1] + 1))),
+            max_new_tokens=int(rng.integers(DECODE_NEW[0],
+                                            DECODE_NEW[1] + 1)))
+        step()
+        step()
+    while dec.pending():
+        step()
+    head = rng.integers(0, vocab, DECODE_HEAD)
+    for t in range(DECODE_TAILS):
+        streams["tail%d" % t] = dec.submit(
+            np.concatenate([head, rng.integers(0, vocab, DECODE_TAIL)]),
+            max_new_tokens=DECODE_HEAD_NEW)
+        if t == 0:  # the first fills the prefix cache
+            while dec.pending():
+                step()
+    while dec.pending():
+        step()
+    clones = dec.pool.cow_clones
+    streams["whole"] = dec.submit(head, max_new_tokens=DECODE_HEAD_NEW)
+    while dec.pending():
+        step()
+    return streams, steps, appended, dec.pool.cow_clones - clones
+
+
+def _decoder(mx, params, config, ctx, cuda_graph=True):
+    pool = mx.serving.KVBlockPool(
+        config["num_layers"], config["num_heads"],
+        config["embed_dim"] // config["num_heads"], num_pages=DECODE_PAGES,
+        page_size=DECODE_PAGE, ctx=ctx)
+    dec = mx.serving.PagedTransformerDecoder(
+        params, config, slot_count=DECODE_SLOTS, pool=pool)
+    dec.cuda_graph = dec.cuda_graph and cuda_graph
+    return dec
+
+
+def _solo(mx, params, config, prompt, n_new):
+    dec = _decoder(mx, params, config, mx.gpu(0))
+    try:
+        dec.warmup(verify=False)
+        s = dec.submit(prompt, max_new_tokens=n_new)
+        dec.drain()
+        return s.outputs()
+    finally:
+        dec.close()
+
+
+def _teacher_forced(mx, net, streams, ctx):
+    """Each stream's generated-token logits from one full-sequence
+    forward of the zoo net over prompt + generated tokens (zero-padded to
+    the context; causal, so the padding is never seen)."""
+    seq = GPT2S["seq_len"]
+    tokens = np.zeros((len(streams), seq), np.float32)
+    for i, s in enumerate(streams):
+        hist = s.prompt + s.generated[:-1]
+        tokens[i, :len(hist)] = hist
+    logits = net(mx.nd.array(tokens, ctx=ctx)).asnumpy()
+    return [logits[i, len(s.prompt) - 1:len(s.prompt) - 1
+                   + len(s.generated)] for i, s in enumerate(streams)]
+
+
+def paged_decode(mx, seed):
+    """Phase 10a: paged-KV decode of the zoo TransformerLM at GPT-2
+    small's widths.  Returns the main path's kernel launches."""
+    import torch
+    from mxnet_tpu_torch import executor_cache
+    from mxnet_tpu_torch.models import transformer_lm_symbol
+    from mxnet_tpu_torch.ops import kernels as K
+    from mxnet_tpu_torch.serving import metrics
+
+    arrays = gpt2s_params(transformer_lm_symbol(**GPT2S), seed)
+    net = gluon_net(mx, GPT2S["num_layers"], arrays, mx.gpu(0))
+    params, config = net.decode_param_arrays(), net.config
+    dec = _decoder(mx, params, config, mx.gpu(0))
+    pool = dec.pool
+    print("decode: pool of %d pages x %d tokens, page_bytes %d, %.3f GB; "
+          "slot_count %d, window %d pages"
+          % (pool.num_pages, pool.page_size, pool.page_bytes,
+             pool.page_bytes * (pool.num_pages + 1) / 1e9, dec.slot_count,
+             dec.max_pages))
+    rng = np.random.default_rng(seed + 10)
+    metrics.reset()
+    try:
+        report = dec.warmup()
+        print("decode: warmup %d plan builds, %d capture (%.1f ms)"
+              % (report["traces"], report["captures"],
+                 dec.capture_seconds * 1e3))
+        captures = dec.captures
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        with executor_cache.watch_traces() as w:
+            t0 = time.perf_counter()
+            streams, steps, appended, clones = decode_traffic(dec, rng)
+            wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+        if w.total() or dec.captures != captures:
+            raise AssertionError("decode built %s plans and %d captures "
+                                 "after warmup" % (w.delta(),
+                                                   dec.captures - captures))
+        generated = sum(len(s.generated) for s in streams.values())
+        counters = metrics.snapshot()["counters"]
+        stats = pool.stats()
+        print("decode: %d streams, %d steps in %.2f s: %.1f generated "
+              "tokens/s, %.1f appended tokens/s (%.2f ms a step); pages "
+              "high water %d of %d, prefix hit pages %d, copy-on-write "
+              "clones %d; card %s"
+              % (len(streams), steps, wall, generated / wall,
+                 appended / wall, wall / steps * 1e3,
+                 stats["pages_high_water"], pool.num_pages,
+                 counters.get("serving.decode.prefix_hits", 0),
+                 stats["cow_clones"], card_line()))
+        whole = streams["whole"]
+        if whole.prefix_pages != DECODE_HEAD // DECODE_PAGE or clones != 1:
+            raise AssertionError("the whole-head resubmission hit %d "
+                                 "prefix pages and cloned %d"
+                                 % (whole.prefix_pages, clones))
+        hits = [streams["tail%d" % t].prefix_pages
+                for t in range(1, DECODE_TAILS)]
+        if hits != [DECODE_HEAD // DECODE_PAGE] * (DECODE_TAILS - 1):
+            raise AssertionError("tail resubmissions hit %s pages" % hits)
+        for s in streams.values():
+            toks, logits = s.outputs()
+            if len(toks) != s.max_new_tokens \
+                    or not np.isfinite(logits).all():
+                raise AssertionError("a stream ended short or non-finite")
+        # one full step's time: the replay, the eager step, the logits copy
+        tokens, positions, active, tables = dec._inputs()
+        active[:] = True
+        positions[:] = (2 * np.arange(DECODE_SLOTS) + 1) * dec.max_len \
+            // (2 * DECODE_SLOTS)
+        for i in range(DECODE_SLOTS):
+            tables[i] = (np.arange(dec.max_pages) + i) % pool.num_pages + 1
+        run = lambda: dec._run(tokens, positions, active, tables)  # noqa
+        replay_ms = time_ms(run)
+        eager = _decoder(mx, params, config, mx.gpu(0), cuda_graph=False)
+        try:
+            eager_ms = time_ms(
+                lambda: eager._run(tokens, positions, active, tables))
+        finally:
+            eager.close()
+        logits_dev = run()[1]
+        copy_ms = time_ms(lambda: logits_dev.cpu())
+        print("decode: one 8-slot step: replay %.3f ms, eager %.3f ms; the "
+              "[%d, %d] logits to the host %.3f ms (%.2f MB, pageable)"
+              % (replay_ms, eager_ms, DECODE_SLOTS, dec.vocab_size,
+                 copy_ms, logits_dev.numel() * 4 / 1e6))
+        profile_run(run, "decode: profiled replay")
+        # co-batched == solo at the same slot count and pool geometry
+        checked = [streams[k] for k in ("s0", "s%d" % (DECODE_STREAMS - 1),
+                                        "tail2")][:DECODE_SOLO]
+        for s in checked:
+            toks, logits = _solo(mx, params, config, s.prompt,
+                                 s.max_new_tokens)
+            if toks != s.generated or not np.array_equal(
+                    logits, s.outputs()[1]):
+                raise AssertionError("a co-batched stream differs from its "
+                                     "solo decode")
+        print("decode: %d streams bit for bit their solo decodes (slot "
+              "count %d)" % (len(checked), DECODE_SLOTS))
+    finally:
+        dec.close()
+    # against the full-sequence forward of the zoo net, card and host
+    host_net = gluon_net(mx, GPT2S["num_layers"], arrays, mx.cpu())
+    for where, n in (("card", net), ("host", host_net)):
+        t0 = time.perf_counter()
+        want = _teacher_forced(mx, n, checked,
+                               mx.gpu(0) if where == "card" else mx.cpu())
+        err = max(float(np.abs(s.outputs()[1] - w).max())
+                  for s, w in zip(checked, want))
+        print("decode: logits vs the %s's full-sequence forward (%.1f s): "
+              "max_abs_err %.3g (atol %g)"
+              % (where, time.perf_counter() - t0, err, DECODE_FWD_TOL))
+        if not err <= DECODE_FWD_TOL:
+            raise AssertionError("decode logits disagree with the forward")
+    replay_vs_eager(mx, params, config, seed)
+    return launches
+
+
+def replay_vs_eager(mx, params, config, seed):
+    """The same traffic through a graph decoder and an eager one on the
+    card: every token and logit bit for bit."""
+    outs = []
+    for graph in (True, False):
+        rng = np.random.default_rng(seed + 11)
+        dec = _decoder(mx, params, config, mx.gpu(0), cuda_graph=graph)
+        try:
+            dec.warmup()
+            streams = [dec.submit(rng.integers(0, dec.vocab_size,
+                                               int(rng.integers(16, 80))),
+                                  max_new_tokens=16) for _ in range(10)]
+            dec.drain()
+            streams.append(dec.submit(streams[0].prompt[:32],
+                                      max_new_tokens=8))  # a prefix hit
+            dec.drain()
+            outs.append([s.outputs() for s in streams])
+            steps = dec.iterations
+        finally:
+            dec.close()
+    same = all(a[0] == b[0] and np.array_equal(a[1], b[1])
+               for a, b in zip(*outs))
+    print("decode: graph replay vs eager step over the same %d iterations: "
+          "%s" % (steps, "bit for bit" if same else "DIFFER"))
+    if not same:
+        raise AssertionError("the decode graph replay differs from eager")
+
+
+def lstm_step_symbol(mx):
+    """BASELINE config 4's LSTM LM as one decode step: a token, two
+    LSTMCells with four states, the vocabulary projection."""
+    data = mx.sym.Embedding(mx.sym.Variable("data"),
+                            input_dim=CB_LM["vocab"],
+                            output_dim=CB_LM["embed"], name="embed")
+    states = []
+    for i in range(2):
+        cell = mx.rnn.LSTMCell(CB_LM["hidden"], prefix="lstm_l%d_" % i)
+        data, (h, c) = cell(data, [mx.sym.Variable("l%d_h" % i),
+                                   mx.sym.Variable("l%d_c" % i)])
+        states += [h, c]
+    logits = mx.sym.FullyConnected(data, num_hidden=CB_LM["vocab"],
+                                   name="pred")
+    return mx.sym.Group([logits] + states)
+
+
+def continuous_lstm(mx, seed):
+    """Phase 10b: the LSTM LM's decode through the continuous batcher.
+    Returns the main path's kernel launches."""
+    from mxnet_tpu_torch import executor_cache
+    from mxnet_tpu_torch.ops import kernels as K
+    step = lstm_step_symbol(mx)
+    names = ["l0_h", "l0_c", "l1_h", "l1_c"]
+    shapes, _, _ = step.infer_shape(data=(1,), **{
+        n: (1, CB_LM["hidden"]) for n in names})
+    rng = np.random.default_rng(seed + 20)
+    params = {n: rng.uniform(-0.1, 0.1, s).astype(np.float32)
+              for n, s in zip(step.list_arguments(), shapes)
+              if n != "data" and n not in names}
+    seqs = [rng.integers(0, CB_LM["vocab"], int(rng.integers(10, 41)))
+            .astype(np.float32) for _ in range(CB_STREAMS)]
+
+    def batcher(ctx):
+        return mx.serving.ContinuousBatcher(
+            step, params, input_shapes={"data": ()},
+            state_shapes={n: (CB_LM["hidden"],) for n in names},
+            state_pairs=[(n, i + 1) for i, n in enumerate(names)],
+            slot_count=CB_SLOTS, ctx=ctx)
+
+    cb = batcher(mx.gpu(0))
+    cb.warmup()
+    K.reset_launch_counts()
+    with executor_cache.watch_traces() as w:
+        t0 = time.perf_counter()
+        streams = [cb.submit({"data": s}) for s in seqs[:CB_SLOTS]]
+        for s in seqs[CB_SLOTS:]:
+            cb.step()
+            cb.step()
+            streams.append(cb.submit({"data": s}))
+        cb.drain()
+        wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    cb.close()
+    if w.total():
+        raise AssertionError("the continuous batcher built %s plans after "
+                             "warmup" % w.delta())
+    tokens = sum(len(s) for s in seqs)
+    print("continuous: %d streams of %d-%d tokens through %d slots: %d "
+          "steps in %.2f s, %.1f steps/s, %.1f tokens/s; card %s"
+          % (CB_STREAMS, min(map(len, seqs)), max(map(len, seqs)),
+             CB_SLOTS, cb.iterations, wall, cb.iterations / wall,
+             tokens / wall, card_line()))
+    for i in range(CB_SOLO):
+        solo = batcher(mx.gpu(0))
+        solo.warmup()
+        s = solo.submit({"data": seqs[i]})
+        solo.drain()
+        if not np.array_equal(s.outputs()[0], streams[i].outputs()[0]):
+            raise AssertionError("a co-batched LSTM stream differs from its "
+                                 "solo decode")
+    host = batcher(mx.cpu())
+    host.warmup()
+    hs = [host.submit({"data": s}) for s in seqs[:CB_SOLO]]
+    host.drain()
+    err = max(float(np.abs(a.outputs()[0] - b.outputs()[0]).max())
+              for a, b in zip(streams, hs))
+    ok = all(np.allclose(a.outputs()[0], b.outputs()[0], **CB_HOST_TOL)
+             for a, b in zip(streams, hs))
+    print("continuous: %d streams bit for bit their solo decodes; card vs "
+          "host max_abs_err %.3g (atol=rtol=%g) %s"
+          % (CB_SOLO, err, CB_HOST_TOL["atol"], "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("continuous decode: card disagrees with host")
+    return launches
+
+
+def resnet_serving_params(mx, symbol, seed):
+    """Seeded weights (numpy): He-normal convolutions, N(0, 0.01) for the
+    classifier, unit BatchNorm gains, zero shifts; moving statistics 0
+    and 1 (:func:`settle_bn` makes them the data's)."""
+    arg_shapes, _, aux_shapes = symbol.infer_shape(
+        data=(1,) + _image_shape())
+    rng = np.random.default_rng(seed)
+    args, auxs = {}, {}
+    for name, shape in zip(symbol.list_arguments(), arg_shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        if name.endswith("_gamma"):
+            args[name] = np.ones(shape, np.float32)
+        elif name.endswith(("_beta", "_bias")):
+            args[name] = np.zeros(shape, np.float32)
+        elif len(shape) == 4:
+            fan_in = shape[1] * shape[2] * shape[3]
+            args[name] = (rng.standard_normal(shape, np.float32)
+                          * np.float32(np.sqrt(2.0 / fan_in)))
+        else:
+            args[name] = rng.standard_normal(shape, np.float32) * 0.01
+    for name, shape in zip(symbol.list_auxiliary_states(), aux_shapes):
+        auxs[name] = (np.ones if name.endswith("_var") else np.zeros)(
+            shape, np.float32)
+    return args, auxs
+
+
+def settle_bn(mx, symbol, args, auxs, batch):
+    """Trained-like BatchNorm statistics: every moving mean and variance
+    set to its layer's batch statistics over ``batch`` in one training
+    forward with momentum 0, so inference normalizes each layer's input
+    as training would (numpy in, numpy out; on the card)."""
+    graph = json.loads(symbol.tojson())
+    for node in graph["nodes"]:
+        if node["op"] == "BatchNorm":
+            node["attrs"]["momentum"] = "0.0"
+    net = mx.sym.load_json(json.dumps(graph))
+    exe = net.simple_bind(mx.gpu(0), grad_req="null", data=batch.shape)
+    exe.copy_params_from(
+        {k: mx.nd.array(v, ctx=mx.gpu(0)) for k, v in args.items()},
+        {k: mx.nd.array(v, ctx=mx.gpu(0)) for k, v in auxs.items()})
+    exe.forward(is_train=True, data=batch)
+    return {k: exe.aux_dict[k].asnumpy() for k in auxs}
+
+
+def int8_layer_witness(mx, symbol, args, auxs, calibration, x):
+    """Per quantized layer, card against host at INT8_HOST_ROWS rows:
+    (a) whether the card's own input to the layer equals the host's, and
+    (b) the witness: the layer's op run on the card over the HOST's input,
+    its int8 activations and output held to the host's.  An activation
+    may differ only where the host's x/scale is an exact .5 tie; the
+    outputs of rows without such a flip agree within INT8_LAYER_TOL."""
+    import torch
+    from mxnet_tpu_torch.ops import quantize as Q
+    from mxnet_tpu_torch.ops.registry import get_op
+    qsym, qargs, qauxs = Q.quantize_symbol(symbol, args, auxs,
+                                           calibration=calibration)
+    qnodes = [n for n in qsym._topo() if not n.is_var
+              and n.op_name.startswith("_contrib_quantized")]
+    names = {n.name + s for n in qnodes for s in ("_data", "_output")}
+    seen = {}
+    exes = {}
+    for where, ctx in (("host", mx.cpu()), ("card", mx.gpu(0))):
+        exe = qsym.simple_bind(ctx, grad_req="null", data=x.shape)
+        exe.copy_params_from(qargs, qauxs, allow_extra_params=True)
+        taps = seen.setdefault(where, {})
+
+        def keep(name, arr, taps=taps):
+            if name in names:
+                taps[name] = arr.tensor.clone()
+        exe.set_monitor_callback(keep, monitor_all=True)
+        exe.forward(is_train=False, data=x)
+        exe.set_monitor_callback(None)
+        exes[where] = exe
+    card = exes["card"]
+    dev = mx.gpu(0).torch_device()
+    same_inputs, first_diff, ties, err = 0, None, 0, 0.0
+    for node in qnodes:
+        x_host = seen["host"][node.name + "_data"]
+        x_card = seen["card"][node.name + "_data"]
+        if torch.equal(x_card.cpu(), x_host):
+            same_inputs += 1
+        elif first_diff is None:
+            first_diff = (node.name, float(
+                (x_card.cpu() - x_host).abs().max()))
+        op = get_op(node.op_name)
+        attrs = op.normalize_attrs(node.attrs, len(node.inputs))
+        rest = [card.arg_dict[src.name].tensor for src, _ in node.inputs[1:]]
+        with torch.inference_mode():
+            y = op.impl(x_host.to(dev), *rest, **attrs).cpu()
+            data = x_host.reshape(x_host.shape[0], -1) \
+                if node.op_name == "_contrib_quantized_fc" else x_host
+            q_host, s_host = Q.quantize_act(data, attrs["act_scale"])
+            q_card, _ = Q.quantize_act(data.to(dev), attrs["act_scale"])
+        flip = q_card.cpu() != q_host
+        frac = torch.abs(data / s_host) % 1.0
+        if bool((flip & (frac != 0.5)).any()):
+            raise AssertionError("int8 activations of %s differ from the "
+                                 "host's away from a .5 tie" % node.name)
+        ties += int(flip.sum())
+        rows = ~flip.reshape(flip.shape[0], -1).any(1)
+        want = seen["host"][node.name + "_output"]
+        err = max(err, float((y[rows] - want[rows]).abs().max())
+                  if bool(rows.any()) else 0.0)
+        if not torch.allclose(y[rows], want[rows], atol=INT8_LAYER_TOL,
+                              rtol=INT8_LAYER_TOL):
+            raise AssertionError("%s on the card over the host's input "
+                                 "disagrees with the host" % node.name)
+    print("int8: %s per-layer witness, %d quantized layers at %d rows: on "
+          "the host's input the card's int8 activations flip at %d exact "
+          ".5 ties and none elsewhere, outputs max_abs_err %.3g (tol %g); "
+          "the card's own input equals the host's at %d of %d layers%s"
+          % ("calibrated" if calibration else "dynamic", len(qnodes),
+             x.shape[0], ties, err, INT8_LAYER_TOL, same_inputs,
+             len(qnodes), "" if first_diff is None else
+             " (first difference at %s, max abs %.3g)" % first_diff))
+
+
+def int8_accumulators_check(mx, qsym, seed):
+    """Every distinct quantized convolution of the served graph and its
+    FC at bucket INT8_MAX_BATCH: the cuBLAS route's int32 accumulators
+    against the plain version's on the same (random, full-range) int8
+    operands."""
+    import torch
+    from mxnet_tpu_torch.base import str_to_attr
+    from mxnet_tpu_torch.ops import quantize as Q
+    shapes, _ = qsym._infer({"data": (INT8_MAX_BATCH,) + _image_shape()},
+                            {})
+    cases = {}
+    for node in qsym._topo():
+        if node.is_var or not node.op_name.startswith("_contrib_quantized"):
+            continue
+        geometry = tuple(str_to_attr(node.attrs[k]) if k in node.attrs
+                         else None for k in ("stride", "pad", "dilate"))
+        key = (node.op_name, shapes[node.inputs[0]],
+               shapes[node.inputs[1]], geometry,
+               int(node.attrs.get("num_group", 1)))
+        cases.setdefault(key, node.name)
+    dev = mx.gpu(0).torch_device()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    counts = {"_contrib_quantized_conv": 0, "_contrib_quantized_fc": 0}
+    for (op, dshape, wshape, geometry, groups), name in cases.items():
+        x = torch.randint(-127, 128, dshape, generator=g, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, wshape, generator=g, device=dev,
+                          dtype=torch.int8)
+        if op == "_contrib_quantized_fc":
+            x = x.reshape(dshape[0], -1)
+            got, want = Q.int8_matmul(x, w), Q.plain_int8_matmul(x, w)
+        else:
+            got = Q.int8_conv(x, w, *geometry, groups)
+            want = Q.plain_int8_conv(x, w, *geometry, groups)
+        counts[op] += 1
+        if not torch.equal(got, want):
+            raise AssertionError("int8 accumulators of %s (%s) differ from "
+                                 "the plain version" % (name, op))
+    print("int8: the _int_mm route's int32 accumulators bit for bit the "
+          "plain version's at %d distinct convolution shapes and %d FC, "
+          "batch %d" % (counts["_contrib_quantized_conv"],
+                        counts["_contrib_quantized_fc"], INT8_MAX_BATCH))
+
+
+def int8_serve(mx, seed):
+    """Phase 10c: int8 ResNet-50 v2 through ``Server.add_model(quantize=
+    "int8")``, dynamic and calibrated.  Returns (main path launches,
+    symbol, args, auxs)."""
+    import torch
+    from mxnet_tpu_torch import executor_cache
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import kernels as K
+    from mxnet_tpu_torch.ops import quantize as Q
+
+    # the logits: the graph below SoftmaxOutput (whose probabilities
+    # saturate at these random weights)
+    symbol = resnet.get_symbol(**RESNET).get_children()[0]
+    args_np, auxs_np = resnet_serving_params(mx, symbol, seed + 30)
+    rng = np.random.default_rng(seed + 31)
+    feat = _image_shape()
+    images = rng.standard_normal((INT8_MAX_BATCH,) + feat, np.float32)
+    cal = [{"data": rng.standard_normal((INT8_MAX_BATCH,) + feat,
+                                        np.float32)}
+           for _ in range(INT8_CAL_BATCHES)]
+    auxs_np = settle_bn(mx, symbol, args_np, auxs_np, cal[0]["data"])
+    args, auxs = (mx.convert.params_from_numpy(d, mx.cpu())[0]
+                  for d in (args_np, auxs_np))
+    t0 = time.perf_counter()
+    table = Q.calibrate(symbol, args, auxs,
+                        {"data": (INT8_MAX_BATCH,) + feat}, cal)
+    print("int8: calibrated %d layers over %d batches of %d in %.2f s"
+          % (len(table), INT8_CAL_BATCHES, INT8_MAX_BATCH,
+             time.perf_counter() - t0))
+    server = mx.serving.Server(max_batch_size=INT8_MAX_BATCH)
+    K.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        server.add_model("r50q8", symbol, args, auxs,
+                         input_shapes={"data": feat}, quantize="int8")
+        server.add_model("r50q8cal", symbol, args, auxs,
+                         input_shapes={"data": feat}, quantize="int8",
+                         calibration=table)
+        server.add_model("r50f32", symbol, args, auxs,
+                         input_shapes={"data": feat})
+        report = server.warmup()
+        print("int8: add_model x3 + warmup %.1f s, buckets %s, verify pass "
+              "plan builds %s" % (time.perf_counter() - t0,
+                                  report["r50q8"]["buckets"],
+                                  {k: v["traces_verify_pass"]
+                                   for k, v in report.items()}))
+        rows = [1, 3, 8, 16, 32, 5]
+        with executor_cache.watch_traces() as w:
+            t0 = time.perf_counter()
+            futs = {m: [server.submit_async(m, {"data": images[:r]})
+                        for r in rows] for m in ("r50q8", "r50q8cal")}
+            outs = {m: [f.result(timeout=600)[0] for f in fs]
+                    for m, fs in futs.items()}
+            wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+        if w.total():
+            raise AssertionError("int8 serving built %s plans after warmup"
+                                 % w.delta())
+        print("int8: served %d images across buckets 1-%d (both models) in "
+              "%.2f s, %.1f images/s; card %s"
+              % (2 * sum(rows), INT8_MAX_BATCH, wall, 2 * sum(rows) / wall,
+                 card_line()))
+        per_bucket = []
+        for b in server.registry.get("r50q8").buckets:
+            x = images[:b]
+            per_bucket.append((b,) + tuple(
+                time_ms(lambda p=server.registry.get(m).predictor_for(b):
+                        p.forward(data=x), reps=5, warmup=1)
+                for m in ("r50q8", "r50f32")))
+        print("int8: ms per bucket forward, int8 / f32 (CUDA events, "
+              "input upload included): %s; bucket %d int8 %.1f images/s, "
+              "f32 %.1f" % ("; ".join("%d: %.2f / %.2f" % t
+                                      for t in per_bucket),
+                            INT8_MAX_BATCH,
+                            INT8_MAX_BATCH / per_bucket[-1][1] * 1e3,
+                            INT8_MAX_BATCH / per_bucket[-1][2] * 1e3))
+        f32 = server.submit("r50f32", {"data": images})[0]
+        for m in ("r50q8", "r50q8cal"):
+            q8 = server.submit(m, {"data": images})[0]
+            print("int8: %s vs the f32 model on the card: max deviation "
+                  "%.4g, relative L2 %.4g, top-1 agreement %.4f"
+                  % (m, float(np.abs(q8 - f32).max()), _rel_l2(q8, f32),
+                     float(np.mean(q8.argmax(1) == f32.argmax(1)))))
+    finally:
+        server.close()
+    qsym, _, _ = Q.quantize_symbol(symbol, args, auxs)
+    int8_accumulators_check(mx, qsym, seed)
+    blob = dict({"arg:" + k: v for k, v in args.items()},
+                **{"aux:" + k: v for k, v in auxs.items()})
+    x = images[:INT8_HOST_ROWS]
+    for name, cal in (("r50q8", None), ("r50q8cal", table)):
+        host = mx.Predictor(symbol.tojson(), blob,
+                            {"data": (INT8_HOST_ROWS,) + feat},
+                            ctx=mx.cpu(), quantize="int8", calibration=cal)
+        t0 = time.perf_counter()
+        host.forward(data=x)
+        want = host.get_output(0).asnumpy()
+        got = outs[name][1][:INT8_HOST_ROWS]
+        print("int8: %s, %d served rows vs the port's int8 on the host "
+              "(%.1f s): relative L2 %.4g (limit %g), max abs %.4g; the "
+              "same rows int8 vs f32 on the card: relative L2 %.4g"
+              % (name, INT8_HOST_ROWS, time.perf_counter() - t0,
+                 _rel_l2(got, want), INT8_HOST_REL,
+                 float(np.abs(got - want).max()),
+                 _rel_l2(got, f32[:INT8_HOST_ROWS])))
+        int8_layer_witness(mx, symbol, args, auxs, cal, x)
+        if not _rel_l2(got, want) <= INT8_HOST_REL:
+            raise AssertionError("int8 logits: card disagrees with host")
+    return launches, symbol, args, auxs
+
+
+def int8_fleet(mx, symbol, args, auxs, seed):
+    """Phase 10d: the int8 model behind a 2-replica fleet on the card.
+    Returns the main path's kernel launches."""
+    from mxnet_tpu_torch.ops import kernels as K
+    feat = _image_shape()
+    rng = np.random.default_rng(seed + 40)
+    fleet = mx.serving.FleetServer(ctxs=[mx.gpu(0), mx.gpu(0)],
+                                   max_batch_size=FLEET_MAX_BATCH)
+    try:
+        fleet.add_model("r50q8", symbol, args, auxs,
+                        input_shapes={"data": feat}, quantize="int8")
+        report = fleet.warmup()
+        costs = [report["r50q8"]["per_replica"][r.index]["bucket_cost_ms"]
+                 for r in fleet.group.replicas]
+        for r in fleet.group.replicas:
+            for b in fleet.registry.get("r50q8").buckets:
+                if not r.bucket_cost_ms.get(("r50q8", b), 0.0) > 0.0:
+                    raise AssertionError("replica %d bucket %d cost not "
+                                         "measured" % (r.index, b))
+        print("fleet: bucket costs measured at warmup (ms): %s" % costs)
+        payloads = [rng.standard_normal(
+            (int(rng.integers(1, FLEET_MAX_BATCH + 1)),) + feat, np.float32)
+                    for _ in range(FLEET_REQUESTS)]
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        futs = [fleet.submit_async("r50q8", {"data": p}) for p in payloads]
+        outs = [f.result(timeout=600)[0] for f in futs]
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+        stats = fleet.group.stats()
+    finally:
+        fleet.close()
+    if not all(s["dispatches"] > 0 for s in stats):
+        raise AssertionError("a replica was never dispatched: %s" % stats)
+    blob = dict({"arg:" + k: v for k, v in args.items()},
+                **{"aux:" + k: v for k, v in auxs.items()})
+    oracles = {}
+    for p, f, o in zip(payloads, futs, outs):
+        b = f.request.dispatch_bucket
+        if b not in oracles:
+            oracles[b] = mx.Predictor(symbol.tojson(), blob,
+                                      {"data": (b,) + feat},
+                                      quantize="int8")
+        solo = np.zeros((b,) + feat, np.float32)
+        solo[:len(p)] = p
+        oracles[b].forward(data=solo)
+        if not np.array_equal(o, oracles[b].get_output(0).asnumpy()[
+                :len(p)]):
+            raise AssertionError("a fleet response differs from the "
+                                 "serverless replay of its bucket")
+    print("fleet: %d requests (%d images) in %.2f s over 2 replicas "
+          "(dispatches %s), every response bit for bit a serverless replay "
+          "of its dispatch bucket; card %s"
+          % (len(payloads), sum(len(p) for p in payloads), wall,
+             [s["dispatches"] for s in stats], card_line()))
+    return launches
+
+
+def http_checkpoint(mx, symbol, args, auxs, seed):
+    """Phase 10e: a checkpoint written by ``save_checkpoint``, served by
+    ``load_model`` over the loopback HTTP front end.  Returns the main
+    path's kernel launches."""
+    import tempfile
+    from urllib import request as urlreq
+    from mxnet_tpu_torch.ops import kernels as K
+    from mxnet_tpu_torch.serving import metrics
+    feat = _image_shape()
+    image = np.random.default_rng(seed + 50).standard_normal(
+        (1,) + feat, np.float32)
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        prefix = os.path.join(tmp, "r50")
+        mx.model.save_checkpoint(prefix, 1, symbol, args, auxs)
+        server = mx.serving.Server(max_batch_size=1, serve_http=True)
+        metrics.reset()
+        K.reset_launch_counts()
+        try:
+            server.load_model("r50", prefix, 1, {"data": feat},
+                              quantize="int8")
+            server.warmup()
+            base = "http://%s:%d" % server.http_address
+            want = server.submit("r50", {"data": image})[0]
+            body = json.dumps({"inputs": {"data": image.tolist()}}).encode()
+            for route in ("/v1/models/r50:predict", "/predict/r50"):
+                req = urlreq.Request(base + route, data=body, headers={
+                    "Content-Type": "application/json"})
+                with urlreq.urlopen(req, timeout=120) as r:
+                    got = np.asarray(json.loads(r.read())["outputs"][0],
+                                     np.float32)
+                if not np.array_equal(got, want):
+                    raise AssertionError("HTTP %s differs from submit"
+                                         % route)
+            with urlreq.urlopen(base + "/healthz", timeout=30) as r:
+                health = json.loads(r.read())
+            with urlreq.urlopen(base + "/metrics", timeout=30) as r:
+                prom = r.read().decode()
+            launches = K.launch_counts()
+        finally:
+            server.close()
+    if health["models"] != ["r50"] \
+            or "serving_requests_total 3" not in prom:
+        raise AssertionError("healthz/metrics: %s / %r"
+                             % (health, prom[:200]))
+    print("http: load_model of a save_checkpoint checkpoint; POST under "
+          "both routes equals submit bit for bit; /healthz %s; /metrics "
+          "%d lines" % (health, len(prom.splitlines())))
+    return launches
+
+
+def serve_rest(mx, seed):
+    """Phase 10: the rest of serving.  Returns {path: launches}."""
+    clock = time.perf_counter()
+    paths = {"paged_decode": paged_decode(mx, seed)}
+    paths["continuous_lstm"] = continuous_lstm(mx, seed)
+    paths["int8_serve"], symbol, args, auxs = int8_serve(mx, seed)
+    paths["int8_fleet"] = int8_fleet(mx, symbol, args, auxs, seed)
+    paths["http_checkpoint"] = http_checkpoint(mx, symbol, args, auxs, seed)
+    print("phase 10 parts done in %.1f s" % (time.perf_counter() - clock))
+    return paths
+
+
 def ptxas_entries(text):
     """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
     per compiled entry of an ``nvcc -Xptxas=-v`` report.  The kernel is
@@ -3463,6 +4252,8 @@ def main():
     lap("8 (bf16 fused Module training)")
     paths["module_bucketing"] = train_bucketing(mx, args.seed)
     lap("9 (bucketed LSTM LM through BucketingModule)")
+    paths.update(serve_rest(mx, args.seed))
+    lap("10 (paged decode, continuous batching, int8, fleet, HTTP)")
     # "launches": the path each kernel serves in this script (the serving
     # forward, the LM's training, and this slice's bf16 fused training)
     main_path = {"flash_attn_fwd": "serve", "flash_attn_fwd_lse": "gluon_lm",

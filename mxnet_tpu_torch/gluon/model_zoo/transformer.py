@@ -11,6 +11,8 @@ learned absolute positions, exact-GELU FFN, untied output head.
 """
 from __future__ import annotations
 
+import numpy as np
+
 from ..block import HybridBlock
 from ..nn import Dense, Embedding, LayerNorm
 
@@ -96,6 +98,34 @@ class TransformerLM(HybridBlock):
     @property
     def config(self):
         return dict(self._cfg)
+
+    def decode_param_arrays(self):
+        """The canonical f32 numpy parameter dict of the paged-KV decoder
+        (``serving/decode.py``): ``embed``/``pos``, per layer
+        ``l{i}.{ln1_g,ln1_b,wq,bq,wk,bk,wv,bv,wo,bo,ln2_g,ln2_b,w1,b1,w2,
+        b2}``, then ``lnf_g/lnf_b/head_w/head_b`` — the JAX package's
+        keys, free of Gluon name prefixes, so either package's decoder
+        takes the dict of either package's model."""
+        def arr(p):
+            return p.data().asnumpy().astype(np.float32)
+
+        out = {"embed": arr(self.embed.weight), "pos": arr(self.pos)}
+        for i, blk in enumerate(self.blocks):
+            pre = "l%d." % i
+            for key, p in (("ln1_g", blk.ln1.gamma), ("ln1_b", blk.ln1.beta),
+                           ("wq", blk.query_weight), ("bq", blk.query_bias),
+                           ("wk", blk.key_weight), ("bk", blk.key_bias),
+                           ("wv", blk.value_weight), ("bv", blk.value_bias),
+                           ("wo", blk.out_weight), ("bo", blk.out_bias),
+                           ("ln2_g", blk.ln2.gamma), ("ln2_b", blk.ln2.beta),
+                           ("w1", blk.ffn1.weight), ("b1", blk.ffn1.bias),
+                           ("w2", blk.ffn2.weight), ("b2", blk.ffn2.bias)):
+                out[pre + key] = arr(p)
+        out["lnf_g"] = arr(self.lnf.gamma)
+        out["lnf_b"] = arr(self.lnf.beta)
+        out["head_w"] = arr(self.head.weight)
+        out["head_b"] = arr(self.head.bias)
+        return out
 
 
 def transformer_lm(vocab_size, **kwargs):

@@ -6,3 +6,4 @@ from . import attention  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import rnn_op  # noqa: F401
 from . import contrib_ops  # noqa: F401
+from . import quantize  # noqa: F401

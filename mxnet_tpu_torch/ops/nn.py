@@ -441,7 +441,12 @@ def _pool_forward(x, pool_type, kernel, stride, pads, count_include_pad):
     if pool_type == "sum":
         return total
     if count_include_pad:
-        return (total / float(math.prod(kernel))).to(x.dtype)
+        n = float(math.prod(kernel))
+        if total.dtype in (torch.float32, torch.float64):
+            # a device scalar: the card multiplies by the reciprocal of a
+            # host scalar, which is not the host's (IEEE) division
+            n = torch.full((), n, dtype=total.dtype, device=total.device)
+        return (total / n).to(x.dtype)
     cnt = _pool_window_counts(tuple(x.shape[2:]), kernel, stride, pads,
                               tuple(total.shape[2:]), x.device)
     return (total / cnt).to(x.dtype)
@@ -614,6 +619,16 @@ def _bn_train_plain(x, g, b, ax, eps):
     return _bn_affine(x, g, b, mean, inv, bshape), mean, var
 
 
+def _inv_std(var, eps):
+    """Inference BatchNorm's ``1 / sqrt(var + eps)`` in f32, rounded the
+    same on every device.  int8 serving rounds what BatchNorm feeds it,
+    so one ulp here flips int8 steps between card and host.  The card's
+    ``torch.rsqrt`` is within 2 ulp, and the host's f32 ``torch.sqrt``
+    misrounds some values; the f64 square root rounded to f32 is the
+    correctly rounded f32 one, and the reciprocal an IEEE division."""
+    return torch.sqrt((var + eps).double()).float().reciprocal()
+
+
 def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                 momentum=0.9, fix_gamma=True, use_global_stats=False,
                 output_mean_var=False, axis=1, cudnn_off=False, _train=False):
@@ -634,7 +649,7 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     else:
         mean, var = moving_mean.float(), moving_var.float()
         new_mm, new_mv = moving_mean, moving_var
-        inv = torch.rsqrt(var + eps)
+        inv = _inv_std(var, eps)
         out = (data.float() - mean.reshape(bshape)) * inv.reshape(bshape)
         out = (out.to(data.dtype) * g.reshape(bshape)
                + beta.reshape(bshape)).to(data.dtype)

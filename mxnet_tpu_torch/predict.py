@@ -3,7 +3,8 @@ SetInput, Forward, GetOutput).
 
 Counterpart of ``mxnet_tpu/predict.py``: a symbol JSON plus parameters,
 bound forward-only on one device (by default the current context,
-``gpu(0)``).  The int8 ``quantize`` path waits for its own slice."""
+``gpu(0)``); ``quantize="int8"`` rewrites the graph onto the int8 ops of
+``ops/quantize.py`` before binding."""
 from __future__ import annotations
 
 import numpy as np
@@ -18,10 +19,12 @@ class Predictor:
     """MXPredCreate equivalent: (symbol_json, params) -> forward machine.
 
     ``params`` is a {"arg:name"/"aux:name" or bare name: NDArray} dict,
-    the raw bytes of a ``.params`` file, or its path."""
+    the raw bytes of a ``.params`` file, or its path.  ``quantize="int8"``
+    serves the int8 rewrite of the graph (per-channel weight scales;
+    ``calibration`` pins activation ranges, else they are dynamic)."""
 
     def __init__(self, symbol_json, param_bytes_or_file, input_shapes,
-                 ctx=None):
+                 ctx=None, quantize=None, calibration=None):
         if isinstance(symbol_json, str) \
                 and symbol_json.lstrip().startswith("{"):
             self._symbol = sym_load_json(symbol_json)
@@ -40,6 +43,12 @@ class Predictor:
                       if k.startswith("aux:")}
         if not arg_params and not aux_params:
             arg_params = params
+        if quantize:
+            from .ops import quantize as _quant
+            self._symbol, arg_params, aux_params = _quant.quantize_symbol(
+                self._symbol, arg_params, aux_params, mode=quantize,
+                calibration=calibration)
+        self._quantize = quantize
         self._ctx = ctx = ctx or current_context()
         shape_kwargs = dict(input_shapes) if isinstance(input_shapes, dict) \
             else {"data": tuple(input_shapes)}
@@ -94,7 +103,8 @@ class Predictor:
         working with its old shapes (the MXPredReshape contract).  Only
         data-like arguments may change shape."""
         new = object.__new__(Predictor)
-        new._symbol = self._symbol
+        new._symbol = self._symbol  # already quantized when this one is
+        new._quantize = self._quantize
         new._ctx = self._ctx
         shape_kwargs = dict(input_shapes)
         weights = {k: v for k, v in self._exe.arg_dict.items()

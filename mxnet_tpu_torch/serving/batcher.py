@@ -72,14 +72,19 @@ def split_results(batch, outs, bucket):
         metrics.record_request_done(r)
 
 
-def run_group(model, batch, rows):
+def run_group(model, batch, rows, replica=None):
     """Run one same-model group: bucket, pad, dispatch, record, split.
-    Raises on failure; the caller owns the failure policy."""
+    Raises on failure; the caller owns the failure policy (the batcher
+    fails the futures, a fleet ``Replica`` also quarantines itself).
+    ``replica`` tags the per-replica counters."""
     bucket = bucket_for(rows, model.buckets)
     padded = assemble_padded(model, batch, bucket)
     t0 = time.monotonic()
     outs = model.run_batch(bucket, padded)
-    metrics.record_dispatch_ms((time.monotonic() - t0) * 1e3)
+    ms = (time.monotonic() - t0) * 1e3
+    metrics.record_dispatch_ms(ms)
+    if replica is not None:
+        metrics.record_replica_dispatch(replica, model.name, rows, ms)
     metrics.record_batch(model.name, bucket, rows)
     split_results(batch, outs, bucket)
     return bucket

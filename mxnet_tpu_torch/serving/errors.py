@@ -3,8 +3,8 @@
 Counterpart of ``mxnet_tpu/serving/errors.py``.  Every way the service can
 refuse work is a distinct exception class with a stable ``reason`` slug,
 shared by the raised exception and the ``serving.rejected_total.<reason>``
-counter (``metrics.py``); ``http_status`` is kept for the HTTP front end
-that a later slice ports.
+counter (``metrics.py``) and the status the HTTP front end
+(``server.py``) answers with (``http_status``).
 """
 from __future__ import annotations
 
@@ -55,6 +55,15 @@ class ModelNotFound(ServingError):
 
     reason = "model_not_found"
     http_status = 404
+
+
+class NoHealthyReplica(ServingError):
+    """Every replica in the fleet group is quarantined: the batch had
+    nowhere to run.  Distinct from ``Overloaded`` (healthy but full), so
+    operators can tell capacity exhaustion from fleet death."""
+
+    reason = "no_healthy_replica"
+    http_status = 503
 
 
 class BadRequest(ServingError):

@@ -6,16 +6,21 @@ Predictor`, one predictor per batch-size bucket, all sharing the base
 predictor's weight arrays (``Predictor.reshaped``).  After
 :meth:`ServedModel.warmup` each bucket's plan sits in the executor cache,
 so steady-state dispatches build nothing (``executor_cache.watch_traces``).
-Bucket staging by the autotuner and the persistent-cache ``prewarm`` wait
-for their slices.
+``quantize="int8"`` (default: ``MXNET_TPU_QUANTIZE``) serves the int8
+rewrite of the graph, done once in the base predictor and shared by every
+bucket.  Bucket staging by the autotuner and the persistent-cache
+``prewarm`` wait for their slices.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from .. import executor_cache
 from .. import threads as _threads
 from ..predict import Predictor
+from . import metrics
 from .errors import ModelNotFound, RequestTooLarge
 
 
@@ -48,11 +53,27 @@ class ServedModel:
     weights, plus the metadata the batcher needs."""
 
     def __init__(self, name, symbol, arg_params, aux_params, input_shapes,
-                 max_batch_size=8, ctx=None):
+                 max_batch_size=8, ctx=None, quantize=None,
+                 calibration=None, slo_ms=None):
         self.name = name
         self.symbol = symbol
         self.buckets = bucket_sizes(max_batch_size)
         self.max_batch_size = max_batch_size
+        # the declared p99 latency target (ms); None = none declared, the
+        # env default covering fleets whose deploy config owns the number
+        if slo_ms is None:
+            env = os.environ.get("MXNET_TPU_SERVING_SLO_MS", "").strip()
+            try:
+                slo_ms = float(env) if env else None
+            except ValueError:
+                slo_ms = None
+        self.slo_ms = float(slo_ms) if slo_ms else None
+        if self.slo_ms:
+            metrics.record_slo(name, self.slo_ms)
+        if quantize is None:
+            env = os.environ.get("MXNET_TPU_QUANTIZE", "").strip().lower()
+            quantize = env if env not in ("", "0", "off", "none") else None
+        self.quantize = quantize
         # feature shapes EXCLUDE the batch dim: {"data": (8,)} serves
         # requests shaped (rows, 8)
         self.input_shapes = {k: tuple(int(d) for d in v)
@@ -61,7 +82,8 @@ class ServedModel:
         params.update({"aux:%s" % k: v
                        for k, v in (aux_params or {}).items()})
         self._base = Predictor(symbol.tojson(), params,
-                               self._bind_shapes(self.buckets[0]), ctx=ctx)
+                               self._bind_shapes(self.buckets[0]), ctx=ctx,
+                               quantize=quantize, calibration=calibration)
         self.output_names = self._base.output_names
         self._by_bucket = {self.buckets[0]: self._base}
         self._lock = _threads.package_lock("ServedModel._lock")
@@ -111,14 +133,27 @@ class ModelRegistry:
         self._lock = _threads.package_lock("ModelRegistry._lock")
 
     def register(self, name, symbol, arg_params, aux_params, input_shapes,
-                 max_batch_size=8, ctx=None):
+                 max_batch_size=8, ctx=None, quantize=None,
+                 calibration=None, slo_ms=None):
         """Register (or replace) ``name``; returns its ServedModel."""
         model = ServedModel(name, symbol, arg_params, aux_params,
                             input_shapes, max_batch_size=max_batch_size,
-                            ctx=ctx)
+                            ctx=ctx, quantize=quantize,
+                            calibration=calibration, slo_ms=slo_ms)
         with self._lock:
             self._models[name] = model
         return model
+
+    def load(self, name, prefix, epoch, input_shapes, max_batch_size=8,
+             ctx=None, quantize=None, calibration=None, slo_ms=None):
+        """Register from ``save_checkpoint`` artifacts (prefix-symbol.json
+        + prefix-%04d.params, written by either package)."""
+        from ..model import load_checkpoint
+        symbol, arg_params, aux_params = load_checkpoint(prefix, epoch)
+        return self.register(name, symbol, arg_params, aux_params,
+                             input_shapes, max_batch_size=max_batch_size,
+                             ctx=ctx, quantize=quantize,
+                             calibration=calibration, slo_ms=slo_ms)
 
     def get(self, name):
         with self._lock:

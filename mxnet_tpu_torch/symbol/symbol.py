@@ -185,6 +185,15 @@ class Symbol:
     def __iter__(self):
         return (self[i] for i in range(len(self._entries)))
 
+    def get_children(self):
+        """The inputs of a single-output symbol's node, grouped (None for
+        a variable or a group)."""
+        if len(self._entries) == 1:
+            node = self._entries[0][0]
+            if node.inputs:
+                return Symbol(list(node.inputs))
+        return None
+
     def _set_attr(self, **kwargs):
         for node, _ in self._entries:
             node.attrs.update({k: str(v) for k, v in kwargs.items()})

@@ -1075,3 +1075,218 @@ def test_bucket_graphs_share_the_parameter_tensors(card):
         assert b.arg_dict[name].tensor.data_ptr() == ptr
         assert any(t.data_ptr() == ptr for t in fa._bound)
         assert any(t.data_ptr() == ptr for t in fb._bound)
+
+
+# -- slice 4: int8 serving, paged decode, continuous batching -----------------
+#
+# The int8 route (``torch._int_mm``, cuBLAS) against the plain version, bit
+# for bit: both are exact integer products.  The decode step's CUDA graph
+# replay against the same step run eagerly, bit for bit; the card against
+# the host within 1e-4 (f32, other kernels).
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 8, 16, 17, 32])
+@pytest.mark.parametrize("k,n", [(147, 64), (2048, 1000), (576, 64)])
+def test_int8_matmul_route_matches_plain(card, rows, k, n):
+    from mxnet_tpu_torch.ops import quantize as Q
+    g = torch.Generator().manual_seed(rows * 7 + k)
+    a = torch.randint(-127, 128, (rows, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    got = Q.int8_matmul(a.to(card), w.to(card))
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got.cpu(), Q.plain_int8_matmul(a, w))
+    assert torch.equal(got, Q.plain_int8_matmul(a.to(card), w.to(card)))
+
+
+@pytest.mark.parametrize("case", [  # N, C, H, W, F, k, stride, pad, groups
+    (1, 3, 224, 224, 64, 7, 2, 3, 1),    # the ResNet stem at bucket 1
+    (2, 64, 56, 56, 64, 3, 1, 1, 1),
+    (3, 256, 14, 14, 512, 1, 2, 0, 1),
+    (2, 8, 9, 9, 12, 3, 2, 1, 4),
+], ids=lambda c: "-".join(map(str, c)))
+def test_int8_conv_route_matches_plain(card, case):
+    from mxnet_tpu_torch.ops import quantize as Q
+    n, c, h, w_, f, k, s, p, grp = case
+    g = torch.Generator().manual_seed(n * c + f)
+    x = torch.randint(-127, 128, (n, c, h, w_), generator=g,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (f, c // grp, k, k), generator=g,
+                      dtype=torch.int8)
+    got = Q.int8_conv(x.to(card), w.to(card), (s, s), (p, p), (1, 1), grp)
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), Q.plain_int8_conv(x, w, (s, s), (p, p),
+                                                    (1, 1), grp))
+
+
+def test_int8_route_raises_rather_than_falls_back(card, monkeypatch):
+    from mxnet_tpu_torch.ops import quantize as Q
+
+    def broken(a, b):
+        raise RuntimeError("no int8 GEMM here")
+
+    monkeypatch.setattr(torch, "_int_mm", broken)
+    a = torch.ones((4, 16), dtype=torch.int8, device=card)
+    with pytest.raises(mx.base.MXNetError, match="_int_mm"):
+        Q.int8_matmul(a, a)
+
+
+# The quantized ops on f32 input, card against host: int8 activations
+# equal except where the host's x/scale is an exact .5 tie, outputs of the
+# rows without such a flip within atol=rtol=1e-5 (both rescale the same
+# exact int32 sums in the same IEEE f32 order).
+
+@pytest.mark.parametrize("case", [  # conv: N, C, H, W, F, k, stride, pad
+    ("conv", 2, 3, 224, 224, 64, 7, 2, 3),   # the ResNet stem
+    ("conv", 2, 64, 56, 56, 64, 3, 1, 1),
+    ("conv", 3, 256, 14, 14, 512, 1, 2, 0),
+    ("fc", 4, 2048, 1000),
+], ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("calibrated", [False, True],
+                         ids=["dynamic", "calibrated"])
+def test_int8_quantized_op_on_the_card_matches_the_host(card, case,
+                                                        calibrated):
+    from mxnet_tpu_torch.ops import quantize as Q
+    r = np.random.RandomState(len(case) + case[2])
+    if case[0] == "conv":
+        _, n, c, h, w_, f, k, s, p = case
+        x = np.maximum(r.normal(0, 1, (n, c, h, w_)), 0).astype(np.float32)
+        wf = r.normal(0, np.sqrt(2.0 / (c * k * k)), (f, c, k, k))
+        attrs = dict(kernel=(k, k), stride=(s, s), pad=(p, p),
+                     num_filter=f)
+        op = Q._quantized_convolution
+    else:
+        _, n, c, f = case
+        x = np.maximum(r.normal(0, 1, (n, c)), 0).astype(np.float32)
+        wf = r.normal(0, 0.01, (f, c))
+        attrs = dict(num_hidden=f)
+        op = Q._quantized_fully_connected
+    wq, scale = Q.quantize_weight(wf.astype(np.float32))
+    bias = r.normal(0, 0.1, (f,)).astype(np.float32)
+    # a calibrated range that clips the top 20%
+    act = float(np.abs(x).max()) * 0.8 / 127 if calibrated else 0.0
+    outs, acts = [], []
+    for dev in (card, torch.device("cpu")):
+        t = [torch.from_numpy(a).to(dev) for a in (x, wq, scale, bias)]
+        with torch.inference_mode():
+            outs.append(op(*t, act_scale=act, **attrs).cpu())
+            acts.append(Q.quantize_act(t[0], act)[0].cpu())
+    x_host = torch.from_numpy(x)
+    _, s_host = Q.quantize_act(x_host, act)
+    flip = acts[0] != acts[1]
+    tie = (torch.abs(x_host / s_host) % 1.0) == 0.5
+    assert not bool((flip & ~tie).any())
+    rows = ~flip.reshape(n, -1).any(1)
+    assert bool(rows.any())
+    np.testing.assert_allclose(outs[0][rows], outs[1][rows], atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_inference_batchnorm_and_avg_pool_on_the_card_equal_the_host(card):
+    # bit for bit: int8 serving rounds what these feed it, so a last-bit
+    # difference between card and host flips int8 steps downstream
+    r = np.random.RandomState(5)
+    x = r.normal(0, 2, (4, 2048, 7, 7)).astype(np.float32)
+    gamma, beta, mean = (r.normal(0, 1, 2048).astype(np.float32)
+                         for _ in range(3))
+    var = r.uniform(1e-3, 5, 2048).astype(np.float32)
+    outs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        a = [mx.nd.array(v, ctx=ctx) for v in (x, gamma, beta, mean, var)]
+        y = mx.nd.BatchNorm(*a, eps=2e-5, fix_gamma=False)
+        pooled = mx.nd.Pooling(y, kernel=(7, 7), pool_type="avg",
+                               global_pool=True)
+        outs.append((y.asnumpy(), pooled.asnumpy()))
+    for got, want in zip(*outs):
+        np.testing.assert_array_equal(got, want)
+
+
+def _decode_parts(seed=0, vocab=97, embed=64, heads=2, layers=2, seq=64):
+    r = np.random.RandomState(seed)
+    p = {"embed": r.normal(0, 0.5, (vocab, embed)),
+         "pos": r.normal(0, 0.1, (seq, embed))}
+    shapes = (("ln1_g", (embed,)), ("ln1_b", (embed,)),
+              ("wq", (embed, embed)), ("bq", (embed,)),
+              ("wk", (embed, embed)), ("bk", (embed,)),
+              ("wv", (embed, embed)), ("bv", (embed,)),
+              ("wo", (embed, embed)), ("bo", (embed,)),
+              ("ln2_g", (embed,)), ("ln2_b", (embed,)),
+              ("w1", (4 * embed, embed)), ("b1", (4 * embed,)),
+              ("w2", (embed, 4 * embed)), ("b2", (embed,)))
+    for l in range(layers):
+        for k, s in shapes:
+            p["l%d.%s" % (l, k)] = (1.0 if k.endswith("_g") else 0.0) \
+                + r.normal(0, 0.15, s)
+    p.update(lnf_g=1 + r.normal(0, 0.1, (embed,)),
+             lnf_b=r.normal(0, 0.1, (embed,)),
+             head_w=r.normal(0, 0.2, (vocab, embed)),
+             head_b=r.normal(0, 0.1, (vocab,)))
+    cfg = dict(vocab_size=vocab, embed_dim=embed, num_heads=heads,
+               num_layers=layers, seq_len=seq, ffn_dim=4 * embed)
+    return {k: v.astype(np.float32) for k, v in p.items()}, cfg
+
+
+def _decode_run(ctx, cuda_graph=True, slots=4):
+    params, cfg = _decode_parts()
+    pool = mx.serving.KVBlockPool(cfg["num_layers"], cfg["num_heads"],
+                                  cfg["embed_dim"] // cfg["num_heads"],
+                                  num_pages=32, page_size=8, ctx=ctx)
+    dec = mx.serving.PagedTransformerDecoder(params, cfg, slot_count=slots,
+                                             pool=pool)
+    dec.cuda_graph = dec.cuda_graph and cuda_graph
+    r = np.random.RandomState(1)
+    try:
+        dec.warmup()
+        streams = [dec.submit(r.randint(0, 97, size=n), max_new_tokens=6)
+                   for n in (3, 11, 20, 16, 5)]
+        dec.step()
+        streams.append(dec.submit(streams[3].prompt, max_new_tokens=4))
+        dec.drain(max_iterations=500)
+        return dec, [s.outputs() for s in streams]
+    finally:
+        dec.close()
+
+
+def test_decode_graph_replay_matches_eager_bit_for_bit(card, no_tf32):
+    dec, got = _decode_run(mx.gpu(0))
+    assert dec.captures == 1 and dec.replays > 0
+    eager, want = _decode_run(mx.gpu(0), cuda_graph=False)
+    assert eager.captures == 0
+    for (gt, gl), (wt, wl) in zip(got, want):
+        assert gt == wt
+        np.testing.assert_array_equal(gl, wl)
+
+
+def test_decode_on_the_card_matches_the_host(card, no_tf32):
+    _, got = _decode_run(mx.gpu(0))
+    _, want = _decode_run(mx.cpu())
+    for (gt, gl), (wt, wl) in zip(got, want):
+        assert gt == wt
+        np.testing.assert_allclose(gl, wl, atol=1e-4, rtol=1e-4)
+
+
+def test_continuous_batcher_on_the_card_matches_the_host(card, no_tf32):
+    data = mx.sym.Variable("data")
+    cell = mx.rnn.LSTMCell(16, prefix="lstm_")
+    out, (nh, nc) = cell(data, [mx.sym.Variable("state_h"),
+                                mx.sym.Variable("state_c")])
+    step = mx.sym.Group([mx.sym.FullyConnected(out, num_hidden=7,
+                                               name="proj"), nh, nc])
+    shapes, _, _ = step.infer_shape(data=(1, 5), state_h=(1, 16),
+                                    state_c=(1, 16))
+    r = np.random.RandomState(2)
+    params = {n: r.normal(0, 0.3, s).astype(np.float32)
+              for n, s in zip(step.list_arguments(), shapes)
+              if n not in ("data", "state_h", "state_c")}
+    seqs = [r.rand(t, 5).astype(np.float32) for t in (6, 3, 9, 4)]
+    outs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        cb = mx.serving.ContinuousBatcher(
+            step, params, input_shapes={"data": (5,)},
+            state_shapes={"state_h": (16,), "state_c": (16,)},
+            state_pairs=[("state_h", 1), ("state_c", 2)], slot_count=3,
+            ctx=ctx)
+        cb.warmup()
+        streams = [cb.submit({"data": s}) for s in seqs]
+        cb.drain(max_iterations=100)
+        outs.append([s.outputs()[0] for s in streams])
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)

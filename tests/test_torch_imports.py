@@ -39,4 +39,8 @@ def test_scan_covers_the_package():
     names = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert "chip_smoke.py" in names
     assert os.path.join("mxnet_tpu_torch", "ops", "kernels.py") in names
+    for module in ("serving/kv_cache.py", "serving/decode.py",
+                   "serving/continuous.py", "serving/router.py",
+                   "ops/quantize.py"):
+        assert os.path.join("mxnet_tpu_torch", *module.split("/")) in names
     assert len(names) > 20
