@@ -45,7 +45,9 @@ CUDA toolkit.  Phases, each of which raises on failure:
    bit), each timed beside its bound and the library call in its dtype;
    and the bf16 instances phase 8's main path launches (``bn_channel_
    sums`` at bn0, the max pool at the stem, the global avg pool), timed
-   the same way.
+   the same way; and ``max_pool_backward`` at LeNet's two 2x2/s2 pools,
+   (64, 20, 24, 24) and (64, 50, 8, 8) (phase 11's path), bit for bit,
+   timed the same way.
 3. Serving: a GPT-2-small-width TransformerLM (vocab 50257, context
    1024, width 768, 12 heads, 12 layers, FFN 3072; random weights from
    ``--seed``) served by ``Server(max_batch_size=4)``: warmup with its
@@ -204,9 +206,34 @@ CUDA toolkit.  Phases, each of which raises on failure:
    e. ``save_checkpoint`` -> ``Server.load_model(..., quantize="int8")``
       with the HTTP front end: one image POSTed under both route
       spellings equals ``submit`` bit for bit; ``/healthz``, ``/metrics``.
-11. The ``kernels`` JSON line (each kernel's record with its launches on
-   every path, phase 10's five with 0 of each, and its bf16/f16/f64 and
-   head_dim 32 instances), then the result line.
+11. BASELINE config 1, f32 with TF32 off:
+   a. MNIST-format idx files written from ``--seed`` (60,000 training and
+      10,000 test 28x28 images, each a class's stroke template shifted,
+      scaled and noised);
+   b. LeNet (``models/lenet.py``) through ``MNISTIter`` ->
+      ``Module(context=gpu(0)).fit`` for one epoch at the example's
+      settings (batch 64, SGD lr 0.05, momentum 0.9, wd 1e-4, Xavier):
+      the fused step (one CUDA graph) carries every batch, 2
+      ``max_pool_backward`` launches a step, equal to a profiled replay's
+      device launches (in a process of its own); ms per step, images/s,
+      train accuracy (at least 0.9, chance 0.1) and the test file's score;
+   c. the MLP (``models/mlp.py``) the same way over ``MNISTIter(flat=
+      True)``;
+   d. LeNet's first 3 steps from the same weights and batches on the card
+      and on the host: outputs within 1e-4 and gradients within 1e-3
+      relative L2;
+   e. ``mx.test_utils.check_consistency`` over [cpu(0), gpu(0)] on LeNet,
+      the MLP and one graph per operator (``==``, ``!=``, ``**``, ``%``)
+      and per op of the 29 fluent methods, within 1e-4;
+   f. each of the 12 symbol zoo builders: one inference forward of its
+      logits at batch 2, at its input size (299 for the inception v3/v4/
+      resnet-v2 builders, 28 for LeNet and the MLP, 224 for the rest),
+      1000 classes, weights and BatchNorm statistics from ``--seed``,
+      timed, against the host within 2e-3 relative L2.
+12. The ``kernels`` JSON line (each kernel's record with its launches on
+   every path, phase 10's five and the MLP's with 0 of each, LeNet's with
+   2 max-pool backwards a step, and its bf16/f16/f64, head_dim 32 and
+   LeNet instances), then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is not beside this script.
@@ -4160,6 +4187,498 @@ def serve_rest(mx, seed):
     return paths
 
 
+# -- phase 11: BASELINE config 1 (LeNet on MNIST through Module), the MLP,
+# check_consistency, the symbol zoo ------------------------------------------
+
+# the settings of examples/image-classification/train_mnist.py:35-36 and
+# common/fit.py:21-27: batch 64, lr 0.05, SGD momentum 0.9, wd 1e-4, the
+# lr down 10x after epoch 10; Xavier (gaussian, in, 2) (fit.py:127).  One
+# epoch here, where the example runs 10.
+MNIST_SIZES = {"train": 60000, "t10k": 10000}
+MNIST_BATCH = 64
+MNIST_EPOCHS = 1
+MNIST_SGD = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+# the data's rule (a class per stroke template, shifted and noised) is
+# one a LeNet learns in an epoch: train accuracy at least this, where
+# chance is 0.1
+MNIST_MIN_TRAIN_ACC = 0.9
+LENET_POOLS = ((64, 20, 24, 24), (64, 50, 8, 8))  # its 2x2/s2 max pools
+LENET_HOST_STEPS = 3
+LENET_OUT_REL = 1e-4   # PERF.md section 2: LMs and RNNs vs host
+LENET_GRAD_REL = 1e-3
+CONSISTENCY_TOL = 1e-4  # check_consistency, card against host, f32
+ZOO_BATCH = 2
+ZOO_REL = 2e-3  # the served-logits limit of PERF.md section 2
+ZOO_INPUTS = {  # builder -> (input shape, builder kwargs), 1000 classes
+    "lenet": ((1, 28, 28), {}),
+    "mlp": ((1, 28, 28), {}),
+    "alexnet": ((3, 224, 224), {}),
+    "vgg": ((3, 224, 224), {"num_layers": 16}),
+    "googlenet": ((3, 224, 224), {}),
+    "inception_bn": ((3, 224, 224), {}),
+    "inception_v3": ((3, 299, 299), {}),
+    "inception_v4": ((3, 299, 299), {}),
+    "inception_resnet_v2": ((3, 299, 299), {}),
+    "resnet_v1": ((3, 224, 224), {"num_layers": 50,
+                                  "image_shape": "3,224,224"}),
+    "resnext": ((3, 224, 224), {"num_layers": 50,
+                                "image_shape": "3,224,224"}),
+    "mobilenet": ((3, 224, 224), {}),
+}
+
+
+def mnist_templates(rng):
+    """Ten 28x28 class templates, each three blurred strokes."""
+    yy, xx = np.mgrid[0:28, 0:28].astype(np.float32)
+    t = np.linspace(0.0, 1.0, 32, dtype=np.float32)[:, None, None]
+    out = np.zeros((10, 28, 28), np.float32)
+    for c in range(10):
+        for _ in range(3):
+            (y0, x0), (y1, x1) = rng.uniform(5, 23, (2, 2))
+            py, px = y0 + (y1 - y0) * t, x0 + (x1 - x0) * t
+            d2 = (yy - py) ** 2 + (xx - px) ** 2
+            out[c] = np.maximum(out[c], np.exp(-d2 / 2.0).max(axis=0))
+    return out
+
+
+def write_mnist(root, seed, sizes=MNIST_SIZES):
+    """11a. MNIST-format idx-ubyte files under ``root``: per split, uint8
+    images of a class's template shifted by up to 2 pixels each way,
+    scaled and noised, and their labels.  Returns the file paths."""
+    import struct
+    rng = np.random.default_rng(seed + 40)
+    templates = mnist_templates(rng)
+    paths = {}
+    for split, n in sizes.items():
+        labels = rng.integers(0, 10, n)
+        shifts = rng.integers(-2, 3, (n, 2))
+        images = np.empty((n, 28, 28), np.float32)
+        for dy in range(-2, 3):
+            for dx in range(-2, 3):
+                rows = np.flatnonzero((shifts[:, 0] == dy)
+                                      & (shifts[:, 1] == dx))
+                images[rows] = np.roll(templates, (dy, dx),
+                                       axis=(1, 2))[labels[rows]]
+        images *= rng.uniform(0.6, 1.0, (n, 1, 1)).astype(np.float32)
+        images += rng.normal(0.0, 0.2, images.shape).astype(np.float32)
+        pixels = (np.clip(images, 0.0, 1.0) * 255).astype(np.uint8)
+        paths[split] = (os.path.join(root, "%s-images-idx3-ubyte" % split),
+                        os.path.join(root, "%s-labels-idx1-ubyte" % split))
+        with open(paths[split][0], "wb") as f:
+            f.write(struct.pack(">IIII", 2051, n, 28, 28))
+            f.write(pixels.tobytes())
+        with open(paths[split][1], "wb") as f:
+            f.write(struct.pack(">II", 2049, n))
+            f.write(labels.astype(np.uint8).tobytes())
+    return paths
+
+
+def mnist_iter(mx, paths, split, flat, seed=0):
+    image, label = paths[split]
+    return mx.io.MNISTIter(image=image, label=label, batch_size=MNIST_BATCH,
+                           shuffle=split == "train", flat=flat, seed=seed)
+
+
+def mnist_optimizer(mx):
+    steps = MNIST_SIZES["train"] // MNIST_BATCH * 10
+    return dict(MNIST_SGD, lr_scheduler=mx.lr_scheduler.MultiFactorScheduler(
+        step=[steps], factor=0.1))
+
+
+def check_lenet_pools(seed):
+    """Phase 2d: ``max_pool_backward`` at LeNet's two 2x2/s2 pools (phase
+    11's main path; post-tanh inputs, f32) against its plain version, bit
+    for bit, timed (one call, 20 back to back, device only) beside its
+    bytes bound (x + dy + dx at the card's memory rate) and the aten
+    backward.  Timed here, early: late in the process torch.profiler
+    loses kernel records.  Returns ([], [(kernel, instance)])."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    aten = torch.ops.aten
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 41)
+    out = []
+    for label, shape in zip(("lenet-pool1", "lenet-pool2"), LENET_POOLS):
+        x = torch.tanh(torch.randn(*shape, generator=gen, device=dev))
+        dy = torch.randn(shape[:2] + (shape[2] // 2, shape[3] // 2),
+                         generator=gen, device=dev)
+        pads = ((0, 0), (0, 0))
+        run = lambda: K.max_pool_backward(x, dy, (2, 2), (2, 2), pads)  # noqa: E731
+        plain = lambda: K._plain_max_pool_backward(  # noqa: E731
+            x, dy, (2, 2), (2, 2), pads)
+        _, idx = aten.max_pool2d_with_indices(x, (2, 2), (2, 2), (0, 0))
+        lib = lambda: aten.max_pool2d_with_indices_backward(  # noqa: E731
+            dy, x, (2, 2), (2, 2), (0, 0), (1, 1), False, idx)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        exact = bool(torch.equal(got, want))
+        print("kernel max_pool_backward %s %s f32 2x2/s2: max_abs_err %.3g "
+              "(bit for bit: %s) %s" % (label, "x".join(map(str, shape)),
+                                        err, exact, "ok" if exact
+                                        else "FAIL"))
+        if not exact:
+            raise AssertionError("max_pool_backward disagrees with its "
+                                 "plain version at %s" % label)
+        ms, plain_ms, lib_ms = time_ms(run), time_ms(plain), time_ms(lib)
+        bound = bytes_bound(_nbytes(x, dy) + x.numel() * x.element_size())
+        _report("kernel max_pool_backward %s" % label, ms, plain_ms, lib_ms,
+                bound)
+        b2b = time_ms_back_to_back(run)
+        print("kernel max_pool_backward %s, 20 calls back to back: %.4f ms a "
+              "call (%.1f%% of the bound), library %.4f ms; device only: "
+              "kernel %s, library %s"
+              % (label, b2b, 100.0 * bound[0] / b2b,
+                 time_ms_back_to_back(lib),
+                 _device_text(device_ms_per_call(run)),
+                 _device_text(device_ms_per_call(lib))))
+        out.append(("max_pool_backward",
+                    _instance(label, err, ms, plain_ms, bound, lib_ms)))
+    return [], out
+
+
+def fit_mnist(mx, seed, paths, symbol, flat, tag):
+    """11b/c. ``MNISTIter`` -> ``Module(context=gpu(0)).fit`` for an epoch
+    at the example's settings; the checks and numbers of the fit.
+    Returns (module, the fit's kernel launches, initial parameters)."""
+    import torch
+    from mxnet_tpu_torch.module.fused_step import FusedTrainStep, WARMUP_STEPS
+    from mxnet_tpu_torch.ops import kernels as K
+    per_step = expected_train_launches(symbol)
+    train, val = (mnist_iter(mx, paths, s, flat, seed)
+                  for s in ("train", "t10k"))
+    mod = mx.mod.Module(symbol, context=mx.gpu(0))
+    mod.bind(train.provide_data, train.provide_label)
+    mx.random.seed(seed)
+    mod.init_params(mx.initializer.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2))
+    arg0, aux0 = ({k: v.asnumpy().copy() for k, v in t.items()}
+                  for t in mod.get_params())
+    step_ms, step_launches, marks = [], [], {}
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), K.launch_counts()
+        step_ms.append((now - marks["t"]) * 1e3)
+        step_launches.append({k: counts[k] - marks["counts"][k]
+                              for k in per_step})
+        marks["t"], marks["counts"] = now, counts
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    marks["t"], marks["counts"] = time.perf_counter(), K.launch_counts()
+    t0 = time.perf_counter()
+    mod.fit(train, num_epoch=MNIST_EPOCHS, eval_metric="acc",
+            optimizer="sgd", optimizer_params=mnist_optimizer(mx),
+            batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    n = len(step_ms)
+    fs = mod._fused_step
+    why = FusedTrainStep.refusal(mod) if fs is None else None
+    ms = float(np.median(step_ms[WARMUP_STEPS + 1:]))
+    print("%s: fit of %d epoch x %d batches of %d in %.2f s; ms per step "
+          "(synchronized, median after the capture) %.3f, %.1f images/s; "
+          "the fused step (one CUDA graph) carried the fit: %s%s; launches "
+          "per step %s (all %d steps alike: %s), in all %s; card %s"
+          % (tag, MNIST_EPOCHS, n, MNIST_BATCH, fit_s, ms,
+             MNIST_BATCH / ms * 1e3, fs is not None and fs.captures == 1,
+             "" if fs is not None else " (refused: %s)" % why,
+             step_launches[-1], n, all(d == per_step for d in step_launches),
+             {k: launches[k] for k in per_step}, card_line()))
+    if fs is None or fs.captures != 1 or fs.replays != n - WARMUP_STEPS:
+        raise AssertionError("%s: the fit did not run as one captured CUDA "
+                             "graph a step (%s)" % (tag, why))
+    off = [d for d in step_launches if d != per_step]
+    if n != -(-MNIST_SIZES["train"] // MNIST_BATCH) or off \
+            or {k: fs.graph_launches.get(k, 0) for k in per_step} \
+            != per_step:
+        raise AssertionError("%s: %d steps, %d with launches other than %s "
+                             "(%s)" % (tag, n, len(off), per_step, off[:3]))
+    train_acc = dict(mod.score(mnist_iter(mx, paths, "train", flat),
+                               "acc"))["accuracy"]
+    test_acc = dict(mod.score(val, "acc"))["accuracy"]
+    train.reset()
+    batch = next(train)
+    graph_ms = time_steps(mod, batch)
+    print("%s: after the epoch train accuracy %.4f (at least %.2f; chance "
+          "0.1), score on the test file %.4f; a replayed step on one batch "
+          "%.3f ms (median of %d after warm-up), %.1f images/s; card %s"
+          % (tag, train_acc, MNIST_MIN_TRAIN_ACC, test_acc, graph_ms,
+             TIMED_STEPS, MNIST_BATCH / graph_ms * 1e3, card_line()))
+    if not train_acc >= MNIST_MIN_TRAIN_ACC or not np.isfinite(test_acc):
+        raise AssertionError("%s: train accuracy %.4f below %.2f"
+                             % (tag, train_acc, MNIST_MIN_TRAIN_ACC))
+    return mod, launches, (arg0, aux0)
+
+
+def lenet_profile_apart(seed):
+    """Runs ``lenet_profile_child`` in a process of its own (as phase 6
+    does: late in this process torch.profiler loses kernel records) and
+    passes its lines on; raises when it fails."""
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--lenet-profile"], capture_output=True, text=True, timeout=600)
+    sys.stdout.write(child.stdout)
+    if child.returncode != 0:
+        sys.stdout.write(child.stderr[-4000:])
+        raise AssertionError("the profiled LeNet step failed (exit %d)"
+                             % child.returncode)
+
+
+def lenet_profile_child(mx, seed):
+    """``--lenet-profile``: LeNet through ``Module`` on the card at the fit's
+    settings, on random MNIST-shaped batches: the eager step, the
+    capture, then one replay under torch.profiler; its max-pool backward
+    device launches must equal the 2 the graph implies."""
+    import torch
+    from mxnet_tpu_torch.models import lenet
+    from mxnet_tpu_torch.ops import kernels as K
+    symbol = lenet.get_symbol(10)
+    per_step = expected_train_launches(symbol)
+    rng = np.random.default_rng(seed + 42)
+    it = mx.io.NDArrayIter(
+        rng.random((MNIST_BATCH, 1, 28, 28), dtype=np.float32),
+        rng.integers(0, 10, MNIST_BATCH).astype(np.float32),
+        batch_size=MNIST_BATCH)
+    mod = mx.mod.Module(symbol, context=mx.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(mx.initializer.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2))
+    mod.init_optimizer(optimizer_params=mnist_optimizer(mx))
+    batch = next(it)
+    for _ in range(3):
+        mod.forward_backward(batch)
+        mod.update()
+    before = K.launch_counts()
+    table = profile_run(lambda: (mod.forward_backward(batch), mod.update()),
+                        "lenet replay")
+    calls = {k: K.launch_counts()[k] - before[k] for k in per_step}
+    if mod._fused_step is None or mod._fused_step.replays < 2 \
+            or calls != per_step:
+        raise AssertionError("the profiled LeNet step was not a replay of "
+                             "%s launches: %s" % (per_step, calls))
+    if table is None:
+        return 0
+    rows = {k: v for k, v in table.items() if "max_pool_bwd_band_kernel" in k}
+    n = sum(v[1] for v in rows.values())
+    print("lenet: the profiled replay's max_pool_backward: %d device "
+          "launches (%.4f ms), %d counted; card %s"
+          % (n, sum(v[0] for v in rows.values()),
+             calls["max_pool_backward"], card_line()))
+    if n != calls["max_pool_backward"]:
+        raise AssertionError("the replay's max_pool_backward device launches "
+                             "%d, expected %d" % (n, calls["max_pool_backward"]))
+    return 0
+
+
+def lenet_host_check(mx, seed, paths, symbol, arg0, aux0):
+    """11d. LeNet's first steps from the fit's initial weights on the
+    fit's first batches, on the card (the fused step: eager, capture,
+    replay) and through the port on the host: each step's outputs within
+    LENET_OUT_REL and each parameter's gradient within LENET_GRAD_REL,
+    relative L2.  The gradient is read off the step's momentum update
+    (``mom = 0.9 mom - lr (g + wd w)``)."""
+    runs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        it = mnist_iter(mx, paths, "train", False, seed)
+        mod = mx.mod.Module(symbol, context=ctx)
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                    for k, v in arg0.items()},
+                        aux_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                    for k, v in aux0.items()})
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params=mnist_optimizer(mx))
+        steps = []
+        for _ in range(LENET_HOST_STEPS):
+            before = fused_state(mod)
+            mod.forward_backward(next(it))
+            mod.update()
+            after = fused_state(mod)
+            grads = {
+                k: ((MNIST_SGD["momentum"] * before[k][1] - after[k][1])
+                    / MNIST_SGD["learning_rate"]
+                    - MNIST_SGD["wd"] * before[k][0]).numpy()
+                for k in after}
+            steps.append((mod.get_outputs()[0].asnumpy(), grads))
+        runs.append(steps)
+    worst_out, worst_grad = 0.0, (0.0, "")
+    for (out_c, g_c), (out_h, g_h) in zip(*runs):
+        worst_out = max(worst_out, _rel_l2(out_c, out_h))
+        for k in g_h:
+            worst_grad = max(worst_grad, (_rel_l2(g_c[k], g_h[k]), k))
+    print("lenet: %d steps card vs host from the same weights and batches: "
+          "outputs relative L2 largest %.3g (limit %g); gradients relative "
+          "L2 largest %.3g (%s; limit %g); card %s"
+          % (LENET_HOST_STEPS, worst_out, LENET_OUT_REL, worst_grad[0],
+             worst_grad[1], LENET_GRAD_REL, card_line()))
+    if not (worst_out <= LENET_OUT_REL and worst_grad[0] <= LENET_GRAD_REL):
+        raise AssertionError("LeNet's steps on the card disagree with the "
+                             "host's")
+
+
+def _signed_values(rng, *shape):
+    v = rng.uniform(-2.0, 2.0, shape)
+    return np.where(np.abs(v) < 0.1, 0.3, v).astype(np.float32)
+
+
+def consistency_graphs(mx, rng):
+    """{name: (symbol, {input: values})}: one small graph per operator of
+    ``==``, ``!=``, ``**``, ``%`` and per op behind each of the 29 fluent
+    methods of ``NDArray``."""
+    s = mx.sym
+    a, b, c, e = s.var("a"), s.var("b"), s.var("c"), s.var("e")
+    p, i = s.var("p"), s.var("i")
+    va = _signed_values(rng, 3, 4)
+    vb = np.where(rng.random((3, 4)) < 0.5, va,
+                  _signed_values(rng, 3, 4)).astype(np.float32)
+    vp = rng.uniform(0.5, 1.5, (3, 4)).astype(np.float32)
+    ve = _signed_values(rng, 2, 3, 4)
+    vc = _signed_values(rng, 4, 2)
+    vi = np.array([2, 0, 1], np.float32)
+    ab, ap, a_ = {"a": va, "b": vb}, {"a": va, "p": vp}, {"a": va}
+    return {
+        "==": (a == b, ab), "!=": (a != b, ab),
+        "**": (p ** a, ap), "%": (s.broadcast_mod(p * 5.0, s.abs(a)), ap),
+        "transpose": (s.transpose(e, axes=(2, 0, 1)), {"e": ve}),
+        "abs": (s.abs(a), a_), "argmax": (s.argmax(a, axis=1), a_),
+        "argmin": (s.argmin(a, axis=0), a_),
+        "broadcast_to": (s.broadcast_to(s.slice_axis(a, axis=1, begin=0,
+                                                     end=1), shape=(3, 4)),
+                         a_),
+        "clip": (s.clip(a, a_min=-0.7, a_max=0.9), a_),
+        "dot": (s.dot(a, c), {"a": va, "c": vc}),
+        "exp": (s.exp(a), a_), "expand_dims": (s.expand_dims(a, axis=1), a_),
+        "flatten": (s.Flatten(e), {"e": ve}),
+        "flip": (s.reverse(a, axis=1), a_), "log": (s.log(p), {"p": vp}),
+        "max": (s.max(a, axis=1), a_), "min": (s.min(a, axis=0), a_),
+        "one_hot": (s.one_hot(i, depth=4), {"i": vi}),
+        "relu": (s.relu(a), a_), "round": (s.rint(a * 3.0), a_),
+        "sigmoid": (s.sigmoid(a), a_), "sign": (s.sign(a), a_),
+        "slice": (s.slice(a, begin=(1, 0), end=(3, 4)), a_),
+        "slice_axis": (s.slice_axis(a, axis=1, begin=1, end=3), a_),
+        "softmax": (s.softmax(a), a_),
+        "split": (s.split(a, num_outputs=2, axis=1), a_),
+        "sqrt": (s.sqrt(p), {"p": vp}), "square": (s.square(a), a_),
+        "swapaxes": (s.SwapAxis(e, dim1=0, dim2=2), {"e": ve}),
+        "take": (s.take(a, i), {"a": va, "i": vi}),
+        "tanh": (s.tanh(a), a_), "tile": (s.tile(a, reps=(2, 3)), a_),
+    }
+
+
+def consistency_checks(mx, seed):
+    """11e. ``mx.test_utils.check_consistency`` over [cpu(), gpu(0)]: the
+    LeNet and MLP graphs at the fit's batch (random weights, as the
+    reference draws them), and one small graph per operator and fluent
+    method, within CONSISTENCY_TOL."""
+    from mxnet_tpu_torch.models import lenet, mlp
+    rng = np.random.default_rng(seed + 43)
+    graphs = {
+        "lenet": (lenet.get_symbol(10), None),
+        "mlp": (mlp.get_symbol(10), None)}
+    graphs.update(consistency_graphs(mx, rng))
+    for name, (sym, values) in graphs.items():
+        shapes = {"data": (MNIST_BATCH, 1, 28, 28)} if values is None \
+            else {k: v.shape for k, v in values.items()}
+        ctx_list = [dict(shapes, ctx=ctx) for ctx in (mx.cpu(), mx.gpu(0))]
+        np.random.seed(seed + 44)
+        mx.test_utils.check_consistency(
+            sym, ctx_list, arg_params=dict(values) if values else None,
+            tol=CONSISTENCY_TOL)
+    print("consistency: check_consistency over [cpu(0), gpu(0)] passed for "
+          "%d graphs (LeNet, the MLP, ==, !=, **, %% and the 29 fluent "
+          "methods' ops) within %g; card %s"
+          % (len(graphs), CONSISTENCY_TOL, card_line()))
+    if len(graphs) != 2 + 4 + 29:
+        raise AssertionError("%d consistency graphs" % len(graphs))
+
+
+def zoo_weights(symbol, data_shape, seed):
+    """He-normal weights, BatchNorm gamma/beta and moving statistics drawn
+    away from 1 and 0, all from ``seed``: {"arg:"/"aux:" name: array}."""
+    rng = np.random.default_rng(seed)
+    arg_shapes, _, aux_shapes = symbol.infer_shape(data=data_shape)
+    out = {}
+    for n, s in zip(symbol.list_arguments(), arg_shapes):
+        if n in ("data", "softmax_label"):
+            continue
+        if n.endswith("_gamma"):
+            v = 1.0 + 0.1 * rng.standard_normal(s, np.float32)
+        elif n.endswith(("_beta", "_bias")):
+            v = 0.1 * rng.standard_normal(s, np.float32)
+        else:
+            v = rng.standard_normal(s, np.float32) \
+                * np.float32(np.sqrt(2.0 / np.prod(s[1:])))
+        out["arg:" + n] = v
+    for n, s in zip(symbol.list_auxiliary_states(), aux_shapes):
+        out["aux:" + n] = (0.5 + rng.random(s, np.float32)) \
+            if n.endswith("_var") else 0.1 * rng.standard_normal(s,
+                                                                np.float32)
+    return out
+
+
+def zoo_forwards(mx, seed):
+    """11f. Each builder of the symbol zoo: one inference forward of its
+    logits (the graph below ``SoftmaxOutput``) at batch 2, at its input
+    size, 1000 classes, on the card, timed, against the same forward
+    through the port on the host (relative L2 within ZOO_REL)."""
+    from mxnet_tpu_torch import models
+    for k, (name, (shape, kwargs)) in enumerate(ZOO_INPUTS.items()):
+        symbol = getattr(models, name).get_symbol(num_classes=1000, **kwargs)
+        logits = symbol.get_children()[0]
+        data_shape = (ZOO_BATCH,) + shape
+        weights = zoo_weights(logits, data_shape, seed + 50 + k)
+        x = np.random.default_rng(seed + 70 + k).random(data_shape,
+                                                          np.float32)
+        outs, ms = [], None
+        for ctx in (mx.gpu(0), mx.cpu()):
+            exe = logits.simple_bind(ctx, grad_req="null", data=data_shape)
+            args, auxs = mx.convert.params_from_numpy(weights, ctx)
+            exe.copy_params_from(args, auxs)
+            exe.forward(data=x)
+            outs.append(exe.outputs[0].asnumpy())
+            if ms is None:  # the card's
+                ms = time_ms(exe.forward, reps=10, warmup=2)
+        rel = _rel_l2(outs[0], outs[1])
+        print("zoo %s: batch %d at %s, %d parameters: forward %.3f ms on the "
+              "card; logits card vs host relative L2 %.3g (limit %g); card %s"
+              % (name, ZOO_BATCH, "x".join(map(str, shape)),
+                 sum(int(np.prod(v.shape)) for v in weights.values()), ms,
+                 rel, ZOO_REL, card_line()))
+        if outs[0].shape != (ZOO_BATCH, 1000) or not np.isfinite(
+                outs[0]).all() or not rel <= ZOO_REL:
+            raise AssertionError("zoo %s: the card's forward disagrees with "
+                                 "the host's" % name)
+
+
+def train_mnist(mx, seed):
+    """Phase 11.  Returns {path: launches}."""
+    import tempfile
+    import torch
+    from mxnet_tpu_torch.models import lenet, mlp
+    clock = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory(dir=HERE) as root:
+        files = write_mnist(root, seed)
+        print("mnist: wrote %s in %.1f s" % (
+            ", ".join("%s %d images" % kv for kv in MNIST_SIZES.items()),
+            time.perf_counter() - clock))
+        symbol = lenet.get_symbol(10)
+        _, paths["module_lenet"], (arg0, aux0) = fit_mnist(
+            mx, seed, files, symbol, False, "lenet")
+        lenet_profile_apart(seed)
+        lenet_host_check(mx, seed, files, symbol, arg0, aux0)
+        _, paths["module_mlp"], _ = fit_mnist(mx, seed, files,
+                                              mlp.get_symbol(10), True, "mlp")
+    consistency_checks(mx, seed)
+    zoo_forwards(mx, seed)
+    torch.cuda.synchronize()
+    print("phase 11 parts done in %.1f s" % (time.perf_counter() - clock))
+    return paths
+
+
 def ptxas_entries(text):
     """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
     per compiled entry of an ``nvcc -Xptxas=-v`` report.  The kernel is
@@ -4192,6 +4711,8 @@ def main():
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--vision-profile", action="store_true",
                         help=argparse.SUPPRESS)  # profile_vision_step_apart
+    parser.add_argument("--lenet-profile", action="store_true",
+                        help=argparse.SUPPRESS)  # lenet_profile_apart
     args = parser.parse_args()
     if not os.path.isdir(os.path.join(HERE, "mxnet_tpu_torch")):
         print("chip_smoke: mxnet_tpu_torch/ is not beside this script",
@@ -4210,6 +4731,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     if args.vision_profile:
         return vision_profile_child(mx, args.seed)
+    if args.lenet_profile:
+        return lenet_profile_child(mx, args.seed)
     print("card: %s" % card_line())
     print("torch %s, CUDA %s, %d device(s)"
           % (torch.__version__, torch.version.cuda, torch.cuda.device_count()))
@@ -4231,7 +4754,7 @@ def main():
     lap("1 (card, build)")
     records, instances = [], {}
     for check in (check_flash, check_flash_lse, check_bn_sums,
-                  check_pool_bwd):
+                  check_pool_bwd, check_lenet_pools):
         recs, insts = check(args.seed)
         records += recs
         for name, inst in insts:
@@ -4254,8 +4777,12 @@ def main():
     lap("9 (bucketed LSTM LM through BucketingModule)")
     paths.update(serve_rest(mx, args.seed))
     lap("10 (paged decode, continuous batching, int8, fleet, HTTP)")
+    paths.update(train_mnist(mx, args.seed))
+    lap("11 (LeNet and the MLP on MNIST through Module, check_consistency, "
+        "the symbol zoo)")
     # "launches": the path each kernel serves in this script (the serving
-    # forward, the LM's training, and this slice's bf16 fused training)
+    # forward, the LM's training, and the bf16 fused training; LeNet's fit
+    # is in launches_by_path)
     main_path = {"flash_attn_fwd": "serve", "flash_attn_fwd_lse": "gluon_lm",
                  "bn_channel_sums": "module_bf16_fused",
                  "max_pool_backward": "module_bf16_fused",

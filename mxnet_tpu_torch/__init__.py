@@ -21,6 +21,9 @@ every loss of the JAX package, CTC included.  ``mx.rnn``'s symbol cells
 and ``BucketSentenceIter`` train variable-length sequences through
 ``mx.mod.BucketingModule``: one bound executor and one CUDA graph of the
 fused step per bucket, over one set of parameters and optimizer states.
+``mx.models`` holds the symbol zoo (LeNet and the MLP of BASELINE config 1
+through Inception-ResNet-v2), and ``mx.test_utils`` the reference's
+testing helpers, ``check_consistency`` among them.
 
 Entry points run on the card (``gpu(0)``) unless given ``cpu()``; without
 a card they raise ``MXNetError`` rather than fall back to the host.
@@ -64,3 +67,10 @@ from . import models  # noqa: F401
 from . import gluon  # noqa: F401
 from . import convert  # noqa: F401
 from . import threads  # noqa: F401
+from . import test_utils  # noqa: F401
+from . import visualization  # noqa: F401
+from .visualization import plot_network  # noqa: F401
+from . import log  # noqa: F401
+from . import misc  # noqa: F401
+from . import engine  # noqa: F401
+from . import libinfo  # noqa: F401

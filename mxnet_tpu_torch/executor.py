@@ -202,6 +202,18 @@ class Executor:
     def arg_arrays(self):
         return [self.arg_dict[n] for n in self._prog.arg_names]
 
+    @property
+    def grad_arrays(self):
+        return [self.grad_dict.get(n) for n in self._prog.arg_names]
+
+    @property
+    def aux_arrays(self):
+        return [self.aux_dict[n] for n in self._prog.aux_names]
+
+    @property
+    def output_dict(self):
+        return dict(zip(self._symbol.list_outputs(), self.outputs))
+
     def set_monitor_callback(self, callback, monitor_all=False):
         """Call ``callback(name, NDArray)`` on every op output of each
         forward (and on every op input too under ``monitor_all``)."""
@@ -233,18 +245,11 @@ class Executor:
             with torch.inference_mode():
                 dst.tensor.copy_(src)
         train = bool(is_train)
-        values = {n: a.tensor for n, a in self.arg_dict.items()}
-        values.update((n, a.tensor) for n, a in self.aux_dict.items())
         if train and self._grad_names:
-            # leaves share storage with the bound arrays: no copy
-            leaves = {n: values[n].detach().requires_grad_(True)
-                      for n in self._grad_names}
-            values.update(leaves)
-            with torch.enable_grad():
-                outs, new_aux = self._prog.evaluate(values, train=True,
-                                                    **self._tap())
+            outs, new_aux, leaves = self._record(**self._tap())
             self._recorded = (outs, leaves)
         else:
+            values = self._values()
             with torch.inference_mode():
                 outs, new_aux = self._prog.evaluate(values, train=train,
                                                     **self._tap())
@@ -257,20 +262,41 @@ class Executor:
         self.outputs = [NDArray(o.detach()) for o in outs]
         return self.outputs
 
-    def backward(self, out_grads=None):
-        """Gradients of the last training forward into ``grad_dict``
-        (honoring grad_req write/add).  ``out_grads``: head gradients, one
-        per output (an NDArray, a list, None entries meaning ones);
-        by default ones.  An argument the outputs do not depend on (a
-        fixed BatchNorm gamma) gets a zero gradient."""
+    def _values(self):
+        values = {n: a.tensor for n, a in self.arg_dict.items()}
+        values.update((n, a.tensor) for n, a in self.aux_dict.items())
+        return values
+
+    def _record(self, **tap):
+        """A training-mode run of the graph over the bound arrays under
+        torch autograd: (outputs, new aux values, {name: leaf}) for the
+        arguments that take a gradient."""
+        values = self._values()
+        # leaves share storage with the bound arrays: no copy
+        leaves = {n: values[n].detach().requires_grad_(True)
+                  for n in self._grad_names}
+        values.update(leaves)
+        with torch.enable_grad():
+            outs, new_aux = self._prog.evaluate(values, train=True, **tap)
+        return outs, new_aux, leaves
+
+    def backward(self, out_grads=None, is_train=True):
+        """Gradients of the last forward into ``grad_dict`` (honoring
+        grad_req write/add).  ``out_grads``: head gradients, one per
+        output (an NDArray, a list, None entries meaning ones); by default
+        ones.  An argument the outputs do not depend on (a fixed BatchNorm
+        gamma) gets a zero gradient.  After a forward that did not train,
+        the forward is run again in training mode from the bound arrays
+        (outputs and aux states left as they are), as the reference
+        does."""
         if not self.outputs:
             raise MXNetError("backward() called before forward()")
         if not self._grad_names:
             return
-        if self._recorded is None:
-            raise MXNetError("backward() needs a forward(is_train=True) "
-                             "first")
-        outs, leaves = self._recorded
+        if self._recorded is not None:
+            outs, leaves = self._recorded
+        else:
+            outs, _, leaves = self._record()
         if isinstance(out_grads, NDArray):
             out_grads = [out_grads]
         heads = [None] * len(outs) if out_grads is None else list(out_grads)
@@ -362,12 +388,14 @@ class Executor:
 
     @staticmethod
     def _simple_bind(symbol, ctx, grad_req, type_dict, shape_kwargs,
-                     shared_args=None, shared_grads=None, logger=None):
+                     shared_args=None, shared_grads=None, logger=None,
+                     buffer=None):
         """``shared_args`` (arguments and aux states by name) are bound as
         given wherever their shape, dtype and context fit, and with them
-        the ``shared_grads`` of the same names; the rest is allocated
-        zeroed, with a warning to ``logger`` for a shared name that no
-        longer fits (its values cannot carry over)."""
+        the ``shared_grads`` of the same names; then arguments of ``buffer``
+        ({name: NDArray}) that fit; the rest is allocated zeroed (and
+        added to ``buffer``), with a warning to ``logger`` for a shared
+        name that no longer fits (its values cannot carry over)."""
         arg_names = symbol.list_arguments()
         req = _req_table(arg_names, grad_req)
         arg_shapes, _, aux_shapes = symbol.infer_shape(**shape_kwargs)
@@ -376,15 +404,17 @@ class Executor:
         shared = shared_args or {}
         shared_grads = shared_grads or {}
 
-        def alloc(names, shapes, types, kind):
+        def fits(have, shape, dt):
+            return have is not None and have.shape == shape \
+                and have.tensor.dtype == dt and have.context == ctx
+
+        def alloc(names, shapes, types, kind, pool=None):
             out = {}
             for name, shape, dt in zip(names, shapes, types):
                 shape = tuple(int(d) for d in shape)
                 dt = torch_dtype(type_dict.get(name, dt or "float32"))
                 have = shared.get(name)
-                if have is not None and have.shape == shape \
-                        and have.tensor.dtype == dt \
-                        and have.context == ctx:
+                if fits(have, shape, dt):
                     out[name] = have
                     continue
                 if have is not None and logger is not None:
@@ -395,10 +425,16 @@ class Executor:
                         "cannot carry over)", kind, name, have.shape,
                         dtype_name(have.tensor.dtype), shape,
                         dtype_name(dt))
+                if pool is not None and have is None \
+                        and fits(pool.get(name), shape, dt):
+                    out[name] = pool[name]
+                    continue
                 out[name] = nd_zeros(shape, ctx, dtype=dt)
+                if pool is not None and have is None:
+                    pool[name] = out[name]
             return out
 
-        args = alloc(arg_names, arg_shapes, arg_types, "parameter")
+        args = alloc(arg_names, arg_shapes, arg_types, "parameter", buffer)
         grads = {}
         for name, arr in args.items():
             if req[name] == "null":
@@ -412,3 +448,29 @@ class Executor:
             alloc(symbol.list_auxiliary_states(), aux_shapes, aux_types,
                   "auxiliary state"),
             grads, req)
+
+    @staticmethod
+    def _bind(symbol, ctx, args, args_grad, grad_req, aux_states):
+        """An executor over the caller's own arrays (lists in argument
+        order or dicts by name), on ``ctx``."""
+        def table(names, given, what):
+            if given is None:
+                return {}
+            pairs = zip(names, given) if isinstance(given, (list, tuple)) \
+                else dict(given).items()
+            out = {n: a for n, a in pairs if a is not None}
+            for name, arr in out.items():
+                if arr.context != ctx:
+                    raise MXNetError("bind: %s %r is on %s, not on %s"
+                                     % (what, name, arr.context, ctx))
+            return out
+
+        arg_names = symbol.list_arguments()
+        arg_dict = table(arg_names, args, "argument")
+        missing = [n for n in arg_names if n not in arg_dict]
+        if missing:
+            raise MXNetError("bind: no array for arguments %s" % missing)
+        return Executor(
+            symbol, ctx, {n: arg_dict[n] for n in arg_names},
+            table(symbol.list_auxiliary_states(), aux_states, "aux state"),
+            table(arg_names, args_grad, "gradient"), grad_req)

@@ -14,7 +14,6 @@ slice (slice 5).
 from __future__ import annotations
 
 import gzip
-import logging
 import os
 import struct
 import threading
@@ -27,6 +26,7 @@ from . import threads as _threads
 from .base import MXNetError
 from .context import cpu
 from .ndarray import NDArray, array
+from .test_utils import synthetic_image_dataset
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -409,20 +409,6 @@ class _WrappedIter(DataIter):
         return self._inner.next()
 
 
-def _synthetic_images(shape_hw, n, seed, what, root):
-    """The zero-egress fallback of a missing image dataset: uint8 images
-    and int labels in the real files' shapes, announced loudly (training
-    on noise is chance-level)."""
-    logging.getLogger(__name__).warning(
-        "%s files not found under %s; using SYNTHETIC random data — "
-        "accuracy will be chance-level", what, root)
-    rng = np.random.RandomState(seed)
-    h, w = shape_hw
-    data = rng.randint(0, 256, (n, h, w, 1)).astype(np.uint8)
-    label = rng.randint(0, 10, n).astype(np.int32)
-    return data, label
-
-
 class MNISTIter(_WrappedIter):
     """Batches of MNIST's idx files, plain or gzipped (ref:
     src/io/iter_mnist.cc).  Without the files it serves synthetic data of
@@ -447,9 +433,9 @@ class MNISTIter(_WrappedIter):
                 "files there" % (image, label))
         else:
             train = "train" in os.path.basename(image)
-            data, labels = _synthetic_images(
-                (28, 28), 2048 if train else 512, 42 if train else 43,
-                "mnist", os.path.dirname(image) or ".")
+            data, labels = synthetic_image_dataset(
+                (28, 28), 1, 2048 if train else 512, seed=42 if train else 43,
+                what="mnist", root=os.path.dirname(image) or ".")
             images = data[:, :, :, 0].astype(np.float32) / 255.0
             labels = labels.astype(np.float32)
         if num_parts > 1:

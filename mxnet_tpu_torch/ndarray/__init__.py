@@ -8,8 +8,9 @@ import sys as _sys
 
 from ..ops import registry as _registry
 from .ndarray import (  # noqa: F401
-    NDArray, _invoke, array, concatenate, empty, full, load, loads, ones,
-    save, waitall, zeros,
+    NDArray, _invoke, arange, array, concatenate, empty, from_dlpack,
+    from_numpy, full, invoke, load, loads, moveaxis, ones, save,
+    to_dlpack_for_read, to_dlpack_for_write, waitall, zeros,
 )
 
 
@@ -51,3 +52,5 @@ _mod = _sys.modules[__name__]
 for _name, _op in list(_registry.op_registry().items()):
     if _name.replace("_", "a").isidentifier() and not hasattr(_mod, _name):
         setattr(_mod, _name, _make_op_func(_name, _op))
+
+onehot_encode = one_hot  # noqa: F821  the generated op function, as in the reference

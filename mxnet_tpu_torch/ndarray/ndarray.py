@@ -27,6 +27,7 @@ import struct
 
 import numpy as np
 import torch
+import torch.utils.dlpack
 
 from ..base import MXNetError, dtype_name, np_dtype, torch_dtype
 from ..context import Context, context_of, cpu, current_context
@@ -168,6 +169,108 @@ class NDArray:
     def norm(self):
         return _invoke("norm", [self], {})
 
+    def max(self, axis=None, keepdims=False):
+        return _invoke("max", [self], {"axis": axis, "keepdims": keepdims})
+
+    def min(self, axis=None, keepdims=False):
+        return _invoke("min", [self], {"axis": axis, "keepdims": keepdims})
+
+    def argmax(self, axis=None, keepdims=False):
+        return _invoke("argmax", [self], {"axis": axis, "keepdims": keepdims})
+
+    def argmin(self, axis=None, keepdims=False):
+        return _invoke("argmin", [self], {"axis": axis, "keepdims": keepdims})
+
+    # -- fluent methods: each one op of the registry, as the reference's ------
+    def expand_dims(self, axis):
+        return _invoke("expand_dims", [self], {"axis": axis})
+
+    def flatten(self):
+        return _invoke("Flatten", [self], {})
+
+    def transpose(self, axes=None):
+        return _invoke("transpose", [self], {"axes": axes})
+
+    def swapaxes(self, dim1, dim2):
+        return _invoke("SwapAxis", [self], {"dim1": dim1, "dim2": dim2})
+
+    def flip(self, axis):
+        return _invoke("reverse", [self], {"axis": axis})
+
+    def split(self, *args, **kwargs):
+        from . import split as _split
+        return _split(self, *args, **kwargs)
+
+    def slice(self, begin, end):
+        return _invoke("slice", [self], {"begin": begin, "end": end})
+
+    def slice_axis(self, axis, begin, end):
+        return _invoke("slice_axis", [self],
+                       {"axis": axis, "begin": begin, "end": end})
+
+    def broadcast_to(self, shape):
+        return _invoke("broadcast_to", [self], {"shape": shape})
+
+    def tile(self, reps):
+        return _invoke("tile", [self], {"reps": reps})
+
+    def abs(self):
+        return _invoke("abs", [self], {})
+
+    def square(self):
+        return _invoke("square", [self], {})
+
+    def sqrt(self):
+        return _invoke("sqrt", [self], {})
+
+    def clip(self, a_min, a_max):
+        return _invoke("clip", [self], {"a_min": a_min, "a_max": a_max})
+
+    def round(self):
+        return _invoke("rint", [self], {})
+
+    def sign(self):
+        return _invoke("sign", [self], {})
+
+    def log(self):
+        return _invoke("log", [self], {})
+
+    def exp(self):
+        return _invoke("exp", [self], {})
+
+    def sigmoid(self):
+        return _invoke("sigmoid", [self], {})
+
+    def tanh(self):
+        return _invoke("tanh", [self], {})
+
+    def relu(self):
+        return _invoke("relu", [self], {})
+
+    def softmax(self, axis=-1):
+        return _invoke("softmax", [self], {"axis": axis})
+
+    def one_hot(self, depth, **kwargs):
+        return _invoke("one_hot", [self], dict(kwargs, depth=depth))
+
+    def take(self, indices, axis=0, mode="clip"):
+        return _invoke("take", [self, indices], {"axis": axis, "mode": mode})
+
+    def dot(self, other, transpose_a=False, transpose_b=False):
+        return _invoke("dot", [self, other], {"transpose_a": transpose_a,
+                                              "transpose_b": transpose_b})
+
+    @property
+    def stype(self):
+        return "default"
+
+    def tostype(self, stype):
+        """This array for ``"default"``; sparse storage is not ported."""
+        if stype != "default":
+            raise MXNetError("tostype(%r): sparse storage types are not "
+                             "ported yet (ROADMAP A4)" % stype)
+        return self
+
     # -- python protocol -------------------------------------------------------
     def __len__(self):
         return self.shape[0]
@@ -176,6 +279,18 @@ class NDArray:
         return "\n%s\n<NDArray %s @%s>" % (
             self.asnumpy(), "x".join(str(d) for d in self.shape),
             self.context)
+
+    def __bool__(self):
+        if self.size == 1:
+            return bool(self.asscalar())
+        raise ValueError("The truth value of an NDArray with multiple "
+                         "elements is ambiguous.")
+
+    def __float__(self):
+        return float(self.asscalar())
+
+    def __int__(self):
+        return int(self.asscalar())
 
     # arithmetic: broadcasting like the reference's broadcast_* family
     def _binary(self, other, op_nd, op_sc, reverse=False):
@@ -207,14 +322,41 @@ class NDArray:
     def __rtruediv__(self, o):
         return self._binary(o, "broadcast_div", "_rdiv_scalar", reverse=True)
 
+    def __mod__(self, o):
+        return self._binary(o, "broadcast_mod", "_mod_scalar")
+
+    def __rmod__(self, o):
+        return self._binary(o, "broadcast_mod", "_rmod_scalar", reverse=True)
+
+    def __pow__(self, o):
+        return self._binary(o, "broadcast_power", "_power_scalar")
+
+    def __rpow__(self, o):
+        return self._binary(o, "broadcast_power", "_rpower_scalar",
+                            reverse=True)
+
     def __neg__(self):
         return _invoke("negative", [self], {})
 
     def __abs__(self):
         return _invoke("abs", [self], {})
 
-    # ordering comparisons give 0/1 arrays of the operand's dtype; ``==``
-    # and ``!=`` keep Python's identity meaning
+    # comparisons give 0/1 arrays of the operand's dtype, ``==`` and ``!=``
+    # too (so ``x in list_of_arrays`` compares elementwise, as in the
+    # reference); the hash stays the identity's
+    def __eq__(self, o):
+        if o is None:
+            return False
+        return self._binary(o, "broadcast_equal", "_equal_scalar")
+
+    def __ne__(self, o):
+        if o is None:
+            return True
+        return self._binary(o, "broadcast_not_equal", "_not_equal_scalar")
+
+    def __hash__(self):
+        return id(self)
+
     def __gt__(self, o):
         return self._binary(o, "broadcast_greater", "_greater_scalar")
 
@@ -268,11 +410,17 @@ class NDArray:
         self._grad_req = "null"
 
     # -- indexing --------------------------------------------------------------
+    # torch slicing refuses a negative step: such a slice is read as a
+    # positive-step slice of the array flipped along its dimension
     def __getitem__(self, key):
         if isinstance(key, NDArray):
             key = key.tensor.to(torch.int64)
+        t = self._h.tensor
         with torch.set_grad_enabled(ag.is_recording()):
-            return NDArray(self._h.tensor[key])
+            flips, key = _flipped_key(key, t.shape)
+            if flips:
+                t = t.flip(flips)
+            return NDArray(t[key])
 
     def __setitem__(self, key, value):
         dst = self._h.tensor
@@ -284,8 +432,52 @@ class NDArray:
             value = value.to(device=dst.device, dtype=dst.dtype)
         if isinstance(key, NDArray):
             key = key.tensor.to(torch.int64)
+        flips, flipped = _flipped_key(key, dst.shape)
         with torch.no_grad():
-            dst[key] = value
+            if not flips:
+                dst[key] = value
+                return
+            # the flat positions the read would gather, written in place
+            pos = torch.arange(dst.numel(), device=dst.device).reshape(
+                dst.shape).flip(flips)[flipped]
+            value = torch.as_tensor(value, device=dst.device,
+                                    dtype=dst.dtype).expand(pos.shape)
+            dst[torch.unravel_index(pos.reshape(-1), dst.shape)] = \
+                value.reshape(-1)
+
+
+def _flipped_key(key, shape):
+    """(dims to flip, key over the flipped array) for an index ``key`` of
+    an array of ``shape``: each slice with a negative step becomes a
+    positive-step slice along its dimension flipped.  No flips for a key
+    without such a slice."""
+    parts = key if isinstance(key, tuple) else (key,)
+    if not any(isinstance(k, slice) and k.step is not None and k.step < 0
+               for k in parts):
+        return [], key
+    used = sum(1 for k in parts if k is not None and k is not Ellipsis)
+    flips, out, dim = [], [], 0
+    for k in parts:
+        if k is None:
+            out.append(k)
+            continue
+        if k is Ellipsis:
+            dim += len(shape) - used
+            out.append(k)
+            continue
+        if isinstance(k, slice) and k.step is not None and k.step < 0:
+            n = shape[dim]
+            idx = range(*k.indices(n))
+            flips.append(dim)
+            if len(idx):  # original index i is n - 1 - i in the flip
+                first = n - 1 - idx[0]
+                k = slice(first, first + (len(idx) - 1) * -k.step + 1,
+                          -k.step)
+            else:
+                k = slice(0, 0)
+        out.append(k)
+        dim += 1
+    return flips, tuple(out)
 
 
 def _to_tensor(source, ctx, dtype):
@@ -403,6 +595,45 @@ def concatenate(arrays, axis=0, always_copy=True):
     if len(arrays) == 1 and not always_copy:
         return arrays[0]
     return _invoke("Concat", arrays, {"dim": axis})
+
+
+def invoke(op_name, inputs, attrs=None, out=None):
+    """Run the registered op ``op_name`` on ``inputs`` (ref:
+    MXImperativeInvoke)."""
+    return _invoke(op_name, list(inputs), dict(attrs or {}), out=out)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
+    """Evenly spaced values in [start, stop), each ``repeat`` times."""
+    return _invoke("_arange", [], {"start": start, "stop": stop,
+                                   "step": step, "repeat": repeat,
+                                   "ctx": ctx, "dtype": dtype})
+
+
+def moveaxis(tensor, source, destination):
+    """A new array with axis ``source`` moved to ``destination``."""
+    with torch.set_grad_enabled(ag.is_recording()):
+        return NDArray(torch.movedim(tensor.tensor, source, destination)
+                       .clone(memory_format=torch.contiguous_format))
+
+
+def from_numpy(npa, zero_copy=False):
+    """An array of ``npa``'s values on the current context."""
+    return array(npa)
+
+
+def from_dlpack(capsule):
+    """An array over the memory a DLPack capsule (or an object with
+    ``__dlpack__``) describes, without a copy."""
+    return NDArray(torch.from_dlpack(capsule))
+
+
+def to_dlpack_for_read(data):
+    """A DLPack capsule over the array's memory, without a copy."""
+    return torch.utils.dlpack.to_dlpack(data.tensor.detach())
+
+
+to_dlpack_for_write = to_dlpack_for_read
 
 
 def waitall():

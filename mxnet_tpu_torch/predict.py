@@ -52,7 +52,8 @@ class Predictor:
         self._ctx = ctx = ctx or current_context()
         shape_kwargs = dict(input_shapes) if isinstance(input_shapes, dict) \
             else {"data": tuple(input_shapes)}
-        self._exe = self._symbol.simple_bind(ctx, **shape_kwargs)
+        self._exe = self._symbol.simple_bind(ctx, grad_req="null",
+                                             **shape_kwargs)
         self._exe.copy_params_from(arg_params, aux_params,
                                    allow_extra_params=True)
         self._input_names = set(shape_kwargs)
@@ -110,7 +111,8 @@ class Predictor:
         weights = {k: v for k, v in self._exe.arg_dict.items()
                    if k not in self._input_names}
         weights.update(self._exe.aux_dict)
-        new._exe = new._symbol.simple_bind(new._ctx, shared_args=weights,
+        new._exe = new._symbol.simple_bind(new._ctx, grad_req="null",
+                                           shared_args=weights,
                                            **shape_kwargs)
         for table in (new._exe.arg_dict, new._exe.aux_dict):
             for k, v in table.items():

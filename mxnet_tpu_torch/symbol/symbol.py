@@ -114,6 +114,12 @@ class _Node:
         return op.str_outputs(op.normalize_attrs(self.attrs))
 
 
+# the reference's names of multi-output ops' outputs (the rest are
+# ``<name>_output<i>``)
+_OUTPUT_SUFFIXES = {"BatchNorm": ("output", "mean", "var"),
+                    "topk": ("output", "indices")}
+
+
 class Symbol:
     def __init__(self, entries):
         self._entries = list(entries)  # [(node, out_idx)]
@@ -166,6 +172,9 @@ class Symbol:
                 out.append(node.name)
             elif node.num_outputs() == 1:
                 out.append(node.name + "_output")
+            elif idx < len(_OUTPUT_SUFFIXES.get(node.op_name, ())):
+                out.append("%s_%s" % (node.name,
+                                      _OUTPUT_SUFFIXES[node.op_name][idx]))
             else:
                 out.append("%s_output%d" % (node.name, idx))
         return out
@@ -185,6 +194,11 @@ class Symbol:
     def __iter__(self):
         return (self[i] for i in range(len(self._entries)))
 
+    def get_internals(self):
+        """Every output of every node, in topological order."""
+        return Symbol([(node, i) for node in self._topo()
+                       for i in range(node.num_outputs())])
+
     def get_children(self):
         """The inputs of a single-output symbol's node, grouped (None for
         a variable or a group)."""
@@ -198,6 +212,20 @@ class Symbol:
         for node, _ in self._entries:
             node.attrs.update({k: str(v) for k, v in kwargs.items()})
         self._shash = None
+
+    def attr(self, key):
+        """Attribute ``key`` of a single-output symbol's node, else None."""
+        if len(self._entries) == 1:
+            return self._entries[0][0].attrs.get(key)
+        return None
+
+    def list_attr(self, recursive=False):
+        """The node's attributes; with ``recursive``, every node's."""
+        if recursive:
+            return self.attr_dict()
+        if len(self._entries) == 1:
+            return dict(self._entries[0][0].attrs)
+        return {}
 
     def attr_dict(self):
         """{node name: its attrs} for every node that has attrs."""
@@ -240,8 +268,22 @@ class Symbol:
     def __rtruediv__(self, o):
         return self._binary(o, "elemwise_div", "_rdiv_scalar", reverse=True)
 
+    def __pow__(self, o):
+        return self._binary(o, "broadcast_power", "_power_scalar")
+
     def __neg__(self):
         return _create("negative", [self], {})
+
+    # comparisons compose comparison nodes, ``==`` and ``!=`` too; the hash
+    # stays the identity's
+    def __eq__(self, o):
+        return self._binary(o, "_equal", "_equal_scalar")
+
+    def __ne__(self, o):
+        return self._binary(o, "_not_equal", "_not_equal_scalar")
+
+    def __hash__(self):
+        return id(self)
 
     def __gt__(self, o):
         return self._binary(o, "_greater", "_greater_scalar")
@@ -257,6 +299,12 @@ class Symbol:
 
     def __repr__(self):
         return "<Symbol %s>" % (self.name or "Grouped")
+
+    def __copy__(self):
+        return Symbol(list(self._entries))
+
+    def __deepcopy__(self, memo):
+        return load_json(self.tojson())
 
     # -- inference -----------------------------------------------------------
     def _arg_entry_values(self, table):
@@ -496,22 +544,67 @@ class Symbol:
         os.replace(tmp, fname)
 
     # -- binding -------------------------------------------------------------
-    def simple_bind(self, ctx=None, grad_req="null", type_dict=None,
-                    shared_args=None, shared_grads=None, logger=None,
-                    **kwargs):
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    group2ctx=None, shared_arg_names=None, shared_exec=None,
+                    shared_buffer=None, shared_args=None, shared_grads=None,
+                    logger=None, **kwargs):
         """Bind with freshly allocated arrays shaped by inference from the
-        ``name=shape`` kwargs.  ``shared_args`` ({name: NDArray}, arguments
-        and aux states) are bound as given wherever their shape and dtype
-        fit, instead of being allocated, and with them ``shared_grads`` of
-        the same names (how bucket executors share one set of weights); a
-        shared name that no longer fits is allocated zeroed, with a
-        warning to ``logger``."""
+        ``name=shape`` kwargs, with a gradient buffer for every argument
+        whose ``grad_req`` is not ``"null"``.
+
+        - ``shared_exec``: its aux states, and its arguments named in
+          ``shared_arg_names`` with their gradients, are bound as they are
+          wherever their shape and dtype fit (MXNet's memory sharing).
+        - ``shared_buffer`` ({name: NDArray}): other arguments of a name
+          in it are bound to its array where that fits; each argument
+          allocated anew is added to it.
+        - ``shared_args`` ({name: NDArray}, arguments and aux states) and
+          ``shared_grads``: bound the same way (how bucket executors share
+          one set of weights); a shared name that no longer fits is
+          allocated zeroed, with a warning to ``logger``.
+        - ``group2ctx``: only one context, ``ctx``, is supported."""
         from ..executor import Executor
-        return Executor._simple_bind(self, ctx or current_context(),
-                                     grad_req, type_dict, kwargs,
+        ctx = ctx or current_context()
+        _one_context("simple_bind", ctx, group2ctx)
+        shared_args = dict(shared_args or {})
+        shared_grads = dict(shared_grads or {})
+        if shared_exec is not None:
+            for name in shared_arg_names or ():
+                if name in shared_exec.arg_dict:
+                    shared_args[name] = shared_exec.arg_dict[name]
+                    if shared_exec.grad_dict.get(name) is not None:
+                        shared_grads[name] = shared_exec.grad_dict[name]
+            shared_args.update(shared_exec.aux_dict)
+        return Executor._simple_bind(self, ctx, grad_req, type_dict, kwargs,
                                      shared_args=shared_args,
                                      shared_grads=shared_grads,
-                                     logger=logger)
+                                     logger=logger, buffer=shared_buffer)
+
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        """Bind to the caller's arrays, not copies: ``args``,
+        ``args_grad`` and ``aux_states`` as lists in
+        ``list_arguments``/``list_auxiliary_states`` order or as dicts;
+        ``grad_req`` a string, a list or a dict."""
+        from ..executor import Executor
+        _one_context("bind", ctx, group2ctx)
+        return Executor._bind(self, ctx, args, args_grad, grad_req,
+                              aux_states)
+
+    def eval(self, ctx=None, **kwargs):
+        """The outputs for the argument arrays ``kwargs`` (bound as they
+        are)."""
+        return self.bind(ctx or current_context(), kwargs).forward()
+
+
+def _one_context(what, ctx, group2ctx):
+    """Refuse a ``group2ctx`` that places the graph over more contexts
+    than ``ctx``."""
+    if group2ctx and any(c != ctx for c in group2ctx.values()):
+        raise MXNetError(
+            "%s: group2ctx places the graph over several contexts %s; only "
+            "one context is supported yet (ROADMAP A3)"
+            % (what, sorted({str(c) for c in group2ctx.values()})))
 
 
 def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,

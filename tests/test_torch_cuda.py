@@ -1290,3 +1290,64 @@ def test_continuous_batcher_on_the_card_matches_the_host(card, no_tf32):
         outs.append([s.outputs()[0] for s in streams])
     for a, b in zip(*outs):
         np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(64, 20, 24, 24), (64, 50, 8, 8)],
+                         ids=["lenet-pool1", "lenet-pool2"])
+def test_max_pool_backward_at_lenet_shapes(card, shape):
+    """LeNet's two 2x2/s2 max pools (post-tanh inputs): one launch each,
+    bit for bit the plain version."""
+    g = torch.Generator(device=card).manual_seed(11)
+    x = torch.tanh(torch.randn(*shape, generator=g, device=card))
+    dy = torch.randn(shape[:2] + (shape[2] // 2, shape[3] // 2),
+                     generator=g, device=card)
+    pads = ((0, 0), (0, 0))
+    before = K.launch_counts()["max_pool_backward"]
+    got = K.max_pool_backward(x, dy, (2, 2), (2, 2), pads)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["max_pool_backward"] == before + 1
+    want = K._plain_max_pool_backward(x, dy, (2, 2), (2, 2), pads)
+    assert torch.equal(got, want)
+
+
+def test_lenet_first_step_on_the_card_matches_the_host(card, monkeypatch):
+    """BASELINE config 1's LeNet through ``Module`` (SGD lr 0.05,
+    momentum 0.9, wd 1e-4) from the same weights on the same batch of 64:
+    the step's outputs within 1e-4 and each parameter's first momentum
+    (the step's gradient, scaled) within 1e-3, relative L2."""
+    from mxnet_tpu_torch.models import lenet
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rng = np.random.RandomState(0)
+    images = rng.rand(64, 1, 28, 28).astype(np.float32)
+    labels = rng.randint(0, 10, 64).astype(np.float32)
+    symbol = lenet.get_symbol(10)
+    arg_shapes, _, _ = symbol.infer_shape(data=images.shape)
+    weights = {n: (rng.randn(*s) * np.sqrt(2.0 / np.prod(s[1:])))
+               .astype(np.float32) if len(s) > 1
+               else np.zeros(s, np.float32)
+               for n, s in zip(symbol.list_arguments(), arg_shapes)
+               if n not in ("data", "softmax_label")}
+    results = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        it = mx.io.NDArrayIter(images, labels, batch_size=64)
+        mod = mx.mod.Module(symbol, context=ctx)
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                    for k, v in weights.items()})
+        mod.init_optimizer(optimizer_params={"learning_rate": 0.05,
+                                             "momentum": 0.9, "wd": 1e-4})
+        mod.forward_backward(next(it))
+        mod.update()
+        fs = mod._fused_step
+        moms = {n: fs.states[j].float().cpu().numpy()
+                for j, n in enumerate(fs.param_names)}
+        results.append((mod.get_outputs()[0].asnumpy(), moms))
+    (out_c, mom_c), (out_h, mom_h) = results
+
+    def rel(a, b):
+        return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+    assert rel(out_c, out_h) <= 1e-4
+    for name in mom_h:
+        assert rel(mom_c[name], mom_h[name]) <= 1e-3, name

@@ -116,10 +116,24 @@ def test_train_forward_writes_moving_stats_back():
 
 
 def test_backward_needs_a_training_forward():
-    _, et = _bind_both("write")
-    et.forward(is_train=False)
-    with pytest.raises(mt.MXNetError):
-        et.backward()
+    """A backward after a forward that did not train runs the forward
+    again in training mode, as the JAX package does: gradients within
+    atol=rtol=1e-5 of its, outputs and moving statistics left as the
+    inference forward gave them."""
+    ej, et = _bind_both("write")
+    before = et.aux_dict["bn1_moving_mean"].asnumpy().copy()
+    for exe in (ej, et):
+        exe.forward(is_train=False)
+    out = et.outputs[0].asnumpy().copy()
+    for exe in (ej, et):
+        exe.backward()
+    np.testing.assert_array_equal(et.outputs[0].asnumpy(), out)
+    np.testing.assert_array_equal(et.aux_dict["bn1_moving_mean"].asnumpy(),
+                                  before)
+    for name in ej.grad_dict:
+        np.testing.assert_allclose(et.grad_dict[name].asnumpy(),
+                                   ej.grad_dict[name].asnumpy(),
+                                   atol=1e-5, rtol=1e-5, err_msg=name)
 
 
 @pytest.mark.parametrize("momentum", [0.0, 0.9])
