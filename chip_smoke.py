@@ -47,7 +47,9 @@ CUDA toolkit.  Phases, each of which raises on failure:
    sums`` at bn0, the max pool at the stem, the global avg pool), timed
    the same way; and ``max_pool_backward`` at LeNet's two 2x2/s2 pools,
    (64, 20, 24, 24) and (64, 50, 8, 8) (phase 11's path), bit for bit,
-   timed the same way.
+   timed the same way; and ``bn_channel_sums`` at DCGAN's seven
+   BatchNorm inputs (phase 12's path), single and paired, timed the same
+   way beside ``batch_norm_stats`` / ``batch_norm_backward_reduce``.
 3. Serving: a GPT-2-small-width TransformerLM (vocab 50257, context
    1024, width 768, 12 heads, 12 layers, FFN 3072; random weights from
    ``--seed``) served by ``Server(max_batch_size=4)``: warmup with its
@@ -230,10 +232,49 @@ CUDA toolkit.  Phases, each of which raises on failure:
       resnet-v2 builders, 28 for LeNet and the MLP, 224 for the rest),
       1000 classes, weights and BatchNorm statistics from ``--seed``,
       timed, against the host within 2e-3 relative L2.
-12. The ``kernels`` JSON line (each kernel's record with its launches on
+12. MXNet 1.0's ``example/gan/dcgan.py`` (Radford et al. 2016) at its
+   widths, f32 with TF32 off:
+   a. phase 11's training images resized to 64x64 (bilinear), tiled to 3
+      channels and scaled to [-1, 1], read through ``NDArrayIter(shuffle=
+      True)`` after ``mx.random.seed``; the generator (5 ``Deconvolution``s,
+      ngf 64, train-mode ``BatchNorm``) and the discriminator (4x4
+      stride-2 convolutions, ndf 64, ``LeakyReLU`` 0.2, BatchNorm,
+      ``LogisticRegressionOutput``) as two Modules, Normal(0.02), Adam lr
+      2e-4 beta1 0.5; 200 iterations of batch 64 of dcgan.py's loop (noise
+      from ``mx.random.normal`` on the card; D on fake, its gradients
+      copied; D on real, the copies added into ``modD._exec_group.
+      grad_arrays``; ``modD.update()``; D on fake as real,
+      ``get_input_grads()`` into ``modG.backward``; ``modG.update()``):
+      finite losses, D's accuracy off chance, 26 ``bn_channel_sums``
+      launches every iteration (equal to a profiled iteration's device
+      launches, in a process of its own); ms per iteration, images/s, its
+      split into G forward, the three D passes, G backward and the two
+      updates, the busy share and peak memory;
+   b. its first 2 iterations from the same host-made weights, noise and
+      images on the card and on the host: outputs within 1e-4, gradients
+      and updated parameters within 1e-3 relative L2 or 4 times the host's
+      one-ulp floor (phase 4's rule);
+   c. every random op on the card: 10^6 draws at two parameter settings
+      (uniform and normal also in f16 and f64), support, mean and variance
+      within 6 standard errors, the same seed the same bits, another seed
+      others, ``torch.manual_seed`` nothing; multinomial by chi-square at p
+      1e-4 (and its p-values over 20 seeds uniform) with ``get_prob``
+      exact; ``_shuffle`` a permutation;
+      ``sgld_update``'s noise by its moments;
+   d. ``Module.fit`` of a graph that adds ``mx.sym.random.normal`` noise to
+      its input, on the fused step as one CUDA graph, against the eager
+      general path from the same generator state (1e-6), replays drawing
+      fresh noise;
+   e. ``check_consistency`` over [cpu(0), gpu(0)] and the training
+      backward on the 8 new ``nn`` ops at real shapes (the sequence ops at
+      T 35, N 20, C 650 with ragged lengths, ``UpSampling`` at (64, 128,
+      16, 16), the regression heads at (64, 1) and (64, 10)) and the 4
+      deterministic update ops at (2600, 650), within 1e-4.
+13. The ``kernels`` JSON line (each kernel's record with its launches on
    every path, phase 10's five and the MLP's with 0 of each, LeNet's with
-   2 max-pool backwards a step, and its bf16/f16/f64, head_dim 32 and
-   LeNet instances), then the result line.
+   2 max-pool backwards a step, DCGAN's with 26 channel sums an
+   iteration, and its bf16/f16/f64, head_dim 32, LeNet and DCGAN
+   instances), then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is not beside this script.
@@ -4679,6 +4720,965 @@ def train_mnist(mx, seed):
     return paths
 
 
+# -- phase 12: DCGAN (MXNet 1.0's example/gan/dcgan.py) through two Modules,
+# the random ops, a replayed step that draws, the last nn and update ops ---
+
+# dcgan.py's settings (Radford, Metz and Chintala 2016, arXiv:1511.06434):
+# ngf = ndf = 64, Z 100, batch 64 of 64x64x3 images, Normal(0.02), Adam lr
+# 2e-4, beta1 0.5, wd 0.  Cut: 200 iterations of one epoch, where the
+# example runs 100 epochs; the widths are not cut.
+DCGAN = dict(ngf=64, ndf=64, nc=3, z=100, batch=64, size=64)
+DCGAN_ADAM = {"learning_rate": 2e-4, "wd": 0.0, "beta1": 0.5}
+DCGAN_EPS = 1e-5 + 1e-12
+DCGAN_IMAGES = 60000     # phase 11's training file
+DCGAN_ITERS = 200
+DCGAN_WARMUP = 10        # iterations before the median
+DCGAN_SPLIT_ITERS = 5
+DCGAN_HOST_ITERS = 2
+DCGAN_OUT_TOL = dict(atol=1e-4, rtol=1e-4)
+DCGAN_GRAD_REL = 1e-3    # phase 4's BatchNorm-net rule, or 4x the floor
+# D's accuracy on real and fake (dcgan.py's facc) leaves chance by this
+# much in some 10-iteration window
+DCGAN_ACC_MOVE = 0.1
+# its 7 train-mode BatchNorm inputs: gbn1-gbn4, then dbn2-dbn4
+DCGAN_BN_SHAPES = (("gbn1", (64, 512, 4, 4)), ("gbn2", (64, 256, 8, 8)),
+                   ("gbn3", (64, 128, 16, 16)), ("gbn4", (64, 64, 32, 32)),
+                   ("dbn2", (64, 128, 16, 16)), ("dbn3", (64, 256, 8, 8)),
+                   ("dbn4", (64, 512, 4, 4)))
+RANDOM_DRAWS = 1000000
+RANDOM_SIGMAS = 6.0
+RANDOM_P_MIN = 1e-4
+RANDOM_SEEDS = 20        # multinomial chi-square p-values over seeds
+NOISY = dict(batch=64, features=256, classes=10, batches=4, epochs=2)
+NOISY_REL = 1e-6
+NN_CHECK_TOL = 1e-4      # check_consistency, card against host, f32
+SEQ_SHAPE = (35, 20, 650)  # the medium LSTM's T, N, C (phase 7)
+UPDATE_SHAPE = (2600, 650)  # the medium LSTM's i2h weight
+
+
+def check_dcgan_bn(seed):
+    """Phase 2e: ``bn_channel_sums`` at DCGAN's seven BatchNorm inputs
+    (phase 12's main path), f32, statistics and pair, against its plain
+    version, timed (one call, 20 back to back, device only) beside
+    ``batch_norm_stats`` / ``batch_norm_backward_reduce`` and the bytes
+    bound.  Timed here, early: late in the process torch.profiler loses
+    kernel records.  Returns ([], [(kernel, instance)])."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 60)
+    out = []
+    for name, shape in DCGAN_BN_SHAPES:
+        a = torch.randn(*shape, generator=gen, device=dev) + 0.5
+        b = torch.randn(*shape, generator=gen, device=dev) + 0.5
+        for pair in (None, b):
+            form = "stats" if pair is None else "pair"
+            label = "dcgan-%s-%s-%s" % (name, "x".join(map(str, shape)),
+                                        form)
+            errs = [_agree(g, w, F32_TOL) for g, w in zip(
+                K.bn_channel_sums(a, pair), K._plain_channel_sums(a, pair))]
+            err = max(e for e, _ in errs)
+            if not all(o for _, o in errs):
+                raise AssertionError("bn_channel_sums disagrees with its "
+                                     "plain version at %s" % label)
+            run = lambda: K.bn_channel_sums(a, pair)  # noqa: E731
+            lib = bn_library(a, pair)
+            ms, lib_ms = time_ms(run), time_ms(lib)
+            plain_ms = time_ms(lambda: K._plain_channel_sums(a, pair))
+            bound = bytes_bound(bn_bytes(a, pair))
+            b2b, lib_b2b = time_ms_back_to_back(run), \
+                time_ms_back_to_back(lib)
+            print("kernel bn_channel_sums %s: max_abs_err %.3g; one call "
+                  "%.4f ms, plain %.4f ms, %s %.4f ms; 20 back to back "
+                  "%.4f ms a call (library %.4f ms); device only: kernel %s, "
+                  "library %s; bound %.4f ms (%s); card %s"
+                  % (label, err, ms, plain_ms, "batch_norm_stats"
+                     if pair is None else "batch_norm_backward_reduce",
+                     lib_ms, b2b, lib_b2b,
+                     _device_text(device_ms_per_call(run)),
+                     _device_text(device_ms_per_call(lib)), bound[0],
+                     bound[1], card_line()))
+            out.append(("bn_channel_sums",
+                        _instance(label, err, ms, plain_ms, bound, lib_ms)))
+    return [], out
+
+
+def dcgan_symbols(mx, cfg):
+    """dcgan.py's ``make_dcgan_sym`` (no_bias, fix_gamma): (generator,
+    discriminator with ``LogisticRegressionOutput``)."""
+    s = mx.sym
+
+    def bn(x, name):
+        return s.BatchNorm(x, name=name, fix_gamma=True, eps=DCGAN_EPS)
+
+    ngf, ndf = cfg["ngf"], cfg["ndf"]
+    x = s.Variable("rand")
+    for i, width in enumerate([ngf * 8, ngf * 4, ngf * 2, ngf], 1):
+        stride = dict(stride=(2, 2), pad=(1, 1)) if i > 1 else {}
+        x = s.Deconvolution(x, name="g%d" % i, kernel=(4, 4),
+                            num_filter=width, no_bias=True, **stride)
+        x = s.Activation(bn(x, "gbn%d" % i), name="gact%d" % i,
+                         act_type="relu")
+    x = s.Deconvolution(x, name="g5", kernel=(4, 4), stride=(2, 2),
+                        pad=(1, 1), num_filter=cfg["nc"], no_bias=True)
+    gout = s.Activation(x, name="gact5", act_type="tanh")
+    d = s.Variable("data")
+    for i, width in enumerate([ndf, ndf * 2, ndf * 4, ndf * 8], 1):
+        d = s.Convolution(d, name="d%d" % i, kernel=(4, 4), stride=(2, 2),
+                          pad=(1, 1), num_filter=width, no_bias=True)
+        if i > 1:
+            d = bn(d, "dbn%d" % i)
+        d = s.LeakyReLU(d, name="dact%d" % i, act_type="leaky", slope=0.2)
+    d = s.Flatten(s.Convolution(d, name="d5", kernel=(4, 4), num_filter=1,
+                                no_bias=True))
+    return gout, s.LogisticRegressionOutput(data=d, label=s.Variable("label"),
+                                            name="dloss")
+
+
+def dcgan_modules(mx, ctx, cfg, arrays=None):
+    """dcgan.py's ``modG`` and ``modD`` (``inputs_need_grad``) on ``ctx``:
+    Normal(0.02) from the port's generator, or ``arrays`` ({name: numpy}
+    with "arg:"/"aux:" keys, through ``params_from_numpy``)."""
+    sym_g, sym_d = dcgan_symbols(mx, cfg)
+    b = cfg["batch"]
+    mods = []
+    for sym, data, label in (
+            (sym_g, ("rand", (b, cfg["z"], 1, 1)), None),
+            (sym_d, ("data", (b, cfg["nc"], cfg["size"], cfg["size"])),
+             ("label", (b,)))):
+        mod = mx.mod.Module(sym, data_names=(data[0],),
+                            label_names=(label[0],) if label else None,
+                            context=ctx)
+        mod.bind(data_shapes=[data], label_shapes=[label] if label else None,
+                 inputs_need_grad=label is not None)
+        if arrays is None:
+            mod.init_params(initializer=mx.initializer.Normal(0.02))
+        else:
+            mine = set(sym.list_arguments()) | set(
+                sym.list_auxiliary_states())
+            args, auxs = mx.convert.params_from_numpy(
+                {k: v for k, v in arrays.items()
+                 if k.split(":", 1)[1] in mine}, mx.cpu())
+            mod.init_params(arg_params=args, aux_params=auxs)
+        mod.init_optimizer(optimizer="adam",
+                           optimizer_params=dict(DCGAN_ADAM))
+        mods.append(mod)
+    return mods
+
+
+def dcgan_weights(mx, cfg, seed):
+    """Normal(0.02) weights, unit gammas, zero betas, moving statistics 0
+    and 1, drawn on the host with numpy: {"arg:"/"aux:" name: array}."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    b = cfg["batch"]
+    for sym, shapes in zip(dcgan_symbols(mx, cfg), (
+            {"rand": (b, cfg["z"], 1, 1)},
+            {"data": (b, cfg["nc"], cfg["size"], cfg["size"]),
+             "label": (b,)})):
+        arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+        for n, s in zip(sym.list_arguments(), arg_shapes):
+            if n in shapes:
+                continue
+            out["arg:" + n] = np.ones(s, np.float32) if n.endswith("gamma") \
+                else np.zeros(s, np.float32) if n.endswith("beta") \
+                else (0.02 * rng.standard_normal(s)).astype(np.float32)
+        for n, s in zip(sym.list_auxiliary_states(), aux_shapes):
+            out["aux:" + n] = (np.ones if n.endswith("var") else np.zeros)(
+                s, np.float32)
+    return out
+
+
+def dcgan_facc(label, pred):
+    """dcgan.py's discriminator accuracy."""
+    return ((pred.ravel() > 0.5) == label.ravel()).mean()
+
+
+def dcgan_fentropy(label, pred):
+    """dcgan.py's binary cross-entropy."""
+    pred, label = pred.ravel(), label.ravel()
+    return -(label * np.log(pred + 1e-12)
+             + (1.0 - label) * np.log(1.0 - pred + 1e-12)).mean()
+
+
+def dcgan_iteration(mx, mod_g, mod_d, noise, batch, label, metrics=None,
+                    split=None, seen=None):
+    """dcgan.py's training iteration: ``noise`` a DataBatch of G's input,
+    ``batch`` the real images' DataBatch, ``label`` dcgan.py's label
+    array.  ``metrics`` (mG, mD, mACC) are updated as dcgan.py updates
+    them; ``split`` (a list) gets the synchronized ms of each part;
+    ``seen`` (a dict) gets what the iteration computed, on the host."""
+    import torch
+    marks = [time.perf_counter()]
+
+    def part():
+        if split is not None:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+    mod_g.forward(noise, is_train=True)
+    out_g = mod_g.get_outputs()
+    part()
+    label[:] = 0
+    mod_d.forward(mx.io.DataBatch(out_g, [label]), is_train=True)
+    mod_d.backward()
+    grad_d = [[g.copyto(g.context) for g in grads]
+              for grads in mod_d._exec_group.grad_arrays]
+    if metrics:
+        mod_d.update_metric(metrics[1], [label])
+        metrics[2].update([label], mod_d.get_outputs())
+    if seen is not None:
+        seen["G"] = out_g[0].asnumpy()
+        seen["D fake"] = mod_d.get_outputs()[0].asnumpy()
+    part()
+    label[:] = 1
+    batch.label = [label]
+    mod_d.forward(batch, is_train=True)
+    mod_d.backward()
+    for grads_r, grads_f in zip(mod_d._exec_group.grad_arrays, grad_d):
+        for grad_r, grad_f in zip(grads_r, grads_f):
+            grad_r += grad_f
+    if metrics:
+        mod_d.update_metric(metrics[1], [label])
+        metrics[2].update([label], mod_d.get_outputs())
+    if seen is not None:
+        seen["D real"] = mod_d.get_outputs()[0].asnumpy()
+        seen["D grads"] = {n: g[0].asnumpy() for n, g in zip(
+            mod_d._param_names, mod_d._exec_group.grad_arrays)}
+    part()
+    mod_d.update()
+    part()
+    label[:] = 1
+    mod_d.forward(mx.io.DataBatch(out_g, [label]), is_train=True)
+    mod_d.backward()
+    diff_d = mod_d.get_input_grads()
+    if metrics:
+        mod_d.update_metric(metrics[0], [label])
+    if seen is not None:
+        seen["D fake as real"] = mod_d.get_outputs()[0].asnumpy()
+        seen["D input grads"] = diff_d[0].asnumpy()
+    part()
+    mod_g.backward(diff_d)
+    if seen is not None:
+        seen["G grads"] = {n: g[0].asnumpy() for n, g in zip(
+            mod_g._param_names, mod_g._exec_group.grad_arrays)}
+    part()
+    mod_g.update()
+    part()
+    if split is not None:
+        split.append(np.diff(marks) * 1e3)
+    if seen is not None:
+        for tag, mod in (("G", mod_g), ("D", mod_d)):
+            args, auxs = mod.get_params()
+            seen[tag + " params"] = {k: v.asnumpy() for k, v in args.items()}
+            seen[tag + " aux"] = {k: v.asnumpy() for k, v in auxs.items()}
+
+
+DCGAN_PARTS = ("G forward", "D pass 1 (fake, label 0)",
+               "D pass 2 (real, label 1, gradients added)", "D update",
+               "D pass 3 (fake, label 1, input gradients)", "G backward",
+               "G update")
+
+
+def dcgan_images(root, seed):
+    """dcgan.py's MNIST path over phase 11's written training images: each
+    resized to 64x64 (bilinear, ``torch.nn.functional.interpolate`` on
+    the host in place of ``cv2.resize``), tiled to 3 channels, scaled to
+    [-1, 1]: (n, 3, 64, 64) float32."""
+    import torch
+    import torch.nn.functional as F
+    n = DCGAN_IMAGES
+    image_file, _ = write_mnist(root, seed, {"train": n})["train"]
+    with open(image_file, "rb") as f:
+        pixels = np.frombuffer(f.read(), np.uint8, offset=16).reshape(
+            n, 1, 28, 28)
+    size = DCGAN["size"]
+    out = np.empty((n, DCGAN["nc"], size, size), np.float32)
+    for lo in range(0, n, 4096):
+        x = torch.from_numpy(pixels[lo:lo + 4096].astype(np.float32))
+        y = F.interpolate(x, size=(size, size), mode="bilinear",
+                          align_corners=False)
+        out[lo:lo + 4096] = (y / (255.0 / 2) - 1.0).numpy()
+    return out
+
+
+def expected_dcgan_launches(mx):
+    """``bn_channel_sums`` launches of one dcgan.py iteration, read off the
+    graphs: per train-mode BatchNorm one statistics launch a forward and
+    one paired launch a backward; G runs one forward and one backward, D
+    three of each."""
+    sym_g, sym_d = dcgan_symbols(mx, DCGAN)
+
+    def bns(sym):
+        return sum(node.op_name == "BatchNorm" for node in sym._topo())
+
+    return {"bn_channel_sums": 2 * bns(sym_g) + 3 * 2 * bns(sym_d)}
+
+
+def train_dcgan(mx, seed, images):
+    """12a.  dcgan.py's loop on the card for DCGAN_ITERS iterations: noise
+    from ``mx.random.normal`` on the card, the real batches through
+    ``NDArrayIter(shuffle=True)`` after ``mx.random.seed(seed)``.  Returns
+    the loop's kernel launches."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    cfg, ctx = DCGAN, mx.gpu(0)
+    per_iter = expected_dcgan_launches(mx)
+    mx.random.seed(seed)
+    train_iter = mx.io.NDArrayIter(images, batch_size=cfg["batch"],
+                                   shuffle=True)
+    mod_g, mod_d = dcgan_modules(mx, ctx, cfg)
+    label = mx.nd.zeros((cfg["batch"],), ctx=ctx)
+    metrics = (mx.metric.CustomMetric(dcgan_fentropy),
+               mx.metric.CustomMetric(dcgan_fentropy),
+               mx.metric.CustomMetric(dcgan_facc))
+    windows, iter_ms, iter_launches = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    K.reset_launch_counts()
+    t_fit = time.perf_counter()
+    for t in range(DCGAN_ITERS):
+        before = K.launch_counts()
+        t0 = time.perf_counter()
+        noise = mx.io.DataBatch([mx.random.normal(
+            0, 1.0, shape=(cfg["batch"], cfg["z"], 1, 1))], [])
+        dcgan_iteration(mx, mod_g, mod_d, noise, next(train_iter), label,
+                        metrics)
+        torch.cuda.synchronize()
+        iter_ms.append((time.perf_counter() - t0) * 1e3)
+        now = K.launch_counts()
+        iter_launches.append({k: now[k] - before[k] for k in per_iter})
+        if (t + 1) % 10 == 0:
+            windows.append(tuple(m.get()[1] for m in metrics))
+            for m in metrics:
+                m.reset()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    launches = K.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = float(np.median(iter_ms[DCGAN_WARMUP:]))
+    acc = [w[2] for w in windows]
+    print("dcgan: %d iterations of batch %d (ngf %d, ndf %d, Z %d, %dx%d) in "
+          "%.2f s; ms per iteration %.3f (median after %d), %.1f real "
+          "images/s; peak memory %.2f GB (%.2f GB above the %.2f GB held "
+          "before the loop); bn_channel_sums launches per iteration %s (all "
+          "%d alike: %s), in all %d; card %s"
+          % (DCGAN_ITERS, cfg["batch"], cfg["ngf"], cfg["ndf"], cfg["z"],
+             cfg["size"], cfg["size"], fit_s, ms, DCGAN_WARMUP,
+             cfg["batch"] / ms * 1e3, peak_gb, peak_gb - held_gb, held_gb,
+             iter_launches[-1],
+             len(iter_launches), all(d == per_iter for d in iter_launches),
+             launches["bn_channel_sums"], card_line()))
+    print("dcgan: every 10 iterations (G entropy, D entropy, D accuracy): %s"
+          % "; ".join("%.4f %.4f %.4f" % w for w in windows))
+    if any(d != per_iter for d in iter_launches):
+        raise AssertionError("dcgan: bn_channel_sums launches per iteration "
+                             "other than %s" % per_iter)
+    if not np.isfinite(windows).all() \
+            or max(abs(a - 0.5) for a in acc) < DCGAN_ACC_MOVE:
+        raise AssertionError("dcgan: losses not finite or D's accuracy "
+                             "stayed at chance: %s" % windows)
+    split = []
+    for _ in range(DCGAN_SPLIT_ITERS):
+        noise = mx.io.DataBatch([mx.random.normal(
+            0, 1.0, shape=(cfg["batch"], cfg["z"], 1, 1))], [])
+        dcgan_iteration(mx, mod_g, mod_d, noise, next(train_iter), label,
+                        split=split)
+    med = np.median(np.stack(split), axis=0)
+    print("dcgan: one iteration split (synchronized, median of %d): %s; "
+          "sum %.3f ms" % (DCGAN_SPLIT_ITERS, "; ".join(
+              "%s %.3f ms" % kv for kv in zip(DCGAN_PARTS, med)),
+                           float(med.sum())))
+    return {k: launches[k] for k in per_iter}
+
+
+def dcgan_profile_apart(seed):
+    """Runs ``dcgan_profile_child`` in a process of its own (late in this
+    process torch.profiler loses kernel records) and passes its lines on;
+    raises when it fails."""
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--dcgan-profile"], capture_output=True, text=True, timeout=600)
+    sys.stdout.write(child.stdout)
+    if child.returncode != 0:
+        sys.stdout.write(child.stderr[-4000:])
+        raise AssertionError("the profiled DCGAN iteration failed (exit %d)"
+                             % child.returncode)
+
+
+def dcgan_profile_child(mx, seed):
+    """``--dcgan-profile``: dcgan.py's iteration at full width on random
+    images, 3 warm-up iterations, then one under torch.profiler: the busy
+    share, device time by group, and ``bn_channel_sums``'s device
+    launches, which must equal the launches counted for the iteration."""
+    from mxnet_tpu_torch.ops import kernels as K
+    cfg, ctx = DCGAN, mx.gpu(0)
+    per_iter = expected_dcgan_launches(mx)
+    mod_g, mod_d = dcgan_modules(mx, ctx, cfg)
+    label = mx.nd.zeros((cfg["batch"],), ctx=ctx)
+    rng = np.random.default_rng(seed + 61)
+
+    def one():
+        noise = mx.io.DataBatch([mx.random.normal(
+            0, 1.0, shape=(cfg["batch"], cfg["z"], 1, 1))], [])
+        real = mx.io.DataBatch([mx.nd.array(rng.uniform(
+            -1, 1, (cfg["batch"], cfg["nc"], cfg["size"], cfg["size"])
+        ).astype(np.float32), ctx=ctx)], [])
+        dcgan_iteration(mx, mod_g, mod_d, noise, real, label)
+
+    for _ in range(3):
+        one()
+    before = K.launch_counts()
+    table = profile_run(one, "dcgan iteration")
+    calls = {k: K.launch_counts()[k] - before[k] for k in per_iter}
+    if calls != per_iter:
+        raise AssertionError("the profiled DCGAN iteration counted %s, "
+                             "expected %s" % (calls, per_iter))
+    if table is None:
+        return 0
+    n = sum(v[1] for k, v in table.items() if "channel_sums_kernel" in k)
+    print("dcgan: the profiled iteration's bn_channel_sums: %d device "
+          "launches (%.4f ms), %d counted; card %s"
+          % (n, sum(v[0] for k, v in table.items()
+                    if "channel_sums_kernel" in k),
+             calls["bn_channel_sums"], card_line()))
+    if n != calls["bn_channel_sums"]:
+        raise AssertionError("the iteration's bn_channel_sums device "
+                             "launches %d, expected %d"
+                             % (n, calls["bn_channel_sums"]))
+    return 0
+
+
+def dcgan_host_check(mx, seed, images):
+    """12b.  DCGAN's first DCGAN_HOST_ITERS iterations at full width from
+    the same weights (``params_from_numpy``), noise and images, all made
+    on the host, on the card and through the port on the host, and twice
+    more on the host with the noise and the images moved by a relative
+    1e-7 (two draws): the larger of those runs' distances from the host's
+    is the host's own floor for each tensor (phase 4's rule for
+    BatchNorm nets).  Each output within DCGAN_OUT_TOL, or within 4 times
+    its floor's largest error.  D's summed gradients, D's input
+    gradients, G's gradients and both nets' updated parameters and moving
+    statistics each within DCGAN_GRAD_REL relative L2, or within 4 times
+    the largest floor of its kind (the same iteration, record and name
+    suffix: the weights, the betas, the moving means, ...): phase 4's
+    rule, whose limit is the largest floor of all, narrowed to a kind.
+    The outputs of the first iteration's passes before an update have a
+    floor of ~1e-7, so they are held to DCGAN_OUT_TOL.  Adam's first
+    steps move each weight by about +-lr whatever the size of its
+    gradient, so the sign of a gradient that is 0 up to rounding moves a
+    weight by 2 lr; every later tensor carries that floor, and a flip in
+    a small tensor (a beta of 256 channels) is a rare event that a floor
+    run shows in some tensors of the kind, not in each."""
+    cfg = DCGAN
+    rng = np.random.default_rng(seed + 62)
+    weights = dcgan_weights(mx, cfg, seed + 63)
+    b = cfg["batch"]
+    noises = [rng.standard_normal((b, cfg["z"], 1, 1)).astype(np.float32)
+              for _ in range(DCGAN_HOST_ITERS)]
+    reals = [images[i * b:(i + 1) * b] for i in range(DCGAN_HOST_ITERS)]
+
+    def nudge(arrays):
+        return [(a * (1 + 1e-7 * rng.standard_normal(a.shape))).astype(
+            np.float32) for a in arrays]
+
+    runs = []
+    t0 = time.perf_counter()
+    for ctx, inputs in ((mx.gpu(0), (noises, reals)),
+                        (mx.cpu(), (noises, reals)),
+                        (mx.cpu(), (nudge(noises), nudge(reals))),
+                        (mx.cpu(), (nudge(noises), nudge(reals)))):
+        mod_g, mod_d = dcgan_modules(mx, ctx, cfg, weights)
+        label = mx.nd.zeros((b,), ctx=ctx)
+        steps = []
+        for noise, real in zip(*inputs):
+            seen = {}
+            dcgan_iteration(
+                mx, mod_g, mod_d,
+                mx.io.DataBatch([mx.nd.array(noise, ctx=ctx)], []),
+                mx.io.DataBatch([mx.nd.array(real, ctx=ctx)], []), label,
+                seen=seen)
+            steps.append(seen)
+        runs.append(steps)
+    card, host, floor1, floor2 = runs
+    outs, tensors = [], []  # (tag, error, floor, ok)
+    for k, (c, h, f1, f2) in enumerate(zip(card, host, floor1, floor2)):
+        for key in ("G", "D fake", "D real", "D fake as real"):
+            err = np.abs(c[key] - h[key])
+            floor = max(float(np.abs(f[key] - h[key]).max())
+                        for f in (f1, f2))
+            ok = bool((err <= DCGAN_OUT_TOL["atol"] + DCGAN_OUT_TOL["rtol"]
+                       * np.abs(h[key])).all()) or err.max() <= 4.0 * floor
+            outs.append(("%d %s" % (k + 1, key), float(err.max()), floor,
+                         ok))
+        for key in ("D input grads", "D grads", "G grads", "G params",
+                    "D params", "G aux", "D aux"):
+            pairs = [(key, c[key], h[key], f1[key], f2[key])] \
+                if key == "D input grads" else [
+                    ("%s %s" % (key, n), c[key][n], h[key][n], f1[key][n],
+                     f2[key][n])
+                    for n in h[key] if np.linalg.norm(h[key][n]) > 0]
+            for name, cv, hv, fv1, fv2 in pairs:
+                tensors.append(("%d %s" % (k + 1, name),
+                                "%d %s %s" % (k + 1, key,
+                                              name.rsplit("_", 1)[-1]),
+                                _rel_l2(cv, hv),
+                                max(_rel_l2(fv1, hv), _rel_l2(fv2, hv))))
+    kind_floor = {}
+    for _, kind, _, floor in tensors:
+        kind_floor[kind] = max(kind_floor.get(kind, 0.0), floor)
+    tensors = [(tag, err, kind_floor[kind],
+                err <= max(DCGAN_GRAD_REL, 4.0 * kind_floor[kind]))
+               for tag, kind, err, _ in tensors]
+    worst_out = max(outs, key=lambda o: o[1])
+    worst = max(tensors, key=lambda t: t[1] / max(DCGAN_GRAD_REL,
+                                                  4.0 * t[2]))
+    above = sorted((t for t in tensors if t[1] > DCGAN_GRAD_REL),
+                   key=lambda t: -t[1])
+    print("dcgan: %d iterations card vs host from the same weights, noise "
+          "and images (%.1f s); outputs: largest max_abs_err %.3g (iteration "
+          "%s; its floor %.3g), %d/%d within atol=rtol=%g, the rest within "
+          "4x their floor: %s; gradients, parameters and moving statistics "
+          "(%d tensors): relative L2 median %.3g, largest against its limit "
+          "%.3g (iteration %s; floor %.3g), %d above %g, each within 4x the "
+          "floor of its kind (the host's noise and images moved by 1e-7): "
+          "%s; card %s"
+          % (DCGAN_HOST_ITERS, time.perf_counter() - t0, worst_out[1],
+             worst_out[0], worst_out[2],
+             sum(o[1] <= DCGAN_OUT_TOL["atol"] for o in outs), len(outs),
+             DCGAN_OUT_TOL["atol"], "; ".join(
+                 "%s %.3g (floor %.3g)" % o[:3] for o in outs
+                 if o[1] > DCGAN_OUT_TOL["atol"]) or "none",
+             len(tensors), float(np.median([t[1] for t in tensors])),
+             worst[1], worst[0], worst[2], len(above), DCGAN_GRAD_REL,
+             "; ".join("%s %.3g (floor %.3g)" % t[:3] for t in above[:8])
+             + ("; ..." if len(above) > 8 else "") if above else "none",
+             card_line()))
+    bad = [o for o in outs + tensors if not o[3]]
+    if bad:
+        raise AssertionError("dcgan: the card's iterations disagree with the "
+                             "host's beyond the host's own floor: %s"
+                             % "; ".join("%s %.3g (floor %.3g)" % t[:3]
+                                         for t in bad[:8]))
+
+
+# canonical op -> two cases: (scalar attrs, or tensor params one row per
+# parameter), the analytic (mean, variance) per row, the support
+RANDOM_CASES = {
+    "_random_uniform": [({"low": -1.0, "high": 3.0}, [(1.0, 16 / 12)],
+                         ("range", -1.0, 3.0)),
+                        ({"low": 0.0, "high": 1.0}, [(0.5, 1 / 12)],
+                         ("range", 0.0, 1.0))],
+    "_random_normal": [({"loc": 2.0, "scale": 0.5}, [(2.0, 0.25)], None),
+                       ({"loc": -10.0, "scale": 3.0}, [(-10.0, 9.0)], None)],
+    "_random_gamma": [({"alpha": 2.5, "beta": 1.5}, [(3.75, 5.625)],
+                       ("positive",)),
+                      ({"alpha": 0.5, "beta": 2.0}, [(1.0, 2.0)],
+                       ("positive",))],
+    "_random_exponential": [({"lam": 2.0}, [(0.5, 0.25)], ("nonnegative",)),
+                            ({"lam": 0.1}, [(10.0, 100.0)],
+                             ("nonnegative",))],
+    "_random_poisson": [({"lam": 4.0}, [(4.0, 4.0)], ("count",)),
+                        ({"lam": 0.3}, [(0.3, 0.3)], ("count",))],
+    "_random_negative_binomial": [({"k": 3, "p": 0.4}, [(4.5, 11.25)],
+                                   ("count",)),
+                                  ({"k": 10, "p": 0.8}, [(2.5, 3.125)],
+                                   ("count",))],
+    "_random_generalized_negative_binomial": [
+        ({"mu": 5.0, "alpha": 0.3}, [(5.0, 12.5)], ("count",)),
+        ({"mu": 1.5, "alpha": 2.0}, [(1.5, 6.0)], ("count",))],
+    "_random_randint": [({"low": -3, "high": 7}, [(1.5, 8.25)],
+                         ("integer", -3, 7)),
+                        ({"low": 0, "high": 2}, [(0.5, 0.25)],
+                         ("integer", 0, 2))],
+    "_sample_uniform": [([[0.0, -2.0], [1.0, 2.0]],
+                         [(0.5, 1 / 12), (0.0, 16 / 12)], ("rows",)),
+                        ([[5.0], [5.5]], [(5.25, 0.25 / 12)], ("rows",))],
+    "_sample_normal": [([[0.0, 3.0], [1.0, 0.5]], [(0.0, 1.0), (3.0, 0.25)],
+                        None),
+                       ([[-1.0], [4.0]], [(-1.0, 16.0)], None)],
+    "_sample_gamma": [([[1.0, 8.0], [1.0, 2.0]], [(1.0, 1.0), (16.0, 32.0)],
+                       ("positive",)),
+                      ([[0.7], [0.5]], [(0.35, 0.175)], ("positive",))],
+    "_sample_exponential": [([[1.0, 4.0]], [(1.0, 1.0), (0.25, 1 / 16)],
+                             ("nonnegative",)),
+                            ([[0.5]], [(2.0, 4.0)], ("nonnegative",))],
+    "_sample_poisson": [([[2.0, 10.0]], [(2.0, 2.0), (10.0, 10.0)],
+                         ("count",)),
+                        ([[30.0]], [(30.0, 30.0)], ("count",))],
+    "_sample_negative_binomial": [
+        ([[3.0, 5.0], [0.4, 0.7]], [(4.5, 11.25), (5 * 0.3 / 0.7,
+                                                   5 * 0.3 / 0.49)],
+         ("count",)),
+        ([[1.0], [0.5]], [(1.0, 2.0)], ("count",))],
+    "_sample_generalized_negative_binomial": [
+        ([[5.0, 2.0], [0.3, 1.0]], [(5.0, 12.5), (2.0, 6.0)], ("count",)),
+        ([[8.0], [0.1]], [(8.0, 14.4)], ("count",))],
+}
+RANDOM_PROBS = np.array([[0.1, 0.2, 0.3, 0.4], [0.5, 0.25, 0.125, 0.125]],
+                        np.float32)
+
+
+def _z_scores(x, mean, var):
+    """The sample mean's and variance's distance from the analytic values
+    in standard errors (the variance's from the sample's fourth central
+    moment)."""
+    n = x.size
+    m4 = ((x - x.mean()) ** 4).mean()
+    return (abs(x.mean() - mean) / np.sqrt(var / n),
+            abs(x.var() - var) / np.sqrt(max(m4 - x.var() ** 2, 1e-300) / n))
+
+
+def _support_ok(x, support, params):
+    if not np.isfinite(x).all():
+        return False
+    if support is None:
+        return True
+    kind = support[0]
+    if kind == "range":
+        return x.min() >= support[1] and x.max() < support[2]
+    if kind == "integer":
+        return bool((x == np.round(x)).all()) and x.min() >= support[1] \
+            and x.max() < support[2]
+    if kind == "count":
+        return bool((x == np.round(x)).all()) and x.min() >= 0
+    if kind == "positive":
+        return x.min() > 0
+    if kind == "nonnegative":
+        return x.min() >= 0
+    lo, hi = params
+    return all(r.min() >= a and r.max() < b
+               for r, a, b in zip(x.reshape(len(lo), -1), lo, hi))
+
+
+def _random_draw(mx, name, case, n, dtype=None):
+    """``mx.nd.<name>`` on the card at its case, ``n`` draws per row."""
+    attrs_or_params = case[0]
+    kw = {"shape": (n,)}
+    if dtype is not None:
+        kw["dtype"] = dtype
+    fn = getattr(mx.nd, name)
+    if isinstance(attrs_or_params, dict):
+        return fn(ctx=mx.gpu(0), **attrs_or_params, **kw)
+    return fn(*[mx.nd.array(np.asarray(p, np.float32), ctx=mx.gpu(0))
+                for p in attrs_or_params], **kw)
+
+
+def random_ops_on_card(mx, seed):
+    """12c.  Every canonical random op on the card: 10^6 draws at each of
+    two parameter settings in f32 (and uniform and normal in f16 and
+    f64): the output on the card, its support, mean and variance within
+    RANDOM_SIGMAS standard errors; the same ``mx.random.seed`` the same
+    bits twice, another seed others, ``torch.manual_seed`` nothing.
+    Multinomial frequencies by a chi-square at p RANDOM_P_MIN, the
+    chi-square p-values over RANDOM_SEEDS seeds uniform by a KS test at p
+    RANDOM_P_MIN, and ``get_prob`` equal to ``log p[idx]`` exactly;
+    ``_shuffle`` a row permutation; ``sgld_update``'s noise (its output
+    less the host's deterministic part) N(0, lr) by its moments."""
+    import torch
+    from scipy import stats
+    worst = (0.0, "")
+    n_checked = 0
+    for name, cases in RANDOM_CASES.items():
+        for k, case in enumerate(cases):
+            rows = len(case[1])
+            cases_dt = [None] + (["float16", "float64"]
+                                 if name in ("_random_uniform",
+                                             "_random_normal") and k == 0
+                                 else [])
+            for dtype in cases_dt:
+                mx.random.seed(seed + 64)
+                t0 = time.perf_counter()
+                out = _random_draw(mx, name, case, RANDOM_DRAWS // rows,
+                                   dtype)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                x = out.asnumpy().astype(np.float64)
+                on_card = out.context == mx.gpu(0)
+                ok = on_card and _support_ok(
+                    x, case[2], None if isinstance(case[0], dict)
+                    else case[0])
+                for row, (mean, var) in zip(x.reshape(rows, -1), case[1]):
+                    zm, zv = _z_scores(row, mean, var)
+                    worst = max(worst, (max(zm, zv), "%s case %d %s"
+                                        % (name, k, dtype or "float32")))
+                    ok = ok and zm < RANDOM_SIGMAS and zv < RANDOM_SIGMAS
+                if dtype is None:
+                    mx.random.seed(seed + 64)
+                    torch.manual_seed(seed + 999)
+                    again = _random_draw(mx, name, case,
+                                         RANDOM_DRAWS // rows).asnumpy()
+                    mx.random.seed(seed + 65)
+                    other = _random_draw(mx, name, case,
+                                         RANDOM_DRAWS // rows).asnumpy()
+                    ok = ok and np.array_equal(again, out.asnumpy()) \
+                        and not np.array_equal(other, out.asnumpy())
+                n_checked += 1
+                print("random %s case %d %s: %d draws on the card in %.3f ms "
+                      "(host clock, synchronized), %s"
+                      % (name, k, dtype or "float32", x.size, ms,
+                         "ok" if ok else "FAIL"))
+                if not ok:
+                    raise AssertionError("random op %s case %d %s failed its "
+                                         "checks" % (name, k, dtype))
+    mx.random.seed(seed + 66)
+    data = mx.nd.array(RANDOM_PROBS, ctx=mx.gpu(0))
+    idx, prob = mx.nd.random.multinomial(data, shape=RANDOM_DRAWS // 2,
+                                         get_prob=True)
+    on_card = idx.context == prob.context == mx.gpu(0)
+    idx = idx.asnumpy()
+    pvals, freqs = [], []
+    for row, p in zip(idx, RANDOM_PROBS):
+        expected = p.astype(np.float64) / p.astype(np.float64).sum()
+        counts = np.bincount(row, minlength=len(p))
+        freqs.append("/".join("%.5f" % c for c in counts / row.size))
+        pvals.append(stats.chisquare(counts, expected * row.size).pvalue)
+    exact = np.array_equal(prob.asnumpy(), np.take_along_axis(
+        mx.nd.log(data).asnumpy(), idx, axis=1))
+    # over seeds the chi-square p-values of an unbiased sampler are uniform
+    seed_p = []
+    for k in range(RANDOM_SEEDS):
+        mx.random.seed(seed + 100 + k)
+        rows = mx.nd.random.multinomial(data, shape=RANDOM_DRAWS // 2)
+        for row, p in zip(rows.asnumpy(), RANDOM_PROBS):
+            expected = p.astype(np.float64) / p.astype(np.float64).sum()
+            seed_p.append(stats.chisquare(np.bincount(row, minlength=len(
+                p)), expected * row.size).pvalue)
+    seed_ks = stats.kstest(seed_p, "uniform").pvalue
+    rows = np.arange(2 * 20000, dtype=np.float32).reshape(20000, 2)
+    shuffled = mx.nd.random.shuffle(mx.nd.array(rows, ctx=mx.gpu(0)))
+    perm_ok = shuffled.context == mx.gpu(0) and np.array_equal(
+        np.sort(shuffled.asnumpy()[:, 0]), rows[:, 0]) and np.array_equal(
+        shuffled.asnumpy()[:, 1] - shuffled.asnumpy()[:, 0],
+        np.ones(20000, np.float32))
+    lr, wd = 0.04, 0.01
+    rng = np.random.default_rng(seed + 67)
+    w = rng.uniform(-1, 1, RANDOM_DRAWS).astype(np.float32)
+    g = rng.uniform(-1, 1, RANDOM_DRAWS).astype(np.float32)
+    sgld = mx.nd.sgld_update(mx.nd.array(w, ctx=mx.gpu(0)),
+                             mx.nd.array(g, ctx=mx.gpu(0)), lr=lr, wd=wd,
+                             clip_gradient=0.5)
+    noise = sgld.asnumpy().astype(np.float64) - (
+        w - lr / 2 * np.clip(g + wd * w, -0.5, 0.5))
+    z_sgld = _z_scores(noise, 0.0, lr)
+    print("random: %d cases of %d samplers passed; worst "
+          "moment %.2f standard errors (%s, limit %g); multinomial "
+          "frequencies %s, chi-square p %s (limit %g), over %d seeds the "
+          "%d p-values' KS test against uniform p %.3g, get_prob exact %s, "
+          "on the card %s; "
+          "shuffle a permutation of 20,000 rows %s; sgld_update noise mean "
+          "and variance %.2f and %.2f standard errors from N(0, %g); card %s"
+          % (n_checked, len(RANDOM_CASES), worst[0], worst[1], RANDOM_SIGMAS,
+             ", ".join(freqs), ", ".join("%.3g" % p for p in pvals),
+             RANDOM_P_MIN, RANDOM_SEEDS, len(seed_p), seed_ks, exact,
+             on_card, perm_ok, z_sgld[0], z_sgld[1], lr, card_line()))
+    if not (on_card and exact and perm_ok and min(pvals) > RANDOM_P_MIN
+            and seed_ks > RANDOM_P_MIN and max(z_sgld) < RANDOM_SIGMAS):
+        raise AssertionError("multinomial, shuffle or sgld_update failed its "
+                             "checks on the card")
+
+
+def noisy_module(mx, fused, seed):
+    """A Module whose graph adds ``mx.sym.random.normal`` noise to its
+    input, SGD momentum, on the card; its batches."""
+    cfg = NOISY
+    rng = np.random.default_rng(seed + 68)
+    x = rng.standard_normal((cfg["batch"] * cfg["batches"],
+                             cfg["features"])).astype(np.float32)
+    y = (x @ rng.standard_normal((cfg["features"], cfg["classes"]))).argmax(
+        1).astype(np.float32)
+    data = mx.sym.Variable("data")
+    noisy = data + mx.sym.random.normal(0.0, 0.5, shape=(cfg["batch"],
+                                                         cfg["features"]))
+    net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        noisy, num_hidden=cfg["classes"], name="fc"), name="softmax")
+    it = mx.io.NDArrayIter(x, y, batch_size=cfg["batch"])
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params={
+        "fc_weight": mx.nd.array(rng.uniform(-0.05, 0.05, (
+            cfg["classes"], cfg["features"])).astype(np.float32),
+            ctx=mx.cpu()),
+        "fc_bias": mx.nd.zeros((cfg["classes"],), ctx=mx.cpu())})
+    opt = {"learning_rate": 0.1, "momentum": 0.9}
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(opt))
+    if not fused:
+        mod._fused_step = None
+    return mod, it, opt
+
+
+def noisy_fit_check(mx, seed):
+    """12d.  ``Module.fit`` of a graph that adds ``mx.sym.random.normal``
+    noise to its input, on the fused step (one CUDA graph): every step's
+    outputs and the trained parameters equal the eager general path's
+    from the same generator state within NOISY_REL; then, at lr 0, two
+    replays on one batch draw different noise."""
+    import torch
+    runs = {}
+    for fused in (True, False):
+        mod, it, opt = noisy_module(mx, fused, seed)
+        outs = []
+        mx.random.seed(seed + 69)
+        if fused:
+            mod.fit(it, num_epoch=NOISY["epochs"], optimizer="sgd",
+                    optimizer_params=opt, batch_end_callback=lambda p: (
+                        outs.append(mod.get_outputs()[0].asnumpy())))
+        else:
+            for _ in range(NOISY["epochs"]):
+                it.reset()
+                for batch in it:
+                    mod.forward_backward(batch)
+                    mod.update()
+                    outs.append(mod.get_outputs()[0].asnumpy())
+        runs[fused] = (mod, outs, {k: v.asnumpy() for k, v in
+                                   mod.get_params()[0].items()})
+    mod, outs, params = runs[True]
+    _, eager_outs, eager_params = runs[False]
+    fs = mod._fused_step
+    steps = NOISY["batches"] * NOISY["epochs"]
+    worst = max([_rel_l2(a, b) for a, b in zip(outs, eager_outs)]
+                + [_rel_l2(params[k], eager_params[k]) for k in params])
+    it = noisy_module(mx, True, seed)[1]
+    batch = next(it)
+    mod._optimizer.lr = 0.0
+    mod._optimizer.wd = 0.0
+    fresh = []
+    for _ in range(2):
+        mod.forward_backward(batch)
+        mod.update()
+        fresh.append(mod.get_outputs()[0].asnumpy())
+    torch.cuda.synchronize()
+    print("noisy fit: %d steps of batch %d through Module.fit on the fused "
+          "step (captures %d, replays %d) against the eager general path "
+          "from the same generator state: largest relative L2 %.3g (limit "
+          "%g); two lr-0 replays on one batch differ: %s; card %s"
+          % (steps, NOISY["batch"], fs.captures if fs else 0,
+             fs.replays if fs else 0, worst, NOISY_REL,
+             not np.array_equal(fresh[0], fresh[1]), card_line()))
+    if fs is None or fs.captures != 1 or fs.replays != steps + 1 \
+            or len(outs) != steps or worst > NOISY_REL \
+            or np.array_equal(fresh[0], fresh[1]):
+        raise AssertionError("the fused step with a random node did not "
+                             "replay fresh draws equal to the eager path")
+
+
+def nn_rest_graphs(mx, rng):
+    """{name: (symbol, {input: values})}: the 8 ``nn`` ops and the 4
+    deterministic update ops at real shapes."""
+    s = mx.sym
+    t, n, c = SEQ_SHAPE
+    seq = {"data": rng.standard_normal(SEQ_SHAPE).astype(np.float32),
+           "sl": rng.integers(1, t + 1, n).astype(np.float32)}
+    data, sl = s.var("data"), s.var("sl")
+    graphs = {
+        "SequenceLast": (s.SequenceLast(data, sequence_length=sl,
+                                        use_sequence_length=True), seq),
+        "SequenceMask": (s.SequenceMask(data, sequence_length=sl,
+                                        use_sequence_length=True,
+                                        value=-1.0), seq),
+        "SequenceReverse": (s.SequenceReverse(data, sequence_length=sl,
+                                              use_sequence_length=True),
+                            seq),
+        "UpSampling": (s.UpSampling(data, scale=2, sample_type="nearest"),
+                       {"data": rng.standard_normal((64, 128, 16, 16))
+                        .astype(np.float32)}),
+        "SVMOutput": (s.SVMOutput(data, s.var("label")), {
+            "data": rng.standard_normal((64, 10)).astype(np.float32),
+            "label": rng.integers(0, 10, 64).astype(np.float32)}),
+    }
+    for head in ("LinearRegressionOutput", "LogisticRegressionOutput",
+                 "MAERegressionOutput"):
+        for width in (1, 10):
+            label = rng.integers(0, 2, (64, width)) \
+                if head == "LogisticRegressionOutput" \
+                else rng.standard_normal((64, width))
+            graphs["%s-%d" % (head, width)] = (
+                getattr(s, head)(data, s.var("label")), {
+                    "data": rng.standard_normal((64, width)).astype(
+                        np.float32),
+                    "label": label.astype(np.float32)})
+    w, g = s.var("weight"), s.var("grad")
+
+    def state(positive=False):
+        v = rng.standard_normal(UPDATE_SHAPE).astype(np.float32)
+        return np.abs(v) + 0.1 if positive else v
+
+    wg = {"weight": state(), "grad": state()}
+    graphs["adamax_update"] = (s.adamax_update(
+        w, g, s.var("mean"), s.var("var"), lr=0.01, t=3, wd=1e-4),
+        dict(wg, mean=state(), var=state(True)))
+    graphs["nadam_update"] = (s.nadam_update(
+        w, g, s.var("mean"), s.var("var"), lr=0.01, t=4, wd=1e-4),
+        dict(wg, mean=state(), var=state(True)))
+    graphs["ftml_update"] = (s.ftml_update(
+        w, g, s.var("d"), s.var("v"), s.var("z"), lr=0.01, t=2, wd=1e-4),
+        dict(wg, d=state(True), v=state(True), z=state()))
+    graphs["nag_mom_update"] = (s.nag_mom_update(
+        w, g, s.var("mom"), lr=0.1, momentum=0.9, wd=1e-4),
+        dict(wg, mom=state()))
+    return graphs
+
+
+def nn_rest_consistency(mx, seed):
+    """12e.  ``mx.test_utils.check_consistency`` over [cpu(0), gpu(0)] on
+    the 8 ``nn`` ops (the sequence ops at the medium LSTM's T 35, N 20,
+    C 650 with ragged lengths, ``UpSampling`` nearest at a generator's
+    (64, 128, 16, 16), the regression heads at (64, 1) and (64, 10),
+    ``SVMOutput``) and the 4 deterministic update ops at (2600, 650),
+    within NN_CHECK_TOL; and each graph's training backward (head
+    gradient ones) card against host within the same tolerance."""
+    rng = np.random.default_rng(seed + 70)
+    graphs = nn_rest_graphs(mx, rng)
+    for name, (sym, values) in graphs.items():
+        shapes = {k: v.shape for k, v in values.items()}
+        mx.test_utils.check_consistency(
+            sym, [dict(shapes, ctx=ctx) for ctx in (mx.cpu(), mx.gpu(0))],
+            arg_params=dict(values), tol=NN_CHECK_TOL)
+        grads = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            ex = sym.bind(ctx, args={k: mx.nd.array(v, ctx=ctx)
+                                     for k, v in values.items()},
+                          args_grad={k: mx.nd.zeros(v.shape, ctx=ctx)
+                                     for k, v in values.items()})
+            ex.forward(is_train=True)
+            ex.backward()
+            grads.append({k: v.asnumpy() for k, v in ex.grad_dict.items()})
+        for k in grads[1]:
+            if not np.allclose(grads[0][k], grads[1][k], atol=NN_CHECK_TOL,
+                               rtol=NN_CHECK_TOL):
+                raise AssertionError("%s: the gradient of %s on the card "
+                                     "differs from the host's" % (name, k))
+    print("nn ops: check_consistency over [cpu(0), gpu(0)] and the training "
+          "backward card vs host passed for %d graphs (%s) within %g; card %s"
+          % (len(graphs), ", ".join(graphs), NN_CHECK_TOL, card_line()))
+    if len(graphs) != 5 + 6 + 4:
+        raise AssertionError("%d nn graphs" % len(graphs))
+
+
+def train_dcgan_phase(mx, seed):
+    """Phase 12.  Returns {path: launches}."""
+    import tempfile
+    import torch
+    clock = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=HERE) as root:
+        images = dcgan_images(root, seed)
+    print("dcgan: %d MNIST-format images resized to %dx%d, tiled to %d "
+          "channels, scaled to [-1, 1] in %.1f s"
+          % (len(images), DCGAN["size"], DCGAN["size"], DCGAN["nc"],
+             time.perf_counter() - clock))
+    paths = {"module_dcgan": train_dcgan(mx, seed, images)}
+    dcgan_profile_apart(seed)
+    dcgan_host_check(mx, seed, images)
+    del images
+    random_ops_on_card(mx, seed)
+    noisy_fit_check(mx, seed)
+    nn_rest_consistency(mx, seed)
+    torch.cuda.synchronize()
+    print("phase 12 parts done in %.1f s" % (time.perf_counter() - clock))
+    return paths
+
+
 def ptxas_entries(text):
     """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
     per compiled entry of an ``nvcc -Xptxas=-v`` report.  The kernel is
@@ -4713,6 +5713,8 @@ def main():
                         help=argparse.SUPPRESS)  # profile_vision_step_apart
     parser.add_argument("--lenet-profile", action="store_true",
                         help=argparse.SUPPRESS)  # lenet_profile_apart
+    parser.add_argument("--dcgan-profile", action="store_true",
+                        help=argparse.SUPPRESS)  # dcgan_profile_apart
     args = parser.parse_args()
     if not os.path.isdir(os.path.join(HERE, "mxnet_tpu_torch")):
         print("chip_smoke: mxnet_tpu_torch/ is not beside this script",
@@ -4733,6 +5735,8 @@ def main():
         return vision_profile_child(mx, args.seed)
     if args.lenet_profile:
         return lenet_profile_child(mx, args.seed)
+    if args.dcgan_profile:
+        return dcgan_profile_child(mx, args.seed)
     print("card: %s" % card_line())
     print("torch %s, CUDA %s, %d device(s)"
           % (torch.__version__, torch.version.cuda, torch.cuda.device_count()))
@@ -4754,7 +5758,7 @@ def main():
     lap("1 (card, build)")
     records, instances = [], {}
     for check in (check_flash, check_flash_lse, check_bn_sums,
-                  check_pool_bwd, check_lenet_pools):
+                  check_pool_bwd, check_lenet_pools, check_dcgan_bn):
         recs, insts = check(args.seed)
         records += recs
         for name, inst in insts:
@@ -4780,9 +5784,12 @@ def main():
     paths.update(train_mnist(mx, args.seed))
     lap("11 (LeNet and the MLP on MNIST through Module, check_consistency, "
         "the symbol zoo)")
+    paths.update(train_dcgan_phase(mx, args.seed))
+    lap("12 (DCGAN through two Modules, the random ops, a replayed step "
+        "that draws, the last nn and update ops)")
     # "launches": the path each kernel serves in this script (the serving
-    # forward, the LM's training, and the bf16 fused training; LeNet's fit
-    # is in launches_by_path)
+    # forward, the LM's training, and the bf16 fused training; LeNet's and
+    # DCGAN's are in launches_by_path)
     main_path = {"flash_attn_fwd": "serve", "flash_attn_fwd_lse": "gluon_lm",
                  "bn_channel_sums": "module_bf16_fused",
                  "max_pool_backward": "module_bf16_fused",

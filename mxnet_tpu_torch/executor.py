@@ -63,11 +63,14 @@ class _Program:
             n_out = op.str_outputs(attrs)
             for i in range(n_out):
                 slot[(id(node), i)] = first + i
-            # state outputs past the visible ones rebind these variables
-            # (BatchNorm's moving statistics)
+            # state outputs past the visible ones rebind these aux
+            # variables (BatchNorm's moving statistics); as in the JAX
+            # package, an argument in a state slot (an update op's
+            # optimizer state) is left as bound
             mutates = tuple((k, node.inputs[i][0].name)
                             for k, i in enumerate(op.mutate_map)
-                            if node.inputs[i][0].is_var)
+                            if node.inputs[i][0].is_var
+                            and node.inputs[i][0]._is_aux)
             raw.append((op, attrs, ins, first, n_out, mutates))
             self.taps.append((node.name, tuple(
                 "%s_%s" % (node.name, op.input_names[i]
@@ -88,8 +91,10 @@ class _Program:
             self.steps.append((op, attrs, tuple(ins), first, n_out, free,
                                mutates))
 
-    def evaluate(self, values, train=False, tap=None, tap_inputs=False):
-        """Run the plan; ``values`` maps variable name -> tensor.  Returns
+    def evaluate(self, values, train=False, tap=None, tap_inputs=False,
+                 device=None):
+        """Run the plan on ``device`` (by default the variables' device);
+        ``values`` maps variable name -> tensor.  Returns
         (outputs, {aux name: new value}) — the state outputs of the ops
         with a ``mutate_map``.  ``tap(name, tensor)`` sees every op's
         visible outputs (``<node>_output``, then ``<node>_output<i>``
@@ -101,7 +106,8 @@ class _Program:
                 raise MXNetError("unbound variable %r" % name)
             env[s] = values[name]
         new_aux = {}
-        device = next((v.device for v in values.values()), None)
+        if device is None:
+            device = next((v.device for v in values.values()), None)
         for k, (op, attrs, ins, first, n_out, free, mutates) in enumerate(
                 self.steps):
             if tap is not None and tap_inputs:
@@ -251,8 +257,8 @@ class Executor:
         else:
             values = self._values()
             with torch.inference_mode():
-                outs, new_aux = self._prog.evaluate(values, train=train,
-                                                    **self._tap())
+                outs, new_aux = self._prog.evaluate(
+                    values, train=train, device=self._device, **self._tap())
         if train:
             with torch.no_grad():
                 for name, value in new_aux.items():
@@ -277,7 +283,8 @@ class Executor:
                   for n in self._grad_names}
         values.update(leaves)
         with torch.enable_grad():
-            outs, new_aux = self._prog.evaluate(values, train=True, **tap)
+            outs, new_aux = self._prog.evaluate(values, train=True,
+                                                device=self._device, **tap)
         return outs, new_aux, leaves
 
     def backward(self, out_grads=None, is_train=True):

@@ -200,6 +200,9 @@ class Block:
         self.collect_params().load(filename, ctx, allow_missing, ignore_extra,
                                    self.prefix)
 
+    save_parameters = save_params
+    load_parameters = load_params
+
     def register_child(self, block):
         self._children.append(block)
 

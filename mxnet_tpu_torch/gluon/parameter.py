@@ -255,6 +255,12 @@ class Parameter:
             self._slot_for(None)  # raises the initialization error
         return [slot[1] for slot in self._slots]
 
+    def list_grad(self):
+        self._require_grad()
+        if self._slots is None:
+            self._slot_for(None)  # raises the initialization error
+        return [slot[2] for slot in self._slots]
+
     def list_ctx(self):
         if self._slots is None:
             if self._pending is not None:
@@ -281,6 +287,21 @@ class Parameter:
         for slot in self._slots:
             if slot[2] is not None:
                 slot[2][:] = 0
+
+    def reset_ctx(self, ctx):
+        """Move the Parameter (its replicas' mean) to ``ctx``, or change
+        the contexts a deferred initialization will use."""
+        contexts = _as_context_list(ctx) or [current_context()]
+        if self._slots is not None:
+            merged = self._reduce()
+            with autograd.pause():
+                self._place(merged, contexts)
+        elif self._pending is not None:
+            self._pending = self._pending._replace(contexts=contexts)
+        else:
+            raise ValueError(
+                "Parameter %s cannot move to a new context before it is "
+                "initialized" % self.name)
 
     def cast(self, dtype):
         """Convert the data (and so the gradient) to ``dtype``."""
@@ -426,6 +447,16 @@ class ParameterDict:
     def zero_grad(self):
         for param in self.values():
             param.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for param in self.values():
+            param.reset_ctx(ctx)
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` (``grad_req``, ``lr_mult``, ...) of every
+        Parameter."""
+        for param in self.values():
+            setattr(param, name, value)
 
     # -- persistence -----------------------------------------------------
     def save(self, filename, strip_prefix=""):

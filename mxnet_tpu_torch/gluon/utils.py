@@ -1,13 +1,16 @@
 """Gluon utilities (ref: python/mxnet/gluon/utils.py).
 
 Counterpart of ``mxnet_tpu/gluon/utils.py``: batch splitting across
-contexts, global-norm clipping and repr indentation.  ``download`` is not
-ported.
+contexts, global-norm clipping, repr indentation and ``check_sha1``.
+``download`` raises, as the JAX package's does: neither package fetches
+files; place them locally.
 """
 from __future__ import annotations
 
+import hashlib
 import math
 
+from ..base import MXNetError
 from ..ndarray import NDArray, array
 
 
@@ -69,3 +72,18 @@ def _indent(text, spaces):
         return text
     pad = " " * spaces
     return head + "\n" + "\n".join(pad + line for line in rest.split("\n"))
+
+
+def check_sha1(filename, sha1_hash):
+    """Whether the SHA-1 digest of the file equals ``sha1_hash``."""
+    digest = hashlib.sha1()
+    with open(filename, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            digest.update(chunk)
+    return digest.hexdigest() == sha1_hash
+
+
+def download(url, path=None, overwrite=False, sha1_hash=None):
+    """Raises ``MXNetError``: nothing is fetched over the network."""
+    raise MXNetError("network access is not available in this environment; "
+                     "place files locally instead")

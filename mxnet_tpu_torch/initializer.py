@@ -246,6 +246,9 @@ class Zero(Initializer):
         _fill(arr, 0.0)
 
 
+zeros_init = Zero
+
+
 @register("ones")
 class One(Initializer):
     def __init__(self):

@@ -192,6 +192,10 @@ class PrefetchingIter(DataIter):
                 except StopIteration:
                     self.next_batch[i] = None
                 self.data_taken[i].clear()
+                # close() clears ``started`` before it sets data_taken: a
+                # close during next() must not leave this worker waiting
+                if not self.started:
+                    break
                 self.data_ready[i].set()
 
         self.prefetch_threads = [

@@ -64,8 +64,6 @@ from .. import random as _random
 
 # eager steps on the capture stream before the graph is captured
 WARMUP_STEPS = 1
-# ops that draw from the device's generator
-_RANDOM_OPS = ("Dropout", "RNN")
 
 
 def _map_state(fn, state):
@@ -111,7 +109,7 @@ class FusedTrainStep:
         if module.inputs_need_grad:
             return "inputs_need_grad"
         draws = opt.fused_needs_rng or any(
-            step[0].name in _RANDOM_OPS for step in exe._prog.steps)
+            step[0].needs_rng for step in exe._prog.steps)
         if exe._device.type == "cuda" and draws and not hasattr(
                 torch.cuda.CUDAGraph, "register_generator_state"):
             return ("the step draws random numbers and this torch cannot "
@@ -237,7 +235,8 @@ class FusedTrainStep:
                   for n in self.param_names]
         values.update(zip(self.param_names, leaves))
         with torch.enable_grad():
-            outs, new_aux = exe._prog.evaluate(values, train=True)
+            outs, new_aux = exe._prog.evaluate(values, train=True,
+                                               device=self.device)
         ys = [o for o in outs if o.requires_grad]
         grads = torch.autograd.grad(
             ys, leaves, [torch.ones_like(y) for y in ys],

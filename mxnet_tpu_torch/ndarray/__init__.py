@@ -1,7 +1,8 @@
 """mx.nd namespace: NDArray, its constructors, the ``.params`` format, and
 one imperative function per registered op (``mx.nd.FullyConnected(x, w,
-b, num_hidden=4)``), generated from the registry as the JAX package's
-``ndarray/__init__.py`` generates them."""
+b, num_hidden=4)``, ``mx.nd.random_uniform(...)``), generated from the
+registry as the JAX package's ``ndarray/__init__.py`` generates them;
+``mx.nd.random`` holds the samplers."""
 from __future__ import annotations
 
 import sys as _sys
@@ -54,3 +55,5 @@ for _name, _op in list(_registry.op_registry().items()):
         setattr(_mod, _name, _make_op_func(_name, _op))
 
 onehot_encode = one_hot  # noqa: F821  the generated op function, as in the reference
+
+from . import random  # noqa: F401,E402  (ref: ndarray/random.py)

@@ -7,3 +7,4 @@ from . import optimizer_ops  # noqa: F401
 from . import rnn_op  # noqa: F401
 from . import contrib_ops  # noqa: F401
 from . import quantize  # noqa: F401
+from . import random_ops  # noqa: F401

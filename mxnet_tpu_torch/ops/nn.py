@@ -7,8 +7,9 @@ exact-erf ``gelu``),
 ``LayerNorm``, ``InstanceNorm``, ``L2Normalization``, ``LRN``,
 ``Dropout``, ``Embedding``, the conv-net ops ``Convolution``,
 ``Deconvolution``, ``Activation``, ``Pooling``, ``BatchNorm`` and
-``SoftmaxOutput``, and the losses ``softmax_cross_entropy`` and
-``MakeLoss``.  Products and convolutions are plain ``torch``
+``SoftmaxOutput``, the losses ``softmax_cross_entropy`` and
+``MakeLoss``, the regression heads and ``SVMOutput``, the sequence ops
+and ``UpSampling``.  Products and convolutions are plain ``torch``
 calls: the JAX package leaves them to XLA, and the port leaves them to
 cuBLAS and cuDNN.  Where the JAX package has a Pallas kernel, the port's
 op is a ``torch.autograd.Function`` around the hand-written kernel of
@@ -89,6 +90,7 @@ def _dropout(data, p=0.5, mode="training", axes=None, _train=False):
 
 
 register("Dropout", _dropout, num_inputs=1, takes_train_flag=True,
+         needs_rng=True,
          params={"p": (pFloat, 0.5), "mode": (pStr, "training"),
                  "axes": (pShape, None)})
 
@@ -880,3 +882,160 @@ register("MakeLoss", lambda data, grad_scale=1.0, valid_thresh=0.0,
          num_inputs=1,
          params={"grad_scale": (pFloat, 1.0), "valid_thresh": (pFloat, 0.0),
                  "normalization": (pStr, "null")})
+
+
+# ---------------------------------------------------------------------------
+# Regression heads, SVMOutput (ref: regression_output-inl.h, svm_output)
+# ---------------------------------------------------------------------------
+
+_REG_LINKS = {"linear": lambda x: x, "mae": lambda x: x,
+              "logistic": torch.sigmoid}
+
+
+class _RegressionFn(torch.autograd.Function):
+    """The reference's regression heads: the link function forward; a
+    backward that ignores the head gradient and gives ``(out - label)``
+    (``sign(out - label)`` for MAE) times ``grad_scale / num_output``,
+    and the label no gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, kind, grad_scale):
+        out = _REG_LINKS[kind](data)
+        ctx.save_for_backward(out, label)
+        ctx.kind, ctx.grad_scale = kind, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        out, label = ctx.saved_tensors
+        num_output = int(np.prod(out.shape[1:])) if out.ndim > 1 else 1
+        diff = out - label.reshape(out.shape).to(out.dtype)
+        if ctx.kind == "mae":
+            diff = torch.sign(diff)
+        grad = diff * (ctx.grad_scale / num_output)
+        return grad.to(out.dtype), torch.zeros_like(label), None, None
+
+
+def _reg_infer_shape(in_shapes, attrs):
+    """The label takes the data's shape (the JAX package's rule, which
+    leaves a given label shape alone)."""
+    dshape = in_shapes[0]
+    if dshape is None:
+        return in_shapes, [None]
+    filled = list(in_shapes)
+    if filled[1] is None:
+        filled[1] = dshape
+    return filled, [dshape]
+
+
+for _name, _kind in (("LinearRegressionOutput", "linear"),
+                     ("MAERegressionOutput", "mae"),
+                     ("LogisticRegressionOutput", "logistic")):
+    register(_name,
+             (lambda kind: lambda data, label, grad_scale=1.0:
+              _RegressionFn.apply(data, label, kind, float(grad_scale)))(
+                  _kind),
+             input_names=("data", "label"), infer_shape=_reg_infer_shape,
+             params={"grad_scale": (pFloat, 1.0)})
+
+
+def _svm_output(data, label, margin=1.0, regularization_coefficient=1.0,
+                use_linear=False):
+    """Identity forward whose gradient is the head gradient: the JAX
+    package's ``SVMOutput`` (the reference MXNet's backward is the hinge
+    loss's gradient; ROADMAP R9)."""
+    return data.clone()
+
+
+register("SVMOutput", _svm_output, input_names=("data", "label"),
+         infer_shape=_softmax_output_infer_shape,
+         params={"margin": (pFloat, 1.0),
+                 "regularization_coefficient": (pFloat, 1.0),
+                 "use_linear": (pBool, False)})
+
+
+# ---------------------------------------------------------------------------
+# Sequence ops (ref: sequence_last/mask/reverse-inl.h); TNC, or the batch
+# first with axis=1 for SequenceLast and SequenceMask
+# ---------------------------------------------------------------------------
+
+def _lengths(rest):
+    return rest[0].detach().to(torch.int64)
+
+
+def _seq_last(data, *rest, use_sequence_length=False, axis=0):
+    axis = int(axis)
+    if not use_sequence_length:
+        return data.select(axis, data.shape[axis] - 1)
+    idx = _lengths(rest) - 1
+    if axis == 0:
+        return data[idx, torch.arange(data.shape[1], device=data.device)]
+    return data[torch.arange(data.shape[0], device=data.device), idx]
+
+
+register("SequenceLast", _seq_last, input_names=("data", "sequence_length"),
+         params={"use_sequence_length": (pBool, False), "axis": (pInt, 0)})
+
+
+def _seq_mask(data, *rest, use_sequence_length=False, value=0.0, axis=0):
+    if not use_sequence_length:
+        return data
+    seqlen = _lengths(rest)
+    t = torch.arange(data.shape[int(axis)], device=data.device)
+    if int(axis) == 0:
+        mask = t[:, None] < seqlen[None, :]
+    else:
+        mask = t[None, :] < seqlen[:, None]
+    mask = mask.reshape(mask.shape + (1,) * (data.ndim - 2))
+    return torch.where(mask, data, torch.full((), value, dtype=data.dtype,
+                                               device=data.device))
+
+
+register("SequenceMask", _seq_mask, input_names=("data", "sequence_length"),
+         params={"use_sequence_length": (pBool, False),
+                 "value": (pFloat, 0.0), "axis": (pInt, 0)})
+
+
+def _seq_reverse(data, *rest, use_sequence_length=False, axis=0):
+    """Reverse the first ``sequence_length`` steps of each sequence along
+    axis 0 (the JAX package reverses along axis 0 whatever ``axis``
+    says)."""
+    if not use_sequence_length:
+        return torch.flip(data, (0,))
+    seqlen = _lengths(rest)
+    t = torch.arange(data.shape[0], device=data.device)[:, None]
+    rev = torch.where(t < seqlen[None, :], seqlen[None, :] - 1 - t, t)
+    rev = rev.reshape(rev.shape + (1,) * (data.ndim - 2)).expand(data.shape)
+    return torch.gather(data, 0, rev)
+
+
+register("SequenceReverse", _seq_reverse,
+         input_names=("data", "sequence_length"),
+         params={"use_sequence_length": (pBool, False), "axis": (pInt, 0)})
+
+
+# ---------------------------------------------------------------------------
+# UpSampling (ref: upsampling-inl.h)
+# ---------------------------------------------------------------------------
+
+def _upsampling(*args, scale=1, sample_type="nearest", num_args=1,
+                num_filter=0, multi_input_mode="concat", workspace=512):
+    """Nearest: each pixel repeated ``scale`` times along H and W.
+    Bilinear: a half-pixel-centre bilinear resize.  Both read the first
+    input only, as the JAX package's do (the reference concatenates or
+    sums several nearest inputs and deconvolves with a weight input in
+    bilinear mode; ROADMAP R10)."""
+    data = args[0]
+    scale = int(scale)
+    if sample_type == "nearest":
+        return data.repeat_interleave(scale, 2).repeat_interleave(scale, 3)
+    return F.interpolate(data, scale_factor=scale, mode="bilinear",
+                         align_corners=False)
+
+
+register("UpSampling", _upsampling, num_inputs=None,
+         key_var_num_args="num_args",
+         params={"scale": (pInt, 1), "sample_type": (pStr, "nearest"),
+                 "num_args": (pInt, 1), "num_filter": (pInt, 0),
+                 "multi_input_mode": (pStr, "concat"),
+                 "workspace": (pInt, 512)})

@@ -5,7 +5,9 @@ optimizer_op-inl.h): ``sgd_update``, ``sgd_mom_update``, their
 multi-precision forms ``mp_sgd_update``/``mp_sgd_mom_update`` (f32
 master weights beside half-width storage), ``adam_update``,
 ``rmsprop_update``, ``rmspropalex_update`` (centered RMSProp),
-``ftrl_update``, ``signsgd_update`` and ``signum_update``.  The JAX
+``ftrl_update``, ``signsgd_update`` and ``signum_update``, and, from
+``mxnet_tpu/ops/extra.py``, ``adamax_update``, ``ftml_update``,
+``nadam_update``, ``nag_mom_update`` and ``sgld_update``.  The JAX
 package returns new arrays and rebinds the handles; here the functions
 the optimizers call are in-place tensor arithmetic on the weight and
 state storage, which saves a copy of every parameter per step.  Their
@@ -37,9 +39,12 @@ operation:
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from .registry import pBool, pFloat, register
+from .. import random as _random
+from .registry import pBool, pFloat, pInt, register
 
 
 def _clipped(grad, rescale_grad, clip_gradient):
@@ -203,3 +208,107 @@ _register("ftrl_update", ftrl_update, 2,
 _register("signsgd_update", signsgd_update, 0, _COMMON)
 _register("signum_update", signum_update, 1,
           dict(_COMMON, momentum=(pFloat, 0.0), wd_lh=(pFloat, 0.0)))
+
+
+# ---------------------------------------------------------------------------
+# The remaining update ops (ref: optimizer_op-inl.h; the JAX package's
+# ops/extra.py): functional, the new weight first, then the new states,
+# which mutate_map writes back into the state inputs.  The optimizers do
+# not call them.
+# ---------------------------------------------------------------------------
+
+def _decayed(grad, weight, rescale_grad, wd, clip):
+    """``g = grad * rescale_grad + wd * weight``, then clipped."""
+    g = grad * rescale_grad + wd * weight
+    if clip > 0:
+        g = torch.clamp(g, -clip, clip)
+    return g
+
+
+def _ftml_update(weight, grad, d, v, z, lr=None, t=1, beta1=0.6,
+                 beta2=0.999, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                 clip_grad=-1.0):
+    g = _decayed(grad, weight, rescale_grad, wd, clip_grad)
+    v_t = beta2 * v + (1 - beta2) * g * g
+    d_t = (1 - beta1 ** t) / lr * \
+        (torch.sqrt(v_t / (1 - beta2 ** t)) + epsilon)
+    sigma_t = d_t - beta1 * d
+    z_t = beta1 * z + (1 - beta1) * g - sigma_t * weight
+    return -z_t / d_t, d_t, v_t, z_t
+
+
+register("ftml_update", _ftml_update,
+         input_names=("weight", "grad", "d", "v", "z"), mutate_map=(2, 3, 4),
+         params={"lr": (pFloat, None), "t": (pInt, 1),
+                 "beta1": (pFloat, 0.6), "beta2": (pFloat, 0.999),
+                 "epsilon": (pFloat, 1e-8), "wd": (pFloat, 0.0),
+                 "rescale_grad": (pFloat, 1.0), "clip_grad": (pFloat, -1.0)})
+
+
+def _nag_mom_update(weight, grad, mom, lr=None, momentum=0.0, wd=0.0,
+                    rescale_grad=1.0, clip_gradient=-1.0):
+    g = _decayed(grad, weight, rescale_grad, wd, clip_gradient)
+    mom_t = momentum * mom + g
+    return weight - lr * (momentum * mom_t + g), mom_t
+
+
+register("nag_mom_update", _nag_mom_update,
+         input_names=("weight", "grad", "mom"), mutate_map=(2,),
+         params={"lr": (pFloat, None), "momentum": (pFloat, 0.0),
+                 "wd": (pFloat, 0.0), "rescale_grad": (pFloat, 1.0),
+                 "clip_gradient": (pFloat, -1.0)})
+
+
+def _sgld_update(weight, grad, lr=None, wd=0.0, rescale_grad=1.0,
+                 clip_gradient=-1.0):
+    """``weight - lr / 2 * g + N(0, lr)`` noise from the weight's device's
+    generator."""
+    g = _decayed(grad, weight, rescale_grad, wd, clip_gradient)
+    noise = torch.empty_like(weight).normal_(
+        generator=_random.generator(weight.device))
+    return weight - lr / 2 * g + noise * math.sqrt(lr)
+
+
+register("sgld_update", _sgld_update, input_names=("weight", "grad"),
+         needs_rng=True,
+         params={"lr": (pFloat, None), "wd": (pFloat, 0.0),
+                 "rescale_grad": (pFloat, 1.0),
+                 "clip_gradient": (pFloat, -1.0)})
+
+
+def _adamax_update(weight, grad, mean, var, lr=None, beta1=0.9, beta2=0.999,
+                   t=1, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                   epsilon=1e-8):
+    g = _decayed(grad, weight, rescale_grad, wd, clip_gradient)
+    m_t = beta1 * mean + (1 - beta1) * g
+    u_t = torch.maximum(beta2 * var, torch.abs(g))
+    return weight - lr / (1 - beta1 ** t) * m_t / (u_t + epsilon), m_t, u_t
+
+
+_ADAM_LIKE = {"lr": (pFloat, None), "beta1": (pFloat, 0.9),
+              "beta2": (pFloat, 0.999), "t": (pInt, 1), "wd": (pFloat, 0.0),
+              "rescale_grad": (pFloat, 1.0), "clip_gradient": (pFloat, -1.0),
+              "epsilon": (pFloat, 1e-8)}
+register("adamax_update", _adamax_update,
+         input_names=("weight", "grad", "mean", "var"), mutate_map=(2, 3),
+         params=dict(_ADAM_LIKE))
+
+
+def _nadam_update(weight, grad, mean, var, lr=None, beta1=0.9, beta2=0.999,
+                  t=1, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                  epsilon=1e-8, schedule_decay=0.004):
+    g = _decayed(grad, weight, rescale_grad, wd, clip_gradient)
+    mu_t = beta1 * (1 - 0.5 * 0.96 ** (t * schedule_decay))
+    mu_t1 = beta1 * (1 - 0.5 * 0.96 ** ((t + 1) * schedule_decay))
+    g_hat = g / (1 - mu_t)
+    m_t = beta1 * mean + (1 - beta1) * g
+    m_hat = m_t / (1 - mu_t1)
+    v_t = beta2 * var + (1 - beta2) * g * g
+    v_hat = v_t / (1 - beta2 ** t)
+    m_bar = (1 - mu_t) * g_hat + mu_t1 * m_hat
+    return weight - lr * m_bar / (torch.sqrt(v_hat) + epsilon), m_t, v_t
+
+
+register("nadam_update", _nadam_update,
+         input_names=("weight", "grad", "mean", "var"), mutate_map=(2, 3),
+         params=dict(_ADAM_LIKE, schedule_decay=(pFloat, 0.004)))

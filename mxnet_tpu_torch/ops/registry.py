@@ -77,7 +77,12 @@ class Op:
     takes_train_flag: the impl takes a ``_train`` kwarg distinguishing
         train and predict mode.
     takes_device: the impl has no tensor input and takes the device to
-        create its output on as a ``_device`` kwarg (the init ops).
+        create its output on as a ``_device`` kwarg (the init ops and the
+        zero-input samplers).
+    needs_rng: the impl draws from its device's generator
+        (``random.generator``); the fused step refuses a graph with such
+        an op where torch cannot register that generator with a CUDA
+        graph (a replay would repeat its draws).
     key_var_num_args: the attr that counts a variadic op's inputs
         (``num_args`` of ``Concat``, ``stack``, ``add_n``); when a node or
         call leaves it unset, it is filled from the number of inputs.
@@ -88,7 +93,8 @@ class Op:
                  infer_shape=None, infer_type=None, input_names=None,
                  aux_names=(), bidirectional_infer=False, mutate_map=(),
                  takes_train_flag=False, takes_device=False,
-                 key_var_num_args=None, aliases=(), doc=""):
+                 needs_rng=False, key_var_num_args=None, aliases=(),
+                 doc=""):
         self.name = name
         self.impl = impl
         self.params = params or {}
@@ -104,6 +110,7 @@ class Op:
         self.mutate_map = tuple(mutate_map)
         self.takes_train_flag = takes_train_flag
         self.takes_device = takes_device
+        self.needs_rng = needs_rng
         self.key_var_num_args = key_var_num_args
         self.aliases = tuple(aliases)
         self.doc = doc
@@ -193,7 +200,7 @@ def eval_shape_op(op, in_shapes, in_dtypes, attrs):
         metas = [torch.empty(tuple(int(d) for d in s), dtype=torch_dtype(d),
                              device="meta")
                  for s, d in zip(in_shapes, in_dtypes)]
-        out = apply_op(op, metas, dict(attrs, _device="meta")
+        out = apply_op(op, metas, dict(attrs, _device=torch.device("meta"))
                        if op.takes_device else attrs)
         hit = ([tuple(o.shape) for o in out],
                [dtype_name(o.dtype) for o in out])

@@ -142,7 +142,7 @@ register("RNN", _rnn_impl,
          else 3,
          num_outputs=_rnn_num_outputs,
          infer_shape=_rnn_infer_shape,
-         takes_train_flag=True,
+         takes_train_flag=True, needs_rng=True,
          params={
              "state_size": (pInt, 0), "num_layers": (pInt, 1),
              "bidirectional": (pBool, False), "mode": (pStr, "lstm"),

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 
 from .base import MXNetError
-from .context import current_context
+from .context import Context, current_context
 from .ndarray import NDArray, array as nd_array, load as nd_load, loads
 from .symbol import load_json as sym_load_json
 
@@ -19,12 +19,15 @@ class Predictor:
     """MXPredCreate equivalent: (symbol_json, params) -> forward machine.
 
     ``params`` is a {"arg:name"/"aux:name" or bare name: NDArray} dict,
-    the raw bytes of a ``.params`` file, or its path.  ``quantize="int8"``
+    the raw bytes of a ``.params`` file, or its path.  The device is
+    ``ctx``, else ``dev_type`` ("cpu" or "gpu") and ``dev_id``, else the
+    current context.  ``quantize="int8"``
     serves the int8 rewrite of the graph (per-channel weight scales;
     ``calibration`` pins activation ranges, else they are dynamic)."""
 
     def __init__(self, symbol_json, param_bytes_or_file, input_shapes,
-                 ctx=None, quantize=None, calibration=None):
+                 dev_type=None, dev_id=0, ctx=None, quantize=None,
+                 calibration=None):
         if isinstance(symbol_json, str) \
                 and symbol_json.lstrip().startswith("{"):
             self._symbol = sym_load_json(symbol_json)
@@ -49,6 +52,8 @@ class Predictor:
                 self._symbol, arg_params, aux_params, mode=quantize,
                 calibration=calibration)
         self._quantize = quantize
+        if ctx is None and dev_type is not None:  # MXPredCreate's
+            ctx = Context(dev_type, dev_id)
         self._ctx = ctx = ctx or current_context()
         shape_kwargs = dict(input_shapes) if isinstance(input_shapes, dict) \
             else {"data": tuple(input_shapes)}
@@ -126,3 +131,12 @@ class Predictor:
         new._param_names = set(self._param_names)
         new._out_shapes = new._infer_out_shapes()
         return new
+
+
+def load_checkpoint_predictor(prefix, epoch, input_shapes, ctx=None):
+    """A Predictor over the artifacts of ``save_checkpoint``."""
+    from .model import load_checkpoint
+    sym, arg_params, aux_params = load_checkpoint(prefix, epoch)
+    params = {"arg:%s" % k: v for k, v in arg_params.items()}
+    params.update({"aux:%s" % k: v for k, v in aux_params.items()})
+    return Predictor(sym.tojson(), params, input_shapes, ctx=ctx)

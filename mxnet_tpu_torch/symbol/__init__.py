@@ -1,12 +1,13 @@
 """mx.sym namespace: Symbol plus one composition function per registered
-op (``mx.sym.FullyConnected(data, num_hidden=4, name="fc")``)."""
+op (``mx.sym.FullyConnected(data, num_hidden=4, name="fc")``);
+``mx.sym.random`` holds the samplers."""
 from __future__ import annotations
 
 import sys as _sys
 
 from ..ops import registry as _registry
 from .symbol import (  # noqa: F401
-    AttrScope, Group, NameManager, Symbol, Variable, _create, load,
+    AttrScope, Group, NameManager, Symbol, Variable, _create, arange, load,
     load_json, ones, var, zeros,
 )
 
@@ -36,3 +37,5 @@ _mod = _sys.modules[__name__]
 for _name, _op in list(_registry.op_registry().items()):
     if not hasattr(_mod, _name):
         setattr(_mod, _name, _make_sym_func(_name, _op))
+
+from . import random  # noqa: F401,E402  (ref: symbol/random.py)

@@ -697,3 +697,11 @@ def zeros(shape, dtype="float32", **kwargs):
 
 def ones(shape, dtype="float32", **kwargs):
     return _create("_ones", [], {"shape": shape, "dtype": dtype})
+
+
+def arange(start, stop=None, step=1.0, repeat=1, name=None, dtype="float32"):
+    """An ``_arange`` node: evenly spaced values in [start, stop), each
+    ``repeat`` times."""
+    return _create("_arange", [], {"start": start, "stop": stop, "step": step,
+                                   "repeat": repeat, "dtype": dtype},
+                   name=name)

@@ -17,6 +17,9 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.models import transformer_lm_symbol
 from mxnet_tpu_torch.ops import kernels as K
 
+import dcgan_net
+import random_cases
+
 pytestmark = pytest.mark.cuda
 
 
@@ -1351,3 +1354,156 @@ def test_lenet_first_step_on_the_card_matches_the_host(card, monkeypatch):
     assert rel(out_c, out_h) <= 1e-4
     for name in mom_h:
         assert rel(mom_c[name], mom_h[name]) <= 1e-3, name
+
+
+# -- random sampling on the card, a replayed step that draws, DCGAN ---------
+
+CARD_DRAWS = 1000000
+
+
+@pytest.mark.parametrize("case", [0, 1])
+@pytest.mark.parametrize("canonical", sorted(random_cases.SPECS))
+def test_random_op_on_the_card(card, canonical, case):
+    """10^6 draws on the card: the output on the card, its support, mean
+    and variance within 6 standard errors of the analytic values; the
+    same ``mx.random.seed`` the same bits, another seed others, and
+    ``torch.manual_seed`` nothing."""
+    spec = random_cases.SPECS[canonical][case]
+    rows = 1 if "attrs" in spec else len(spec["mean"])
+
+    def draw(seed, torch_seed=None):
+        mx.random.seed(seed)
+        if torch_seed is not None:
+            torch.manual_seed(torch_seed)
+        return random_cases.call(mx, canonical, (CARD_DRAWS // rows,),
+                                 mx.gpu(0), case=case)
+
+    out = draw(5)
+    assert out.context == mx.gpu(0) and out.tensor.is_cuda
+    x = out.asnumpy()
+    assert random_cases.support_ok(canonical, x, case)
+    means = [spec["mean"]] if "attrs" in spec else spec["mean"]
+    variances = [spec["var"]] if "attrs" in spec else spec["var"]
+    for row, mean, var in zip(random_cases.rows_of(x, spec), means,
+                              variances):
+        ok, z_mean, z_var = random_cases.moments(row, mean, var)
+        assert ok, (z_mean, z_var)
+    np.testing.assert_array_equal(draw(5, torch_seed=77).asnumpy(), x)
+    assert not np.array_equal(draw(6).asnumpy(), x)
+
+
+@pytest.mark.parametrize("dtype", ["float16", "float64"])
+def test_random_dtypes_on_the_card(card, dtype):
+    mx.random.seed(3)
+    u = mx.nd.random.uniform(-1, 3, shape=(CARD_DRAWS,), dtype=dtype,
+                             ctx=mx.gpu(0))
+    assert np.dtype(u.dtype) == np.dtype(dtype)
+    x = u.asnumpy().astype(np.float64)
+    assert x.min() >= -1 and x.max() < 3
+    assert random_cases.moments(x, 1.0, 16 / 12)[0]
+    n = mx.nd.random.normal(2, 0.5, shape=(CARD_DRAWS,), dtype=dtype,
+                            ctx=mx.gpu(0))
+    assert np.dtype(n.dtype) == np.dtype(dtype)
+    assert random_cases.moments(n.asnumpy().astype(np.float64), 2.0,
+                                0.25)[0]
+
+
+def test_multinomial_and_shuffle_on_the_card(card):
+    from scipy import stats
+    mx.random.seed(4)
+    data = mx.nd.array(random_cases.PROBS, ctx=mx.gpu(0))
+    idx, prob = mx.nd.random.multinomial(data, shape=CARD_DRAWS // 2,
+                                         get_prob=True)
+    assert idx.tensor.is_cuda and prob.tensor.is_cuda
+    idx = idx.asnumpy()
+    for row, p in zip(idx, random_cases.PROBS):
+        expected = p.astype(np.float64) / p.astype(np.float64).sum()
+        counts = np.bincount(row, minlength=len(p))
+        assert stats.chisquare(counts, expected * row.size).pvalue \
+            > random_cases.P_MIN
+    picked = np.take_along_axis(mx.nd.log(data).asnumpy(), idx, axis=1)
+    np.testing.assert_array_equal(prob.asnumpy(), picked)
+    rows = mx.nd.random.shuffle(mx.nd.array(random_cases.SHUFFLED,
+                                            ctx=mx.gpu(0))).asnumpy()
+    assert sorted(map(tuple, rows)) == sorted(map(tuple,
+                                                  random_cases.SHUFFLED))
+
+
+def _noisy_fit(fused, seed=0, batch=16, steps=6):
+    """A graph that adds ``mx.sym.random.normal`` noise to its input, SGD
+    momentum; per-step outputs and the final parameters."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(batch * 3, 12).astype(np.float32)
+    y = (x @ rng.randn(12, 4)).argmax(1).astype(np.float32)
+    data = mx.sym.Variable("data")
+    noisy = data + mx.sym.random.normal(0.0, 0.5, shape=(batch, 12))
+    net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        noisy, num_hidden=4, name="fc"), name="softmax")
+    it = mx.io.NDArrayIter(x, y, batch_size=batch)
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params={
+        "fc_weight": mx.nd.array(rng.uniform(-0.1, 0.1, (4, 12)).astype(
+            np.float32), ctx=mx.cpu()),
+        "fc_bias": mx.nd.zeros((4,), ctx=mx.cpu())})
+    mod.init_optimizer(optimizer_params={"learning_rate": 0.1,
+                                         "momentum": 0.9})
+    if not fused:
+        mod._fused_step = None
+    batches = list(it)
+    mx.random.seed(21)
+    outs = []
+    for k in range(steps):
+        mod.forward_backward(batches[k % len(batches)])
+        mod.update()
+        outs.append(mod.get_outputs()[0].asnumpy())
+    params = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    return mod, outs, params
+
+
+def test_replayed_step_draws_fresh_noise_and_equals_eager(card, no_tf32):
+    """The fused step with a random node is one CUDA graph; its replays
+    draw from the registered generator (the same batch sees new noise),
+    and every step equals the eager general path from the same generator
+    state within 1e-6."""
+    mod, outs, params = _noisy_fit(True)
+    fs = mod._fused_step
+    assert fs is not None and fs.captures == 1 and fs.replays == 5
+    assert not np.allclose(outs[1], outs[4])  # batch 1, steps 2 and 5
+    _, eager_outs, eager_params = _noisy_fit(False)
+    for a, b in zip(outs, eager_outs):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+    for k in params:
+        np.testing.assert_allclose(params[k], eager_params[k], rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_dcgan_first_iteration_on_the_card_matches_the_host(card, no_tf32):
+    """One dcgan.py iteration (ngf = ndf = 16, Z 100, batch 16, 64x64)
+    from the same weights, noise and images on the card and the host,
+    by chip_smoke.py phase 12b's rule: outputs within 1e-4, gradients and
+    updated parameters within 1e-3 relative L2, or within 4 times the
+    host's own floor (two runs with its noise and images moved by 1e-7);
+    26 ``bn_channel_sums`` launches on the card."""
+    cfg = dict(ngf=16, ndf=16, nc=3, z=100, batch=16, size=64)
+    rng = np.random.RandomState(0)
+    noise = rng.randn(cfg["batch"], cfg["z"], 1, 1).astype(np.float32)
+    real = rng.uniform(-1, 1, (cfg["batch"], 3, 64, 64)).astype(np.float32)
+
+    def nudged(a):
+        return (a * (1 + 1e-7 * rng.randn(*a.shape))).astype(np.float32)
+
+    sym_g, sym_d = dcgan_net.dcgan_symbols(mx.sym, cfg["ngf"], cfg["ndf"])
+    weights_g = dcgan_net.dcgan_weights(sym_g, {"rand": noise.shape}, 1)
+    weights_d = dcgan_net.dcgan_weights(
+        sym_d, {"data": real.shape, "label": (cfg["batch"],)}, 2)
+    seen = []
+    for ctx, z, images in ((mx.gpu(0), noise, real), (mx.cpu(), noise, real),
+                           (mx.cpu(), nudged(noise), nudged(real)),
+                           (mx.cpu(), nudged(noise), nudged(real))):
+        mods = dcgan_net.dcgan_modules(mx, ctx, cfg, weights_g, weights_d)
+        before = K.launch_counts()["bn_channel_sums"]
+        seen.append(dcgan_net.dcgan_iteration(mx, ctx, *mods, z, images))
+        if ctx == mx.gpu(0):
+            assert K.launch_counts()["bn_channel_sums"] - before == 26
+    assert dcgan_net.gaps_within_floor(seen[0], seen[1], seen[2:]) == []

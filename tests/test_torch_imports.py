@@ -41,6 +41,7 @@ def test_scan_covers_the_package():
     assert os.path.join("mxnet_tpu_torch", "ops", "kernels.py") in names
     for module in ("serving/kv_cache.py", "serving/decode.py",
                    "serving/continuous.py", "serving/router.py",
-                   "ops/quantize.py"):
+                   "ops/quantize.py", "ops/random_ops.py",
+                   "ndarray/random.py", "symbol/random.py"):
         assert os.path.join("mxnet_tpu_torch", *module.split("/")) in names
     assert len(names) > 20
