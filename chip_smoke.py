@@ -8,7 +8,8 @@ CUDA toolkit.  Phases, each of which raises on failure:
 
 1. Card: the card's name and power limit, torch and CUDA versions, and
    the build of every kernel source (one ``nvcc`` each, in parallel),
-   with each compiled kernel's registers and spills from ``ptxas``.
+   with each compiled kernel's registers and spills from ``ptxas``; the
+   native record reader and engine (``g++``) and the image codec in use.
 2. Kernels against their plain PyTorch versions on the card:
    - the flash-attention forward at the serving shape (B 4, S 1024, H 12,
      D 64, causal, f32) and at S 1000 non-causal, ragged ``kv_lens`` with
@@ -270,11 +271,54 @@ CUDA toolkit.  Phases, each of which raises on failure:
       T 35, N 20, C 650 with ragged lengths, ``UpSampling`` at (64, 128,
       16, 16), the regression heads at (64, 1) and (64, 10)) and the 4
       deterministic update ops at (2600, 650), within 1e-4.
-13. The ``kernels`` JSON line (each kernel's record with its launches on
+13. BASELINE configs 2 and 3 from files, f32 with TF32 off:
+   a. 1,280 ImageNet-like records written from ``--seed`` through the
+      port's ``recordio.pack_img`` (JPEG quality 95, shorter side 256,
+      longer 256-384, 1000 labels, a class's smooth pattern plus noise)
+      with a ``.idx``; the iterators alone in images/s (``ImageIter``, and
+      ``ImageRecordIter(ctx=gpu(0))`` at ``preprocess_threads`` 1 and 4);
+      ResNet-50 (``models/resnet.py``, 1000 classes) through
+      ``Module.fit`` for one epoch of 40 batches of 32 at
+      ``train_imagenet.py``'s settings (SGD lr 0.1, momentum 0.9, wd
+      1e-4), fed (i) by ``common/data.py:get_rec_iter``'s ``ImageIter``
+      call and (ii) by MXNet 1.0's ``ImageRecordIter(preprocess_threads=
+      4, ctx=gpu(0))``: the fused step carries each fit, 102
+      ``bn_channel_sums``, 1 max- and 1 avg-pool backward a step, ms per
+      step, images/s and the step's wait on ``next()``, a profiled
+      iteration of run (ii) in a process of its own (``--rec-profile``,
+      its device launches equal to the replay's); the native reader
+      and engine were the ones used; the first 3 batches on the card
+      equal the host's at 4 and 1 threads bit for bit; the first 3 steps
+      against the host by phase 4's rule, each from the host run's state
+      before it;
+   b. CIFAR-10's python batches written from ``--seed`` (50,000 + 10,000
+      images of learnable class patterns), then ``examples/gluon/
+      image_classification.py``'s loop: ``gluon.data.vision.CIFAR10``
+      -> ``transform_first(Compose([ToTensor(), Normalize(...)]))`` ->
+      ``DataLoader(128, shuffle, last_batch="discard")``, hybridized
+      ``resnet18_v1`` thumbnail, ``Trainer("sgd", lr 0.1, momentum 0.9,
+      wd 1e-4)``, one epoch of 390 steps: ms per step and images/s, the
+      loader's time apart, train accuracy above chance, 38
+      ``bn_channel_sums`` and 1 ``avg_pool_backward`` a step, a profiled
+      iteration's busy share in a process of its own (``--cifar-
+      profile``), the first 3 steps against the host by phase 4's rule,
+      each from the host run's state before it (a step in which a ReLU
+      unit flips between card and host held to 5e-2);
+   c. the deterministic image ops through ``check_consistency`` over
+      [cpu(0), gpu(0)] at (128, 3, 32, 32) / (128, 32, 32, 3) and HWC
+      (224, 224, 3) within 1e-6; the random ones by their moments over
+      10^6 pixels (6 standard errors);
+   d. the nvJPEG codec (``csrc/jpeg_codec.cu``): the committed fixtures
+      against cv2's pixels (4:4:4 max 3 and mean 0.5 levels, 4:2:0 mean
+      1), its colour conversion kernel bit for bit its plain version, its
+      encoder's round trip at quality 95 (4:4:4 at least 35 dB,
+      4:2:0 within 1 dB of the pipeline codec's own), decode throughput
+      at 1 and 4 threads beside the pipeline codec's.
+14. The ``kernels`` JSON line (each kernel's record with its launches on
    every path, phase 10's five and the MLP's with 0 of each, LeNet's with
    2 max-pool backwards a step, DCGAN's with 26 channel sums an
-   iteration, and its bf16/f16/f64, head_dim 32, LeNet and DCGAN
-   instances), then the result line.
+   iteration, phase 13's two paths, and its bf16/f16/f64, head_dim 32,
+   LeNet, DCGAN and ResNet-18 instances), then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is not beside this script.
@@ -5679,6 +5723,1096 @@ def train_dcgan_phase(mx, seed):
     return paths
 
 
+# -- phase 13: BASELINE configs 2 and 3 from files (record I/O, images,
+# vision data), the image ops and the codec on the card ------------------
+
+# BASELINE config 2: examples/image-classification/train_imagenet.py at its
+# settings (ResNet-50 of models/resnet.py, 1000 classes, 3x224x224, batch
+# 32, SGD lr 0.1, momentum 0.9, wd 1e-4).  Cut: num_examples 1,281,167 ->
+# 1,280 written records, one epoch of 40 batches.
+REC_IMAGES = 1280
+REC_BATCH = 32
+REC_CLASSES = 1000
+REC_SHAPE = (3, 224, 224)
+REC_SHORT_SIDE = 256
+REC_LONG_SIDE = (256, 384)
+REC_QUALITY = 95
+REC_RGB_MEAN = (123.68, 116.779, 103.939)
+REC_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+REC_THREADS = (1, 4)
+REC_SAME_BATCHES = 3          # card against host batches, bit for bit
+REC_HOST_STEPS = 3            # card against host steps (phase 4's rule)
+# BASELINE config 3: examples/gluon/image_classification.py at its settings
+# (resnet18_v1 thumbnail, 10 classes, batch 128, SGD lr 0.1, momentum 0.9,
+# wd 1e-4, hybridized).  Cut: one epoch of the example's 5.
+CIFAR_SIZES = {"train": 50000, "test": 10000}
+CIFAR_BATCH = 128
+CIFAR_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+CIFAR_MEAN = (0.4914, 0.4822, 0.4465)
+CIFAR_STD = (0.2023, 0.1994, 0.2010)
+CIFAR_WARMUP = 5              # steps before the medians
+CIFAR_LAST = 50               # steps whose accuracy must beat chance
+CIFAR_MIN_ACC = 0.2           # chance is 0.1
+CIFAR_HOST_STEPS = 3
+RELU_FLIP_REL = 5e-2          # a step with a ReLU flip (test_torch_vision_
+                              # train.py's limit for the same case)
+# ResNet-18 thumbnail's train-mode BatchNorm inputs at batch 128 and its
+# global 4x4 average pool (phase 13b's main path, timed in phase 2f)
+RESNET18_BN_SHAPES = ((128, 64, 32, 32), (128, 128, 16, 16),
+                      (128, 256, 8, 8), (128, 512, 4, 4))
+RESNET18_POOL = (128, 512, 4, 4)
+IMAGE_OP_CALLS = 1000         # random image ops: calls of 1,000 pixels each
+IMAGE_OP_SIGMAS = 6.0
+IMAGE_OP_TOL = 1e-6
+# nvJPEG against cv2's pixels at 4:4:4: max and mean levels.  The max is
+# 3, not 2: nvJPEG's inverse DCT is within 1 level of libjpeg's per plane
+# (IEEE 1180 accuracy), and B = Y + 1.772 Cb (R = Y + 1.402 Cr) turns a
+# +1 in Y and in Cb into +2.772, which rounds to 3 (PERF.md)
+CODEC_444 = (3, 0.5)
+CODEC_420_MEAN = 1.0
+CODEC_PSNR = 35.0
+
+
+def check_resnet18_kernels(seed):
+    """Phase 2f: ``bn_channel_sums`` at ResNet-18 thumbnail's four BatchNorm
+    input shapes at batch 128 (statistics and pair) and ``avg_pool_backward``
+    at its global 4x4 pool (phase 13b's main path), f32, against their plain
+    versions (sums within 1e-4, pooling bit for bit), timed (one call, 20
+    back to back, device only) beside the library call and the bytes bound.
+    Returns ([], [(kernel, instance)])."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    aten = torch.ops.aten
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 70)
+    out = []
+    for shape in RESNET18_BN_SHAPES:
+        a = torch.randn(*shape, generator=gen, device=dev) + 0.5
+        b = torch.randn(*shape, generator=gen, device=dev) + 0.5
+        for pair in (None, b):
+            label = "resnet18-%s-%s" % ("x".join(map(str, shape)),
+                                        "stats" if pair is None else "pair")
+            errs = [_agree(g, w, F32_TOL) for g, w in zip(
+                K.bn_channel_sums(a, pair), K._plain_channel_sums(a, pair))]
+            err = max(e for e, _ in errs)
+            if not all(o for _, o in errs):
+                raise AssertionError("bn_channel_sums disagrees with its "
+                                     "plain version at %s" % label)
+            run = lambda: K.bn_channel_sums(a, pair)  # noqa: E731
+            lib = bn_library(a, pair)
+            ms, lib_ms = time_ms(run), time_ms(lib)
+            plain_ms = time_ms(lambda: K._plain_channel_sums(a, pair))
+            bound = bytes_bound(bn_bytes(a, pair))
+            print("kernel bn_channel_sums %s: max_abs_err %.3g; one call "
+                  "%.4f ms, plain %.4f ms, %s %.4f ms; 20 back to back %.4f "
+                  "ms a call (library %.4f ms); device only: kernel %s, "
+                  "library %s; bound %.4f ms (%s); card %s"
+                  % (label, err, ms, plain_ms, "batch_norm_stats"
+                     if pair is None else "batch_norm_backward_reduce",
+                     lib_ms, time_ms_back_to_back(run),
+                     time_ms_back_to_back(lib),
+                     _device_text(device_ms_per_call(run)),
+                     _device_text(device_ms_per_call(lib)), bound[0],
+                     bound[1], card_line()))
+            out.append(("bn_channel_sums",
+                        _instance(label, err, ms, plain_ms, bound, lib_ms)))
+    n, c, h, w = RESNET18_POOL
+    dy = torch.randn(n, c, 1, 1, generator=gen, device=dev)
+    pads = ((0, 0), (0, 0))
+    div = torch.full((1, 1), 1.0 / (h * w), device=dev)  # avg over h x w
+    run = lambda: K.avg_pool_backward(  # noqa: E731
+        dy, div, (n, c, h, w), (h, w), (1, 1), pads)
+    plain = lambda: K._plain_avg_pool_backward(  # noqa: E731
+        dy, div, (n, c, h, w), (h, w), (1, 1), pads, dy.dtype)
+    x = torch.empty(n, c, h, w, device=dev)
+    lib = lambda: aten.avg_pool2d_backward(  # noqa: E731
+        dy, x, (h, w), (1, 1), (0, 0), False, True, None)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    print("kernel avg_pool_backward resnet18-global4 %s: max_abs_err %.3g "
+          "(bit for bit: %s) %s" % ("x".join(map(str, RESNET18_POOL)), err,
+                                    exact, "ok" if exact else "FAIL"))
+    if not exact:
+        raise AssertionError("avg_pool_backward disagrees with its plain "
+                             "version at ResNet-18's global pool")
+    ms, plain_ms, lib_ms = time_ms(run), time_ms(plain), time_ms(lib)
+    bound = bytes_bound(_nbytes(dy, div) + n * c * h * w * 4)
+    _report("kernel avg_pool_backward resnet18-global4", ms, plain_ms,
+            lib_ms, bound)
+    b2b = time_ms_back_to_back(run)
+    print("kernel avg_pool_backward resnet18-global4, 20 calls back to back: "
+          "%.4f ms a call (%.1f%% of the bound), library %.4f ms; device "
+          "only: kernel %s, library %s"
+          % (b2b, 100.0 * bound[0] / b2b, time_ms_back_to_back(lib),
+             _device_text(device_ms_per_call(run)),
+             _device_text(device_ms_per_call(lib))))
+    out.append(("avg_pool_backward",
+                _instance("resnet18-global4", err, ms, plain_ms, bound,
+                          lib_ms)))
+    return [], out
+
+
+def _class_pattern(label, h, w, rng_noise):
+    """A smooth pattern of class ``label`` (its frequencies, phase and
+    colours drawn from the label) at h x w, plus noise, as BGR uint8."""
+    r = np.random.RandomState(label)
+    fy, fx = r.uniform(0.5, 4.0, 2)
+    phase = r.uniform(0, 2 * np.pi, 3)
+    colors = r.uniform(40, 215, 3)
+    y = np.linspace(0, 2 * np.pi, h, dtype=np.float32)[:, None]
+    x = np.linspace(0, 2 * np.pi, w, dtype=np.float32)[None, :]
+    img = np.empty((h, w, 3), np.float32)
+    for ch in range(3):
+        img[:, :, ch] = colors[ch] + 40 * np.sin(fy * y + fx * x
+                                                 + phase[ch])
+    img += rng_noise.normal(0, 12, (h, w, 3)).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_imagenet_rec(mx, root, seed):
+    """REC_IMAGES ImageNet-like records from ``seed`` through the port's
+    ``recordio.pack_img`` (JPEG quality 95) into ``root/train.rec`` with
+    its ``.idx``: shorter side 256, longer side 256-384, 1000 labels, each
+    image its class's smooth pattern plus noise.  Returns (rec, idx,
+    labels)."""
+    rng = np.random.RandomState(seed + 80)
+    rec, idx = os.path.join(root, "train.rec"), os.path.join(root,
+                                                             "train.idx")
+    labels = rng.randint(0, REC_CLASSES, REC_IMAGES)
+    w = mx.recordio.MXIndexedRecordIO(idx, rec, "w")
+    for i, label in enumerate(labels):
+        long_side = rng.randint(REC_LONG_SIDE[0], REC_LONG_SIDE[1] + 1)
+        h, wd = (REC_SHORT_SIDE, long_side) if rng.rand() < 0.5 \
+            else (long_side, REC_SHORT_SIDE)
+        img = _class_pattern(int(label), h, wd, rng)
+        w.write_idx(i, mx.recordio.pack_img(
+            mx.recordio.IRHeader(0, float(label), i, 0), img,
+            quality=REC_QUALITY))
+    w.close()
+    return rec, idx, labels
+
+
+class TimedIter:
+    """An iterator that passes ``base``'s batches on and keeps the host time
+    each ``next()`` took (the training loop's wait for its data)."""
+
+    def __init__(self, base):
+        self.base = base
+        self.waits = []
+        self.provide_data = base.provide_data
+        self.provide_label = base.provide_label
+        self.batch_size = getattr(base, "batch_size", None)
+
+    def __iter__(self):
+        return self
+
+    def reset(self):
+        self.base.reset()
+
+    def __next__(self):
+        return self.next()
+
+    def next(self):
+        t0 = time.perf_counter()
+        try:
+            return self.base.next()
+        finally:
+            self.waits.append((time.perf_counter() - t0) * 1e3)
+
+
+def rec_image_iter(mx, rec, seed):
+    """Run (i): ``examples/image-classification/common/data.py:
+    get_rec_iter``'s own call (the example's ``mean=`` without a std adds
+    no normalization, in the JAX package and here alike)."""
+    import random as _pyrandom
+    _pyrandom.seed(seed)
+    np.random.seed(seed)
+    return mx.image.ImageIter(
+        batch_size=REC_BATCH, data_shape=REC_SHAPE, path_imgrec=rec,
+        shuffle=True, part_index=0, num_parts=1, rand_crop=True,
+        rand_mirror=True, mean=np.asarray(REC_RGB_MEAN))
+
+
+def rec_record_iter(mx, rec, idx, seed, threads, ctx):
+    """Run (ii): MXNet 1.0's ``ImageRecordIter`` call."""
+    return mx.io.ImageRecordIter(
+        path_imgrec=rec, path_imgidx=idx, data_shape=REC_SHAPE,
+        batch_size=REC_BATCH, shuffle=True, rand_crop=True, rand_mirror=True,
+        mean_r=REC_RGB_MEAN[0], mean_g=REC_RGB_MEAN[1],
+        mean_b=REC_RGB_MEAN[2], preprocess_threads=threads, ctx=ctx,
+        seed=seed)
+
+
+def iterator_rate(make, tag):
+    """Images/s of one pass over the iterator ``make()`` alone (every batch
+    synchronized where it lands on the card)."""
+    import torch
+    it = make()
+    n = 0
+    t0 = time.perf_counter()
+    for batch in it:
+        batch.data[0].wait_to_read()
+        n += batch.data[0].shape[0] - (batch.pad or 0)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    if hasattr(it, "close"):
+        it.close()
+    print("rec: iterator alone, %s: %d images in %.2f s, %.1f images/s; "
+          "card %s" % (tag, n, s, n / s, card_line()))
+    return n / s
+
+
+def rec_fit(mx, symbol, it, seed, tag, per_step):
+    """``Module(context=gpu(0)).fit`` of ``symbol`` for one epoch of ``it``
+    at REC_SGD; per-step launches, ms per step, images/s and the wait on
+    ``next()``.  Returns (module, initial arg and aux params, launches)."""
+    import torch
+    from mxnet_tpu_torch.module.fused_step import WARMUP_STEPS
+    from mxnet_tpu_torch.ops import kernels as K
+    timed = TimedIter(it)
+    mod = mx.mod.Module(symbol, context=mx.gpu(0))
+    mod.bind(timed.provide_data, timed.provide_label)
+    mx.random.seed(seed)
+    mod.init_params(mx.initializer.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2))
+    arg0, aux0 = ({k: v.asnumpy().copy() for k, v in t.items()}
+                  for t in mod.get_params())
+    step_ms, step_launches, marks = [], [], {}
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), K.launch_counts()
+        step_ms.append((now - marks["t"]) * 1e3)
+        step_launches.append({k: counts[k] - marks["counts"][k]
+                              for k in per_step})
+        marks["t"], marks["counts"] = now, counts
+
+    torch.cuda.synchronize()
+    marks["t"], marks["counts"] = time.perf_counter(), K.launch_counts()
+    t0 = time.perf_counter()
+    mod.fit(timed, num_epoch=1, eval_metric="acc", optimizer="sgd",
+            optimizer_params=dict(REC_SGD), batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    n = len(step_ms)
+    fs = mod._fused_step
+    steady = step_ms[WARMUP_STEPS + 1:]
+    waits = timed.waits[WARMUP_STEPS + 1:n]
+    ms = float(np.median(steady))
+    wait = float(np.median(waits))
+    print("%s: fit of %d batches of %d in %.2f s: ms per step (synchronized, "
+          "median after the capture) %.2f, %.1f images/s; the step's wait "
+          "on next() median %.2f ms, mean %.2f ms, max %.2f ms (%.1f%% of "
+          "the step); the fused step carried the fit: %s; launches per "
+          "step %s (all alike: %s); card %s"
+          % (tag, n, REC_BATCH, fit_s, ms, REC_BATCH / ms * 1e3, wait,
+             float(np.mean(waits)), float(np.max(waits)),
+             100.0 * wait / ms, fs is not None and fs.captures == 1,
+             step_launches[-1], all(d == per_step for d in step_launches),
+             card_line()))
+    if n != REC_IMAGES // REC_BATCH:
+        raise AssertionError("%s: %d steps, expected %d"
+                             % (tag, n, REC_IMAGES // REC_BATCH))
+    if any(d != per_step for d in step_launches):
+        raise AssertionError("%s: launches per step %s, expected %s"
+                             % (tag, step_launches[:3], per_step))
+    if fs is None or fs.captures != 1:
+        raise AssertionError("%s: the fit did not run as one captured CUDA "
+                             "graph a step" % tag)
+    return mod, (arg0, aux0)
+
+
+def rec_same_batches(mx, rec, idx, seed):
+    """The first REC_SAME_BATCHES batches of ``ImageRecordIter`` at 4
+    threads on the card, at 4 threads on the host and at 1 thread on the
+    host, bit for bit (one codec ran in all three)."""
+    from mxnet_tpu_torch.image import codec
+    runs = {}
+    for tag, threads, ctx in (("card x4", 4, mx.gpu(0)),
+                              ("host x4", 4, None), ("host x1", 1, None)):
+        it = rec_record_iter(mx, rec, idx, seed, threads, ctx)
+        got = []
+        for batch in it:
+            got.append((batch.data[0].asnumpy(), batch.label[0].asnumpy(),
+                        batch.data[0].context))
+            if len(got) == REC_SAME_BATCHES:
+                break
+        it.close()
+        runs[tag] = got
+    same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+               for other in ("host x4", "host x1")
+               for a, b in zip(runs["card x4"], runs[other]))
+    print("rec: the first %d batches of ImageRecordIter on the card (on %s) "
+          "and on the host at 4 and 1 threads, codec %s: bit for bit %s"
+          % (REC_SAME_BATCHES, runs["card x4"][0][2], codec.backend(),
+             same))
+    if not same or runs["card x4"][0][2] != mx.gpu(0):
+        raise AssertionError("ImageRecordIter's batches on the card differ "
+                             "from the host's")
+    return [b for b, _, _ in runs["host x4"]], \
+        [lab for _, lab, _ in runs["host x4"]]
+
+
+def teacher_forced_steps(tag, run, states, batches, seed, flips=None):
+    """Phase 4's rule at each of the first steps of a training run: from
+    the host run's own state before step k (``states[k]``), one training
+    forward and backward of step k's batch on the card, on the host, and
+    on the host with the images moved by 1e-7 (``run(where, state, x, y)``
+    -> (output, {name: gradient})).  Outputs within HOST_OUT_TOL; each
+    gradient within HOST_GRAD_REL or 4 times the largest gradient change
+    the nudge makes on the host.  Starting each step from the host's state
+    keeps the card's rounding of earlier steps out of later ones: three
+    chained SGD steps at lr 0.1 of a BatchNorm net carry any rounding
+    difference far past both limits.
+
+    A ReLU unit whose input lies within rounding of 0 passes its gradient
+    on one device and not on the other, and moves a whole channel's
+    gradients.  Where a step's gradients exceed the limit, ``flips(state,
+    x)`` counts the ReLU units whose output is 0 on one device and positive
+    on the other in that step's forward; with at least one, the step is
+    held to RELU_FLIP_REL, the rule ``tests/test_torch_vision_train.py``
+    applies to the same case."""
+    rng = np.random.default_rng(seed + 81)
+    ok, worst_out, worst, limits = True, 0.0, (0.0, ""), []
+    for state, (x, y) in zip(states, batches):
+        nudged = (x * (1 + 1e-7 * rng.standard_normal(x.shape))).astype(
+            np.float32)
+        (out_c, g_c), (out_h, g_h), (_, g_n) = (
+            run(where, state, data, y) for where, data in
+            (("card", x), ("host", x), ("host", nudged)))
+        err = np.abs(out_c - out_h)
+        ok &= bool((err <= HOST_OUT_TOL["atol"]
+                    + HOST_OUT_TOL["rtol"] * np.abs(out_h)).all())
+        worst_out = max(worst_out, float(err.max()))
+        rel = {k: _rel_l2(g_c[k], g_h[k]) for k in g_h
+               if np.linalg.norm(g_h[k]) > 0}
+        floor = max(_rel_l2(g_n[k], g_h[k]) for k in rel)
+        limit = max(HOST_GRAD_REL, 4.0 * floor)
+        k = max(rel, key=rel.get)
+        note = ""
+        if rel[k] > limit and flips is not None:
+            n = flips(state, x)
+            note = "; %d ReLU units flipped between card and host" % n
+            if n:
+                limit = RELU_FLIP_REL
+        limits.append(limit)
+        worst = max(worst, (rel[k], k))
+        ok &= rel[k] <= limit
+        print("%s: step %d: gradients relative L2 largest %.3g (%s), the "
+              "host's floor %.3g, limit %.3g%s"
+              % (tag, len(limits), rel[k], k, floor, limit, note))
+    print("%s: %d steps card vs host, each from the host run's state before "
+          "it, on its first batches (%d images each): outputs max_abs_err "
+          "%.3g (atol %g rtol %g); gradients relative L2 largest %.3g (%s), "
+          "limits per step %s; card %s"
+          % (tag, len(states), len(batches[0][1]), worst_out,
+             HOST_OUT_TOL["atol"], HOST_OUT_TOL["rtol"], worst[0], worst[1],
+             ", ".join("%.3g" % v for v in limits), card_line()))
+    if not ok:
+        raise AssertionError("%s: the card's training steps disagree with "
+                             "the host's" % tag)
+
+
+def relu_flips(mx, sym, state, x):
+    """ReLU units whose output is 0 on the card and positive on the host,
+    or the reverse, in a training forward of ``x`` through ``sym`` (a
+    net's symbol) from the parameters ``state`` ({name: numpy})."""
+    relus = type(sym)([(node, 0) for node in sym._topo()
+                       if node.op_name == "Activation"
+                       and node.attrs.get("act_type") == "relu"])
+    outs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        exe = relus.simple_bind(ctx, grad_req="null", data=x.shape)
+        exe.copy_params_from(
+            {k: mx.nd.array(state[k], ctx=ctx) for k in exe.arg_dict
+             if k in state},
+            {k: mx.nd.array(state[k], ctx=ctx) for k in exe.aux_dict},
+            allow_extra_params=True)
+        outs.append([o.asnumpy() > 0 for o in exe.forward(is_train=True,
+                                                          data=x)])
+    return int(sum((a != b).sum() for a, b in zip(*outs)))
+
+
+def rec_host_steps(mx, symbol, arg0, aux0, images, labels, seed):
+    """13a's card-vs-host check: the fit's initial weights (BatchNorm
+    scales drawn away from 1 and 0, as phase 4 does), HOST_BATCH images of
+    each of the iterator's first batches; the host trajectory through
+    ``Module`` forward_backward + update at REC_SGD, then each step by
+    ``teacher_forced_steps`` through bound executors."""
+    rng = np.random.default_rng(seed + 82)
+    arg0 = dict(arg0)
+    for k, v in arg0.items():
+        if k.endswith("_gamma"):
+            arg0[k] = (1.0 + 0.1 * rng.standard_normal(v.shape)).astype(
+                np.float32)
+        elif k.endswith("_beta"):
+            arg0[k] = (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+    batches = [(x[:HOST_BATCH], y[:HOST_BATCH])
+               for x, y in zip(images, labels)][:REC_HOST_STEPS]
+    mod = mx.mod.Module(symbol, context=mx.cpu())
+    mod.bind([("data", (HOST_BATCH,) + REC_SHAPE)],
+             [("softmax_label", (HOST_BATCH,))])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                for k, v in arg0.items()},
+                    aux_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                for k, v in aux0.items()})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(REC_SGD))
+    states = []
+    for x, y in batches:
+        arg, aux = mod.get_params()
+        states.append(({k: v.asnumpy() for k, v in arg.items()},
+                       {k: v.asnumpy() for k, v in aux.items()}))
+        mod.forward_backward(mx.io.DataBatch([mx.nd.array(x, ctx=mx.cpu())],
+                                             [mx.nd.array(y, ctx=mx.cpu())]))
+        mod.update()
+    exes = {where: symbol.simple_bind(
+        ctx, grad_req={k: "write" for k in arg0},
+        data=(HOST_BATCH,) + REC_SHAPE, softmax_label=(HOST_BATCH,))
+        for where, ctx in (("card", mx.gpu(0)), ("host", mx.cpu()))}
+
+    def run(where, state, x, y):
+        exe = exes[where]
+        ctx = mx.gpu(0) if where == "card" else mx.cpu()
+        args, auxs = mx.convert.params_from_numpy(
+            dict(state[0], **{"aux:" + k: v for k, v in state[1].items()}),
+            ctx)
+        exe.copy_params_from(args, auxs)
+        exe.forward(is_train=True, data=x, softmax_label=y)
+        exe.backward()
+        return exe.outputs[0].asnumpy(), {k: exe.grad_dict[k].asnumpy()
+                                          for k in arg0}
+
+    teacher_forced_steps("rec", run, states, batches, seed)
+
+
+def rec_profile_apart(seed, root):
+    """Runs ``rec_profile_child`` in a process of its own (as phase 6 does:
+    late in this process torch.profiler loses kernel records) and passes
+    its lines on; raises when it fails."""
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--rec-profile", root], capture_output=True, text=True,
+        timeout=600)
+    sys.stdout.write(child.stdout)
+    if child.returncode != 0:
+        sys.stdout.write(child.stderr[-4000:])
+        raise AssertionError("the profiled .rec step failed (exit %d)"
+                             % child.returncode)
+
+
+def rec_profile_child(mx, seed, root):
+    """``--rec-profile ROOT``: run (ii) of 13a on ``ROOT/train.rec``: 3
+    steps, then one iteration (``next()`` of ``ImageRecordIter(
+    preprocess_threads=4, ctx=gpu(0))`` and a replayed step) under
+    torch.profiler: the busy share, and each training kernel's device
+    launches, which must equal the replay's 102/1/1."""
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import kernels as K
+    symbol = resnet.get_symbol(REC_CLASSES, 50, "%d,%d,%d" % REC_SHAPE)
+    per_step = expected_train_launches(symbol)
+    it = rec_record_iter(mx, os.path.join(root, "train.rec"),
+                         os.path.join(root, "train.idx"), seed, 4, mx.gpu(0))
+    mod = mx.mod.Module(symbol, context=mx.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(mx.initializer.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2))
+    mod.init_optimizer(optimizer_params=dict(REC_SGD))
+
+    def iteration():
+        mod.forward_backward(next(it))
+        mod.update()
+
+    for _ in range(3):
+        iteration()
+    before = K.launch_counts()
+    table = profile_run(iteration, "rec replay")
+    calls = {k: K.launch_counts()[k] - before[k] for k in per_step}
+    it.close()
+    if mod._fused_step is None or mod._fused_step.replays < 2 \
+            or calls != per_step:
+        raise AssertionError("the profiled .rec step was not a replay of %s "
+                             "launches: %s" % (per_step, calls))
+    if table is None:
+        return 0
+    for name, key in HAND_SPLIT:
+        n = sum(v[1] for k, v in table.items() if key in k)
+        print("rec: profiled iteration: %s %d device launches, %d counted"
+              % (name, n, calls[name]))
+        if n != calls[name]:
+            raise AssertionError("%s: %d device launches, %d counted"
+                                 % (name, n, calls[name]))
+    return 0
+
+
+def train_imagenet_rec(mx, seed, root):
+    """13a.  Returns the launches of the two fits."""
+    from mxnet_tpu_torch import io_native
+    from mxnet_tpu_torch.image import codec
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import kernels as K
+    t0 = time.perf_counter()
+    rec, idx, _ = write_imagenet_rec(mx, root, seed)
+    print("rec: wrote %d records (%.1f MB, JPEG quality %d, codec %s) with "
+          "the port's recordio in %.1f s; native writer used: %s"
+          % (REC_IMAGES, os.path.getsize(rec) / 1e6, REC_QUALITY,
+             codec.backend(), time.perf_counter() - t0,
+             io_native.OPENED["writer"] > 0))
+    rates = {"ImageIter (run i)": iterator_rate(
+        lambda: rec_image_iter(mx, rec, seed), "ImageIter, 1 thread")}
+    for threads in REC_THREADS:
+        rates["ImageRecordIter x%d" % threads] = iterator_rate(
+            lambda: rec_record_iter(mx, rec, idx, seed, threads, mx.gpu(0)),
+            "ImageRecordIter(preprocess_threads=%d, ctx=gpu(0))" % threads)
+    symbol = resnet.get_symbol(REC_CLASSES, 50, "%d,%d,%d" % REC_SHAPE)
+    per_step = expected_train_launches(symbol)
+    opened = dict(io_native.OPENED)
+    K.reset_launch_counts()
+    mod, (arg0, aux0) = rec_fit(mx, symbol, rec_image_iter(mx, rec, seed),
+                                seed, "rec run (i) ImageIter", per_step)
+    it = rec_record_iter(mx, rec, idx, seed, 4, mx.gpu(0))
+    rec_fit(mx, symbol, it, seed, "rec run (ii) ImageRecordIter x4 gpu(0)",
+            per_step)
+    launches = K.launch_counts()
+    it.close()
+    rec_profile_apart(seed, root)
+    used = {k: io_native.OPENED[k] - opened[k] for k in opened}
+    print("rec: the runs' native readers %d, engines %d, native decode "
+          "chain calls %d (it builds where OpenCV's headers exist: %s); "
+          "launches of both fits %s"
+          % (used["reader"], used["engine"], used["imgdec_calls"],
+             io_native.get_imgdec_lib() is not None, launches))
+    if used["reader"] < 2 or used["engine"] < 1:
+        raise AssertionError("the native record reader and engine were not "
+                             "the ones used (%s)" % used)
+    del mod
+    images, labels = rec_same_batches(mx, rec, idx, seed)
+    rec_host_steps(mx, symbol, arg0, aux0, images, labels, seed)
+    return launches, rates, rec
+
+
+def write_cifar10(root, seed):
+    """CIFAR-10's python pickle batches (``data_batch_1..5``, ``test_batch``
+    of 10,000 32x32x3 images each, rows R, G, B planes) from ``seed``: each
+    image its class's template (a smooth pattern) under a random
+    brightness, shift and noise, so that the classes can be learnt."""
+    import pickle
+    d = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(d)
+    rng = np.random.RandomState(seed + 90)
+    templates = np.stack([_class_pattern(c, 40, 40, np.random.RandomState(0))
+                          for c in range(10)]).astype(np.float32)
+    names = ["data_batch_%d" % i for i in range(1, 6)] + ["test_batch"]
+    per_file = (CIFAR_SIZES["train"] // 5, CIFAR_SIZES["test"])
+    for name in names:
+        n = per_file[1] if name == "test_batch" else per_file[0]
+        labels = rng.randint(0, 10, n)
+        dy, dx = rng.randint(0, 9, n), rng.randint(0, 9, n)
+        rows = np.arange(32)[None, :, None] + dy[:, None, None]
+        cols = np.arange(32)[None, None, :] + dx[:, None, None]
+        imgs = templates[labels[:, None, None], rows, cols]  # N,32,32,3
+        imgs = imgs * rng.uniform(0.7, 1.3, (n, 1, 1, 1)).astype(np.float32)
+        imgs += rng.normal(0, 25, imgs.shape).astype(np.float32)
+        data = np.clip(imgs, 0, 255).astype(np.uint8)[:, :, :, ::-1]  # RGB
+        with open(os.path.join(d, name), "wb") as f:
+            pickle.dump({b"data": np.ascontiguousarray(
+                data.transpose(0, 3, 1, 2)).reshape(n, 3072),
+                b"labels": [int(v) for v in labels],
+                b"batch_label": name.encode()}, f, protocol=4)
+    return root
+
+
+def cifar_loader(mx, root):
+    """The example's training loader."""
+    from mxnet_tpu_torch import gluon
+    t = gluon.data.vision.transforms
+    transform = t.Compose([t.ToTensor(), t.Normalize(list(CIFAR_MEAN),
+                                                     list(CIFAR_STD))])
+    return gluon.data.DataLoader(
+        gluon.data.vision.CIFAR10(root=root, train=True).transform_first(
+            lambda x: transform(x)),
+        batch_size=CIFAR_BATCH, shuffle=True, last_batch="discard")
+
+
+def cifar_net(mx, ctx, seed, hybridize=True):
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    with mx.sym.NameManager():
+        net = vision.get_model("resnet18_v1", classes=10, thumbnail=True)
+    mx.random.seed(seed)
+    net.initialize(mx.initializer.Xavier(magnitude=2), ctx=ctx)
+    if hybridize:
+        net.hybridize()
+    return net
+
+
+def cifar_step(mx, net, trainer, loss_fn, data, label, ctx):
+    """One step of the example's loop; returns the outputs."""
+    from mxnet_tpu_torch import autograd
+    data = data.as_in_context(ctx)
+    label = label.as_in_context(ctx)
+    with autograd.record():
+        out = net(data)
+        loss = loss_fn(out, label)
+    loss.backward()
+    trainer.step(data.shape[0])
+    return out, label
+
+
+def train_cifar(mx, seed, root):
+    """13b.  Returns the epoch's launches."""
+    import torch
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.ops import kernels as K
+    ctx = mx.gpu(0)
+    t0 = time.perf_counter()
+    loader = cifar_loader(mx, root)
+    print("cifar: CIFAR10(root) read %d images in %.1f s"
+          % (CIFAR_SIZES["train"], time.perf_counter() - t0))
+    net = cifar_net(mx, ctx, seed)
+    np.random.seed(seed)  # the loader's sampler draws from numpy
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(CIFAR_SGD))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    metric = mx.metric.Accuracy()
+    per_step, loads, steps, hits = None, [], [], []
+    launches_each = []
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    it = iter(loader)
+    t_epoch = time.perf_counter()
+    while True:
+        t_load = time.perf_counter()
+        try:
+            data, label = next(it)
+        except StopIteration:
+            break
+        t_step = time.perf_counter()
+        counts = K.launch_counts()
+        out, lab = cifar_step(mx, net, trainer, loss_fn, data, label, ctx)
+        metric.update([lab], [out])
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        after = K.launch_counts()
+        if per_step is None:
+            per_step = {k: v for k, v in expected_vision_launches(
+                net).items()}
+        launches_each.append({k: after[k] - counts[k] for k in per_step})
+        hits.append(float((out.asnumpy().argmax(1) == lab.asnumpy()).mean()))
+        loads.append((t_step - t_load) * 1e3)
+        steps.append((t_end - t_step) * 1e3)
+    epoch_s = time.perf_counter() - t_epoch
+    launches = K.launch_counts()
+    n = len(steps)
+    step_ms = float(np.median(steps[CIFAR_WARMUP:]))
+    load_ms = float(np.median(loads[CIFAR_WARMUP:]))
+    last = float(np.mean(hits[-CIFAR_LAST:]))
+    print("cifar: one epoch of %d steps of %d in %.2f s (%.1f images/s end "
+          "to end): step (synchronized, median after %d) %.2f ms, %.1f "
+          "images/s; loading a batch (DataLoader next(): per-sample "
+          "ToTensor/Normalize, stack) median %.2f ms, mean %.2f ms (%.1f%% "
+          "of a step and its load); train accuracy over the epoch %.4f, "
+          "over its last %d steps %.4f (at least %.2f; chance 0.1); "
+          "launches per step %s (all alike: %s); card %s"
+          % (n, CIFAR_BATCH, epoch_s, n * CIFAR_BATCH / epoch_s,
+             CIFAR_WARMUP, step_ms, CIFAR_BATCH / step_ms * 1e3, load_ms,
+             float(np.mean(loads[CIFAR_WARMUP:])),
+             100.0 * load_ms / (load_ms + step_ms), metric.get()[1],
+             CIFAR_LAST, last, CIFAR_MIN_ACC, launches_each[-1],
+             all(d == per_step for d in launches_each), card_line()))
+    if n != CIFAR_SIZES["train"] // CIFAR_BATCH:
+        raise AssertionError("cifar: %d steps, expected %d"
+                             % (n, CIFAR_SIZES["train"] // CIFAR_BATCH))
+    if any(d != per_step for d in launches_each):
+        raise AssertionError("cifar: launches per step %s, expected %s"
+                             % (launches_each[:3], per_step))
+    if not last >= CIFAR_MIN_ACC:
+        raise AssertionError("cifar: train accuracy %.4f over the last %d "
+                             "steps, not above chance" % (last, CIFAR_LAST))
+    cifar_profile_apart(seed, root)
+    cifar_host_steps(mx, seed, root)
+    return launches
+
+
+def cifar_profile_apart(seed, root):
+    """Runs ``cifar_profile_child`` in a process of its own (as phase 6
+    does) and passes its lines on."""
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--cifar-profile", root], capture_output=True, text=True,
+        timeout=900)
+    sys.stdout.write(child.stdout)
+    if child.returncode != 0:
+        sys.stdout.write(child.stderr[-4000:])
+        raise AssertionError("the profiled CIFAR step failed (exit %d)"
+                             % child.returncode)
+    print("cifar: profiled step in a process of its own: %.1f s"
+          % (time.perf_counter() - t0))
+
+
+def cifar_profile_child(mx, seed, root):
+    """``--cifar-profile ROOT``: phase 13b's loop on the written files, 5
+    warm-up iterations, then one iteration (the loader's next() and the
+    step) under torch.profiler: the device's busy share of the iteration,
+    device time by kernel group, and the hand-written kernels' device
+    launches, which must equal their wrapper calls."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.ops import kernels as K
+    ctx = mx.gpu(0)
+    net = cifar_net(mx, ctx, seed)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(CIFAR_SGD))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    it = iter(cifar_loader(mx, root))
+
+    def iteration():
+        data, label = next(it)
+        cifar_step(mx, net, trainer, loss_fn, data, label, ctx)
+
+    for _ in range(CIFAR_WARMUP):
+        iteration()
+    before = K.launch_counts()
+    table = profile_run(iteration, "cifar")
+    calls = {k: K.launch_counts()[k] - before[k]
+             for k in ("bn_channel_sums", "avg_pool_backward")}
+    if table is None:
+        return 0
+    for name, key in HAND_SPLIT:
+        if name not in calls:
+            continue
+        n = sum(v[1] for k, v in table.items() if key in k)
+        print("cifar: profiled iteration: %s %d device launches, %d wrapper "
+              "calls" % (name, n, calls[name]))
+        if n != calls[name]:
+            raise AssertionError("%s: %d device launches, %d wrapper calls"
+                                 % (name, n, calls[name]))
+    return 0
+
+
+def cifar_host_steps(mx, seed, root):
+    """13b's card-vs-host check: one set of numpy weights (He-normal
+    convolutions, BatchNorm scales near 1 and 0) through ``convert.
+    set_gluon_params``, HOST_BATCH images of each of the loader's
+    first batches; the host trajectory through ``Trainer`` at CIFAR_SGD,
+    then each step by ``teacher_forced_steps``."""
+    from mxnet_tpu_torch import autograd, gluon
+    np.random.seed(seed)
+    batches = []
+    with mx.cpu():
+        for data, label in cifar_loader(mx, root):
+            batches.append((data.asnumpy()[:HOST_BATCH],
+                            label.asnumpy()[:HOST_BATCH]))
+            if len(batches) == CIFAR_HOST_STEPS:
+                break
+    rng = np.random.RandomState(seed + 91)
+    nets = {}
+    for where, ctx in (("host", mx.cpu()), ("card", mx.gpu(0)),
+                       ("trajectory", mx.cpu())):
+        with mx.sym.NameManager():
+            nets[where] = gluon.model_zoo.vision.get_model(
+                "resnet18_v1", classes=10, thumbnail=True)
+        nets[where].initialize(ctx=ctx)
+        nets[where](mx.nd.array(batches[0][0], ctx=ctx))  # the shapes
+        nets[where].hybridize()
+    weights = {}
+    for name, p in nets["host"].collect_params().items():
+        shape = tuple(p.shape)
+        if name.endswith(("gamma", "running_var")):
+            v = 1 + 0.1 * rng.uniform(-1, 1, shape)
+        elif name.endswith(("beta", "running_mean", "bias")):
+            v = 0.1 * rng.uniform(-1, 1, shape)
+        else:
+            v = rng.standard_normal(shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+        weights[name] = v.astype(np.float32)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def forward_backward(net, ctx, x, y):
+        with autograd.record():
+            out = net(mx.nd.array(x, ctx=ctx))
+            loss = loss_fn(out, mx.nd.array(y, ctx=ctx))
+        loss.backward()
+        return out.asnumpy(), {n: p.grad().asnumpy() for n, p
+                               in net.collect_params().items()
+                               if p.grad_req != "null"}
+
+    traj = nets["trajectory"]
+    mx.convert.set_gluon_params(traj, weights, ctx=mx.cpu())
+    trainer = gluon.Trainer(traj.collect_params(), "sgd", dict(CIFAR_SGD))
+    states = []
+    for x, y in batches:
+        states.append({n: p.data().asnumpy()
+                       for n, p in traj.collect_params().items()})
+        forward_backward(traj, mx.cpu(), x, y)
+        trainer.step(x.shape[0])
+
+    def run(where, state, x, y):
+        ctx = mx.gpu(0) if where == "card" else mx.cpu()
+        mx.convert.set_gluon_params(nets[where], state, ctx=ctx)
+        return forward_backward(nets[where], ctx, x, y)
+
+    sym = nets["host"](mx.sym.var("data"))
+    teacher_forced_steps("cifar", run, states, batches, seed,
+                         lambda state, x: relu_flips(mx, sym, state, x))
+
+
+IMAGE_OP_CONSISTENCY = (  # (op, input shape, attrs)
+    ("to_tensor", (224, 224, 3), {}),
+    ("to_tensor", (128, 32, 32, 3), {}),
+    ("normalize", (128, 3, 32, 32), {"mean": CIFAR_MEAN, "std": CIFAR_STD}),
+    ("normalize", (3, 224, 224), {"mean": CIFAR_MEAN, "std": CIFAR_STD}),
+    ("flip_left_right", (224, 224, 3), {}),
+    ("flip_left_right", (128, 32, 32, 3), {}),
+    ("flip_top_bottom", (224, 224, 3), {}),
+    ("flip_top_bottom", (128, 32, 32, 3), {}),
+    ("adjust_lighting", (224, 224, 3), {"alpha": (0.1, -0.2, 0.3)}),
+)
+_EIGVEC = np.array([[-0.5675, 0.7192, 0.4009], [-0.5808, -0.0045, -0.8140],
+                    [-0.5836, -0.6948, 0.4203]])
+_EIGVAL = np.array([55.46, 4.794, 1.148])
+
+
+def _uniform_moments(lo, hi):
+    return (lo + hi) / 2.0, (hi - lo) ** 2 / 12.0
+
+
+def image_ops_on_card(mx, seed):
+    """13c.  The deterministic image ops through ``check_consistency`` over
+    [cpu(0), gpu(0)] within IMAGE_OP_TOL; each random op IMAGE_OP_CALLS
+    times on a 1,000-pixel image on the card (10^6 pixels in all), its
+    factor read off each output: mean and variance within 6 standard
+    errors of the distribution's (the flips' coin, the uniform factors,
+    the lighting's normals), and the hue and colour jitter's first pixel
+    against the same calls on the host."""
+    import torch
+    for name, shape, attrs in IMAGE_OP_CONSISTENCY:
+        sym = getattr(mx.sym.image, name)(mx.sym.var("data"), **attrs)
+        mx.test_utils.check_consistency(
+            sym, [{"ctx": mx.cpu(0), "data": shape},
+                  {"ctx": mx.gpu(0), "data": shape}], tol=IMAGE_OP_TOL)
+    print("image ops: %d deterministic cases card vs host through "
+          "check_consistency within %g: ok"
+          % (len(IMAGE_OP_CONSISTENCY), IMAGE_OP_TOL))
+    rng = np.random.RandomState(seed + 95)
+    x_np = rng.uniform(10, 240, (20, 50, 3)).astype(np.float32)
+    gray = (0.299 * x_np[..., 0] + 0.587 * x_np[..., 1]
+            + 0.114 * x_np[..., 2])
+
+    def draws(name, attrs, ctx):
+        x = mx.nd.array(x_np, ctx=ctx)
+        fn = getattr(mx.nd.image, name)
+        outs = torch.stack([fn(x, **attrs).tensor
+                            for _ in range(IMAGE_OP_CALLS)])
+        return outs.cpu().numpy()
+
+    mx.random.seed(seed)
+    results = []
+
+    def gate(label, values, mean, var):
+        v = np.asarray(values, np.float64)
+        n = len(v)
+        m4 = np.mean((v - v.mean()) ** 4)
+        zm = abs(v.mean() - mean) / np.sqrt(var / n)
+        zv = abs(v.var() - var) / np.sqrt(max(m4 - v.var() ** 2, 1e-30) / n)
+        results.append((label, zm, zv))
+
+    card = mx.gpu(0)
+    o = draws("random_flip_left_right", {}, card)
+    gate("random_flip_left_right",
+         [float(np.array_equal(a, x_np[:, ::-1])) for a in o], 0.5, 0.25)
+    o = draws("random_flip_top_bottom", {}, card)
+    gate("random_flip_top_bottom",
+         [float(np.array_equal(a, x_np[::-1])) for a in o], 0.5, 0.25)
+    o = draws("random_brightness", {"min_factor": 0.5, "max_factor": 1.5},
+              card)
+    gate("random_brightness", o[:, 0, 0, 0] / x_np[0, 0, 0],
+         *_uniform_moments(0.5, 1.5))
+    o = draws("random_contrast", {"min_factor": 0.6, "max_factor": 1.4},
+              card)
+    m = gray.mean()
+    gate("random_contrast", (o[:, 0, 0, 0] - m) / (x_np[0, 0, 0] - m),
+         *_uniform_moments(0.6, 1.4))
+    o = draws("random_saturation", {"min_factor": 0.2, "max_factor": 1.8},
+              card)
+    gate("random_saturation", (o[:, 0, 0, 0] - gray[0, 0])
+         / (x_np[0, 0, 0] - gray[0, 0]), *_uniform_moments(0.2, 1.8))
+    o = draws("random_lighting", {"alpha_std": 0.5}, card)
+    alphas = np.linalg.solve(_EIGVEC, (o[:, 0, 0, :] - x_np[0, 0]).T).T \
+        / _EIGVAL
+    for j in range(3):
+        gate("random_lighting alpha[%d]" % j, alphas[:, j], 0.0, 0.25)
+    for name, attrs in (("random_hue", {"min_factor": -0.4,
+                                        "max_factor": 0.4}),
+                        ("random_color_jitter", {"brightness": 0.3,
+                                                 "contrast": 0.3,
+                                                 "saturation": 0.3,
+                                                 "hue": 0.2})):
+        a = draws(name, attrs, card)[:, 0, 0, 0].astype(np.float64)
+        b = draws(name, attrs, mx.cpu())[:, 0, 0, 0].astype(np.float64)
+        zm = abs(a.mean() - b.mean()) / np.sqrt(a.var() / len(a)
+                                                + b.var() / len(b))
+        zv = abs(a.var() - b.var()) / np.sqrt(
+            (np.mean((a - a.mean()) ** 4) - a.var() ** 2) / len(a)
+            + (np.mean((b - b.mean()) ** 4) - b.var() ** 2) / len(b))
+        results.append((name + " (card vs host)", zm, zv))
+    bad = [r for r in results if r[1] > IMAGE_OP_SIGMAS
+           or r[2] > IMAGE_OP_SIGMAS]
+    print("image ops: random ops on the card, %d calls of %d pixels each: "
+          "%s (z of mean, z of variance; limit %g); card %s"
+          % (IMAGE_OP_CALLS, x_np.size // 3, "; ".join(
+              "%s %.2f/%.2f" % r for r in results), IMAGE_OP_SIGMAS,
+             card_line()))
+    if bad:
+        raise AssertionError("random image ops off their distributions: %s"
+                             % bad)
+
+
+def _decode_rate(decode, bufs, threads):
+    import threading
+
+    def work(k):
+        for j in range(k, len(bufs), threads):
+            decode(bufs[j])
+
+    t0 = time.perf_counter()
+    pool = [threading.Thread(target=work, args=(k,)) for k in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    return len(bufs) / (time.perf_counter() - t0)
+
+
+def libjpeg_plane_gaps(buf, planes):
+    """How far nvJPEG's planes are from libjpeg's (read through PIL, where
+    it imports: a DCT-scaled decode keeps the chroma at its stored size),
+    as text."""
+    import io
+    try:
+        from PIL import Image
+    except ImportError:
+        return "libjpeg's planes not read (PIL does not import)"
+    y, cb, cr, (hs, vs) = planes
+    full = Image.open(io.BytesIO(buf))
+    full.draft("YCbCr", full.size)
+    small = Image.open(io.BytesIO(buf))
+    small.draft("YCbCr", (full.size[0] // hs, full.size[1] // vs))
+    full, small = np.asarray(full), np.asarray(small)
+    gaps = [np.abs(a.astype(np.int64) - b)
+            for a, b in ((y, full[..., 0]), (cb, small[..., 1]),
+                         (cr, small[..., 2]))]
+    return "planes against libjpeg's (inverse DCTs): " + ", ".join(
+        "%s max %d mean %.4f" % (n, g.max(), g.mean())
+        for n, g in zip(("Y", "Cb", "Cr"), gaps))
+
+
+def codec_on_card(mx, rec):
+    """13d.  The nvJPEG codec, built and checked whatever codec the
+    pipeline uses: the committed fixtures against cv2's pixels, the
+    encoder's round trip at quality 95, and decode throughput at 1 and 4
+    threads on phase 13a's records beside the pipeline codec's."""
+    from mxnet_tpu_torch.image import codec
+    from mxnet_tpu_torch.ops import _build
+    if not codec.nvjpeg_available():
+        raise AssertionError("the CUDA toolkit here has no nvjpeg.h")
+    t0 = time.perf_counter()
+    _build.build("jpeg_codec")
+    print("codec: pipeline codec %s (available %s); nvJPEG library built in "
+          "%.1f s" % (codec.backend(), codec.available(),
+                      time.perf_counter() - t0))
+    here = os.path.join(HERE, "tests", "data")
+    for name in ("jpeg444", "jpeg420"):
+        with open(os.path.join(here, name + ".jpg"), "rb") as f:
+            buf = f.read()
+        want = np.load(os.path.join(here, name + ".npy")).astype(np.int64)
+        errs = {}
+        for exact in (True, False):
+            got = codec.nvjpeg_decode(buf, exact=exact).astype(np.int64)
+            err = np.abs(got - want)
+            errs[exact] = (int(err.max()), float(err.mean()),
+                           int((err > 2).sum()))
+        planes = codec.nvjpeg_planes(buf)
+        same = np.array_equal(codec.nvjpeg_decode(buf),
+                              codec.plain_ycc_to_bgr(*planes))
+        print("codec: nvJPEG decode of %s against cv2's pixels: max %d, mean "
+              "%.4f levels, %d of %d values above 2 (libjpeg's upsampling and "
+              "colour conversion in ycc_to_bgr_kernel, bit for bit its plain "
+              "version: %s); nvJPEG's own conversion max %d, mean %.4f; %s"
+              % (name, errs[True][0], errs[True][1], errs[True][2],
+                 want.size, same, errs[False][0], errs[False][1],
+                 libjpeg_plane_gaps(buf, planes)))
+        if not same:
+            raise AssertionError("ycc_to_bgr_kernel disagrees with its plain "
+                                 "version on %s" % name)
+        if name == "jpeg444" and not (errs[True][0] <= CODEC_444[0]
+                                      and errs[True][1] <= CODEC_444[1]):
+            raise AssertionError("nvJPEG's 4:4:4 decode is off cv2's pixels")
+        if name == "jpeg420" and not errs[True][1] <= CODEC_420_MEAN:
+            raise AssertionError("nvJPEG's 4:2:0 decode is off cv2's pixels")
+    img = np.load(os.path.join(here, "jpeg444.npy"))
+
+    def psnr(a):
+        mse = np.mean((a.astype(np.float64) - img) ** 2)
+        return 10 * np.log10(255.0 ** 2 / mse)
+
+    trips = {ss: psnr(codec.nvjpeg_decode(codec.nvjpeg_encode(img, 95, ss)))
+             for ss in ("444", "422", "420")}
+    reference = psnr(codec.decode(codec.encode(img, 95)))
+    print("codec: nvJPEG encode at quality 95, decoded back: PSNR 4:4:4 "
+          "%.2f dB (at least %g), 4:2:2 %.2f dB, 4:2:0 %.2f dB; the pipeline "
+          "codec's own 4:2:0 round trip %.2f dB"
+          % (trips["444"], CODEC_PSNR, trips["422"], trips["420"],
+             reference))
+    if trips["444"] < CODEC_PSNR or trips["420"] < reference - 1.0:
+        raise AssertionError("nvJPEG's encoder round trip is too lossy")
+    reader = mx.recordio.MXRecordIO(rec, "r")
+    bufs = []
+    for _ in range(256):
+        _, payload = mx.recordio.unpack(reader.read())
+        bufs.append(payload)
+    reader.close()
+    off = [i for i, b in enumerate(bufs[:64]) if not np.array_equal(
+        codec.nvjpeg_decode(b), codec.plain_ycc_to_bgr(
+            *codec.nvjpeg_planes(b)))]
+    print("codec: ycc_to_bgr_kernel against its plain version on 64 of phase "
+          "13a's records: bit for bit on %d" % (64 - len(off)))
+    if off:
+        raise AssertionError("ycc_to_bgr_kernel disagrees with its plain "
+                             "version on records %s" % off[:5])
+    rates = {}
+    for threads in (1, 4):
+        rates["nvJPEG x%d" % threads] = _decode_rate(codec.nvjpeg_decode,
+                                                     bufs, threads)
+        rates["%s x%d" % (codec.backend(), threads)] = _decode_rate(
+            codec.decode, bufs, threads)
+    print("codec: decode of %d of phase 13a's records (~%dx%d, quality %d), "
+          "images/s: %s; card %s"
+          % (len(bufs), REC_SHORT_SIDE, sum(REC_LONG_SIDE) // 2, REC_QUALITY,
+             ", ".join("%s %.1f" % kv for kv in rates.items()), card_line()))
+    return rates
+
+
+def train_from_files(mx, seed):
+    """Phase 13.  Returns {path: launches}."""
+    import tempfile
+    import torch
+    clock = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory(dir=HERE) as root:
+        paths["module_resnet50_rec"], _, rec = train_imagenet_rec(
+            mx, seed, root)
+        image_ops_on_card(mx, seed)
+        codec_on_card(mx, rec)
+        t0 = time.perf_counter()
+        write_cifar10(os.path.join(root, "cifar"), seed)
+        print("cifar: wrote data_batch_1..5 and test_batch (%d + %d images) "
+              "in %.1f s" % (CIFAR_SIZES["train"], CIFAR_SIZES["test"],
+                             time.perf_counter() - t0))
+        paths["gluon_resnet18_cifar"] = train_cifar(
+            mx, seed, os.path.join(root, "cifar"))
+    torch.cuda.synchronize()
+    print("phase 13 parts done in %.1f s" % (time.perf_counter() - clock))
+    return paths
+
+
 def ptxas_entries(text):
     """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
     per compiled entry of an ``nvcc -Xptxas=-v`` report.  The kernel is
@@ -5715,6 +6849,10 @@ def main():
                         help=argparse.SUPPRESS)  # lenet_profile_apart
     parser.add_argument("--dcgan-profile", action="store_true",
                         help=argparse.SUPPRESS)  # dcgan_profile_apart
+    parser.add_argument("--cifar-profile", metavar="ROOT",
+                        help=argparse.SUPPRESS)  # cifar_profile_apart
+    parser.add_argument("--rec-profile", metavar="ROOT",
+                        help=argparse.SUPPRESS)  # rec_profile_apart
     args = parser.parse_args()
     if not os.path.isdir(os.path.join(HERE, "mxnet_tpu_torch")):
         print("chip_smoke: mxnet_tpu_torch/ is not beside this script",
@@ -5737,12 +6875,27 @@ def main():
         return lenet_profile_child(mx, args.seed)
     if args.dcgan_profile:
         return dcgan_profile_child(mx, args.seed)
+    if args.cifar_profile:
+        return cifar_profile_child(mx, args.seed, args.cifar_profile)
+    if args.rec_profile:
+        return rec_profile_child(mx, args.seed, args.rec_profile)
     print("card: %s" % card_line())
     print("torch %s, CUDA %s, %d device(s)"
           % (torch.__version__, torch.version.cuda, torch.cuda.device_count()))
     t0 = time.perf_counter()
-    _build.build_all(["flash_attn_fwd", "bn_channel_sums", "pool_bwd"])
+    _build.build_all(["flash_attn_fwd", "bn_channel_sums", "pool_bwd",
+                      "jpeg_codec"])
     print("kernels built in %.1f s" % (time.perf_counter() - t0))
+    from mxnet_tpu_torch import io_native
+    from mxnet_tpu_torch.image import codec
+    t0 = time.perf_counter()
+    native = io_native.get_lib() is not None
+    print("native record reader and engine (g++ of src/recordio.cc and "
+          "src/engine.cc) built: %s, decode chain (src/image_decode.cc, "
+          "needs OpenCV's headers) built: %s, in %.1f s; image codec %s "
+          "(available: %s)" % (native, io_native.get_imgdec_lib() is not None,
+                               time.perf_counter() - t0, codec.backend(),
+                               ", ".join(codec.available())))
     for name, info in sorted(_build.BUILD_INFO.items()):
         print("  %s: %.1f s" % (name, info["seconds"]))
         for entry, report in ptxas_entries(info["ptxas"]):
@@ -5758,7 +6911,8 @@ def main():
     lap("1 (card, build)")
     records, instances = [], {}
     for check in (check_flash, check_flash_lse, check_bn_sums,
-                  check_pool_bwd, check_lenet_pools, check_dcgan_bn):
+                  check_pool_bwd, check_lenet_pools, check_dcgan_bn,
+                  check_resnet18_kernels):
         recs, insts = check(args.seed)
         records += recs
         for name, inst in insts:
@@ -5787,6 +6941,9 @@ def main():
     paths.update(train_dcgan_phase(mx, args.seed))
     lap("12 (DCGAN through two Modules, the random ops, a replayed step "
         "that draws, the last nn and update ops)")
+    paths.update(train_from_files(mx, args.seed))
+    lap("13 (ResNet-50 from a .rec through ImageIter and ImageRecordIter, "
+        "the image ops, the codec, Gluon ResNet-18 on CIFAR-10 files)")
     # "launches": the path each kernel serves in this script (the serving
     # forward, the LM's training, and the bf16 fused training; LeNet's and
     # DCGAN's are in launches_by_path)

@@ -23,7 +23,12 @@ and ``BucketSentenceIter`` train variable-length sequences through
 fused step per bucket, over one set of parameters and optimizer states.
 ``mx.models`` holds the symbol zoo (LeNet and the MLP of BASELINE config 1
 through Inception-ResNet-v2), and ``mx.test_utils`` the reference's
-testing helpers, ``check_consistency`` among them.
+testing helpers, ``check_consistency`` among them.  ``mx.recordio``,
+``mx.image`` and ``mx.io.ImageRecordIter`` read packed ``.rec`` images
+(the native reader and engine of ``io_native``, decode through
+``image.codec``: cv2, PIL or nvJPEG) and ``gluon.data.vision`` the image
+datasets and transforms; batches reach the card from pinned buffers on
+a side stream.
 
 Entry points run on the card (``gpu(0)``) unless given ``cpu()``; without
 a card they raise ``MXNetError`` rather than fall back to the host.
@@ -51,6 +56,10 @@ from . import optimizer  # noqa: F401
 from .optimizer import Optimizer  # noqa: F401
 from . import metric  # noqa: F401
 from . import io  # noqa: F401
+from . import filesystem  # noqa: F401
+from . import recordio  # noqa: F401
+from . import io_native  # noqa: F401
+from . import image  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import model  # noqa: F401

@@ -1,5 +1,6 @@
-"""Gluon data API (ref: python/mxnet/gluon/data/): datasets, samplers
-and the DataLoader.  ``gluon.data.vision`` waits for the data I/O slice."""
+"""Gluon data API (ref: python/mxnet/gluon/data/): datasets, samplers,
+the DataLoader and ``vision`` (the image datasets and transforms)."""
 from .dataset import *  # noqa: F401,F403
 from .sampler import *  # noqa: F401,F403
 from .dataloader import *  # noqa: F401,F403
+from . import vision  # noqa: F401

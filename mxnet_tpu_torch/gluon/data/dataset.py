@@ -3,14 +3,18 @@
 Counterpart of ``mxnet_tpu/gluon/data/dataset.py``: random access by
 index plus length, composable through ``transform``; ``transform_first``
 is the same view with the function lifted to act on element 0 only.
-``RecordFileDataset`` and ``_DownloadedDataset`` wait for the data I/O
-slice (``recordio``).
+``RecordFileDataset`` reads the raw records of an indexed ``.rec`` file,
+and ``_DownloadedDataset`` is the base of the vision datasets.
 """
 from __future__ import annotations
 
+import os
+
+from ... import recordio
 from ...ndarray import NDArray
 
-__all__ = ["Dataset", "SimpleDataset", "ArrayDataset"]
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset",
+           "RecordFileDataset", "_DownloadedDataset"]
 
 
 class Dataset:
@@ -103,3 +107,40 @@ class ArrayDataset(Dataset):
         if len(self._sources) == 1:
             return self._sources[0][idx]
         return tuple(s[idx] for s in self._sources)
+
+
+class RecordFileDataset(Dataset):
+    """Raw records of an indexed RecordIO file (``.rec`` beside its
+    ``.idx``)."""
+
+    def __init__(self, filename):
+        idx_path = os.path.splitext(filename)[0] + ".idx"
+        self._record = recordio.MXIndexedRecordIO(idx_path, filename, "r")
+
+    def __len__(self):
+        return len(self._record.keys)
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+
+class _DownloadedDataset(Dataset):
+    """Base of the MNIST/CIFAR-style datasets kept under ``root``."""
+
+    def __init__(self, root, transform):
+        self._root = os.path.expanduser(root)
+        self._transform = transform
+        self._data = None
+        self._label = None
+        os.makedirs(self._root, exist_ok=True)
+        self._get_data()
+
+    def __len__(self):
+        return len(self._label)
+
+    def __getitem__(self, idx):
+        pair = (self._data[idx], self._label[idx])
+        return pair if self._transform is None else self._transform(*pair)
+
+    def _get_data(self):
+        raise NotImplementedError

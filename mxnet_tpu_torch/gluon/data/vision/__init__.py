@@ -1,0 +1,5 @@
+"""Vision datasets and transforms (ref: python/mxnet/gluon/data/vision.py).
+
+Counterpart of ``mxnet_tpu/gluon/data/vision/``."""
+from .datasets import *  # noqa: F401,F403
+from . import transforms  # noqa: F401

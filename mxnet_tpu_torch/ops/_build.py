@@ -7,6 +7,10 @@ written to a temporary name and renamed into place so concurrent builders
 never load a half-written file) and bound with ``ctypes``.  Nothing here
 runs at import: the sources build only when a CUDA tensor reaches a
 kernel wrapper, or when :func:`build_all` is called.
+
+A source that calls a library of the CUDA toolkit names it in
+:data:`LINK_LIBS` (``jpeg_codec``: nvJPEG); its link flags join the
+compiler's flags for that source only, digest included.
 """
 from __future__ import annotations
 
@@ -26,6 +30,10 @@ SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+# source -> toolkit libraries it links, found and run-path-bound under the
+# toolkit's lib64 (the loader's path need not hold it)
+LINK_LIBS = {"jpeg_codec": ("nvjpeg",)}
 
 _lock = threading.Lock()
 _libs = {}
@@ -47,10 +55,23 @@ def nvcc_path():
     return found
 
 
-def _library_path(name):
+def link_flags(name, nvcc=None):
+    """The link flags of ``csrc/<name>.cu``: its :data:`LINK_LIBS` under
+    the toolkit's ``lib64`` (beside ``bin/nvcc``), with a run path there;
+    none for a source that links no library."""
+    libs = LINK_LIBS.get(name, ())
+    if not libs:
+        return ()
+    lib64 = os.path.join(os.path.dirname(os.path.dirname(
+        nvcc or nvcc_path())), "lib64")
+    return ("-L" + lib64, "-Xlinker", "-rpath=" + lib64) \
+        + tuple("-l" + lib for lib in libs)
+
+
+def _library_path(name, flags):
     src = os.path.join(SRC_DIR, name + ".cu")
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + repr(flags).encode())
     return src, os.path.join(BUILD_DIR, "lib%s-%s.so"
                              % (name, digest.hexdigest()[:12]))
 
@@ -58,7 +79,8 @@ def _library_path(name):
 def build(name):
     """Compile ``csrc/<name>.cu`` unless its library is already built;
     returns the library path."""
-    src, lib = _library_path(name)
+    links = link_flags(name)
+    src, lib = _library_path(name, NVCC_FLAGS + links)
     if os.path.exists(lib):
         BUILD_INFO.setdefault(name, {"seconds": 0.0, "path": lib,
                                      "ptxas": ""})
@@ -66,7 +88,7 @@ def build(name):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.%d.tmp" % (lib, os.getpid(), threading.get_ident())
     t0 = time.perf_counter()
-    res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+    res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src, *links],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise MXNetError("nvcc failed on %s:\n%s%s"

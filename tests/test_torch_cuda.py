@@ -1507,3 +1507,185 @@ def test_dcgan_first_iteration_on_the_card_matches_the_host(card, no_tf32):
         if ctx == mx.gpu(0):
             assert K.launch_counts()["bn_channel_sums"] - before == 26
     assert dcgan_net.gaps_within_floor(seen[0], seen[1], seen[2:]) == []
+
+
+# ---------------------------------------------------------------------------
+# Data I/O: the nvJPEG codec, the image ops, the device double buffer
+# ---------------------------------------------------------------------------
+
+def _fixture(name):
+    import os
+    here = os.path.join(os.path.dirname(__file__), "data")
+    with open(os.path.join(here, name + ".jpg"), "rb") as f:
+        return f.read(), np.load(os.path.join(here, name + ".npy"))
+
+
+def _psnr(a, b):
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return 10 * np.log10(255.0 ** 2 / mse)
+
+
+def test_nvjpeg_decode_matches_cv2_pixels(card):
+    """The committed fixtures (tests/data/make_jpeg_fixtures.py) against
+    cv2's pixels: 4:4:4 within 3 levels (nvJPEG's inverse DCT is within 1
+    of libjpeg's per plane, and B gains 1.772 Cb), mean 0.5; 4:2:0 mean
+    within 1; the colour conversion kernel bit for bit its plain
+    version."""
+    from mxnet_tpu_torch.image import codec
+    for name, max_limit, mean_limit in (("jpeg444", 3, 0.5),
+                                        ("jpeg420", None, 1.0)):
+        buf, want = _fixture(name)
+        got = codec.nvjpeg_decode(buf)
+        assert got.shape == want.shape and got.dtype == np.uint8
+        err = np.abs(got.astype(np.int64) - want)
+        assert err.mean() <= mean_limit, (name, err.mean(), err.max())
+        if max_limit is not None:
+            assert err.max() <= max_limit, (name, err.max())
+        np.testing.assert_array_equal(
+            got, codec.plain_ycc_to_bgr(*codec.nvjpeg_planes(buf)))
+        gray = codec.nvjpeg_decode(buf, 0)
+        assert gray.shape == want.shape[:2]
+
+
+def test_nvjpeg_encode_round_trip(card):
+    """Quality 95: 4:4:4 reaches 35 dB; 4:2:0 is within 1 dB of cv2's own
+    4:2:0 encoding of the same image (the subsampling's loss)."""
+    import cv2
+    from mxnet_tpu_torch.image import codec
+    _, img = _fixture("jpeg444")
+    for ss, info in (("444", 0), ("422", 1), ("420", 2)):
+        enc = codec.nvjpeg_encode(img, 95, ss)
+        assert codec.nvjpeg_info(enc) == (3, 64, 48, info)
+        back = codec.nvjpeg_decode(enc)
+        if ss == "444":
+            assert _psnr(back, img) >= 35.0
+        if ss == "420":
+            ok, ref = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 95])
+            assert _psnr(back, img) >= _psnr(codec.decode(ref), img) - 1.0
+    gray = codec.nvjpeg_encode(img[:, :, 0], 95)
+    assert codec.nvjpeg_info(gray)[0] == 1
+    assert _psnr(codec.nvjpeg_decode(gray, 0), img[:, :, 0]) >= 35.0
+
+
+def test_nvjpeg_decodes_from_several_threads(card):
+    import threading
+    from mxnet_tpu_torch.image import codec
+    rng = np.random.RandomState(0)
+    images = [rng.randint(0, 256, (40 + i, 50, 3)).astype(np.uint8)
+              for i in range(16)]
+    bufs = [codec.encode(im) for im in images]
+    want = [codec.nvjpeg_decode(b) for b in bufs]
+    got = [None] * len(bufs)
+
+    def work(k):
+        for j in range(k, len(bufs), 4):
+            got[j] = codec.nvjpeg_decode(bufs[j])
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(mx.MXNetError, match="nvJPEG"):
+        codec.nvjpeg_decode(b"\xff\xd8not a jpeg")
+
+
+IMAGE_OP_CASES = [
+    ("to_tensor", (224, 224, 3), {}),
+    ("to_tensor", (128, 32, 32, 3), {}),
+    ("normalize", (128, 3, 32, 32), {"mean": (0.4914, 0.4822, 0.4465),
+                                     "std": (0.2023, 0.1994, 0.2010)}),
+    ("flip_left_right", (224, 224, 3), {}),
+    ("flip_top_bottom", (128, 32, 32, 3), {}),
+    ("adjust_lighting", (224, 224, 3), {"alpha": (0.1, -0.2, 0.3)}),
+]
+
+
+@pytest.mark.parametrize("case", IMAGE_OP_CASES,
+                         ids=lambda c: "%s-%s" % (c[0], "x".join(
+                             map(str, c[1]))))
+def test_image_ops_card_against_host(card, case):
+    name, shape, attrs = case
+    sym = getattr(mx.sym.image, name)(mx.sym.var("data"), **attrs)
+    mx.test_utils.check_consistency(
+        sym, [{"ctx": mx.cpu(0), "data": shape},
+              {"ctx": mx.gpu(0), "data": shape}], tol=1e-6)
+
+
+def test_random_image_ops_on_the_card(card):
+    x = mx.nd.array(np.random.RandomState(0).uniform(
+        0, 255, (64, 64, 3)).astype(np.float32), ctx=mx.gpu(0))
+    for name, attrs in (("random_flip_left_right", {}),
+                        ("random_brightness", {"min_factor": 0.5,
+                                               "max_factor": 1.5}),
+                        ("random_color_jitter", {"brightness": 0.2,
+                                                 "contrast": 0.2,
+                                                 "saturation": 0.2,
+                                                 "hue": 0.1}),
+                        ("random_lighting", {"alpha_std": 0.1})):
+        mx.random.seed(3)
+        a = getattr(mx.nd.image, name)(x, **attrs)
+        mx.random.seed(3)
+        b = getattr(mx.nd.image, name)(x, **attrs)
+        assert a.context == mx.gpu(0) and a.shape == x.shape
+        np.testing.assert_array_equal(a.asnumpy(), b.asnumpy())
+
+
+def test_device_prefetch_orders_copies_under_a_delayed_stream(card):
+    """The side stream is held back before each copy: every batch handed
+    out still equals its host batch (the consumer waits for the copy's
+    event), and no pinned buffer is refilled while its copy is queued."""
+    from mxnet_tpu_torch import io as tio
+    rng = np.random.RandomState(0)
+    x = rng.rand(48, 3, 64, 64).astype(np.float32)
+    y = np.arange(48, dtype=np.float32)
+    it = tio.DevicePrefetchIter(mx.io.NDArrayIter(x, y, batch_size=8),
+                                ctx=mx.gpu(0))
+    up = it._uploader
+    plain_copy = up._copy
+
+    def delayed(dst, src):
+        torch.cuda._sleep(20_000_000)  # ~10 ms of the side stream
+        plain_copy(dst, src)
+
+    up._copy = delayed
+    got = []
+    for b in it:
+        assert b.data[0].context == mx.gpu(0)
+        # read on the consumer's stream right away
+        got.append((b.data[0].tensor.sum(dim=(1, 2, 3)).cpu().numpy(),
+                    b.label[0].tensor.cpu().numpy()))
+    assert len(got) == 6
+    for i, (s, lab) in enumerate(got):
+        np.testing.assert_allclose(s, x[8 * i:8 * i + 8].sum(axis=(1, 2, 3)),
+                                   rtol=1e-5)
+        np.testing.assert_array_equal(lab, y[8 * i:8 * i + 8])
+
+
+def test_image_record_iter_on_the_card_equals_the_host(card, tmp_path):
+    rng = np.random.RandomState(1)
+    w = mx.recordio.MXIndexedRecordIO(str(tmp_path / "a.idx"),
+                                      str(tmp_path / "a.rec"), "w")
+    for i in range(20):
+        img = rng.randint(0, 256, (40, 52, 3)).astype(np.uint8)
+        w.write_idx(i, mx.recordio.pack_img(
+            mx.recordio.IRHeader(0, float(i % 4), i, 0), img))
+    w.close()
+    runs = []
+    for ctx, threads in ((None, 0), (mx.gpu(0), 0), (mx.gpu(0), 3)):
+        it = mx.io.ImageRecordIter(
+            path_imgrec=str(tmp_path / "a.rec"),
+            path_imgidx=str(tmp_path / "a.idx"), data_shape=(3, 32, 32),
+            batch_size=4, shuffle=True, rand_crop=True, rand_mirror=True,
+            mean_r=123.68, mean_g=116.779, mean_b=103.939, seed=5, ctx=ctx,
+            preprocess_threads=threads)
+        batches = []
+        for b in it:
+            assert b.data[0].context == (ctx or mx.cpu())
+            batches.append(b.data[0].asnumpy())
+        runs.append(batches)
+    for a, b in zip(runs[0], runs[1]):
+        np.testing.assert_array_equal(a, b)
+    assert len(runs[2]) == len(runs[0])

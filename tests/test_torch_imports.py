@@ -42,6 +42,11 @@ def test_scan_covers_the_package():
     for module in ("serving/kv_cache.py", "serving/decode.py",
                    "serving/continuous.py", "serving/router.py",
                    "ops/quantize.py", "ops/random_ops.py",
-                   "ndarray/random.py", "symbol/random.py"):
+                   "ndarray/random.py", "symbol/random.py",
+                   "filesystem.py", "recordio.py", "io_native.py",
+                   "image/codec.py", "image/image.py", "image/__init__.py",
+                   "ops/image_ops.py", "ndarray/image.py", "symbol/image.py",
+                   "gluon/data/vision/datasets.py",
+                   "gluon/data/vision/transforms.py"):
         assert os.path.join("mxnet_tpu_torch", *module.split("/")) in names
     assert len(names) > 20
