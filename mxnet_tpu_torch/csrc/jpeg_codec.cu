@@ -191,11 +191,11 @@ int jpeg_info(const unsigned char* data, size_t len, int* comps, int* width,
 
 // Decode into device memory, then copy the height x width image to ``out``
 // on the host: interleaved BGR (cv2's channel order) when ``gray`` is 0,
-// the luma plane when it is 1.  ``exact`` 1 converts 4:4:4, 4:2:2 and
-// 4:2:0 colour with libjpeg's arithmetic (ycc_to_bgr_kernel), 0 takes
-// nvJPEG's own interleaved output.
+// the luma plane when it is 1.  4:4:4, 4:2:2 and 4:2:0 colour is
+// converted with libjpeg's arithmetic (ycc_to_bgr_kernel); other
+// subsamplings take nvJPEG's own interleaved output.
 int jpeg_decode(int device, const unsigned char* data, size_t len, int gray,
-                int exact, int width, int height, unsigned char* out) {
+                int width, int height, unsigned char* out) {
   int rc = ready(device);
   if (rc) return rc;
   int comps = 0, widths[NVJPEG_MAX_COMPONENT], heights[NVJPEG_MAX_COMPONENT];
@@ -209,7 +209,7 @@ int jpeg_decode(int device, const unsigned char* data, size_t len, int gray,
   size_t pix = static_cast<size_t>(width) * height;
   nvjpegImage_t img;
   std::memset(&img, 0, sizeof(img));
-  if (gray || !exact || comps != 3 || hs == 0) {
+  if (gray || comps != 3 || hs == 0) {
     size_t channels = gray ? 1 : 3;
     rc = reserve(channels * pix);
     if (rc) return rc;

@@ -200,8 +200,7 @@ def _nvjpeg_lib():
             lib.jpeg_last_error.argtypes = []
             for fn, args in (
                     ("jpeg_info", [ctypes.c_char_p, sz, ip, ip, ip, ip]),
-                    ("jpeg_decode", [i, ctypes.c_char_p, sz, i, i, i, i,
-                                     vp]),
+                    ("jpeg_decode", [i, ctypes.c_char_p, sz, i, i, i, vp]),
                     ("jpeg_decode_planes", [i, ctypes.c_char_p, sz, i, i,
                                             i, i, vp, vp, vp]),
                     ("jpeg_encode", [i, vp, i, i, i, i, i, vp, sz,
@@ -235,12 +234,12 @@ def nvjpeg_info(buf):
     return tuple(v.value for v in out)
 
 
-def nvjpeg_decode(buf, flag=1, device=None, exact=True):
+def nvjpeg_decode(buf, flag=1, device=None):
     """Decode a JPEG stream on the card; returns the host image in cv2's
-    conventions (``flag`` as in :func:`decode`).  ``exact`` upsamples and
-    converts 4:4:4, 4:2:2 and 4:2:0 colour as libjpeg (and so cv2) does;
-    False takes nvJPEG's own conversion.  A one-component stream decoded
-    in colour is its luma in three channels, as in cv2."""
+    conventions (``flag`` as in :func:`decode`).  4:4:4, 4:2:2 and 4:2:0
+    colour is upsampled and converted as libjpeg (and so cv2) does; other
+    subsamplings take nvJPEG's own conversion.  A one-component stream
+    decoded in colour is its luma in three channels, as in cv2."""
     lib = _nvjpeg_lib()
     data = _as_bytes(buf)
     comps, w, h, _ = nvjpeg_info(data)
@@ -250,7 +249,7 @@ def nvjpeg_decode(buf, flag=1, device=None, exact=True):
     gray = flag == 0 or comps == 1
     out = np.empty((h, w) if gray else (h, w, 3), np.uint8)
     _nvjpeg_check(lib, lib.jpeg_decode(_device(device), data, len(data),
-                                       int(gray), int(exact), w, h,
+                                       int(gray), w, h,
                                        out.ctypes.data),
                   "decode")
     if gray and flag > 0:

@@ -750,26 +750,32 @@ def ImageRecordIter_v1(**kwargs):
     return ImageRecordIter(**kwargs)
 
 
+# pinned host buffers of the upload ring: one slot filled while the copy
+# of the other is in flight
+UPLOAD_SLOTS = 2
+
+
 class _Uploader:
     """Copies host batches to ``ctx`` (ref: the reference's copy-lane
     engine ops, FnProperty::kCopyFromCPU).
 
     On a card, each batch's arrays are staged in pinned host buffers and
     copied on a side stream; an event recorded after the copies marks them
-    done.  The pinned buffers are a ring of ``depth`` slots: before a slot
-    is refilled, the host waits for the event of the copy that last read
-    it.  :meth:`hand_over` makes the consumer's current stream wait for
+    done.  The pinned buffers are a ring of UPLOAD_SLOTS slots: before a
+    slot is refilled, the host waits for the event of the copy that last
+    read it.  :meth:`hand_over` makes the consumer's current stream wait for
     the batch's event and records the batch's tensors as used on that
     stream, so that the caching allocator does not give their memory to
     the side stream while the consumer still reads it.  A host context
     passes host arrays through."""
 
-    def __init__(self, ctx, depth=2):
+    def __init__(self, ctx):
         self.ctx = ctx
         self.device = ctx.torch_device()
         self.cuda = self.device.type == "cuda"
         self.stream = torch.cuda.Stream(self.device) if self.cuda else None
-        self._slots = [{"pinned": [], "event": None} for _ in range(depth)]
+        self._slots = [{"pinned": [], "event": None}
+                       for _ in range(UPLOAD_SLOTS)]
         self._next = 0
 
     def _copy(self, dst, src):

@@ -17,6 +17,8 @@ float32 (the JAX package casts its matrix to the image's integer type).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -28,10 +30,10 @@ from .registry import pFloat, register
 _R, _G, _B = 0.299, 0.587, 0.114
 # PCA lighting: ImageNet's eigenvalues and eigenvectors (the AlexNet
 # paper's constants, as the reference's adjust_lighting documents them)
-_EIGVAL = np.array([55.46, 4.794, 1.148], np.float32)
-_EIGVEC = np.array([[-0.5675, 0.7192, 0.4009],
-                    [-0.5808, -0.0045, -0.8140],
-                    [-0.5836, -0.6948, 0.4203]], np.float32)
+_EIGVAL = (55.46, 4.794, 1.148)
+_EIGVEC = ((-0.5675, 0.7192, 0.4009),
+           (-0.5808, -0.0045, -0.8140),
+           (-0.5836, -0.6948, 0.4203))
 
 
 def pFloatTuple(v):
@@ -43,6 +45,14 @@ def pFloatTuple(v):
 
 def _generator(t):
     return _random.generator(t.device)
+
+
+@functools.lru_cache(maxsize=256)
+def _const(values, device):
+    """The float32 tensor of the nested tuple ``values`` on ``device``,
+    made once: its host-to-device copy cannot run inside a CUDA graph
+    capture of a step that holds the op.  Callers never write it."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def _uniform(data, lo, hi):
@@ -77,8 +87,8 @@ register("_image_to_tensor", _to_tensor, num_inputs=1, input_names=["data"],
 def _normalize(data, mean=(0.0,), std=(1.0,)):
     """(CHW - mean) / std, per channel (ref: _image_normalize)."""
     shape = (-1, 1, 1) if data.ndim == 3 else (1, -1, 1, 1)
-    mean = torch.tensor(mean, dtype=torch.float32, device=data.device)
-    std = torch.tensor(std, dtype=torch.float32, device=data.device)
+    mean = _const(tuple(mean), data.device)
+    std = _const(tuple(std), data.device)
     return (data - mean.reshape(shape)) / std.reshape(shape)
 
 
@@ -117,8 +127,12 @@ register("_image_random_flip_top_bottom", _random_flip_tb, num_inputs=1,
 _FACTORS = {"min_factor": (pFloat, 0.0), "max_factor": (pFloat, 0.0)}
 
 
+def _brightness(data, alpha):
+    return data * alpha
+
+
 def _random_brightness(data, min_factor=0.0, max_factor=0.0):
-    return data * _uniform(data, min_factor, max_factor)
+    return _brightness(data, _uniform(data, min_factor, max_factor))
 
 
 register("_image_random_brightness", _random_brightness, num_inputs=1,
@@ -131,14 +145,20 @@ def _gray(data):
     return (_R * r + _G * g + _B * b)[..., None]
 
 
-def _random_contrast(data, min_factor=0.0, max_factor=0.0):
-    alpha = _uniform(data, min_factor, max_factor)
+def _contrast(data, alpha):
     return data * alpha + _gray(data).mean() * (1.0 - alpha)
 
 
-def _random_saturation(data, min_factor=0.0, max_factor=0.0):
-    alpha = _uniform(data, min_factor, max_factor)
+def _saturation(data, alpha):
     return data * alpha + _gray(data) * (1.0 - alpha)
+
+
+def _random_contrast(data, min_factor=0.0, max_factor=0.0):
+    return _contrast(data, _uniform(data, min_factor, max_factor))
+
+
+def _random_saturation(data, min_factor=0.0, max_factor=0.0):
+    return _saturation(data, _uniform(data, min_factor, max_factor))
 
 
 register("_image_random_contrast", _random_contrast, num_inputs=1,
@@ -146,13 +166,13 @@ register("_image_random_contrast", _random_contrast, num_inputs=1,
 register("_image_random_saturation", _random_saturation, num_inputs=1,
          input_names=["data"], needs_rng=True, params=dict(_FACTORS))
 
-_HUE_BASE = torch.tensor([[0.299, 0.587, 0.114]] * 3)
-_HUE_COS = torch.tensor([[0.701, -0.587, -0.114],
-                         [-0.299, 0.413, -0.114],
-                         [-0.299, -0.587, 0.886]])
-_HUE_SIN = torch.tensor([[0.168, -0.331, 0.5],   # NTSC I/Q mixing terms
-                         [0.328, 0.035, -0.5],
-                         [-0.497, 0.296, 0.201]])
+_HUE_BASE = ((0.299, 0.587, 0.114),) * 3
+_HUE_COS = ((0.701, -0.587, -0.114),
+            (-0.299, 0.413, -0.114),
+            (-0.299, -0.587, 0.886))
+_HUE_SIN = ((0.168, -0.331, 0.5),   # NTSC I/Q mixing terms
+            (0.328, 0.035, -0.5),
+            (-0.497, 0.296, 0.201))
 
 
 def _hue_rotate(data, alpha):
@@ -160,8 +180,9 @@ def _hue_rotate(data, alpha):
     reference uses (image_random-inl.h RandomHue), folded into one
     RGB -> RGB matrix."""
     dev = data.device
-    t = _HUE_BASE.to(dev) + torch.cos(alpha * np.pi) * _HUE_COS.to(dev) \
-        + torch.sin(alpha * np.pi) * _HUE_SIN.to(dev)
+    t = _const(_HUE_BASE, dev) + torch.cos(alpha * np.pi) \
+        * _const(_HUE_COS, dev) + torch.sin(alpha * np.pi) \
+        * _const(_HUE_SIN, dev)
     x = data if data.is_floating_point() else data.to(torch.float32)
     return torch.einsum("...c,dc->...d", x, t.to(x.dtype))
 
@@ -180,20 +201,26 @@ _JITTER_ORDERS = ((0, 1, 2, 3), (3, 2, 1, 0), (1, 3, 0, 2), (2, 0, 3, 1))
 def _random_color_jitter(data, brightness=0.0, contrast=0.0,
                          saturation=0.0, hue=0.0):
     """Brightness, contrast, saturation and hue jitter in one of four
-    orders, drawn per call (the reference shuffles the order per call)."""
-    fns = (lambda x: _random_brightness(x, 1 - brightness, 1 + brightness),
-           lambda x: _random_contrast(x, 1 - contrast, 1 + contrast),
-           lambda x: _random_saturation(x, 1 - saturation, 1 + saturation),
-           lambda x: _random_hue(x, -hue, hue))
-    if data.device.type == "meta":
-        order = _JITTER_ORDERS[0]
-    else:
-        pick = torch.randint(len(_JITTER_ORDERS), (), device=data.device,
-                             generator=_generator(data))
-        order = _JITTER_ORDERS[int(pick)]
-    for i in order:
-        data = fns[i](data)
-    return data
+    orders, drawn per call (the reference shuffles the order per call).
+    The four factors are drawn once; every order is computed and the drawn
+    one selected on the device, so the op reads nothing back to the host
+    and a step that holds it can be captured as a CUDA graph (the JAX
+    package's ``lax.switch``)."""
+    alphas = (_uniform(data, 1 - brightness, 1 + brightness),
+              _uniform(data, 1 - contrast, 1 + contrast),
+              _uniform(data, 1 - saturation, 1 + saturation),
+              _uniform(data, -hue, hue))
+    fns = (_brightness, _contrast, _saturation, _hue_rotate)
+    pick = torch.empty((), dtype=torch.int64, device=data.device)
+    if data.device.type != "meta":
+        pick.random_(len(_JITTER_ORDERS), generator=_generator(data))
+    out = None
+    for k, order in enumerate(_JITTER_ORDERS):
+        x = data
+        for i in order:
+            x = fns[i](x, alphas[i])
+        out = x if out is None else torch.where(pick == k, x, out)
+    return out
 
 
 register("_image_random_color_jitter", _random_color_jitter, num_inputs=1,
@@ -205,15 +232,14 @@ register("_image_random_color_jitter", _random_color_jitter, num_inputs=1,
 def _lighting(data, alpha):
     """``data`` plus the PCA lighting offset of the three weights
     ``alpha`` (a float32 tensor on ``data``'s device)."""
-    vec = torch.from_numpy(_EIGVEC).to(data.device)
-    val = torch.from_numpy(_EIGVAL).to(data.device)
+    vec = _const(_EIGVEC, data.device)
+    val = _const(_EIGVAL, data.device)
     return data + (vec @ (alpha * val)).to(data.dtype)
 
 
 def _adjust_lighting(data, alpha=(0.0, 0.0, 0.0)):
     """Add PCA-based lighting noise (ref: _image_adjust_lighting)."""
-    return _lighting(data, torch.tensor(alpha, dtype=torch.float32,
-                                        device=data.device))
+    return _lighting(data, _const(tuple(alpha), data.device))
 
 
 register("_image_adjust_lighting", _adjust_lighting, num_inputs=1,

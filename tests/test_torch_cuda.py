@@ -1633,6 +1633,71 @@ def test_random_image_ops_on_the_card(card):
         np.testing.assert_array_equal(a.asnumpy(), b.asnumpy())
 
 
+def _image_op_module(seed=0, batches=4, batch=8):
+    """A Module whose symbol jitters, lights, flips and normalizes NHWC
+    images (the random image ops inside the trained graph), then conv ->
+    BN -> relu -> global avg pool -> FC -> softmax."""
+    s = mx.sym
+    net = s.image.random_color_jitter(s.Variable("data"), brightness=0.3,
+                                      contrast=0.3, saturation=0.3, hue=0.1)
+    net = s.image.random_lighting(net, alpha_std=0.1)
+    net = s.image.random_flip_left_right(net)
+    net = s.image.normalize(s.image.to_tensor(net),
+                            mean=(0.4914, 0.4822, 0.4465),
+                            std=(0.2023, 0.1994, 0.2010))
+    net = s.Convolution(net, num_filter=8, kernel=(3, 3), pad=(1, 1),
+                        no_bias=True, name="conv")
+    net = s.Activation(s.BatchNorm(net, fix_gamma=False, name="bn"),
+                       act_type="relu")
+    net = s.Pooling(net, global_pool=True, kernel=(1, 1), pool_type="avg")
+    net = s.FullyConnected(s.Flatten(net), num_hidden=5, name="fc")
+    r = np.random.RandomState(seed)
+    x = r.uniform(0, 255, (batch * batches, 16, 16, 3)).astype(np.float32)
+    y = r.randint(0, 5, batch * batches).astype(np.float32)
+    it = mx.io.NDArrayIter(x, y, batch_size=batch)
+    mod = mx.mod.Module(s.SoftmaxOutput(net, name="softmax"),
+                        context=mx.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mx.random.seed(seed)
+    mod.init_params(mx.initializer.Xavier(magnitude=2))
+    mod.init_optimizer(optimizer_params={"learning_rate": 0.1,
+                                         "momentum": 0.9, "wd": 1e-4})
+    return mod, list(it)
+
+
+def test_random_image_ops_in_a_captured_step_match_eager(card, deterministic,
+                                                         monkeypatch):
+    """A Module fit whose graph holds the random image ops: one eager
+    fused step, then the step captured as a CUDA graph and replayed,
+    against the same fit with every step eager.  The ops read nothing back
+    to the host, so the capture succeeds; the generator registered with
+    the graph gives each replay the draws of the eager step in its place,
+    so outputs and weights agree bit for bit."""
+    from mxnet_tpu_torch.module import fused_step
+
+    def fit(mod, batches):
+        outs = []
+        for b in batches:
+            mod.forward_backward(b)
+            mod.update()
+            outs.append(mod.get_outputs()[0].asnumpy())
+        return outs
+
+    graph, batches = _image_op_module()
+    got = fit(graph, batches)
+    fs = graph._fused_step
+    assert fs.captures == 1 and fs.replays == len(batches) - 1
+    monkeypatch.setattr(fused_step, "WARMUP_STEPS", len(batches) + 1)
+    eager, _ = _image_op_module()
+    want = fit(eager, batches)
+    assert eager._fused_step.graph is None
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    for k, v in graph.get_params()[0].items():
+        np.testing.assert_array_equal(v.asnumpy(),
+                                      eager.get_params()[0][k].asnumpy())
+
+
 def test_device_prefetch_orders_copies_under_a_delayed_stream(card):
     """The side stream is held back before each copy: every batch handed
     out still equals its host batch (the consumer waits for the copy's

@@ -245,6 +245,37 @@ def test_random_ops_draw_from_the_ports_generator():
     assert nd.shape == x.shape
 
 
+def test_color_jitter_applies_its_drawn_order():
+    """The jitter computes every order and selects the drawn one on the
+    device: its output is the drawn order applied with the drawn factors
+    (the four uniforms, then the order, from the same generator), and
+    every order is drawn."""
+    from mxnet_tpu_torch.ops import image_ops as P
+    op = port_op("_image_random_color_jitter")
+    attrs = op.normalize_attrs({"brightness": 0.3, "contrast": 0.3,
+                                "saturation": 0.3, "hue": 0.2})
+    x = torch.from_numpy(np.random.RandomState(0).uniform(
+        10, 240, (4, 5, 3)).astype(np.float32))
+    gen = mx.random.generator("cpu")
+    fns = (P._brightness, P._contrast, P._saturation, P._hue_rotate)
+    seen = set()
+    for _ in range(40):
+        state = gen.get_state()
+        got = op.impl(x, **attrs)
+        gen.set_state(state)
+        alphas = [torch.empty(()).uniform_(lo, hi, generator=gen)
+                  for lo, hi in ((1 - 0.3, 1 + 0.3), (1 - 0.3, 1 + 0.3),
+                                 (1 - 0.3, 1 + 0.3), (-0.2, 0.2))]
+        pick = int(torch.empty((), dtype=torch.int64).random_(
+            4, generator=gen))
+        want = x
+        for i in P._JITTER_ORDERS[pick]:
+            want = fns[i](want, alphas[i])
+        assert torch.equal(got, want)
+        seen.add(pick)
+    assert seen == {0, 1, 2, 3}
+
+
 def test_random_op_shape_inference_draws_nothing():
     state = mx.random.generator("cpu").get_state()
     sym = mx.sym.image.random_color_jitter(mx.sym.var("data"),
