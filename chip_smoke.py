@@ -9,7 +9,8 @@ CUDA toolkit.  Phases, each of which raises on failure:
 1. Card: the card's name and power limit, torch and CUDA versions, and
    the build of every kernel source (one ``nvcc`` each, in parallel),
    with each compiled kernel's registers and spills from ``ptxas``; the
-   native record reader and engine (``g++``) and the image codec in use.
+   native record reader and engine (``g++``) and the image codec in use
+   (cv2 or PIL).
 2. Kernels against their plain PyTorch versions on the card:
    - the flash-attention forward at the serving shape (B 4, S 1024, H 12,
      D 64, causal, f32) and at S 1000 non-causal, ragged ``kv_lens`` with
@@ -271,7 +272,8 @@ CUDA toolkit.  Phases, each of which raises on failure:
       T 35, N 20, C 650 with ragged lengths, ``UpSampling`` at (64, 128,
       16, 16), the regression heads at (64, 1) and (64, 10)) and the 4
       deterministic update ops at (2600, 650), within 1e-4.
-13. BASELINE configs 2 and 3 from files, f32 with TF32 off:
+13. BASELINE configs 2 and 3 from files (kept for phase 14), f32 with
+   TF32 off:
    a. 1,280 ImageNet-like records written from ``--seed`` through the
       port's ``recordio.pack_img`` (JPEG quality 95, shorter side 256,
       longer 256-384, 1000 labels, a class's smooth pattern plus noise)
@@ -307,18 +309,38 @@ CUDA toolkit.  Phases, each of which raises on failure:
    c. the deterministic image ops through ``check_consistency`` over
       [cpu(0), gpu(0)] at (128, 3, 32, 32) / (128, 32, 32, 3) and HWC
       (224, 224, 3) within 1e-6; the random ones by their moments over
-      10^6 pixels (6 standard errors);
-   d. the nvJPEG codec (``csrc/jpeg_codec.cu``): the committed fixtures
-      against cv2's pixels (4:4:4 max 3 and mean 0.5 levels, 4:2:0 mean
-      1), its colour conversion kernel bit for bit its plain version, its
-      encoder's round trip at quality 95 (4:4:4 at least 35 dB,
-      4:2:0 within 1 dB of the pipeline codec's own), decode throughput
-      at 1 and 4 threads beside the pipeline codec's.
-14. The ``kernels`` JSON line (each kernel's record with its launches on
+      10^6 pixels (6 standard errors).
+14. Data input through ``mx.io_pipeline`` and detection data, f32 with
+   TF32 off, over phase 13's files:
+   a. BASELINE config 2's ResNet-50 (13a's symbol and settings) through
+      ``Module.fit(train_data=Pipeline(...))``: ``RecordFileSource`` over
+      13a's records, ``ImageRecordDecoder`` with a random 224 crop, a
+      random mirror and ImageNet's mean and std, shuffled from ``--seed``;
+      one epoch of 40 batches of 32 with 4 thread workers, then one with
+      4 spawn-process workers.  The host batches of both modes bit for bit
+      the 1-worker run's; every batch the steps read on the card bit for
+      bit its host batch; 102 ``bn_channel_sums``, 1 max- and 1 avg-pool
+      backward a step; ms per step and the wait on ``next()`` beside 13a's
+      ``ImageRecordIter`` x4; fit closed the adapter it made (no
+      io_pipeline thread or worker process left); one step against the
+      host by phase 4's rule;
+   b. 512 JPEG records at PASCAL VOC's sizes (500x375, 500x333, 375x500,
+      500x366) with 1-8 boxes each in im2rec's detection layout, through
+      ``ImageDetIter(batch_size=32, data_shape=(3, 300, 300))`` with
+      ``CreateDetAugmenter(rand_crop=0.5, rand_pad=0.5, rand_mirror=True,
+      mean=True, std=True)`` (MXNet 1.0's ``example/ssd/train.py``) into
+      ``DevicePrefetchIter(ctx=gpu(0))``: every live box in [0, 1] with
+      x2 > x1 and y2 > y1, padding rows -1, every batch on the card bit
+      for bit its host batch, images/s;
+   c. ``save_checkpoint`` of 14a's trained model to a registered
+      ``mem://`` scheme, ``load_checkpoint`` into a new Module on gpu(0):
+      its predict outputs on one batch bit for bit the trained module's.
+15. The ``kernels`` JSON line (each kernel's record with its launches on
    every path, phase 10's five and the MLP's with 0 of each, LeNet's with
    2 max-pool backwards a step, DCGAN's with 26 channel sums an
    iteration, phase 13's two paths, and its bf16/f16/f64, head_dim 32,
-   LeNet, DCGAN and ResNet-18 instances), then the result line.
+   LeNet, DCGAN and ResNet-18 instances; phase 14's paths), then the result
+   line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is not beside this script.
@@ -5724,7 +5746,7 @@ def train_dcgan_phase(mx, seed):
 
 
 # -- phase 13: BASELINE configs 2 and 3 from files (record I/O, images,
-# vision data), the image ops and the codec on the card ------------------
+# vision data) and the image ops on the card ------------------------------
 
 # BASELINE config 2: examples/image-classification/train_imagenet.py at its
 # settings (ResNet-50 of models/resnet.py, 1000 classes, 3x224x224, batch
@@ -5742,6 +5764,7 @@ REC_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 REC_THREADS = (1, 4)
 REC_SAME_BATCHES = 3          # card against host batches, bit for bit
 REC_HOST_STEPS = 3            # card against host steps (phase 4's rule)
+FIT_TIMES = {}                # tag -> (ms per step, next() wait), medians
 # BASELINE config 3: examples/gluon/image_classification.py at its settings
 # (resnet18_v1 thumbnail, 10 classes, batch 128, SGD lr 0.1, momentum 0.9,
 # wd 1e-4, hybridized).  Cut: one epoch of the example's 5.
@@ -5764,13 +5787,6 @@ IMAGE_OP_DRAWS = 100000       # random image ops: draws (calls) of each
 IMAGE_OP_GRAPH_CALLS = 1000   # of them in one captured CUDA graph
 IMAGE_OP_SIGMAS = 6.0
 IMAGE_OP_TOL = 1e-6
-# nvJPEG against cv2's pixels at 4:4:4: max and mean levels.  The max is
-# 3, not 2: nvJPEG's inverse DCT is within 1 level of libjpeg's per plane
-# (IEEE 1180 accuracy), and B = Y + 1.772 Cb (R = Y + 1.402 Cr) turns a
-# +1 in Y and in Cb into +2.772, which rounds to 3 (PERF.md)
-CODEC_444 = (3, 0.5)
-CODEC_420_MEAN = 1.0
-CODEC_PSNR = 35.0
 
 
 def check_resnet18_kernels(seed):
@@ -6021,6 +6037,7 @@ def rec_fit(mx, symbol, it, seed, tag, per_step):
     if fs is None or fs.captures != 1:
         raise AssertionError("%s: the fit did not run as one captured CUDA "
                              "graph a step" % tag)
+    FIT_TIMES[tag] = (ms, wait)
     return mod, (arg0, aux0)
 
 
@@ -6171,7 +6188,8 @@ def relu_flips(mx, sym, state, x):
     return int(sum((a != b).sum() for a, b in zip(*outs)))
 
 
-def rec_host_steps(mx, symbol, arg0, aux0, images, labels, seed):
+def rec_host_steps(mx, symbol, arg0, aux0, images, labels, seed,
+                   tag="rec"):
     """13a's card-vs-host check: the fit's initial weights (BatchNorm
     scales drawn away from 1 and 0, as phase 4 does), HOST_BATCH images of
     each of the iterator's first batches; the host trajectory through
@@ -6220,7 +6238,7 @@ def rec_host_steps(mx, symbol, arg0, aux0, images, labels, seed):
         return exe.outputs[0].asnumpy(), {k: exe.grad_dict[k].asnumpy()
                                           for k in arg0}
 
-    teacher_forced_steps("rec", run, states, batches, seed)
+    teacher_forced_steps(tag, run, states, batches, seed)
 
 
 def rec_profile_apart(seed, root):
@@ -6797,145 +6815,396 @@ def image_ops_on_card(mx, seed):
                              % bad)
 
 
-def _decode_rate(decode, bufs, threads):
-    import threading
-
-    def work(k):
-        for j in range(k, len(bufs), threads):
-            decode(bufs[j])
-
-    t0 = time.perf_counter()
-    pool = [threading.Thread(target=work, args=(k,)) for k in range(threads)]
-    for t in pool:
-        t.start()
-    for t in pool:
-        t.join()
-    return len(bufs) / (time.perf_counter() - t0)
-
-
-def libjpeg_plane_gaps(buf, planes):
-    """How far nvJPEG's planes are from libjpeg's (read through PIL, where
-    it imports: a DCT-scaled decode keeps the chroma at its stored size),
-    as text."""
-    import io
-    try:
-        from PIL import Image
-    except ImportError:
-        return "libjpeg's planes not read (PIL does not import)"
-    y, cb, cr, (hs, vs) = planes
-    full = Image.open(io.BytesIO(buf))
-    full.draft("YCbCr", full.size)
-    small = Image.open(io.BytesIO(buf))
-    small.draft("YCbCr", (full.size[0] // hs, full.size[1] // vs))
-    full, small = np.asarray(full), np.asarray(small)
-    gaps = [np.abs(a.astype(np.int64) - b)
-            for a, b in ((y, full[..., 0]), (cb, small[..., 1]),
-                         (cr, small[..., 2]))]
-    return "planes against libjpeg's (inverse DCTs): " + ", ".join(
-        "%s max %d mean %.4f" % (n, g.max(), g.mean())
-        for n, g in zip(("Y", "Cb", "Cr"), gaps))
-
-
-def codec_on_card(mx, rec):
-    """13d.  The nvJPEG codec, built and checked whatever codec the
-    pipeline uses: the committed fixtures against cv2's pixels, the
-    encoder's round trip at quality 95, and decode throughput at 1 and 4
-    threads on phase 13a's records beside the pipeline codec's."""
-    from mxnet_tpu_torch.image import codec
-    from mxnet_tpu_torch.ops import _build
-    if not codec.nvjpeg_available():
-        raise AssertionError("the CUDA toolkit here has no nvjpeg.h")
-    t0 = time.perf_counter()
-    _build.build("jpeg_codec")
-    print("codec: pipeline codec %s (available %s); nvJPEG library built in "
-          "%.1f s" % (codec.backend(), codec.available(),
-                      time.perf_counter() - t0))
-    here = os.path.join(HERE, "tests", "data")
-    for name in ("jpeg444", "jpeg420"):
-        with open(os.path.join(here, name + ".jpg"), "rb") as f:
-            buf = f.read()
-        want = np.load(os.path.join(here, name + ".npy")).astype(np.int64)
-        got = codec.nvjpeg_decode(buf)
-        err = np.abs(got.astype(np.int64) - want)
-        planes = codec.nvjpeg_planes(buf)
-        same = np.array_equal(got, codec.plain_ycc_to_bgr(*planes))
-        print("codec: nvJPEG decode of %s against cv2's pixels: max %d, mean "
-              "%.4f levels, %d of %d values above 2 (libjpeg's upsampling and "
-              "colour conversion in ycc_to_bgr_kernel, bit for bit its plain "
-              "version: %s); %s"
-              % (name, err.max(), err.mean(), (err > 2).sum(), want.size,
-                 same, libjpeg_plane_gaps(buf, planes)))
-        if not same:
-            raise AssertionError("ycc_to_bgr_kernel disagrees with its plain "
-                                 "version on %s" % name)
-        if name == "jpeg444" and not (err.max() <= CODEC_444[0]
-                                      and err.mean() <= CODEC_444[1]):
-            raise AssertionError("nvJPEG's 4:4:4 decode is off cv2's pixels")
-        if name == "jpeg420" and not err.mean() <= CODEC_420_MEAN:
-            raise AssertionError("nvJPEG's 4:2:0 decode is off cv2's pixels")
-    img = np.load(os.path.join(here, "jpeg444.npy"))
-
-    def psnr(a):
-        mse = np.mean((a.astype(np.float64) - img) ** 2)
-        return 10 * np.log10(255.0 ** 2 / mse)
-
-    trips = {ss: psnr(codec.nvjpeg_decode(codec.nvjpeg_encode(img, 95, ss)))
-             for ss in ("444", "422", "420")}
-    reference = psnr(codec.decode(codec.encode(img, 95)))
-    print("codec: nvJPEG encode at quality 95, decoded back: PSNR 4:4:4 "
-          "%.2f dB (at least %g), 4:2:2 %.2f dB, 4:2:0 %.2f dB; the pipeline "
-          "codec's own 4:2:0 round trip %.2f dB"
-          % (trips["444"], CODEC_PSNR, trips["422"], trips["420"],
-             reference))
-    if trips["444"] < CODEC_PSNR or trips["420"] < reference - 1.0:
-        raise AssertionError("nvJPEG's encoder round trip is too lossy")
-    reader = mx.recordio.MXRecordIO(rec, "r")
-    bufs = []
-    for _ in range(256):
-        _, payload = mx.recordio.unpack(reader.read())
-        bufs.append(payload)
-    reader.close()
-    off = [i for i, b in enumerate(bufs[:64]) if not np.array_equal(
-        codec.nvjpeg_decode(b), codec.plain_ycc_to_bgr(
-            *codec.nvjpeg_planes(b)))]
-    print("codec: ycc_to_bgr_kernel against its plain version on 64 of phase "
-          "13a's records: bit for bit on %d" % (64 - len(off)))
-    if off:
-        raise AssertionError("ycc_to_bgr_kernel disagrees with its plain "
-                             "version on records %s" % off[:5])
-    rates = {}
-    for threads in (1, 4):
-        rates["nvJPEG x%d" % threads] = _decode_rate(codec.nvjpeg_decode,
-                                                     bufs, threads)
-        rates["%s x%d" % (codec.backend(), threads)] = _decode_rate(
-            codec.decode, bufs, threads)
-    print("codec: decode of %d of phase 13a's records (~%dx%d, quality %d), "
-          "images/s: %s; card %s"
-          % (len(bufs), REC_SHORT_SIDE, sum(REC_LONG_SIDE) // 2, REC_QUALITY,
-             ", ".join("%s %.1f" % kv for kv in rates.items()), card_line()))
-    return rates
-
-
-def train_from_files(mx, seed):
-    """Phase 13.  Returns {path: launches}."""
-    import tempfile
+def train_from_files(mx, seed, root):
+    """Phase 13, its files written under ``root``.  Returns {path:
+    launches}."""
     import torch
     clock = time.perf_counter()
     paths = {}
-    with tempfile.TemporaryDirectory(dir=HERE) as root:
-        paths["module_resnet50_rec"], _, rec = train_imagenet_rec(
-            mx, seed, root)
-        image_ops_on_card(mx, seed)
-        codec_on_card(mx, rec)
-        t0 = time.perf_counter()
-        write_cifar10(os.path.join(root, "cifar"), seed)
-        print("cifar: wrote data_batch_1..5 and test_batch (%d + %d images) "
-              "in %.1f s" % (CIFAR_SIZES["train"], CIFAR_SIZES["test"],
-                             time.perf_counter() - t0))
-        paths["gluon_resnet18_cifar"] = train_cifar(
-            mx, seed, os.path.join(root, "cifar"))
+    paths["module_resnet50_rec"], _, _ = train_imagenet_rec(mx, seed, root)
+    image_ops_on_card(mx, seed)
+    t0 = time.perf_counter()
+    write_cifar10(os.path.join(root, "cifar"), seed)
+    print("cifar: wrote data_batch_1..5 and test_batch (%d + %d images) "
+          "in %.1f s" % (CIFAR_SIZES["train"], CIFAR_SIZES["test"],
+                         time.perf_counter() - t0))
+    paths["gluon_resnet18_cifar"] = train_cifar(
+        mx, seed, os.path.join(root, "cifar"))
     torch.cuda.synchronize()
     print("phase 13 parts done in %.1f s" % (time.perf_counter() - clock))
+    return paths
+
+
+# -- phase 14: BASELINE config 2 from an io_pipeline Pipeline, detection
+# batches at SSD-300's input, a checkpoint over a registered URI scheme ---
+
+# 14a: phase 13a's records and fit settings through mx.io_pipeline: 4
+# workers in thread mode, then 4 spawn-process workers
+PIPE_WORKERS = 4
+PIPE_MODES = ("thread", "process")
+PIPE_STD = (58.395, 57.12, 57.375)  # ImageNet's RGB std in pixel units
+# 14b: MXNet 1.0's example/ssd/train.py data settings (ImageDetIter,
+# batch 32, data_shape 300, rand_crop 0.5, rand_pad 0.5, rand_mirror,
+# mean and std) over records at PASCAL VOC's image sizes with 1-8 boxes
+DET_IMAGES = 512
+DET_SIZES = ((500, 375), (500, 333), (375, 500), (500, 366))  # w x h
+DET_BOXES = (1, 8)
+DET_CLASSES = 20
+DET_BATCH = 32
+DET_SHAPE = (3, 300, 300)
+DET_QUALITY = 90
+
+
+def _batch_digest(data, label):
+    import hashlib
+    h = hashlib.sha256(np.ascontiguousarray(data).tobytes())
+    h.update(np.ascontiguousarray(label).tobytes())
+    return h.hexdigest()
+
+
+def image_pipeline(mx, rec, idx, seed, workers, mode, ctx):
+    """14a's Pipeline over phase 13a's records: ``ImageRecordDecoder`` with
+    a random 224 crop, a random mirror and the mean/std normalization,
+    shuffled from ``seed``."""
+    iop = mx.io_pipeline
+    decoder = iop.ImageRecordDecoder(REC_SHAPE, rand_crop=True,
+                                     rand_mirror=True, mean=REC_RGB_MEAN,
+                                     std=PIPE_STD)
+    return iop.Pipeline(iop.RecordFileSource(rec, idx), decoder,
+                        batch_size=REC_BATCH, shuffle=True, seed=seed,
+                        num_workers=workers, mode=mode, ctx=ctx)
+
+
+def pipeline_host_digests(mx, rec, idx, seed, workers, mode):
+    """The epoch-0 host batches of 14a's Pipeline: their digests, and the
+    first batch's arrays."""
+    t0 = time.perf_counter()
+    with image_pipeline(mx, rec, idx, seed, workers, mode, None) as pipe:
+        digests, first = [], None
+        for hb in pipe.host_batches(0):
+            digests.append(_batch_digest(hb.data, hb.label))
+            if first is None:
+                first = (hb.data, hb.label)
+    s = time.perf_counter() - t0
+    print("pipe: host batches at %d %s worker(s): %d batches in %.2f s "
+          "(%.1f images/s, the spawn included)"
+          % (workers, mode, len(digests), s, REC_IMAGES / s))
+    return digests, first
+
+
+def pipeline_fit(mx, symbol, pipe, seed, tag, per_step, want):
+    """``Module(context=gpu(0)).fit(train_data=pipe)`` for one epoch at
+    REC_SGD, ``pipe`` the raw Pipeline: ms per step, the wait on the
+    adapter's ``next()`` and the launches per step as ``rec_fit`` reads
+    them; every batch the steps read on the card against ``want`` (the
+    host batches' digests) bit for bit; the adapter that fit made is
+    closed and no io_pipeline thread or worker process is alive.  Returns
+    (module, initial arg and aux params)."""
+    import multiprocessing
+    import torch
+    from mxnet_tpu_torch.module.fused_step import WARMUP_STEPS
+    from mxnet_tpu_torch.ops import kernels as K
+    mod = mx.mod.Module(symbol, context=mx.gpu(0))
+    mod.bind(pipe.provide_data, pipe.provide_label)
+    mx.random.seed(seed)
+    mod.init_params(mx.initializer.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2))
+    arg0, aux0 = ({k: v.asnumpy().copy() for k, v in t.items()}
+                  for t in mod.get_params())
+    waits, seen, adapters = [], [], []
+    plain_adapt = pipe.as_dataiter
+
+    def adapt(warm_start=True):
+        it = plain_adapt(warm_start=warm_start)
+        plain_next = it.next
+
+        def timed_next():
+            t0 = time.perf_counter()
+            batch = plain_next()
+            waits.append((time.perf_counter() - t0) * 1e3)
+            # what the step reads, copied on the consumer's stream after
+            # the hand-over (a device copy: no host sync in the loop)
+            seen.append((batch.data[0].tensor.clone(),
+                         batch.label[0].tensor.clone()))
+            return batch
+
+        it.next = timed_next
+        adapters.append(it)
+        return it
+
+    pipe.as_dataiter = adapt
+    step_ms, step_launches, marks = [], [], {}
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), K.launch_counts()
+        step_ms.append((now - marks["t"]) * 1e3)
+        step_launches.append({k: counts[k] - marks["counts"][k]
+                              for k in per_step})
+        marks["t"], marks["counts"] = now, counts
+
+    torch.cuda.synchronize()
+    marks["t"], marks["counts"] = time.perf_counter(), K.launch_counts()
+    t0 = time.perf_counter()
+    mod.fit(pipe, num_epoch=1, eval_metric="acc", optimizer="sgd",
+            optimizer_params=dict(REC_SGD), batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    n = len(step_ms)
+    fs = mod._fused_step
+    ms = float(np.median(step_ms[WARMUP_STEPS + 1:]))
+    wait = float(np.median(waits[WARMUP_STEPS + 1:n]))
+    got = [_batch_digest(d.cpu().numpy(), lab.cpu().numpy())
+           for d, lab in seen]
+    left = [t.name for t in mx.threads.live_package_threads()
+            if "io_pipeline" in t.name]
+    children = multiprocessing.active_children()
+    rec_ms, rec_wait = FIT_TIMES["rec run (ii) ImageRecordIter x4 gpu(0)"]
+    print("%s: fit(train_data=Pipeline) of %d batches of %d in %.2f s: ms "
+          "per step (synchronized, median after the capture) %.2f, %.1f "
+          "images/s; the step's wait on next() median %.2f ms, mean %.2f "
+          "ms, max %.2f ms (%.1f%% of the step); beside 13a's "
+          "ImageRecordIter x4: %.2f ms a step, wait %.2f ms; the fused "
+          "step carried the fit: %s; launches per step %s (all alike: %s); "
+          "every batch on the card bit for bit its host batch: %s; the "
+          "adapter closed: %s, io_pipeline threads left %s, worker "
+          "processes left %d; card %s"
+          % (tag, n, REC_BATCH, fit_s, ms, REC_BATCH / ms * 1e3, wait,
+             float(np.mean(waits)), float(np.max(waits)), 100.0 * wait / ms,
+             rec_ms, rec_wait, fs is not None and fs.captures == 1,
+             step_launches[-1], all(d == per_step for d in step_launches),
+             got == want, [a._closed for a in adapters], left,
+             len(children), card_line()))
+    if n != REC_IMAGES // REC_BATCH or len(got) != n:
+        raise AssertionError("%s: %d steps over %d batches, expected %d"
+                             % (tag, n, len(got), REC_IMAGES // REC_BATCH))
+    if any(d != per_step for d in step_launches):
+        raise AssertionError("%s: launches per step %s, expected %s"
+                             % (tag, step_launches[:3], per_step))
+    if fs is None or fs.captures != 1:
+        raise AssertionError("%s: the fit did not run as one captured CUDA "
+                             "graph a step" % tag)
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError("%s: batches %s on the card differ from the "
+                             "host's" % (tag, bad[:8]))
+    if len(adapters) != 1 or not adapters[0]._closed or left or children:
+        raise AssertionError("%s: fit left its adapter open (%s), threads %s "
+                             "or worker processes %s" % (tag, adapters, left,
+                                                          children))
+    return mod, (arg0, aux0)
+
+
+def train_resnet50_pipeline(mx, seed, root):
+    """14a.  Returns (the launches of both fits, the process-mode fit's
+    module, the first host batch)."""
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import kernels as K
+    rec, idx = os.path.join(root, "train.rec"), os.path.join(root,
+                                                             "train.idx")
+    symbol = resnet.get_symbol(REC_CLASSES, 50, "%d,%d,%d" % REC_SHAPE)
+    per_step = expected_train_launches(symbol)
+    want, first = pipeline_host_digests(mx, rec, idx, seed, 1, "thread")
+    for mode in PIPE_MODES:
+        got, _ = pipeline_host_digests(mx, rec, idx, seed, PIPE_WORKERS, mode)
+        print("pipe: host batches at %d %s workers bit for bit the 1-worker "
+              "run's: %s" % (PIPE_WORKERS, mode, got == want))
+        if got != want:
+            raise AssertionError("io_pipeline's %s-mode batches differ from "
+                                 "the 1-worker run's" % mode)
+    K.reset_launch_counts()
+    mods = {}
+    for mode in PIPE_MODES:
+        pipe = image_pipeline(mx, rec, idx, seed, PIPE_WORKERS, mode,
+                              mx.gpu(0))
+        mods[mode] = pipeline_fit(
+            mx, symbol, pipe, seed, "pipe run %s x%d gpu(0)"
+            % (mode, PIPE_WORKERS), per_step, want)
+    launches = K.launch_counts()
+    print("pipe: launches of both fits %s" % launches)
+    _, (arg0, aux0) = mods["thread"]
+    rec_host_steps(mx, symbol, arg0, aux0, [first[0]], [first[1]], seed,
+                   tag="pipe")
+    return launches, mods["process"][0], symbol, first
+
+
+def write_det_rec(mx, root, seed):
+    """DET_IMAGES JPEG records at PASCAL VOC's sizes, each a smooth
+    pattern with 1-8 boxes drawn on it, labelled in im2rec's detection
+    layout [2, 5, (class, x1, y1, x2, y2) per box] with coordinates
+    normalized to [0, 1].  Returns (rec, idx)."""
+    rng = np.random.RandomState(seed + 140)
+    rec, idx = os.path.join(root, "det.rec"), os.path.join(root, "det.idx")
+    w = mx.recordio.MXIndexedRecordIO(idx, rec, "w")
+    for i in range(DET_IMAGES):
+        wd, h = DET_SIZES[rng.randint(len(DET_SIZES))]
+        img = _class_pattern(int(rng.randint(DET_CLASSES)), h, wd, rng)
+        boxes = []
+        for _ in range(rng.randint(DET_BOXES[0], DET_BOXES[1] + 1)):
+            x1, y1 = rng.uniform(0.0, 0.8, 2)
+            x2 = min(1.0, x1 + rng.uniform(0.05, 0.5))
+            y2 = min(1.0, y1 + rng.uniform(0.05, 0.5))
+            cls = rng.randint(DET_CLASSES)
+            img[int(y1 * h):int(y2 * h), int(x1 * wd):int(x2 * wd)] = \
+                rng.randint(0, 256, 3)
+            boxes.append([cls, x1, y1, x2, y2])
+        label = np.concatenate([[2.0, 5.0], np.asarray(boxes).ravel()])
+        w.write_idx(i, mx.recordio.pack_img(
+            mx.recordio.IRHeader(0, label.astype(np.float32), i, 0), img,
+            quality=DET_QUALITY))
+    w.close()
+    return rec, idx
+
+
+def stream_detection(mx, seed, root):
+    """14b: the written detection records through ``ImageDetIter`` at
+    SSD-300's input and example/ssd/train.py's augmentation, uploaded by
+    ``DevicePrefetchIter(ctx=gpu(0))``: images/s; every live box in [0, 1]
+    with x2 > x1 and y2 > y1, every padding row -1; every batch on the card
+    bit for bit its host batch."""
+    import random as _pyrandom
+    import torch
+    t0 = time.perf_counter()
+    rec, idx = write_det_rec(mx, root, seed)
+    print("det: wrote %d records (%.1f MB, JPEG quality %d, %s) in %.1f s"
+          % (DET_IMAGES, os.path.getsize(rec) / 1e6, DET_QUALITY,
+             "/".join("%dx%d" % s for s in DET_SIZES),
+             time.perf_counter() - t0))
+    _pyrandom.seed(seed)
+    np.random.seed(seed)
+    t0 = time.perf_counter()
+    it = mx.image.ImageDetIter(
+        batch_size=DET_BATCH, data_shape=DET_SHAPE, path_imgrec=rec,
+        path_imgidx=idx, shuffle=True, rand_crop=0.5, rand_pad=0.5,
+        rand_mirror=True, mean=True, std=True)
+    scan_s = time.perf_counter() - t0
+    host = []
+    plain_next = it.next
+
+    def keep():
+        batch = plain_next()
+        host.append(batch)
+        return batch
+
+    it.next = keep
+    dev = mx.io.DevicePrefetchIter(it, ctx=mx.gpu(0))
+    seen = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in dev:
+        seen.append((batch.data[0].context, batch.data[0].tensor.clone(),
+                     batch.label[0].tensor.clone(), batch.pad or 0))
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    n = sum(DET_BATCH - pad for _, _, _, pad in seen)
+    same = len(seen) == len(host) and all(
+        ctx == mx.gpu(0)
+        and np.array_equal(d.cpu().numpy(), hb.data[0].asnumpy())
+        and np.array_equal(lab.cpu().numpy(), hb.label[0].asnumpy())
+        for (ctx, d, lab, _), hb in zip(seen, host))
+    labels = np.concatenate([hb.label[0].asnumpy() for hb in host])
+    live = labels[labels[..., 0] >= 0]
+    boxes_ok = bool(((live[:, 1:5] >= 0) & (live[:, 1:5] <= 1)).all()
+                    and (live[:, 3] > live[:, 1]).all()
+                    and (live[:, 4] > live[:, 2]).all())
+    pad_rows = labels[labels[..., 0] < 0]
+    pads_ok = bool((pad_rows == -1).all())
+    print("det: ImageDetIter(batch_size=%d, data_shape=%s, rand_crop=0.5, "
+          "rand_pad=0.5, rand_mirror=True, mean=True, std=True) -> "
+          "DevicePrefetchIter(gpu(0)): label scan of every record %.2f s, "
+          "label shape %s; %d images in %d batches in %.2f s, %.1f images/s; "
+          "%d live boxes, all in [0, 1] with x2 > x1 and y2 > y1: %s; %d "
+          "padding rows all -1: %s; every batch on the card bit for bit its "
+          "host batch: %s; card %s"
+          % (DET_BATCH, DET_SHAPE, scan_s, it.label_shape, n, len(seen), s,
+             n / s, len(live), boxes_ok, len(pad_rows), pads_ok, same,
+             card_line()))
+    if not (same and boxes_ok and pads_ok and n >= DET_IMAGES - DET_BATCH
+            and it.label_shape[0] <= DET_BOXES[1]
+            and seen[0][1].shape == (DET_BATCH,) + DET_SHAPE):
+        raise AssertionError("detection batches failed their checks")
+    return n / s
+
+
+class _MemStore:
+    """A dict-backed object store for a ``mem://`` scheme: writes publish
+    on close."""
+
+    def __init__(self):
+        self.blobs = {}
+
+    def opener(self, path, mode):
+        import io
+        store = self
+        if mode.startswith("r"):
+            raw = store.blobs[path]
+            return io.StringIO(raw.decode()) if mode == "r" \
+                else io.BytesIO(raw)
+
+        class Writer(io.StringIO if mode == "w" else io.BytesIO):
+            def close(self):
+                value = self.getvalue()
+                store.blobs[path] = value.encode() if mode == "w" else value
+                super().close()
+
+        return Writer()
+
+
+def checkpoint_over_mem(mx, mod, symbol, first):
+    """14c: ``save_checkpoint`` of 14a's trained module to a registered
+    ``mem://`` scheme, ``load_checkpoint`` into a new Module on gpu(0):
+    its predict outputs on one batch equal the trained module's bit for
+    bit."""
+    store = _MemStore()
+    prev = mx.filesystem.register_scheme("mem", store.opener)
+    try:
+        arg, aux = mod.get_params()
+        mx.model.save_checkpoint("mem://ckpt/resnet50", 1, symbol, arg, aux)
+        sym2, arg2, aux2 = mx.model.load_checkpoint("mem://ckpt/resnet50", 1)
+    finally:
+        if prev is None:
+            mx.filesystem.unregister_scheme("mem")
+        else:
+            mx.filesystem.register_scheme("mem", prev)
+    loaded = mx.mod.Module(sym2, context=mx.gpu(0))
+    loaded.bind(mod.data_shapes, mod.label_shapes, for_training=False)
+    loaded.set_params(arg2, aux2)
+    batch = mx.io.DataBatch([mx.nd.array(first[0], ctx=mx.gpu(0))],
+                            [mx.nd.array(first[1], ctx=mx.gpu(0))])
+    outs = []
+    for m in (mod, loaded):
+        m.forward(batch, is_train=False)
+        outs.append(m.get_outputs()[0].asnumpy())
+    same = np.array_equal(outs[0], outs[1])
+    print("ckpt: save_checkpoint -> mem:// (%s, %.1f MB) -> load_checkpoint "
+          "-> Module(gpu(0)): %d parameters and %d aux states back, predict "
+          "outputs on one batch of %d bit for bit the trained module's: %s "
+          "(finite: %s)"
+          % (", ".join(sorted(store.blobs)),
+             sum(len(v) for v in store.blobs.values()) / 1e6, len(arg2),
+             len(aux2), REC_BATCH, same, bool(np.isfinite(outs[0]).all())))
+    if not same or sorted(arg2) != sorted(arg) or sorted(aux2) != sorted(aux):
+        raise AssertionError("the mem:// checkpoint did not load back as "
+                             "the trained module")
+
+
+def train_from_pipeline(mx, seed, root):
+    """Phase 14 over phase 13's files under ``root``.  Returns {path:
+    launches}."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    clock = time.perf_counter()
+    paths = {}
+    paths["module_resnet50_pipeline"], mod, symbol, first = \
+        train_resnet50_pipeline(mx, seed, root)
+    K.reset_launch_counts()
+    stream_detection(mx, seed, root)
+    paths["image_det_ssd300"] = K.launch_counts()
+    K.reset_launch_counts()
+    checkpoint_over_mem(mx, mod, symbol, first)
+    paths["checkpoint_mem"] = K.launch_counts()
+    torch.cuda.synchronize()
+    print("phase 14 parts done in %.1f s" % (time.perf_counter() - clock))
     return paths
 
 
@@ -7009,8 +7278,7 @@ def main():
     print("torch %s, CUDA %s, %d device(s)"
           % (torch.__version__, torch.version.cuda, torch.cuda.device_count()))
     t0 = time.perf_counter()
-    _build.build_all(["flash_attn_fwd", "bn_channel_sums", "pool_bwd",
-                      "jpeg_codec"])
+    _build.build_all(["flash_attn_fwd", "bn_channel_sums", "pool_bwd"])
     print("kernels built in %.1f s" % (time.perf_counter() - t0))
     from mxnet_tpu_torch import io_native
     from mxnet_tpu_torch.image import codec
@@ -7067,9 +7335,16 @@ def main():
     paths.update(train_dcgan_phase(mx, args.seed))
     lap("12 (DCGAN through two Modules, the random ops, a replayed step "
         "that draws, the last nn and update ops)")
-    paths.update(train_from_files(mx, args.seed))
-    lap("13 (ResNet-50 from a .rec through ImageIter and ImageRecordIter, "
-        "the image ops, the codec, Gluon ResNet-18 on CIFAR-10 files)")
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=HERE) as root:
+        paths.update(train_from_files(mx, args.seed, root))
+        lap("13 (ResNet-50 from a .rec through ImageIter and "
+            "ImageRecordIter, the image ops, Gluon ResNet-18 on CIFAR-10 "
+            "files)")
+        paths.update(train_from_pipeline(mx, args.seed, root))
+        lap("14 (ResNet-50 from an io_pipeline Pipeline in thread and "
+            "process mode, ImageDetIter at SSD-300's input, a mem:// "
+            "checkpoint)")
     # "launches": the path each kernel serves in this script (the serving
     # forward, the LM's training, and the bf16 fused training; LeNet's and
     # DCGAN's are in launches_by_path)

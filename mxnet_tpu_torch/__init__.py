@@ -26,9 +26,11 @@ through Inception-ResNet-v2), and ``mx.test_utils`` the reference's
 testing helpers, ``check_consistency`` among them.  ``mx.recordio``,
 ``mx.image`` and ``mx.io.ImageRecordIter`` read packed ``.rec`` images
 (the native reader and engine of ``io_native``, decode through
-``image.codec``: cv2, PIL or nvJPEG) and ``gluon.data.vision`` the image
-datasets and transforms; batches reach the card from pinned buffers on
-a side stream.
+``image.codec``: cv2 or PIL), ``mx.image.det``'s ``ImageDetIter`` reads
+detection records, ``mx.io_pipeline`` decodes on worker threads or
+processes into deterministic batches, and ``gluon.data.vision`` holds
+the image datasets and transforms; batches reach the card from pinned
+buffers on a side stream.
 
 Entry points run on the card (``gpu(0)``) unless given ``cpu()``; without
 a card they raise ``MXNetError`` rather than fall back to the host.
@@ -56,6 +58,7 @@ from . import optimizer  # noqa: F401
 from .optimizer import Optimizer  # noqa: F401
 from . import metric  # noqa: F401
 from . import io  # noqa: F401
+from . import io_pipeline  # noqa: F401
 from . import filesystem  # noqa: F401
 from . import recordio  # noqa: F401
 from . import io_native  # noqa: F401

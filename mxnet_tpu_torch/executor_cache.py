@@ -72,6 +72,13 @@ def trace_counts():
         return dict(_stats)
 
 
+def reset_stats():
+    """Zero the plan-build counters (cached plans stay)."""
+    with _lock:
+        for k in _stats:
+            _stats[k] = 0
+
+
 class watch_traces:
     """Context manager over ``trace_counts``: ``delta()``/``total()``
     report the builds since ``__enter__`` (frozen at ``__exit__``)::

@@ -14,8 +14,10 @@ pyarrow.fs, ...); no client is bundled.
     filesystem.register_scheme("s3", lambda path, mode:
                                fsspec.open("s3://" + path, mode).open())
 
-Consumers: ``recordio.MXRecordIO`` (and the indexed variant) and
-``image.ImageIter.read_image``.
+Consumers: ``recordio.MXRecordIO`` (and the indexed variant),
+``image.ImageIter.read_image``, ``nd.save``/``nd.load`` and
+``Symbol.save``/``sym.load`` (so checkpoints and Gluon's parameter files
+too).
 """
 from __future__ import annotations
 

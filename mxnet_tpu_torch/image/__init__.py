@@ -1,25 +1,13 @@
 """Image iterators and augmenters (ref: python/mxnet/image/).
 
 Counterpart of ``mxnet_tpu/image/__init__.py``: ``image.py``'s decoding,
-augmenters and ``ImageIter``, and ``codec`` (decode, encode and resize).
-The detection half (``mx.image.det``, ``ImageDetIter`` and the detection
-augmenters) waits for the slice A2b: its names raise ``MXNetError``
-saying so.
+augmenters and ``ImageIter``, ``detection.py``'s detection augmenters and
+``ImageDetIter`` (also as ``mx.image.det``), and ``codec`` (decode,
+encode and resize).
 """
 from .image import *  # noqa: F401,F403
 from . import image  # noqa: F401
+from .detection import *  # noqa: F401,F403
+from . import detection  # noqa: F401
+from . import detection as det  # noqa: F401  (mx.image.det alias)
 from . import codec  # noqa: F401
-from ..base import MXNetError as _MXNetError
-
-_DETECTION = ("det", "detection", "DetAugmenter", "DetBorrowAug",
-              "DetRandomSelectAug", "DetHorizontalFlipAug",
-              "DetRandomCropAug", "DetRandomPadAug",
-              "CreateMultiRandCropAugmenter", "CreateDetAugmenter",
-              "ImageDetIter")
-
-
-def __getattr__(name):
-    if name in _DETECTION:
-        raise _MXNetError("mx.image.%s (object detection) waits for the "
-                          "slice A2b of the port" % name)
-    raise AttributeError("module %r has no attribute %r" % (__name__, name))

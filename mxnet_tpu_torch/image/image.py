@@ -1,10 +1,9 @@
 """Image loading, augmentation and iteration (ref: python/mxnet/image/image.py).
 
 Counterpart of ``mxnet_tpu/image/image.py``.  Decode, encode and resize
-go through ``image.codec`` (cv2, else PIL, else nvJPEG; resize in cv2 or
-torch on the host), the augmenters compute in numpy on the host, and a
-batch uploads to the card once, where the executor copies it into its
-bound arrays.  The augmenter pipeline and ``ImageIter`` keep the
+go through ``image.codec`` (cv2, else PIL; resize in cv2), the augmenters
+compute in numpy on the host, and a batch uploads to the card once, where
+the executor copies it into its bound arrays.  The augmenter pipeline and ``ImageIter`` keep the
 reference's API (python/mxnet/image/image.py:482-1160), and the
 augmenters draw through ``_rand``/``_nprand`` exactly as the JAX
 package's do, so the same seeds give the same batches.

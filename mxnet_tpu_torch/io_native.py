@@ -13,7 +13,8 @@ concurrent builds (test workers, threads) never load a half-written
 file.  Where ``g++`` or a source is missing, :func:`get_lib` returns None
 and ``recordio`` frames records in Python (the plain version); where
 OpenCV's headers are missing, :func:`get_imgdec_lib` returns None and the
-engine pipeline decodes each record in Python.
+engine pipeline decodes each record in Python.  ``MXNET_TPU_IO_NATIVE=0``
+(the JAX package's switch, read at each call) makes both return None.
 
 :data:`OPENED` counts the native readers, writers and engines created and
 the decode-chain calls made, so that a run can show which path it took.
@@ -56,27 +57,33 @@ def _library_path(stem, srcs, flags):
                         % (stem, digest.hexdigest()[:12]))
 
 
+def _run_gxx(cmd, out_path):
+    """Run ``cmd`` with ``out_path`` replaced by a private temporary name
+    (process id and a process-wide counter, so two threads of one process
+    never share it), then rename the result into place: a half-written
+    library is never visible under ``out_path``."""
+    tmp = "%s.build.%d.%d" % (out_path, os.getpid(), next(_build_seq))
+    try:
+        res = subprocess.run([c if c != out_path else tmp for c in cmd],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise MXNetError("%s failed:\n%s" % (" ".join(cmd[:1]),
+                                                 res.stderr[-2000:]))
+        os.replace(tmp, out_path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def _build(stem, srcs, flags=(), libs=()):
     """Compile ``srcs`` into ``_build/lib<stem>-<digest>.so`` unless it is
-    there; returns its path.  The compiler writes a private temporary
-    name (process id and a process-wide counter, so two threads of one
-    process never share it), which is then renamed into place."""
+    there; returns its path (through :func:`_run_gxx`)."""
     out = _library_path(stem, srcs, flags + libs)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.build.%d.%d" % (out, os.getpid(), next(_build_seq))
-    try:
-        res = subprocess.run(list(_GXX) + list(flags) + ["-o", tmp]
-                             + list(srcs) + list(libs),
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise MXNetError("g++ failed on %s:\n%s"
-                             % (", ".join(srcs), res.stderr[-2000:]))
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    _run_gxx(list(_GXX) + list(flags) + ["-o", out] + list(srcs)
+             + list(libs), out)
     return out
 
 
@@ -92,9 +99,18 @@ def _load(key, build_and_declare):
         return _libs[key]
 
 
+def native_disabled():
+    """Whether ``MXNET_TPU_IO_NATIVE=0`` sends every native path (record
+    framing, engine, decode chain) onto its Python version."""
+    return os.environ.get("MXNET_TPU_IO_NATIVE", "1").strip().lower() \
+        in ("0", "false", "off")
+
+
 def get_lib():
     """The record and engine library, built on first use; None where the
-    toolchain or the sources are missing."""
+    toolchain or the sources are missing, or the native paths are off."""
+    if native_disabled():
+        return None
     def build():
         srcs = [os.path.join(SRC_DIR, f) for f in _RUNTIME_SRCS]
         if not all(os.path.exists(s) for s in srcs):
@@ -138,7 +154,7 @@ def _runtime():
     lib = get_lib()
     if lib is None:
         raise RuntimeError("the native record/engine library is unavailable "
-                           "(g++ or src/%s missing)"
+                           "(g++ or src/%s missing, or MXNET_TPU_IO_NATIVE=0)"
                            % " / src/".join(_RUNTIME_SRCS))
     return lib
 
@@ -319,7 +335,9 @@ def get_imgdec_lib():
     """The native decode and augment chain (``src/image_decode.cc``: short
     side resize, crop, flip and normalize of a shard of JPEG records in
     one call, without the GIL), built on first use where OpenCV's headers
-    exist; None elsewhere."""
+    exist; None elsewhere, or where the native paths are off."""
+    if native_disabled():
+        return None
     def build():
         src = os.path.join(SRC_DIR, "image_decode.cc")
         if not (os.path.exists(src) and os.path.isdir(OPENCV_INCLUDE)):

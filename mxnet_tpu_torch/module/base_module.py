@@ -24,6 +24,7 @@ import torch
 from .. import metric as metric_mod
 from ..context import cpu
 from ..initializer import Uniform
+from ..io import DataIter
 
 
 class BatchEndParam:
@@ -192,9 +193,52 @@ class BaseModule:
             begin_epoch=0, num_epoch=None, validation_metric=None,
             monitor=None):
         """Bind, initialize, and train epochs ``begin_epoch`` to
-        ``num_epoch - 1``."""
+        ``num_epoch - 1``.
+
+        ``train_data``/``eval_data`` may be any ``DataIter`` (an
+        ``io_pipeline.PipelineDataIter`` too) or a raw
+        ``io_pipeline.Pipeline``, which is adapted here and closed when
+        fit returns."""
         if num_epoch is None:
             raise AssertionError("fit() needs num_epoch")
+        owned_iters = []
+        try:
+            # adapt inside the try: if the second adaptation or the fit
+            # raises, the first adapter's running workers are still torn
+            # down.  The eval adapter skips the warm start: score(reset=
+            # True) would discard the armed epoch unconsumed.
+            train_data = self._adapt_data(train_data, owned_iters)
+            eval_data = self._adapt_data(eval_data, owned_iters,
+                                         warm_start=False)
+            self._fit_impl(
+                train_data, eval_data, eval_metric, epoch_end_callback,
+                batch_end_callback, kvstore, optimizer, optimizer_params,
+                eval_end_callback, eval_batch_end_callback, initializer,
+                arg_params, aux_params, allow_missing, force_rebind,
+                force_init, begin_epoch, num_epoch, validation_metric,
+                monitor)
+        finally:
+            for it in owned_iters:
+                it.close()
+
+    @staticmethod
+    def _adapt_data(data, owned_iters, warm_start=True):
+        """A raw Pipeline is adapted here and registered in
+        ``owned_iters`` for fit's teardown; an iterator passes through and
+        belongs to the caller."""
+        if data is not None and not isinstance(data, DataIter) \
+                and hasattr(data, "as_dataiter"):
+            it = data.as_dataiter(warm_start=warm_start)
+            owned_iters.append(it)
+            return it
+        return data
+
+    def _fit_impl(self, train_data, eval_data, eval_metric,
+                  epoch_end_callback, batch_end_callback, kvstore,
+                  optimizer, optimizer_params, eval_end_callback,
+                  eval_batch_end_callback, initializer, arg_params,
+                  aux_params, allow_missing, force_rebind, force_init,
+                  begin_epoch, num_epoch, validation_metric, monitor):
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)

@@ -369,9 +369,14 @@ class FusedTrainStep:
             graph.register_generator_state(_random.generator(self.device))
         t0 = time.perf_counter()
         try:
+            # thread_local: an input pipeline's workers go on uploading the
+            # next batches on their own threads (pinned allocations, event
+            # waits on a side stream) while this step is captured; in the
+            # global mode any such call invalidates the capture
             with _kernels.captured_launches() as launches, \
                     torch.cuda.device(self.device), \
-                    torch.cuda.graph(graph, stream=self._stream):
+                    torch.cuda.graph(graph, stream=self._stream,
+                                     capture_error_mode="thread_local"):
                 outs = self._compute()
         except Exception as exc:
             raise MXNetError("capturing the fused train step as a CUDA "

@@ -651,8 +651,9 @@ _NDAR_MAGIC = b"MXTPU001"
 
 
 def save(fname, data):
-    """Save an NDArray, a list of them or a {name: NDArray} dict
-    (atomically: written to a temporary file, then renamed)."""
+    """Save an NDArray, a list of them or a {name: NDArray} dict to a
+    local path (atomically: written to a temporary file, then renamed) or
+    to a registered scheme's URI (``filesystem.register_scheme``)."""
     if isinstance(data, NDArray):
         data = [data]
     if isinstance(data, dict):
@@ -661,6 +662,13 @@ def save(fname, data):
     else:
         names = [""] * len(data)
         arrays = list(data)
+    from ..filesystem import is_remote, open_uri
+    if is_remote(fname):
+        # a registered scheme's backend owns atomicity (object stores
+        # publish on close): no temporary file and rename there
+        with open_uri(fname, "wb") as f:
+            _save_stream(f, names, arrays)
+        return
     tmp = fname + ".tmp"
     with open(tmp, "wb") as f:
         _save_stream(f, names, arrays)
@@ -694,7 +702,8 @@ def _save_stream(f, names, arrays):
 def load(fname, ctx=None):
     """Load a ``save`` file.  Arrays land on ``ctx``, by default the host
     (``cpu()``): a file is host data until a bind copies it."""
-    with open(fname, "rb") as f:
+    from ..filesystem import open_uri
+    with open_uri(fname, "rb") as f:
         return _load_stream(f, fname, ctx or cpu())
 
 

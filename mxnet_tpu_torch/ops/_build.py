@@ -7,10 +7,6 @@ written to a temporary name and renamed into place so concurrent builders
 never load a half-written file) and bound with ``ctypes``.  Nothing here
 runs at import: the sources build only when a CUDA tensor reaches a
 kernel wrapper, or when :func:`build_all` is called.
-
-A source that calls a library of the CUDA toolkit names it in
-:data:`LINK_LIBS` (``jpeg_codec``: nvJPEG); its link flags join the
-compiler's flags for that source only, digest included.
 """
 from __future__ import annotations
 
@@ -30,10 +26,6 @@ SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-
-# source -> toolkit libraries it links, found and run-path-bound under the
-# toolkit's lib64 (the loader's path need not hold it)
-LINK_LIBS = {"jpeg_codec": ("nvjpeg",)}
 
 _lock = threading.Lock()
 _libs = {}
@@ -55,19 +47,6 @@ def nvcc_path():
     return found
 
 
-def link_flags(name, nvcc=None):
-    """The link flags of ``csrc/<name>.cu``: its :data:`LINK_LIBS` under
-    the toolkit's ``lib64`` (beside ``bin/nvcc``), with a run path there;
-    none for a source that links no library."""
-    libs = LINK_LIBS.get(name, ())
-    if not libs:
-        return ()
-    lib64 = os.path.join(os.path.dirname(os.path.dirname(
-        nvcc or nvcc_path())), "lib64")
-    return ("-L" + lib64, "-Xlinker", "-rpath=" + lib64) \
-        + tuple("-l" + lib for lib in libs)
-
-
 def _library_path(name, flags):
     src = os.path.join(SRC_DIR, name + ".cu")
     with open(src, "rb") as f:
@@ -79,8 +58,7 @@ def _library_path(name, flags):
 def build(name):
     """Compile ``csrc/<name>.cu`` unless its library is already built;
     returns the library path."""
-    links = link_flags(name)
-    src, lib = _library_path(name, NVCC_FLAGS + links)
+    src, lib = _library_path(name, NVCC_FLAGS)
     if os.path.exists(lib):
         BUILD_INFO.setdefault(name, {"seconds": 0.0, "path": lib,
                                      "ptxas": ""})
@@ -88,7 +66,7 @@ def build(name):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.%d.tmp" % (lib, os.getpid(), threading.get_ident())
     t0 = time.perf_counter()
-    res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src, *links],
+    res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise MXNetError("nvcc failed on %s:\n%s%s"

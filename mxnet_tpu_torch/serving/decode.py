@@ -294,7 +294,9 @@ class PagedTransformerDecoder(SlotScheduler):
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph):
+            # thread_local: a server's other threads may use the card
+            # while this step is captured
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 outs = self._eager(static)
         except Exception as exc:
             raise MXNetError("capturing the paged decode step as a CUDA "

@@ -538,6 +538,11 @@ class Symbol:
             "attrs": {"mxnet_version": ["int", 10001]}}, indent=2)
 
     def save(self, fname):
+        from ..filesystem import is_remote, open_uri
+        if is_remote(fname):
+            with open_uri(fname, "w") as f:
+                f.write(self.tojson())
+            return
         tmp = fname + ".tmp"
         with open(tmp, "w") as f:
             f.write(self.tojson())
@@ -684,7 +689,8 @@ def load_json(json_str):
 
 
 def load(fname):
-    with open(fname) as f:
+    from ..filesystem import open_uri
+    with open_uri(fname, "r") as f:
         return load_json(f.read())
 
 

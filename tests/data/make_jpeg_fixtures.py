@@ -8,7 +8,7 @@ quality 95, ``jpeg444.jpg`` with 4:4:4 and ``jpeg420.jpg`` with 4:2:0
 chroma subsampling, each with cv2's decoded BGR pixels as
 ``jpeg444.npy`` / ``jpeg420.npy``.  The image is a smooth two-way
 gradient with a disc and a sharp diagonal edge, fixed (no randomness).
-The nvJPEG decoder is held to these pixels on the card.
+The codec tests hold the decode to these pixels.
 """
 import os
 

@@ -1510,87 +1510,8 @@ def test_dcgan_first_iteration_on_the_card_matches_the_host(card, no_tf32):
 
 
 # ---------------------------------------------------------------------------
-# Data I/O: the nvJPEG codec, the image ops, the device double buffer
+# Data I/O: the image ops, the device double buffer
 # ---------------------------------------------------------------------------
-
-def _fixture(name):
-    import os
-    here = os.path.join(os.path.dirname(__file__), "data")
-    with open(os.path.join(here, name + ".jpg"), "rb") as f:
-        return f.read(), np.load(os.path.join(here, name + ".npy"))
-
-
-def _psnr(a, b):
-    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
-    return 10 * np.log10(255.0 ** 2 / mse)
-
-
-def test_nvjpeg_decode_matches_cv2_pixels(card):
-    """The committed fixtures (tests/data/make_jpeg_fixtures.py) against
-    cv2's pixels: 4:4:4 within 3 levels (nvJPEG's inverse DCT is within 1
-    of libjpeg's per plane, and B gains 1.772 Cb), mean 0.5; 4:2:0 mean
-    within 1; the colour conversion kernel bit for bit its plain
-    version."""
-    from mxnet_tpu_torch.image import codec
-    for name, max_limit, mean_limit in (("jpeg444", 3, 0.5),
-                                        ("jpeg420", None, 1.0)):
-        buf, want = _fixture(name)
-        got = codec.nvjpeg_decode(buf)
-        assert got.shape == want.shape and got.dtype == np.uint8
-        err = np.abs(got.astype(np.int64) - want)
-        assert err.mean() <= mean_limit, (name, err.mean(), err.max())
-        if max_limit is not None:
-            assert err.max() <= max_limit, (name, err.max())
-        np.testing.assert_array_equal(
-            got, codec.plain_ycc_to_bgr(*codec.nvjpeg_planes(buf)))
-        gray = codec.nvjpeg_decode(buf, 0)
-        assert gray.shape == want.shape[:2]
-
-
-def test_nvjpeg_encode_round_trip(card):
-    """Quality 95: 4:4:4 reaches 35 dB; 4:2:0 is within 1 dB of cv2's own
-    4:2:0 encoding of the same image (the subsampling's loss)."""
-    import cv2
-    from mxnet_tpu_torch.image import codec
-    _, img = _fixture("jpeg444")
-    for ss, info in (("444", 0), ("422", 1), ("420", 2)):
-        enc = codec.nvjpeg_encode(img, 95, ss)
-        assert codec.nvjpeg_info(enc) == (3, 64, 48, info)
-        back = codec.nvjpeg_decode(enc)
-        if ss == "444":
-            assert _psnr(back, img) >= 35.0
-        if ss == "420":
-            ok, ref = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 95])
-            assert _psnr(back, img) >= _psnr(codec.decode(ref), img) - 1.0
-    gray = codec.nvjpeg_encode(img[:, :, 0], 95)
-    assert codec.nvjpeg_info(gray)[0] == 1
-    assert _psnr(codec.nvjpeg_decode(gray, 0), img[:, :, 0]) >= 35.0
-
-
-def test_nvjpeg_decodes_from_several_threads(card):
-    import threading
-    from mxnet_tpu_torch.image import codec
-    rng = np.random.RandomState(0)
-    images = [rng.randint(0, 256, (40 + i, 50, 3)).astype(np.uint8)
-              for i in range(16)]
-    bufs = [codec.encode(im) for im in images]
-    want = [codec.nvjpeg_decode(b) for b in bufs]
-    got = [None] * len(bufs)
-
-    def work(k):
-        for j in range(k, len(bufs), 4):
-            got[j] = codec.nvjpeg_decode(bufs[j])
-
-    threads = [threading.Thread(target=work, args=(k,)) for k in range(4)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a, b)
-    with pytest.raises(mx.MXNetError, match="nvJPEG"):
-        codec.nvjpeg_decode(b"\xff\xd8not a jpeg")
-
 
 IMAGE_OP_CASES = [
     ("to_tensor", (224, 224, 3), {}),
@@ -1727,6 +1648,172 @@ def test_device_prefetch_orders_copies_under_a_delayed_stream(card):
         np.testing.assert_allclose(s, x[8 * i:8 * i + 8].sum(axis=(1, 2, 3)),
                                    rtol=1e-5)
         np.testing.assert_array_equal(lab, y[8 * i:8 * i + 8])
+
+
+def _pipeline_rec(tmp_path, n=40, shape=(3, 64, 64)):
+    """n records of f32 arrays of ``shape``, written by the port."""
+    path = str(tmp_path / "p.rec")
+    rng = np.random.RandomState(2)
+    w = mx.recordio.MXIndexedRecordIO(path + ".idx", path, "w")
+    for i in range(n):
+        w.write_idx(i, mx.recordio.pack(
+            mx.recordio.IRHeader(0, float(i % 7), i, 0),
+            rng.rand(*shape).astype(np.float32).tobytes()))
+    w.close()
+    return path
+
+
+@pytest.mark.parametrize("mode,double_buffer", [("thread", True),
+                                                ("thread", False),
+                                                ("process", True)])
+def test_pipeline_upload_is_never_read_early(card, tmp_path, monkeypatch,
+                                             mode, double_buffer):
+    """io_pipeline's DeviceTransfer with the side stream held back ~10 ms
+    before each copy (the ``_copy`` hook): a batch read on the consumer's
+    stream the moment ``next()`` returns it is still its host batch, bit
+    for bit, with the upload issued on a worker (thread mode), on the
+    upload thread (process mode) or at pull time (no double buffer)."""
+    from mxnet_tpu_torch import io as tio
+    from mxnet_tpu_torch import io_pipeline as iop
+    from io_pipeline_cases import NoisyDecoder
+    rec = _pipeline_rec(tmp_path)
+    plain_copy = tio._Uploader._copy
+
+    def delayed(self, dst, src):
+        torch.cuda._sleep(20_000_000)
+        plain_copy(self, dst, src)
+
+    def pipe(ctx):
+        return iop.Pipeline(iop.RecordFileSource(rec, rec + ".idx"),
+                            NoisyDecoder("mxnet_tpu_torch", (3, 64, 64)),
+                            batch_size=8, shuffle=True, seed=3,
+                            num_workers=2, mode=mode, ctx=ctx,
+                            double_buffer=double_buffer)
+
+    with pipe(None) as host_pipe:
+        want = list(host_pipe.host_batches(0))
+    monkeypatch.setattr(tio._Uploader, "_copy", delayed)
+    with pipe(mx.gpu(0)).as_dataiter() as it:
+        got = []
+        for b in it:
+            assert b.data[0].context == mx.gpu(0)
+            # a device reduction first, on the consumer's stream
+            sums = b.data[0].tensor.double().sum(dim=(1, 2, 3))
+            got.append((sums.cpu().numpy(), b.data[0].asnumpy(),
+                        b.label[0].asnumpy()))
+    assert len(got) == len(want) == 5
+    for (sums, data, label), hb in zip(got, want):
+        np.testing.assert_array_equal(data, hb.data)
+        np.testing.assert_array_equal(label, hb.label)
+        np.testing.assert_allclose(
+            sums, hb.data.astype(np.float64).sum(axis=(1, 2, 3)), rtol=1e-12)
+
+
+def test_spawn_pool_under_a_live_cuda_context(card, tmp_path):
+    """A process pool started by a parent that holds a CUDA context: the
+    workers (spawned, never forked) have not initialized CUDA, and their
+    batches are bit for bit the thread pool's."""
+    import multiprocessing
+    from mxnet_tpu_torch import io_pipeline as iop
+    from io_pipeline_cases import CudaStateDecoder
+    torch.ones(1, device=card).sum().item()
+    assert torch.cuda.is_initialized()
+    rec = _pipeline_rec(tmp_path, n=20, shape=(3, 16, 16))
+    runs = {}
+    for mode in ("thread", "process"):
+        with iop.Pipeline(iop.RecordFileSource(rec, rec + ".idx"),
+                          CudaStateDecoder("mxnet_tpu_torch", (3, 16, 16)),
+                          batch_size=4, shuffle=True, seed=8, num_workers=2,
+                          mode=mode) as pipe:
+            runs[mode] = list(pipe.host_batches(0))
+    assert all((b.label == 1.0).all() for b in runs["thread"])
+    assert all((b.label == 0.0).all() for b in runs["process"])
+    for a, b in zip(runs["thread"], runs["process"]):
+        np.testing.assert_array_equal(a.data, b.data)
+    assert not multiprocessing.active_children()
+
+
+def test_fit_from_a_pipeline_captures_while_workers_upload(
+        card, deterministic, tmp_path, monkeypatch):
+    """``Module.fit`` from a thread-mode Pipeline on the card, the fused
+    step captured as a CUDA graph while the workers upload later batches
+    on their own threads: their decode is held until the capture has
+    begun, and the capture waits until one of their uploads has been
+    issued inside it.  The capture succeeds, and the weights are bit for
+    bit those of the same fit with every step eager."""
+    import threading
+    import time
+    from mxnet_tpu_torch import io as tio
+    from mxnet_tpu_torch import io_pipeline as iop
+    from mxnet_tpu_torch.module import fused_step
+
+    # the capture runs at the second step, when the adapter has pulled
+    # batches 0-3 (it holds two ahead): the records of batch 4 on wait
+    n, batch = 64, 8
+    held_from = 4 * batch
+    path = str(tmp_path / "g.rec")
+    rng = np.random.RandomState(4)
+    w = mx.recordio.MXIndexedRecordIO(path + ".idx", path, "w")
+    for i in range(n):
+        w.write_idx(i, mx.recordio.pack(
+            mx.recordio.IRHeader(0, float(i % 5), i, 0),
+            rng.rand(3, 16, 16).astype(np.float32).tobytes()))
+    w.close()
+    uploads = [0]
+    plain_upload = tio._Uploader.upload
+
+    def counted_upload(self, b):
+        out = plain_upload(self, b)
+        uploads[0] += 1
+        return out
+
+    monkeypatch.setattr(tio._Uploader, "upload", counted_upload)
+    plain_compute = fused_step.FusedTrainStep._compute
+
+    def fit(gate, in_capture):
+        inner = iop.NDArrayRecordDecoder((3, 16, 16))
+
+        def decode(raw, r):
+            if mx.recordio.unpack(raw)[0].id >= held_from:
+                assert gate.wait(30)
+            return inner(raw, r)
+
+        def compute(self):
+            if torch.cuda.is_current_stream_capturing():
+                start = uploads[0]
+                gate.set()
+                deadline = time.monotonic() + 30
+                while uploads[0] == start and time.monotonic() < deadline:
+                    time.sleep(0.001)
+                in_capture.append(uploads[0] - start)
+            return plain_compute(self)
+
+        monkeypatch.setattr(fused_step.FusedTrainStep, "_compute", compute)
+        pipe = iop.Pipeline(iop.RecordFileSource(path, path + ".idx"),
+                            decode, batch_size=batch, num_workers=2,
+                            prefetch_depth=8, mode="thread", ctx=mx.gpu(0))
+        mod = mx.mod.Module(_graph_net("float32"), context=mx.gpu(0))
+        mx.random.seed(0)
+        mod.fit(pipe, num_epoch=1, optimizer="sgd",
+                initializer=mx.initializer.Xavier(magnitude=2),
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9})
+        torch.cuda.synchronize()
+        return mod
+
+    in_capture = []
+    graph = fit(threading.Event(), in_capture)
+    assert graph._fused_step.captures == 1
+    assert len(in_capture) == 1 and in_capture[0] >= 1
+    assert not [t for t in mx.threads.live_package_threads()
+                if "io_pipeline" in t.name]
+    monkeypatch.setattr(fused_step, "WARMUP_STEPS", n // batch + 1)
+    opened = threading.Event()
+    opened.set()
+    eager = fit(opened, [])
+    assert eager._fused_step.graph is None
+    for k, v in graph.get_params()[0].items():
+        np.testing.assert_array_equal(v.asnumpy(),
+                                      eager.get_params()[0][k].asnumpy())
 
 
 def test_image_record_iter_on_the_card_equals_the_host(card, tmp_path):

@@ -47,6 +47,10 @@ def test_scan_covers_the_package():
                    "image/codec.py", "image/image.py", "image/__init__.py",
                    "ops/image_ops.py", "ndarray/image.py", "symbol/image.py",
                    "gluon/data/vision/datasets.py",
-                   "gluon/data/vision/transforms.py"):
+                   "gluon/data/vision/transforms.py",
+                   "image/detection.py", "io_pipeline/__init__.py",
+                   "io_pipeline/adapter.py", "io_pipeline/device.py",
+                   "io_pipeline/executor.py", "io_pipeline/pipeline.py",
+                   "io_pipeline/sharding.py", "io_pipeline/stages.py"):
         assert os.path.join("mxnet_tpu_torch", *module.split("/")) in names
     assert len(names) > 20

@@ -166,7 +166,7 @@ def test_pack_img_unpack_img_agree(quality, fmt):
 
 def test_unpack_img_of_unreadable_data_raises():
     bad = trec.pack(trec.IRHeader(0, 1.0, 0, 0), b"not an image")
-    with pytest.raises(mx.MXNetError, match="cv2.*PIL.*nvJPEG"):
+    with pytest.raises(mx.MXNetError, match="cv2.*PIL"):
         trec.unpack_img(bad)
 
 
@@ -206,6 +206,34 @@ def test_native_engine_orders_writes():
     eng.wait_for_all()
     assert seen == list(range(20))
     eng.close()
+
+
+@pytest.mark.parametrize("value", ["0", "off"])
+def test_native_switch_sends_every_path_to_python(tmp_path, monkeypatch,
+                                                  value):
+    """``MXNET_TPU_IO_NATIVE=0`` (the JAX package's switch): no native
+    library, records framed in Python, the same bytes as the native
+    writer's, and the engine refuses as the JAX package's does."""
+    payloads = _payloads(seed=3)
+    _write(trec, str(tmp_path / "n"), payloads, indexed=True)
+    monkeypatch.setenv("MXNET_TPU_IO_NATIVE", value)
+    assert io_native.get_lib() is None
+    assert io_native.get_imgdec_lib() is None
+    w = trec.MXIndexedRecordIO(str(tmp_path / "p.idx"),
+                               str(tmp_path / "p.rec"), "w")
+    assert w._native is None and w.handle is not None
+    for i, p in enumerate(payloads):
+        w.write_idx(i, p)
+    w.close()
+    for ext in (".rec", ".idx"):
+        with open(str(tmp_path / "p") + ext, "rb") as a, \
+                open(str(tmp_path / "n") + ext, "rb") as b:
+            assert a.read() == b.read()
+    assert _read_all(trec, str(tmp_path / "p.rec")) == payloads
+    with pytest.raises(RuntimeError, match="MXNET_TPU_IO_NATIVE"):
+        io_native.NativeEngine(2)
+    monkeypatch.delenv("MXNET_TPU_IO_NATIVE")
+    assert io_native.get_lib() is not None
 
 
 def test_libraries_build_into_the_port_package():
