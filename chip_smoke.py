@@ -335,12 +335,37 @@ CUDA toolkit.  Phases, each of which raises on failure:
    c. ``save_checkpoint`` of 14a's trained model to a registered
       ``mem://`` scheme, ``load_checkpoint`` into a new Module on gpu(0):
       its predict outputs on one batch bit for bit the trained module's.
-15. The ``kernels`` JSON line (each kernel's record with its launches on
+15. BASELINE config 5 on one card, data parallelism through the KVStore,
+   f32 with TF32 off, inputs from ``--seed``:
+   a. ResNet-50 (13a's symbol and ``train_imagenet.py``'s settings) through
+      ``Module(context=[gpu(0), gpu(0)]).fit`` at batch 64 (32 a context)
+      over an ``NDArrayIter`` of random images, 8 steps with
+      ``kvstore='tpu_ici'`` and 8 with ``'device'``: per step the ms, the
+      store calls' span, the launches (the single-context path's,
+      twice) and both contexts' weights bit for bit; a profiled step's
+      busy share of each; then ``'device'`` with 2-bit compression for 4
+      steps, the first push's codes on the card bit for bit the host
+      quantizer's and the loss finite; the first 3 steps of each store
+      against the host's two-context Module by phase 4's rule;
+   b. two processes on gpu(0) started by ``tools/launch.py`` (this script
+      with ``--dist-child``), each ``Module(context=gpu(0))`` at batch 32
+      with ``kvstore='dist_sync'`` for 4 steps: the backend chosen (gloo:
+      NCCL refuses two ranks on one card), the ranks' weights bit for bit
+      after every step, each step against 15a's ``'device'`` run over the
+      same images split the same way, ms per step and the all-reduces'
+      ms; both exit 0, nothing left alive, the group killed past a hard
+      timeout;
+   c. phase 13b's ``resnet18_v1`` thumbnail at batch 128 over the CIFAR-10
+      files through ``split_and_load`` over [gpu(0), gpu(0)] and
+      ``Trainer(kvstore='device')``, hybridized, 4 steps: ms per step,
+      launches, both contexts' weights bit for bit; the first 3 steps
+      against the host's two contexts by phase 4's rule.
+16. The ``kernels`` JSON line (each kernel's record with its launches on
    every path, phase 10's five and the MLP's with 0 of each, LeNet's with
    2 max-pool backwards a step, DCGAN's with 26 channel sums an
    iteration, phase 13's two paths, and its bf16/f16/f64, head_dim 32,
-   LeNet, DCGAN and ResNet-18 instances; phase 14's paths), then the result
-   line.
+   LeNet, DCGAN and ResNet-18 instances; phase 14's paths; phase 15's
+   three), then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is not beside this script.
@@ -7208,6 +7233,724 @@ def train_from_pipeline(mx, seed, root):
     return paths
 
 
+# -- phase 15: BASELINE config 5 on one card: data parallelism through the
+# KVStore over two contexts, across two processes, and Gluon's Trainer ------
+
+DP_CONTEXTS = 2
+DP_BATCH = 64                 # 32 a context: the single-context paths' batch
+DP_STEPS = 8
+DP_WARMUP = 2                 # steps before the medians
+DP_STORES = ("tpu_ici", "device")
+DP_COMPRESSION = {"type": "2bit", "threshold": 0.5}
+DP_COMPRESSED_STEPS = 4
+DP_HOST_STEPS = 3
+DP_HOST_PER_CONTEXT = 2       # images of each context in a card-vs-host step
+DIST_STEPS = 4
+DIST_TIMEOUT = 420            # seconds for both ranks; then the group is killed
+GLUON_DP_STEPS = 4
+
+
+def dp_data(seed):
+    """DP_STEPS batches of DP_BATCH random images at ImageNet's input and
+    1000-class labels, from ``seed``."""
+    rng = np.random.default_rng(seed + 150)
+    n = DP_BATCH * DP_STEPS
+    images = rng.random((n,) + REC_SHAPE, dtype=np.float32)
+    labels = rng.integers(0, REC_CLASSES, n).astype(np.float32)
+    return images, labels
+
+
+def dp_symbol():
+    from mxnet_tpu_torch.models import resnet
+    return resnet.get_symbol(REC_CLASSES, 50, "%d,%d,%d" % REC_SHAPE)
+
+
+def dp_init(mx, symbol, seed):
+    """The runs' initial weights (``train_imagenet.py``'s Xavier), as numpy,
+    through a host Module's ``init_params``."""
+    mod = mx.mod.Module(symbol, context=mx.cpu())
+    mod.bind([("data", (1,) + REC_SHAPE)], [("softmax_label", (1,))],
+             for_training=False)
+    mx.random.seed(seed)
+    mod.init_params(mx.initializer.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2))
+    return tuple({k: v.asnumpy().copy() for k, v in t.items()}
+                 for t in mod.get_params())
+
+
+def _host_arrays(mx, table):
+    return {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in table.items()}
+
+
+class EventTimer:
+    """The span between CUDA events recorded around each outermost call
+    of the wrapped functions (a call made inside another is part of it),
+    summed and cleared by ``take()`` (after a synchronize): the step's
+    store calls whole, host gaps between their launches included, without
+    a host sync inside the step."""
+
+    def __init__(self):
+        self.pairs = []
+        self.depth = 0
+
+    def wrap(self, fn):
+        import torch
+
+        def timed(*args, **kwargs):
+            self.depth += 1
+            if self.depth > 1:
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    self.depth -= 1
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                self.depth -= 1
+            e1.record()
+            self.pairs.append((e0, e1))
+            return out
+        return timed
+
+    def take(self):
+        ms = sum(a.elapsed_time(b) for a, b in self.pairs)
+        self.pairs = []
+        return ms
+
+
+def replicas_equal(blocks):
+    """Whether every context's copy of every array equals the first's, bit
+    for bit."""
+    import torch
+    return all(torch.equal(b[0].tensor, c.tensor)
+               for b in blocks for c in b[1:])
+
+
+def dp_fit(mx, symbol, images, labels, arg0, aux0, store, steps, per_step,
+           tag, compression=None, keep=0):
+    """``Module(context=[gpu(0)] * 2).fit`` over ``steps`` batches of
+    DP_BATCH with ``kvstore=store``: per step the ms (synchronized host
+    clock), the store's span (CUDA events around each of its push, pull
+    and push_pull_list calls, whole: the flattening and scatter, and the
+    store's update when it updates), the kernel launches, the contexts' weights bit for bit and the training batch's
+    cross-entropy.  Returns (module, {name: weights after step k} for k <
+    keep, per-step cross-entropy)."""
+    import torch
+    from mxnet_tpu_torch import kvstore as kvs
+    from mxnet_tpu_torch.kvstore import nccl
+    from mxnet_tpu_torch.module.fused_step import FusedTrainStep
+    from mxnet_tpu_torch.ops import kernels as K
+    n = DP_BATCH * steps
+    it = mx.io.NDArrayIter(images[:n], labels[:n], batch_size=DP_BATCH)
+    mod = mx.mod.Module(symbol, context=[mx.gpu(0)] * DP_CONTEXTS,
+                        compression_params=compression)
+    timer = EventTimer()
+    patched = [(cls, name, vars(cls)[name])
+               for cls in (kvs.KVStore, nccl.NcclKVStore)
+               for name in ("push", "pull", "push_pull", "push_pull_list")
+               if name in vars(cls)]
+    for owner, name, fn in patched:
+        setattr(owner, name, timer.wrap(fn))
+    rows, kept, marks = [], [], {}
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), K.launch_counts()
+        prob = mod.get_outputs()[0].asnumpy()
+        lab = param.locals["batch"].label[0].asnumpy().astype(np.int64)
+        rows.append(((now - marks["t"]) * 1e3, timer.take(),
+                     {k: counts[k] - marks["counts"][k] for k in per_step},
+                     replicas_equal(mod._exec_group.param_arrays),
+                     float(-np.log(prob[np.arange(len(lab)), lab]
+                                   + 1e-12).mean())))
+        if len(kept) < keep:
+            kept.append({k: v.asnumpy().copy()
+                         for k, v in mod.get_params()[0].items()})
+        torch.cuda.synchronize()
+        marks["t"], marks["counts"] = time.perf_counter(), K.launch_counts()
+
+    torch.cuda.synchronize()
+    marks["t"], marks["counts"] = time.perf_counter(), K.launch_counts()
+    try:
+        mod.fit(it, num_epoch=1, kvstore=store, optimizer="sgd",
+                optimizer_params=dict(REC_SGD), eval_metric="acc",
+                arg_params=_host_arrays(mx, arg0),
+                aux_params=_host_arrays(mx, aux0),
+                batch_end_callback=on_batch)
+    finally:
+        for owner, name, fn in patched:
+            setattr(owner, name, fn)
+    torch.cuda.synchronize()
+    ms = [r[0] for r in rows]
+    red = [r[1] for r in rows]
+    print("%s: %d steps of %d over %s, kvstore=%r (%s, update_on_kvstore "
+          "%s), fused step refused: %s; ms per step %s, median after %d "
+          "%.2f (%.1f images/s); the store's calls' span per step (%s; "
+          "CUDA events, host gaps included) ms %s, median %.3f; launches "
+          "per step %s; both contexts' weights bit "
+          "for bit after every step: %s; training cross-entropy %s; card %s"
+          % (tag, len(rows), DP_BATCH, [str(c) for c in mod._context], store,
+             type(mod._kvstore).__name__, mod._update_on_kvstore,
+             FusedTrainStep.refusal(mod), ", ".join("%.1f" % v for v in ms),
+             DP_WARMUP, float(np.median(ms[DP_WARMUP:])),
+             DP_BATCH / float(np.median(ms[DP_WARMUP:])) * 1e3,
+             "a push and a pull a key, the store's SGD included"
+             if mod._update_on_kvstore else
+             "push_pull_list: flatten, sum, scatter back",
+             ", ".join("%.3f" % v for v in red),
+             float(np.median(red[DP_WARMUP:] or red)), rows[-1][2],
+             all(r[3] for r in rows),
+             ", ".join("%.4f" % r[4] for r in rows), card_line()))
+    if len(rows) != steps:
+        raise AssertionError("%s: %d steps, expected %d" % (tag, len(rows),
+                                                           steps))
+    if any(r[2] != per_step for r in rows):
+        raise AssertionError("%s: launches per step %s, expected %s"
+                             % (tag, [r[2] for r in rows], per_step))
+    if not all(r[3] for r in rows):
+        raise AssertionError("%s: the contexts' weights differ" % tag)
+    if not np.all(np.isfinite([r[4] for r in rows])):
+        raise AssertionError("%s: the loss is not finite" % tag)
+    if mod._fused_step is not None:
+        raise AssertionError("%s: a multi-context module took the fused "
+                             "step" % tag)
+    return mod, kept, [r[4] for r in rows]
+
+
+def dp_profile(mx, mod, images, labels, tag):
+    """A profiled step (forward_backward + update) of a trained module."""
+    batch = mx.io.DataBatch([mx.nd.array(images[:DP_BATCH], ctx=mx.cpu())],
+                            [mx.nd.array(labels[:DP_BATCH], ctx=mx.cpu())])
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+    step()
+    return profile_run(step, tag)
+
+
+def dp_codes_check(mx, symbol, images, labels, arg0, aux0, per_step):
+    """15a's compressed run: ``'device'`` with 2-bit compression for
+    DP_COMPRESSED_STEPS; the first push's codes on the card against the
+    host quantizer's codes of the same gradients, bit for bit."""
+    import torch
+    from mxnet_tpu_torch.kvstore import gradient_compression as gc
+    seen, real = [], gc.GradientCompression.quantize
+    first_push = DP_CONTEXTS * len([a for a in symbol.list_arguments()
+                                    if a not in ("data", "softmax_label")])
+
+    def recording(self, key, grad):
+        codes = real(self, key, grad)
+        if len(seen) < first_push:
+            seen.append((grad.detach().to("cpu", copy=True),
+                         codes.to("cpu", copy=True)))
+        return codes
+    gc.GradientCompression.quantize = recording
+    try:
+        _, _, losses = dp_fit(mx, symbol, images, labels, arg0, aux0,
+                              "device", DP_COMPRESSED_STEPS, per_step,
+                              "dp2 device 2bit", compression=DP_COMPRESSION)
+    finally:
+        gc.GradientCompression.quantize = real
+    threshold = DP_COMPRESSION["threshold"]
+    same = sum(torch.equal(codes, gc.quantize_flat(
+        grad, torch.zeros_like(grad), threshold)[0]) for grad, codes in seen)
+    nbytes = sum(c.numel() for _, c in seen)
+    print("dp2 device 2bit: the first push's codes, %d pushes of %d "
+          "bytes of codes (%d gradient elements): bit for bit the host "
+          "quantizer's in %d; training cross-entropy %s"
+          % (len(seen), nbytes, sum(g.numel() for g, _ in seen), same,
+             ", ".join("%.4f" % v for v in losses)))
+    if not seen or same != len(seen):
+        raise AssertionError("the card's 2-bit codes differ from the host "
+                             "quantizer's")
+
+
+def dp_reduced_grads(mx, mod, store):
+    """Each parameter's gradient summed over the module's contexts by a
+    fresh store of kind ``store`` (no updater), back into every context;
+    the first context's, as numpy, after checking the others equal it."""
+    names, grads = mod._param_names, mod._exec_group.grad_arrays
+    kv = mx.kv.create(store)
+    for name, g in zip(names, grads):
+        kv.init(name, g[0])
+    if hasattr(kv, "push_pull_list"):
+        kv.push_pull_list(names, grads, grads)
+    else:
+        for name, g in zip(names, grads):
+            kv.push(name, g)
+            kv.pull(name, out=g)
+    if not replicas_equal(grads):
+        raise AssertionError("the reduced gradients differ between contexts")
+    return {name: g[0].asnumpy() for name, g in zip(names, grads)}
+
+
+def dp_host_steps(mx, symbol, arg0, aux0, images, labels, store, seed):
+    """15a's card-vs-host check by phase 4's rule, as 13a's: DP_HOST_PER_
+    CONTEXT images of each context's slice of each of the first
+    DP_HOST_STEPS batches; the host trajectory through ``Module([cpu(0),
+    cpu(1)])`` with the same store at the fit's settings, then each step
+    from the host run's state before it, its gradients reduced over the
+    two contexts by that store, on the card ([gpu(0)] * 2) and on the
+    host."""
+    rng = np.random.default_rng(seed + 151)
+    arg0 = dict(arg0)
+    for k, v in arg0.items():
+        if k.endswith("_gamma"):
+            arg0[k] = (1.0 + 0.1 * rng.standard_normal(v.shape)).astype(
+                np.float32)
+        elif k.endswith("_beta"):
+            arg0[k] = (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+    per, half = DP_HOST_PER_CONTEXT, DP_BATCH // DP_CONTEXTS
+    batches = []
+    for k in range(DP_HOST_STEPS):
+        rows = np.concatenate([np.arange(per) + k * DP_BATCH + c * half
+                               for c in range(DP_CONTEXTS)])
+        batches.append((images[rows], labels[rows]))
+    n = per * DP_CONTEXTS
+    host_ctxs = [mx.cpu(c) for c in range(DP_CONTEXTS)]
+
+    def module(ctxs):
+        mod = mx.mod.Module(symbol, context=ctxs)
+        mod.bind([("data", (n,) + REC_SHAPE)], [("softmax_label", (n,))])
+        return mod
+
+    traj = module(host_ctxs)
+    traj.init_params(arg_params=_host_arrays(mx, arg0),
+                     aux_params=_host_arrays(mx, aux0))
+    traj.init_optimizer(kvstore=store, optimizer="sgd",
+                        optimizer_params=dict(REC_SGD))
+    states = []
+    for x, y in batches:
+        arg, aux = traj.get_params()
+        states.append({k: v.asnumpy().copy() for t in (arg, aux)
+                       for k, v in t.items()})
+        traj.forward_backward(mx.io.DataBatch(
+            [mx.nd.array(x, ctx=mx.cpu())], [mx.nd.array(y, ctx=mx.cpu())]))
+        traj.update()
+    mods = {}
+
+    def run(where, state, x, y):
+        if where not in mods:
+            mods[where] = module([mx.gpu(0)] * DP_CONTEXTS if where == "card"
+                                 else host_ctxs)
+        mod = mods[where]
+        mod.init_params(
+            arg_params={k: mx.nd.array(state[k], ctx=mx.cpu())
+                        for k in mod._param_names},
+            aux_params={k: mx.nd.array(state[k], ctx=mx.cpu())
+                        for k in mod._aux_names}, force_init=True)
+        mod.forward_backward(mx.io.DataBatch(
+            [mx.nd.array(x, ctx=mx.cpu())], [mx.nd.array(y, ctx=mx.cpu())]))
+        return (mod.get_outputs()[0].asnumpy(),
+                dp_reduced_grads(mx, mod, store))
+
+    teacher_forced_steps("dp2 %s" % store, run, states, batches, seed)
+
+
+def dist_launch(root, seed):
+    """``tools/launch.py -n 2`` running this script's ``--dist-child`` on
+    each rank (the launcher's environment: coordinator address, process
+    count and id, DMLC_*), in a session of its own; past DIST_TIMEOUT the
+    whole group is killed and every rank's output printed.  Returns the
+    output; raises unless both ranks exit 0 and nothing is left alive."""
+    import signal
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    cmd = [sys.executable, os.path.join(HERE, "tools", "launch.py"), "-n",
+           str(DP_CONTEXTS), "--port", str(port), "--", sys.executable,
+           os.path.join(HERE, "chip_smoke.py"), "--seed", str(seed),
+           "--dist-child", root]
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DIST_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        print(out)
+        raise AssertionError("dist: the ranks did not finish in %d s; the "
+                             "process group was killed" % DIST_TIMEOUT)
+    for line in out.splitlines():
+        print("dist| " + line)
+    alive = True
+    try:
+        os.killpg(proc.pid, 0)
+    except ProcessLookupError:
+        alive = False
+    if alive:
+        os.killpg(proc.pid, signal.SIGKILL)
+    print("dist: launcher exit %d; processes left alive after it: %s"
+          % (proc.returncode, alive))
+    if proc.returncode != 0 or alive:
+        raise AssertionError("dist: a rank failed or outlived the launcher")
+    return out
+
+
+def dist_child(mx, seed, root):
+    """One rank of 15b: ``Module(context=gpu(0))`` at batch DP_BATCH / 2
+    with ``kvstore='dist_sync'``, its half of each of 15a's first
+    DIST_STEPS batches; writes per step its ms, the all-reduces' ms
+    (synchronized host clock: gloo is synchronous), launches and a digest
+    of its weights (rank 0 also the weights) under ``root``."""
+    import hashlib
+    import torch
+    from mxnet_tpu_torch.kvstore import dist
+    from mxnet_tpu_torch.ops import kernels as K
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # as 15a's 'device' run
+    rank = int(os.environ["DMLC_WORKER_ID"])
+    half = DP_BATCH // DP_CONTEXTS
+    images = np.load(os.path.join(root, "dist_images.npy"))
+    labels = np.load(os.path.join(root, "dist_labels.npy"))
+    rows = np.concatenate([np.arange(half) + k * DP_BATCH + rank * half
+                           for k in range(DIST_STEPS)])
+    init = np.load(os.path.join(root, "dist_init.npz"))
+    symbol = dp_symbol()
+    aux_names = set(symbol.list_auxiliary_states())
+    it = mx.io.NDArrayIter(images[rows], labels[rows], batch_size=half)
+    mod = mx.mod.Module(symbol, context=mx.gpu(0))
+    per_step = expected_train_launches(symbol)
+    spent, real = [0.0], dist.DistKVStore._allreduce
+
+    def timed(self, t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, t)
+        torch.cuda.synchronize()
+        spent[0] += (time.perf_counter() - t0) * 1e3
+        return out
+    dist.DistKVStore._allreduce = timed
+    record = {"ms": [], "reduce_ms": [], "launches": [], "digest": []}
+    marks = {}
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), K.launch_counts()
+        record["ms"].append((now - marks["t"]) * 1e3)
+        record["reduce_ms"].append(spent[0])
+        record["launches"].append({k: counts[k] - marks["counts"][k]
+                                   for k in per_step})
+        weights = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        digest = hashlib.sha256()
+        for k in sorted(weights):
+            digest.update(weights[k].tobytes())
+        record["digest"].append(digest.hexdigest())
+        if rank == 0:
+            np.savez(os.path.join(root, "dist_step%d.npz"
+                                  % len(record["ms"])), **weights)
+        spent[0] = 0.0
+        torch.cuda.synchronize()
+        marks["t"], marks["counts"] = time.perf_counter(), K.launch_counts()
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    marks["t"], marks["counts"] = time.perf_counter(), K.launch_counts()
+    mod.fit(it, num_epoch=1, kvstore="dist_sync", optimizer="sgd",
+            optimizer_params=dict(REC_SGD), eval_metric="acc",
+            arg_params={k: mx.nd.array(init[k], ctx=mx.cpu())
+                        for k in init.files if k not in aux_names},
+            aux_params={k: mx.nd.array(init[k], ctx=mx.cpu())
+                        for k in init.files if k in aux_names},
+            batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    kv = mod._kvstore
+    record.update(rank=rank, workers=kv.num_workers, backend=kv.backend,
+                  update_on_kvstore=mod._update_on_kvstore,
+                  total=K.launch_counts())
+    with open(os.path.join(root, "dist_rank%d.json" % rank), "w") as f:
+        json.dump(record, f)
+    print("rank %d of %d: backend %s, ms per step %s, all-reduce ms per "
+          "step %s" % (rank, kv.num_workers, kv.backend,
+                       ", ".join("%.1f" % v for v in record["ms"]),
+                       ", ".join("%.1f" % v for v in record["reduce_ms"])),
+          flush=True)
+    return 0
+
+
+def train_dist(mx, seed, root, images, labels, init, want, per_step):
+    """15b: two ranks on gpu(0) through ``tools/launch.py``; their weights
+    bit for bit after every step, each step's weights against 15a's
+    ``'device'`` run over the same images split the same way (relative
+    L2 within HOST_GRAD_REL; bit for bit recorded).  Returns the ranks'
+    launches, summed."""
+    n = DP_BATCH * DIST_STEPS
+    np.save(os.path.join(root, "dist_images.npy"), images[:n])
+    np.save(os.path.join(root, "dist_labels.npy"), labels[:n])
+    np.savez(os.path.join(root, "dist_init.npz"), **init)
+    t0 = time.perf_counter()
+    dist_launch(root, seed)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(DP_CONTEXTS):
+        with open(os.path.join(root, "dist_rank%d.json" % r)) as f:
+            ranks.append(json.load(f))
+    same = [len({rk["digest"][k] for rk in ranks}) == 1
+            for k in range(DIST_STEPS)]
+    rel, bitwise = [], []
+    for k in range(DIST_STEPS):
+        got = np.load(os.path.join(root, "dist_step%d.npz" % (k + 1)))
+        rel.append(max(_rel_l2(got[name], want[k][name])
+                       for name in want[k]))
+        bitwise.append(all(np.array_equal(got[name], want[k][name])
+                           for name in want[k]))
+    per_rank_step = [{name: sum(rk["launches"][k][name] for rk in ranks)
+                      for name in per_step} for k in range(DIST_STEPS)]
+    ms = [float(np.median(rk["ms"][1:])) for rk in ranks]
+    red = [float(np.median(rk["reduce_ms"][1:])) for rk in ranks]
+    print("dist: 2 ranks on gpu(0), backend %s, update_on_kvstore %s, "
+          "%d steps of %d a rank in %.1f s (launcher included): ms per step "
+          "median after the first, by rank %s; all-reduce ms per step %s; "
+          "launches per step, both ranks %s; the ranks' weights bit for bit "
+          "after every step: %s; against 15a's 'device' run, each step's "
+          "weights relative L2 largest %s (limit %g), bit for bit %s; "
+          "card %s"
+          % ("/".join(sorted({rk["backend"] for rk in ranks})),
+             ranks[0]["update_on_kvstore"], DIST_STEPS, DP_BATCH // 2, wall,
+             ", ".join("%.1f" % v for v in ms),
+             ", ".join("%.1f" % v for v in red), per_rank_step[-1],
+             all(same), ", ".join("%.3g" % v for v in rel), HOST_GRAD_REL,
+             bitwise, card_line()))
+    expect = {k: v * DP_CONTEXTS for k, v in per_step.items()}
+    if any(rk["backend"] != "gloo" for rk in ranks):
+        raise AssertionError("dist: two ranks on one card must reduce over "
+                             "gloo")
+    if not all(same):
+        raise AssertionError("dist: the ranks' weights differ")
+    if max(rel) > HOST_GRAD_REL:
+        raise AssertionError("dist: the steps disagree with 15a's")
+    if any(d != expect for d in per_rank_step):
+        raise AssertionError("dist: launches per step %s, expected %s"
+                             % (per_rank_step, expect))
+    return {name: sum(rk["total"][name] for rk in ranks)
+            for name in per_step}
+
+
+def gluon_dp(mx, seed, root):
+    """15c: BASELINE config 3's ``resnet18_v1`` thumbnail at batch
+    CIFAR_BATCH over [gpu(0)] * 2 through ``split_and_load`` and
+    ``Trainer(kvstore='device')``, hybridized, over phase 13's CIFAR-10
+    files; per step the ms, launches and both contexts' weights bit for
+    bit; then the card-vs-host check.  Returns the run's launches."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ops import kernels as K
+    ctxs = [mx.gpu(0)] * DP_CONTEXTS
+    net = cifar_net(mx, ctxs, seed)
+    np.random.seed(seed)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(CIFAR_SGD),
+                            kvstore="device")
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    # the trained weights (each context keeps its own BatchNorm statistics)
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    # phase 13b's single-context step, 38/0/1, on each context
+    per_step = {"bn_channel_sums": 38 * DP_CONTEXTS, "max_pool_backward": 0,
+                "avg_pool_backward": DP_CONTEXTS}
+    rows = []
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    with mx.cpu():
+        batches = iter(cifar_loader(mx, os.path.join(root, "cifar")))
+        for _ in range(GLUON_DP_STEPS):
+            data, label = next(batches)
+            torch.cuda.synchronize()
+            before, t0 = K.launch_counts(), time.perf_counter()
+            xs = gluon.utils.split_and_load(data.as_in_context(mx.gpu(0)),
+                                            ctxs)
+            ys = gluon.utils.split_and_load(label.as_in_context(mx.gpu(0)),
+                                            ctxs)
+            with autograd.record():
+                losses = [loss_fn(net(x), y) for x, y in zip(xs, ys)]
+            for loss in losses:
+                loss.backward()
+            trainer.step(data.shape[0])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = K.launch_counts()
+            rows.append((ms, {k: after[k] - before[k] for k in per_step},
+                         replicas_equal([p.list_data() for p in params]),
+                         float(np.mean([l.asnumpy().mean()
+                                        for l in losses]))))
+    launches = K.launch_counts()
+    print("gluon dp2: resnet18_v1 thumbnail, %d steps of %d over [gpu(0)] * "
+          "2, Trainer(kvstore='device', update_on_kvstore %s): ms per step "
+          "%s, median after the first %.2f (%.1f images/s); loss %s; "
+          "launches per step %s; both contexts' weights bit for bit after "
+          "every step: %s; card %s"
+          % (len(rows), CIFAR_BATCH, trainer._update_on_kvstore,
+             ", ".join("%.1f" % r[0] for r in rows),
+             float(np.median([r[0] for r in rows[1:]])),
+             CIFAR_BATCH / float(np.median([r[0] for r in rows[1:]])) * 1e3,
+             ", ".join("%.4f" % r[3] for r in rows), rows[-1][1],
+             all(r[2] for r in rows), card_line()))
+    if any(r[1] != per_step for r in rows):
+        raise AssertionError("gluon dp2: launches per step %s, expected %s"
+                             % ([r[1] for r in rows], per_step))
+    if not all(r[2] for r in rows) or not np.isfinite(rows[-1][3]):
+        raise AssertionError("gluon dp2: the contexts' weights differ or "
+                             "the loss is not finite")
+    gluon_dp_host_steps(mx, seed, root)
+    return launches
+
+
+def gluon_dp_host_steps(mx, seed, root):
+    """15c's card-vs-host check by phase 4's rule: CIFAR_HOST_BATCH images
+    of each of the loader's first batches, split over two contexts; the
+    host trajectory through ``Trainer(kvstore='device')`` over [cpu(0),
+    cpu(1)], then each step from its state on [gpu(0)] * 2 and on the
+    host, the gradients summed over the contexts by a 'device' store; a
+    step where ReLU units flip again in float64."""
+    from mxnet_tpu_torch import autograd, gluon
+    np.random.seed(seed)
+    batches = []
+    with mx.cpu():
+        for data, label in cifar_loader(mx, os.path.join(root, "cifar")):
+            batches.append((data.asnumpy()[:CIFAR_HOST_BATCH],
+                            label.asnumpy()[:CIFAR_HOST_BATCH]))
+            if len(batches) == CIFAR_HOST_STEPS:
+                break
+    host_ctxs = [mx.cpu(c) for c in range(DP_CONTEXTS)]
+    card_ctxs = [mx.gpu(0)] * DP_CONTEXTS
+    rng = np.random.RandomState(seed + 152)
+    nets = {}
+    for where, ctxs in (("host", host_ctxs), ("card", card_ctxs),
+                        ("trajectory", host_ctxs), ("host64", host_ctxs),
+                        ("card64", card_ctxs)):
+        with mx.sym.NameManager():
+            nets[where] = gluon.model_zoo.vision.get_model(
+                "resnet18_v1", classes=10, thumbnail=True)
+        nets[where].initialize(ctx=ctxs)
+        nets[where](mx.nd.array(batches[0][0][:1], ctx=ctxs[0]))
+        if where.endswith("64"):
+            nets[where].cast("float64")
+        nets[where].hybridize()
+    weights = {}
+    for name, p in nets["host"].collect_params().items():
+        shape = tuple(p.shape)
+        if name.endswith(("gamma", "running_var")):
+            v = 1 + 0.1 * rng.uniform(-1, 1, shape)
+        elif name.endswith(("beta", "running_mean", "bias")):
+            v = 0.1 * rng.uniform(-1, 1, shape)
+        else:
+            v = rng.standard_normal(shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+        weights[name] = v.astype(np.float32)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def forward_backward(net, ctxs, x, y, dtype="float32"):
+        xs = gluon.utils.split_and_load(mx.nd.array(x, ctx=ctxs[0],
+                                                    dtype=dtype), ctxs)
+        ys = gluon.utils.split_and_load(mx.nd.array(y, ctx=ctxs[0],
+                                                    dtype=dtype), ctxs)
+        with autograd.record():
+            outs = [net(a) for a in xs]
+            losses = [loss_fn(o, b) for o, b in zip(outs, ys)]
+        for loss in losses:
+            loss.backward()
+        return np.concatenate([o.asnumpy() for o in outs])
+
+    def set_weights(net, state, ctxs):
+        for name, p in net.collect_params().items():
+            p.set_data(mx.nd.array(state[name], ctx=mx.cpu(),
+                                   dtype=p.list_data()[0].dtype))
+
+    traj = nets["trajectory"]
+    set_weights(traj, weights, host_ctxs)
+    trainer = gluon.Trainer(traj.collect_params(), "sgd", dict(CIFAR_SGD),
+                            kvstore="device")
+    states = []
+    for x, y in batches:
+        states.append({n: p.data(host_ctxs[0]).asnumpy()
+                       for n, p in traj.collect_params().items()})
+        forward_backward(traj, host_ctxs, x, y)
+        trainer.step(x.shape[0])
+
+    def run(where, state, x, y, dtype="float32"):
+        ctxs = card_ctxs if where == "card" else host_ctxs
+        net = nets[where + ("64" if dtype == "float64" else "")]
+        set_weights(net, state, ctxs)
+        out = forward_backward(net, ctxs, x, y, dtype)
+        trained = [(n, p) for n, p in net.collect_params().items()
+                   if p.grad_req != "null"]
+        kv = mx.kv.create("device")
+        for i, (_, p) in enumerate(trained):
+            grads = p.list_grad()
+            kv.init(i, grads[0])
+            kv.push(i, grads)
+            kv.pull(i, out=grads)
+        if not replicas_equal([p.list_grad() for _, p in trained]):
+            raise AssertionError("gluon dp2: reduced gradients differ")
+        return out, {n: p.list_grad()[0].asnumpy() for n, p in trained}
+
+    sym = nets["host"](mx.sym.var("data"))
+    half = CIFAR_HOST_BATCH // DP_CONTEXTS
+    teacher_forced_steps(
+        "gluon dp2", run, states, batches, seed,
+        lambda state, x: sum(relu_flips(mx, sym, state,
+                                        x[c * half:(c + 1) * half])
+                             for c in range(DP_CONTEXTS)),
+        lambda where, state, x, y: run(where, state, x, y, "float64"))
+
+
+def train_data_parallel(mx, seed, root):
+    """Phase 15.  Returns {path: launches}."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    clock = time.perf_counter()
+    symbol = dp_symbol()
+    single = expected_train_launches(symbol)
+    per_step = {k: v * DP_CONTEXTS for k, v in single.items()}
+    images, labels = dp_data(seed)
+    arg0, aux0 = dp_init(mx, symbol, seed)
+    print("dp2: ResNet-50 (models/resnet.py, 1000 classes, 3x224x224), "
+          "Module(context=[gpu(0)] * 2) at batch %d (%d a context), SGD lr "
+          "0.1 momentum 0.9 wd 1e-4, f32, TF32 off; expected launches per "
+          "step %s (the single-context path's %s, twice)"
+          % (DP_BATCH, DP_BATCH // DP_CONTEXTS, per_step, single))
+    paths = {}
+    K.reset_launch_counts()
+    kept = {}
+    for store in DP_STORES:
+        # 15b is compared bit for bit with the 'device' run: both under
+        # deterministic cuDNN
+        torch.backends.cudnn.deterministic = store == "device"
+        try:
+            mod, kept[store], _ = dp_fit(
+                mx, symbol, images, labels, arg0, aux0, store, DP_STEPS,
+                per_step, "dp2 %s" % store + (" (cuDNN deterministic)"
+                                              if store == "device" else ""),
+                keep=DIST_STEPS if store == "device" else 0)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        launches = K.launch_counts()
+        dp_profile(mx, mod, images, labels, "dp2 %s" % store)
+        K.reset_launch_counts()
+        K.LAUNCHES.update(launches)
+        del mod
+        torch.cuda.empty_cache()
+    paths["module_resnet50_dp2"] = K.launch_counts()
+    dp_codes_check(mx, symbol, images, labels, arg0, aux0, per_step)
+    torch.cuda.empty_cache()
+    for store in DP_STORES:
+        dp_host_steps(mx, symbol, arg0, aux0, images, labels, store, seed)
+    lap = time.perf_counter()
+    paths["module_resnet50_dist2"] = train_dist(
+        mx, seed, root, images, labels, dict(arg0, **aux0),
+        kept["device"], single)
+    print("dist: 15b in %.1f s" % (time.perf_counter() - lap))
+    paths["gluon_resnet18_cifar_dp2"] = gluon_dp(mx, seed, root)
+    print("phase 15 parts done in %.1f s" % (time.perf_counter() - clock))
+    return paths
+
+
 def ptxas_entries(text):
     """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
     per compiled entry of an ``nvcc -Xptxas=-v`` report.  The kernel is
@@ -7248,6 +7991,8 @@ def main():
                         help=argparse.SUPPRESS)  # cifar_profile_apart
     parser.add_argument("--rec-profile", metavar="ROOT",
                         help=argparse.SUPPRESS)  # rec_profile_apart
+    parser.add_argument("--dist-child", metavar="ROOT",
+                        help=argparse.SUPPRESS)  # dist_launch
     args = parser.parse_args()
     if not os.path.isdir(os.path.join(HERE, "mxnet_tpu_torch")):
         print("chip_smoke: mxnet_tpu_torch/ is not beside this script",
@@ -7274,6 +8019,8 @@ def main():
         return cifar_profile_child(mx, args.seed, args.cifar_profile)
     if args.rec_profile:
         return rec_profile_child(mx, args.seed, args.rec_profile)
+    if args.dist_child:
+        return dist_child(mx, args.seed, args.dist_child)
     print("card: %s" % card_line())
     print("torch %s, CUDA %s, %d device(s)"
           % (torch.__version__, torch.version.cuda, torch.cuda.device_count()))
@@ -7345,6 +8092,10 @@ def main():
         lap("14 (ResNet-50 from an io_pipeline Pipeline in thread and "
             "process mode, ImageDetIter at SSD-300's input, a mem:// "
             "checkpoint)")
+        paths.update(train_data_parallel(mx, args.seed, root))
+        lap("15 (ResNet-50 over two contexts with kvstore 'tpu_ici' and "
+            "'device', with dist_sync across two processes, Gluon "
+            "ResNet-18 through Trainer(kvstore='device'))")
     # "launches": the path each kernel serves in this script (the serving
     # forward, the LM's training, and the bf16 fused training; LeNet's and
     # DCGAN's are in launches_by_path)

@@ -30,7 +30,11 @@ testing helpers, ``check_consistency`` among them.  ``mx.recordio``,
 detection records, ``mx.io_pipeline`` decodes on worker threads or
 processes into deterministic batches, and ``gluon.data.vision`` holds
 the image datasets and transforms; batches reach the card from pinned
-buffers on a side stream.
+buffers on a side stream.  ``mx.kv`` holds the KVStore: ``Module`` and
+``gluon.Trainer`` train over several contexts (``[gpu(0)] * 2`` on one
+card) through ``'local'``, ``'device'`` (with 2-bit compression),
+``'tpu_ici'`` (NCCL between distinct cards) and, across processes that
+``tools/launch.py`` starts, ``'dist_sync'`` over ``torch.distributed``.
 
 Entry points run on the card (``gpu(0)``) unless given ``cpu()``; without
 a card they raise ``MXNetError`` rather than fall back to the host.
@@ -63,6 +67,8 @@ from . import filesystem  # noqa: F401
 from . import recordio  # noqa: F401
 from . import io_native  # noqa: F401
 from . import image  # noqa: F401
+from . import kvstore  # noqa: F401
+from . import kvstore as kv  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import model  # noqa: F401
@@ -86,3 +92,9 @@ from . import log  # noqa: F401
 from . import misc  # noqa: F401
 from . import engine  # noqa: F401
 from . import libinfo  # noqa: F401
+from . import kvstore_server  # noqa: F401
+from .kvstore_server import _init_kvstore_server_module
+
+# a process launched in the server or scheduler role parks here, as the
+# reference's does at import (kvstore_server.py:76)
+_init_kvstore_server_module()

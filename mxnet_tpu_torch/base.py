@@ -8,14 +8,78 @@ graph sees them; :func:`torch_dtype` maps a name onto the tensor type.
 """
 from __future__ import annotations
 
+import datetime
+import logging
+import os
+import time
+
 import numpy as np
 import torch
 
 __version__ = "1.0.1"  # capability parity target: MXNet 1.0.1
 
+_logger = logging.getLogger("mxnet_tpu_torch")
+
 
 class MXNetError(Exception):
     """Error raised by mxnet_tpu_torch (ref: MXGetLastError)."""
+
+
+# the TCP store this process rendezvoused on (set by the launcher bridge)
+_DIST_STORE = []
+
+
+def maybe_initialize_distributed_from_env():
+    """Bridge the launcher's environment (``tools/launch.py`` sets
+    ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES`` and
+    ``JAX_PROCESS_ID``; only the names are shared with the JAX package) to
+    ``torch.distributed``: a TCP store at that address, rank 0 hosting
+    it, and the default process group over gloo.  A no-op when the
+    variables are absent or name one process, or when a process group
+    exists.  The dist store calls it when it is first created."""
+    addr = os.environ.get("JAX_COORDINATOR_ADDRESS")
+    nproc = os.environ.get("JAX_NUM_PROCESSES")
+    pid = os.environ.get("JAX_PROCESS_ID")
+    if not (addr and nproc and pid) or int(nproc) <= 1:
+        return
+    if torch.distributed.is_initialized():
+        return
+    initialize_distributed_with_retry(addr, int(nproc), int(pid))
+
+
+def initialize_distributed_with_retry(addr, nproc, pid, attempts=3,
+                                      timeout_s=300):
+    """``torch.distributed.init_process_group`` over a TCP store at
+    ``addr`` (``host:port``), with the JAX package's bounded retry and
+    backoff: rank 0 may bind its port seconds after its peers start, so a
+    failed connection is tried again before it raises."""
+    dist = torch.distributed
+    host, port = addr.rsplit(":", 1)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    last = None
+    for attempt in range(attempts):
+        try:
+            store = dist.TCPStore(host, int(port), nproc, pid == 0,
+                                  timeout=timeout)
+            dist.init_process_group("gloo", store=store, rank=pid,
+                                    world_size=nproc, timeout=timeout)
+            _DIST_STORE[:] = [store]
+            return
+        except RuntimeError as e:  # DistNetworkError among them: retried
+            last = e
+            _logger.warning("torch.distributed rendezvous attempt %d/%d "
+                            "failed: %s", attempt + 1, attempts, e)
+            time.sleep(2.0 * (attempt + 1))
+    raise last
+
+
+def dist_store():
+    """The process group's key-value store: the bridge's, else the one
+    ``init_process_group`` made."""
+    if _DIST_STORE:
+        return _DIST_STORE[0]
+    from torch.distributed import distributed_c10d
+    return distributed_c10d._get_default_store()
 
 
 def attr_to_str(value):

@@ -31,7 +31,7 @@ from .. import autograd
 from .. import executor_cache
 from ..symbol import Symbol
 from .parameter import (DeferredInitializationError, Parameter,
-                        ParameterDict)
+                        ParameterDict, forward_position, run_at_position)
 from .utils import _indent
 
 
@@ -222,7 +222,10 @@ class Block:
             param.cast(dtype)
 
     def __call__(self, *args):
-        return self.forward(*args)
+        position = forward_position(args)
+        if position is None:
+            return self.forward(*args)
+        return run_at_position(position, self.forward, *args)
 
     def forward(self, *args):
         raise NotImplementedError

@@ -10,7 +10,9 @@ mark_variables``), so a recorded forward reaches it.
 """
 from __future__ import annotations
 
+import threading
 import warnings
+import weakref
 from collections import OrderedDict, namedtuple
 
 import numpy as np
@@ -33,6 +35,45 @@ class DeferredInitializationError(MXNetError):
 _Pending = namedtuple("_Pending", ["init", "contexts", "fallback", "payload"])
 
 _GRAD_REQS = ("write", "add", "null")
+
+# -- the replica a forward pass runs for -----------------------------------
+# Contexts of one list may share a device: ``[gpu(0)] * 2`` on one card, or
+# host contexts, which are all the one host device.  ``split_and_load``
+# records each slice's position in its context list; a top-level Block
+# called with such a slice runs with that position, and a Parameter takes
+# the slot at it when that slot's device is the one asked for.
+_SLICES = {}                  # id(slice) -> (weak reference, position)
+_FORWARD = threading.local()  # .position while such a forward runs
+
+
+def mark_slice(array, position):
+    """Record ``array`` as the slice of context ``position``."""
+    key = id(array)
+    _SLICES[key] = (weakref.ref(array, lambda _: _SLICES.pop(key, None)),
+                    position)
+
+
+def forward_position(args):
+    """The position of the slice a top-level forward is called with (its
+    first argument), or None: inside a forward, or for another array."""
+    if getattr(_FORWARD, "position", None) is not None or not args:
+        return None
+    entry = _SLICES.get(id(args[0]))
+    return entry[1] if entry is not None and entry[0]() is args[0] else None
+
+
+def run_at_position(position, fn, *args):
+    """``fn(*args)`` with Parameters reading the slots at ``position``."""
+    _FORWARD.position = position
+    try:
+        return fn(*args)
+    finally:
+        _FORWARD.position = None
+
+
+def _same_device(a, b):
+    return (a.device_typeid == 2) == (b.device_typeid == 2) and (
+        a.device_typeid != 2 or a.device_id == b.device_id)
 
 
 def _as_context_list(ctx):
@@ -229,6 +270,10 @@ class Parameter:
             if len(self._slots) == 1:
                 return self._slots[0]
             ctx = current_context()
+        position = getattr(_FORWARD, "position", None)
+        if position is not None and position < len(self._slots) \
+                and _same_device(self._slots[position][0], ctx):
+            return self._slots[position]
         for slot in self._slots:
             if slot[0] == ctx:
                 return slot

@@ -12,6 +12,7 @@ import math
 
 from ..base import MXNetError
 from ..ndarray import NDArray, array
+from .parameter import mark_slice
 
 
 def _slice_bounds(size, num_slice):
@@ -46,10 +47,13 @@ def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
         data = array(data, ctx=ctx_list[0])
     if len(ctx_list) == 1:
         return [data.as_in_context(ctx_list[0])]
-    return [piece.as_in_context(ctx)
-            for piece, ctx in zip(
-                split_data(data, len(ctx_list), batch_axis, even_split),
-                ctx_list)]
+    slices = [piece.as_in_context(ctx) for piece, ctx in zip(
+        split_data(data, len(ctx_list), batch_axis, even_split), ctx_list)]
+    # contexts may share a device ([gpu(0)] * 2): a forward on a slice
+    # reads the Parameters' slots at the slice's position
+    for position, piece in enumerate(slices):
+        mark_slice(piece, position)
+    return slices
 
 
 def clip_global_norm(arrays, max_norm):

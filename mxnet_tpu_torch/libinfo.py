@@ -29,6 +29,6 @@ def features():
         "CUDA": torch.cuda.is_available(),
         "CUDNN": torch.backends.cudnn.is_available(),
         "HAND_KERNELS": bool(find_lib_path()),
-        "DIST_KVSTORE": False,
+        "DIST_KVSTORE": True,
         "PROFILER": False,
     }

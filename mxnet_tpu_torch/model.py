@@ -6,16 +6,95 @@ Counterpart of ``mxnet_tpu/model.py`` (ref: python/mxnet/model.py):
 names, byte for byte the JAX package's, so a checkpoint saved by either
 package loads in the other.  ``FeedForward`` is a thin adapter over
 ``Module``; its default context is the card (``gpu(0)``), where the JAX
-package's is ``cpu()``: the port's default device is the card.  The
-key-value-store helpers wait for the multi-device slice.
+package's is ``cpu()``: the port's default device is the card.
+
+``_create_kvstore``, ``_initialize_kvstore``, ``_update_params_on_kvstore``
+and ``_update_params`` are the key-value-store steps that ``Module`` and
+``gluon.Trainer`` share (ref: model.py:58-166).
 """
 from __future__ import annotations
 
 import logging
 
+from . import kvstore as kvs
 from . import ndarray as nd
 from .context import cpu, gpu
 from .module.base_module import BatchEndParam  # noqa: F401
+
+
+def _create_kvstore(kvstore, num_device, arg_params):
+    """``(store, update_on_kvstore)`` for a store name, a store or None
+    (ref: model.py:58).  One context with a store that is neither
+    distributed nor collective needs none; ``'local'`` does not update on
+    the store when a parameter has more than 16M elements; a collective
+    store (``nccl``, ``tpu``, ``ici``) leaves the update to each context,
+    whose replicas apply it to one reduced gradient."""
+    update_on_kvstore = True
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, kvs.KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        if (num_device == 1 and "dist" not in kvstore
+                and "tpu" not in kvstore and "ici" not in kvstore):
+            kv = None
+        else:
+            kv = kvs.create(kvstore)
+            if kvstore == "local":
+                max_size = max(int(param.size)
+                               for param in arg_params.values())
+                if max_size > 1024 * 1024 * 16:
+                    update_on_kvstore = False
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    if kv is None or any(t in kv.type for t in ("nccl", "tpu", "ici")):
+        update_on_kvstore = False
+    return (kv, update_on_kvstore)
+
+
+def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
+                        update_on_kvstore):
+    """Init every key from the masters; a store that updates hands its
+    weights to every context (ref: model.py:96)."""
+    for idx, param_on_devs in enumerate(param_arrays):
+        name = param_names[idx]
+        kvstore.init(name, arg_params[name])
+        if update_on_kvstore:
+            kvstore.pull(name, param_on_devs, priority=-idx)
+
+
+def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore,
+                              param_names):
+    """The store updates: push each key's gradients, pull its weights
+    (ref: model.py:126)."""
+    for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
+                                                      grad_arrays)):
+        if grad_list[0] is None:
+            continue
+        name = param_names[index]
+        kvstore.push(name, grad_list, priority=-index)
+        kvstore.pull(name, arg_list, priority=-index)
+
+
+def _update_params(param_arrays, grad_arrays, updater, num_device,
+                   kvstore=None, param_names=None):
+    """Each context updates its weights from the reduced gradients: one
+    batched ``push_pull_list`` where the store has it, else a push and a
+    pull a key (ref: model.py:145)."""
+    live = [(i, a, g) for i, (a, g) in
+            enumerate(zip(param_arrays, grad_arrays)) if g[0] is not None]
+    if kvstore is not None and hasattr(kvstore, "push_pull_list") and live:
+        kvstore.push_pull_list([param_names[i] for i, _, _ in live],
+                               [g for _, _, g in live],
+                               [g for _, _, g in live])
+    elif kvstore is not None:
+        for index, _, grad_list in live:
+            name = param_names[index]
+            kvstore.push(name, grad_list, priority=-index)
+            kvstore.pull(name, grad_list, priority=-index)
+    for index, arg_list, grad_list in live:
+        for k, (p, g) in enumerate(zip(arg_list, grad_list)):
+            updater(index * num_device + k, g, p)
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):

@@ -16,7 +16,10 @@ through a fused step of its own over one shared state (masters,
 optimizer states, ``num_update``): ``init_optimizer`` and
 ``switch_bucket`` give each bucket a step that shares the anchor's.  A
 monitor, a shape change or a bare ``update()`` retires the steps of all
-buckets at once.
+buckets at once.  ``context`` lists and ``work_load_list`` pass to every
+bucket's Module, and every bucket shares the anchor's store (``fit(
+kvstore=...)``); over several contexts the buckets take the general
+path.
 """
 from __future__ import annotations
 
@@ -74,6 +77,7 @@ class BucketingModule(BaseModule):
             sym, data_names, label_names = self._sym_gen(bucket_key)
         return Module(sym, data_names, label_names, logger=self.logger,
                       context=self._context,
+                      work_load_list=self._work_load_list,
                       fixed_param_names=self._fixed_param_names,
                       state_names=self._state_names)
 

@@ -46,8 +46,14 @@ one launch from the host a step in place of ~2,000.
   ``export_states`` and ``load_states`` act once on the shared state,
   and ``retire`` leaves the fused path in every sharer.
 
-The JAX package's multi-device paths, overlapped collectives, health
-sentinel, memory profiler and program cache wait for later slices.
+It serves one context without a store.  ``refusal`` keeps the JAX
+package's gating for the rest: a store that updates, a store on one
+context, several contexts without a collective store, on one device or
+with unequal slices take the general path.  On distinct cards under a
+collective store the JAX package fuses the data-parallel step; that path
+waits for the next multi-device slice (A3b), as do the overlapped
+collectives, the health sentinel, the memory profiler and the program
+cache.
 """
 from __future__ import annotations
 
@@ -92,11 +98,26 @@ class FusedTrainStep:
     @staticmethod
     def refusal(module):
         """Why the fused step cannot serve ``module`` (None when it can):
-        the JAX package's single-device gating."""
+        the JAX package's gating (``FusedTrainStep.supports``)."""
         group = module._exec_group
-        if group is None or len(group.execs) != 1 \
-                or len(module._context) != 1:
-            return "more than one device"
+        n = len(module._context)
+        if group is None or len(group.execs) != n:
+            return "the executor group does not match the contexts"
+        if module._update_on_kvstore:
+            return "the store updates the weights"
+        kv = module._kvstore
+        if n == 1 and kv is not None:
+            return "one context with a store"
+        if n > 1:
+            if kv is None or not any(t in kv.type for t in ("tpu", "ici")):
+                return "several contexts without a collective store"
+            if len({c.torch_device() for c in module._context}) != n:
+                return "several contexts on one device"
+            if len({s.stop - s.start for s in group.slices}) != 1:
+                return "unequal batch slices"
+            # distinct cards under a collective store: the JAX package
+            # fuses the data-parallel step (BatchNorm over the whole batch)
+            return "the fused dp step waits for A3b"
         opt = module._optimizer
         if opt is None or not opt._fused_ok():
             return "optimizer %s has no fused update of its own" \

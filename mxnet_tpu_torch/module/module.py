@@ -1,15 +1,19 @@
-"""Module: the symbolic training interface over one device.
+"""Module: the symbolic training interface over one or more contexts.
 
-Counterpart of ``mxnet_tpu/module/module.py``: ``bind`` (through the
-executor group's ``simple_bind``) and ``reshape``, ``init_params`` with
-host masters filled by the initializer's name rules or from given dicts,
-``set_params``/``get_params``, ``init_optimizer`` (one context with
-``kvstore`` "local" or None updates locally, ``rescale_grad = 1 /
-batch_size``), ``forward``, ``backward``, ``forward_backward``,
-``update`` and ``update_metric``; checkpoints (``save_checkpoint``, the
-static ``load``) and optimizer-state files in both of the JAX package's
-formats: ``fused_v2`` from the fused step, the ``Updater``'s pickle from
-the general path.
+Counterpart of ``mxnet_tpu/module/module.py``: ``bind`` (one executor a
+context through the executor group, each batch split by
+``work_load_list``) and ``reshape``, ``init_params`` with host masters
+filled by the initializer's name rules or from given dicts,
+``set_params``/``get_params``, ``init_optimizer`` with a KVStore (the
+JAX package's rules: one context without a ``dist`` store updates
+locally, a store that updates holds the optimizer, ``dist_sync``
+multiplies the batch size in ``rescale_grad``), ``forward``,
+``backward``, ``forward_backward``, ``update`` (through the store or
+the per-context Updater) and ``update_metric``; checkpoints
+(``save_checkpoint``, the static ``load``) and optimizer-state files in
+both of the JAX package's formats: ``fused_v2`` from the fused step, the
+``Updater``'s pickle from the general path (the store's when it
+updates).
 
 ``init_optimizer`` engages the fused train step (``fused_step.py``:
 forward, backward and update as one CUDA graph replay a batch on the
@@ -25,8 +29,9 @@ arrays and adopts its host masters and, once it has one, its optimizer
 the new module gets a step of its own (its own executor and, on the
 card, its own graph) over the sharer's masters and optimizer states: one
 state per parameter, whichever module a batch goes through.  Retiring
-the step of one module retires every module that shares it.  Key-value
-stores wait for the multi-device slice.
+the step of one module retires every module that shares it.  Several
+contexts, or one with a store, train through the general path, as in
+the JAX package on one device (``FusedTrainStep.refusal`` names why).
 """
 from __future__ import annotations
 
@@ -40,7 +45,8 @@ from ..initializer import InitDesc, Uniform
 from ..io import DataDesc
 from ..ndarray import zeros as nd_zeros
 from .. import optimizer as opt
-from ..model import load_checkpoint
+from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
+                     _update_params_on_kvstore, load_checkpoint)
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
 from .fused_step import FusedTrainStep
@@ -56,12 +62,20 @@ class Module(BaseModule):
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging, context=None,
-                 fixed_param_names=None, state_names=None):
+                 work_load_list=None, fixed_param_names=None,
+                 state_names=None, compression_params=None):
         super().__init__(logger=logger)
         self._symbol = symbol
+        self._compression_params = compression_params
         context = current_context() if context is None else context
         self._context = list(context) if isinstance(context, (list, tuple)) \
             else [context]
+        self._work_load_list = list(work_load_list
+                                    or [1] * len(self._context))
+        if len(self._work_load_list) != len(self._context):
+            raise MXNetError("work_load_list has %d entries for %d "
+                             "contexts" % (len(self._work_load_list),
+                                           len(self._context)))
         self._data_names = list(data_names or [])
         self._label_names = list(label_names or [])
         self._fixed_param_names = list(fixed_param_names or [])
@@ -77,6 +91,8 @@ class Module(BaseModule):
         self._output_names = symbol.list_outputs()
         self._arg_params = self._aux_params = None
         self._optimizer = self._updater = None
+        self._kvstore = None
+        self._update_on_kvstore = None
         self._preload_opt_states = None
         self._fused_step = None
         self._fused_pending = False
@@ -161,10 +177,11 @@ class Module(BaseModule):
         self._data_shapes = _descs(data_shapes)
         self._label_shapes = _descs(label_shapes) or None
         self._exec_group = DataParallelExecutorGroup(
-            self._symbol, self._context, self._data_shapes,
-            self._label_shapes, self._param_names, for_training,
-            inputs_need_grad, shared_group=shared_group, logger=self.logger,
-            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
+            self._symbol, self._context, self._work_load_list,
+            self._data_shapes, self._label_shapes, self._param_names,
+            for_training, inputs_need_grad, shared_group=shared_group,
+            logger=self.logger, fixed_param_names=self._fixed_param_names,
+            grad_req=grad_req, state_names=self._state_names)
         self.binded = True
         if shared_module is not None:
             # the sharer's masters, outright (bucketing trains one set)
@@ -227,8 +244,12 @@ class Module(BaseModule):
         if not (self.binded and self.params_initialized):
             raise AssertionError("get_params() needs bind() and "
                                  "init_params()")
-        self._exec_group.get_params(self._arg_params, self._aux_params)
+        self._sync_params_from_devices()
         return self._arg_params, self._aux_params
+
+    def _sync_params_from_devices(self):
+        """The host masters from the bound arrays (the contexts' mean)."""
+        self._exec_group.get_params(self._arg_params, self._aux_params)
 
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
@@ -239,29 +260,55 @@ class Module(BaseModule):
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        if kvstore not in (None, "local") or len(self._context) != 1:
-            raise MXNetError("kvstore %r: the port trains on one context "
-                             "with kvstore 'local' or None (key-value "
-                             "stores wait for the multi-device slice)"
-                             % (kvstore,))
-        rescale_grad = 1.0 / self._exec_group.batch_size
+        kvstore, update_on_kvstore = _create_kvstore(
+            kvstore, len(self._context), self._arg_params)
+        # one context and no other process: nothing to synchronize, so the
+        # update runs locally on the device (the same math)
+        if (kvstore is not None and len(self._context) == 1
+                and "dist" not in kvstore.type
+                and kvstore.num_workers == 1):
+            kvstore, update_on_kvstore = None, False
+        batch_size = self._exec_group.batch_size
+        if kvstore and "dist" in kvstore.type and "_sync" in kvstore.type:
+            batch_size *= kvstore.num_workers
+        rescale_grad = 1.0 / batch_size
         if isinstance(optimizer, str):
+            # index -> name, for the per-parameter lr/wd multipliers: one
+            # index a parameter on the store, one a copy otherwise
+            ndev = 1 if update_on_kvstore else len(self._context)
+            idx2name = {i * ndev + k: n
+                        for i, n in enumerate(self._param_names)
+                        for k in range(ndev)}
             optimizer_params = dict(optimizer_params)
             optimizer_params.setdefault("rescale_grad", rescale_grad)
-            optimizer = opt.create(
-                optimizer, sym=self._symbol,
-                param_idx2name=dict(enumerate(self._param_names)),
-                **optimizer_params)
+            optimizer = opt.create(optimizer, sym=self._symbol,
+                                   param_idx2name=idx2name,
+                                   **optimizer_params)
         elif not isinstance(optimizer, opt.Optimizer):
             raise TypeError("optimizer must be a name or an Optimizer")
         elif optimizer.rescale_grad != rescale_grad:
             warnings.warn(
                 "Optimizer created manually outside Module but "
-                "rescale_grad is not normalized to 1.0/batch_size (%s vs. "
-                "%s). Is this intended?" % (optimizer.rescale_grad,
-                                            rescale_grad), stacklevel=2)
+                "rescale_grad is not normalized to "
+                "1.0/batch_size/num_workers (%s vs. %s). Is this intended?"
+                % (optimizer.rescale_grad, rescale_grad), stacklevel=2)
         self._optimizer = optimizer
-        self._updater = opt.get_updater(optimizer)
+        self._kvstore = kvstore
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
+        if kvstore:
+            self._sync_params_from_devices()  # the store starts from them
+            if self._compression_params:
+                kvstore.set_gradient_compression(self._compression_params)
+            _initialize_kvstore(kvstore=kvstore,
+                                param_arrays=self._exec_group.param_arrays,
+                                arg_params=self._arg_params,
+                                param_names=self._param_names,
+                                update_on_kvstore=update_on_kvstore)
+        if update_on_kvstore:
+            kvstore.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         why = FusedTrainStep.refusal(self)
         self._fused_step = FusedTrainStep(self) if why is None else None
@@ -281,6 +328,8 @@ class Module(BaseModule):
             raise AssertionError("borrow_optimizer() needs a sharer with "
                                  "an initialized optimizer")
         self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
         self._updater = shared_module._updater
         self.optimizer_initialized = True
         self._fused_pending = False
@@ -366,11 +415,15 @@ class Module(BaseModule):
             self._retire_fused_step("update() without a fused "
                                     "forward_backward")
         group = self._exec_group
-        for index, (name, (weight,)) in enumerate(
-                zip(self._param_names, group.param_arrays)):
-            grad = group.execs[0].grad_dict.get(name)
-            if grad is not None:
-                self._updater(index, grad, weight)
+        if self._update_on_kvstore:
+            _update_params_on_kvstore(group.param_arrays, group.grad_arrays,
+                                      self._kvstore, self._param_names)
+        else:
+            _update_params(group.param_arrays, group.grad_arrays,
+                           updater=self._updater,
+                           num_device=len(self._context),
+                           kvstore=self._kvstore,
+                           param_names=self._param_names)
 
     def get_outputs(self, merge_multi_context=True):
         return self._exec_group.get_outputs(merge_multi_context)
@@ -387,14 +440,17 @@ class Module(BaseModule):
 
     # -- optimizer-state files -----------------------------------------------
     def save_optimizer_states(self, fname):
-        """``fused_v2`` after the fused step has run, else the Updater's
-        pickled states."""
+        """``fused_v2`` after the fused step has run, the store's states
+        when it updates, else the Updater's pickled states."""
         if not self.optimizer_initialized:
             raise AssertionError("save_optimizer_states() needs "
                                  "init_optimizer()")
         if self._fused_step is not None and self._fused_step.ran:
             blob = pickle.dumps({"format": "fused_v2",
                                  "states": self._fused_step.export_states()})
+        elif self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         else:
             blob = self._updater.get_states()
         with open(fname, "wb") as fout:
@@ -424,4 +480,7 @@ class Module(BaseModule):
                 "updater-format optimizer states with a fused step active; "
                 "disabling the fused step to restore them faithfully")
             self._fused_step.retire(None)
-        self._updater.set_states(raw)
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+        else:
+            self._updater.set_states(raw)

@@ -720,6 +720,12 @@ class Updater:
             self.states[index] = self.optimizer.create_state_multi_precision(
                 index, weight)
             self.states_synced[index] = True
+        elif not self.states_synced.get(index, True):
+            # loaded states go where the weight is (ref:
+            # Updater.sync_state_context)
+            self.states[index] = _on_context(self.states[index],
+                                             weight.context)
+            self.states_synced[index] = True
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
 
@@ -735,6 +741,16 @@ class Updater:
     def get_states(self, dump_optimizer=False):
         return pickle.dumps((self.states, self.optimizer) if dump_optimizer
                             else self.states)
+
+
+def _on_context(state, ctx):
+    """An optimizer state (an NDArray, or tuples and lists of them) on
+    ``ctx``."""
+    if isinstance(state, NDArray):
+        return state.as_in_context(ctx)
+    if isinstance(state, (tuple, list)):
+        return type(state)(_on_context(s, ctx) for s in state)
+    return state
 
 
 def get_updater(optimizer):

@@ -214,7 +214,7 @@ def test_port_reads_a_jax_trainer_save_states_file(tmp_path):
     assert all(isinstance(p, mt.gluon.Parameter)
                for p in opt_t.param_dict.values())
     states_j = trainer_j._updaters[0].states
-    states_t = trainer_t._updater.states
+    states_t = trainer_t._updaters[0].states
     assert sorted(states_t) == sorted(states_j) and len(states_t) == 11
     for idx, st in states_j.items():
         np.testing.assert_array_equal(states_t[idx].asnumpy(), st.asnumpy())

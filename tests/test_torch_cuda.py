@@ -1841,3 +1841,206 @@ def test_image_record_iter_on_the_card_equals_the_host(card, tmp_path):
     for a, b in zip(runs[0], runs[1]):
         np.testing.assert_array_equal(a, b)
     assert len(runs[2]) == len(runs[0])
+
+
+# -- the KVStore over contexts on one card ---------------------------------
+
+def _dp_conv_bn(sym):
+    net = sym.Convolution(sym.Variable("data"), kernel=(3, 3), num_filter=4,
+                          pad=(1, 1), name="conv1")
+    net = sym.BatchNorm(net, fix_gamma=False, name="bn1")
+    net = sym.Activation(net, act_type="relu", name="relu1")
+    net = sym.Pooling(net, kernel=(2, 2), stride=(2, 2), pool_type="max",
+                      name="pool1")
+    net = sym.FullyConnected(sym.Flatten(net), num_hidden=3, name="fc")
+    return sym.SoftmaxOutput(net, name="softmax")
+
+
+@pytest.mark.parametrize("store", ["tpu_ici", "device"])
+def test_push_pull_list_over_two_contexts_on_the_card(card, store):
+    """Keys of two dtypes pushed from [gpu(0), gpu(0)] and pulled back into
+    the pushed arrays: equal to the host's [cpu(0), cpu(1)] bit for bit
+    (one add of two copies)."""
+    rng = np.random.RandomState(0)
+    shapes = [((64, 3, 7, 7), np.float32), ((1000,), np.float32),
+              ((5, 5), np.float64)]
+    vals = [[rng.standard_normal(s).astype(dt) for _ in range(2)]
+            for s, dt in shapes]
+    got = {}
+    for where, ctxs in (("card", [mx.gpu(0)] * 2),
+                        ("host", [mx.cpu(0), mx.cpu(1)])):
+        kv = mx.kv.create(store)
+        arrays = []
+        for k, ((s, dt), copies) in enumerate(zip(shapes, vals)):
+            kv.init(k, mx.nd.zeros(s, ctx=ctxs[0], dtype=dt))
+            arrays.append([mx.nd.array(v, ctx=c, dtype=dt)
+                           for v, c in zip(copies, ctxs)])
+        if hasattr(kv, "push_pull_list"):
+            kv.push_pull_list(list(range(3)), arrays, arrays)
+        else:
+            for k, a in enumerate(arrays):
+                kv.push(k, a)
+                kv.pull(k, out=a)
+        got[where] = [[x.asnumpy() for x in a] for a in arrays]
+    for card_copies, host_copies, copies in zip(got["card"], got["host"],
+                                                vals):
+        for c, h in zip(card_copies, host_copies):
+            np.testing.assert_array_equal(c, h)
+            np.testing.assert_array_equal(c, copies[0] + copies[1])
+
+
+@pytest.mark.parametrize("store", ["device", "local"])
+def test_store_updates_on_the_card_after_a_host_init(card, no_tf32, store,
+                                                     tmp_path):
+    """A store initialized from host weights (as Module's masters are) and
+    pushed gradients from [gpu(0), gpu(0)] keeps the weight and the SGD
+    momentum on the card from the first push on; pulled weights equal the
+    host's [cpu(0), cpu(1)] run within 1e-6 over 3 pushes, and states saved
+    on the card load into a fresh store whose next push matches."""
+    rng = np.random.RandomState(3)
+    w0 = rng.standard_normal((256, 64)).astype(np.float32)
+    grads = [[rng.standard_normal(w0.shape).astype(np.float32)
+              for _ in range(2)] for _ in range(3)]
+    got = {}
+    for where, ctxs in (("card", [mx.gpu(0)] * 2),
+                        ("host", [mx.cpu(0), mx.cpu(1)])):
+        kv = mx.kv.create(store)
+        kv.init("w", mx.nd.array(w0, ctx=mx.cpu()))
+        kv.set_optimizer(mx.optimizer.create(
+            "sgd", learning_rate=0.1, momentum=0.9, wd=1e-4))
+        outs = [mx.nd.zeros(w0.shape, ctx=c) for c in ctxs]
+        for g in grads:
+            kv.push("w", [mx.nd.array(x, ctx=c) for x, c in zip(g, ctxs)])
+            kv.pull("w", out=outs)
+        got[where] = outs[0].asnumpy()
+        if where == "card":
+            assert kv._stored["w"].tensor.is_cuda
+            assert kv._updater.states["w"].tensor.is_cuda
+            kv.save_optimizer_states(str(tmp_path / "states"))
+            resumed = mx.kv.create(store)
+            resumed.init("w", mx.nd.array(got[where], ctx=mx.cpu()))
+            resumed.set_optimizer(mx.optimizer.create(
+                "sgd", learning_rate=0.1, momentum=0.9, wd=1e-4))
+            resumed.load_optimizer_states(str(tmp_path / "states"))
+            push = [mx.nd.array(x, ctx=c) for x, c in zip(grads[0], ctxs)]
+            for k in (kv, resumed):
+                k.push("w", push)
+            np.testing.assert_array_equal(resumed._stored["w"].asnumpy(),
+                                          kv._stored["w"].asnumpy())
+    np.testing.assert_allclose(got["card"], got["host"], rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_two_bit_codes_on_the_card_equal_the_hosts(card):
+    """The quantizer on the card, residual carried over 3 pushes, at
+    ResNet-50's largest gradient (2048 x 1000) and an odd length: codes
+    and residuals bit for bit the host's."""
+    from mxnet_tpu_torch.kvstore import gradient_compression as gc
+    gen = torch.Generator().manual_seed(1)
+    for n in (2048 * 1000, 1001):
+        res_c, res_h = torch.zeros(n, device=card), torch.zeros(n)
+        for _ in range(3):
+            g = torch.randn(n, generator=gen) * 0.4
+            codes_c, res_c = gc.quantize_flat(g.to(card), res_c, 0.5)
+            codes_h, res_h = gc.quantize_flat(g, res_h, 0.5)
+            assert torch.equal(codes_c.cpu(), codes_h)
+            assert torch.equal(res_c.cpu(), res_h)
+        rows = torch.stack([codes_h, codes_h.flip(0)])
+        assert torch.equal(gc.dequantize_sum_flat(rows.to(card), n,
+                                                  0.5).cpu(),
+                           gc.dequantize_sum_flat(rows, n, 0.5))
+
+
+def test_two_context_conv_bn_step_on_the_card_against_the_host(card):
+    """One step of a conv+BatchNorm net at 3x24x24, batch 8 over two
+    contexts (each normalizing its slice), from the same weights: outputs
+    within 1e-3, and each gradient summed over the contexts within 1e-3
+    relative L2 or 4 times the host's own change when the images move by
+    1e-7 (phase 4's rule); the card's two contexts hold one sum."""
+    rng = np.random.RandomState(2)
+    x = rng.standard_normal((8, 3, 24, 24)).astype(np.float32)
+    y = rng.randint(0, 3, 8).astype(np.float32)
+    sym = _dp_conv_bn(mx.sym)
+    arg_shapes, _, aux_shapes = sym.infer_shape(data=(8, 3, 24, 24))
+    args = {n: (0.3 * rng.standard_normal(s)).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    args["bn1_gamma"] = 1 + 0.1 * args["bn1_gamma"]
+
+    def step(ctxs, data):
+        mod = mx.mod.Module(sym, context=ctxs)
+        mod.bind([("data", data.shape)], [("softmax_label", y.shape)])
+        mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                    for k, v in args.items()})
+        mod.init_optimizer(kvstore="tpu_ici", optimizer="sgd")
+        mod.forward_backward(mx.io.DataBatch(
+            [mx.nd.array(data, ctx=mx.cpu())], [mx.nd.array(y, ctx=mx.cpu())]))
+        group = mod._exec_group
+        mod._kvstore.push_pull_list(mod._param_names, group.grad_arrays,
+                                    group.grad_arrays)
+        for grads in group.grad_arrays:
+            assert torch.equal(grads[0].tensor.cpu(), grads[1].tensor.cpu())
+        return mod.get_outputs()[0].asnumpy(), {
+            n: g[0].asnumpy() for n, g in zip(mod._param_names,
+                                              group.grad_arrays)}
+
+    host = [mx.cpu(0), mx.cpu(1)]
+    out_c, g_c = step([mx.gpu(0)] * 2, x)
+    out_h, g_h = step(host, x)
+    nudged = (x * (1 + 1e-7 * rng.standard_normal(x.shape))).astype(
+        np.float32)
+    _, g_n = step(host, nudged)
+    np.testing.assert_allclose(out_c, out_h, atol=1e-3, rtol=1e-3)
+
+    def rel(a, b):
+        return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
+    for n in g_h:
+        assert rel(g_c[n], g_h[n]) <= max(1e-3, 4 * rel(g_n[n], g_h[n])), n
+
+
+_DIST_WORKER = r"""
+import numpy as np
+import mxnet_tpu_torch as mx
+kv = mx.kv.create("dist_sync")
+ctx = mx.gpu(0)
+kv.init("w", mx.nd.zeros((1000,), ctx=ctx))
+kv.push("w", mx.nd.ones((1000,), ctx=ctx) * (kv.rank + 1))
+out = mx.nd.zeros((1000,), ctx=ctx)
+kv.pull("w", out=out)
+assert out.context == ctx and np.all(out.asnumpy() == 3.0), out.asnumpy()
+assert kv.backend == "gloo", kv.backend
+kv.barrier()
+print("CARD_DIST_OK rank=%d backend=%s" % (kv.rank, kv.backend), flush=True)
+"""
+
+
+def test_dist_sync_push_pull_of_two_processes_on_the_card(card, tmp_path):
+    """Two processes on gpu(0) through ``tools/launch.py``: gloo (NCCL
+    refuses two ranks on one card), the sum on the card in both; the
+    process group is killed past 180 s."""
+    import os
+    import signal
+    import socket
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "worker.py"
+    script.write_text(_DIST_WORKER)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(repo, "tools", "launch.py"), "-n", "2",
+         "--port", str(port), "--", sys.executable, str(script)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=repo, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=180)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError("the ranks hung; output:\n" + out)
+    assert proc.returncode == 0 and out.count("CARD_DIST_OK") == 2, out

@@ -420,8 +420,13 @@ def test_hybridized_losses_match_imperative():
 
 
 def test_trainer_over_two_contexts_raises():
+    """A Trainer over two contexts makes its store at the first step; a
+    'local' store refuses gradient compression there, as the JAX
+    package's does."""
     from mxnet_tpu_torch import gluon
     net = gluon.nn.Dense(2, in_units=3)
     net.initialize(ctx=[mx.cpu(0), mx.cpu(1)])
+    trainer = gluon.Trainer(net.collect_params(), "sgd", kvstore="local",
+                            compression_params={"type": "2bit"})
     with pytest.raises(mx.MXNetError):
-        gluon.Trainer(net.collect_params(), "sgd")
+        trainer.step(2)

@@ -51,6 +51,9 @@ def test_scan_covers_the_package():
                    "image/detection.py", "io_pipeline/__init__.py",
                    "io_pipeline/adapter.py", "io_pipeline/device.py",
                    "io_pipeline/executor.py", "io_pipeline/pipeline.py",
-                   "io_pipeline/sharding.py", "io_pipeline/stages.py"):
+                   "io_pipeline/sharding.py", "io_pipeline/stages.py",
+                   "kvstore/__init__.py", "kvstore/gradient_compression.py",
+                   "kvstore/nccl.py", "kvstore/dist.py",
+                   "kvstore_server.py"):
         assert os.path.join("mxnet_tpu_torch", *module.split("/")) in names
     assert len(names) > 20

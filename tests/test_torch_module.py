@@ -348,10 +348,18 @@ def test_module_fit_small_convnet_matches_reference_kernels(monkeypatch):
 
 
 def test_module_refuses_a_kvstore_it_does_not_have():
-    mod = mt.mod.Module(_small_net(mt.sym), context=mt.cpu())
+    """An unknown store name raises where a store is made (several
+    contexts); one context with a known local store updates locally, as
+    the JAX package does."""
+    mod = mt.mod.Module(_small_net(mt.sym), context=[mt.cpu(0), mt.cpu(1)])
     mod.bind([("data", (4, 3, 6, 6))], [("softmax_label", (4,))])
     mod.init_params(mt.initializer.Xavier())
     with pytest.raises(mt.MXNetError):
-        mod.init_optimizer(kvstore="device")
+        mod.init_optimizer(kvstore="no_such_store")
     mod.init_optimizer(kvstore=None)
-    assert mod.optimizer_initialized
+    assert mod.optimizer_initialized and mod._kvstore is None
+    one = mt.mod.Module(_small_net(mt.sym), context=mt.cpu())
+    one.bind([("data", (4, 3, 6, 6))], [("softmax_label", (4,))])
+    one.init_params(mt.initializer.Xavier())
+    one.init_optimizer(kvstore="device")
+    assert one._kvstore is None and one._update_on_kvstore is False
