@@ -360,12 +360,40 @@ CUDA toolkit.  Phases, each of which raises on failure:
       ``Trainer(kvstore='device')``, hybridized, 4 steps: ms per step,
       launches, both contexts' weights bit for bit; the first 3 steps
       against the host's two contexts by phase 4's rule.
-16. The ``kernels`` JSON line (each kernel's record with its launches on
+16. The mesh layer (``mx.parallel``) on one card, f32 with TF32 off,
+   inputs from ``--seed``:
+   a. the JAX package's multichip LM (``__graft_entry__.py:210-286``:
+      embedding, causal ring self-attention over sp, a GPipe FFN stack
+      over pp, a top-1 MoE over ep, a tp-split output projection) at
+      GPT-2 small's widths (vocab 50257, width 768, 12 heads, 1024
+      tokens, FFN 3072, 2 stages, 8 experts at capacity 1.25), batch 8,
+      ``n_micro = 2*dp``, through ``ShardedTrainStep`` (SGD lr 0.01,
+      momentum 0.9) with the dry-run's ``param_spec``, 4 steps on each of
+      two meshes of 8 x gpu(0), ``dp=2, pp=2, ep=2`` and ``dp=2, sp=2,
+      tp=2``: the first 2 steps (loss and every parameter's update)
+      against a one-position mesh over [gpu(0)] by phase 4's rule (the
+      floor: that run with the embedding moved by 1e-7), whose first step
+      is held to the host's one position the same way; ms per step, the
+      collectives' count and span a step by kind, one profiled step's
+      busy share, peak memory;
+   b. causal ``ring_attention`` at [8, 1024, 12, 64] over sp=4 positions
+      against the flash kernel on the same q/k/v, both against the plain
+      attention at phase 2's limits, each timed;
+   c. the LM without the pp/ep/sp primitives over ``dp=4`` positions:
+      the monolithic path and the overlap path at
+      ``MXNET_TPU_COMM_BUCKET_MB=25`` from one state for 3 steps by phase
+      4's rule, one all-reduce a bucket; then 2-bit at threshold 0.5 for 4
+      steps, and again at the threshold about a tenth of the first
+      bucket's values reach (no value of these gradients reaches 0.5, so
+      there every code is 0): the first bucket's codes on the card bit
+      for bit the host quantizer's and every loss finite; each variant's
+      ms per step, its collectives' span and ``reduce_buckets``' span.
+17. The ``kernels`` JSON line (each kernel's record with its launches on
    every path, phase 10's five and the MLP's with 0 of each, LeNet's with
    2 max-pool backwards a step, DCGAN's with 26 channel sums an
    iteration, phase 13's two paths, and its bf16/f16/f64, head_dim 32,
    LeNet, DCGAN and ResNet-18 instances; phase 14's paths; phase 15's
-   three), then the result line.
+   three; phase 16's three, with 0 of each), then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is not beside this script.
@@ -7951,6 +7979,584 @@ def train_data_parallel(mx, seed, root):
     return paths
 
 
+# -- phase 16: the mesh layer (mx.parallel) on one card: the JAX package's
+# multichip LM (__graft_entry__.py:210-286) at GPT-2 small's widths through
+# ShardedTrainStep over 8-position meshes of gpu(0) --------------------------
+
+# GPT-2 small's published widths (GPT2S above: vocab, width, heads, context,
+# FFN hidden 4x the width) for the dry-run's layers; its 2 pipeline stages
+# and 8 experts, top-1 at capacity 1.25; batch 8, n_micro = 2*dp, SGD lr
+# 0.01 momentum 0.9, weights 0.05 * randn from --seed as the dry-run draws
+# them.  Each mesh has 2 stages of FFN: a pipeline position holds stages/pp
+# of them.  The output projection's columns are padded from 50257 to 50304
+# (Megatron's make-vocab-size-divisible-by, 64 here) so that tp divides
+# them; the pad's logits never reach the softmax.
+MESH_LM = dict(vocab=50257, vocab_padded=50304, d_model=768, heads=12,
+               seq=1024, hidden=3072, stages=2, experts=8, capacity=1.25,
+               batch=8, lr=0.01, momentum=0.9)
+MESH_LM_MESHES = (("parallel_lm_dp_pp_ep", dict(dp=2, pp=2, ep=2)),
+                  ("parallel_lm_dp_sp_tp", dict(dp=2, sp=2, tp=2)))
+MESH_POSITIONS = 8
+MESH_DP = 2                   # both meshes' dp
+MESH_LM_STEPS = 4             # a mesh's steps; the first is warm-up
+MESH_LM_CHECKED = 2           # steps held to the one-position mesh
+# phase 4's rule: each parameter's update (and the loss) within this
+# relative L2 of the one-position mesh's, or within 4x the floor: the
+# one-position run against itself with the embedding moved by 1e-7
+MESH_LM_REL = 1e-3
+# the dry-run's param_spec (__graft_entry__.py:219-230)
+MESH_LM_SPEC = {
+    "embed": (), "wq": (None, "tp"), "wk": (None, "tp"), "wv": (None, "tp"),
+    "wo": ("tp", None), "stage_w1": ("pp", None, None),
+    "stage_w2": ("pp", None, None), "gate_w": (),
+    "moe_w1": ("ep", None, None), "moe_w2": ("ep", None, None),
+    "w_out": (None, "tp"),
+}
+RING_SHAPE = (8, 1024, 12, 64)   # B, S, H, D: 16b's causal ring attention
+RING_SP = 4
+DP4 = 4                          # 16c's pure data-parallel mesh
+DP4_BUCKET_MB = "25"
+DP4_STEPS = 3
+DP4_2BIT_STEPS = 4
+DP4_THRESHOLD = "0.5"
+COMM_ENV = ("MXNET_TPU_COMM_BUCKET_MB", "MXNET_TPU_GRAD_COMPRESS",
+            "MXNET_TPU_GRAD_COMPRESS_THRESHOLD")
+
+
+def mesh_lm_data(seed, cfg=MESH_LM):
+    """The LM's weights ({name: f32 numpy}, 0.05 * standard normal) and
+    one batch of random token ids and targets, from ``seed``."""
+    rng = np.random.default_rng(seed + 160)
+    v, d, h = cfg["vocab"], cfg["d_model"], cfg["hidden"]
+    s, e = cfg["stages"], cfg["experts"]
+    shapes = {"embed": (v, d), "wq": (d, d), "wk": (d, d), "wv": (d, d),
+              "wo": (d, d), "stage_w1": (s, d, h), "stage_w2": (s, h, d),
+              "gate_w": (d, e), "moe_w1": (e, d, h), "moe_w2": (e, h, d),
+              "w_out": (d, cfg["vocab_padded"])}
+    params = {k: rng.standard_normal(shape, dtype=np.float32) * 0.05
+              for k, shape in shapes.items()}
+    batch = {k: rng.integers(0, v, (cfg["batch"], cfg["seq"]))
+             for k in ("tokens", "targets")}
+    return params, batch
+
+
+def _ffn_stages(per):
+    """The dry-run's FFN stage, ``x + relu(x @ w1) @ w2``, over ``per``
+    stages in sequence."""
+    import torch
+
+    def stage(p, x):
+        w1, w2 = p
+        for i in range(per):
+            x = x + torch.relu(x @ w1[i]) @ w2[i]
+        return x
+    return stage
+
+
+def _nll(x, w_out, targets, vocab):
+    """Mean cross-entropy of the output projection's first ``vocab``
+    logits (the rest are the projection's pad)."""
+    import torch
+    logits = torch.einsum("bsd,dv->bsv", x, w_out)[..., :vocab]
+    logp = torch.log_softmax(logits, dim=-1)
+    return torch.mean(-torch.gather(logp, -1, targets[..., None]))
+
+
+def mesh_lm_loss(mx, mesh, moe_shards=1, cfg=MESH_LM):
+    """The dry-run's ``loss_fn`` in the port: embedding, causal ring
+    self-attention over sp, the GPipe FFN stack over pp (each pipeline
+    position holds stages/pp of the FFN stages), the top-1 MoE over ep,
+    the tp-split output projection, mean cross-entropy.
+
+    The MoE's capacity counts each dp position's own tokens, so a mesh
+    with dp=2 drops other tokens than one position routing the whole
+    batch.  ``moe_shards`` > 1 routes that many slices of the batch
+    apart, one after another: on one position, the function a mesh with
+    dp = ``moe_shards`` computes."""
+    import torch
+    par = mx.parallel
+    dp, pp = mesh.shape["dp"], mesh.shape["pp"]
+    per = cfg["stages"] // pp
+
+    def moe(x, params):
+        return par.moe_ffn(x, params["gate_w"], params["moe_w1"],
+                           params["moe_w2"], mesh=mesh,
+                           capacity_factor=cfg["capacity"], batch_axis="dp")
+
+    def loss_fn(params, b):
+        x = params["embed"][b["tokens"]]                  # [b, s, d]
+        x = x + par.ring_self_attention(
+            x, params["wq"], params["wk"], params["wv"], params["wo"],
+            num_heads=cfg["heads"], mesh=mesh, causal=True, batch_axis="dp")
+        stacked = tuple(params[k].reshape((pp, per) + params[k].shape[1:])
+                        for k in ("stage_w1", "stage_w2"))
+        x = par.pipeline_stages(
+            stacked, x, _ffn_stages(per), n_micro=2 * dp, mesh=mesh,
+            params_spec=(par.P("pp"), par.P("pp")), batch_axis="dp",
+            tail_spec=("sp", None))
+        x = x + torch.cat([moe(part, params)
+                           for part in x.chunk(moe_shards, dim=0)])
+        return _nll(x, params["w_out"], b["targets"], cfg["vocab"])
+    return loss_fn
+
+
+def mesh_lm_step(mx, mesh, params, loss_fn, cfg=MESH_LM):
+    par = mx.parallel
+    return par.ShardedTrainStep(
+        loss_fn, params, mesh, lr=cfg["lr"], momentum=cfg["momentum"],
+        param_sharding={k: par.NamedSharding(mesh, par.P(*s))
+                        for k, s in MESH_LM_SPEC.items()},
+        batch_spec={k: par.NamedSharding(mesh, par.P("dp", "sp"))
+                    for k in ("tokens", "targets")})
+
+
+def _global_params(step):
+    return {k: v.global_tensor().detach().clone()
+            for k, v in step.params.items()}
+
+
+def _update_gap(got, want, start):
+    """Relative L2 of each parameter's update: |got - want| / |want -
+    start| (the weights themselves hide any update under the start)."""
+    import torch
+    out = {}
+    for k in want:
+        moved = float(torch.linalg.vector_norm(
+            want[k].double() - start[k].to(want[k].device).double()))
+        out[k] = float(torch.linalg.vector_norm(
+            got[k].to(want[k].device).double() - want[k].double())) \
+            / max(moved, 1e-30)
+    return out
+
+
+def _dropped_tokens(mx, fn):
+    """``fn()``, and the tokens the MoE's capacity dropped in it, summed
+    over the positions' routings (each read back: a host sync a
+    position)."""
+    moe = mx.parallel.moe
+    real, dropped = moe._route, []
+
+    def route(*args):
+        buf, kept = real(*args)
+        dropped.append(int((~kept[2]).sum()))
+        return buf, kept
+    moe._route = route
+    try:
+        return fn(), sum(dropped)
+    finally:
+        moe._route = real
+
+
+def _steps(mx, step, batch, n):
+    """(losses, ms per step, snapshots of the global weights after each of
+    the first MESH_LM_CHECKED steps, tokens the MoE dropped in the first
+    step, whose time counts no further)."""
+    import torch
+    losses, ms, snaps, dropped = [], [], [], None
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            loss, dropped = _dropped_tokens(mx, lambda: step(batch))
+        else:
+            loss = step(batch)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i < MESH_LM_CHECKED:
+            snaps.append(_global_params(step))
+    return losses, ms, snaps, dropped
+
+
+def mesh_lm_reference(mx, seed, params, batch):
+    """The LM on a one-position mesh over [gpu(0)], its MoE routed per
+    half batch as the meshes' dp=2 positions route it: MESH_LM_CHECKED
+    steps, then again with the embedding moved by a relative 1e-7 (the
+    floor); the first step on the host's one position.  Returns (start,
+    losses, snapshots, floors {step: {name: gap}}, loss floors)."""
+    import torch
+    par = mx.parallel
+    one = par.create_mesh(devices=[mx.gpu(0)])
+    start = {k: torch.from_numpy(v).cuda() for k, v in params.items()}
+    ref = mesh_lm_step(mx, one, params, mesh_lm_loss(mx, one, MESH_DP))
+    losses, ms, snaps, dropped = _steps(mx, ref, batch, MESH_LM_CHECKED)
+    del ref
+    rng = np.random.default_rng(seed + 161)
+    nudged = dict(params, embed=(params["embed"] * (1 + 1e-7 * rng.
+                  standard_normal(params["embed"].shape))).astype(np.float32))
+    alt = mesh_lm_step(mx, one, nudged, mesh_lm_loss(mx, one, MESH_DP))
+    alt_losses, _, alt_snaps, _ = _steps(mx, alt, batch, MESH_LM_CHECKED)
+    del alt
+    floors = [_update_gap(a, s, start) for a, s in zip(alt_snaps, snaps)]
+    loss_floor = [abs(a - b) / abs(b) for a, b in zip(alt_losses, losses)]
+    print("mesh lm: one position over gpu(0): losses %s, ms per step %s, "
+          "tokens the MoE dropped in step 1: %d; the floor (embedding moved "
+          "by 1e-7): largest update gap %s, loss %s"
+          % (", ".join("%.6f" % v for v in losses),
+             ", ".join("%.1f" % v for v in ms), dropped,
+             ", ".join("%.3g" % max(f.values()) for f in floors),
+             ", ".join("%.3g" % v for v in loss_floor)))
+    torch.cuda.empty_cache()
+    # the host's one position, one step
+    t0 = time.perf_counter()
+    host = par.create_mesh(devices=[mx.cpu()])
+    hstep = mesh_lm_step(mx, host, params, mesh_lm_loss(mx, host, MESH_DP))
+    host_loss = float(hstep(batch))
+    host_params = {k: v.global_tensor() for k, v in hstep.params.items()}
+    del hstep
+    limit = max(MESH_LM_REL, 4.0 * max(floors[0].values()))
+    gap = _update_gap(snaps[0], host_params, {k: torch.from_numpy(v)
+                                              for k, v in params.items()})
+    loss_gap = abs(losses[0] - host_loss) / abs(host_loss)
+    worst = max(gap, key=gap.get)
+    print("mesh lm: step 1 on gpu(0) against the host's one position "
+          "(%.1f s on the host): loss %.6f / %.6f (relative %.3g), largest "
+          "update gap %.3g (%s), limit %.3g"
+          % (time.perf_counter() - t0, losses[0], host_loss, loss_gap,
+             gap[worst], worst, limit))
+    if gap[worst] > limit or loss_gap > max(MESH_LM_REL,
+                                            4.0 * loss_floor[0]):
+        raise AssertionError("the LM's first step on the card disagrees "
+                             "with the host's")
+    return start, losses, snaps, floors, loss_floor
+
+
+def mesh_lm_run(mx, tag, sizes, params, batch, reference):
+    """16a on one mesh of MESH_POSITIONS x gpu(0): MESH_LM_STEPS steps,
+    the first MESH_LM_CHECKED against the one-position mesh; ms per step
+    (median after the first), the collectives' count and span a step by
+    kind, one profiled step's busy share, peak memory."""
+    import torch
+    par = mx.parallel
+    start, ref_losses, ref_snaps, floors, loss_floor = reference
+    mesh = par.create_mesh(par.MeshSpec(**sizes),
+                           devices=[mx.gpu(0)] * MESH_POSITIONS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = mesh_lm_step(mx, mesh, params, mesh_lm_loss(mx, mesh))
+    losses, ms, snaps, dropped = _steps(mx, step, batch, MESH_LM_STEPS - 1)
+    with par.collectives.watch(timed=True) as w:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    spans = w.spans_ms()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for i in range(MESH_LM_CHECKED):
+        limit = max(MESH_LM_REL, 4.0 * max(floors[i].values()))
+        gap = _update_gap(snaps[i], ref_snaps[i], start)
+        worst = max(gap, key=gap.get)
+        loss_gap = abs(losses[i] - ref_losses[i]) / abs(ref_losses[i])
+        print("%s: step %d against the one-position mesh: loss %.6f / %.6f "
+              "(relative %.3g), largest update gap %.3g (%s), median %.3g, "
+              "limit %.3g; tokens the MoE dropped in step 1, summed over "
+              "the positions' routings: %d"
+              % (tag, i + 1, losses[i], ref_losses[i], loss_gap, gap[worst],
+                 worst, float(np.median(list(gap.values()))), limit,
+                 dropped))
+        if gap[worst] > limit or loss_gap > max(MESH_LM_REL,
+                                                4.0 * loss_floor[i]):
+            raise AssertionError("%s disagrees with the one-position mesh"
+                                 % tag)
+    if not all(np.isfinite(losses)):
+        raise AssertionError("%s: a loss is not finite" % tag)
+    table = profile_run(lambda: step(batch), tag)
+    print("%s: mesh %s over %d x gpu(0), %d steps: losses %s; ms per step "
+          "%s, median after the first %.2f (%.0f tokens/s); collectives a "
+          "step %s, their span %s ms; peak memory %.2f GB; %s; card %s"
+          % (tag, dict(mesh.shape), MESH_POSITIONS, MESH_LM_STEPS,
+             ", ".join("%.6f" % v for v in losses),
+             ", ".join("%.1f" % v for v in ms), float(np.median(ms[1:])),
+             MESH_LM["batch"] * MESH_LM["seq"] * 1e3
+             / float(np.median(ms[1:])),
+             {k: v for k, v in w.counts.items() if v},
+             {k: round(v, 3) for k, v in spans.items() if w.counts[k]},
+             peak, "busy not measured" if table is None else table.share(),
+             card_line()))
+    if w.counts != step.collectives:
+        raise AssertionError("%s: the step's record %s, the watch %s"
+                             % (tag, step.collectives, w.counts))
+
+
+def ring_against_flash(mx, seed):
+    """16b: causal ring attention over sp=RING_SP positions of gpu(0)
+    against the port's flash kernel on the same q/k/v, both against the
+    plain attention, at phase 2's limits; both timed."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    g = torch.Generator(device="cuda").manual_seed(seed + 162)
+    q, k, v = (torch.randn(RING_SHAPE, generator=g, device="cuda")
+               for _ in range(3))
+    mesh = mx.parallel.create_mesh(sp=RING_SP, devices=[mx.gpu(0)] * RING_SP)
+    scale = 1.0 / RING_SHAPE[-1] ** 0.5
+
+    def ring():
+        return mx.parallel.ring_attention(q, k, v, mesh=mesh, causal=True)
+
+    def flash():
+        return K.flash_attention(q, k, v, causal=True)
+
+    def plain():
+        return K._reference_attention(q, k, v, True, scale)
+    want = plain()
+    errs = {}
+    for name, got in (("ring", ring()), ("flash", flash())):
+        errs[name] = _agree(got, want, F32_TOL)
+    errs["ring vs flash"] = _agree(ring(), flash(), F32_TOL)
+    times = {name: time_ms(fn, reps=10) for name, fn in
+             (("ring", ring), ("flash", flash), ("plain", plain))}
+    bound, _ = flash_bound(q, RING_SHAPE[1], True, None)
+    print("ring: causal ring_attention %s over sp=%d x gpu(0) against "
+          "flash_attention and the plain attention: max_abs_err %s "
+          "(atol %g rtol %g); one call: ring %.3f ms, flash %.4f ms, plain "
+          "%.3f ms; the flash bound %.4f ms (%s); card %s"
+          % (RING_SHAPE, RING_SP,
+             ", ".join("%s %.3g" % (k, e) for k, (e, _) in errs.items()),
+             F32_TOL["atol"], F32_TOL["rtol"], times["ring"],
+             times["flash"], times["plain"], bound[0], bound[1],
+             card_line()))
+    if not all(ok for _, ok in errs.values()):
+        raise AssertionError("ring attention disagrees with the flash "
+                             "kernel or the plain attention")
+
+
+def _causal_attention(q, k, v):
+    import torch
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+    n = q.shape[1]
+    mask = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _dense_moe(x, gate_w, w1, w2):
+    """Top-1 MoE with no capacity limit: each token's output is its
+    expert's FFN times its gate, whatever the other tokens do."""
+    import torch
+    t = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax(t @ gate_w, dim=-1)
+    expert = torch.argmax(probs, dim=-1)
+    gate = probs.gather(1, expert[:, None])
+    out = torch.zeros_like(t)
+    for i in range(w1.shape[0]):
+        (idx,) = (expert == i).nonzero(as_tuple=True)
+        out = out.index_put((idx,), torch.relu(t[idx] @ w1[i]) @ w2[i])
+    return (out * gate).reshape(x.shape)
+
+
+def dp4_loss(cfg=MESH_LM):
+    """16c's LM without the pp/ep/sp primitives: plain causal attention,
+    the FFN stages in sequence, a top-1 MoE with no capacity limit (so a
+    shard's loss is the mean of its tokens' and the overlap path's mean
+    of the shards' is the global mean), the output projection."""
+    heads = cfg["heads"]
+
+    def loss_fn(params, b):
+        x = params["embed"][b["tokens"]]
+        bsz, s, d = x.shape
+
+        def proj(w):
+            return (x @ w).reshape(bsz, s, heads, d // heads)
+        o = _causal_attention(proj(params["wq"]), proj(params["wk"]),
+                              proj(params["wv"]))
+        x = x + o.reshape(bsz, s, d) @ params["wo"]
+        x = _ffn_stages(cfg["stages"])(
+            (params["stage_w1"], params["stage_w2"]), x)
+        x = x + _dense_moe(x, params["gate_w"], params["moe_w1"],
+                           params["moe_w2"])
+        return _nll(x, params["w_out"], b["targets"], cfg["vocab"])
+    return loss_fn
+
+
+def _with_env(env, fn):
+    saved = {k: os.environ.get(k) for k in COMM_ENV}
+    for k in COMM_ENV:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dp4_run(mx, tag, params, batch, env, steps):
+    """One ShardedTrainStep over DP4 x gpu(0) under the comm ``env``:
+    (step, losses, global weights after the last step, collectives a
+    step); prints ms per step, the collectives' span and the span of
+    ``comm.reduce_buckets`` whole (CUDA events around each call: the
+    flattening, a 2-bit bucket's quantizing and dequantizing, the
+    collectives and the scatter back)."""
+    import torch
+    par = mx.parallel
+    mesh = par.create_mesh(dp=DP4, devices=[mx.gpu(0)] * DP4)
+
+    def build():
+        return par.ShardedTrainStep(
+            dp4_loss(), params, mesh, lr=MESH_LM["lr"],
+            momentum=MESH_LM["momentum"],
+            batch_spec={k: par.NamedSharding(mesh, par.P("dp"))
+                        for k in ("tokens", "targets")})
+    step = _with_env(env, build)
+    losses, ms, spans, reduce_ms, counts = [], [], [], [], []
+    timer, real = EventTimer(), par.comm.reduce_buckets
+    par.comm.reduce_buckets = timer.wrap(real)
+    try:
+        for _ in range(steps):
+            with par.collectives.watch(timed=True) as w:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(step(batch)))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            spans.append(sum(w.spans_ms().values()))
+            reduce_ms.append(timer.take())
+            counts.append(step.collectives)
+    finally:
+        par.comm.reduce_buckets = real
+    print("%s: %s; losses %s; ms per step %s (median after the first "
+          "%.2f); collectives a step %s, their span %s ms; reduce_buckets "
+          "span %s ms; card %s"
+          % (tag, "buckets %d (%s)" % (step.comm_plan.n_buckets,
+                                       step.comm_plan.compress or "psum")
+             if step.comm_plan else "monolithic",
+             ", ".join("%.6f" % v for v in losses),
+             ", ".join("%.1f" % v for v in ms), float(np.median(ms[1:])),
+             {k: v for k, v in counts[-1].items() if v},
+             ", ".join("%.3f" % v for v in spans),
+             ", ".join("%.3f" % v for v in reduce_ms), card_line()))
+    return step, losses, _global_params(step), counts
+
+
+def dp4_two_bit(mx, params, batch, threshold):
+    """16c's 2-bit run at ``threshold`` for DP4_2BIT_STEPS: the first
+    bucket's codes of step 1 on every position against the host
+    quantizer's of the same carry, byte for byte; every loss finite.
+    Returns the first bucket's carries of step 1."""
+    import torch
+    from mxnet_tpu_torch.kvstore import gradient_compression as gc
+    par = mx.parallel
+    seen, real = [], par.comm.quantize_flat
+
+    def recording(flat, residual, t):
+        codes, res = real(flat, residual, t)
+        if len(seen) < DP4:
+            seen.append((flat.detach().cpu(), codes.cpu()))
+        return codes, res
+    par.comm.quantize_flat = recording
+    try:
+        step, losses, _, counts = dp4_run(
+            mx, "dp4 2bit at %s" % threshold, params, batch,
+            {"MXNET_TPU_COMM_BUCKET_MB": DP4_BUCKET_MB,
+             "MXNET_TPU_GRAD_COMPRESS": "2bit",
+             "MXNET_TPU_GRAD_COMPRESS_THRESHOLD": threshold},
+            DP4_2BIT_STEPS)
+    finally:
+        par.comm.quantize_flat = real
+    same = sum(torch.equal(codes, gc.quantize_flat(
+        carry, torch.zeros_like(carry), float(threshold))[0])
+        for carry, codes in seen)
+    values = sum(c.numel() for c, _ in seen)
+    nonzero = sum(int((c.abs() >= float(threshold)).sum()) for c, _ in seen)
+    print("dp4 2bit at %s: the first bucket's codes on %d positions (%d "
+          "bytes each; %d of %d values at or past the threshold): bit for "
+          "bit the host quantizer's in %d; all-gathers a step %s for %d "
+          "buckets; wire %d bytes a position against %d f32"
+          % (threshold, len(seen), seen[0][1].numel(), nonzero, values,
+             same, [c["all-gather"] for c in counts],
+             step.comm_plan.n_buckets, step.comm_plan.wire_bytes,
+             step.comm_plan.grad_f32_bytes))
+    if len(seen) != DP4 or same != DP4:
+        raise AssertionError("dp4 2bit: the card's codes differ from the "
+                             "host quantizer's")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("dp4 2bit: a loss is not finite")
+    return [c for c, _ in seen]
+
+
+def dp4_overlap(mx, seed, params, batch):
+    """16c: the monolithic path and the bucketed overlap path from one
+    state, DP4_STEPS steps each, by phase 4's rule (the floor: the
+    monolithic run with the embedding moved by 1e-7); the overlap path's
+    one reduction a bucket; then 2-bit at DP4_THRESHOLD, and again at
+    the threshold about a tenth of that run's first carries reach (at
+    0.5 no value of these gradients does, so every code is 0)."""
+    import torch
+    start = {k: torch.from_numpy(v).cuda() for k, v in params.items()}
+    rng = np.random.default_rng(seed + 163)
+    nudged = dict(params, embed=(params["embed"] * (1 + 1e-7 * rng.
+                  standard_normal(params["embed"].shape))).astype(np.float32))
+    _, mono_losses, mono, _ = dp4_run(
+        mx, "dp4 monolithic", params, batch, {}, DP4_STEPS)
+    _, alt_losses, alt, _ = dp4_run(
+        mx, "dp4 monolithic (embedding moved by 1e-7)", nudged, batch, {},
+        DP4_STEPS)
+    torch.cuda.empty_cache()
+    step, over_losses, over, counts = dp4_run(
+        mx, "dp4 overlap", params, batch,
+        {"MXNET_TPU_COMM_BUCKET_MB": DP4_BUCKET_MB}, DP4_STEPS)
+    buckets = step.comm_plan.n_buckets
+    del step
+    torch.cuda.empty_cache()
+    floor = _update_gap(alt, mono, start)
+    gap = _update_gap(over, mono, start)
+    limit = max(MESH_LM_REL, 4.0 * max(floor.values()))
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(over_losses,
+                                                        mono_losses))
+    loss_floor = max(abs(a - b) / abs(b) for a, b in zip(alt_losses,
+                                                          mono_losses))
+    worst = max(gap, key=gap.get)
+    print("dp4: overlap against monolithic after %d steps: largest update "
+          "gap %.3g (%s), floor %.3g, limit %.3g; losses relative %.3g "
+          "(floor %.3g); all-reduces a step %s for %d buckets (+1: the "
+          "loss's pmean)" % (DP4_STEPS, gap[worst], worst,
+                             max(floor.values()), limit, loss_gap,
+                             loss_floor, [c["all-reduce"] for c in counts],
+                             buckets))
+    if gap[worst] > limit or loss_gap > max(MESH_LM_REL, 4.0 * loss_floor):
+        raise AssertionError("dp4: the overlap path disagrees with the "
+                             "monolithic one")
+    if buckets < 2 or any(c["all-reduce"] != buckets + 1 for c in counts):
+        raise AssertionError("dp4: not one reduction a bucket")
+    carries = dp4_two_bit(mx, params, batch, DP4_THRESHOLD)
+    torch.cuda.empty_cache()
+    # every 97th value: the quantile of a sample, not of 154M values
+    tenth = float(np.quantile(np.abs(torch.cat(carries).numpy()[::97]),
+                              0.9))
+    dp4_two_bit(mx, params, batch, repr(tenth))
+
+
+def train_mesh_layer(mx, seed):
+    """Phase 16.  Returns {path: launches}."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    clock = time.perf_counter()
+    params, batch = mesh_lm_data(seed)
+    print("mesh lm: the multichip LM at GPT-2 small's widths %s, %.1fM "
+          "parameters, f32, TF32 off, dry-run param_spec; card %s"
+          % (MESH_LM, sum(v.size for v in params.values()) / 1e6,
+             card_line()))
+    reference = mesh_lm_reference(mx, seed, params, batch)
+    paths = {}
+    for tag, sizes in MESH_LM_MESHES:
+        K.reset_launch_counts()
+        mesh_lm_run(mx, tag, sizes, params, batch, reference)
+        paths[tag] = K.launch_counts()
+        torch.cuda.empty_cache()
+    del reference
+    torch.cuda.empty_cache()
+    lap = time.perf_counter()
+    ring_against_flash(mx, seed)
+    print("ring: 16b in %.1f s" % (time.perf_counter() - lap))
+    K.reset_launch_counts()
+    dp4_overlap(mx, seed, params, batch)
+    paths["parallel_dp4_overlap"] = K.launch_counts()
+    torch.cuda.empty_cache()
+    print("phase 16 parts done in %.1f s" % (time.perf_counter() - clock))
+    return paths
+
+
 def ptxas_entries(text):
     """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
     per compiled entry of an ``nvcc -Xptxas=-v`` report.  The kernel is
@@ -8096,6 +8702,10 @@ def main():
         lap("15 (ResNet-50 over two contexts with kvstore 'tpu_ici' and "
             "'device', with dist_sync across two processes, Gluon "
             "ResNet-18 through Trainer(kvstore='device'))")
+    paths.update(train_mesh_layer(mx, args.seed))
+    lap("16 (the multichip LM at GPT-2 small's widths through "
+        "ShardedTrainStep over 8 positions of gpu(0), ring attention "
+        "against the flash kernel, the dp=4 overlap and 2-bit paths)")
     # "launches": the path each kernel serves in this script (the serving
     # forward, the LM's training, and the bf16 fused training; LeNet's and
     # DCGAN's are in launches_by_path)

@@ -35,6 +35,9 @@ buffers on a side stream.  ``mx.kv`` holds the KVStore: ``Module`` and
 card) through ``'local'``, ``'device'`` (with 2-bit compression),
 ``'tpu_ici'`` (NCCL between distinct cards) and, across processes that
 ``tools/launch.py`` starts, ``'dist_sync'`` over ``torch.distributed``.
+``mx.parallel`` holds the mesh layer: meshes of positions (which may
+share one card), collectives between them, ring attention, mixture of
+experts, GPipe stages and ``ShardedTrainStep``.
 
 Entry points run on the card (``gpu(0)``) unless given ``cpu()``; without
 a card they raise ``MXNetError`` rather than fall back to the host.
@@ -93,6 +96,7 @@ from . import misc  # noqa: F401
 from . import engine  # noqa: F401
 from . import libinfo  # noqa: F401
 from . import kvstore_server  # noqa: F401
+from . import parallel  # noqa: F401
 from .kvstore_server import _init_kvstore_server_module
 
 # a process launched in the server or scheduler role parks here, as the

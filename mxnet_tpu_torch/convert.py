@@ -5,7 +5,9 @@ package's parameters as ``asnumpy()`` gives them, or weights generated
 from a seed — with or without the ``arg:``/``aux:`` prefixes of a
 ``.params`` file, and returns the port's ``(arg_params, aux_params)``.
 ``set_gluon_params`` writes such a dict, or a ``.params`` file saved by
-either package, into a Gluon net's Parameters.
+either package, into a Gluon net's Parameters.  ``set_parallel_state``
+carries a JAX ``ShardedTrainStep``'s parameters and momentum, or a JAX
+``MoELayer``'s weights, as numpy arrays into the port's step or layer.
 """
 from __future__ import annotations
 
@@ -57,3 +59,49 @@ def set_gluon_params(net, source, ctx=None):
     missing = sorted(set(params.keys()) - seen)
     if missing:
         raise MXNetError("set_gluon_params: no value for %s" % missing)
+
+
+def set_parallel_state(target, arrays, momentum=None, mesh=None):
+    """Write numpy arrays into an ``mx.parallel`` object.
+
+    - ``target`` a ``ShardedTrainStep``: ``arrays`` (and ``momentum``)
+      are {name: array} of its parameters (as ``np.asarray(jax_step.
+      params[name])`` and ``momentum_buf`` give them); each is sharded by
+      the step's ``param_sharding`` over its mesh.  ``mesh`` must be the
+      step's own if given.
+    - ``target`` a ``MoELayer``: ``arrays`` holds ``gate_w``, ``w1`` and
+      ``w2``; they are placed on ``mesh``'s first position (default: the
+      layer's current device).
+    Every name the target holds must be covered."""
+    from .parallel import MoELayer, ShardedTrainStep, shard
+    from .parallel.mesh import host_tensor
+    if isinstance(target, ShardedTrainStep):
+        if mesh is not None and mesh is not target.mesh:
+            raise MXNetError("set_parallel_state: a ShardedTrainStep keeps "
+                             "its own mesh")
+        for table, values in ((target.params, arrays),
+                              (target.momentum_buf, momentum)):
+            if values is None:
+                continue
+            if set(values) != set(table):
+                raise MXNetError("set_parallel_state: names %s, the step "
+                                 "holds %s" % (sorted(values), sorted(table)))
+            for name, value in values.items():
+                if tuple(value.shape) != table[name].shape:
+                    raise MXNetError("set_parallel_state: %s has shape %s, "
+                                     "the step's %s" % (name, value.shape,
+                                                        table[name].shape))
+                table[name] = shard(value, target.param_sharding[name])
+        return target
+    if isinstance(target, MoELayer):
+        names = ("gate_w", "w1", "w2")
+        if set(arrays) != set(names):
+            raise MXNetError("set_parallel_state: a MoELayer takes %s, got %s"
+                             % (names, sorted(arrays)))
+        dev = mesh.torch_devices[0] if mesh is not None \
+            else target.gate_w.device
+        for name in names:
+            setattr(target, name, host_tensor(arrays[name]).to(dev))
+        return target
+    raise MXNetError("set_parallel_state: %r is neither a ShardedTrainStep "
+                     "nor a MoELayer" % (target,))

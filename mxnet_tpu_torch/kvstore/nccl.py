@@ -56,9 +56,19 @@ def allreduce_arrays(tensors):
 
 
 class NcclKVStore(KVStore):
-    def __init__(self, name="tpu_ici"):
+    def __init__(self, name="tpu_ici", mesh=None):
         super().__init__(name)
         self._replicas = {}  # key -> {device: reduced value}
+        self._mesh = mesh
+
+    @property
+    def mesh(self):
+        """The store's ``mx.parallel`` mesh: the one it was given, else
+        the current mesh (made on first use over every CUDA device)."""
+        if self._mesh is None:
+            from ..parallel.mesh import current_mesh
+            self._mesh = current_mesh()
+        return self._mesh
 
     @property
     def rank(self):

@@ -2044,3 +2044,86 @@ def test_dist_sync_push_pull_of_two_processes_on_the_card(card, tmp_path):
         out, _ = proc.communicate()
         raise AssertionError("the ranks hung; output:\n" + out)
     assert proc.returncode == 0 and out.count("CARD_DIST_OK") == 2, out
+
+
+# -- the mesh layer (mx.parallel) on the card ---------------------------------
+
+def _parallel_meshes(n=4, **sizes):
+    from mxnet_tpu_torch.parallel import MeshSpec, create_mesh
+    spec = MeshSpec(**(sizes or {"dp": 2, "tp": 2}))
+    return (create_mesh(spec, devices=[mx.gpu(0)] * n),
+            create_mesh(spec, devices=[mx.cpu()] * n))
+
+
+@pytest.mark.parametrize("kind", ["psum", "pmean", "all_gather", "ppermute",
+                                  "all_to_all"])
+def test_collective_over_card_positions_equals_host_positions(card, kind):
+    """Each collective over [gpu(0)] * 4 against the same collective over
+    four host positions: bit for bit (moves, and sums in position order)."""
+    from mxnet_tpu_torch.parallel import collectives as C
+    on_card, on_host = _parallel_meshes()
+    g = torch.Generator().manual_seed(1)
+    host = [torch.randn(4, 6, generator=g) for _ in range(4)]
+    calls = {
+        "psum": lambda b, m: C.psum(b, m, "tp"),
+        "pmean": lambda b, m: C.pmean(b, m, "dp"),
+        "all_gather": lambda b, m: C.all_gather(b, m, "dp"),
+        "ppermute": lambda b, m: C.ppermute(b, m, "tp", [(0, 1), (1, 0)]),
+        "all_to_all": lambda b, m: C.all_to_all(b, m, "dp", 0, 1),
+    }
+    with C.watch(timed=True) as w:
+        got = calls[kind]([t.to(card) for t in host], on_card)
+    want = calls[kind](host, on_host)
+    for a, b in zip(got, want):
+        assert a.device == card
+        assert torch.equal(a.cpu(), b)
+    assert sum(w.counts.values()) == 1
+    assert sum(w.spans_ms().values()) > 0
+
+
+def test_ring_attention_step_on_the_card_matches_its_host_run(card, no_tf32):
+    """A causal ring self-attention forward and backward over
+    [gpu(0)] * 4 (dp 2, sp 2) against the same over host positions:
+    outputs and gradients within phase 2's f32 limit, atol=rtol=1e-4
+    (f32 products and sums of up to 256 terms in another order)."""
+    from mxnet_tpu_torch.parallel import ring_self_attention
+    on_card, on_host = _parallel_meshes(dp=2, sp=2)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(4, 64, 32, generator=g)
+    ws = [torch.randn(32, 32, generator=g) * 0.2 for _ in range(4)]
+    results = []
+    for mesh, dev in ((on_card, card), (on_host, torch.device("cpu"))):
+        leaves = [t.to(dev).requires_grad_(True) for t in [x] + ws]
+        out = ring_self_attention(*leaves, num_heads=4, mesh=mesh,
+                                  batch_axis="dp")
+        (out ** 2).sum().backward()
+        results.append([out.detach().cpu()]
+                       + [t.grad.cpu() for t in leaves])
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_sharded_train_step_on_the_card_matches_the_host(card, no_tf32):
+    """The GPipe training problem at dp 2, pp 2 over [gpu(0)] * 4 against
+    host positions: 3 steps' losses and weights within 1e-5."""
+    from mxnet_tpu_torch.parallel import (NamedSharding, P,
+                                          ShardedTrainStep, pipeline_stages)
+    rng = np.random.RandomState(7)
+    w0 = rng.randn(2, 8, 8).astype(np.float32) * 0.3
+    batch = {"x": rng.randn(16, 8).astype(np.float32),
+             "y": rng.randn(16, 8).astype(np.float32)}
+    runs = []
+    for mesh in _parallel_meshes(dp=2, pp=2):
+        def loss_fn(params, b, mesh=mesh):
+            y = pipeline_stages(params["w"], b["x"],
+                                lambda p, xm: torch.tanh(xm @ p), n_micro=4,
+                                mesh=mesh, batch_axis="dp")
+            return torch.mean((y - b["y"]) ** 2)
+        step = ShardedTrainStep(
+            loss_fn, {"w": w0}, mesh, lr=0.2,
+            param_sharding={"w": NamedSharding(mesh, P("pp"))},
+            batch_spec={k: NamedSharding(mesh, P("dp")) for k in batch})
+        losses = [float(step(batch)) for _ in range(3)]
+        runs.append((losses, np.asarray(step.params["w"])))
+    np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=1e-5)
+    np.testing.assert_allclose(runs[0][1], runs[1][1], rtol=1e-5, atol=1e-6)

@@ -54,6 +54,9 @@ def test_scan_covers_the_package():
                    "io_pipeline/sharding.py", "io_pipeline/stages.py",
                    "kvstore/__init__.py", "kvstore/gradient_compression.py",
                    "kvstore/nccl.py", "kvstore/dist.py",
-                   "kvstore_server.py"):
+                   "kvstore_server.py", "parallel/__init__.py",
+                   "parallel/mesh.py", "parallel/collectives.py",
+                   "parallel/comm.py", "parallel/ring.py", "parallel/moe.py",
+                   "parallel/pipeline.py", "parallel/train.py"):
         assert os.path.join("mxnet_tpu_torch", *module.split("/")) in names
     assert len(names) > 20
