@@ -388,12 +388,41 @@ CUDA toolkit.  Phases, each of which raises on failure:
       there every code is 0): the first bucket's codes on the card bit
       for bit the host quantizer's and every loss finite; each variant's
       ms per step, its collectives' span and ``reduce_buckets``' span.
-17. The ``kernels`` JSON line (each kernel's record with its launches on
+17. The mesh Modules on one card, f32 with TF32 off, inputs from
+   ``--seed``:
+   a. BASELINE config 5's ResNet-50 v2 (15a's symbol, ``train_imagenet.
+      py``'s SGD) at batch 32 through ``mx.mod.ShardedModule`` on
+      ``create_mesh(dp=2, tp=2, devices=[gpu(0)] * 4)``, ``dp_mode``
+      "split" (each dp group its 16 rows, BatchNorm's channel sums
+      psum'd over the groups), 5 steps: the first 2 (loss, every
+      parameter's and moving statistic's update) against a plain
+      ``Module`` on gpu(0) at batch 32 from the same state by phase 4's
+      rule (the floor: that run with the images moved by 1e-7), and
+      against ``ShardedModule`` on a one-position mesh; the first step
+      against the host's one-position run; ms per step, a profiled step's
+      busy share, peak memory, the collectives' count and span a step
+      (BatchNorm psums, gradient psums, tp all-gathers), the launches a
+      step (the single-context path's, twice);
+   b. a stack of 12 GPT-2-small blocks (pre-LN as ``transformer_lm_
+      symbol`` writes them: LN, causal ``multi_head_attention`` with 12
+      heads, +x, LN, exact-GELU FFN to 3072, +x) through
+      ``mx.mod.PipelineModule`` with an embedding-plus-positions stem
+      and a final-LN vocab head (50257, ``SoftmaxOutput(preserve_shape=
+      True)`` over per-token labels), batch 8 x 1024 tokens on
+      ``create_mesh(dp=2, pp=2, devices=[gpu(0)] * 4)``, SGD lr 0.01
+      momentum 0.9, 4 steps: the first 2 against a plain ``Module`` on
+      gpu(0) over the graph flattened (the JAX test's oracle) by phase
+      4's rule (the floor: the embedding moved by 1e-7), the first step
+      against the host's one-position run; ms per step, busy share, peak
+      memory, the collectives a step, and the flash kernel's LSE
+      launches a step against ticks x stages a position x positions.
+18. The ``kernels`` JSON line (each kernel's record with its launches on
    every path, phase 10's five and the MLP's with 0 of each, LeNet's with
    2 max-pool backwards a step, DCGAN's with 26 channel sums an
    iteration, phase 13's two paths, and its bf16/f16/f64, head_dim 32,
    LeNet, DCGAN and ResNet-18 instances; phase 14's paths; phase 15's
-   three; phase 16's three, with 0 of each), then the result line.
+   three; phase 16's three, with 0 of each; phase 17's two), then the
+   result line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is not beside this script.
@@ -8557,6 +8586,493 @@ def train_mesh_layer(mx, seed):
     return paths
 
 
+# -- phase 17: the mesh Modules on one card: BASELINE config 5's ResNet-50
+# through ShardedModule at dp=2, tp=2, and GPT-2-small blocks through
+# PipelineModule at dp=2, pp=2, each over 4 positions of gpu(0) ------------
+
+SHARD_SIZES = dict(dp=2, tp=2)
+SHARD_BATCH = 32              # the single-context paths' batch
+SHARD_STEPS = 5               # the first is warm-up for the medians
+SHARD_CHECKED = 2             # steps held to the plain Module
+MODULE_REL = 1e-3             # phase 4's rule: max(1e-3, 4 x the floor)
+# GPT-2 small's published widths (GPT2S) as pipeline stages: the 12 blocks
+# of the LM, each a stage; batch 8 as phase 5; SGD as phase 16
+PIPE_GPT = dict(vocab=50257, d_model=768, heads=12, seq=1024, ffn=3072,
+                stages=12, batch=8, lr=0.01, momentum=0.9)
+PIPE_SIZES = dict(dp=2, pp=2)
+PIPE_STEPS = 4
+PIPE_CHECKED = 2
+MESH_MODULE_POSITIONS = 4
+
+
+# parameters whose gradient is 0 in exact arithmetic: softmax over the
+# keys ignores a constant added to every key's score, and a key bias adds
+# q.b to all of them.  Their updates are rounding noise, which a relative
+# update gap would divide by; they are held to their own size instead.
+ZERO_GRAD_SUFFIXES = ("attn_key_bias",)
+
+
+def _np_gaps(got, want, start):
+    """{name: gap} over {name: numpy array} snapshots: ``_update_gap``'s
+    relative L2 of each update (f32 norms, multithreaded); for the
+    ZERO_GRAD_SUFFIXES parameters |got - want| / |start|."""
+    import torch
+    out = {}
+    for k in got:
+        g, w, s0 = (torch.from_numpy(np.ascontiguousarray(t[k]))
+                    for t in (got, want, start))
+        den = s0 if k.endswith(ZERO_GRAD_SUFFIXES) else w - s0
+        out[k] = float(torch.linalg.vector_norm(g - w)) \
+            / max(float(torch.linalg.vector_norm(den)), 1e-30)
+    return out
+
+
+def _held(tag, what, gap, loss, ref_loss, floor, loss_floor):
+    """Phase 4's rule on one step: every update gap within max(1e-3, 4 x
+    the floor's largest), the loss within max(1e-3, 4 x its floor); the
+    ZERO_GRAD_SUFFIXES parameters (gaps relative to their size) within
+    1e-3 and outside the floor's largest."""
+    normal = [v for k, v in floor.items()
+              if not k.endswith(ZERO_GRAD_SUFFIXES)]
+    limit = max(MODULE_REL, 4.0 * max(normal))
+    limits = {k: MODULE_REL if k.endswith(ZERO_GRAD_SUFFIXES) else limit
+              for k in gap}
+    worst = max(gap, key=lambda k: gap[k] / limits[k])
+    loss_gap = abs(loss - ref_loss) / abs(ref_loss)
+    print("%s: %s: loss %.6f / %.6f (relative %.3g), largest update gap "
+          "%.3g (%s, limit %.3g), median %.3g, limit %.3g"
+          % (tag, what, loss, ref_loss, loss_gap, gap[worst], worst,
+             limits[worst], float(np.median(list(gap.values()))), limit))
+    if gap[worst] > limits[worst] or \
+            loss_gap > max(MODULE_REL, 4.0 * loss_floor):
+        raise AssertionError("%s disagrees with %s" % (tag, what))
+
+
+def _snapshot(mod):
+    arg, aux = mod.get_params()
+    out = {k: v.asnumpy().copy() for k, v in arg.items()}
+    out.update(("aux:" + k, v.asnumpy().copy()) for k, v in aux.items())
+    return out
+
+
+def _ce(mod, labels):
+    """The mean cross-entropy of the last outputs at ``labels``, on the
+    outputs' device."""
+    import torch
+    prob = mod.get_outputs()[0].tensor
+    lab = torch.as_tensor(np.asarray(labels).astype(np.int64),
+                          device=prob.device)
+    picked = torch.gather(prob, -1, lab[..., None])
+    return float(-torch.log(torch.clamp(picked, 1e-30, 1.0)).mean())
+
+
+def _module_steps(mx, mod, batches, keep):
+    """forward_backward + update over ``batches`` ((data, label) numpy
+    pairs): (losses, ms per step (synchronized host clock), launches per
+    step, snapshots after the first ``keep`` steps)."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    losses, ms, launches, snaps = [], [], [], []
+    for i, (x, y) in enumerate(batches):
+        batch = mx.io.DataBatch([mx.nd.array(x, ctx=mx.cpu())],
+                                [mx.nd.array(y, ctx=mx.cpu())])
+        torch.cuda.synchronize()
+        before, t0 = K.launch_counts(), time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        after = K.launch_counts()
+        launches.append({k: after[k] - before[k] for k in after
+                         if after[k] != before[k]})
+        losses.append(_ce(mod, y))
+        if i < keep:
+            snaps.append(_snapshot(mod))
+    return losses, ms, launches, snaps
+
+
+def _bind_module(mx, mod, data_shape, label_shape, arg0, aux0, opt):
+    mod.bind([("data", data_shape)], [("softmax_label", label_shape)])
+    mod.init_params(initializer=None, arg_params=_host_arrays(mx, arg0),
+                    aux_params=_host_arrays(mx, aux0))
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(opt))
+    return mod
+
+
+def _floor(runs, start):
+    """(per checked step {name: gap}, per step loss gap) of the plain
+    run against itself with its inputs moved by 1e-7."""
+    (losses, snaps), (alt_losses, alt_snaps) = runs
+    return ([_np_gaps(a, s, start) for a, s in zip(alt_snaps, snaps)],
+            [abs(a - b) / abs(b) for a, b in zip(alt_losses, losses)])
+
+
+class _SplitSpans:
+    """The span of the BatchNorm psums apart from the step's other
+    all-reduces: a timed watch active only inside ``_spmd._group_sum``."""
+
+    def __init__(self, mx):
+        from mxnet_tpu_torch.module import _spmd
+        from mxnet_tpu_torch.parallel import collectives
+        self.spmd, self.collectives = _spmd, collectives
+        self.watch = collectives.Watch(timed=True)
+        self.real = _spmd._group_sum
+
+    def __enter__(self):
+        def timed(blocks, mesh):
+            self.collectives._WATCHES.append(self.watch)
+            try:
+                return self.real(blocks, mesh)
+            finally:
+                self.collectives._WATCHES.remove(self.watch)
+        self.spmd._group_sum = timed
+        return self.watch
+
+    def __exit__(self, *exc):
+        self.spmd._group_sum = self.real
+
+
+def sharded_resnet50(mx, seed):
+    """17a.  Returns the sharded fit's launches."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    par = mx.parallel
+    symbol = dp_symbol()
+    single = expected_train_launches(symbol)
+    per_step = {k: v * SHARD_SIZES["dp"] for k, v in single.items() if v}
+    n_bn = single["bn_channel_sums"] // 2
+    rng = np.random.default_rng(seed + 170)
+    shape = (SHARD_BATCH,) + REC_SHAPE
+    batches = [(rng.random(shape, dtype=np.float32),
+                rng.integers(0, REC_CLASSES, SHARD_BATCH).astype(np.float32))
+               for _ in range(SHARD_STEPS)]
+    arg0, aux0 = dp_init(mx, symbol, seed)
+    start = dict(arg0, **{"aux:" + k: v for k, v in aux0.items()})
+    checked = batches[:SHARD_CHECKED]
+    print("sharded resnet50: ResNet-50 v2 (models/resnet.py, %d classes, "
+          "%s) at batch %d through ShardedModule on %s over %d x gpu(0), "
+          "SGD %s, f32, TF32 off; expected launches a step %s (the "
+          "single-context path's %s, once a dp group); card %s"
+          % (REC_CLASSES, "x".join(map(str, REC_SHAPE)), SHARD_BATCH,
+             SHARD_SIZES, MESH_MODULE_POSITIONS, REC_SGD, per_step, single,
+             card_line()))
+    # the plain Module on gpu(0), then again with the images moved by 1e-7
+    runs = []
+    for nudge in (0.0, 1e-7):
+        moved = [((x * (1 + nudge * rng.standard_normal(x.shape)))
+                  .astype(np.float32), y) for x, y in checked] \
+            if nudge else checked
+        mod = _bind_module(mx, mx.mod.Module(symbol, context=mx.gpu(0)),
+                           shape, (SHARD_BATCH,), arg0, aux0, REC_SGD)
+        losses, ms, _, snaps = _module_steps(mx, mod, moved, SHARD_CHECKED)
+        runs.append((losses, snaps))
+        del mod
+        torch.cuda.empty_cache()
+    floors, loss_floors = _floor(runs, start)
+    ref_losses, ref_snaps = runs[0]
+    print("sharded resnet50: plain Module on gpu(0): losses %s, ms per step "
+          "%s; the floor (images moved by 1e-7): largest update gap %s, "
+          "loss %s" % (", ".join("%.6f" % v for v in ref_losses),
+                       ", ".join("%.1f" % v for v in ms),
+                       ", ".join("%.3g" % max(f.values()) for f in floors),
+                       ", ".join("%.3g" % v for v in loss_floors)))
+    one = _bind_module(mx, mx.mod.ShardedModule(
+        symbol, mesh=par.create_mesh(devices=[mx.gpu(0)])), shape,
+        (SHARD_BATCH,), arg0, aux0, REC_SGD)
+    one_losses, _, _, one_snaps = _module_steps(mx, one, checked,
+                                                SHARD_CHECKED)
+    del one
+    torch.cuda.empty_cache()
+
+    mesh = par.create_mesh(par.MeshSpec(**SHARD_SIZES),
+                           devices=[mx.gpu(0)] * MESH_MODULE_POSITIONS)
+    torch.cuda.reset_peak_memory_stats()
+    mod = _bind_module(mx, mx.mod.ShardedModule(symbol, mesh=mesh), shape,
+                       (SHARD_BATCH,), arg0, aux0, REC_SGD)
+    if mod.dp_mode != "split":
+        raise AssertionError("sharded resnet50: dp_mode %r (%s)"
+                             % (mod.dp_mode, mod.dp_mode_reason))
+    K.reset_launch_counts()
+    losses, ms, launches, snaps = _module_steps(
+        mx, mod, batches[:-1], SHARD_CHECKED)
+    with _SplitSpans(mx) as bn_watch, \
+            par.collectives.watch(timed=True) as w:
+        more = _module_steps(mx, mod, batches[-1:], 0)
+    path = K.launch_counts()
+    losses += more[0]
+    ms += more[1]
+    launches += more[2]
+    spans, bn_span = w.spans_ms(), bn_watch.spans_ms()["all-reduce"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for i in range(SHARD_CHECKED):
+        gap = _np_gaps(snaps[i], ref_snaps[i], start)
+        _held("sharded resnet50", "step %d against the plain Module on "
+              "gpu(0)" % (i + 1), gap, losses[i], ref_losses[i], floors[i],
+              loss_floors[i])
+        gap = _np_gaps(snaps[i], one_snaps[i], start)
+        _held("sharded resnet50", "step %d against ShardedModule on one "
+              "position" % (i + 1), gap, losses[i], one_losses[i],
+              floors[i], loss_floors[i])
+    if any(l != per_step for l in launches):
+        raise AssertionError("sharded resnet50: launches a step %s, "
+                             "expected %s" % (launches, per_step))
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("sharded resnet50: a loss is not finite")
+    counts = mod.collectives
+    n_params = len(mod._param_names)
+    if counts["all-reduce"] != 2 * n_bn + n_params or \
+            counts != {k: v for k, v in w.counts.items()}:
+        raise AssertionError("sharded resnet50: collectives %s, the watch "
+                             "%s, expected %d all-reduces" % (
+                                 counts, w.counts, 2 * n_bn + n_params))
+    last = mx.io.DataBatch([mx.nd.array(batches[-1][0], ctx=mx.cpu())],
+                           [mx.nd.array(batches[-1][1], ctx=mx.cpu())])
+    table = profile_run(lambda: mod.forward_backward(last),
+                        "sharded resnet50")
+    print("sharded resnet50: dp_mode %r, %d steps: losses %s; ms per step "
+          "%s, median after the first %.2f (%.1f images/s); launches a "
+          "step %s; collectives a step %s: %d BatchNorm psums (span %.3f "
+          "ms), %d gradient psums (span %.3f ms), %d tp all-gathers (span "
+          "%.3f ms); peak memory %.2f GB; %s; card %s"
+          % (mod.dp_mode, len(losses), ", ".join("%.6f" % v for v in losses),
+             ", ".join("%.1f" % v for v in ms), float(np.median(ms[1:])),
+             SHARD_BATCH * 1e3 / float(np.median(ms[1:])), launches[-1],
+             {k: v for k, v in counts.items() if v}, 2 * n_bn, bn_span,
+             n_params, spans["all-reduce"] - bn_span, counts["all-gather"],
+             spans["all-gather"], peak,
+             "busy not measured" if table is None else table.share(),
+             card_line()))
+    del mod
+    torch.cuda.empty_cache()
+    # the host's one position, one step
+    t0 = time.perf_counter()
+    host = _bind_module(mx, mx.mod.ShardedModule(
+        symbol, mesh=par.create_mesh(devices=[mx.cpu()])), shape,
+        (SHARD_BATCH,), arg0, aux0, REC_SGD)
+    host_losses, _, _, host_snaps = _module_steps(mx, host, checked[:1], 1)
+    print("sharded resnet50: the host's one position, one step in %.1f s"
+          % (time.perf_counter() - t0))
+    _held("sharded resnet50", "step 1 against the host's one position",
+          _np_gaps(snaps[0], host_snaps[0], start), losses[0],
+          host_losses[0], floors[0], loss_floors[0])
+    return path
+
+
+def gpt_block(S, x, prefix, cfg=PIPE_GPT):
+    """One pre-LN GPT-2 block as ``transformer_lm_symbol`` writes it: LN,
+    causal multi-head attention, +x, LN, exact-GELU FFN, +x; its
+    parameters named ``prefix`` + ``ln1_gamma`` etc."""
+    d = cfg["d_model"]
+
+    def ln(h, tag):
+        return S.LayerNorm(h, S.var(prefix + tag + "_gamma"),
+                           S.var(prefix + tag + "_beta"), axis=-1,
+                           eps=1e-5)
+
+    def dense(h, tag, units):
+        return S.FullyConnected(h, S.var(prefix + tag + "_weight"),
+                                S.var(prefix + tag + "_bias"),
+                                num_hidden=units, flatten=False)
+    h = ln(x, "ln1")
+    proj = [S.var(prefix + "attn_%s_%s" % (side, kind))
+            for side in ("query", "key", "value", "out")
+            for kind in ("weight", "bias")]
+    h = x + S.multi_head_attention(h, h, h, *proj, num_heads=cfg["heads"],
+                                   causal=True)
+    f = S.LeakyReLU(dense(ln(h, "ln2"), "ffn1", cfg["ffn"]),
+                    act_type="gelu")
+    return h + dense(f, "ffn2", d)
+
+
+def gpt_stem(S, cfg=PIPE_GPT):
+    tokens = S.Embedding(S.var("data"), S.var("embed_weight"),
+                         input_dim=cfg["vocab"], output_dim=cfg["d_model"])
+    pos = S.var("pos_weight", shape=(cfg["seq"], cfg["d_model"]))
+    return S.broadcast_add(tokens, S.expand_dims(pos, axis=0))
+
+
+def gpt_head(S, x, cfg=PIPE_GPT):
+    h = S.LayerNorm(x, S.var("lnf_gamma"), S.var("lnf_beta"), axis=-1,
+                    eps=1e-5)
+    h = S.FullyConnected(h, S.var("vocab_weight"), S.var("vocab_bias"),
+                         num_hidden=cfg["vocab"], flatten=False)
+    return S.SoftmaxOutput(h, preserve_shape=True, name="softmax")
+
+
+def pipeline_data(mx, seed, cfg=PIPE_GPT):
+    """The flattened model's parameters ({name: f32 numpy}: weights 0.02
+    * standard normal, LayerNorm gammas about 1) and one batch of token
+    ids and targets, from ``seed``."""
+    S = mx.sym
+    flat = gpt_head(S, _gpt_stack(S, cfg), cfg)
+    shapes, _, _ = flat.infer_shape(data=(cfg["batch"], cfg["seq"]),
+                                    softmax_label=(cfg["batch"], cfg["seq"]))
+    rng = np.random.default_rng(seed + 171)
+    params = {}
+    for n, shp in zip(flat.list_arguments(), shapes):
+        if n in ("data", "softmax_label"):
+            continue
+        v = rng.standard_normal(shp, dtype=np.float32)
+        params[n] = 1 + 0.1 * v if n.endswith("_gamma") else 0.02 * v
+    tokens, targets = (rng.integers(0, cfg["vocab"], (cfg["batch"],
+                                                      cfg["seq"]))
+                       .astype(np.float32) for _ in range(2))
+    return flat, params, (tokens, targets)
+
+
+def _gpt_stack(S, cfg):
+    x = gpt_stem(S, cfg)
+    for s in range(cfg["stages"]):
+        x = gpt_block(S, x, "stage%d_" % s, cfg)
+    return x
+
+
+def _lse_per_step(mod, cfg):
+    """The flash LSE launches a pipelined step implies: ticks x stages a
+    position x positions (``pipeline_stages``' schedule and layout)."""
+    mesh = mod.mesh
+    dp, pp = mesh.shape["dp"], mesh.shape["pp"]
+    n = mod._n_micro
+    local = n // dp if n % dp == 0 and (pp == 1 or n // dp >= 2) else n
+    return (local + pp - 1) * (cfg["stages"] // pp) * mesh.size
+
+
+def pipeline_gpt2s(mx, seed, cfg=PIPE_GPT):
+    """17b.  Returns the pipelined fit's launches."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    par, S = mx.parallel, mx.sym
+    flat, params, (tokens, targets) = pipeline_data(mx, seed, cfg)
+    shape = (cfg["batch"], cfg["seq"])
+    opt = {"learning_rate": cfg["lr"], "momentum": cfg["momentum"],
+           "rescale_grad": 1.0 / cfg["batch"]}
+    batches = [(tokens, targets)] * PIPE_STEPS
+    print("pipeline gpt2s: %d GPT-2-small blocks %s as PipelineModule "
+          "stages on %s over %d x gpu(0), batch %d x %d tokens, %.1fM "
+          "parameters, SGD lr %g momentum %g, f32, TF32 off; card %s"
+          % (cfg["stages"], cfg, PIPE_SIZES, MESH_MODULE_POSITIONS,
+             cfg["batch"], cfg["seq"],
+             sum(v.size for v in params.values()) / 1e6, cfg["lr"],
+             cfg["momentum"], card_line()))
+    # the oracle: a plain Module over the flattened graph on gpu(0), then
+    # again with the embedding moved by 1e-7
+    rng = np.random.default_rng(seed + 172)
+    runs = []
+    for nudge in (0.0, 1e-7):
+        start = dict(params)
+        if nudge:
+            e = params["embed_weight"]
+            start["embed_weight"] = (e * (1 + nudge * rng.standard_normal(
+                e.shape))).astype(np.float32)
+        mod = _bind_module(mx, mx.mod.Module(flat, context=mx.gpu(0)),
+                           shape, shape, start, {}, opt)
+        losses, ms, _, snaps = _module_steps(mx, mod,
+                                             batches[:PIPE_CHECKED],
+                                             PIPE_CHECKED)
+        runs.append((losses, snaps))
+        del mod
+        torch.cuda.empty_cache()
+    floors, loss_floors = _floor(runs, params)
+    ref_losses, ref_snaps = runs[0]
+    print("pipeline gpt2s: plain Module over the flattened graph on gpu(0): "
+          "losses %s, ms per step %s; the floor (embedding moved by 1e-7): "
+          "largest update gap %s, of the key biases (relative to their "
+          "size) %s, loss %s"
+          % (", ".join("%.6f" % v for v in ref_losses),
+             ", ".join("%.1f" % v for v in ms),
+             ", ".join("%.3g" % max(v for k, v in f.items()
+                                    if not k.endswith(ZERO_GRAD_SUFFIXES))
+                       for f in floors),
+             ", ".join("%.3g" % max(v for k, v in f.items()
+                                    if k.endswith(ZERO_GRAD_SUFFIXES))
+                       for f in floors),
+             ", ".join("%.3g" % v for v in loss_floors)))
+
+    def pipeline_module(mesh):
+        stem = gpt_stem(S, cfg)
+        body = gpt_block(S, S.var("x"), "", cfg)
+        head = gpt_head(S, S.var("x"), cfg)
+        mod = mx.mod.PipelineModule(body, cfg["stages"], head, stem=stem,
+                                    mesh=mesh)
+        return _bind_module(mx, mod, shape, shape, params, {}, opt)
+
+    mesh = par.create_mesh(par.MeshSpec(**PIPE_SIZES),
+                           devices=[mx.gpu(0)] * MESH_MODULE_POSITIONS)
+    torch.cuda.reset_peak_memory_stats()
+    mod = pipeline_module(mesh)
+    want_lse = _lse_per_step(mod, cfg)
+    K.reset_launch_counts()
+    losses, ms, launches, snaps = _module_steps(mx, mod, batches[:-1],
+                                                PIPE_CHECKED)
+    with par.collectives.watch(timed=True) as w:
+        more = _module_steps(mx, mod, batches[-1:], 0)
+    path = K.launch_counts()
+    losses += more[0]
+    ms += more[1]
+    launches += more[2]
+    spans = w.spans_ms()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for i in range(PIPE_CHECKED):
+        _held("pipeline gpt2s", "step %d against the flattened Module on "
+              "gpu(0)" % (i + 1), _np_gaps(snaps[i], ref_snaps[i], params),
+              losses[i], ref_losses[i], floors[i], loss_floors[i])
+    if abs(mod.loss - losses[-1]) > 1e-5 * abs(losses[-1]):
+        raise AssertionError("pipeline gpt2s: mod.loss %r, the outputs' "
+                             "%r" % (mod.loss, losses[-1]))
+    if any(l.get("flash_attn_fwd_lse", 0) != want_lse for l in launches):
+        raise AssertionError("pipeline gpt2s: LSE launches a step %s, the "
+                             "schedule implies %d" % (launches, want_lse))
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("pipeline gpt2s: a loss is not finite")
+    if mod.collectives != w.counts:
+        raise AssertionError("pipeline gpt2s: the step's record %s, the "
+                             "watch %s" % (mod.collectives, w.counts))
+    last = mx.io.DataBatch([mx.nd.array(tokens, ctx=mx.cpu())],
+                           [mx.nd.array(targets, ctx=mx.cpu())])
+    table = profile_run(lambda: mod.forward_backward(last),
+                        "pipeline gpt2s")
+    print("pipeline gpt2s: n_micro %d, %d steps: losses %s; ms per step %s, "
+          "median after the first %.2f (%.0f tokens/s); flash LSE launches "
+          "a step %d (ticks x stages a position x positions: %d); "
+          "collectives a step %s, their span %s ms; peak memory %.2f GB; "
+          "%s; card %s"
+          % (mod._n_micro, len(losses), ", ".join("%.6f" % v for v in losses),
+             ", ".join("%.1f" % v for v in ms), float(np.median(ms[1:])),
+             cfg["batch"] * cfg["seq"] * 1e3 / float(np.median(ms[1:])),
+             launches[-1].get("flash_attn_fwd_lse", 0), want_lse,
+             {k: v for k, v in w.counts.items() if v},
+             {k: round(v, 3) for k, v in spans.items() if w.counts[k]},
+             peak, "busy not measured" if table is None else table.share(),
+             card_line()))
+    del mod
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host = pipeline_module(par.create_mesh(devices=[mx.cpu()]))
+    host_losses, _, _, host_snaps = _module_steps(mx, host, batches[:1], 1)
+    del host
+    print("pipeline gpt2s: the host's one position, one step in %.1f s"
+          % (time.perf_counter() - t0))
+    _held("pipeline gpt2s", "step 1 against the host's one position",
+          _np_gaps(snaps[0], host_snaps[0], params), losses[0],
+          host_losses[0], floors[0], loss_floors[0])
+    return path
+
+
+def train_mesh_modules(mx, seed):
+    """Phase 17.  Returns {path: launches}."""
+    import torch
+    clock = time.perf_counter()
+    paths = {"sharded_resnet50_dp2_tp2": sharded_resnet50(mx, seed)}
+    torch.cuda.empty_cache()
+    print("sharded resnet50: 17a in %.1f s" % (time.perf_counter() - clock))
+    lap = time.perf_counter()
+    paths["pipeline_gpt2s_dp2_pp2"] = pipeline_gpt2s(mx, seed)
+    torch.cuda.empty_cache()
+    print("pipeline gpt2s: 17b in %.1f s" % (time.perf_counter() - lap))
+    print("phase 17 parts done in %.1f s" % (time.perf_counter() - clock))
+    return paths
+
+
 def ptxas_entries(text):
     """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
     per compiled entry of an ``nvcc -Xptxas=-v`` report.  The kernel is
@@ -8706,6 +9222,10 @@ def main():
     lap("16 (the multichip LM at GPT-2 small's widths through "
         "ShardedTrainStep over 8 positions of gpu(0), ring attention "
         "against the flash kernel, the dp=4 overlap and 2-bit paths)")
+    paths.update(train_mesh_modules(mx, args.seed))
+    lap("17 (ResNet-50 through ShardedModule at dp=2, tp=2 and GPT-2-small "
+        "blocks through PipelineModule at dp=2, pp=2, over 4 positions of "
+        "gpu(0))")
     # "launches": the path each kernel serves in this script (the serving
     # forward, the LM's training, and the bf16 fused training; LeNet's and
     # DCGAN's are in launches_by_path)

@@ -7,7 +7,10 @@ from a seed — with or without the ``arg:``/``aux:`` prefixes of a
 ``set_gluon_params`` writes such a dict, or a ``.params`` file saved by
 either package, into a Gluon net's Parameters.  ``set_parallel_state``
 carries a JAX ``ShardedTrainStep``'s parameters and momentum, or a JAX
-``MoELayer``'s weights, as numpy arrays into the port's step or layer.
+``MoELayer``'s weights, as numpy arrays into the port's step or layer;
+``set_mesh_module_state`` a JAX ``ShardedModule``'s or
+``PipelineModule``'s parameters, optimizer state and moving statistics
+into the port's module on its mesh.
 """
 from __future__ import annotations
 
@@ -105,3 +108,74 @@ def set_parallel_state(target, arrays, momentum=None, mesh=None):
         return target
     raise MXNetError("set_parallel_state: %r is neither a ShardedTrainStep "
                      "nor a MoELayer" % (target,))
+
+
+def set_mesh_module_state(target, params, momentum=None, aux=None):
+    """Write numpy arrays into a bound, initialized ``mx.mod``
+    ``ShardedModule`` or ``PipelineModule``; each array is sharded as the
+    module shards that name on its mesh.
+
+    - ``ShardedModule``: ``params`` {name: array} of every parameter
+      (``np.asarray(jax_mod._masters[name])``), ``aux`` {name: array} of
+      the moving statistics (``_dev_aux``), ``momentum`` {name: state}
+      of the optimizer's states, an array or a tuple of arrays as
+      ``create_state`` makes them (``_states``; the module's optimizer
+      must be initialized).
+    - ``PipelineModule``: ``params`` and ``momentum`` keyed as the
+      module keys them (``"body:<name>"`` with the stages stacked on dim
+      0, ``"stem:<name>"``, ``"head:<name>"``: ``jax_mod._params`` and
+      ``_mom``).
+    Every name the module holds must be covered."""
+    from .module.fused_step import _map_state
+    from .module.pipeline_module import PipelineModule
+    from .module.sharded import ShardedModule
+    from .parallel import ShardedArray, shard
+    if not (target.binded and target.params_initialized):
+        raise MXNetError("set_mesh_module_state: bind and init_params "
+                         "first")
+
+    def covered(values, table, what):
+        if set(values) != set(table):
+            raise MXNetError("set_mesh_module_state: %s names %s, the "
+                             "module holds %s" % (what, sorted(values),
+                                                  sorted(table)))
+
+    if isinstance(target, PipelineModule):
+        covered(params, target._params, "params")
+        for name, value in params.items():
+            target._params[name] = shard(value,
+                                         target._param_sharding[name])
+        if momentum is not None:
+            if target._mom is None:
+                raise MXNetError("set_mesh_module_state: init_optimizer "
+                                 "first")
+            covered(momentum, target._mom, "momentum")
+            for name, value in momentum.items():
+                target._mom[name] = shard(value,
+                                          target._param_sharding[name])
+        return target
+    if not isinstance(target, ShardedModule):
+        raise MXNetError("set_mesh_module_state: %r is neither a "
+                         "ShardedModule nor a PipelineModule" % (target,))
+    covered(params, target._param_names + target._fixed_param_names,
+            "params")
+    covered(aux or {}, target._aux_names, "aux")
+    target.init_params(
+        initializer=None,
+        arg_params=params_from_numpy(params, cpu())[0],
+        aux_params=params_from_numpy(aux or {}, cpu())[0], force_init=True)
+    if target.optimizer_initialized:
+        for name in target._param_names:
+            dev = target._dev_params[name]
+            target._masters[name] = ShardedArray(
+                [s.float() for s in dev.shards], dev.sharding, dev.shape) \
+                if target._mixed[name] else dev
+    if momentum is not None:
+        if not target.optimizer_initialized:
+            raise MXNetError("set_mesh_module_state: init_optimizer first")
+        covered(momentum, target._param_names, "momentum")
+        for name, state in momentum.items():
+            sharding = target._param_sharding[name]
+            target._states[name] = _map_state(
+                lambda a, s=sharding: shard(a, s), state)
+    return target

@@ -117,7 +117,7 @@ class FusedTrainStep:
                 return "unequal batch slices"
             # distinct cards under a collective store: the JAX package
             # fuses the data-parallel step (BatchNorm over the whole batch)
-            return "the fused dp step waits for A3b"
+            return "the fused dp step waits for A3b2b"
         opt = module._optimizer
         if opt is None or not opt._fused_ok():
             return "optimizer %s has no fused update of its own" \

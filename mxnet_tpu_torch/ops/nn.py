@@ -827,6 +827,11 @@ def _softmax_output_infer_shape(in_shapes, attrs):
     filled = list(in_shapes)
     if attrs.get("multi_output", False):
         filled[1] = (dshape[0],) + tuple(dshape[2:])
+    elif attrs.get("preserve_shape", False):
+        # one label a position, as the backward reads them (MXNet 1.0's
+        # label shape, data.shape[:-1]; the JAX package's (batch,) cannot
+        # bind per-token labels)
+        filled[1] = tuple(dshape[:-1])
     else:
         filled[1] = (dshape[0],)
     return filled, [dshape]

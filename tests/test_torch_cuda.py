@@ -2127,3 +2127,102 @@ def test_sharded_train_step_on_the_card_matches_the_host(card, no_tf32):
         runs.append((losses, np.asarray(step.params["w"])))
     np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=1e-5)
     np.testing.assert_allclose(runs[0][1], runs[1][1], rtol=1e-5, atol=1e-6)
+
+
+def test_synced_batchnorm_over_two_card_groups_matches_one_group(card,
+                                                                  no_tf32):
+    """Training BatchNorm over two groups of [gpu(0)] * 2 (each group's
+    rows apart, the channel sums psum'd) against one group holding every
+    row, on the card: outputs, the global mean and variance, and the
+    gradients of x, gamma (summed over the groups) and beta within
+    atol=rtol=1e-4 (f32 sums in another order).  bn_channel_sums runs
+    once per group forward (x) and once backward (dy, x)."""
+    from mxnet_tpu_torch.module import _spmd
+    from mxnet_tpu_torch.ops import nn as tnn
+    from mxnet_tpu_torch.parallel import create_mesh
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(8, 16, 12, 12, generator=g, device=card) * 2 + 0.5
+    gamma = torch.rand(16, generator=g, device=card) + 0.5
+    beta = torch.randn(16, generator=g, device=card)
+    dy = torch.randn(8, 16, 12, 12, generator=g, device=card)
+    mesh = create_mesh(dp=2, devices=[mx.gpu(0)] * 2)
+
+    def run(groups):
+        xs = [t.clone().requires_grad_(True) for t in x.chunk(groups)]
+        gs = [gamma.clone().requires_grad_(True) for _ in xs]
+        bs = [beta.clone().requires_grad_(True) for _ in xs]
+        if groups == 1:
+            out, mean, var = tnn._BNTrainFn.apply(xs[0], gs[0], bs[0], 1e-3)
+            outs = [out]
+        else:
+            res = _spmd._SyncBNFn.apply(mesh, 1e-3, *xs, *gs, *bs)
+            outs, mean, var = res[:groups], res[-2], res[-1]
+        torch.autograd.backward(list(outs) + [mean, var],
+                                list(dy.chunk(groups)) + [
+                                    torch.ones_like(mean),
+                                    torch.ones_like(var)])
+        return [torch.cat(outs), mean, var, torch.cat([t.grad for t in xs]),
+                sum(t.grad for t in gs), sum(t.grad for t in bs)]
+
+    want = run(1)
+    before = K.launch_counts()["bn_channel_sums"]
+    got = run(2)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bn_channel_sums"] == before + 4
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_sharded_module_step_on_the_card_matches_the_host(card, no_tf32):
+    """One ShardedModule step of a conv + BatchNorm net over dp=2, tp=2
+    positions of [gpu(0)] * 4 against the same over host positions:
+    outputs, parameters and moving statistics within atol=rtol=1e-4;
+    the card's step launches bn_channel_sums twice a BatchNorm and
+    group, and a pooling backward once a pooling and group."""
+    rng = np.random.RandomState(5)
+    x = rng.standard_normal((8, 3, 16, 16)).astype(np.float32)
+    y = rng.randint(0, 4, 8).astype(np.float32)
+    S = mx.sym
+    net = S.Convolution(S.var("data"), num_filter=8, kernel=(3, 3),
+                        pad=(1, 1), name="c1")
+    net = S.Activation(S.BatchNorm(net, fix_gamma=False, name="bn1"),
+                       act_type="relu")
+    net = S.Pooling(net, kernel=(2, 2), stride=(2, 2), pool_type="max")
+    net = S.Pooling(net, global_pool=True, kernel=(1, 1), pool_type="avg")
+    net = S.SoftmaxOutput(S.FullyConnected(S.Flatten(net), num_hidden=4,
+                                           name="fc"), name="softmax")
+    arg_shapes, _, _ = net.infer_shape(data=x.shape)
+    args = {n: (0.3 * rng.standard_normal(s)).astype(np.float32)
+            for n, s in zip(net.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    results = []
+    for mesh in _parallel_meshes(dp=2, tp=2):
+        mod = mx.mod.ShardedModule(net, mesh=mesh)
+        mod.bind([("data", x.shape)], [("softmax_label", y.shape)])
+        mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                    for k, v in args.items()},
+                        aux_params={"bn1_moving_mean": mx.nd.zeros(
+                            (8,), ctx=mx.cpu()), "bn1_moving_var":
+                            mx.nd.ones((8,), ctx=mx.cpu())})
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9})
+        assert mod.dp_mode == "split"
+        before = K.launch_counts()
+        mod.forward_backward(mx.io.DataBatch(
+            [mx.nd.array(x, ctx=mx.cpu())], [mx.nd.array(y, ctx=mx.cpu())]))
+        after = K.launch_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        arg, aux = mod.get_params()
+        results.append((mod.get_outputs()[0].asnumpy(),
+                        {k: v.asnumpy() for k, v in arg.items()},
+                        {k: v.asnumpy() for k, v in aux.items()},
+                        launched))
+    (out_c, arg_c, aux_c, launched), (out_h, arg_h, aux_h, _) = results
+    assert launched["bn_channel_sums"] == 4
+    assert launched["max_pool_backward"] == 2
+    assert launched["avg_pool_backward"] == 2
+    np.testing.assert_allclose(out_c, out_h, rtol=1e-4, atol=1e-4)
+    for c, h in ((arg_c, arg_h), (aux_c, aux_h)):
+        for k in h:
+            np.testing.assert_allclose(c[k], h[k], rtol=1e-4, atol=1e-4,
+                                       err_msg=k)

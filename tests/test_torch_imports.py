@@ -57,6 +57,8 @@ def test_scan_covers_the_package():
                    "kvstore_server.py", "parallel/__init__.py",
                    "parallel/mesh.py", "parallel/collectives.py",
                    "parallel/comm.py", "parallel/ring.py", "parallel/moe.py",
-                   "parallel/pipeline.py", "parallel/train.py"):
+                   "parallel/pipeline.py", "parallel/train.py",
+                   "module/_spmd.py", "module/sharded.py",
+                   "module/pipeline_module.py"):
         assert os.path.join("mxnet_tpu_torch", *module.split("/")) in names
     assert len(names) > 20
