@@ -340,7 +340,11 @@ CUDA toolkit.  Phases, each of which raises on failure:
    a. ResNet-50 (13a's symbol and ``train_imagenet.py``'s settings) through
       ``Module(context=[gpu(0), gpu(0)]).fit`` at batch 64 (32 a context)
       over an ``NDArrayIter`` of random images, 8 steps with
-      ``kvstore='tpu_ici'`` and 8 with ``'device'``: per step the ms, the
+      ``kvstore='tpu_ici'`` (its SGD a subclass overriding ``update``
+      alone, which the fused step's gating refuses, so that this run
+      keeps measuring the general path: the store's reduction and the
+      Updater; phase 18 runs the fused dp step) and 8 with
+      ``'device'``: per step the ms, the
       store calls' span, the launches (the single-context path's,
       twice) and both contexts' weights bit for bit; a profiled step's
       busy share of each; then ``'device'`` with 2-bit compression for 4
@@ -416,13 +420,47 @@ CUDA toolkit.  Phases, each of which raises on failure:
       against the host's one-position run; ms per step, busy share, peak
       memory, the collectives a step, and the flash kernel's LSE
       launches a step against ticks x stages a position x positions.
-18. The ``kernels`` JSON line (each kernel's record with its launches on
+18. The fused data-parallel Module step and ``group2ctx`` on one card,
+   inputs from ``--seed``, TF32 off:
+   a. BASELINE config 5's ResNet-50 v2 (15a's symbol, ``train_imagenet.
+      py``'s SGD) through ``Module(context=[gpu(0)] * 2).fit(kvstore=
+      'tpu_ici')`` at batch 64 (32 a position), f32, 8 steps: the fused
+      dp step engages (``dp_mode`` "split": each position its rows,
+      BatchNorm's channel sums and the gradients psum'd over the
+      positions), its first step eager, its second captured, then
+      replays; the first 2 steps (loss, every parameter and moving
+      statistic) against one context on gpu(0) at batch 64 from the same
+      state by phase 4's rule (the floor: that run with the images moved
+      by 1e-7), the first against the host's ``[cpu(0), cpu(1)]``; the
+      replicas bit for bit after every step; ms per step of the replays
+      and of the same step with no graph, capture ms, a profiled step's
+      busy share, peak memory, the collectives a step (2 a BatchNorm, 1 a
+      gradient) and the launches a step (the single-context path's, once
+      a position); then the same fit in bf16 with f32 masters (phase 8's
+      settings), 4 steps, each held to the bf16 single-context fused
+      step at batch 64 by phase 8's rule;
+   b. the zoo TransformerLM at GPT-2 small's widths with a per-token
+      softmax, batch 8 x 1024 over [gpu(0)] * 2, SGD lr 0.01 momentum
+      0.9: the monolithic dp step and ``MXNET_TPU_COMM_BUCKET_MB=25``
+      from one state for 3 steps by phase 4's rule, one all-reduce a
+      bucket; 2-bit at threshold 0.5 and at about a tenth of the first
+      bucket's values, the first bucket's codes bit for bit the host
+      quantizer's, one all-gather a bucket; ms per step of each, the
+      flash LSE launches a step (12 layers x 2 positions);
+   c. MXNet 1.0's ``example/model-parallel/lstm/lstm.py`` layout: an
+      embedding, a 2-layer unrolled ``mx.rnn.LSTMCell`` LM at Zaremba et
+      al.'s medium widths (phase 7's LM) and its decoder, each in its own
+      ``ctx_group``, bound on gpu(0) with the embedding's group on the
+      host, 4 steps of SGD through ``mx.optimizer.get_updater``: every
+      step's outputs and weights bit for bit the plain gpu(0) bind's, the
+      embedding's weight and gradient on the host, ms per step.
+19. The ``kernels`` JSON line (each kernel's record with its launches on
    every path, phase 10's five and the MLP's with 0 of each, LeNet's with
    2 max-pool backwards a step, DCGAN's with 26 channel sums an
    iteration, phase 13's two paths, and its bf16/f16/f64, head_dim 32,
    LeNet, DCGAN and ResNet-18 instances; phase 14's paths; phase 15's
-   three; phase 16's three, with 0 of each; phase 17's two), then the
-   result line.
+   three; phase 16's three, with 0 of each; phase 17's two; phase 18's
+   four), then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is not beside this script.
@@ -5865,7 +5903,7 @@ CIFAR_HOST_BATCH = 8          # images of each card-vs-host step
 RESNET18_BN_SHAPES = ((128, 64, 32, 32), (128, 128, 16, 16),
                       (128, 256, 8, 8), (128, 512, 4, 4))
 RESNET18_POOL = (128, 512, 4, 4)
-IMAGE_OP_DRAWS = 100000       # random image ops: draws (calls) of each
+IMAGE_OP_DRAWS = 50000        # random image ops: draws (calls) of each
 IMAGE_OP_GRAPH_CALLS = 1000   # of them in one captured CUDA graph
 IMAGE_OP_SIGMAS = 6.0
 IMAGE_OP_TOL = 1e-6
@@ -7378,6 +7416,24 @@ class EventTimer:
         return ms
 
 
+def general_path_sgd(mx, symbol, batch):
+    """15a's SGD for ``'tpu_ici'``, kept on the general path PR 17
+    measured: an SGD whose class overrides ``update`` alone (the same
+    arithmetic: the Updater calls SGD's own), which the fused step's
+    gating (the JAX package's: an optimizer without a fused update of its
+    own) refuses, so the store reduces the gradients and the Updater
+    applies them.  Its indices are named as Module names them."""
+    class GeneralSGD(mx.optimizer.SGD):
+        def update(self, index, weight, grad, state):
+            super().update(index, weight, grad, state)
+    names = [a for a in symbol.list_arguments()
+             if a not in ("data", "softmax_label")]
+    idx2name = {i * DP_CONTEXTS + k: n for i, n in enumerate(names)
+                for k in range(DP_CONTEXTS)}
+    return GeneralSGD(sym=symbol, param_idx2name=idx2name,
+                      rescale_grad=1.0 / batch, **REC_SGD)
+
+
 def replicas_equal(blocks):
     """Whether every context's copy of every array equals the first's, bit
     for bit."""
@@ -7432,7 +7488,9 @@ def dp_fit(mx, symbol, images, labels, arg0, aux0, store, steps, per_step,
     torch.cuda.synchronize()
     marks["t"], marks["counts"] = time.perf_counter(), K.launch_counts()
     try:
-        mod.fit(it, num_epoch=1, kvstore=store, optimizer="sgd",
+        mod.fit(it, num_epoch=1, kvstore=store,
+                optimizer=general_path_sgd(mx, symbol, DP_BATCH)
+                if store == "tpu_ici" else "sgd",
                 optimizer_params=dict(REC_SGD), eval_metric="acc",
                 arg_params=_host_arrays(mx, arg0),
                 aux_params=_host_arrays(mx, aux0),
@@ -7578,8 +7636,13 @@ def dp_host_steps(mx, symbol, arg0, aux0, images, labels, store, seed):
     traj = module(host_ctxs)
     traj.init_params(arg_params=_host_arrays(mx, arg0),
                      aux_params=_host_arrays(mx, aux0))
-    traj.init_optimizer(kvstore=store, optimizer="sgd",
+    traj.init_optimizer(kvstore=store,
+                        optimizer=general_path_sgd(mx, symbol, n)
+                        if store == "tpu_ici" else "sgd",
                         optimizer_params=dict(REC_SGD))
+    if traj._fused_step is not None:
+        raise AssertionError("dp2 %s: the host trajectory took the fused "
+                             "step" % store)
     states = []
     for x, y in batches:
         arg, aux = traj.get_params()
@@ -8691,11 +8754,13 @@ def _module_steps(mx, mod, batches, keep):
     return losses, ms, launches, snaps
 
 
-def _bind_module(mx, mod, data_shape, label_shape, arg0, aux0, opt):
+def _bind_module(mx, mod, data_shape, label_shape, arg0, aux0, opt,
+                 kvstore="local"):
     mod.bind([("data", data_shape)], [("softmax_label", label_shape)])
     mod.init_params(initializer=None, arg_params=_host_arrays(mx, arg0),
                     aux_params=_host_arrays(mx, aux0))
-    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(opt))
+    mod.init_optimizer(kvstore=kvstore, optimizer="sgd",
+                       optimizer_params=dict(opt))
     return mod
 
 
@@ -9073,6 +9138,634 @@ def train_mesh_modules(mx, seed):
     return paths
 
 
+# -- phase 18: the fused data-parallel Module step and group2ctx -------------
+
+# 18a: BASELINE config 5 (15a's ResNet-50 v2 and SGD) through the fused
+# data-parallel step over [gpu(0)] * 2 at batch 64
+FUSED_DP_BATCH = 64           # 32 a position
+FUSED_DP_STEPS = 8
+FUSED_DP_CHECKED = 2          # steps held to one context at batch 64
+FUSED_DP_EAGER = 3            # steps of the same module with no graph
+FUSED_DP_BF16_STEPS = 4
+# 18b: the zoo TransformerLM at GPT-2 small's widths (GPT2S), dropout 0,
+# batch 8 x 1024 over [gpu(0)] * 2, SGD lr 0.01 momentum 0.9
+OVERLAP_BATCH = 8
+OVERLAP_STEPS = 3
+OVERLAP_BUCKET_MB = "25"
+OVERLAP_THRESHOLD = "0.5"
+OVERLAP_SGD = {"learning_rate": 0.01, "momentum": 0.9}
+# 18c: MXNet 1.0's example/model-parallel/lstm/lstm.py layout at Zaremba
+# et al.'s medium widths (LM above): an embedding, 2 unrolled LSTMCell
+# layers and the decoder, each in its own ctx_group
+G2C_STEPS = 4
+G2C_SGD = {"learning_rate": 1.0, "clip_gradient": 5.0}
+G2C_CONTEXTS = {"embed": "cpu", "layer0": "gpu", "layer1": "gpu",
+                "decode": "gpu"}    # each device 0
+
+
+def _release():
+    """Free the card's memory of the modules deleted before: a Module and
+    its fused step refer to each other, so the step's CUDA graph and its
+    memory pool go only at a collection."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dp_fused_check(tag, mod, rows, per_step, n_coll, steps):
+    """The fused dp step engaged over two positions of one card and
+    replayed from its second step; every step's launches and collectives
+    as expected and the replicas bit for bit."""
+    fs = mod._fused_step
+    if fs is None or fs.n_dev != 2 or fs.dp_mode != "split":
+        from mxnet_tpu_torch.module.fused_step import FusedTrainStep
+        raise AssertionError("%s: the fused dp step did not engage (%s)"
+                             % (tag, FusedTrainStep.refusal(mod)
+                                if fs is None else fs.dp_mode_reason))
+    if fs.captures != 1 or fs.replays != steps - 1:
+        raise AssertionError("%s: %d captures, %d replays in %d steps"
+                             % (tag, fs.captures, fs.replays, steps))
+    for i, r in enumerate(rows):
+        if r["launches"] != per_step:
+            raise AssertionError("%s: step %d launched %s, expected %s"
+                                 % (tag, i + 1, r["launches"], per_step))
+        if r["collectives"].get("all-reduce") != n_coll:
+            raise AssertionError("%s: step %d issued %s, expected %d "
+                                 "all-reduces" % (tag, i + 1,
+                                                  r["collectives"], n_coll))
+        if not r["replicas"]:
+            raise AssertionError("%s: the replicas differ after step %d"
+                                 % (tag, i + 1))
+        if not np.isfinite(r["loss"]):
+            raise AssertionError("%s: the loss of step %d is not finite"
+                                 % (tag, i + 1))
+
+
+def fused_dp_fit(mx, symbol, batches, arg0, aux0, opt, keep, per_step):
+    """``Module(context=[gpu(0)] * 2).fit(kvstore='tpu_ici')`` over
+    ``batches``: per step the ms (synchronized host clock), the kernel
+    launches, the step's collectives, the replicas bit for bit and the
+    loss; (snapshot, optimizer states) after each of the first ``keep``
+    steps.  Returns (module, rows, snapshots)."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    images = np.concatenate([b[0] for b in batches])
+    labels = np.concatenate([b[1] for b in batches])
+    it = mx.io.NDArrayIter(images, labels, batch_size=len(batches[0][1]))
+    mod = mx.mod.Module(symbol, context=[mx.gpu(0)] * 2)
+    rows, snaps, marks = [], [], {}
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), K.launch_counts()
+        group = mod._exec_group
+        rows.append({
+            "ms": (now - marks["t"]) * 1e3,
+            "launches": {k: counts[k] - marks["counts"][k] for k in counts
+                         if counts[k] != marks["counts"][k]},
+            "collectives": {k: v for k, v in
+                            mod._fused_step.collectives.items() if v},
+            "replicas": replicas_equal(group.param_arrays)
+            and replicas_equal(group.aux_arrays),
+            "loss": _ce(mod, param.locals["batch"].label[0].asnumpy())})
+        if len(snaps) < keep:
+            snaps.append((_snapshot(mod),
+                          mod._fused_step.export_states()))
+        torch.cuda.synchronize()
+        marks["t"], marks["counts"] = time.perf_counter(), K.launch_counts()
+
+    torch.cuda.synchronize()
+    marks["t"], marks["counts"] = time.perf_counter(), K.launch_counts()
+    mod.fit(it, num_epoch=1, kvstore="tpu_ici", optimizer="sgd",
+            optimizer_params=dict(opt), eval_metric="acc",
+            arg_params=_host_arrays(mx, arg0),
+            aux_params=_host_arrays(mx, aux0), batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    return mod, rows, snaps
+
+
+def fused_dp_resnet50(mx, seed):
+    """18a.  Returns the dp fit's launches."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    symbol = dp_symbol()
+    single = expected_train_launches(symbol)
+    per_step = {k: v * 2 for k, v in single.items() if v}
+    n_bn = single["bn_channel_sums"] // 2
+    n_params = len([a for a in symbol.list_arguments()
+                    if a not in ("data", "softmax_label")])
+    n_coll = 2 * n_bn + n_params
+    rng = np.random.default_rng(seed + 180)
+    shape = (FUSED_DP_BATCH,) + REC_SHAPE
+    batches = [(rng.random(shape, dtype=np.float32),
+                rng.integers(0, REC_CLASSES, FUSED_DP_BATCH)
+                .astype(np.float32)) for _ in range(FUSED_DP_STEPS)]
+    arg0, aux0 = dp_init(mx, symbol, seed)
+    start = dict(arg0, **{"aux:" + k: v for k, v in aux0.items()})
+    print("fused dp resnet50: ResNet-50 v2 (models/resnet.py, %d classes, "
+          "%s) through Module(context=[gpu(0)] * 2).fit(kvstore='tpu_ici') "
+          "at batch %d (%d a position), SGD %s, f32, TF32 off; expected a "
+          "step: launches %s (the single-context path's %s, once a "
+          "position), %d all-reduces (%d BatchNorms' forward and backward "
+          "sums, %d gradients); card %s"
+          % (REC_CLASSES, "x".join(map(str, REC_SHAPE)), FUSED_DP_BATCH,
+             FUSED_DP_BATCH // 2, REC_SGD, per_step, single, n_coll, n_bn,
+             n_params, card_line()))
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    mod, rows, kept = fused_dp_fit(mx, symbol, batches, arg0, aux0,
+                                   REC_SGD, FUSED_DP_CHECKED, per_step)
+    path = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _dp_fused_check("fused dp resnet50", mod, rows, per_step, n_coll,
+                    FUSED_DP_STEPS)
+    fs = mod._fused_step
+    snaps = [k[0] for k in kept]
+
+    def one_context(ctxs, state, moms, batch, nudge=0.0):
+        """One step of a module over ``ctxs`` at batch 64 from ``state``
+        (parameters, moving statistics) and ``moms`` (its fused step's
+        optimizer states, None at the start), on ``batch`` with the images
+        moved by ``nudge``: (loss, snapshot)."""
+        x, y = batch
+        if nudge:
+            x = (x * (1 + nudge * rng.standard_normal(x.shape))).astype(
+                np.float32)
+        ref = _bind_module(
+            mx, mx.mod.Module(symbol, context=ctxs), shape,
+            (FUSED_DP_BATCH,), {k: v for k, v in state.items()
+                                if not k.startswith("aux:")},
+            {k[4:]: v for k, v in state.items() if k.startswith("aux:")},
+            REC_SGD, kvstore="tpu_ici" if isinstance(ctxs, list)
+            else "local")
+        if moms is not None:
+            ref._fused_step.load_states(moms)
+        losses, _, _, got = _module_steps(mx, ref, [(x, y)], 1)
+        del ref
+        _release()
+        return losses[0], got[0]
+
+    # each checked step from the dp run's state before it (teacher
+    # forced: chained steps of a BatchNorm net at lr 0.1 diverge past any
+    # floor), against one context at batch 64 (the same global-batch
+    # math), and the floor: that step with the images moved by 1e-7
+    for i in range(FUSED_DP_CHECKED):
+        state, moms = (start, None) if i == 0 else kept[i - 1]
+        ref_loss, ref_snap = one_context(mx.gpu(0), state, moms, batches[i])
+        alt_loss, alt_snap = one_context(mx.gpu(0), state, moms, batches[i],
+                                         1e-7)
+        floor = _np_gaps(alt_snap, ref_snap, state)
+        loss_floor = abs(alt_loss - ref_loss) / abs(ref_loss)
+        _held("fused dp resnet50", "step %d against one context at batch "
+              "%d from the same state" % (i + 1, FUSED_DP_BATCH),
+              _np_gaps(snaps[i], ref_snap, state), rows[i]["loss"],
+              ref_loss, floor, loss_floor)
+        if i == 0:
+            first = (floor, loss_floor)
+    last = mx.io.DataBatch([mx.nd.array(batches[-1][0], ctx=mx.cpu())],
+                           [mx.nd.array(batches[-1][1], ctx=mx.cpu())])
+    table = profile_run(lambda: mod.forward_backward(last),
+                        "fused dp resnet50")
+    ms = [r["ms"] for r in rows]
+    print("fused dp resnet50: dp_mode %r, %d steps (the first eager, the "
+          "second captured, then replays: %d captures, %d replays): losses "
+          "%s; ms per step %s, replay median %.2f (%.1f images/s); capture "
+          "%.1f ms; launches a step %s; collectives a step %s; replicas "
+          "bit for bit after every step; peak memory %.2f GB; %s; card %s"
+          % (fs.dp_mode, len(rows), fs.captures, fs.replays,
+             ", ".join("%.6f" % r["loss"] for r in rows),
+             ", ".join("%.1f" % v for v in ms), float(np.median(ms[2:])),
+             FUSED_DP_BATCH * 1e3 / float(np.median(ms[2:])),
+             fs.capture_seconds * 1e3, rows[-1]["launches"],
+             rows[-1]["collectives"], peak,
+             "busy not measured" if table is None else table.share(),
+             card_line()))
+    del mod, fs
+    _release()
+    # the same step with no graph: every step eager on the default stream
+    eager = _bind_module(mx, mx.mod.Module(symbol, context=[mx.gpu(0)] * 2),
+                         shape, (FUSED_DP_BATCH,), arg0, aux0, REC_SGD,
+                         kvstore="tpu_ici")
+    eager._fused_step._graphable = False
+    e_losses, e_ms, _, e_snaps = _module_steps(
+        mx, eager, batches[:FUSED_DP_EAGER], FUSED_DP_CHECKED)
+    gap = _np_gaps(e_snaps[-1], snaps[FUSED_DP_CHECKED - 1], start)
+    print("fused dp resnet50: the same step eager (no graph): ms per step "
+          "%s, median after the first %.2f; its state after step %d "
+          "against the graph run's: largest update gap %.3g, losses %s"
+          % (", ".join("%.1f" % v for v in e_ms), float(np.median(e_ms[1:])),
+             FUSED_DP_CHECKED, max(gap.values()),
+             ", ".join("%.6f" % v for v in e_losses)))
+    if not np.all(np.isfinite(e_losses)):
+        raise AssertionError("fused dp resnet50: an eager loss is not "
+                             "finite")
+    del eager
+    _release()
+    # the host's two positions, one step from the start
+    t0 = time.perf_counter()
+    host_loss, host_snap = one_context([mx.cpu(0), mx.cpu(1)], start, None,
+                                       batches[0])
+    print("fused dp resnet50: the host's [cpu(0), cpu(1)], one step in "
+          "%.1f s" % (time.perf_counter() - t0))
+    _held("fused dp resnet50", "step 1 against the host's [cpu(0), cpu(1)]",
+          _np_gaps(snaps[0], host_snap, start), rows[0]["loss"], host_loss,
+          first[0], first[1])
+    return path
+
+
+def fused_dp_bf16(mx, seed):
+    """18a's bf16 run: the same fit in bf16 with f32 masters (phase 8's
+    settings) for FUSED_DP_BF16_STEPS, held after every step to the bf16
+    single-context fused step at batch 64 by phase 8's rule (the masters'
+    and momenta's relative L2 within 1e-3 or 4x that run's own gap when
+    16 pixels an image move by one bf16 ulp).  Returns the fit's
+    launches."""
+    import torch
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import kernels as K
+    symbol = resnet.get_symbol(dtype="bfloat16", **RESNET)
+    single = expected_train_launches(symbol)
+    per_step = {k: v * 2 for k, v in single.items() if v}
+    n_bn = single["bn_channel_sums"] // 2
+    n_params = len([a for a in symbol.list_arguments()
+                    if a not in ("data", "softmax_label")])
+    rng = np.random.default_rng(seed + 181)
+    shape = (FUSED_DP_BATCH,) + REC_SHAPE
+    batches = [(rng.random(shape, dtype=np.float32),
+                rng.integers(0, REC_CLASSES, FUSED_DP_BATCH)
+                .astype(np.float32)) for _ in range(FUSED_DP_BF16_STEPS)]
+    arg0, aux0 = dp_init(mx, dp_symbol(), seed)
+    opt = dict(FUSED_SGD)
+
+    def states(ctx, data):
+        mod = mx.mod.Module(symbol, context=ctx)
+        mod.bind([("data", shape)], [("softmax_label", (FUSED_DP_BATCH,))])
+        types = dict(zip(symbol.list_arguments(),
+                         symbol.infer_type(data="float32")[0]))
+        mod.init_params(arg_params={
+            k: mx.nd.array(v, ctx=mx.cpu()).astype(
+                mx.base.dtype_name(types[k])) for k, v in arg0.items()},
+            aux_params=_host_arrays(mx, aux0))
+        mod.init_optimizer(kvstore="tpu_ici" if isinstance(ctx, list)
+                           else "local", optimizer="sgd",
+                           optimizer_params=opt)
+        out, ms, launches = [], [], []
+        for x, y in data:
+            batch = mx.io.DataBatch([mx.nd.array(x, ctx=mx.cpu())],
+                                    [mx.nd.array(y, ctx=mx.cpu())])
+            torch.cuda.synchronize()
+            before, t0 = K.launch_counts(), time.perf_counter()
+            mod.forward_backward(batch)
+            mod.update()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            after = K.launch_counts()
+            launches.append({k: after[k] - before[k] for k in after
+                             if after[k] != before[k]})
+            out.append(fused_state(mod))
+        return mod, out, ms, launches
+
+    one, want, one_ms, _ = states(mx.gpu(0), batches)
+    del one
+    nudged = [(bf16_ulp_up(x, rng.choice(x[0].size, 16, replace=False)), y)
+              for x, y in batches]
+    alt, floor_states, _, _ = states(mx.gpu(0), nudged)
+    del alt
+    _release()
+    K.reset_launch_counts()
+    mod, got, ms, launches = states([mx.gpu(0)] * 2, batches)
+    path = K.launch_counts()
+    fs = mod._fused_step
+    if fs is None or not any(fs.mixed) or fs.captures != 1:
+        raise AssertionError("fused dp bf16: the fused dp step with f32 "
+                             "masters did not engage and capture")
+    if any(l != per_step for l in launches):
+        raise AssertionError("fused dp bf16: launches %s, expected %s"
+                             % (launches, per_step))
+    if fs.collectives.get("all-reduce") != 2 * n_bn + n_params:
+        raise AssertionError("fused dp bf16: collectives %s"
+                             % fs.collectives)
+    gaps = []
+    for i, (g, w, f) in enumerate(zip(got, want, floor_states)):
+        gm, gs, same = state_gap(g, w)
+        fm, fsg, _ = state_gap(f, w)
+        limit = max(FUSED_HOST_REL, 4.0 * max(fm, fsg))
+        gaps.append((gm, gs, same, limit))
+        if max(gm, gs) > limit:
+            raise AssertionError("fused dp bf16: step %d's masters %.3g, "
+                                 "momenta %.3g past %.3g" % (i + 1, gm, gs,
+                                                             limit))
+    print("fused dp bf16: ResNet-50 v2 in bf16 with f32 masters (FUSED_SGD "
+          "%s) over [gpu(0)] * 2 at batch %d, %d steps: ms per step %s "
+          "(one context at batch %d: %s); launches a step %s; collectives "
+          "a step %s; masters / momenta relative L2 against one context "
+          "per step %s (limits %s); replicas bit for bit: %s; card %s"
+          % (opt, FUSED_DP_BATCH, len(ms), ", ".join("%.1f" % v for v in ms),
+             FUSED_DP_BATCH, ", ".join("%.1f" % v for v in one_ms),
+             launches[-1], {k: v for k, v in fs.collectives.items() if v},
+             ", ".join("%.3g/%.3g" % g[:2] for g in gaps),
+             ", ".join("%.3g" % g[3] for g in gaps),
+             replicas_equal(mod._exec_group.param_arrays), card_line()))
+    if not replicas_equal(mod._exec_group.param_arrays):
+        raise AssertionError("fused dp bf16: the replicas differ")
+    del mod, fs
+    _release()
+    return path
+
+
+def overlap_lm(mx):
+    """The zoo TransformerLM at GPT-2 small's widths with a per-token
+    softmax head (``SoftmaxOutput(preserve_shape=True)``)."""
+    from mxnet_tpu_torch.models import transformer_lm_symbol
+    logits = transformer_lm_symbol(**GPT2S)
+    return logits, mx.sym.SoftmaxOutput(logits, mx.sym.var("softmax_label"),
+                                        preserve_shape=True, name="softmax")
+
+
+def overlap_run(mx, tag, symbol, params, batch, env, steps):
+    """The fused dp step over [gpu(0)] * 2 under the comm ``env``: (module,
+    losses, weights after the last step, collectives and launches a
+    step); prints ms per step and ``reduce_buckets``' span."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    shape = (OVERLAP_BATCH, GPT2S["seq_len"])
+    opt = dict(OVERLAP_SGD, rescale_grad=1.0 / OVERLAP_BATCH)
+
+    def build():
+        return _bind_module(mx, mx.mod.Module(symbol,
+                                              context=[mx.gpu(0)] * 2),
+                            shape, shape, params, {}, opt,
+                            kvstore="tpu_ici")
+    mod = _with_env(env, build)
+    timer, real = EventTimer(), mx.parallel.comm.reduce_buckets
+    timed = timer.wrap(real)
+
+    def eager_timed(*args, **kwargs):
+        # no timed event can be recorded inside a graph's capture
+        if torch.cuda.is_current_stream_capturing():
+            return real(*args, **kwargs)
+        return timed(*args, **kwargs)
+    mx.parallel.comm.reduce_buckets = eager_timed
+    try:
+        losses, ms, launches, _ = _module_steps(mx, mod, [batch] * steps, 0)
+    finally:
+        mx.parallel.comm.reduce_buckets = real
+    fs = mod._fused_step
+    plan = fs._comm_plan
+    print("%s: %s; losses %s; ms per step %s (the first eager, the second "
+          "captured); reduce_buckets span (eager step) %.3f ms; "
+          "collectives a step %s; flash LSE launches a step %s; card %s"
+          % (tag, "buckets %d (%s)" % (plan.n_buckets, plan.compress
+                                        or "psum")
+             if plan else "monolithic" + (" (%s)" % fs.overlap_off_reason
+                                          if fs.overlap_off_reason else ""),
+             ", ".join("%.6f" % v for v in losses),
+             ", ".join("%.1f" % v for v in ms), timer.take(),
+             {k: v for k, v in fs.collectives.items() if v},
+             [l.get("flash_attn_fwd_lse", 0) for l in launches],
+             card_line()))
+    if fs.captures != 1 or not np.all(np.isfinite(losses)):
+        raise AssertionError("%s: %d captures, losses %s"
+                             % (tag, fs.captures, losses))
+    weights = {k: v.asnumpy().copy() for k, v in mod.get_params()[0].items()}
+    return mod, losses, weights, launches
+
+
+def fused_dp_overlap(mx, seed):
+    """18b.  Returns the overlap run's launches."""
+    import torch
+    from mxnet_tpu_torch.kvstore import gradient_compression as gc
+    from mxnet_tpu_torch.ops import kernels as K
+    logits, symbol = overlap_lm(mx)
+    params = gpt2s_params(logits, seed)
+    rng = np.random.default_rng(seed + 182)
+    shape = (OVERLAP_BATCH, GPT2S["seq_len"])
+    tokens = rng.integers(0, GPT2S["vocab_size"], shape).astype(np.float32)
+    targets = rng.integers(0, GPT2S["vocab_size"], shape).astype(np.float32)
+    batch = (tokens, targets)
+    want_lse = 2 * GPT2S["num_layers"]
+    print("fused dp overlap: the zoo TransformerLM at GPT-2 small's widths "
+          "%s, dropout 0, per-token softmax, batch %d x %d over "
+          "[gpu(0)] * 2 (%d a position), SGD %s, f32, TF32 off; expected "
+          "flash LSE launches a step %d; card %s"
+          % (GPT2S, OVERLAP_BATCH, GPT2S["seq_len"], OVERLAP_BATCH // 2,
+             OVERLAP_SGD, want_lse, card_line()))
+    e = params["transformerlm0_embed_weight"]
+    nudged = dict(params, transformerlm0_embed_weight=(e * (
+        1 + 1e-7 * rng.standard_normal(e.shape))).astype(np.float32))
+    mono, mono_losses, mono_w, _ = overlap_run(
+        mx, "fused dp monolithic", symbol, params, batch, {}, OVERLAP_STEPS)
+    n_params = len(mono._fused_step.param_names)
+    del mono
+    _release()
+    alt, alt_losses, alt_w, _ = overlap_run(
+        mx, "fused dp monolithic (embedding moved by 1e-7)", symbol, nudged,
+        batch, {}, OVERLAP_STEPS)
+    del alt
+    _release()
+    K.reset_launch_counts()
+    over, over_losses, over_w, launches = overlap_run(
+        mx, "fused dp overlap", symbol, params, batch,
+        {"MXNET_TPU_COMM_BUCKET_MB": OVERLAP_BUCKET_MB}, OVERLAP_STEPS)
+    path = K.launch_counts()
+    plan, counts = over._fused_step._comm_plan, over._fused_step.collectives
+    del over
+    _release()
+    floor = _np_gaps(alt_w, mono_w, params)
+    gap = _np_gaps(over_w, mono_w, params)
+    limit = max(MODULE_REL, 4.0 * max(floor.values()))
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(over_losses,
+                                                        mono_losses))
+    loss_floor = max(abs(a - b) / abs(b) for a, b in zip(alt_losses,
+                                                          mono_losses))
+    worst = max(gap, key=gap.get)
+    print("fused dp overlap: bucketed (%s MB) against monolithic after %d "
+          "steps: largest update gap %.3g (%s), floor %.3g, limit %.3g; "
+          "losses relative %.3g (floor %.3g); all-reduces a step %d for %d "
+          "buckets (monolithic: one a parameter, %d)"
+          % (OVERLAP_BUCKET_MB, OVERLAP_STEPS, gap[worst], worst,
+             max(floor.values()), limit, loss_gap, loss_floor,
+             counts.get("all-reduce", 0), plan.n_buckets, n_params))
+    if gap[worst] > limit or loss_gap > max(MODULE_REL, 4.0 * loss_floor):
+        raise AssertionError("fused dp overlap: the bucketed path disagrees "
+                             "with the monolithic one")
+    if plan is None or plan.n_buckets < 2 \
+            or counts.get("all-reduce") != plan.n_buckets:
+        raise AssertionError("fused dp overlap: not one reduction a bucket")
+    if any(l.get("flash_attn_fwd_lse", 0) != want_lse for l in launches):
+        raise AssertionError("fused dp overlap: LSE launches %s, expected "
+                             "%d" % (launches, want_lse))
+
+    def two_bit(threshold):
+        seen, real = [], mx.parallel.comm.quantize_flat
+
+        def recording(flat, residual, t):
+            codes, res = real(flat, residual, t)
+            if len(seen) < 2:  # the first bucket of the eager first step
+                seen.append((flat.detach().cpu(), codes.cpu()))
+            return codes, res
+        mx.parallel.comm.quantize_flat = recording
+        try:
+            mod, losses, _, _ = overlap_run(
+                mx, "fused dp 2bit at %s" % threshold, symbol, params, batch,
+                {"MXNET_TPU_COMM_BUCKET_MB": OVERLAP_BUCKET_MB,
+                 "MXNET_TPU_GRAD_COMPRESS": "2bit",
+                 "MXNET_TPU_GRAD_COMPRESS_THRESHOLD": threshold},
+                OVERLAP_STEPS)
+        finally:
+            mx.parallel.comm.quantize_flat = real
+        fs = mod._fused_step
+        same = sum(torch.equal(codes, gc.quantize_flat(
+            carry, torch.zeros_like(carry), float(threshold))[0])
+            for carry, codes in seen)
+        nonzero = sum(int((c.abs() >= float(threshold)).sum())
+                      for c, _ in seen)
+        print("fused dp 2bit at %s: the first bucket's codes on 2 positions "
+              "(%d bytes each; %d of %d values at or past the threshold): "
+              "bit for bit the host quantizer's in %d; all-gathers a step "
+              "%d for %d buckets; wire %d bytes a position against %d f32; "
+              "residuals nonzero: %s"
+              % (threshold, seen[0][1].numel(), nonzero,
+                 sum(c.numel() for c, _ in seen), same,
+                 fs.collectives.get("all-gather", 0),
+                 fs._comm_plan.n_buckets, fs._comm_plan.wire_bytes,
+                 fs._comm_plan.grad_f32_bytes,
+                 any(float(np.abs(np.asarray(r)).sum()) > 0
+                     for r in fs._residuals)))
+        if len(seen) != 2 or same != 2:
+            raise AssertionError("fused dp 2bit: the card's codes differ "
+                                 "from the host quantizer's")
+        if fs.collectives.get("all-gather") != fs._comm_plan.n_buckets:
+            raise AssertionError("fused dp 2bit: not one all-gather a "
+                                 "bucket")
+        del mod, fs
+        _release()
+        return [c for c, _ in seen]
+
+    carries = two_bit(OVERLAP_THRESHOLD)
+    # every 97th value: the quantile of a sample
+    tenth = float(np.quantile(np.abs(torch.cat(carries).numpy()[::97]),
+                              0.9))
+    two_bit(repr(tenth))
+    return path
+
+
+def g2c_lstm(mx):
+    """MXNet 1.0's model-parallel LSTM LM: the embedding, each unrolled
+    ``mx.rnn.LSTMCell`` layer and the decoder in their own ``ctx_group``
+    (example/model-parallel/lstm/lstm.py's layout) at LM's widths."""
+    S = mx.sym
+    with mx.AttrScope(ctx_group="embed"):
+        h = S.Embedding(S.var("data"), input_dim=LM["vocab"],
+                        output_dim=LM["embed"], name="embed")
+    for i in range(LM["layers"]):
+        with mx.AttrScope(ctx_group="layer%d" % i):
+            cell = mx.rnn.LSTMCell(LM["hidden"], prefix="lstm_l%d_" % i)
+            h, _ = cell.unroll(LM["bptt"], h, layout="NTC",
+                               merge_outputs=i == LM["layers"] - 1)
+    with mx.AttrScope(ctx_group="decode"):
+        pred = S.FullyConnected(S.Reshape(h, shape=(-1, LM["hidden"])),
+                                num_hidden=LM["vocab"], name="pred")
+        label = S.Reshape(S.var("softmax_label"), shape=(-1,))
+        return S.SoftmaxOutput(pred, label, name="softmax")
+
+
+def group2ctx_lstm(mx, seed):
+    """18c.  Returns the group2ctx run's launches."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    symbol = g2c_lstm(mx)
+    shape = (LM["batch"], LM["bptt"])
+    rng = np.random.default_rng(seed + 183)
+    arg_shapes, _, _ = symbol.infer_shape(data=shape, softmax_label=shape)
+    names = [n for n in symbol.list_arguments()
+             if n not in ("data", "softmax_label")]
+    weights = {n: (rng.uniform(-0.05, 0.05, s)).astype(np.float32)
+               for n, s in zip(symbol.list_arguments(), arg_shapes)
+               if n in names}
+    batches = [(rng.integers(0, LM["vocab"], shape).astype(np.float32),
+                rng.integers(0, LM["vocab"], shape).astype(np.float32))
+               for _ in range(G2C_STEPS)]
+    group2ctx = {g: getattr(mx, kind)(0)
+                 for g, kind in G2C_CONTEXTS.items()}
+    print("group2ctx lstm: a %d-layer unrolled LSTMCell LM (vocab %d, "
+          "hidden %d, %d steps, batch %d; %.1fM parameters), group2ctx %s "
+          "bound on gpu(0), SGD %s through get_updater, %d steps; card %s"
+          % (LM["layers"], LM["vocab"], LM["hidden"], LM["bptt"],
+             LM["batch"], sum(v.size for v in weights.values()) / 1e6,
+             {g: str(c) for g, c in group2ctx.items()}, G2C_SGD, G2C_STEPS,
+             card_line()))
+
+    def run(placed):
+        exe = symbol.simple_bind(mx.gpu(0), data=shape, softmax_label=shape,
+                                 group2ctx=group2ctx if placed else None)
+        for n, v in weights.items():
+            exe.arg_dict[n][:] = v
+        updater = mx.optimizer.get_updater(mx.optimizer.create(
+            "sgd", rescale_grad=1.0 / LM["batch"], **G2C_SGD))
+        out, ms = [], []
+        for x, y in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exe.forward(is_train=True, data=x, softmax_label=y)
+            exe.backward()
+            for i, n in enumerate(names):
+                updater(i, exe.grad_dict[n], exe.arg_dict[n])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append((exe.outputs[0].asnumpy(),
+                        {n: exe.arg_dict[n].asnumpy() for n in names}))
+        return exe, out, ms
+
+    K.reset_launch_counts()
+    placed, got, ms = run(True)
+    path = K.launch_counts()
+    on_host = {n: (str(placed.arg_dict[n].context),
+                   placed.grad_dict[n].tensor.device.type)
+               for n in ("embed_weight",)}
+    _, want, plain_ms = run(False)
+    same = [bool(np.array_equal(g[0], w[0]) and all(
+        np.array_equal(g[1][n], w[1][n]) for n in names))
+        for g, w in zip(got, want)]
+    print("group2ctx lstm: ms per step %s (median after the first %.2f), "
+          "the plain gpu(0) bind %s (%.2f); every step's outputs and "
+          "weights bit for bit the plain bind's: %s; the embedding's weight "
+          "and gradient on %s; card %s"
+          % (", ".join("%.1f" % v for v in ms), float(np.median(ms[1:])),
+             ", ".join("%.1f" % v for v in plain_ms),
+             float(np.median(plain_ms[1:])), same, on_host, card_line()))
+    if on_host["embed_weight"] != ("cpu(0)", "cpu"):
+        raise AssertionError("group2ctx lstm: the embedding left the host")
+    if not all(same):
+        raise AssertionError("group2ctx lstm: a step differs from the plain "
+                             "bind")
+    return path
+
+
+def train_fused_dp(mx, seed):
+    """Phase 18.  Returns {path: launches}."""
+    _release()
+    clock = time.perf_counter()
+    paths = {"module_resnet50_dp2_fused": fused_dp_resnet50(mx, seed)}
+    _release()
+    print("fused dp: 18a f32 in %.1f s" % (time.perf_counter() - clock))
+    lap = time.perf_counter()
+    paths["module_resnet50_dp2_fused_bf16"] = fused_dp_bf16(mx, seed)
+    _release()
+    print("fused dp: 18a bf16 in %.1f s" % (time.perf_counter() - lap))
+    lap = time.perf_counter()
+    paths["module_gpt2s_dp2_overlap"] = fused_dp_overlap(mx, seed)
+    _release()
+    print("fused dp: 18b in %.1f s" % (time.perf_counter() - lap))
+    lap = time.perf_counter()
+    paths["lstm_group2ctx"] = group2ctx_lstm(mx, seed)
+    _release()
+    print("fused dp: 18c in %.1f s" % (time.perf_counter() - lap))
+    print("phase 18 parts done in %.1f s" % (time.perf_counter() - clock))
+    return paths
+
+
 def ptxas_entries(text):
     """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
     per compiled entry of an ``nvcc -Xptxas=-v`` report.  The kernel is
@@ -9215,7 +9908,8 @@ def main():
             "process mode, ImageDetIter at SSD-300's input, a mem:// "
             "checkpoint)")
         paths.update(train_data_parallel(mx, args.seed, root))
-        lap("15 (ResNet-50 over two contexts with kvstore 'tpu_ici' and "
+        lap("15 (ResNet-50 over two contexts with kvstore 'tpu_ici' (the "
+            "general path: an SGD without a fused update of its own) and "
             "'device', with dist_sync across two processes, Gluon "
             "ResNet-18 through Trainer(kvstore='device'))")
     paths.update(train_mesh_layer(mx, args.seed))
@@ -9226,6 +9920,10 @@ def main():
     lap("17 (ResNet-50 through ShardedModule at dp=2, tp=2 and GPT-2-small "
         "blocks through PipelineModule at dp=2, pp=2, over 4 positions of "
         "gpu(0))")
+    paths.update(train_fused_dp(mx, args.seed))
+    lap("18 (ResNet-50 through the fused data-parallel step over [gpu(0)] "
+        "* 2 in f32 and bf16, the GPT-2-small TransformerLM's bucketed and "
+        "2-bit overlap, a group2ctx LSTM LM)")
     # "launches": the path each kernel serves in this script (the serving
     # forward, the LM's training, and the bf16 fused training; LeNet's and
     # DCGAN's are in launches_by_path)

@@ -10,9 +10,14 @@ carries a JAX ``ShardedTrainStep``'s parameters and momentum, or a JAX
 ``MoELayer``'s weights, as numpy arrays into the port's step or layer;
 ``set_mesh_module_state`` a JAX ``ShardedModule``'s or
 ``PipelineModule``'s parameters, optimizer state and moving statistics
-into the port's module on its mesh.
+into the port's module on its mesh; ``set_fused_step_state`` a JAX
+``Module``'s fused train step (one context or data-parallel): its
+masters, optimizer states, moving statistics and 2-bit residuals.
 """
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 from .base import MXNetError
 from .context import cpu, current_context
@@ -179,3 +184,63 @@ def set_mesh_module_state(target, params, momentum=None, aux=None):
             target._states[name] = _map_state(
                 lambda a, s=sharding: shard(a, s), state)
     return target
+
+
+def set_fused_step_state(module, source):
+    """Write the state of ``source``'s fused train step (a JAX package
+    ``Module`` whose fused step has run, one context or data-parallel)
+    into ``module``'s (a port ``Module`` whose ``init_optimizer`` engaged
+    the fused step): the step's ``_masters``, ``states``, ``_gaux`` and
+    ``_residuals``, read as numpy.  The parameters go to the masters,
+    every context's replica (cast to its storage) and the host copies,
+    the moving statistics to every context and the host copies."""
+    from .module.fused_step import _map_state
+    from .optimizer import state_leaves
+    fs = module._fused_step
+    step = source._fused_step
+    if fs is None or step is None:
+        raise MXNetError("set_fused_step_state: both modules need a fused "
+                         "step (init_optimizer under its gating; the "
+                         "source's must have run)")
+    names = list(step.param_names)
+    params = {n: np.asarray(m) for n, m in zip(names, step._masters)}
+    states = {n: _map_state(np.asarray, st)
+              for n, st in zip(names, step.states)}
+    aux = {n: np.asarray(a) for n, a in zip(step.prog.aux_names, step._gaux)}
+    residuals = [np.asarray(r) for r in step._residuals]
+    shared = fs.shared
+    if set(params) != set(shared.masters):
+        raise MXNetError("set_fused_step_state: the source trains %s, the "
+                         "step %s" % (sorted(params),
+                                      sorted(shared.masters)))
+    if [r.shape for r in residuals] != [r.shape for r in fs._residuals]:
+        raise MXNetError("set_fused_step_state: residuals of shapes %s for "
+                         "the step's %s" % ([r.shape for r in residuals],
+                                            [r.shape for r in fs._residuals]))
+
+    def host(value):
+        return torch.from_numpy(np.array(value, copy=True))
+
+    with torch.no_grad():
+        for name, value in params.items():
+            t = host(value)
+            if shared.mixed[name]:
+                shared.masters[name].copy_(t)
+                t = shared.masters[name]
+            for exe in fs.execs:
+                exe.arg_dict[name].tensor.copy_(t)
+            module._arg_params[name].tensor.copy_(t)
+        for name, st in states.items():
+            for dst, src in zip(state_leaves(shared.states[name]),
+                                state_leaves(st)):
+                dst.copy_(host(src))
+        for name, value in aux.items():
+            for exe in fs.execs:
+                exe.aux_dict[name].tensor.copy_(host(value))
+            module._aux_params[name].tensor.copy_(host(value))
+        for r, value in zip(fs._residuals, residuals):
+            for k, s in enumerate(r.shards):
+                s.copy_(host(value)[k:k + 1])
+    for s in shared.steps:
+        s._note_seen()
+    return module

@@ -7,6 +7,12 @@ the port builds a plan once per bind signature (``_Program``, cached by
 own kernels (cuDNN convolutions, cuBLAS products, the hand-written
 flash-attention, BatchNorm-sums and pooling-backward kernels).
 
+Under ``group2ctx`` (manual model parallelism) an argument or aux state
+may live on another context than the executor's: the plan computes on
+the executor's device, its inputs copied there (the reference's
+``_CrossDeviceCopy``), and each gradient is stored on its argument's
+context.
+
 A forward with ``is_train=False`` runs under ``torch.inference_mode``.
 A training forward of an executor with gradients records torch autograd
 over detached leaf views of the arguments that take a gradient, and
@@ -268,21 +274,27 @@ class Executor:
         self.outputs = [NDArray(o.detach()) for o in outs]
         return self.outputs
 
-    def _values(self):
+    def _values(self, leaves=None):
+        """{name: tensor} of the bound arrays (``leaves`` in place of
+        some) on the executor's device: an array placed on another
+        context is copied here, differentiably."""
         values = {n: a.tensor for n, a in self.arg_dict.items()}
         values.update((n, a.tensor) for n, a in self.aux_dict.items())
-        return values
+        values.update(leaves or {})
+        dev = self._device
+        return {n: t if t.device == dev else t.to(dev)
+                for n, t in values.items()}
 
     def _record(self, **tap):
         """A training-mode run of the graph over the bound arrays under
         torch autograd: (outputs, new aux values, {name: leaf}) for the
-        arguments that take a gradient."""
-        values = self._values()
+        arguments that take a gradient, each leaf on its argument's
+        context."""
         # leaves share storage with the bound arrays: no copy
-        leaves = {n: values[n].detach().requires_grad_(True)
+        leaves = {n: self.arg_dict[n].tensor.detach().requires_grad_(True)
                   for n in self._grad_names}
-        values.update(leaves)
         with torch.enable_grad():
+            values = self._values(leaves)
             outs, new_aux = self._prog.evaluate(values, train=True,
                                                 device=self._device, **tap)
         return outs, new_aux, leaves
@@ -396,13 +408,16 @@ class Executor:
     @staticmethod
     def _simple_bind(symbol, ctx, grad_req, type_dict, shape_kwargs,
                      shared_args=None, shared_grads=None, logger=None,
-                     buffer=None):
+                     buffer=None, placed=None):
         """``shared_args`` (arguments and aux states by name) are bound as
         given wherever their shape, dtype and context fit, and with them
         the ``shared_grads`` of the same names; then arguments of ``buffer``
         ({name: NDArray}) that fit; the rest is allocated zeroed (and
         added to ``buffer``), with a warning to ``logger`` for a shared
-        name that no longer fits (its values cannot carry over)."""
+        name that no longer fits (its values cannot carry over).  An
+        array's context is ``placed[name]`` (``group2ctx``), else
+        ``ctx``."""
+        placed = placed or {}
         arg_names = symbol.list_arguments()
         req = _req_table(arg_names, grad_req)
         arg_shapes, _, aux_shapes = symbol.infer_shape(**shape_kwargs)
@@ -411,17 +426,18 @@ class Executor:
         shared = shared_args or {}
         shared_grads = shared_grads or {}
 
-        def fits(have, shape, dt):
+        def fits(have, shape, dt, where):
             return have is not None and have.shape == shape \
-                and have.tensor.dtype == dt and have.context == ctx
+                and have.tensor.dtype == dt and have.context == where
 
         def alloc(names, shapes, types, kind, pool=None):
             out = {}
             for name, shape, dt in zip(names, shapes, types):
                 shape = tuple(int(d) for d in shape)
                 dt = torch_dtype(type_dict.get(name, dt or "float32"))
+                where = placed.get(name, ctx)
                 have = shared.get(name)
-                if fits(have, shape, dt):
+                if fits(have, shape, dt, where):
                     out[name] = have
                     continue
                 if have is not None and logger is not None:
@@ -433,10 +449,10 @@ class Executor:
                         dtype_name(have.tensor.dtype), shape,
                         dtype_name(dt))
                 if pool is not None and have is None \
-                        and fits(pool.get(name), shape, dt):
+                        and fits(pool.get(name), shape, dt, where):
                     out[name] = pool[name]
                     continue
-                out[name] = nd_zeros(shape, ctx, dtype=dt)
+                out[name] = nd_zeros(shape, where, dtype=dt)
                 if pool is not None and have is None:
                     pool[name] = out[name]
             return out
@@ -449,7 +465,7 @@ class Executor:
             have = shared_grads.get(name)
             grads[name] = have if have is not None \
                 and shared.get(name) is arr else \
-                nd_zeros(arr.shape, ctx, dtype=arr.tensor.dtype)
+                nd_zeros(arr.shape, arr.context, dtype=arr.tensor.dtype)
         return Executor(
             symbol, ctx, args,
             alloc(symbol.list_auxiliary_states(), aux_shapes, aux_types,
@@ -457,9 +473,11 @@ class Executor:
             grads, req)
 
     @staticmethod
-    def _bind(symbol, ctx, args, args_grad, grad_req, aux_states):
+    def _bind(symbol, ctx, args, args_grad, grad_req, aux_states,
+              others=()):
         """An executor over the caller's own arrays (lists in argument
-        order or dicts by name), on ``ctx``."""
+        order or dicts by name), on ``ctx``; an array may also lie on
+        one of ``others`` (the ``group2ctx`` contexts)."""
         def table(names, given, what):
             if given is None:
                 return {}
@@ -467,9 +485,11 @@ class Executor:
                 else dict(given).items()
             out = {n: a for n, a in pairs if a is not None}
             for name, arr in out.items():
-                if arr.context != ctx:
+                if arr.context != ctx and arr.context not in others:
                     raise MXNetError("bind: %s %r is on %s, not on %s"
-                                     % (what, name, arr.context, ctx))
+                                     % (what, name, arr.context,
+                                        " or ".join(map(str, {ctx}
+                                                        | set(others)))))
             return out
 
         arg_names = symbol.list_arguments()

@@ -17,11 +17,14 @@ updates).
 
 ``init_optimizer`` engages the fused train step (``fused_step.py``:
 forward, backward and update as one CUDA graph replay a batch on the
-card) whenever the JAX package's single-device gating allows, and logs
-why when it does not.  ``forward_backward`` then runs the whole step and
-the matching ``update()`` is a no-op; a loop that calls ``update()``
-without it, a batch of another shape, or a monitor retires the fused
-step, its optimizer state handed to the ``Updater``.
+card) whenever the JAX package's gating allows, and logs why when it
+does not: one context without a store, or several contexts under a
+collective store (``'tpu_ici'``) with equal slices, the data-parallel
+step with BatchNorm over the global batch.  ``forward_backward`` then
+runs the whole step and the matching ``update()`` is a no-op; a loop
+that calls ``update()`` without it, a batch of another shape, or a
+monitor retires the fused step, its optimizer state handed to the
+``Updater``.
 
 ``bind(shared_module=)`` (bucketing) binds the sharer's parameter
 arrays and adopts its host masters and, once it has one, its optimizer
@@ -29,9 +32,9 @@ arrays and adopts its host masters and, once it has one, its optimizer
 the new module gets a step of its own (its own executor and, on the
 card, its own graph) over the sharer's masters and optimizer states: one
 state per parameter, whichever module a batch goes through.  Retiring
-the step of one module retires every module that shares it.  Several
-contexts, or one with a store, train through the general path, as in
-the JAX package on one device (``FusedTrainStep.refusal`` names why).
+the step of one module retires every module that shares it.  The other
+settings train through the general path (``FusedTrainStep.refusal``
+names why).
 """
 from __future__ import annotations
 
@@ -248,8 +251,14 @@ class Module(BaseModule):
         return self._arg_params, self._aux_params
 
     def _sync_params_from_devices(self):
-        """The host masters from the bound arrays (the contexts' mean)."""
-        self._exec_group.get_params(self._arg_params, self._aux_params)
+        """The host masters from the bound arrays: the fused step's state
+        bit for bit once it has run (the contexts' replicas are equal, and
+        their mean would round), else the contexts' mean."""
+        fs = self._fused_step
+        if fs is not None and fs.ran:
+            fs.sync_masters(self._arg_params, self._aux_params)
+        else:
+            self._exec_group.get_params(self._arg_params, self._aux_params)
 
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),

@@ -45,12 +45,16 @@ class _Handle:
 
 
 class NDArray:
-    __slots__ = ("_h", "_grad", "_grad_req", "__weakref__")
+    __slots__ = ("_h", "_grad", "_grad_req", "_host_ctx", "__weakref__")
 
     def __init__(self, tensor):
         self._h = tensor if isinstance(tensor, _Handle) else _Handle(tensor)
         self._grad = None
         self._grad_req = "null"
+        # a host context other than cpu(0) that made this array: every
+        # host context shares the host tensor device, but an array
+        # reports its own (group2ctx places arrays on cpu(1), cpu(2))
+        self._host_ctx = None
 
     @property
     def tensor(self):
@@ -75,6 +79,8 @@ class NDArray:
 
     @property
     def context(self):
+        if self._host_ctx is not None and not self._h.tensor.is_cuda:
+            return self._host_ctx
         return context_of(self._h.tensor.device)
 
     ctx = context
@@ -127,8 +133,8 @@ class NDArray:
                 other._h.tensor.copy_(self._h.tensor)
             return other
         if isinstance(other, Context):
-            return NDArray(self._h.tensor.detach().to(other.torch_device(),
-                                                      copy=True))
+            return _on(NDArray(self._h.tensor.detach().to(
+                other.torch_device(), copy=True)), other)
         raise TypeError("copyto does not support type " + str(type(other)))
 
     def as_in_context(self, context):
@@ -407,6 +413,8 @@ class NDArray:
                 if state["ctx_type"] in Context.devtype2str else cpu()
         self._h = _Handle(_to_tensor(state["data"], ctx, dtype))
         self._grad = None
+        self._host_ctx = None
+        _on(self, ctx)
         self._grad_req = "null"
 
     # -- indexing --------------------------------------------------------------
@@ -552,9 +560,17 @@ def _invoke(op_name, inputs, attrs, out=None):
 # Creation
 # ---------------------------------------------------------------------------
 
+def _on(nd, ctx):
+    """``nd``, made on ``ctx``: a host context other than cpu(0) is
+    recorded, since the tensor's device does not tell it."""
+    if ctx.device_typeid == 1 and ctx.device_id:
+        nd._host_ctx = ctx
+    return nd
+
+
 def array(source_array, ctx=None, dtype=None):
     ctx = ctx or current_context()
-    return NDArray(_to_tensor(source_array, ctx, dtype))
+    return _on(NDArray(_to_tensor(source_array, ctx, dtype)), ctx)
 
 
 def _shape_tuple(shape):
@@ -565,9 +581,9 @@ def _shape_tuple(shape):
 
 def full(shape, val, ctx=None, dtype="float32", out=None):
     ctx = ctx or current_context()
-    nd = NDArray(torch.full(_shape_tuple(shape), val,
-                            dtype=torch_dtype(dtype),
-                            device=ctx.torch_device()))
+    nd = _on(NDArray(torch.full(_shape_tuple(shape), val,
+                                dtype=torch_dtype(dtype),
+                                device=ctx.torch_device())), ctx)
     if out is not None:
         nd.copyto(out)
         return out
@@ -584,8 +600,9 @@ def ones(shape, ctx=None, dtype="float32", **kwargs):
 
 def empty(shape, ctx=None, dtype="float32"):
     ctx = ctx or current_context()
-    return NDArray(torch.empty(_shape_tuple(shape), dtype=torch_dtype(dtype),
-                               device=ctx.torch_device()))
+    return _on(NDArray(torch.empty(_shape_tuple(shape),
+                                   dtype=torch_dtype(dtype),
+                                   device=ctx.torch_device())), ctx)
 
 
 def concatenate(arrays, axis=0, always_copy=True):

@@ -20,6 +20,8 @@ differentiates the plain forward, as XLA's autodiff does there.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import math
 
@@ -116,11 +118,39 @@ register("LeakyReLU", _leaky_relu, num_inputs=1,
                  "upper_bound": (pFloat, 0.334)})
 
 
+# set inside ``row_independent_products()``
+_ROW_PRODUCTS = contextvars.ContextVar("row_products", default=False)
+
+
+@contextlib.contextmanager
+def row_independent_products():
+    """Inside the block, ``FullyConnected`` on host tensors computes each
+    row's product on its own: one (1, K) x (K, N) product a row, batched
+    by ``torch.bmm``.  The host BLAS's product of a few rows may give one
+    row other bits than the others for the same input row (at 4 rows,
+    row 0 differs from rows 1-3 in the last bit), so a row's bits would
+    depend on its place in the batch.  A step that promises each row the
+    bits it gets alone (the continuous batcher's slots) runs here.  On the
+    card cuBLAS gives every row the same bits at these shapes, and the
+    product stays one GEMM."""
+    token = _ROW_PRODUCTS.set(True)
+    try:
+        yield
+    finally:
+        _ROW_PRODUCTS.reset(token)
+
+
 def _fully_connected(data, weight, *rest, num_hidden=1, no_bias=False,
                      flatten=True):
     x = data.reshape(data.shape[0], -1) if flatten or data.ndim == 2 \
         else data
-    out = torch.matmul(x, weight.t())
+    if _ROW_PRODUCTS.get() and x.device.type == "cpu":
+        rows = x.reshape(-1, 1, x.shape[-1])
+        wt = weight.t()
+        out = torch.bmm(rows, wt.expand(rows.shape[0], *wt.shape)) \
+            .reshape(*x.shape[:-1], wt.shape[1])
+    else:
+        out = torch.matmul(x, weight.t())
     if not no_bias:
         out = out + rest[0]
     return out

@@ -27,7 +27,10 @@ Every call is counted by kind in each active ``watch()``: the five kinds
 of the JAX package's ``comm.collective_counts`` over compiled HLO text,
 which the port has no counterpart of.  A watch made with ``timed=True``
 also records, on a card, CUDA events around each call (their span on the
-stream, host gaps between the call's launches included).
+stream, host gaps between the call's launches included).  A CUDA graph's
+capture issues nothing: ``captured()`` takes the calls made inside it
+out of the active watches, and ``add_counts`` counts them again at each
+replay (no span: a replay is one launch).
 """
 from __future__ import annotations
 
@@ -71,11 +74,39 @@ def watch(timed=False):
 
 
 @contextlib.contextmanager
+def captured():
+    """Around the capture of a CUDA graph: yields a dict that holds, once
+    the block ends without error, the calls made inside it by kind (the
+    graph's collectives), which the active watches do not keep."""
+    before = [dict(w.counts) for w in _WATCHES]
+    probe = Watch()
+    _WATCHES.append(probe)
+    recorded = {}
+    try:
+        yield recorded
+        recorded.update((k, n) for k, n in probe.counts.items() if n)
+    finally:
+        _WATCHES.remove(probe)
+        for w, counts in zip(_WATCHES, before):
+            w.counts.update(counts)
+
+
+def add_counts(counts):
+    """Count one replay of a captured graph: the calls ``captured``
+    recorded, in every active watch."""
+    for w in _WATCHES:
+        for kind, n in counts.items():
+            w.counts[kind] += n
+
+
+@contextlib.contextmanager
 def _issue(kind, device):
     for w in _WATCHES:
         w.counts[kind] += 1
-    timers = [w for w in _WATCHES if w.timed] if device.type == "cuda" \
-        else []
+    # events cannot be timed inside a graph's capture
+    timers = [w for w in _WATCHES if w.timed] \
+        if device.type == "cuda" \
+        and not torch.cuda.is_current_stream_capturing() else []
     if not timers:
         yield
         return

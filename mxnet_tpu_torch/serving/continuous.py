@@ -21,8 +21,10 @@ at different times, so they cannot ride the request-level batcher:
 
 Every iteration of every stream runs in the same ``slot_count``-row
 step, its state row either exact zeros (a join) or the bits of its own
-previous iteration, so a stream decodes bit for bit as it does alone
-through a batcher of the same slot count.
+previous iteration, and the step's products compute each row on its own
+(``ops.nn.row_independent_products``: on the host a GEMM of a few rows
+may round one row apart), so a stream decodes bit for bit as it does
+alone, in any slot, through a batcher of the same slot count.
 
 The default ``ctx`` is the current context, ``gpu(0)`` unless the caller
 enters another (the JAX package's default is ``cpu()``).
@@ -51,6 +53,7 @@ from .. import threads as _threads
 from ..base import MXNetError
 from ..context import current_context
 from ..ndarray import NDArray, array as nd_array
+from ..ops.nn import row_independent_products
 from . import metrics
 
 ENV_SLOT_COUNT = "MXNET_TPU_SERVING_SLOT_COUNT"
@@ -396,7 +399,9 @@ class ContinuousBatcher(SlotScheduler):
         mask = torch.from_numpy(mask_host).to(self._device)
         feeds.update({k: NDArray(v) for k, v in select_carry(
             mask, self._carry, self._zero_states).items()})
-        outs = self._exe.forward(is_train=False, **feeds)
+        # each slot's bits are the bits it gets alone in the batch
+        with row_independent_products():
+            outs = self._exe.forward(is_train=False, **feeds)
         self._carry = {name: outs[idx].tensor
                        for name, idx in self.state_pairs}
         return outs

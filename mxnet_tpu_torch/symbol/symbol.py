@@ -567,10 +567,12 @@ class Symbol:
           ``shared_grads``: bound the same way (how bucket executors share
           one set of weights); a shared name that no longer fits is
           allocated zeroed, with a warning to ``logger``.
-        - ``group2ctx``: only one context, ``ctx``, is supported."""
+        - ``group2ctx`` ({ctx_group: context}, manual model
+          parallelism): each argument and aux state of a group is
+          allocated on its group's context (``_group_contexts``), with its
+          gradient; the executor computes on ``ctx``."""
         from ..executor import Executor
         ctx = ctx or current_context()
-        _one_context("simple_bind", ctx, group2ctx)
         shared_args = dict(shared_args or {})
         shared_grads = dict(shared_grads or {})
         if shared_exec is not None:
@@ -583,18 +585,20 @@ class Symbol:
         return Executor._simple_bind(self, ctx, grad_req, type_dict, kwargs,
                                      shared_args=shared_args,
                                      shared_grads=shared_grads,
-                                     logger=logger, buffer=shared_buffer)
+                                     logger=logger, buffer=shared_buffer,
+                                     placed=_group_contexts(self, group2ctx))
 
     def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None, group2ctx=None, shared_exec=None):
         """Bind to the caller's arrays, not copies: ``args``,
         ``args_grad`` and ``aux_states`` as lists in
         ``list_arguments``/``list_auxiliary_states`` order or as dicts;
-        ``grad_req`` a string, a list or a dict."""
+        ``grad_req`` a string, a list or a dict.  An array lies on
+        ``ctx`` or, with ``group2ctx``, on one of its contexts."""
         from ..executor import Executor
-        _one_context("bind", ctx, group2ctx)
         return Executor._bind(self, ctx, args, args_grad, grad_req,
-                              aux_states)
+                              aux_states,
+                              others=set((group2ctx or {}).values()))
 
     def eval(self, ctx=None, **kwargs):
         """The outputs for the argument arrays ``kwargs`` (bound as they
@@ -602,14 +606,24 @@ class Symbol:
         return self.bind(ctx or current_context(), kwargs).forward()
 
 
-def _one_context(what, ctx, group2ctx):
-    """Refuse a ``group2ctx`` that places the graph over more contexts
-    than ``ctx``."""
-    if group2ctx and any(c != ctx for c in group2ctx.values()):
-        raise MXNetError(
-            "%s: group2ctx places the graph over several contexts %s; only "
-            "one context is supported yet (ROADMAP A3)"
-            % (what, sorted({str(c) for c in group2ctx.values()})))
+def _group_contexts(symbol, group2ctx):
+    """{variable name: context} under ``group2ctx`` (the reference's
+    ``ctx_group`` attribute and ``PlaceDevice``): a variable in a group
+    goes to the group's context, and a variable that an op in a group
+    reads goes there too unless placed already (so an op's auto-created
+    weights follow the op)."""
+    placed = {}
+    for node in symbol._topo() if group2ctx else ():
+        group = node.attrs.get("__ctx_group__") or node.attrs.get("ctx_group")
+        if group not in group2ctx:
+            continue
+        if node.is_var:
+            placed[node.name] = group2ctx[group]
+        else:
+            for src, _ in node.inputs:
+                if src.is_var:
+                    placed.setdefault(src.name, group2ctx[group])
+    return placed
 
 
 def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,

@@ -124,6 +124,29 @@ def test_join_leave_zero_builds_bitwise_parity(parts):
         assert np.array_equal(stream.outputs()[0], want)
 
 
+@pytest.mark.parametrize("slot", [1, 2, 3])
+def test_a_stream_decodes_the_same_bits_in_every_slot(parts, slot):
+    """One stream seated in ``slot`` of a 4-slot batcher (``slot`` fillers
+    of one step take the lower slots and leave after the first
+    iteration) decodes bit for bit what it decodes alone in slot 0.  A
+    one-ulp difference in the carried state takes tens of steps to reach
+    the outputs, so the stream is 100 steps long."""
+    seq = _seqs(7, (100,))[0]
+    fillers = _seqs(8, (1,) * slot)
+    cb = _batcher(parts, 4, ctx=mx.cpu())
+    try:
+        cb.warmup()
+        for f in fillers:
+            cb.submit({"data": f})
+        stream = cb.submit({"data": seq})
+        cb.drain(max_iterations=200)
+    finally:
+        cb.close()
+    assert stream.slot == slot
+    assert np.array_equal(stream.outputs()[0],
+                          _decode_solo(parts, seq, slots=4))
+
+
 def test_more_streams_than_slots_queue_and_finish(parts):
     cb = _batcher(parts, 2, ctx=mx.cpu())
     try:

@@ -1969,10 +1969,14 @@ def test_two_context_conv_bn_step_on_the_card_against_the_host(card):
 
     def step(ctxs, data):
         mod = mx.mod.Module(sym, context=ctxs)
-        mod.bind([("data", data.shape)], [("softmax_label", y.shape)])
+        # inputs_need_grad keeps the general path (the fused dp step
+        # refuses it): each context normalizes its own slice here
+        mod.bind([("data", data.shape)], [("softmax_label", y.shape)],
+                 inputs_need_grad=True)
         mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
                                     for k, v in args.items()})
         mod.init_optimizer(kvstore="tpu_ici", optimizer="sgd")
+        assert mod._fused_step is None
         mod.forward_backward(mx.io.DataBatch(
             [mx.nd.array(data, ctx=mx.cpu())], [mx.nd.array(y, ctx=mx.cpu())]))
         group = mod._exec_group
@@ -2226,3 +2230,116 @@ def test_sharded_module_step_on_the_card_matches_the_host(card, no_tf32):
         for k in h:
             np.testing.assert_allclose(c[k], h[k], rtol=1e-4, atol=1e-4,
                                        err_msg=k)
+
+
+def _dp_fused_module(graphed, seed=7):
+    """The conv + BatchNorm net over [gpu(0)] * 2 under 'tpu_ici' (the
+    fused data-parallel step) at batch 8, and 4 batches; ``graphed``
+    False runs every step eagerly."""
+    rng = np.random.RandomState(seed)
+    sym = _dp_conv_bn(mx.sym)
+    arg_shapes, _, _ = sym.infer_shape(data=(8, 3, 24, 24))
+    args = {n: (0.3 * rng.standard_normal(s)).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    args["bn1_gamma"] = 1 + 0.1 * args["bn1_gamma"]
+    batches = [mx.io.DataBatch(
+        [mx.nd.array(rng.standard_normal((8, 3, 24, 24)), ctx=mx.cpu())],
+        [mx.nd.array(rng.randint(0, 3, 8), ctx=mx.cpu())])
+        for _ in range(4)]
+    mod = mx.mod.Module(sym, context=[mx.gpu(0)] * 2)
+    mod.bind([("data", (8, 3, 24, 24))], [("softmax_label", (8,))])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                for k, v in args.items()})
+    mod.init_optimizer(kvstore="tpu_ici", optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.1,
+                                         "momentum": 0.9, "wd": 1e-4})
+    fs = mod._fused_step
+    assert fs is not None and fs.dp_mode == "split"
+    fs._graphable = graphed
+    return mod, batches
+
+
+def test_fused_dp_replays_match_the_eager_dp_step(card, no_tf32,
+                                                  deterministic):
+    """The fused dp step over [gpu(0)] * 2: one eager step, a capture and
+    two replays against four eager steps from one state: masters,
+    momenta and moving statistics within 1e-6, the replicas bit for
+    bit."""
+    graph, batches = _dp_fused_module(True)
+    eager, _ = _dp_fused_module(False)
+    _steps(graph, batches)
+    _steps(eager, batches)
+    fs, fe = graph._fused_step, eager._fused_step
+    assert fs.captures == 1 and fs.replays == 3 and fe.graph is None
+    for a, b in zip(fs._masters + fs.states, fe._masters + fe.states):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-6, atol=1e-6)
+    for k, v in graph.get_params()[1].items():
+        np.testing.assert_allclose(v.asnumpy(),
+                                   eager.get_params()[1][k].asnumpy(),
+                                   rtol=1e-6, atol=1e-6)
+    group = graph._exec_group
+    for blocks in group.param_arrays + group.aux_arrays:
+        assert torch.equal(blocks[0].tensor, blocks[1].tensor)
+
+
+def test_fused_dp_replays_count_collectives_and_launches(card):
+    """Each replay counts the collectives and kernel launches its capture
+    recorded: two replays give equal counts, equal to the eager step's
+    (2 BatchNorm all-reduces, one a gradient; 2 channel sums and 1
+    max-pool backward a position)."""
+    mod, batches = _dp_fused_module(True)
+    fs = mod._fused_step
+    counts, launches = [], []
+    for b in batches:
+        before = K.launch_counts()
+        mod.forward_backward(b)
+        mod.update()
+        torch.cuda.synchronize()
+        after = K.launch_counts()
+        counts.append(dict(fs.collectives))
+        launches.append({k: after[k] - before[k] for k in after
+                         if after[k] != before[k]})
+    assert fs.replays == 3
+    n_params = len(fs.param_names)
+    assert all(c == counts[0] for c in counts), counts
+    assert counts[0]["all-reduce"] == 2 + n_params
+    assert fs.graph_collectives == {"all-reduce": 2 + n_params}
+    assert all(l == launches[0] for l in launches), launches
+    assert launches[0] == {"bn_channel_sums": 4, "max_pool_backward": 2}
+
+
+def test_group2ctx_host_weights_on_a_card_bind(card, no_tf32):
+    """fc1 in a group on the host, fc2 in one on the card, bound on
+    gpu(0): fc1's weight and gradient stay on the host, fc2's on the
+    card, and the outputs and gradients are bit for bit the plain gpu(0)
+    bind's (the same products on the card)."""
+    with mx.AttrScope(ctx_group="host"):
+        a = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=16,
+                                  name="fc1")
+    with mx.AttrScope(ctx_group="card"):
+        b = mx.sym.FullyConnected(mx.sym.Activation(a, act_type="tanh"),
+                                  num_hidden=4, name="fc2")
+    net = mx.sym.SoftmaxOutput(b, name="softmax")
+    rng = np.random.RandomState(4)
+    placed = net.simple_bind(mx.gpu(0), data=(8, 32), group2ctx={
+        "host": mx.cpu(0), "card": mx.gpu(0)})
+    plain = net.simple_bind(mx.gpu(0), data=(8, 32))
+    vals = {k: rng.standard_normal(v.shape).astype(np.float32) * 0.3
+            for k, v in plain.arg_dict.items()}
+    vals["softmax_label"] = (np.arange(8) % 4).astype(np.float32)
+    got = []
+    for exe in (placed, plain):
+        for k, v in vals.items():
+            exe.arg_dict[k][:] = v
+        out = exe.forward(is_train=True)[0].asnumpy()
+        exe.backward()
+        got.append((out, {k: g.asnumpy() for k, g in exe.grad_dict.items()}))
+    for name in ("fc1_weight", "fc1_bias"):
+        assert placed.arg_dict[name].context == mx.cpu(0)
+        assert not placed.grad_dict[name].tensor.is_cuda
+    assert placed.grad_dict["fc2_weight"].tensor.is_cuda
+    assert np.array_equal(got[0][0], got[1][0])
+    for k in got[1][1]:
+        assert np.array_equal(got[0][1][k], got[1][1][k]), k

@@ -276,7 +276,8 @@ def test_c7_simple_bind_sharing_keywords():
     """``shared_exec`` with ``shared_arg_names`` binds the sharer's
     parameters, gradients and aux states; ``shared_buffer`` takes the
     other arrays and gains the new ones; ``group2ctx`` over one context
-    binds, over two it refuses."""
+    binds, and over two it places by ``ctx_group`` (no node here has one,
+    so every array stays on the bind context)."""
     with mx.sym.NameManager():
         net = mx.sym.BatchNorm(mx.sym.FullyConnected(
             mx.sym.var("data"), num_hidden=3, name="fc"), name="bn")
@@ -296,6 +297,7 @@ def test_c7_simple_bind_sharing_keywords():
     assert third.arg_dict["data"] is buffer["data"]
     assert net.simple_bind(mx.cpu(), data=(2, 4),
                            group2ctx={"dev1": mx.cpu()}).arg_dict
-    with pytest.raises(mx.MXNetError, match="A3"):
-        net.simple_bind(mx.cpu(), data=(2, 4),
-                        group2ctx={"dev1": mx.cpu(), "dev2": mx.gpu(0)})
+    placed = net.simple_bind(mx.cpu(), data=(2, 4),
+                             group2ctx={"dev1": mx.cpu(), "dev2": mx.gpu(0)})
+    for table in (placed.arg_dict, placed.grad_dict, placed.aux_dict):
+        assert all(a.context == mx.cpu() for a in table.values())
