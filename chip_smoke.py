@@ -51,7 +51,11 @@ CUDA toolkit.  Phases, each of which raises on failure:
    (64, 20, 24, 24) and (64, 50, 8, 8) (phase 11's path), bit for bit,
    timed the same way; and ``bn_channel_sums`` at DCGAN's seven
    BatchNorm inputs (phase 12's path), single and paired, timed the same
-   way beside ``batch_norm_stats`` / ``batch_norm_backward_reduce``.
+   way beside ``batch_norm_stats`` / ``batch_norm_backward_reduce``; and
+   the pooling backwards at the LeNet-STN localisation net's pools (phase
+   19a's path): ``max_pool_backward`` 2x2/s2 over (64, 30, 12, 12) and
+   ``avg_pool_backward`` global over (64, 60, 6, 6), post-ReLU, bit for
+   bit, timed the same way.
 3. Serving: a GPT-2-small-width TransformerLM (vocab 50257, context
    1024, width 768, 12 heads, 12 layers, FFN 3072; random weights from
    ``--seed``) served by ``Server(max_batch_size=4)``: warmup with its
@@ -230,7 +234,7 @@ CUDA toolkit.  Phases, each of which raises on failure:
       the MLP and one graph per operator (``==``, ``!=``, ``**``, ``%``)
       and per op of the 29 fluent methods, within 1e-4;
    f. each of the 12 symbol zoo builders: one inference forward of its
-      logits at batch 2, at its input size (299 for the inception v3/v4/
+      logits at batch 1, at its input size (299 for the inception v3/v4/
       resnet-v2 builders, 28 for LeNet and the MLP, 224 for the rest),
       1000 classes, weights and BatchNorm statistics from ``--seed``,
       timed, against the host within 2e-3 relative L2.
@@ -274,13 +278,13 @@ CUDA toolkit.  Phases, each of which raises on failure:
       deterministic update ops at (2600, 650), within 1e-4.
 13. BASELINE configs 2 and 3 from files (kept for phase 14), f32 with
    TF32 off:
-   a. 1,280 ImageNet-like records written from ``--seed`` through the
+   a. 640 ImageNet-like records written from ``--seed`` through the
       port's ``recordio.pack_img`` (JPEG quality 95, shorter side 256,
       longer 256-384, 1000 labels, a class's smooth pattern plus noise)
       with a ``.idx``; the iterators alone in images/s (``ImageIter``, and
       ``ImageRecordIter(ctx=gpu(0))`` at ``preprocess_threads`` 1 and 4);
       ResNet-50 (``models/resnet.py``, 1000 classes) through
-      ``Module.fit`` for one epoch of 40 batches of 32 at
+      ``Module.fit`` for one epoch of 20 batches of 32 at
       ``train_imagenet.py``'s settings (SGD lr 0.1, momentum 0.9, wd
       1e-4), fed (i) by ``common/data.py:get_rec_iter``'s ``ImageIter``
       call and (ii) by MXNet 1.0's ``ImageRecordIter(preprocess_threads=
@@ -293,13 +297,13 @@ CUDA toolkit.  Phases, each of which raises on failure:
       equal the host's at 4 and 1 threads bit for bit; the first 3 steps
       against the host by phase 4's rule, each from the host run's state
       before it;
-   b. CIFAR-10's python batches written from ``--seed`` (50,000 + 10,000
-      images of learnable class patterns), then ``examples/gluon/
+   b. CIFAR-10's python batches written from ``--seed`` (25,000 + 10,000
+      images of learnable class patterns: half the training set), then ``examples/gluon/
       image_classification.py``'s loop: ``gluon.data.vision.CIFAR10``
       -> ``transform_first(Compose([ToTensor(), Normalize(...)]))`` ->
       ``DataLoader(128, shuffle, last_batch="discard")``, hybridized
       ``resnet18_v1`` thumbnail, ``Trainer("sgd", lr 0.1, momentum 0.9,
-      wd 1e-4)``, one epoch of 390 steps: ms per step and images/s, the
+      wd 1e-4)``, one epoch of 195 steps: ms per step and images/s, the
       loader's time apart, train accuracy above chance, 38
       ``bn_channel_sums`` and 1 ``avg_pool_backward`` a step, a profiled
       iteration's busy share in a process of its own (``--cifar-
@@ -309,14 +313,14 @@ CUDA toolkit.  Phases, each of which raises on failure:
    c. the deterministic image ops through ``check_consistency`` over
       [cpu(0), gpu(0)] at (128, 3, 32, 32) / (128, 32, 32, 3) and HWC
       (224, 224, 3) within 1e-6; the random ones by their moments over
-      10^6 pixels (6 standard errors).
+      10,000 draws of a 2x2 image (6 standard errors).
 14. Data input through ``mx.io_pipeline`` and detection data, f32 with
    TF32 off, over phase 13's files:
    a. BASELINE config 2's ResNet-50 (13a's symbol and settings) through
       ``Module.fit(train_data=Pipeline(...))``: ``RecordFileSource`` over
       13a's records, ``ImageRecordDecoder`` with a random 224 crop, a
       random mirror and ImageNet's mean and std, shuffled from ``--seed``;
-      one epoch of 40 batches of 32 with 4 thread workers, then one with
+      one epoch of 20 batches of 32 with 4 thread workers, then one with
       4 spawn-process workers.  The host batches of both modes bit for bit
       the 1-worker run's; every batch the steps read on the card bit for
       bit its host batch; 102 ``bn_channel_sums``, 1 max- and 1 avg-pool
@@ -454,13 +458,48 @@ CUDA toolkit.  Phases, each of which raises on failure:
       host, 4 steps of SGD through ``mx.optimizer.get_updater``: every
       step's outputs and weights bit for bit the plain gpu(0) bind's, the
       embedding's weight and gradient on the host, ms per step.
-19. The ``kernels`` JSON line (each kernel's record with its launches on
+19. The dense op surface on one card, TF32 off, inputs from ``--seed``:
+   a. MXNet 1.0's LeNet-STN (``symbols/lenet.py`` with ``add_stn=True``:
+      a localisation net of conv 30 5x5/2, relu, max pool 2x2/2, conv 60
+      3x3, relu, global average pool and ``FullyConnected(6, "stn_loc",
+      lr_mult 0.01)`` at the identity transform, feeding
+      ``SpatialTransformer(target_shape=(28, 28))``, then LeNet) through
+      ``MNISTIter`` -> ``Module.fit`` on phase 11's MNIST files, written
+      again, at phase 11's settings for one epoch of 938 steps of 64, f32,
+      on the fused step: 3 max- and 1 avg-pool backward a step (the
+      localisation net's pools are phase 2's ``stn-loc-*`` instances),
+      train accuracy at least 0.9; then the first 3 steps card against
+      host by phase 4's rule, each from the host run's state, in float64
+      where ReLU units flip;
+   b. SSD-300's multibox head (MXNet 1.0's ``example/ssd`` VGG16-reduced
+      300 settings) on a batch of 32 of phase 14's ``ImageDetIter``
+      records: ``MultiBoxPrior`` over the six maps (8,732 anchors),
+      ``MultiBoxTarget`` (threshold 0.5, explicit variances),
+      ``MultiBoxDetection`` (nms 0.45, topk 400, threshold 0.01) of a
+      seeded softmax and seeded offsets, ``box_nms`` over the decoded rows
+      (MultiBoxDetection's own suppression, bit for bit) and ``box_iou``;
+      against the host (the detections of 2 pictures: a differing NMS
+      decision must sit within 1e-5 of the threshold, or follow one that
+      does); the ``box_nms`` kernel (``csrc/box_nms.cu``) bit for bit its
+      plain version on the 32 pictures, timed beside it and its bound;
+   c. FlowNet-C's ``Correlation`` (4 x 256 x 48 x 64, pad 20, max
+      displacement 20, stride2 2), Fast R-CNN VGG16's ``ROIPooling`` (1 x
+      512 x 38 x 63, 128 ROIs, 7x7, 1/16), the ten ``linalg`` ops on 16
+      SPD 512 x 512 matrices (``gelqf`` on 256 x 512), ``fft``/``ifft``
+      on 64 x 4096, ``quantize``/``dequantize``, ``depth_to_space``/
+      ``space_to_depth``, ``Crop``, ``smooth_l1`` and ``khatri_rao`` at
+      the sizes printed: forward and backward on the card (ms), against
+      the host on a part of each batch (1e-4 of the outputs' scale, 1e-3
+      of the gradients'; layout ops and codes bit for bit).
+20. The ``kernels`` JSON line (each kernel's record with its launches on
    every path, phase 10's five and the MLP's with 0 of each, LeNet's with
    2 max-pool backwards a step, DCGAN's with 26 channel sums an
    iteration, phase 13's two paths, and its bf16/f16/f64, head_dim 32,
-   LeNet, DCGAN and ResNet-18 instances; phase 14's paths; phase 15's
-   three; phase 16's three, with 0 of each; phase 17's two; phase 18's
-   four), then the result line.
+   LeNet, DCGAN, ResNet-18 and LeNet-STN instances; phase 14's paths;
+   phase 15's three; phase 16's three, with 0 of each; phase 17's two;
+   phase 18's four; phase 19's two), after a line of the same keys for
+   the hand kernel with no TPU counterpart (``box_nms``), then the
+   result line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is not beside this script.
@@ -4434,7 +4473,7 @@ LENET_HOST_STEPS = 3
 LENET_OUT_REL = 1e-4   # PERF.md section 2: LMs and RNNs vs host
 LENET_GRAD_REL = 1e-3
 CONSISTENCY_TOL = 1e-4  # check_consistency, card against host, f32
-ZOO_BATCH = 2
+ZOO_BATCH = 1
 ZOO_REL = 2e-3  # the served-logits limit of PERF.md section 2
 ZOO_INPUTS = {  # builder -> (input shape, builder kwargs), 1000 classes
     "lenet": ((1, 28, 28), {}),
@@ -4564,10 +4603,12 @@ def check_lenet_pools(seed):
     return [], out
 
 
-def fit_mnist(mx, seed, paths, symbol, flat, tag):
+def fit_mnist(mx, seed, paths, symbol, flat, tag, start=None):
     """11b/c. ``MNISTIter`` -> ``Module(context=gpu(0)).fit`` for an epoch
     at the example's settings; the checks and numbers of the fit.
-    Returns (module, the fit's kernel launches, initial parameters)."""
+    ``start``: {name: numpy} set over the initializer's values (19a's
+    ``stn_loc``).  Returns (module, the fit's kernel launches, initial
+    parameters)."""
     import torch
     from mxnet_tpu_torch.module.fused_step import FusedTrainStep, WARMUP_STEPS
     from mxnet_tpu_torch.ops import kernels as K
@@ -4579,6 +4620,11 @@ def fit_mnist(mx, seed, paths, symbol, flat, tag):
     mx.random.seed(seed)
     mod.init_params(mx.initializer.Xavier(rnd_type="gaussian",
                                           factor_type="in", magnitude=2))
+    if start:
+        args, auxs = mod.get_params()
+        args.update((k, mx.nd.array(v, ctx=mx.cpu()))
+                    for k, v in start.items())
+        mod.set_params(args, auxs)
     arg0, aux0 = ({k: v.asnumpy().copy() for k, v in t.items()}
                   for t in mod.get_params())
     step_ms, step_launches, marks = [], [], {}
@@ -4848,8 +4894,8 @@ def zoo_weights(symbol, data_shape, seed):
 
 def zoo_forwards(mx, seed):
     """11f. Each builder of the symbol zoo: one inference forward of its
-    logits (the graph below ``SoftmaxOutput``) at batch 2, at its input
-    size, 1000 classes, on the card, timed, against the same forward
+    logits (the graph below ``SoftmaxOutput``) at batch ZOO_BATCH, at its
+    input size, 1000 classes, on the card, timed, against the same forward
     through the port on the host (relative L2 within ZOO_REL)."""
     from mxnet_tpu_torch import models
     for k, (name, (shape, kwargs)) in enumerate(ZOO_INPUTS.items()):
@@ -5871,8 +5917,8 @@ def train_dcgan_phase(mx, seed):
 # BASELINE config 2: examples/image-classification/train_imagenet.py at its
 # settings (ResNet-50 of models/resnet.py, 1000 classes, 3x224x224, batch
 # 32, SGD lr 0.1, momentum 0.9, wd 1e-4).  Cut: num_examples 1,281,167 ->
-# 1,280 written records, one epoch of 40 batches.
-REC_IMAGES = 1280
+# 640 written records, one epoch of 20 batches.
+REC_IMAGES = 640
 REC_BATCH = 32
 REC_CLASSES = 1000
 REC_SHAPE = (3, 224, 224)
@@ -5887,8 +5933,10 @@ REC_HOST_STEPS = 3            # card against host steps (phase 4's rule)
 FIT_TIMES = {}                # tag -> (ms per step, next() wait), medians
 # BASELINE config 3: examples/gluon/image_classification.py at its settings
 # (resnet18_v1 thumbnail, 10 classes, batch 128, SGD lr 0.1, momentum 0.9,
-# wd 1e-4, hybridized).  Cut: one epoch of the example's 5.
-CIFAR_SIZES = {"train": 50000, "test": 10000}
+# wd 1e-4, hybridized).  Cut: one epoch of the example's 5, over half of
+# CIFAR-10's 50,000 training images (195 steps; the rule is learnt well
+# before: 0.9995 over the last 50 steps of a full epoch, PERF.md).
+CIFAR_SIZES = {"train": 25000, "test": 10000}
 CIFAR_BATCH = 128
 CIFAR_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 CIFAR_MEAN = (0.4914, 0.4822, 0.4465)
@@ -5903,7 +5951,7 @@ CIFAR_HOST_BATCH = 8          # images of each card-vs-host step
 RESNET18_BN_SHAPES = ((128, 64, 32, 32), (128, 128, 16, 16),
                       (128, 256, 8, 8), (128, 512, 4, 4))
 RESNET18_POOL = (128, 512, 4, 4)
-IMAGE_OP_DRAWS = 50000        # random image ops: draws (calls) of each
+IMAGE_OP_DRAWS = 10000        # random image ops: draws (calls) of each
 IMAGE_OP_GRAPH_CALLS = 1000   # of them in one captured CUDA graph
 IMAGE_OP_SIGMAS = 6.0
 IMAGE_OP_TOL = 1e-6
@@ -9766,6 +9814,648 @@ def train_fused_dp(mx, seed):
     return paths
 
 
+# -- phase 19: the dense op surface: MXNet 1.0's LeNet-STN through
+# Module.fit, SSD-300's MultiBox head on ImageDetIter batches, the other
+# dense ops at published sizes ---------------------------------------------
+
+# LeNet-STN: MXNet 1.0's example/image-classification/symbols/lenet.py with
+# add_stn=True, at phase 11's settings (train_mnist.py's: batch 64, SGD lr
+# 0.05 momentum 0.9 wd 1e-4, one epoch of phase 11's files), f32
+STN_HOST_STEPS = 3
+# the localisation net's pools at batch 64: (label, pool, input shape,
+# kernel, stride); the global average pool's kernel is its plane
+STN_POOLS = (("stn-loc-pool", "max", (64, 30, 12, 12), (2, 2), (2, 2)),
+             ("stn-loc-global", "avg", (64, 60, 6, 6), (6, 6), (1, 1)))
+# SSD-300's multibox head (VGG16-reduced at 300x300; MXNet 1.0's
+# example/ssd/symbol/symbol_factory.py): per feature map its side, the
+# channels feeding it, sizes, ratios and step
+SSD_MAPS = ((38, 512, (0.1, 0.141), (1, 2, 0.5), 8 / 300),
+            (19, 1024, (0.2, 0.272), (1, 2, 0.5, 3, 1 / 3), 16 / 300),
+            (10, 512, (0.37, 0.447), (1, 2, 0.5, 3, 1 / 3), 32 / 300),
+            (5, 256, (0.54, 0.619), (1, 2, 0.5, 3, 1 / 3), 64 / 300),
+            (3, 256, (0.71, 0.79), (1, 2, 0.5), 100 / 300),
+            (1, 256, (0.88, 0.961), (1, 2, 0.5), 300 / 300))
+SSD_ANCHORS = 8732
+SSD_CLASSES = 21                # VOC's 20 and the background
+SSD_VARIANCES = (0.1, 0.1, 0.2, 0.2)
+SSD_DETECTION = dict(nms_threshold=0.45, nms_topk=400, threshold=0.01)
+SSD_HOST_PICTURES = 2           # pictures of the batch the host repeats
+NMS_FLIP_EPS = 1e-5             # an IoU this near the threshold may flip
+# 19c: published sizes.  FlowNet-C's correlation (Dosovitskiy et al. 2015)
+CORR_SHAPE = (4, 256, 48, 64)
+CORR_ATTRS = dict(pad_size=20, kernel_size=1, max_displacement=20,
+                  stride1=1, stride2=2)
+# Fast R-CNN VGG16's ROI pooling (Girshick 2015): conv5_3 of a 600x1000
+# image, 128 ROIs a picture, 7x7, 1/16
+ROI_SHAPE = (1, 512, 38, 63)
+ROI_COUNT = 128
+ROI_HOST = 16                   # of the ROIs, repeated on the host
+LINALG_BATCH, LINALG_N = 16, 512
+LINALG_HOST = 4                 # of the matrices, repeated on the host
+FFT_SHAPE = (64, 4096)
+DENSE_REL = 1e-4                # outputs, relative to their scale
+DENSE_GRAD_REL = 1e-3           # gradients, relative to their scale
+
+
+def stn_lenet_symbol(mx):
+    """LeNet-STN from ``mx.sym`` ops: the localisation net (conv 30 5x5
+    stride 2, relu, max pool 2x2/2, conv 60 3x3 pad 1, relu, global avg
+    pool, flatten, FullyConnected 6 "stn_loc" at lr_mult 0.01) feeding
+    ``SpatialTransformer(target_shape=(28, 28))``, then LeNet."""
+    S = mx.sym
+    data = S.var("data")
+    loc = S.Convolution(data, num_filter=30, kernel=(5, 5), stride=(2, 2))
+    loc = S.Activation(loc, act_type="relu")
+    loc = S.Pooling(loc, kernel=(2, 2), stride=(2, 2), pool_type="max")
+    loc = S.Convolution(loc, num_filter=60, kernel=(3, 3), pad=(1, 1))
+    loc = S.Activation(loc, act_type="relu")
+    loc = S.Pooling(loc, global_pool=True, kernel=(2, 2), pool_type="avg")
+    loc = S.Flatten(loc)
+    loc = S.FullyConnected(loc, num_hidden=6, name="stn_loc",
+                           weight=S.var("stn_loc_weight", lr_mult=0.01),
+                           bias=S.var("stn_loc_bias", lr_mult=0.01))
+    x = S.SpatialTransformer(data=data, loc=loc, target_shape=(28, 28),
+                             transform_type="affine", sampler_type="bilinear")
+    x = S.Convolution(x, kernel=(5, 5), num_filter=20)
+    x = S.Activation(x, act_type="tanh")
+    x = S.Pooling(x, pool_type="max", kernel=(2, 2), stride=(2, 2))
+    x = S.Convolution(x, kernel=(5, 5), num_filter=50)
+    x = S.Activation(x, act_type="tanh")
+    x = S.Pooling(x, pool_type="max", kernel=(2, 2), stride=(2, 2))
+    x = S.Flatten(x)
+    x = S.FullyConnected(x, num_hidden=500)
+    x = S.Activation(x, act_type="tanh")
+    x = S.FullyConnected(x, num_hidden=10)
+    return S.SoftmaxOutput(x, name="softmax")
+
+
+def stn_start():
+    """``stn_loc`` starts at the identity transform (the initializers'
+    legacy ``stn_loc`` rule): weight 0, bias (1, 0, 0, 0, 1, 0)."""
+    return {"stn_loc_weight": np.zeros((6, 60), np.float32),
+            "stn_loc_bias": np.array([1, 0, 0, 0, 1, 0], np.float32)}
+
+
+def check_stn_pools(seed):
+    """Phase 2e: the pooling backwards at the LeNet-STN localisation net's
+    pools (phase 19a's main path; post-ReLU inputs, ties; f32) against
+    their plain versions, bit for bit, timed beside their bytes bound and
+    the aten backward.  Returns ([], [(kernel, instance)])."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    aten = torch.ops.aten
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 190)
+    pads = ((0, 0), (0, 0))
+    out = []
+    for label, pool, shape, kernel, stride in STN_POOLS:
+        x = torch.clamp_min(torch.randn(*shape, generator=gen, device=dev),
+                            0.0)
+        oshape = tuple((shape[2 + i] - kernel[i]) // stride[i] + 1
+                       for i in range(2))
+        dy = torch.randn(shape[:2] + oshape, generator=gen, device=dev)
+        if pool == "max":
+            name = "max_pool_backward"
+            run = lambda: K.max_pool_backward(  # noqa: E731
+                x, dy, kernel, stride, pads)
+            plain = lambda: K._plain_max_pool_backward(  # noqa: E731
+                x, dy, kernel, stride, pads)
+            _, idx = aten.max_pool2d_with_indices(x, kernel, stride, (0, 0))
+            lib = lambda: aten.max_pool2d_with_indices_backward(  # noqa: E731
+                dy, x, kernel, stride, (0, 0), (1, 1), False, idx)
+            nbytes = _nbytes(x, dy) + x.numel() * x.element_size()
+        else:
+            name = "avg_pool_backward"
+            div = torch.full(oshape, 1.0 / (kernel[0] * kernel[1]),
+                             device=dev)
+            run = lambda: K.avg_pool_backward(  # noqa: E731
+                dy, div, shape, kernel, stride, pads)
+            plain = lambda: K._plain_avg_pool_backward(  # noqa: E731
+                dy, div, shape, kernel, stride, pads, torch.float32)
+            lib = lambda: aten.avg_pool2d_backward(  # noqa: E731
+                dy, x, kernel, stride, (0, 0), False, True, None)
+            nbytes = _nbytes(dy, div) + x.numel() * x.element_size()
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        exact = bool(torch.equal(got, want))
+        print("kernel %s %s %s f32 %dx%d/s%d: max_abs_err %.3g (bit for bit: "
+              "%s) %s" % (name, label, "x".join(map(str, shape)), kernel[0],
+                          kernel[1], stride[0], err, exact,
+                          "ok" if exact else "FAIL"))
+        if not exact:
+            raise AssertionError("%s disagrees with its plain version at %s"
+                                 % (name, label))
+        ms, plain_ms, lib_ms = time_ms(run), time_ms(plain), time_ms(lib)
+        bound = bytes_bound(nbytes)
+        _report("kernel %s %s" % (name, label), ms, plain_ms, lib_ms, bound)
+        b2b = time_ms_back_to_back(run)
+        print("kernel %s %s, 20 calls back to back: %.4f ms a call (%.1f%% of "
+              "the bound), library %.4f ms; device only: kernel %s, library "
+              "%s" % (name, label, b2b, 100.0 * bound[0] / b2b,
+                      time_ms_back_to_back(lib),
+                      _device_text(device_ms_per_call(run)),
+                      _device_text(device_ms_per_call(lib))))
+        out.append((name, _instance(label, err, ms, plain_ms, bound, lib_ms)))
+    return [], out
+
+
+def stn_host_check(mx, seed, paths, symbol, arg0):
+    """19a's card-vs-host check: from the fit's initial weights (``stn_loc``
+    at the identity, where every sample coordinate is within rounding of
+    a pixel, so the side ``floor`` falls on decides which cell the grid's
+    gradient goes through), the host trajectory through ``Module`` on the
+    fit's first batches of 64; then each step by ``teacher_forced_steps``
+    through bound executors on the card and on the host, in float64 where
+    ReLU units flip.  Card and host build the same float64 grid, bit for
+    bit; the sampler's backward scatters with atomics on the card."""
+    it = mnist_iter(mx, paths, "train", False, seed)
+    batches = []
+    for _ in range(STN_HOST_STEPS):
+        b = next(it)
+        batches.append((b.data[0].asnumpy(), b.label[0].asnumpy()))
+    mod = mx.mod.Module(symbol, context=mx.cpu())
+    mod.bind([("data", (MNIST_BATCH, 1, 28, 28))],
+             [("softmax_label", (MNIST_BATCH,))])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                for k, v in arg0.items()})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(MNIST_SGD))
+    states = []
+    for x, y in batches:
+        states.append({k: v.asnumpy() for k, v in mod.get_params()[0].items()})
+        mod.forward_backward(mx.io.DataBatch([mx.nd.array(x, ctx=mx.cpu())],
+                                             [mx.nd.array(y, ctx=mx.cpu())]))
+        mod.update()
+    exes = {}
+    for dtype in ("float32", "float64"):
+        for where, ctx in (("card", mx.gpu(0)), ("host", mx.cpu())):
+            exes[where, dtype] = symbol.simple_bind(
+                ctx, grad_req={k: "write" for k in arg0},
+                type_dict={k: dtype for k in symbol.list_arguments()},
+                data=(MNIST_BATCH, 1, 28, 28), softmax_label=(MNIST_BATCH,))
+
+    def run(where, state, x, y, dtype="float32"):
+        exe = exes[where, dtype]
+        ctx = mx.gpu(0) if where == "card" else mx.cpu()
+        exe.copy_params_from({k: mx.nd.array(v, ctx=ctx, dtype=dtype)
+                              for k, v in state.items()})
+        exe.forward(is_train=True, data=mx.nd.array(x, ctx=ctx, dtype=dtype),
+                    softmax_label=mx.nd.array(y, ctx=ctx, dtype=dtype))
+        exe.backward()
+        return (exe.outputs[0].asnumpy().astype(np.float64),
+                {k: exe.grad_dict[k].asnumpy().astype(np.float64)
+                 for k in arg0})
+
+    teacher_forced_steps(
+        "lenet-stn", run, states, batches, seed,
+        lambda state, x: relu_flips(mx, symbol, state, x),
+        lambda where, state, x, y: run(where, state, x, y, "float64"))
+
+
+def train_lenet_stn(mx, seed, root):
+    """19a.  Returns the fit's kernel launches."""
+    import torch
+    t0 = time.perf_counter()
+    files = write_mnist(root, seed, MNIST_SIZES)
+    print("lenet-stn: phase 11's MNIST files written again in %.1f s"
+          % (time.perf_counter() - t0))
+    symbol = stn_lenet_symbol(mx)
+    per_step = expected_train_launches(symbol)
+    print("lenet-stn: the graph's launches per step %s (3 max pools: the "
+          "localisation net's and LeNet's two; the global average pool)"
+          % per_step)
+    mod, launches, (arg0, _) = fit_mnist(mx, seed, files, symbol, False,
+                                         "lenet-stn", start=stn_start())
+    theta = mod.get_params()[0]["stn_loc_bias"].asnumpy()
+    print("lenet-stn: after the epoch stn_loc_bias %s (started at the "
+          "identity)" % np.array2string(theta, precision=4))
+    del mod
+    torch.cuda.empty_cache()
+    stn_host_check(mx, seed, files, symbol, arg0)
+    return launches
+
+
+def ssd_anchors(mx, ctx):
+    """The six maps' ``MultiBoxPrior`` outputs, concatenated: [1, 8732, 4]."""
+    parts = []
+    for side, channels, sizes, ratios, step in SSD_MAPS:
+        feat = mx.nd.zeros((1, channels, side, side), ctx=ctx)
+        parts.append(mx.nd.contrib.MultiBoxPrior(
+            feat, sizes=sizes, ratios=ratios, steps=(step, step)))
+    return mx.nd.concat(*parts, dim=1)
+
+
+def nms_flips(card, host, raw, thresh):
+    """Rows whose suppression differs between two detection outputs
+    [P, A, 6] (-1 class rows suppressed or invalid), with the classes and
+    IoUs of ``raw`` [P, A, 6] (the card's decoded rows before
+    suppression).  A flip is explained when some box of its class has an
+    IoU with it within NMS_FLIP_EPS of ``thresh``, or when a box of its
+    class that itself flipped overlaps it past ``thresh`` (a cascade).
+    Returns (flips, unexplained, closest IoUs)."""
+    import torch
+    from mxnet_tpu_torch.ops.kernels import pairwise_iou
+    flips, bad, closest = 0, 0, []
+    for p in range(card.shape[0]):
+        diff = np.flatnonzero((card[p, :, 0] < 0) != (host[p, :, 0] < 0))
+        flips += len(diff)
+        if not len(diff):
+            continue
+        boxes = torch.tensor(raw[p, :, 2:], dtype=torch.float32)
+        cls = raw[p, :, 0]
+        iou = pairwise_iou(boxes[diff], boxes).numpy()
+        for row, j in enumerate(diff):
+            same = cls == cls[j]
+            same[j] = False
+            gap = np.abs(iou[row][same] - thresh)
+            near = float(gap.min()) if gap.size else float("inf")
+            cascade = bool(((iou[row] > thresh) & same
+                            & np.isin(np.arange(len(cls)), diff)).any())
+            closest.append(near)
+            bad += not (near <= NMS_FLIP_EPS or cascade)
+    return flips, bad, closest
+
+
+def ssd_multibox_head(mx, seed, root):
+    """19b.  Returns {kernel: launches} of the head's calls on the card and
+    the box_nms kernel's record."""
+    import random as _pyrandom
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    card, host = mx.gpu(0), mx.cpu()
+    rec, idx = (os.path.join(root, "det.rec"), os.path.join(root, "det.idx"))
+    _pyrandom.seed(seed)
+    np.random.seed(seed)
+    it = mx.image.ImageDetIter(
+        batch_size=DET_BATCH, data_shape=DET_SHAPE, path_imgrec=rec,
+        path_imgidx=idx, shuffle=True, rand_crop=0.5, rand_pad=0.5,
+        rand_mirror=True, mean=True, std=True)
+    label = it.next().label[0].asnumpy()[..., :5]
+    n_boxes = int((label[..., 0] >= 0).sum())
+    rng = np.random.default_rng(seed + 191)
+    n = DET_BATCH
+    cls_pred = rng.standard_normal((n, SSD_CLASSES, SSD_ANCHORS),
+                                   dtype=np.float32)
+    logits = rng.standard_normal((n, SSD_CLASSES, SSD_ANCHORS),
+                                 dtype=np.float32) * 2
+    prob = np.exp(logits - logits.max(1, keepdims=True))
+    prob = (prob / prob.sum(1, keepdims=True)).astype(np.float32)
+    loc = (rng.standard_normal((n, SSD_ANCHORS * 4), dtype=np.float32)
+           * 0.5).astype(np.float32)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    anchors = ssd_anchors(mx, card)
+    arrays = {k: mx.nd.array(v, ctx=card) for k, v in
+              (("label", label), ("cls_pred", cls_pred), ("prob", prob),
+               ("loc", loc))}
+    target = mx.nd.contrib.MultiBoxTarget(
+        anchors, arrays["label"], arrays["cls_pred"], overlap_threshold=0.5,
+        variances=SSD_VARIANCES)
+    det = mx.nd.contrib.MultiBoxDetection(
+        arrays["prob"], arrays["loc"], anchors, variances=SSD_VARIANCES,
+        **SSD_DETECTION)
+    # the decoded rows before suppression: nothing overlaps past 1
+    raw = mx.nd.contrib.MultiBoxDetection(
+        arrays["prob"], arrays["loc"], anchors, variances=SSD_VARIANCES,
+        nms_threshold=1.0, threshold=SSD_DETECTION["threshold"])
+    again = mx.nd.contrib.box_nms(
+        raw, overlap_thresh=SSD_DETECTION["nms_threshold"],
+        valid_thresh=SSD_DETECTION["threshold"],
+        topk=SSD_DETECTION["nms_topk"], coord_start=2, score_index=1,
+        id_index=0)
+    gt = label[label[..., 0] >= 0][:, 1:5]
+    iou = mx.nd.contrib.box_iou(anchors.reshape((-1, 4)),
+                                mx.nd.array(gt, ctx=card))
+    torch.cuda.synchronize()
+    head_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    a = anchors.asnumpy()
+    det_c, raw_c, again_c = det.asnumpy(), raw.asnumpy(), again.asnumpy()
+    kept = int((det_c[..., 0] >= 0).sum())
+    print("ssd300: ImageDetIter batch of %d at %s (%d ground-truth boxes); "
+          "MultiBoxPrior over the six maps %s: %d anchors; MultiBoxTarget, "
+          "MultiBoxDetection (nms %.2f, topk %d, threshold %.2f), box_nms "
+          "and box_iou on the card in %.3f s (first calls); %d of %d rows "
+          "kept, %.1f a picture; box_nms launches %d; card %s"
+          % (n, DET_SHAPE, n_boxes, [m[0] for m in SSD_MAPS], a.shape[1],
+             SSD_DETECTION["nms_threshold"], SSD_DETECTION["nms_topk"],
+             SSD_DETECTION["threshold"], head_s, kept, det_c[..., 0].size,
+             kept / n, launches["box_nms"], card_line()))
+    if a.shape != (1, SSD_ANCHORS, 4) or not np.isfinite(a).all():
+        raise AssertionError("ssd300: %s anchors" % (a.shape,))
+    if not np.array_equal(again_c, det_c):
+        raise AssertionError("ssd300: box_nms over the decoded rows differs "
+                             "from MultiBoxDetection's suppression")
+    if not 0 < kept <= n * SSD_DETECTION["nms_topk"]:
+        raise AssertionError("ssd300: %d rows kept" % kept)
+    # the host: anchors, targets and IoUs of the whole batch; the
+    # detections of SSD_HOST_PICTURES pictures
+    pics = slice(0, SSD_HOST_PICTURES)
+    anchors_h = ssd_anchors(mx, host)
+    target_h = mx.nd.contrib.MultiBoxTarget(
+        anchors_h, mx.nd.array(label, ctx=host),
+        mx.nd.array(cls_pred, ctx=host), overlap_threshold=0.5,
+        variances=SSD_VARIANCES)
+    det_h = mx.nd.contrib.MultiBoxDetection(
+        mx.nd.array(prob[pics], ctx=host), mx.nd.array(loc[pics], ctx=host),
+        anchors_h, variances=SSD_VARIANCES, **SSD_DETECTION).asnumpy()
+    iou_h = mx.nd.contrib.box_iou(anchors_h.reshape((-1, 4)),
+                                  mx.nd.array(gt, ctx=host)).asnumpy()
+    same_anchors = np.array_equal(a, anchors_h.asnumpy())
+    (lt, lm, ct), (lth, lmh, cth) = ([t.asnumpy() for t in r]
+                                     for r in (target, target_h))
+    matched = int(lm.sum() // 4)
+    target_err = float(np.abs(lt - lth).max() / max(1.0, np.abs(lth).max()))
+    same_match = np.array_equal(lm, lmh) and np.array_equal(ct, cth)
+    iou_same = np.array_equal(iou.asnumpy(), iou_h)
+    both = (det_c[pics][..., 0] >= 0) & (det_h[..., 0] >= 0)
+    box_err = float(np.abs(det_c[pics][both][:, 1:]
+                           - det_h[both][:, 1:]).max())
+    flips, bad, closest = nms_flips(det_c[pics], det_h, raw_c[pics],
+                                    SSD_DETECTION["nms_threshold"])
+    print("ssd300: card vs host: anchors bit for bit %s; MultiBoxTarget "
+          "matches and classes bit for bit %s (%d anchors matched), "
+          "location targets within %.3g of their scale (limit %g); box_iou "
+          "[%d x %d] bit for bit %s; scores and boxes of the rows both keep "
+          "max_abs_err %.3g over %d pictures; NMS decisions that differ %d%s, "
+          "unexplained %d; card %s"
+          % (same_anchors, same_match, matched, target_err, DENSE_REL,
+             SSD_ANCHORS, len(gt), iou_same, box_err, SSD_HOST_PICTURES,
+             flips, "" if not flips else " (IoU to the threshold %s)"
+             % ", ".join("%.3g" % c for c in closest), bad, card_line()))
+    if not (same_anchors and same_match and target_err <= DENSE_REL
+            and iou_same and box_err <= DENSE_REL and bad == 0):
+        raise AssertionError("ssd300: the head on the card disagrees with "
+                             "the host")
+    record = box_nms_record(raw, launches["box_nms"])
+    return launches, record
+
+
+def box_nms_record(raw, launches):
+    """The box_nms kernel against its plain version on the card, on the
+    head's decoded rows [32, 8732, 6] at SSD-300's settings: the keep
+    flags bit for bit; the kernel (the sort and gathers around it
+    included) timed beside the plain version's M-step sweep, and the
+    bound: 13 f32 operations per same-class pair i < j of these rows at
+    the CUDA cores' rate, or the rows' bytes at the memory rate."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    rows = raw.tensor
+    scores = rows[..., 1]
+    valid = scores > SSD_DETECTION["threshold"]
+    order, rank = K.nms_order(scores)
+    boxes, cls = rows[..., 2:6].contiguous(), rows[..., 0].contiguous()
+    thresh = SSD_DETECTION["nms_threshold"]
+    run = lambda: K.box_nms_keep(boxes, cls, valid, order, rank,  # noqa: E731
+                                 thresh, False)
+    plain = lambda: K._plain_box_nms_keep(  # noqa: E731
+        boxes, cls, valid, order, rank, thresh, False)
+    got = run()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    want = plain()
+    e1.record()
+    e1.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    exact = bool(torch.equal(got, want))
+    err = float((got != want).sum())
+    ms = time_ms(run, reps=10)
+    pairs = 0
+    for c in cls.cpu().numpy():
+        k = np.unique(c, return_counts=True)[1].astype(np.int64)
+        pairs += int((k * (k - 1) // 2).sum())
+    nbytes = _nbytes(boxes, cls, valid) + valid.numel()
+    bound = _bound(13 * pairs, nbytes, PEAK_F32_FLOPS)
+    n_words = (rows.shape[1] + 63) // 64
+    print("kernel box_nms %dx%d (SSD-300's decoded rows, nms %.2f): keep flags "
+          "bit for bit the plain version's: %s (%d differ); kernel %.4f ms "
+          "(sort, gathers and both launches: mask of %d x %d words a "
+          "picture, sweep), plain %.1f ms (%d steps), bound %.4f ms (%s: %d "
+          "same-class pairs), roofline share %.1f%%; card %s"
+          % (rows.shape[0], rows.shape[1], thresh, exact, err, ms,
+             rows.shape[1], n_words, plain_ms, rows.shape[1], bound[0],
+             bound[1], pairs, 100.0 * bound[0] / ms, card_line()))
+    if not exact:
+        raise AssertionError("box_nms disagrees with its plain version")
+    return {"name": "box_nms", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/box_nms.cu", "replaces": None,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
+
+
+def _dense_call(name, inputs, attrs, n_diff, device, cts=None, gen=None):
+    """One forward and backward of registered op ``name`` on ``device``,
+    the cotangents ``cts`` or, when None, standard normals from ``gen``:
+    (outputs, gradients of the first ``n_diff`` inputs, cotangents), on
+    the host."""
+    import torch
+    from mxnet_tpu_torch.ops.registry import get_op
+    op = get_op(name)
+    at = op.normalize_attrs(attrs)
+    ts = []
+    for i, x in enumerate(inputs):
+        t = torch.as_tensor(x).to(device)
+        ts.append(t.requires_grad_(i < n_diff and t.is_floating_point()))
+    outs = op.impl(*ts, **at)
+    outs = (outs if isinstance(outs, tuple) else (outs,))[:op.str_outputs(at)]
+    if cts is None:
+        cts = [torch.randn(o.shape, generator=gen) for o in outs]
+    live = [(o, c) for o, c in zip(outs, cts) if o.requires_grad]
+    grads = []
+    if live:
+        grads = torch.autograd.grad([o for o, _ in live], ts[:n_diff],
+                                    [c.to(device) for _, c in live],
+                                    allow_unused=True)
+    return ([o.detach().cpu() for o in outs],
+            [None if g is None else g.cpu() for g in grads], cts)
+
+
+def _scaled_gap(got, want):
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def _dense_case(label, name, inputs, attrs, n_diff, host_inputs=None,
+                pick=None, exact=False, compare=None, check_grads=True):
+    """19c's check of one op: forward and backward on the card (timed,
+    median of 5), the same on the host for ``host_inputs`` (default: the
+    same inputs) and the cotangents at ``pick`` (a slice of the leading
+    axis of the outputs and of the inputs' gradients; default: all), the
+    card's outputs and gradients there against the host's within
+    DENSE_REL / DENSE_GRAD_REL of their scale, or bit for bit (``exact``).
+    ``compare(card_outs, host_outs) -> (gap, ok)`` replaces the outputs'
+    comparison (syevd's eigenvector signs); ``check_grads`` False leaves
+    the gradients unread (where the host ran a part of the card's work).
+    Returns the card's ms."""
+    import torch
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(sum(map(ord, label)))
+    on_card = [torch.as_tensor(x).to(dev) for x in inputs]
+    outs, grads, cts = _dense_call(name, on_card, attrs, n_diff, dev, gen=gen)
+    ms = time_ms(lambda: _dense_call(name, on_card, attrs, n_diff, dev, cts),
+                 reps=5, warmup=1)
+    sel = (lambda t: t) if pick is None else (lambda t: t[pick])
+    host_outs, host_grads, _ = _dense_call(
+        name, host_inputs or inputs, attrs, n_diff, torch.device("cpu"),
+        [sel(c) for c in cts])
+    outs, grads = [sel(o) for o in outs], [g if g is None else sel(g)
+                                           for g in grads]
+    if compare is not None:
+        out_gap, ok = compare(outs, host_outs)
+    else:
+        out_gap = max(_scaled_gap(c, h) for c, h in zip(outs, host_outs))
+        ok = all(torch.equal(c, h) for c, h in zip(outs, host_outs)) \
+            if exact else out_gap <= DENSE_REL
+    grad_gap = 0.0
+    for c, h in zip(grads, host_grads) if check_grads else ():
+        ok &= (c is None) == (h is None)
+        if c is not None and h is not None:
+            grad_gap = max(grad_gap, _scaled_gap(c, h))
+    finite = all(bool(torch.isfinite(o.double()).all()) for o in outs)
+    ok = ok and grad_gap <= DENSE_GRAD_REL and finite
+    print("dense %-30s forward%s on the card %.3f ms; card vs host%s: "
+          "outputs %s %.3g, gradients %s (limits %g, %g) %s; card %s"
+          % (label, " and backward" if grads else "", ms,
+             "" if pick is None else " on [%s:%s]" % (pick.start, pick.stop),
+             "bit for bit:" if exact else "within", out_gap,
+             "%.3g" % grad_gap if check_grads else "not compared", DENSE_REL, DENSE_GRAD_REL, "ok" if ok else "FAIL", card_line()))
+    if not ok:
+        raise AssertionError("19c: %s on the card disagrees with the host"
+                             % label)
+    return ms
+
+
+def dense_ops_at_size(mx, seed):
+    """19c.  The other dense ops at published sizes, forward and backward,
+    card against host; TF32 off."""
+    import torch
+    rng = np.random.default_rng(seed + 192)
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+
+    # FlowNet-C's cost volume; the host repeats the first pair (the pairs
+    # are independent)
+    a, b = normal(*CORR_SHAPE), normal(*CORR_SHAPE)
+    _dense_case("Correlation FlowNet-C", "Correlation", [a, b], CORR_ATTRS,
+                2, host_inputs=[a[:1], b[:1]], pick=slice(0, 1))
+    # Fast R-CNN's ROI pooling over post-ReLU features (ties); the host
+    # repeats the first ROI_HOST ROIs, against the card's run of the same
+    data = np.maximum(normal(*ROI_SHAPE), 0)
+    h, w = ROI_SHAPE[2] * 16, ROI_SHAPE[3] * 16
+    xy = rng.uniform(0, [w - 32, h - 32], (ROI_COUNT, 2))
+    wh = rng.uniform(32, 500, (ROI_COUNT, 2))
+    rois = np.concatenate([np.zeros((ROI_COUNT, 1)), xy,
+                           np.minimum(xy + wh, [w - 1, h - 1])],
+                          1).astype(np.float32)
+    attrs = {"pooled_size": (7, 7), "spatial_scale": 1 / 16}
+    _dense_case("ROIPooling Fast R-CNN, %d ROIs" % ROI_HOST, "ROIPooling",
+                [data, rois[:ROI_HOST]], attrs, 1)
+    _dense_case("ROIPooling Fast R-CNN, %d ROIs" % ROI_COUNT, "ROIPooling",
+                [data, rois], attrs, 1, host_inputs=[data, rois[:ROI_HOST]],
+                pick=slice(0, ROI_HOST), exact=True, check_grads=False)
+    # the linalg ops on SPD 512x512 f32 matrices (gelqf on 256x512); the
+    # host repeats the first LINALG_HOST
+    n, k = LINALG_BATCH, LINALG_N
+    m = rng.random((n, k, k), dtype=np.float32)
+    spd = (m @ np.swapaxes(m, -1, -2) / k + np.eye(k, dtype=np.float32))
+    chol = np.linalg.cholesky(spd.astype(np.float64)).astype(np.float32)
+    rhs = normal(n, k, 64)
+    hp = slice(0, LINALG_HOST)
+
+    def syevd_compare(card, host):
+        """Eigenvalues card vs host within DENSE_REL of their scale; the
+        eigenvectors, unique only up to sign, through the card's own
+        backward error (U^T diag(L) U against the matrix, relative
+        Frobenius) and orthogonality, each within DENSE_REL."""
+        (cu, cl), (_, hl) = card, host
+        a = torch.as_tensor(spd[hp]).double()
+        a = (a + a.transpose(-1, -2)) / 2
+        cu, cl = cu.double(), cl.double()
+        eye = torch.eye(cu.shape[-1], dtype=torch.float64)
+
+        def errors(u, lam):
+            recon = u.transpose(-1, -2) @ (lam[..., None] * u)
+            return (float((recon - a).norm() / a.norm()),
+                    float((u @ u.transpose(-1, -2) - eye).norm()
+                          / eye.norm()))
+
+        parts = (_scaled_gap(cl, hl),) + errors(cu, cl)
+        # the library's float32 routine on the same matrices, for the
+        # record: the port decomposes in float64 because of it
+        w, v = torch.linalg.eigh(a.float().cuda())
+        lib = errors(v.transpose(-1, -2).double().cpu(), w.double().cpu())
+        print("dense linalg syevd: eigenvalues card vs host %.3g of their "
+              "scale; the card's backward error %.3g, orthogonality %.3g "
+              "(torch.linalg.eigh in float32 on the card: %.3g, %.3g)"
+              % (parts + lib))
+        return max(parts), max(parts) <= DENSE_REL
+
+    for label, name, ins, attrs, nd, extra in (
+            ("linalg gemm", "linalg_gemm", [spd, spd, spd],
+             {"alpha": 0.5, "beta": 2.0}, 3, {}),
+            ("linalg gemm2", "linalg_gemm2", [spd, rhs], {"transpose_a": True},
+             2, {}),
+            ("linalg potrf", "linalg_potrf", [spd], {}, 1, {}),
+            ("linalg potri", "linalg_potri", [chol], {}, 1, {}),
+            ("linalg trsm", "linalg_trsm", [chol, rhs], {"alpha": 2.0}, 2,
+             {}),
+            ("linalg trmm", "linalg_trmm", [chol, rhs], {}, 2, {}),
+            ("linalg syrk", "linalg_syrk", [spd], {"alpha": 0.5}, 1, {}),
+            ("linalg sumlogdiag", "linalg_sumlogdiag", [chol], {}, 1, {}),
+            ("linalg gelqf 256x512", "linalg_gelqf", [normal(n, k // 2, k)],
+             {}, 1, {}),
+            ("linalg syevd", "linalg_syevd", [spd], {}, 0,
+             {"compare": syevd_compare})):
+        _dense_case(label, name, ins, attrs, nd,
+                    host_inputs=[x[hp] for x in ins], pick=hp, **extra)
+    x = normal(*FFT_SHAPE)
+    _dense_case("fft 64x4096", "fft", [x], {}, 1)
+    _dense_case("ifft 64x8192", "ifft", [normal(FFT_SHAPE[0],
+                                                 2 * FFT_SHAPE[1])], {}, 1)
+    lo, hi = np.array([-3.0], np.float32), np.array([3.0], np.float32)
+    _dense_case("quantize int8 64x4096", "quantize", [x, lo, hi],
+                {"out_type": "int8"}, 0, exact=True)
+    codes = rng.integers(0, 256, FFT_SHAPE).astype(np.uint8)
+    _dense_case("dequantize uint8 64x4096", "dequantize", [codes, lo, hi],
+                {}, 0)
+    _dense_case("depth_to_space 32x256x38x38", "depth_to_space",
+                [normal(32, 256, 38, 38)], {"block_size": 2}, 1, exact=True)
+    _dense_case("space_to_depth 32x64x76x76", "space_to_depth",
+                [normal(32, 64, 76, 76)], {"block_size": 2}, 1, exact=True)
+    _dense_case("Crop 32x64x112x112 to 100", "Crop",
+                [normal(32, 64, 112, 112)],
+                {"offset": (6, 6), "h_w": (100, 100)}, 1, exact=True)
+    _dense_case("smooth_l1 32x34928", "smooth_l1",
+                [normal(32, SSD_ANCHORS * 4)], {"scalar": 1.0}, 1)
+    _dense_case("khatri_rao 512x64, 256x64", "khatri_rao",
+                [normal(512, 64), normal(256, 64)], {}, 2, exact=True)
+    torch.cuda.synchronize()
+
+
+def train_dense_ops(mx, seed, root):
+    """Phase 19 over phase 14's detection records under ``root``.  Returns
+    ({path: launches}, the box_nms kernel's record)."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    clock = time.perf_counter()
+    paths = {}
+    K.reset_launch_counts()
+    paths["module_lenet_stn"] = train_lenet_stn(mx, seed, root)
+    lap = time.perf_counter()
+    print("phase 19a in %.1f s" % (lap - clock))
+    paths["ssd300_multibox"], record = ssd_multibox_head(mx, seed, root)
+    print("phase 19b in %.1f s" % (time.perf_counter() - lap))
+    lap = time.perf_counter()
+    dense_ops_at_size(mx, seed)
+    print("phase 19c in %.1f s" % (time.perf_counter() - lap))
+    torch.cuda.synchronize()
+    print("phase 19 parts done in %.1f s" % (time.perf_counter() - clock))
+    return paths, record
+
+
 def ptxas_entries(text):
     """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
     per compiled entry of an ``nvcc -Xptxas=-v`` report.  The kernel is
@@ -9840,7 +10530,8 @@ def main():
     print("torch %s, CUDA %s, %d device(s)"
           % (torch.__version__, torch.version.cuda, torch.cuda.device_count()))
     t0 = time.perf_counter()
-    _build.build_all(["flash_attn_fwd", "bn_channel_sums", "pool_bwd"])
+    _build.build_all(["flash_attn_fwd", "bn_channel_sums", "pool_bwd",
+                      "box_nms"])
     print("kernels built in %.1f s" % (time.perf_counter() - t0))
     from mxnet_tpu_torch import io_native
     from mxnet_tpu_torch.image import codec
@@ -9868,7 +10559,7 @@ def main():
     records, instances = [], {}
     for check in (check_flash, check_flash_lse, check_bn_sums,
                   check_pool_bwd, check_lenet_pools, check_dcgan_bn,
-                  check_resnet18_kernels):
+                  check_resnet18_kernels, check_stn_pools):
         recs, insts = check(args.seed)
         records += recs
         for name, inst in insts:
@@ -9912,18 +10603,23 @@ def main():
             "general path: an SGD without a fused update of its own) and "
             "'device', with dist_sync across two processes, Gluon "
             "ResNet-18 through Trainer(kvstore='device'))")
-    paths.update(train_mesh_layer(mx, args.seed))
-    lap("16 (the multichip LM at GPT-2 small's widths through "
-        "ShardedTrainStep over 8 positions of gpu(0), ring attention "
-        "against the flash kernel, the dp=4 overlap and 2-bit paths)")
-    paths.update(train_mesh_modules(mx, args.seed))
-    lap("17 (ResNet-50 through ShardedModule at dp=2, tp=2 and GPT-2-small "
-        "blocks through PipelineModule at dp=2, pp=2, over 4 positions of "
-        "gpu(0))")
-    paths.update(train_fused_dp(mx, args.seed))
-    lap("18 (ResNet-50 through the fused data-parallel step over [gpu(0)] "
-        "* 2 in f32 and bf16, the GPT-2-small TransformerLM's bucketed and "
-        "2-bit overlap, a group2ctx LSTM LM)")
+        paths.update(train_mesh_layer(mx, args.seed))
+        lap("16 (the multichip LM at GPT-2 small's widths through "
+            "ShardedTrainStep over 8 positions of gpu(0), ring attention "
+            "against the flash kernel, the dp=4 overlap and 2-bit paths)")
+        paths.update(train_mesh_modules(mx, args.seed))
+        lap("17 (ResNet-50 through ShardedModule at dp=2, tp=2 and "
+            "GPT-2-small blocks through PipelineModule at dp=2, pp=2, over 4 "
+            "positions of gpu(0))")
+        paths.update(train_fused_dp(mx, args.seed))
+        lap("18 (ResNet-50 through the fused data-parallel step over "
+            "[gpu(0)] * 2 in f32 and bf16, the GPT-2-small TransformerLM's "
+            "bucketed and 2-bit overlap, a group2ctx LSTM LM)")
+        dense_paths, nms_record = train_dense_ops(mx, args.seed, root)
+        paths.update(dense_paths)
+        lap("19 (LeNet-STN through Module.fit on MNIST files, SSD-300's "
+            "MultiBox head on ImageDetIter batches, the dense ops at "
+            "published sizes)")
     # "launches": the path each kernel serves in this script (the serving
     # forward, the LM's training, and the bf16 fused training; LeNet's and
     # DCGAN's are in launches_by_path)
@@ -9939,6 +10635,13 @@ def main():
         rec["instances"] = instances.get(name, [])
         if rec["launches"] == 0:
             raise AssertionError("%s was not launched on its path" % name)
+    # the hand kernel with no TPU counterpart, on a line of its own
+    nms_record["launches_by_path"] = {p: c.get("box_nms", 0)
+                                      for p, c in paths.items()}
+    if nms_record["launches"] == 0:
+        raise AssertionError("box_nms was not launched on its path")
+    print("hand kernels without a TPU counterpart: %s"
+          % json.dumps({"kernels": [nms_record]}))
     print(card_line())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

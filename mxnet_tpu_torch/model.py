@@ -15,11 +15,18 @@ and ``_update_params`` are the key-value-store steps that ``Module`` and
 from __future__ import annotations
 
 import logging
+from collections import namedtuple
 
 from . import kvstore as kvs
 from . import ndarray as nd
 from .context import cpu, gpu
-from .module.base_module import BatchEndParam  # noqa: F401
+
+# ``mx.model.BatchEndParam`` is the JAX package's namedtuple (ref:
+# python/mxnet/model.py): it unpacks and indexes.  ``Module.fit``
+# hands its callbacks ``module/base_module.py``'s object of the same
+# fields, as the JAX package's ``fit`` does
+BatchEndParam = namedtuple("BatchEndParams",
+                           ["epoch", "nbatch", "eval_metric", "locals"])
 
 
 def _create_kvstore(kvstore, num_device, arg_params):

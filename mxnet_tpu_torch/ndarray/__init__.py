@@ -57,4 +57,6 @@ for _name, _op in list(_registry.op_registry().items()):
 onehot_encode = one_hot  # noqa: F821  the generated op function, as in the reference
 
 from . import random  # noqa: F401,E402  (ref: ndarray/random.py)
+from . import linalg  # noqa: F401,E402  (ref: ndarray/linalg.py)
+from . import contrib  # noqa: F401,E402  (ref: ndarray/contrib.py)
 from . import image  # noqa: F401,E402  (ref: ndarray/image.py)

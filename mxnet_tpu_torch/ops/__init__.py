@@ -9,3 +9,4 @@ from . import contrib_ops  # noqa: F401
 from . import quantize  # noqa: F401
 from . import random_ops  # noqa: F401
 from . import image_ops  # noqa: F401
+from . import extra  # noqa: F401

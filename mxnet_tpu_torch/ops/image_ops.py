@@ -48,11 +48,12 @@ def _generator(t):
 
 
 @functools.lru_cache(maxsize=256)
-def _const(values, device):
-    """The float32 tensor of the nested tuple ``values`` on ``device``,
-    made once: its host-to-device copy cannot run inside a CUDA graph
-    capture of a step that holds the op.  Callers never write it."""
-    return torch.tensor(values, dtype=torch.float32, device=device)
+def _const(values, device, dtype=torch.float32):
+    """The tensor (float32 unless ``dtype`` says) of the nested tuple
+    ``values`` on ``device``, made once: its host-to-device copy cannot run
+    inside a CUDA graph capture of a step that holds the op.  Callers never
+    write it."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _uniform(data, lo, hi):

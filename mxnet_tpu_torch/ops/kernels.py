@@ -13,7 +13,13 @@ Pallas kernel:
   ``(sum a, sum a*b)`` of ``pallas_kernels.py:643/699``;
 - ``max_pool_backward`` and ``avg_pool_backward``: the two entries of
   ``csrc/pool_bwd.cu``, the pooling input gradients of
-  ``pallas_kernels.py:515/544/580``.
+  ``pallas_kernels.py:515/544/580``;
+
+and one hand kernel with no TPU counterpart:
+
+- ``box_nms_keep``: ``csrc/box_nms.cu``, the greedy suppression sweep of
+  ``box_nms`` and ``MultiBoxDetection``, which the JAX package runs as a
+  ``lax.scan`` of one step per box (``contrib_ops.py:135``).
 
 Dispatch follows the tensor, never a flag: a CUDA tensor launches the
 kernel (or raises when the kernel cannot take it), and a CPU tensor runs
@@ -38,7 +44,7 @@ _NEG_INF = -1e30
 
 LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_fwd_lse": 0,
             "bn_channel_sums": 0, "max_pool_backward": 0,
-            "avg_pool_backward": 0}
+            "avg_pool_backward": 0, "box_nms": 0}
 
 FLASH_HEAD_DIMS = (32, 64, 128)
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
@@ -653,7 +659,101 @@ def avg_pool_backward(dy, div, x_shape, kernel, stride, pads, dtype=None):
     return dx
 
 
-KERNEL_FAMILIES = ("attn", "bn", "pool")
+# ---------------------------------------------------------------------------
+# Non-maximum suppression
+# ---------------------------------------------------------------------------
+
+def nms_order(scores):
+    """(order, rank) of each row of ``scores`` [B, M]: the box indices in
+    descending score order, ties in index order (the JAX package's stable
+    ``argsort(-scores)``), and each box's position in that order."""
+    order = torch.argsort(-scores, dim=1, stable=True)
+    return order, torch.argsort(order, dim=1)
+
+
+def _box_area(boxes):
+    return torch.clamp(boxes[..., 2] - boxes[..., 0], min=0) * \
+        torch.clamp(boxes[..., 3] - boxes[..., 1], min=0)
+
+
+def pairwise_iou(a, b):
+    """a: [..., M, 4], b: [..., K, 4] corner boxes -> [..., M, K]: the
+    intersection's width and height clamped at 0, their product over
+    area_a + area_b - inter, 0 where that union is not positive (the JAX
+    package's ``_pairwise_iou``, the formula ``csrc/box_nms.cu`` rounds
+    alike)."""
+    tl = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    br = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
+    wh = torch.clamp(br - tl, min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = _box_area(a)[..., :, None] + _box_area(b)[..., None, :] - inter
+    return torch.where(union > 0, inter / union, 0.0)
+
+
+def _plain_box_nms_keep(boxes, cls, valid, order, rank, overlap_thresh,
+                        force_suppress):
+    """The plain version of ``box_nms_keep``: the JAX package's scan, one
+    step per box in order, each step's IoU row computed on the fly."""
+    B, M = valid.shape
+    rows = torch.arange(B, device=boxes.device)
+    keep = torch.ones((B, M), dtype=torch.bool, device=boxes.device)
+    for i in range(M):
+        idx = order[:, i]
+        iou = pairwise_iou(boxes[rows, idx][:, None], boxes)[:, 0]
+        ok = valid[rows, idx] & keep[rows, idx]
+        same = (cls == cls[rows, idx][:, None]) | force_suppress
+        keep &= ~((iou > overlap_thresh) & same & (rank > i) & ok[:, None])
+    return keep
+
+
+_NMS_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+NMS_MAX_BOXES = 6144 * 64  # the sweep's bitmap fills 48 KB of shared memory
+
+
+def box_nms_keep(boxes, cls, valid, order, rank, overlap_thresh,
+                 force_suppress):
+    """Greedy suppression of B sets of M boxes: walking each set in
+    ``order`` (from :func:`nms_order`), a valid box still kept clears the
+    keep flag of every later box of its class (any class under
+    ``force_suppress``) whose IoU with it exceeds ``overlap_thresh``.
+    boxes: [B, M, 4] f32 corners; cls: [B, M] f32 (zeros for class-blind
+    suppression); valid: [B, M] bool.  Returns the keep flags [B, M] bool,
+    before the caller's validity and top-k masks.  CUDA tensors run
+    ``csrc/box_nms.cu`` on the boxes gathered into order, CPU tensors the
+    plain version; both give the same flags."""
+    dev = _check_kernel_device("box_nms", (boxes, cls, valid, order, rank))
+    if dev.type == "cpu":
+        return _plain_box_nms_keep(boxes, cls, valid, order, rank,
+                                   overlap_thresh, force_suppress)
+    B, M = valid.shape
+    if boxes.dtype != torch.float32 or cls.dtype != torch.float32 \
+            or tuple(boxes.shape) != (B, M, 4) or tuple(cls.shape) != (B, M):
+        raise MXNetError("box_nms: the kernel takes f32 boxes [B, M, 4] and "
+                         "classes [B, M], got %s %s and %s %s"
+                         % (boxes.dtype, tuple(boxes.shape), cls.dtype,
+                            tuple(cls.shape)))
+    if M > NMS_MAX_BOXES or B > 65535:
+        raise MXNetError("box_nms: the kernel takes at most %d boxes in at "
+                         "most 65535 sets, got %d x %d"
+                         % (NMS_MAX_BOXES, B, M))
+    sorted_boxes = torch.gather(boxes, 1, order[..., None].expand(
+        B, M, 4)).contiguous()
+    sorted_cls = torch.gather(cls, 1, order)
+    sorted_valid = torch.gather(valid, 1, order).to(torch.uint8)
+    mask = torch.empty((B, M, (M + 63) // 64), dtype=torch.int64,
+                       device=dev)
+    kept = torch.empty((B, M), dtype=torch.uint8, device=dev)
+    with _on_device(dev):
+        _launch("box_nms", _lib_fn("box_nms", "mxtt_box_nms", _NMS_ARGTYPES),
+                sorted_boxes.data_ptr(), sorted_cls.data_ptr(),
+                sorted_valid.data_ptr(), mask.data_ptr(), kept.data_ptr(),
+                B, M, float(overlap_thresh), int(bool(force_suppress)),
+                _stream(dev))
+    return torch.gather(kept.bool(), 1, rank)
+
+
+KERNEL_FAMILIES = ("attn", "bn", "pool", "nms")
 
 
 def kernel_mode(kind, device):

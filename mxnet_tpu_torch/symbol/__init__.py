@@ -39,4 +39,6 @@ for _name, _op in list(_registry.op_registry().items()):
         setattr(_mod, _name, _make_sym_func(_name, _op))
 
 from . import random  # noqa: F401,E402  (ref: symbol/random.py)
+from . import linalg  # noqa: F401,E402  (ref: symbol/linalg.py)
+from . import contrib  # noqa: F401,E402  (ref: symbol/contrib.py)
 from . import image  # noqa: F401,E402  (ref: symbol/image.py)

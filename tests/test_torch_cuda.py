@@ -648,7 +648,7 @@ def test_half_and_double_batchnorm_and_pooling_run_the_kernels(card, dtype):
             assert {n: after[n] - before[n] for n in after} == {
                 "flash_attn_fwd": 0, "flash_attn_fwd_lse": 0,
                 "bn_channel_sums": 2, "max_pool_backward": 1,
-                "avg_pool_backward": 1}
+                "avg_pool_backward": 1, "box_nms": 0}
         assert y.dtype == dtype and ybn[0].dtype == dtype
         assert ybn[1].dtype == torch.float32
         res[dev.type] = [t.detach().cpu() for t in (y, *ybn, dmax, davg)]
@@ -2343,3 +2343,239 @@ def test_group2ctx_host_weights_on_a_card_bind(card, no_tf32):
     assert np.array_equal(got[0][0], got[1][0])
     for k in got[1][1]:
         assert np.array_equal(got[0][1][k], got[1][1][k]), k
+
+
+# -- the dense op surface (ops/extra.py, ops/contrib_ops.py): each op on the
+# card against the host at small shapes, f32 with TF32 off; the LeNet-STN
+# pool instances and the box_nms kernel against their plain versions -------
+
+def _dense_rng(seed):
+    return np.random.RandomState(seed)
+
+
+def _spd_batch(r, b, n):
+    a = r.rand(b, n, n)
+    return (a @ np.swapaxes(a, -1, -2) + n * np.eye(n)).astype(np.float32)
+
+
+def _corner_boxes(r, *lead, n):
+    xy = r.rand(*lead, n, 2) * 0.7
+    return np.concatenate([xy, xy + r.rand(*lead, n, 2) * 0.3 + 0.02],
+                          -1).astype(np.float32)
+
+
+def _det_batch(r, b, n, n_cls):
+    boxes = _corner_boxes(r, b, n=n)
+    boxes[:, 1::3] = boxes[:, 0::3][:, :boxes[:, 1::3].shape[1]] + 0.01
+    scores = np.round(r.rand(b, n), 1).astype(np.float32)
+    cls = r.randint(0, n_cls, (b, n)).astype(np.float32)
+    return np.concatenate([cls[..., None], scores[..., None], boxes], -1)
+
+
+def _prior_anchors():
+    from mxnet_tpu_torch.ops.registry import get_op
+    return get_op("MultiBoxPrior").impl(
+        torch.zeros(1, 1, 5, 5), sizes=(0.2, 0.272), ratios=(1.0, 2.0, 0.5),
+        steps=(0.2, 0.2)).numpy()
+
+
+def _dense_inputs(name):
+    """(inputs, attrs, differentiable input count) of one card case."""
+    r = _dense_rng(sum(map(ord, name)))
+    f = lambda *s: r.randn(*s).astype(np.float32)  # noqa: E731
+    spd = _spd_batch(r, 2, 5)
+    tril = np.tril(r.rand(2, 5, 5) + 0.5).astype(np.float32)
+    anchors = _prior_anchors()
+    a = anchors.shape[1]
+    labels = -np.ones((2, 3, 5), np.float32)
+    labels[:, :2, 0] = [[1, 4], [0, 2]]
+    labels[:, :2, 1:] = _corner_boxes(r, 2, n=2)
+    probs = np.exp(f(2, 4, a) * 2)
+    probs = (probs / probs.sum(1, keepdims=True)).astype(np.float32)
+    identity = np.tile(np.array([[1, 0, 0, 0, 1, 0]], np.float32), (2, 1))
+    cases = {
+        "linalg_gemm": ([f(2, 3, 4), f(2, 4, 5), f(2, 3, 5)],
+                        {"alpha": 0.5, "beta": 2.0}, 3),
+        "linalg_gemm2": ([f(2, 4, 3), f(2, 4, 5)], {"transpose_a": True}, 2),
+        "linalg_potrf": ([spd], {}, 1),
+        "linalg_potri": ([np.linalg.cholesky(spd).astype(np.float32)], {}, 1),
+        "linalg_trsm": ([tril, f(2, 5, 3)], {"alpha": 1.5}, 2),
+        "linalg_trmm": ([tril, f(2, 3, 5)], {"rightside": True}, 2),
+        "linalg_syrk": ([f(2, 3, 5)], {"transpose": True}, 1),
+        "linalg_sumlogdiag": ([spd], {}, 1),
+        "linalg_gelqf": ([f(2, 3, 5)], {}, 1),
+        "linalg_syevd": ([spd], {}, 0),
+        "khatri_rao": ([f(3, 4), f(2, 4)], {}, 2),
+        "_contrib_khatri_rao": ([f(3, 4), f(2, 4)], {}, 2),
+        "Crop": ([f(2, 3, 7, 8)], {"offset": (1, 2), "h_w": (4, 5)}, 1),
+        "smooth_l1": ([f(3, 7) * 2], {"scalar": 1.5}, 1),
+        "depth_to_space": ([f(2, 8, 3, 3)], {"block_size": 2}, 1),
+        "space_to_depth": ([f(2, 2, 6, 4)], {"block_size": 2}, 1),
+        "IdentityAttachKLSparseReg": ([f(3, 4)], {}, 1),
+        "GridGenerator": ([identity + f(2, 6) * 0.1],
+                          {"transform_type": "affine",
+                           "target_shape": (6, 7)}, 1),
+        "BilinearSampler": ([f(2, 3, 6, 7), f(2, 2, 5, 4) * 0.8], {}, 2),
+        "SpatialTransformer": ([f(2, 3, 8, 8), identity],
+                               {"target_shape": (8, 8)}, 2),
+        "ROIPooling": ([np.maximum(f(2, 4, 10, 12), 0),
+                        np.array([[0, 0, 0, 11, 9], [1, 2, 1, 8, 8],
+                                  [0, 4, 4, 60, 60]], np.float32)],
+                       {"pooled_size": (3, 3), "spatial_scale": 1.0}, 1),
+        "Correlation": ([f(2, 4, 9, 10), f(2, 4, 9, 10)],
+                        {"kernel_size": 3, "max_displacement": 2,
+                         "stride1": 2, "stride2": 2, "pad_size": 2}, 2),
+        "box_iou": ([_corner_boxes(r, n=6), _corner_boxes(r, n=4)],
+                    {"format": "corner"}, 2),
+        "box_nms": ([_det_batch(r, 3, 70, 3)],
+                    {"overlap_thresh": 0.3, "topk": 50, "id_index": 0}, 1),
+        "MultiBoxPrior": ([f(1, 2, 5, 5)],
+                          {"sizes": (0.2, 0.272), "ratios": (1, 2, 0.5)}, 0),
+        "MultiBoxTarget": ([anchors, labels, f(2, 4, a)],
+                           {"overlap_threshold": 0.3}, 0),
+        "MultiBoxDetection": ([probs, f(2, a * 4) * 0.3, anchors],
+                              {"nms_threshold": 0.45, "nms_topk": 30,
+                               "threshold": 0.05}, 0),
+        "quantize": ([f(3, 9), np.array([-1.5], np.float32),
+                      np.array([2.0], np.float32)], {"out_type": "int8"}, 0),
+        "dequantize": ([r.randint(0, 256, (3, 9)).astype(np.uint8),
+                        np.array([-1.5], np.float32),
+                        np.array([2.0], np.float32)], {}, 0),
+        "fft": ([f(3, 16)], {}, 1),
+        "ifft": ([f(3, 32)], {}, 1),
+    }
+    return cases[name]
+
+
+DENSE_CARD_OPS = [
+    "linalg_gemm", "linalg_gemm2", "linalg_potrf", "linalg_potri",
+    "linalg_trsm", "linalg_trmm", "linalg_syrk", "linalg_sumlogdiag",
+    "linalg_gelqf", "linalg_syevd", "khatri_rao", "_contrib_khatri_rao",
+    "Crop", "smooth_l1", "depth_to_space", "space_to_depth",
+    "IdentityAttachKLSparseReg", "GridGenerator", "BilinearSampler",
+    "SpatialTransformer", "ROIPooling", "Correlation", "box_iou", "box_nms",
+    "MultiBoxPrior", "MultiBoxTarget", "MultiBoxDetection", "quantize",
+    "dequantize", "fft", "ifft"]
+# outputs compared exactly: suppression decisions, codes, identities
+DENSE_EXACT = {"box_nms", "quantize", "Crop",
+               "depth_to_space", "space_to_depth",
+               "IdentityAttachKLSparseReg", "MultiBoxPrior"}
+
+
+def _dense_run(name, inputs, attrs, n_diff, device):
+    from mxnet_tpu_torch.ops.registry import get_op
+    op = get_op(name)
+    ts = [torch.tensor(x, device=device, requires_grad=i < n_diff)
+          for i, x in enumerate(inputs)]
+    outs = op.impl(*ts, **op.normalize_attrs(attrs))
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    outs = outs[:op.str_outputs(op.normalize_attrs(attrs))]
+    grads = []
+    live = [o for o in outs if o.requires_grad]
+    if n_diff and live:
+        g = torch.Generator().manual_seed(5)
+        cts = [torch.randn(o.shape, generator=g).to(device) for o in live]
+        grads = torch.autograd.grad(live, ts[:n_diff], cts,
+                                    allow_unused=True)
+        grads = [None if x is None else x.detach().cpu() for x in grads]
+    return [o.detach().cpu() for o in outs], grads
+
+
+def _near(got, want, rel):
+    got, want = got.double(), want.double()
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    torch.testing.assert_close(got, want, rtol=rel, atol=rel * scale)
+
+
+@pytest.mark.parametrize("name", DENSE_CARD_OPS)
+def test_dense_op_on_the_card_matches_the_host(card, no_tf32, name):
+    """Outputs within 1e-4 relative to their scale (exact for suppression
+    decisions, codes and layout ops), input gradients within 1e-4;
+    ``syevd`` through its eigenvalues and ``U^T diag(L) U``."""
+    inputs, attrs, n_diff = _dense_inputs(name)
+    host = _dense_run(name, inputs, attrs, n_diff, "cpu")
+    dev = _dense_run(name, inputs, attrs, n_diff, card)
+    if name == "linalg_syevd":
+        (hu, hl), (du, dl) = host[0], dev[0]
+        _near(dl, hl, 1e-4)
+        _near(du.transpose(-1, -2) @ (dl[..., None] * du),
+              hu.transpose(-1, -2) @ (hl[..., None] * hu), 1e-4)
+        return
+    for d, h in zip(dev[0], host[0]):
+        assert d.dtype == h.dtype and d.shape == h.shape
+        if name == "MultiBoxDetection":
+            # the same decisions; the decoded boxes go through exp, whose
+            # last bit differs between the card and the host
+            assert torch.equal(d[..., 0], h[..., 0])
+        if name in DENSE_EXACT:
+            assert torch.equal(d, h)
+        else:
+            _near(d, h, 1e-4)
+    for d, h in zip(dev[1], host[1]):
+        assert (d is None) == (h is None)
+        if d is not None:
+            _near(d, h, 1e-4)
+
+
+@pytest.mark.parametrize("case", [
+    ("max", (64, 30, 12, 12), (2, 2), (2, 2)),      # the loc net's pool
+    ("avg", (64, 60, 6, 6), (6, 6), (1, 1)),        # its global pool
+], ids=["loc-max-2x2s2", "loc-global-avg"])
+def test_pool_backward_at_lenet_stn_loc_net_shapes(card, case):
+    """The LeNet-STN localisation net's pools (post-ReLU inputs, ties):
+    one launch each, bit for bit the plain version."""
+    pool, shape, kernel, stride = case
+    g = torch.Generator(device=card).manual_seed(12)
+    x = torch.clamp_min(torch.randn(*shape, generator=g, device=card), 0.0)
+    out = (shape[2] // stride[0] if pool == "max" else 1,
+           shape[3] // stride[1] if pool == "max" else 1)
+    dy = torch.randn(shape[:2] + out, generator=g, device=card)
+    pads = ((0, 0), (0, 0))
+    name = pool + "_pool_backward"
+    before = K.launch_counts()[name]
+    if pool == "max":
+        got = K.max_pool_backward(x, dy, kernel, stride, pads)
+        want = K._plain_max_pool_backward(x, dy, kernel, stride, pads)
+    else:
+        div = torch.full(out, 1.0 / 36, device=card)
+        got = K.avg_pool_backward(dy, div, shape, kernel, stride, pads)
+        want = K._plain_avg_pool_backward(dy, div, shape, kernel, stride,
+                                          pads, torch.float32)
+    torch.cuda.synchronize()
+    assert K.launch_counts()[name] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", [
+    (1, 1, 2, 0.5, False), (3, 70, 3, 0.3, False), (2, 64, 2, 0.3, True),
+    (4, 129, 1, 0.45, False), (2, 1000, 5, 0.2, False),
+    (32, 8732, 20, 0.45, False)],
+    ids=lambda c: "x".join(map(str, c)))
+def test_box_nms_kernel_matches_plain(card, case):
+    """The keep flags, bit for bit: ties in score, boxes of one block and
+    of several, class-aware and forced suppression, SSD-300's 8,732
+    anchors at batch 32 (the plain version on every 8th picture)."""
+    b, m, n_cls, thresh, force = case
+    r = _dense_rng(m)
+    det = torch.tensor(_det_batch(r, b, m, n_cls), device=card)
+    scores = det[..., 1]
+    valid = scores > 0.05
+    order, rank = K.nms_order(scores)
+    before = K.launch_counts()["box_nms"]
+    got = K.box_nms_keep(det[..., 2:6], det[..., 0], valid, order, rank,
+                         thresh, force)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["box_nms"] == before + 1
+    pick = slice(None) if b * m <= 10000 else slice(0, b, 8)
+    want = K._plain_box_nms_keep(det[pick, :, 2:6], det[pick, :, 0],
+                                 valid[pick], order[pick], rank[pick], thresh,
+                                 force)
+    assert torch.equal(got[pick], want)
+
+
+def test_box_nms_kernel_raises_outside_its_limits(card):
+    det = torch.rand(1, 10, 6, device=card, dtype=torch.float64)
+    order, rank = K.nms_order(det[..., 1])
+    with pytest.raises(mx.MXNetError):
+        K.box_nms_keep(det[..., 2:6], det[..., 0], det[..., 1] > 0, order,
+                       rank, 0.5, False)
