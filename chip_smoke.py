@@ -491,15 +491,61 @@ CUDA toolkit.  Phases, each of which raises on failure:
       the sizes printed: forward and backward on the card (ms), against
       the host on a part of each batch (1e-4 of the outputs' scale, 1e-3
       of the gradients'; layout ops and codes bit for bit).
-20. The ``kernels`` JSON line (each kernel's record with its launches on
+20. The detection ops and sparse storage on one card, TF32 off, inputs
+   from ``--seed``:
+   a. Faster R-CNN VGG16 served: MXNet 1.0's ``example/rcnn``
+      ``get_vgg_test(num_classes=21, num_anchors=9)`` at rcnn/config.py's
+      TEST settings (a 600 x 1000 picture; anchors at scales (8, 16, 32),
+      ratios (0.5, 1, 2), stride 16; 6,000 proposals before the
+      suppression at 0.7, 300 after, min size 16; ROIPooling 7x7 at
+      1/16; fc6/fc7 4096) with seeded weights, through
+      ``Module.bind(for_training=False)`` -> ``forward``: batch 1 with
+      ``Proposal``, batch 2 with ``MultiProposal``; ``rois``,
+      ``cls_prob`` and ``bbox_pred`` against the port's host run of the
+      same picture (a differing suppression decision must sit within
+      1e-5 of 0.7, or follow one that does), the second picture's
+      batch against batch 1; ms a forward and Proposal's ms; the
+      suppression kernel in Proposal's mode bit for bit its plain version
+      on the 6,000 sorted boxes, timed beside its bound;
+   b. Deformable R-FCN's ops at published sizes (msracver/
+      Deformable-ConvNets ``rfcn/symbols/resnet_v1_101_rfcn_dcn.py``):
+      ``DeformableConvolution`` at res5's branch2b (1 x 512 x 38 x 63,
+      offsets from a seeded 3x3 conv, 512 filters, pad 2, dilate 2, 4
+      deformable groups, no bias), ``PSROIPooling`` and
+      ``DeformablePSROIPooling`` (with and without offsets) on the
+      1,029- and 392-channel maps over 20a's 300 ROIs, ``count_sketch``
+      as compact bilinear pooling ((25,088, 512) -> 8,192) and
+      ``bipartite_matching`` on (32, 50, 8,732) scores: forward and
+      backward ms, against the host (1e-4 of the outputs' scale, 1e-3 of
+      the gradients'; matchings bit for bit); the path's launches from
+      3 forwards and backwards through ``mx.nd.contrib.
+      DeformableConvolution``, one im2col a forward and none from the
+      backward; the im2col kernel (``csrc/deformable_im2col.cu``) bit for
+      bit its plain version, timed beside its bound and beside torch's
+      ``grid_sample`` of the same column;
+   c. sparse linear classification at Avazu's width (MXNet 1.0's
+      ``example/sparse/linear_classification.py``, batch 8,192, over
+      LIBSVM's ``avazu-app`` dimensionality of 1,000,000 features): a
+      written LibSVM file of 20 batches with 15 one-valued features a
+      row through ``LibSVMIter``; weight and bias in a ``'local'`` store
+      on the card; ``row_sparse_pull`` of each batch's columns,
+      ``sparse.dot`` forward and transposed, the logistic gradient
+      ``retain``ed to those columns, ``push`` into a lazy
+      ``SGD(momentum=0.9)``, then again with a lazy ``Adam``; the pull,
+      retain and push under ``torch.cuda.set_sync_debug_mode("error")``;
+      log loss falling, untouched rows bit for bit their initial values,
+      the first 3 steps within 1e-5 of the host's; ms a step and the
+      pull, dot and push spans.
+21. The ``kernels`` JSON line (each kernel's record with its launches on
    every path, phase 10's five and the MLP's with 0 of each, LeNet's with
    2 max-pool backwards a step, DCGAN's with 26 channel sums an
    iteration, phase 13's two paths, and its bf16/f16/f64, head_dim 32,
    LeNet, DCGAN, ResNet-18 and LeNet-STN instances; phase 14's paths;
    phase 15's three; phase 16's three, with 0 of each; phase 17's two;
-   phase 18's four; phase 19's two), after a line of the same keys for
-   the hand kernel with no TPU counterpart (``box_nms``), then the
-   result line.
+   phase 18's four; phase 19's two; phase 20's three), after a line of
+   the same keys for the hand kernels with no TPU counterpart
+   (``box_nms`` with its Proposal instance, ``deformable_im2col``), then
+   the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is not beside this script.
@@ -507,6 +553,7 @@ package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import random
@@ -10245,11 +10292,13 @@ def box_nms_record(raw, launches):
             "bound_by": bound[1], "library_ms": None}
 
 
-def _dense_call(name, inputs, attrs, n_diff, device, cts=None, gen=None):
+def _dense_call(name, inputs, attrs, n_diff, device, cts=None, gen=None,
+                to_host=True):
     """One forward and backward of registered op ``name`` on ``device``,
     the cotangents ``cts`` or, when None, standard normals from ``gen``:
     (outputs, gradients of the first ``n_diff`` inputs, cotangents), on
-    the host."""
+    the host (``to_host``; else where they were computed, as when timed:
+    the copies to and from the host are not the op's time)."""
     import torch
     from mxnet_tpu_torch.ops.registry import get_op
     op = get_op(name)
@@ -10268,6 +10317,8 @@ def _dense_call(name, inputs, attrs, n_diff, device, cts=None, gen=None):
         grads = torch.autograd.grad([o for o, _ in live], ts[:n_diff],
                                     [c.to(device) for _, c in live],
                                     allow_unused=True)
+    if not to_host:
+        return outs, grads, cts
     return ([o.detach().cpu() for o in outs],
             [None if g is None else g.cpu() for g in grads], cts)
 
@@ -10294,7 +10345,9 @@ def _dense_case(label, name, inputs, attrs, n_diff, host_inputs=None,
     gen = torch.Generator().manual_seed(sum(map(ord, label)))
     on_card = [torch.as_tensor(x).to(dev) for x in inputs]
     outs, grads, cts = _dense_call(name, on_card, attrs, n_diff, dev, gen=gen)
-    ms = time_ms(lambda: _dense_call(name, on_card, attrs, n_diff, dev, cts),
+    cts_card = [c.to(dev) for c in cts]
+    ms = time_ms(lambda: _dense_call(name, on_card, attrs, n_diff, dev,
+                                     cts_card, to_host=False),
                  reps=5, warmup=1)
     sel = (lambda t: t) if pick is None else (lambda t: t[pick])
     host_outs, host_grads, _ = _dense_call(
@@ -10456,6 +10509,582 @@ def train_dense_ops(mx, seed, root):
     return paths, record
 
 
+# -- phase 20: the detection ops and sparse storage -------------------------
+
+# 20a: Faster R-CNN VGG16 (MXNet 1.0's example/rcnn symbol_vgg.py
+# get_vgg_test at rcnn/config.py's TEST settings)
+RCNN_SHAPE = (3, 600, 1000)
+RCNN_PROPOSAL = dict(rpn_pre_nms_top_n=6000, rpn_post_nms_top_n=300,
+                     rpn_nms_thresh=0.7, rpn_min_size=16)
+RCNN_ANCHORS = 9
+RCNN_REPS = 5
+# 20b: Deformable R-FCN (msracver/Deformable-ConvNets rfcn/symbols/
+# resnet_v1_101_rfcn_dcn.py and resnet_v1_101_rfcn.py) at 1/16 of 600x1000
+RFCN_RES5 = (1, 512, 38, 63)
+DCN_PATH_FORWARDS = 3   # 20b's counted forwards and backwards
+DCN_ATTRS = dict(kernel=(3, 3), pad=(2, 2), dilate=(2, 2), num_filter=512,
+                 num_deformable_group=4, no_bias=True)
+PSROI_MAPS = (("cls", 21), ("bbox", 8))     # output_dim; 49 x that channels
+PSROI_ATTRS = dict(pooled_size=7, group_size=7, spatial_scale=0.0625)
+DPSROI_ATTRS = dict(pooled_size=7, group_size=7, part_size=7,
+                    sample_per_part=4, trans_std=0.1, spatial_scale=0.0625)
+SKETCH = (25088, 512, 8192)     # compact bilinear pooling (Gao et al. 2016)
+MATCH_SHAPE = (32, 50, 8732)
+MATCH_HOST = 2
+# 20c: example/sparse/linear_classification.py over avazu-app's width
+AVAZU_FEATURES = 1000000
+AVAZU_BATCH = 8192
+AVAZU_BATCHES = 20
+AVAZU_FIELDS = 15
+AVAZU_HOST_STEPS = 3
+SPARSE_REL = 1e-5
+
+
+def rcnn_weights(mx, symbol, shapes, seed, ctx):
+    """Seeded weights made on ``ctx``: He-scaled layers, the RPN's class
+    head at 1/sqrt(fan_in) and its box head at std 0.01 (scores spread,
+    deltas small, neither saturated), zero biases."""
+    import torch
+    dev = ctx.torch_device()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    arg_shapes, _, _ = symbol.infer_shape(**shapes)
+    params = {}
+    for name, shape in zip(symbol.list_arguments(), arg_shapes):
+        if name in shapes:
+            continue
+        if name.endswith("bias"):
+            t = torch.zeros(shape, device=dev)
+        else:
+            fan_in = int(np.prod(shape[1:]))
+            std = {"rpn_cls_score_weight": (1.0 / fan_in) ** 0.5,
+                   "rpn_bbox_pred_weight": 0.01}.get(name,
+                                                     (2.0 / fan_in) ** 0.5)
+            t = torch.randn(shape, generator=g, device=dev) * std
+        params[name] = mx.nd.NDArray(t)
+    return params
+
+
+def rcnn_module(mx, batch, ctx, params=None, seed=0):
+    """get_vgg_test at batch ``batch`` bound for inference on ``ctx``, its
+    outputs followed by the RPN's scores and deltas; (module, params)."""
+    from mxnet_tpu_torch.models import rcnn_vgg
+    net = rcnn_vgg.get_vgg_test(batch_images=batch, **RCNN_PROPOSAL)
+    inner = net.get_internals()
+    probe = mx.sym.Group([net, inner["rpn_cls_prob_reshape_output"],
+                          inner["rpn_bbox_pred_output"]])
+    shapes = {"data": (batch,) + RCNN_SHAPE, "im_info": (batch, 3)}
+    if params is None:
+        params = rcnn_weights(mx, net, shapes, seed, ctx)
+    mod = mx.mod.Module(probe, data_names=("data", "im_info"),
+                        label_names=None, context=ctx)
+    mod.bind(data_shapes=list(shapes.items()), for_training=False)
+    mod.set_params(params, {})
+    return mod, params
+
+
+def rcnn_forward(mx, mod, data, info, ctx):
+    import torch
+    mod.forward(mx.io.DataBatch([mx.nd.array(data, ctx=ctx),
+                                 mx.nd.array(info, ctx=ctx)]),
+                is_train=False)
+    outs = mod.get_outputs()
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+    return outs
+
+
+def proposal_slot_check(tag, card, host, thresh, rel):
+    """Compare two runs' rois [P, 5] slot by slot; a first differing slot
+    must be a suppression decision within NMS_FLIP_EPS of ``thresh``
+    (either run's box at that slot overlaps a box kept before it that
+    closely) or two near-equal scores swapped.  Returns the number of
+    leading slots that agree."""
+    import torch
+    from mxnet_tpu_torch.ops.kernels import proposal_iou
+    tol = rel * max(1.0, float(np.abs(host).max()))
+    same = np.abs(card - host).max(1) <= tol
+    if same.all():
+        return len(same)
+    s = int(np.flatnonzero(~same)[0])
+    near = []
+    for boxes in (card, host):
+        if s:
+            b = torch.tensor(boxes[:, 1:])
+            iou = proposal_iou(b[s][None], b[None, :s])[0].numpy()
+            near.append(float(np.abs(iou - thresh).min()))
+    swap = s + 1 < len(same) and np.abs(card[s] - host[s + 1]).max() <= tol \
+        and np.abs(card[s + 1] - host[s]).max() <= tol
+    explained = swap or (near and min(near) <= NMS_FLIP_EPS)
+    print("%s: rois differ from slot %d of %d (IoU to the threshold %s, a "
+          "swap of near-equal scores %s): %s"
+          % (tag, s, len(same), ", ".join("%.3g" % n for n in near), swap,
+             "explained" if explained else "UNEXPLAINED"))
+    if not explained:
+        raise AssertionError("%s: an unexplained proposal differs" % tag)
+    return s
+
+
+def proposal_nms_record(mx, prob, deltas, info, launches):
+    """The box_nms kernel in Proposal's mode against its plain version on
+    the card, on 20a's 6,000 sorted boxes: keep flags bit for bit, one
+    call and device ms beside the plain loop's ms and the bound (15 f32
+    operations per pair i < j at the CUDA cores' rate, or the boxes' and
+    flags' bytes)."""
+    import torch
+    from mxnet_tpu_torch.ops import detection_ops as D
+    from mxnet_tpu_torch.ops import kernels as K
+    anchors = D._gen_anchors(16, (8, 16, 32), (0.5, 1, 2))
+    boxes, _ = D.proposal_candidates(
+        prob[:, RCNN_ANCHORS:], deltas, info, anchors, 16.0,
+        RCNN_PROPOSAL["rpn_pre_nms_top_n"],
+        float(RCNN_PROPOSAL["rpn_min_size"]))
+    boxes = boxes.contiguous()
+    thresh = RCNN_PROPOSAL["rpn_nms_thresh"]
+    run = lambda: K.proposal_nms_keep(boxes, thresh)  # noqa: E731
+    got = run()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    want = K._plain_proposal_nms_keep(boxes, thresh)
+    e1.record()
+    e1.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    exact = bool(torch.equal(got, want))
+    err = float((got != want).sum())
+    ms = time_ms(run, reps=20)
+    b2b = time_ms_back_to_back(run)
+    dev = device_ms_per_call(run)
+    m = boxes.shape[1]
+    pairs = boxes.shape[0] * m * (m - 1) // 2
+    bound = _bound(15 * pairs, _nbytes(boxes) + got.numel(), PEAK_F32_FLOPS)
+    print("kernel box_nms, Proposal's mode, %d sorted boxes (threshold %.1f): "
+          "keep flags bit for bit the plain loop's: %s (%d differ, %d kept); "
+          "one call %.4f ms (the launches and their scratch), back to back "
+          "%.4f, device %s, plain %.1f ms (%d steps), bound %.4f ms (%s: %d "
+          "pairs x 15), roofline share %.2f%%; card %s"
+          % (m, thresh, exact, err, int(got.sum()), ms, b2b, _device_text(dev),
+             plain_ms, m, bound[0], bound[1], pairs, 100.0 * bound[0] / ms,
+             card_line()))
+    if not exact:
+        raise AssertionError("box_nms in Proposal's mode disagrees with its "
+                             "plain version")
+    return {"instance": "proposal-6000", "launches": launches,
+            "max_abs_err": err, "ms": ms, "b2b_ms": b2b,
+            "device_ms": None if dev is None else dev[0],
+            "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
+
+
+def faster_rcnn_serve(mx, seed):
+    """20a.  Returns ({kernel: launches} of the served forwards, the
+    Proposal instance's record, batch 1's rois as numpy)."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    from mxnet_tpu_torch.ops.registry import get_op
+    card, host = mx.gpu(0), mx.cpu()
+    rng = np.random.default_rng(seed + 200)
+    pics = rng.standard_normal((2,) + RCNN_SHAPE, dtype=np.float32)
+    info = np.array([[RCNN_SHAPE[1], RCNN_SHAPE[2], 1.0]] * 2, np.float32)
+    t0 = time.perf_counter()
+    mod1, params = rcnn_module(mx, 1, card, seed=seed + 200)
+    mod2, _ = rcnn_module(mx, 2, card, params=params)
+    bind_s = time.perf_counter() - t0
+    rcnn_forward(mx, mod1, pics[:1], info[:1], card)   # warm-up
+    rcnn_forward(mx, mod2, pics, info, card)
+    K.reset_launch_counts()
+    times1, times2 = [], []
+    for _ in range(RCNN_REPS):
+        t = time.perf_counter()
+        out1 = rcnn_forward(mx, mod1, pics[:1], info[:1], card)
+        times1.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        out2 = rcnn_forward(mx, mod2, pics, info, card)
+        times2.append((time.perf_counter() - t) * 1e3)
+    launches = K.launch_counts()
+    if launches["box_nms"] != 2 * RCNN_REPS:
+        raise AssertionError("faster-rcnn: %d suppression launches in %d "
+                             "forwards" % (launches["box_nms"], 2 * RCNN_REPS))
+    c1 = [o.asnumpy() for o in out1]
+    c2 = [o.asnumpy() for o in out2]
+    prob, deltas = out1[3].tensor, out1[4].tensor
+    prop = get_op("_contrib_Proposal")
+    attrs = prop.normalize_attrs(dict(
+        scales=(8, 16, 32), ratios=(0.5, 1, 2), feature_stride=16,
+        rpn_pre_nms_top_n=RCNN_PROPOSAL["rpn_pre_nms_top_n"],
+        rpn_post_nms_top_n=RCNN_PROPOSAL["rpn_post_nms_top_n"],
+        threshold=RCNN_PROPOSAL["rpn_nms_thresh"],
+        rpn_min_size=RCNN_PROPOSAL["rpn_min_size"]))
+    info_t = torch.tensor(info[:1], device=prob.device)
+    with torch.no_grad():
+        prop_ms = time_ms(lambda: prop.impl(prob, deltas, info_t, **attrs),
+                          reps=10)
+    # the host run of picture 0
+    t = time.perf_counter()
+    host_params = {k: v.copyto(host) for k, v in params.items()}
+    modh, _ = rcnn_module(mx, 1, host, params=host_params)
+    h1 = [o.asnumpy() for o in rcnn_forward(mx, modh, pics[:1], info[:1],
+                                            host)]
+    host_s = time.perf_counter() - t
+    post = RCNN_PROPOSAL["rpn_post_nms_top_n"]
+    agree = proposal_slot_check("faster-rcnn card vs host", c1[0], h1[0],
+                                RCNN_PROPOSAL["rpn_nms_thresh"], DENSE_REL)
+    gaps = [_scaled_gap(torch.tensor(c[0][:agree]), torch.tensor(h[0][:agree]))
+            for c, h in zip(c1[1:3], h1[1:3])]
+    agree2 = proposal_slot_check("faster-rcnn batch 2 picture 0 vs batch 1",
+                                 c2[0][:post], c1[0],
+                                 RCNN_PROPOSAL["rpn_nms_thresh"], DENSE_REL)
+    gaps2 = [_scaled_gap(torch.tensor(c[0][:agree2]),
+                         torch.tensor(h[0][:agree2]))
+             for c, h in zip(c2[1:3], c1[1:3])]
+    finite = all(np.isfinite(x).all() for x in c1 + c2)
+    ids = np.repeat(np.arange(2), post)
+    ok = (finite and max(gaps + gaps2) <= DENSE_REL and agree >= post // 2
+          and agree2 >= post // 2 and np.array_equal(c2[0][:, 0], ids)
+          and c1[0].shape == (post, 5) and c1[1].shape == (1, post, 21)
+          and c1[2].shape == (1, post, 84))
+    print("faster-rcnn vgg16 %s, %d proposals of %d: bind %.1f s; forward "
+          "batch 1 (Proposal) %.2f ms (median of %d, %.2f-%.2f), batch 2 "
+          "(MultiProposal) %.2f ms (%.2f-%.2f); Proposal alone %.3f ms (one "
+          "call); suppression launches %d in %d forwards (one a forward, "
+          "both pictures in one); card vs host (%.1f s): rois agree on %d "
+          "slots, cls_prob and bbox_pred within %.3g, %.3g of scale; batch "
+          "2's picture 0 vs batch 1: %d slots, %.3g, %.3g (limit %g): %s; "
+          "card %s"
+          % ("x".join(map(str, RCNN_SHAPE)), post,
+             RCNN_PROPOSAL["rpn_pre_nms_top_n"], bind_s,
+             float(np.median(times1)), RCNN_REPS, min(times1), max(times1),
+             float(np.median(times2)), min(times2), max(times2), prop_ms,
+             launches["box_nms"], 2 * RCNN_REPS, host_s, agree, gaps[0],
+             gaps[1], agree2, gaps2[0], gaps2[1], DENSE_REL,
+             "ok" if ok else "FAIL", card_line()))
+    if not ok:
+        raise AssertionError("faster-rcnn: the served network disagrees")
+    record = proposal_nms_record(mx, prob, deltas, info_t, launches["box_nms"])
+    return launches, record, c1[0]
+
+
+def deformable_im2col_record(data, off, launches):
+    """The im2col kernel against its plain version on the card at res5's
+    branch2b: the column bit for bit; one call and device ms beside the
+    plain version, the op's forward alone and the bound (the input and
+    offsets read once and the column written once at the memory rate, or
+    20 f32 operations an element)."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    geometry = (DCN_ATTRS["kernel"], (1, 1), DCN_ATTRS["pad"],
+                DCN_ATTRS["dilate"], DCN_ATTRS["num_deformable_group"])
+    run = lambda: K.deformable_im2col(data, off, *geometry)  # noqa: E731
+    got = run()
+    want = K._plain_deformable_im2col(data, off, *geometry)
+    exact = bool(torch.equal(got, want))
+    rel = float((got - want).abs().max()) / max(1.0,
+                                                float(want.abs().max()))
+    ms = time_ms(run, reps=20)
+    b2b = time_ms_back_to_back(run)
+    dev = device_ms_per_call(run)
+    plain_ms = time_ms(lambda: K._plain_deformable_im2col(data, off,
+                                                          *geometry), reps=5)
+    library = _grid_sample_im2col(data, off, *geometry)
+    lib_rel = _scaled_gap(library(), want)
+    library_ms = time_ms(library, reps=20)
+    bound = _bound(20 * got.numel(), _nbytes(data, off, got), PEAK_F32_FLOPS)
+    print("kernel deformable_im2col %s -> %s (DCN res5 branch2b, 4 "
+          "deformable groups): column bit for bit the plain version's: %s "
+          "(max relative %.3g); one call %.4f ms, back to back %.4f, device "
+          "%s, plain %.4f ms (four gathers and the weights in torch ops), "
+          "grid_sample %.4f ms (within %.3g of scale of the plain column), "
+          "bound %.4f ms (%s: %.1f MB), roofline share %.1f%%; card %s"
+          % (tuple(data.shape), tuple(got.shape), exact, rel, ms, b2b,
+             _device_text(dev), plain_ms, library_ms, lib_rel, bound[0],
+             bound[1], _nbytes(data, off, got) / 1e6, 100.0 * bound[0] / ms,
+             card_line()))
+    if not (exact or rel <= 1e-6):
+        raise AssertionError("deformable_im2col disagrees with its plain "
+                             "version")
+    if lib_rel > 1e-4:
+        raise AssertionError("grid_sample does not compute the column "
+                             "(%.3g of scale)" % lib_rel)
+    return {"name": "deformable_im2col", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/deformable_im2col.cu",
+            "replaces": None, "launches": launches, "max_abs_err": rel,
+            "ms": ms, "b2b_ms": b2b,
+            "device_ms": None if dev is None else dev[0],
+            "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms}
+
+
+def _grid_sample_im2col(data, off, kernel, stride, pad, dilate, dg):
+    """The column as one library call, timed beside the kernel: torch's
+    ``grid_sample`` (bilinear, zeros outside, corners aligned) over the
+    data as [N * DG, C / DG, H, W] at the taps' points as a
+    [N * DG, kh * kw * Ho, Wo] grid, built here once.  A corner outside
+    the map weighs zero, the JAX package's per-corner rule."""
+    import torch
+    N, C, H, W = data.shape
+    (kh, kw), (sh, sw), (ph, pw), (dh, dw) = kernel, stride, pad, dilate
+    Ho, Wo = off.shape[2], off.shape[3]
+    dev = data.device
+    by = (torch.arange(kh, device=dev) * dh)[:, None, None, None] \
+        + (torch.arange(Ho, device=dev) * sh - ph)[None, None, :, None]
+    bx = (torch.arange(kw, device=dev) * dw)[None, :, None, None] \
+        + (torch.arange(Wo, device=dev) * sw - pw)[None, None, None, :]
+    o = off.reshape(N, dg, kh, kw, 2, Ho, Wo)
+    y = by.to(torch.float32) + o[:, :, :, :, 0]
+    x = bx.to(torch.float32) + o[:, :, :, :, 1]
+    grid = torch.stack([x * (2.0 / (W - 1)) - 1, y * (2.0 / (H - 1)) - 1],
+                       -1).reshape(N * dg, kh * kw * Ho, Wo, 2)
+    src = data.reshape(N * dg, C // dg, H, W)
+    return lambda: torch.nn.functional.grid_sample(
+        src, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True).reshape(N, C, kh, kw, Ho, Wo)
+
+
+def rfcn_ops_at_size(mx, seed, rois):
+    """20b.  Returns ({kernel: launches} of the ops' calls on the card, the
+    im2col kernel's record)."""
+    import torch
+    from mxnet_tpu_torch.ops import kernels as K
+    from mxnet_tpu_torch.ops.registry import get_op
+    rng = np.random.default_rng(seed + 201)
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+
+    feat = np.maximum(normal(*RFCN_RES5), 0)
+    c = RFCN_RES5[1]
+    # the branch's offsets from a seeded 3x3 conv of its input (the DCN's
+    # res5 offset conv: 72 channels, pad 2, dilate 2), a few pixels
+    w_off = normal(72, c, 3, 3) * (2.0 / (c * 9)) ** 0.5
+    off = torch.nn.functional.conv2d(
+        torch.tensor(feat), torch.tensor(w_off), padding=2,
+        dilation=2).numpy()
+    weight = normal(c, c, 3, 3) * (2.0 / (c * 9)) ** 0.5
+    dcn_ms = _dense_case("DeformableConvolution R-FCN res5b", 
+                         "_contrib_DeformableConvolution",
+                         [feat, off, weight], DCN_ATTRS, 3)
+    op = get_op("_contrib_DeformableConvolution")
+    at = op.normalize_attrs(DCN_ATTRS)
+    ins = [torch.tensor(x).cuda() for x in (feat, off, weight)]
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: op.impl(*ins, **at), reps=5)
+    print("dense DeformableConvolution R-FCN res5b: forward alone %.3f ms, "
+          "the backward (the plain version recomputed under autograd) "
+          "%.3f ms; card %s" % (fwd_ms, dcn_ms - fwd_ms, card_line()))
+    for label, dim in PSROI_MAPS:
+        data = normal(1, dim * 49, RFCN_RES5[2], RFCN_RES5[3])
+        attrs = dict(PSROI_ATTRS, output_dim=dim)
+        _dense_case("PSROIPooling %s %dx%d, %d ROIs" % (label, dim * 49, dim,
+                                                        len(rois)),
+                    "_contrib_PSROIPooling", [data, rois], attrs, 1)
+        trans = normal(len(rois), 2, 7, 7)
+        dattrs = dict(DPSROI_ATTRS, output_dim=dim)
+        _dense_case("DeformablePSROIPooling %s offsets" % label,
+                    "_contrib_DeformablePSROIPooling", [data, rois, trans],
+                    dattrs, 3)
+        _dense_case("DeformablePSROIPooling %s no_trans" % label,
+                    "_contrib_DeformablePSROIPooling", [data, rois],
+                    dict(dattrs, no_trans=True), 1)
+    n, d, out = SKETCH
+    _dense_case("count_sketch %dx%d -> %d" % (n, d, out),
+                "_contrib_count_sketch",
+                [normal(n, d), rng.integers(0, out, d).astype(np.float32),
+                 rng.choice([-1.0, 1.0], d).astype(np.float32)],
+                {"out_dim": out}, 1)
+    score = rng.random(MATCH_SHAPE, dtype=np.float32)
+    _dense_case("bipartite_matching %s" % "x".join(map(str, MATCH_SHAPE)),
+                "_contrib_bipartite_matching", [score],
+                {"threshold": 0.1}, 0, host_inputs=[score[:MATCH_HOST]],
+                pick=slice(0, MATCH_HOST), exact=True)
+    # the path: DCN_PATH_FORWARDS forwards and backwards through the
+    # user's entry point, the counts from 0 just before; one launch a
+    # forward, none from the backward (it recomputes the plain version)
+    ctx = mx.gpu(0)
+    nds = [mx.nd.array(x, ctx=ctx) for x in (feat, off, weight)]
+    for a in nds:
+        a.attach_grad()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    for _ in range(DCN_PATH_FORWARDS):
+        with mx.autograd.record():
+            y = mx.nd.contrib.DeformableConvolution(
+                data=nds[0], offset=nds[1], weight=nds[2], **DCN_ATTRS)
+        y.backward()
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    others = sum(n for k, n in launches.items() if k != "deformable_im2col")
+    print("dense DeformableConvolution R-FCN res5b through "
+          "mx.nd.contrib: %d im2col launches in %d forwards and backwards "
+          "(one a forward), %d of other kernels"
+          % (launches["deformable_im2col"], DCN_PATH_FORWARDS, others))
+    if launches["deformable_im2col"] != DCN_PATH_FORWARDS or others:
+        raise AssertionError("20b: DeformableConvolution launched %s, want "
+                             "one im2col a forward" % launches)
+    record = deformable_im2col_record(ins[0], ins[1],
+                                      launches["deformable_im2col"])
+    return launches, record
+
+
+def write_avazu(path, seed):
+    """A LibSVM file of AVAZU_BATCHES x AVAZU_BATCH rows at avazu-app's
+    width: one one-valued feature in each of AVAZU_FIELDS fields (disjoint
+    id ranges, ids skewed towards each range's start), labels from a
+    seeded hidden weight (about a fifth positive)."""
+    rng = np.random.default_rng(seed + 202)
+    rows = AVAZU_BATCHES * AVAZU_BATCH
+    span = AVAZU_FEATURES // AVAZU_FIELDS
+    u = rng.random((rows, AVAZU_FIELDS))
+    cols = (np.arange(AVAZU_FIELDS) * span
+            + np.floor(span * u ** 3)).astype(np.int64)
+    hidden = rng.standard_normal(AVAZU_FEATURES).astype(np.float32)
+    score = hidden[cols].sum(1) + rng.standard_normal(rows)
+    labels = (score > np.quantile(score, 0.8)).astype(int)
+    with open(path, "w") as f:
+        f.write("\n".join("%d %s" % (y, " ".join("%d:1" % c for c in r))
+                          for y, r in zip(labels, cols.tolist())))
+        f.write("\n")
+    return cols
+
+
+def avazu_steps(mx, ctx, make_opt, batches, w0, sync_check=False):
+    """The linear model's loop over ``batches`` [(csr, label)] on ``ctx``:
+    weight and bias in a 'local' store, ``row_sparse_pull`` of the batch's
+    columns, ``sparse.dot`` forward, the mean log loss, the transposed
+    dot, the gradient retained to the pulled columns and pushed.  Returns
+    (final weight as numpy, losses, {span: [ms]} on a card)."""
+    import torch
+    on_card = ctx.device_type == "gpu"
+    kv = mx.kv.create("local")
+    kv.init("w", mx.nd.array(w0, ctx=ctx))
+    kv.init("b", mx.nd.zeros((1,), ctx=ctx))
+    kv.set_optimizer(make_opt())
+    w = mx.nd.sparse.zeros("row_sparse", (AVAZU_FEATURES, 1), ctx=ctx)
+    b = mx.nd.zeros((1,), ctx=ctx)
+    every = mx.nd.arange(0, AVAZU_FEATURES, ctx=ctx, dtype="int64")
+    losses, marks = [], []
+    guard = (lambda: _sync_guard()) if sync_check and on_card \
+        else contextlib.nullcontext
+    for x, y in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)] \
+            if on_card else None
+        if ev:
+            ev[0].record()
+        with guard():
+            kv.row_sparse_pull("w", out=w, row_ids=x.indices)
+        kv.pull("b", out=b)
+        if ev:
+            ev[1].record()
+        p = mx.nd.sigmoid(mx.nd.sparse.dot(x, w.todense()) + b)
+        yb = y.reshape((-1, 1))
+        losses.append(-mx.nd.mean(yb * mx.nd.log(p + 1e-12)
+                                  + (1 - yb) * mx.nd.log(1 - p + 1e-12)))
+        err = (p - yb) / x.shape[0]
+        g = mx.nd.sparse.dot(x, err, transpose_a=True)
+        if ev:
+            ev[2].record()
+        with guard():
+            grad = mx.nd.sparse.RowSparseNDArray(
+                g, every, (AVAZU_FEATURES, 1)).retain(w.indices)
+            kv.push("w", grad)
+        kv.push("b", mx.nd.sum(err).reshape((1,)))
+        if ev:
+            ev[3].record()
+            marks.append(ev)
+    w_out = mx.nd.zeros((AVAZU_FEATURES, 1), ctx=ctx)
+    kv.pull("w", out=w_out)
+    spans = {}
+    if on_card:
+        torch.cuda.synchronize()
+        for name, (a, z) in (("pull", (0, 1)), ("dot", (1, 2)),
+                             ("push", (2, 3)), ("step", (0, 3))):
+            spans[name] = [e[a].elapsed_time(e[z]) for e in marks]
+    return w_out.asnumpy(), [float(v.asscalar()) for v in losses], spans
+
+
+@contextlib.contextmanager
+def _sync_guard():
+    """Any host sync inside the block raises (torch's sync debug mode)."""
+    import torch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def sparse_linear_avazu(mx, seed, root):
+    """20c.  Returns {} (no hand kernel on this path) after its checks."""
+    import torch
+    card, host = mx.gpu(0), mx.cpu()
+    path = os.path.join(root, "avazu.libsvm")
+    t0 = time.perf_counter()
+    cols = write_avazu(path, seed)
+    it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(AVAZU_FEATURES,),
+                          batch_size=AVAZU_BATCH)
+    host_batches = [(b.data[0], b.label[0]) for b in it]
+    batches = [(x.as_in_context(card), y.as_in_context(card))
+               for x, y in host_batches]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 203)
+    w0 = (rng.standard_normal((AVAZU_FEATURES, 1)) * 0.01).astype(np.float32)
+    touched = np.zeros(AVAZU_FEATURES, bool)
+    touched[cols] = True
+    opts = (("sgd", lambda: mx.optimizer.SGD(learning_rate=0.5,
+                                             momentum=0.9)),
+            ("adam", lambda: mx.optimizer.Adam(learning_rate=0.01)))
+    ok = True
+    for name, make in opts:
+        k = AVAZU_HOST_STEPS
+        wc, _, _ = avazu_steps(mx, card, make, batches[:k], w0)
+        wh, _, _ = avazu_steps(mx, host, make, host_batches[:k], w0)
+        gap = float(np.abs(wc - wh).max()) / max(1.0, float(np.abs(wh).max()))
+        w, losses, spans = avazu_steps(mx, card, make, batches, w0,
+                                       sync_check=True)
+        kept = bool(np.array_equal(w[~touched], w0[~touched]))
+        falls = np.mean(losses[-3:]) < np.mean(losses[:3])
+        med = {k2: float(np.median(v[1:])) for k2, v in spans.items()}
+        part_ok = gap <= SPARSE_REL and kept and falls \
+            and np.isfinite(w).all()
+        ok &= part_ok
+        print("sparse-linear avazu %s: %d features, %d batches of %d (15 "
+              "one-valued features a row, %d rows touched): log loss %.4f "
+              "-> %.4f; ms a step %.3f (median after the first; pull %.3f, "
+              "forward and transposed dot %.3f, retain and push %.3f); the "
+              "pull, retain and push under set_sync_debug_mode('error'): no "
+              "host sync; untouched rows bit for bit: %s; first %d steps "
+              "card vs host within %.3g of scale (limit %g): %s; card %s"
+              % (name, AVAZU_FEATURES, AVAZU_BATCHES, AVAZU_BATCH,
+                 int(touched.sum()), losses[0], losses[-1], med["step"],
+                 med["pull"], med["dot"], med["push"], kept, k, gap,
+                 SPARSE_REL, "ok" if part_ok else "FAIL", card_line()))
+    print("sparse-linear avazu: file and batches set up in %.1f s"
+          % setup_s)
+    if not ok:
+        raise AssertionError("sparse-linear: a check failed")
+    return {}
+
+
+def train_detection_sparse(mx, seed, root):
+    """Phase 20.  Returns ({path: launches}, the box_nms Proposal
+    instance's record, the im2col kernel's record)."""
+    import torch
+    clock = time.perf_counter()
+    paths = {}
+    paths["faster_rcnn_vgg16"], prop_rec, rois = faster_rcnn_serve(mx, seed)
+    lap = time.perf_counter()
+    print("phase 20a in %.1f s" % (lap - clock))
+    paths["rfcn_dcn_ops"], im2col_rec = rfcn_ops_at_size(mx, seed, rois)
+    print("phase 20b in %.1f s" % (time.perf_counter() - lap))
+    lap = time.perf_counter()
+    from mxnet_tpu_torch.ops import kernels as K
+    K.reset_launch_counts()
+    sparse_linear_avazu(mx, seed, root)
+    paths["sparse_linear_avazu"] = K.launch_counts()
+    print("phase 20c in %.1f s" % (time.perf_counter() - lap))
+    torch.cuda.synchronize()
+    print("phase 20 parts done in %.1f s" % (time.perf_counter() - clock))
+    return paths, prop_rec, im2col_rec
+
+
 def ptxas_entries(text):
     """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
     per compiled entry of an ``nvcc -Xptxas=-v`` report.  The kernel is
@@ -10531,7 +11160,7 @@ def main():
           % (torch.__version__, torch.version.cuda, torch.cuda.device_count()))
     t0 = time.perf_counter()
     _build.build_all(["flash_attn_fwd", "bn_channel_sums", "pool_bwd",
-                      "box_nms"])
+                      "box_nms", "deformable_im2col"])
     print("kernels built in %.1f s" % (time.perf_counter() - t0))
     from mxnet_tpu_torch import io_native
     from mxnet_tpu_torch.image import codec
@@ -10620,6 +11249,12 @@ def main():
         lap("19 (LeNet-STN through Module.fit on MNIST files, SSD-300's "
             "MultiBox head on ImageDetIter batches, the dense ops at "
             "published sizes)")
+        det_paths, prop_rec, im2col_rec = train_detection_sparse(
+            mx, args.seed, root)
+        paths.update(det_paths)
+        lap("20 (Faster R-CNN VGG16 served with Proposal and MultiProposal, "
+            "Deformable R-FCN's ops at published sizes, a lazy sparse "
+            "linear model at Avazu's width)")
     # "launches": the path each kernel serves in this script (the serving
     # forward, the LM's training, and the bf16 fused training; LeNet's and
     # DCGAN's are in launches_by_path)
@@ -10635,13 +11270,16 @@ def main():
         rec["instances"] = instances.get(name, [])
         if rec["launches"] == 0:
             raise AssertionError("%s was not launched on its path" % name)
-    # the hand kernel with no TPU counterpart, on a line of its own
-    nms_record["launches_by_path"] = {p: c.get("box_nms", 0)
-                                      for p, c in paths.items()}
-    if nms_record["launches"] == 0:
-        raise AssertionError("box_nms was not launched on its path")
+    # the hand kernels with no TPU counterpart, on a line of their own
+    nms_record["instances"] = [prop_rec]
+    for rec in (nms_record, im2col_rec):
+        rec["launches_by_path"] = {p: c.get(rec["name"], 0)
+                                   for p, c in paths.items()}
+    if nms_record["launches"] == 0 or prop_rec["launches"] == 0 \
+            or im2col_rec["launches"] == 0:
+        raise AssertionError("a hand kernel was not launched on its path")
     print("hand kernels without a TPU counterpart: %s"
-          % json.dumps({"kernels": [nms_record]}))
+          % json.dumps({"kernels": [nms_record, im2col_rec]}))
     print(card_line())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

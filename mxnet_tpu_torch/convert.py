@@ -13,6 +13,8 @@ carries a JAX ``ShardedTrainStep``'s parameters and momentum, or a JAX
 into the port's module on its mesh; ``set_fused_step_state`` a JAX
 ``Module``'s fused train step (one context or data-parallel): its
 masters, optimizer states, moving statistics and 2-bit residuals.
+``sparse_from_numpy`` carries a JAX ``RowSparseNDArray`` or
+``CSRNDArray`` across as its numpy ``data``/``indices``/``indptr``.
 """
 from __future__ import annotations
 
@@ -38,6 +40,24 @@ def params_from_numpy(arrays, ctx=None):
             name = name[4:]
         table[name] = array(value, ctx=ctx)
     return arg_params, aux_params
+
+
+def sparse_from_numpy(stype, shape, data, indices, indptr=None, ctx=None):
+    """The port's sparse array from a sparse array's numpy components (a
+    JAX ``RowSparseNDArray``'s ``data.asnumpy()`` and
+    ``indices.asnumpy()``, a ``CSRNDArray``'s also ``indptr``), kept as
+    they are (no re-sorting), on ``ctx`` (default: the current context)."""
+    from .ndarray.sparse import CSRNDArray, RowSparseNDArray
+    ctx = ctx or current_context()
+    data = array(np.asarray(data), ctx=ctx)
+    indices = array(np.asarray(indices, np.int64), ctx=ctx, dtype=np.int64)
+    if stype == "row_sparse":
+        return RowSparseNDArray(data, indices, shape)
+    if stype == "csr":
+        return CSRNDArray(data, indices, array(np.asarray(indptr, np.int64),
+                                               ctx=ctx, dtype=np.int64),
+                          shape)
+    raise MXNetError("sparse_from_numpy: unknown storage type %r" % stype)
 
 
 def set_gluon_params(net, source, ctx=None):

@@ -611,7 +611,7 @@ class LibSVMIter(DataIter):
         flat = np.concatenate(spans).astype(np.int64) if spans else \
             np.zeros((0,), np.int64)
         return CSRNDArray(self._values[flat], self._indices[flat], indptr,
-                          (len(rows),) + self._data_shape)
+                          (len(rows),) + self._data_shape, ctx=cpu())
 
     def next(self):
         if self._cursor >= self.num_rows:

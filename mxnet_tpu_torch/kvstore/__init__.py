@@ -83,6 +83,8 @@ class KVStore:
             return vals
         if len(vals) == 1:
             return vals[0]
+        if any(v.stype != "default" for v in vals):
+            return _sparse_sum(vals)
         owner = self._merge_ctx(key, vals)
         if self._gc is not None and key is not None:
             return self._reduce_compressed(key, vals, owner)
@@ -116,8 +118,9 @@ class KVStore:
         stored = self._stored.get(k)
         if stored is None:
             raise MXNetError("key %r has not been initialized" % (k,))
-        if merged.tensor.device != stored.tensor.device:
-            if merged.tensor.is_cuda and not stored.tensor.is_cuda:
+        m_dev, s_dev = _device(merged), _device(stored)
+        if m_dev != s_dev:
+            if m_dev.type == "cuda" and s_dev.type != "cuda":
                 stored = self._stored[k] = stored.copyto(merged.context)
             else:
                 merged = merged.copyto(stored.context)
@@ -142,9 +145,12 @@ class KVStore:
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
         """Pull only the rows ``row_ids`` names (ref: kvstore.h
-        row_sparse_pull): a dense output gets those rows of the stored
-        value and zeros elsewhere.  Ids are sorted and clipped on the
-        device, duplicates kept."""
+        row_sparse_pull).  On the stored value's device, with no host
+        sync: the ids are sorted and clipped to the table, duplicates kept
+        (static shapes; a duplicated id carries its row twice).  A
+        RowSparseNDArray output becomes those rows at those ids; a dense
+        output gets those rows of the stored value and zeros elsewhere."""
+        from ..ndarray.sparse import RowSparseNDArray
         if out is None:
             raise MXNetError("row_sparse_pull needs out=")
         if row_ids is None:
@@ -154,22 +160,28 @@ class KVStore:
         if not isinstance(row_ids, (list, tuple)):
             row_ids = [row_ids] * len(keys)
         for k, olist, rid in zip(keys, outs, row_ids):
-            dense = self._stored[k].tensor
+            stored = self._stored[k]
+            dense = (stored.todense() if stored.stype != "default"
+                     else stored).tensor
             rid = rid.tensor if isinstance(rid, NDArray) \
                 else torch.as_tensor(rid)
             ids = torch.sort(rid.to(dense.device, torch.int64).reshape(-1)) \
                 .values.clamp(0, dense.shape[0] - 1)
-            rows = torch.zeros_like(dense)
-            rows[ids] = dense[ids]
+            rows = dense[ids]
             for o in olist if isinstance(olist, (list, tuple)) else [olist]:
-                if not isinstance(o, NDArray):
-                    raise MXNetError(
-                        "row_sparse_pull into a %s: RowSparseNDArray "
-                        "outputs come with the sparse storage types "
-                        "(ROADMAP A4); pull into a dense NDArray"
-                        % type(o).__name__)
-                with torch.no_grad():
-                    o.tensor.copy_(rows)
+                if isinstance(o, RowSparseNDArray):
+                    dev = o.data.tensor.device
+                    o._set(NDArray(rows.to(dev, copy=True)),
+                           NDArray(ids.to(dev, copy=True)), dense.shape)
+                elif o.stype == "default":
+                    with torch.no_grad():
+                        o.tensor.zero_()
+                        o.tensor[ids.to(o.tensor.device)] = \
+                            rows.to(o.tensor.device)
+                else:
+                    raise MXNetError("row_sparse_pull into a %s array: pull "
+                                     "into a row_sparse or a dense array"
+                                     % o.stype)
 
     def set_gradient_compression(self, compression_params):
         """2-bit compression of the cross-context hop; a store that is
@@ -222,6 +234,30 @@ def _tree_sum(tensors):
             nxt.append(tensors[-1])
         tensors = nxt
     return tensors[0]
+
+
+def _device(nd):
+    """The torch device of an NDArray's payload (a sparse array's data)."""
+    return (nd.data if nd.stype != "default" else nd).tensor.device
+
+
+def _sparse_sum(vals):
+    """The sum of a key's copies when one is sparse, on the first copy's
+    context, added one after another: row_sparse copies give a
+    row_sparse sum over the ids they name together (sorted, duplicates
+    kept, each id's row the sum's), any dense copy a dense sum."""
+    from ..ndarray.sparse import RowSparseNDArray
+    ctx = vals[0].context
+    moved = [v.as_in_context(ctx) for v in vals]
+    acc = None
+    for v in moved:
+        t = v.todense().tensor if v.stype != "default" else v.tensor
+        acc = t.clone() if acc is None else acc.add_(t)
+    if any(v.stype != "row_sparse" for v in moved):
+        return NDArray(acc)
+    ids = torch.sort(torch.cat([v.indices.tensor.long()
+                                for v in moved])).values
+    return RowSparseNDArray(NDArray(acc[ids]), NDArray(ids), acc.shape)
 
 
 def _compression(compression_params):

@@ -93,6 +93,14 @@ class NcclKVStore(KVStore):
             if stored is None:
                 raise MXNetError("key %r has not been initialized" % (k,))
             vals = [v] if isinstance(v, NDArray) else list(v)
+            if stored.stype != "default" \
+                    or any(x.stype != "default" for x in vals):
+                # a sparse array's inherited tensor is an empty
+                # placeholder: the dense collective would drop the
+                # payload, so sparse values take the base store's path
+                self._replicas.pop(k, None)
+                KVStore.push(self, k, v, priority)
+                continue
             if len(vals) == 1:
                 sums = [vals[0].tensor.clone()]  # the value at push time
             else:
@@ -109,6 +117,9 @@ class NcclKVStore(KVStore):
             raise MXNetError("pull needs out=")
         keys, outs = _key_value(key, out)
         for k, olist in zip(keys, outs):
+            if self._stored[k].stype != "default":
+                KVStore.pull(self, k, out=olist, priority=priority)
+                continue
             local = self._replicas.get(k, {})
             stored = self._stored[k].tensor
             for o in [olist] if isinstance(olist, NDArray) else olist:

@@ -14,6 +14,7 @@ from . import inception_bn  # noqa: F401
 from . import inception_v3  # noqa: F401
 from . import inception_v4  # noqa: F401
 from . import inception_resnet_v2  # noqa: F401
+from . import rcnn_vgg  # noqa: F401
 from .transformer_lm import transformer_lm_symbol  # noqa: F401
 
 get_symbol = resnet.get_symbol

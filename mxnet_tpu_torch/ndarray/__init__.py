@@ -49,6 +49,16 @@ def _make_op_func(canonical, op):
     return fn
 
 
+from . import sparse  # noqa: E402  (ref: ndarray/sparse.py)
+
+
+def cast_storage(data, stype="default"):
+    """Storage-aware cast (ref: cast_storage op): the dense-to-sparse
+    direction gives a sparse array (the registered op of the same name
+    serves symbol graphs, where it is the identity)."""
+    return sparse.cast_storage(data, stype)
+
+
 _mod = _sys.modules[__name__]
 for _name, _op in list(_registry.op_registry().items()):
     if _name.replace("_", "a").isidentifier() and not hasattr(_mod, _name):

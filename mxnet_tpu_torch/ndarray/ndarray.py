@@ -150,7 +150,8 @@ class NDArray:
 
     def attach_grad(self, grad_req="write", stype=None):
         """Give this array a gradient buffer (``.grad``), filled by
-        ``backward`` according to ``grad_req``."""
+        ``backward`` according to ``grad_req``.  The buffer is dense
+        whatever ``stype`` asks, as in the JAX package."""
         grad = NDArray(torch.zeros_like(self._h.tensor.detach()))
         ag.mark_variables([self], [grad], grad_req)
 
@@ -271,11 +272,12 @@ class NDArray:
         return "default"
 
     def tostype(self, stype):
-        """This array for ``"default"``; sparse storage is not ported."""
-        if stype != "default":
-            raise MXNetError("tostype(%r): sparse storage types are not "
-                             "ported yet (ROADMAP A4)" % stype)
-        return self
+        """This array for ``"default"``, else its ``row_sparse`` or ``csr``
+        form (``sparse.cast_storage``)."""
+        if stype == "default":
+            return self
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
     # -- python protocol -------------------------------------------------------
     def __len__(self):
@@ -524,6 +526,9 @@ def _invoke(op_name, inputs, attrs, out=None):
     active), write state outputs back into the inputs they update
     (BatchNorm's moving statistics), and honour ``out=``."""
     op = get_op(op_name)
+    stypes = [i.stype for i in inputs]
+    if any(s != "default" for s in stypes):
+        return _invoke_sparse(op, inputs, stypes, attrs, out)
     if op.takes_device:  # the output's device: the ctx attr, else current
         ctx = attrs.pop("ctx", None) or current_context()
         if isinstance(ctx, str):
@@ -552,6 +557,55 @@ def _invoke(op_name, inputs, attrs, out=None):
             else:
                 with torch.no_grad():
                     dst.tensor.copy_(src.tensor)
+        return out
+    return out_nds[0] if len(out_nds) == 1 else out_nds
+
+
+_STORAGE_FALLBACK_WARNED = set()
+
+
+def _invoke_sparse(op, inputs, stypes, attrs, out):
+    """``_invoke`` with a sparse input (ref: imperative_utils.h dispatch
+    mode selection, exec_utils.h storage fallback): the op's sparse
+    implementation when the storage types match its pattern and it does
+    not decline; else, unless a sparse input would be mutated (its update
+    would be lost), the op on the densified inputs.  The sparse path is
+    not recorded for autograd (the optimizer updates)."""
+    nattrs = op.normalize_attrs(attrs, len(inputs))
+    outs = NotImplemented
+    if op.sparse_impl is not None and (
+            op.sparse_pattern is None
+            or tuple(stypes) == tuple(op.sparse_pattern[:len(stypes)])):
+        outs = op.sparse_impl(inputs, nattrs)
+    if outs is NotImplemented:
+        for idx in op.mutate_map:
+            if idx < len(inputs) and stypes[idx] != "default":
+                raise MXNetError(
+                    "%s: input %d is %s storage and would be mutated; no "
+                    "sparse implementation applies"
+                    % (op.name, idx, stypes[idx]))
+        if op.name not in _STORAGE_FALLBACK_WARNED:
+            _STORAGE_FALLBACK_WARNED.add(op.name)
+            from ..base import _logger
+            _logger.info("op %s has no sparse implementation; falling back "
+                         "to dense storage (ref: storage fallback)", op.name)
+        dense = [i.todense() if s != "default" else i
+                 for i, s in zip(inputs, stypes)]
+        return _invoke(op.name, dense, attrs, out=out)
+    if not isinstance(outs, tuple):
+        outs = (outs,)
+    n_vis = op.str_outputs(nattrs)
+    with torch.no_grad():
+        for value, idx in zip(outs[n_vis:], op.mutate_map):
+            if idx < len(inputs) and value is not inputs[idx].tensor:
+                inputs[idx].tensor.copy_(value)
+    out_nds = [v if isinstance(v, NDArray) else NDArray(v)
+               for v in outs[:n_vis]]
+    if out is not None:
+        given = [out] if isinstance(out, NDArray) else list(out)
+        for dst, src in zip(given, out_nds):
+            if dst is not src:
+                src.copyto(dst)
         return out
     return out_nds[0] if len(out_nds) == 1 else out_nds
 

@@ -10,3 +10,4 @@ from . import quantize  # noqa: F401
 from . import random_ops  # noqa: F401
 from . import image_ops  # noqa: F401
 from . import extra  # noqa: F401
+from . import detection_ops  # noqa: F401

@@ -15,11 +15,17 @@ Pallas kernel:
   ``csrc/pool_bwd.cu``, the pooling input gradients of
   ``pallas_kernels.py:515/544/580``;
 
-and one hand kernel with no TPU counterpart:
+and two hand kernels with no TPU counterpart:
 
-- ``box_nms_keep``: ``csrc/box_nms.cu``, the greedy suppression sweep of
-  ``box_nms`` and ``MultiBoxDetection``, which the JAX package runs as a
-  ``lax.scan`` of one step per box (``contrib_ops.py:135``).
+- ``box_nms_keep`` and ``proposal_nms_keep``: ``csrc/box_nms.cu``, the
+  greedy suppression sweep of ``box_nms`` and ``MultiBoxDetection``,
+  which the JAX package runs as a ``lax.scan`` of one step per box
+  (``contrib_ops.py:135``), and of ``Proposal`` and ``MultiProposal``
+  (a ``fori_loop`` of one step per box, ``detection_ops.py:95``);
+- ``deformable_im2col``: ``csrc/deformable_im2col.cu``, the bilinear
+  column tensor of ``DeformableConvolution`` (``detection_ops.py:332``),
+  in :class:`_DeformIm2colFn`, whose backward recomputes the plain
+  version under autograd.
 
 Dispatch follows the tensor, never a flag: a CUDA tensor launches the
 kernel (or raises when the kernel cannot take it), and a CPU tensor runs
@@ -44,7 +50,7 @@ _NEG_INF = -1e30
 
 LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_fwd_lse": 0,
             "bn_channel_sums": 0, "max_pool_backward": 0,
-            "avg_pool_backward": 0, "box_nms": 0}
+            "avg_pool_backward": 0, "box_nms": 0, "deformable_im2col": 0}
 
 FLASH_HEAD_DIMS = (32, 64, 128)
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
@@ -706,8 +712,39 @@ def _plain_box_nms_keep(boxes, cls, valid, order, rank, overlap_thresh,
     return keep
 
 
+def proposal_iou(box, boxes):
+    """box: [B, 4], boxes: [B, M, 4] -> [B, M]: the JAX package's
+    ``_box_ious`` (``detection_ops.py:81``) of each row's box against its
+    set: pixel-inclusive widths and heights (``+ 1``) clamped at 0, the
+    intersection over area + area - intersection, no guard on the union
+    (the formula ``csrc/box_nms.cu`` rounds alike at offset 1)."""
+    b = box[:, None, :]
+    iw = torch.clamp(torch.minimum(b[..., 2], boxes[..., 2])
+                     - torch.maximum(b[..., 0], boxes[..., 0]) + 1.0, min=0)
+    ih = torch.clamp(torch.minimum(b[..., 3], boxes[..., 3])
+                     - torch.maximum(b[..., 1], boxes[..., 1]) + 1.0, min=0)
+    inter = iw * ih
+    a1 = (b[..., 2] - b[..., 0] + 1.0) * (b[..., 3] - b[..., 1] + 1.0)
+    a2 = (boxes[..., 2] - boxes[..., 0] + 1.0) \
+        * (boxes[..., 3] - boxes[..., 1] + 1.0)
+    return inter / (a1 + a2 - inter)
+
+
+def _plain_proposal_nms_keep(boxes, thresh):
+    """The plain version of ``proposal_nms_keep``: the JAX package's
+    ``_nms_keep`` loop, one step per sorted box."""
+    B, M = boxes.shape[:2]
+    idx = torch.arange(M, device=boxes.device)
+    keep = torch.ones((B, M), dtype=torch.bool, device=boxes.device)
+    for i in range(M):
+        iou = proposal_iou(boxes[:, i], boxes)
+        keep &= ~((iou > thresh) & (idx > i) & keep[:, i:i + 1])
+    return keep
+
+
 _NMS_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p])
 NMS_MAX_BOXES = 6144 * 64  # the sweep's bitmap fills 48 KB of shared memory
 
 
@@ -733,27 +770,181 @@ def box_nms_keep(boxes, cls, valid, order, rank, overlap_thresh,
                          "classes [B, M], got %s %s and %s %s"
                          % (boxes.dtype, tuple(boxes.shape), cls.dtype,
                             tuple(cls.shape)))
-    if M > NMS_MAX_BOXES or B > 65535:
-        raise MXNetError("box_nms: the kernel takes at most %d boxes in at "
-                         "most 65535 sets, got %d x %d"
-                         % (NMS_MAX_BOXES, B, M))
     sorted_boxes = torch.gather(boxes, 1, order[..., None].expand(
         B, M, 4)).contiguous()
     sorted_cls = torch.gather(cls, 1, order)
     sorted_valid = torch.gather(valid, 1, order).to(torch.uint8)
+    kept = _launch_nms(sorted_boxes, sorted_cls, sorted_valid,
+                       overlap_thresh, force_suppress, 0)
+    return torch.gather(kept.bool(), 1, rank)
+
+
+def _launch_nms(boxes, cls, valid, thresh, force, offset):
+    """``csrc/box_nms.cu`` on sorted boxes [B, M, 4], classes [B, M] and
+    valid flags [B, M] u8: the keep flags [B, M] u8."""
+    B, M = valid.shape
+    if M > NMS_MAX_BOXES or B > 65535:
+        raise MXNetError("box_nms: the kernel takes at most %d boxes in at "
+                         "most 65535 sets, got %d x %d"
+                         % (NMS_MAX_BOXES, B, M))
+    dev = boxes.device
     mask = torch.empty((B, M, (M + 63) // 64), dtype=torch.int64,
                        device=dev)
     kept = torch.empty((B, M), dtype=torch.uint8, device=dev)
     with _on_device(dev):
         _launch("box_nms", _lib_fn("box_nms", "mxtt_box_nms", _NMS_ARGTYPES),
-                sorted_boxes.data_ptr(), sorted_cls.data_ptr(),
-                sorted_valid.data_ptr(), mask.data_ptr(), kept.data_ptr(),
-                B, M, float(overlap_thresh), int(bool(force_suppress)),
-                _stream(dev))
-    return torch.gather(kept.bool(), 1, rank)
+                boxes.data_ptr(), cls.data_ptr(), valid.data_ptr(),
+                mask.data_ptr(), kept.data_ptr(), B, M, float(thresh),
+                int(bool(force)), int(offset), _stream(dev))
+    return kept
 
 
-KERNEL_FAMILIES = ("attn", "bn", "pool", "nms")
+def proposal_nms_keep(boxes, thresh):
+    """Greedy suppression of B sets of M boxes already in descending score
+    order (``Proposal``'s and ``MultiProposal``'s ``_nms_keep``): every
+    box takes part, class-blind, and a box still kept clears the keep
+    flag of every later box whose ``proposal_iou`` with it exceeds
+    ``thresh``.  boxes: [B, M, 4] f32.  Returns the keep flags [B, M]
+    bool.  CUDA tensors run ``csrc/box_nms.cu`` at pixel offset 1, CPU
+    tensors the plain version; both give the same flags."""
+    dev = _check_kernel_device("box_nms", (boxes,))
+    if dev.type == "cpu":
+        return _plain_proposal_nms_keep(boxes, thresh)
+    B, M = boxes.shape[:2]
+    if boxes.dtype != torch.float32 or tuple(boxes.shape) != (B, M, 4):
+        raise MXNetError("box_nms: the kernel takes f32 boxes [B, M, 4], "
+                         "got %s %s" % (boxes.dtype, tuple(boxes.shape)))
+    cls = torch.zeros((B, M), dtype=torch.float32, device=dev)
+    valid = torch.ones((B, M), dtype=torch.uint8, device=dev)
+    return _launch_nms(boxes.contiguous(), cls, valid, thresh, True,
+                       1).bool()
+
+
+# ---------------------------------------------------------------------------
+# Deformable convolution's bilinear im2col
+# ---------------------------------------------------------------------------
+
+def _deform_taps(img, y, x):
+    """The JAX package's ``_bilinear_gather`` (``detection_ops.py:307``)
+    batched: img [N, DG, cpg, H, W]; y/x [N, DG, L] sample points ->
+    [N, DG, cpg, L]: four clipped corner gathers, each times its validity,
+    combined with the bilinear weights left to right."""
+    N, DG, cpg, H, W = img.shape
+    flat = img.reshape(N, DG, cpg, H * W)
+    y0, x0 = torch.floor(y), torch.floor(x)
+    wy1, wx1 = y - y0, x - x0
+
+    def tap(yy, xx):
+        ok = (yy >= 0) & (yy <= H - 1) & (xx >= 0) & (xx <= W - 1)
+        yi = torch.clamp(yy, 0, H - 1).long()
+        xi = torch.clamp(xx, 0, W - 1).long()
+        idx = (yi * W + xi)[:, :, None, :].expand(N, DG, cpg, -1)
+        return torch.gather(flat, 3, idx) * ok.to(img.dtype)[:, :, None]
+
+    v00, v01 = tap(y0, x0), tap(y0, x0 + 1)
+    v10, v11 = tap(y0 + 1, x0), tap(y0 + 1, x0 + 1)
+    wy1, wx1 = wy1[:, :, None], wx1[:, :, None]
+    return (v00 * (1 - wy1) * (1 - wx1) + v01 * (1 - wy1) * wx1
+            + v10 * wy1 * (1 - wx1) + v11 * wy1 * wx1)
+
+
+def _plain_deformable_im2col(data, offset, kernel, stride, pad, dilate,
+                             dg):
+    """The plain version of ``deformable_im2col``: the JAX package's
+    column tensor, in its arithmetic (an f32 base grid plus the offsets)."""
+    N, C, H, W = data.shape
+    (kh, kw), (sh, sw), (ph, pw), (dh, dw) = kernel, stride, pad, dilate
+    Ho, Wo = offset.shape[2], offset.shape[3]
+    dev = data.device
+    by = (torch.arange(kh, device=dev) * dh)[:, None, None, None] \
+        + (torch.arange(Ho, device=dev) * sh - ph)[None, None, :, None]
+    bx = (torch.arange(kw, device=dev) * dw)[None, :, None, None] \
+        + (torch.arange(Wo, device=dev) * sw - pw)[None, None, None, :]
+    off = offset.reshape(N, dg, kh, kw, 2, Ho, Wo)
+    y = by.to(torch.float32) + off[:, :, :, :, 0]     # [N, DG, kh, kw, Ho, Wo]
+    x = bx.to(torch.float32) + off[:, :, :, :, 1]
+    col = _deform_taps(data.reshape(N, dg, C // dg, H, W),
+                       y.reshape(N, dg, -1), x.reshape(N, dg, -1))
+    return col.reshape(N, C, kh, kw, Ho, Wo)
+
+
+_DEFORM_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15 \
+    + [ctypes.c_void_p]
+
+
+def _launch_deformable_im2col(data, offset, kernel, stride, pad, dilate,
+                              dg):
+    N, C, H, W = data.shape
+    Ho, Wo = offset.shape[2], offset.shape[3]
+    kh, kw = kernel
+    if data.dtype != torch.float32 or offset.dtype != torch.float32:
+        raise MXNetError("deformable_im2col: the kernel takes f32 data and "
+                         "offsets, got %s and %s"
+                         % (data.dtype, offset.dtype))
+    if tuple(offset.shape) != (N, 2 * dg * kh * kw, Ho, Wo) or C % dg:
+        raise MXNetError("deformable_im2col: offsets %s do not fit data %s "
+                         "with %d deformable groups and a %dx%d kernel"
+                         % (tuple(offset.shape), tuple(data.shape), dg, kh,
+                            kw))
+    data, offset = data.contiguous(), offset.contiguous()
+    col = torch.empty((N, C, kh, kw, Ho, Wo), dtype=torch.float32,
+                      device=data.device)
+    with _on_device(data.device):
+        _launch("deformable_im2col",
+                _lib_fn("deformable_im2col", "mxtt_deformable_im2col",
+                        _DEFORM_ARGTYPES),
+                data.data_ptr(), offset.data_ptr(), col.data_ptr(), N, C, H,
+                W, kh, kw, stride[0], stride[1], pad[0], pad[1], dilate[0],
+                dilate[1], dg, Ho, Wo, _stream(data.device))
+    return col
+
+
+class _DeformIm2colFn(torch.autograd.Function):
+    """The kernel's column forward; the backward recomputes the plain
+    version under autograd on the same device (a col2im kernel is later
+    work)."""
+
+    @staticmethod
+    def forward(ctx, data, offset, geometry):
+        ctx.save_for_backward(data, offset)
+        ctx.geometry = geometry
+        return _launch_deformable_im2col(data, offset, *geometry)
+
+    @staticmethod
+    def backward(ctx, dcol):
+        data, offset = ctx.saved_tensors
+        with torch.enable_grad():
+            d = data.detach().requires_grad_(ctx.needs_input_grad[0])
+            o = offset.detach().requires_grad_(ctx.needs_input_grad[1])
+            col = _plain_deformable_im2col(d, o, *ctx.geometry)
+            wrt = [t for t in (d, o) if t.requires_grad]
+            grads = iter(torch.autograd.grad(col, wrt, dcol)) if wrt \
+                else iter(())
+        return (next(grads) if ctx.needs_input_grad[0] else None,
+                next(grads) if ctx.needs_input_grad[1] else None, None)
+
+
+def deformable_im2col(data, offset, kernel, stride, pad, dilate, dg):
+    """The column tensor [N, C, kh, kw, Ho, Wo] of deformable convolution:
+    data [N, C, H, W] sampled bilinearly at each tap's grid point plus its
+    offset from ``offset`` [N, 2 dg kh kw, Ho, Wo] (y then x per tap, the
+    deformable group of channel c being c // (C / dg)), zero outside the
+    image corner by corner.  CUDA tensors run
+    ``csrc/deformable_im2col.cu`` (differentiable through
+    :class:`_DeformIm2colFn`), CPU tensors the plain version under
+    autograd; both give the same column."""
+    dev = _check_kernel_device("deformable_im2col", (data, offset))
+    geometry = (tuple(kernel), tuple(stride), tuple(pad), tuple(dilate),
+                int(dg))
+    if dev.type == "cpu":
+        return _plain_deformable_im2col(data, offset, *geometry)
+    if torch.is_grad_enabled() and (data.requires_grad
+                                    or offset.requires_grad):
+        return _DeformIm2colFn.apply(data, offset, geometry)
+    return _launch_deformable_im2col(data, offset, *geometry)
+
+
+KERNEL_FAMILIES = ("attn", "bn", "pool", "nms", "deform")
 
 
 def kernel_mode(kind, device):

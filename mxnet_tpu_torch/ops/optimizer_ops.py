@@ -17,8 +17,14 @@ that a CUDA graph of the step reads them as data.  The registered ops
 (``mx.nd.sgd_mom_update(w, g, mom, out=w, ...)``) run the same
 arithmetic on copies and return the new weight, with the new states as
 state outputs that ``mutate_map`` writes back into the state inputs, as
-the reference's do.  The math is the reference's, operation for
-operation:
+the reference's do.  A row_sparse gradient updates lazily (ref:
+SGDUpdateRspImpl, AdamUpdateRspImpl): ``sgd_update_rsp``,
+``sgd_mom_update_rsp`` and ``adam_update_rsp`` apply the same math to the
+gradient's rows alone, weight and states, in place, and the registered
+``sgd_update``, ``sgd_mom_update`` and ``adam_update`` take that path
+for a row_sparse gradient unless ``lazy_update=False``, which declines
+to the dense math on the densified gradient.  The math is the
+reference's, operation for operation:
 
     g = clip(grad * rescale_grad, clip_gradient)
     sgd:      weight -= lr * (g + wd * weight)
@@ -168,6 +174,45 @@ def signum_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
     weight.mul_(1 - lr * wd_lh).add_(lr * torch.sign(mom))
 
 
+@torch.no_grad()
+def sgd_update_rsp(weight, rows, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=-1.0):
+    """``sgd_update`` of the rows ``rows`` of ``weight`` from their
+    gradient rows ``grad``, in place.  A row named twice carries equal
+    gradient rows (the static-shape retain and pull keep duplicates), so
+    both writes put the same value."""
+    g = _clipped(grad, rescale_grad, clip_gradient)
+    wr = weight[rows]
+    weight[rows] = wr - lr * (g + wd * wr)
+
+
+@torch.no_grad()
+def sgd_mom_update_rsp(weight, rows, grad, mom, lr=0.01, momentum=0.0,
+                       wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """``sgd_mom_update`` of the gradient's rows of weight and mom, in
+    place; the other rows keep their momentum."""
+    g = _clipped(grad, rescale_grad, clip_gradient)
+    wr = weight[rows]
+    new_mom = momentum * mom[rows] - lr * (g + wd * wr)
+    weight[rows] = wr + new_mom
+    mom[rows] = new_mom
+
+
+@torch.no_grad()
+def adam_update_rsp(weight, rows, grad, mean, var, lr=0.001, beta1=0.9,
+                    beta2=0.999, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                    clip_gradient=-1.0):
+    """``adam_update`` of the gradient's rows of weight, mean and var, in
+    place; the other rows keep their moments."""
+    wr = weight[rows]
+    g = _clipped(grad, rescale_grad, clip_gradient) + wd * wr
+    new_mean = beta1 * mean[rows] + (1 - beta1) * g
+    new_var = beta2 * var[rows] + (1 - beta2) * torch.square(g)
+    weight[rows] = wr - lr * new_mean / (torch.sqrt(new_var) + epsilon)
+    mean[rows] = new_mean
+    var[rows] = new_var
+
+
 _COMMON = {"lr": (pFloat, 0.01), "wd": (pFloat, 0.0),
            "rescale_grad": (pFloat, 1.0), "clip_gradient": (pFloat, -1.0)}
 _LAZY = dict(_COMMON, lazy_update=(pBool, True))
@@ -183,20 +228,43 @@ def _functional(update, n_states):
     return impl
 
 
-def _register(name, update, n_states, params):
+def _lazy(update_rsp, n_states):
+    """The sparse implementation of a registered update op: for a
+    row_sparse gradient, the new weight (a copy updated at the gradient's
+    rows) and the states updated in place at those rows; ``NotImplemented``
+    under ``lazy_update=False`` (the dense math on the densified gradient,
+    every row decaying)."""
+    def sparse_impl(inputs, attrs):
+        attrs = dict(attrs)
+        if not attrs.pop("lazy_update", True):
+            return NotImplemented
+        weight = inputs[0].tensor.clone()
+        grad = inputs[1]
+        states = [s.tensor for s in inputs[2:2 + n_states]]
+        update_rsp(weight, grad.indices.tensor.long(), grad.data.tensor,
+                   *states, **attrs)
+        return (weight, *states) if n_states else weight
+    return sparse_impl
+
+
+def _register(name, update, n_states, params, lazy=None):
+    pattern = ("default", "row_sparse") + ("default",) * n_states
     register(name, _functional(update, n_states), num_inputs=2 + n_states,
-             mutate_map=tuple(range(2, 2 + n_states)), params=params)
+             mutate_map=tuple(range(2, 2 + n_states)), params=params,
+             sparse_impl=lazy and _lazy(lazy, n_states),
+             sparse_pattern=pattern if lazy else None)
 
 
-_register("sgd_update", sgd_update, 0, _LAZY)
+_register("sgd_update", sgd_update, 0, _LAZY, lazy=sgd_update_rsp)
 _register("sgd_mom_update", sgd_mom_update, 1,
-          dict(_LAZY, momentum=(pFloat, 0.0)))
+          dict(_LAZY, momentum=(pFloat, 0.0)), lazy=sgd_mom_update_rsp)
 _register("mp_sgd_update", mp_sgd_update, 1, _LAZY)
 _register("mp_sgd_mom_update", mp_sgd_mom_update, 2,
           dict(_LAZY, momentum=(pFloat, 0.0)))
 _register("adam_update", adam_update, 2,
           dict(_LAZY, lr=(pFloat, 0.001), beta1=(pFloat, 0.9),
-               beta2=(pFloat, 0.999), epsilon=(pFloat, 1e-8)))
+               beta2=(pFloat, 0.999), epsilon=(pFloat, 1e-8)),
+          lazy=adam_update_rsp)
 _RMSPROP = dict(_COMMON, lr=(pFloat, 0.001), gamma1=(pFloat, 0.95),
                 epsilon=(pFloat, 1e-8), clip_weights=(pFloat, -1.0))
 _register("rmsprop_update", rmsprop_update, 1, _RMSPROP)

@@ -86,6 +86,14 @@ class Op:
     key_var_num_args: the attr that counts a variadic op's inputs
         (``num_args`` of ``Concat``, ``stack``, ``add_n``); when a node or
         call leaves it unset, it is filled from the number of inputs.
+    sparse_impl: optional fn(input NDArrays, normalized attrs) -> outputs
+        (tensors or NDArrays, sparse ones included), run when any input
+        is sparse and the inputs' storage types match ``sparse_pattern``
+        (ref: FComputeEx); it may return ``NotImplemented`` to decline
+        (``lazy_update=False``), and ops without one densify read-only
+        sparse inputs (the storage fallback).
+    sparse_pattern: the input storage types ``sparse_impl`` takes, e.g.
+        ``("default", "row_sparse")``; None when it checks them itself.
     aliases: further names the op is registered under.
     """
 
@@ -93,8 +101,8 @@ class Op:
                  infer_shape=None, infer_type=None, input_names=None,
                  aux_names=(), bidirectional_infer=False, mutate_map=(),
                  takes_train_flag=False, takes_device=False,
-                 needs_rng=False, key_var_num_args=None, aliases=(),
-                 doc=""):
+                 needs_rng=False, key_var_num_args=None, sparse_impl=None,
+                 sparse_pattern=None, aliases=(), doc=""):
         self.name = name
         self.impl = impl
         self.params = params or {}
@@ -112,6 +120,8 @@ class Op:
         self.takes_device = takes_device
         self.needs_rng = needs_rng
         self.key_var_num_args = key_var_num_args
+        self.sparse_impl = sparse_impl
+        self.sparse_pattern = sparse_pattern
         self.aliases = tuple(aliases)
         self.doc = doc
 

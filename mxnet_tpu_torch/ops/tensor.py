@@ -1,15 +1,16 @@
 """Core tensor operators.
 
-Counterpart of ``mxnet_tpu/ops/tensor.py`` (all but its three sparse-
-storage ops, which wait for ``ndarray/sparse.py``): elementwise, broadcast
+Counterpart of ``mxnet_tpu/ops/tensor.py``: elementwise, broadcast
 and scalar arithmetic and comparisons, ``add_n``, the unary math family,
 ``BlockGrad``/``make_loss``/``clip``/``Cast``, the reductions (``sum`` to
 ``nanprod``, ``max``/``min``, ``argmax``/``argmin``, ``norm``), ``dot`` and
 ``batch_dot``, shape manipulation (``Reshape`` with MXNet's special codes,
 ``transpose``, ``slice``, ``Concat``/``stack``/``split``, ``Pad``, ...),
 indexing (``take``, ``pick``, ``one_hot``, ``where``, ``gather_nd``,
-``scatter_nd``), ordering (``sort``, ``argsort``, ``topk``) and the init
-ops.  Op names, aliases and attrs follow the reference registry so a
+``scatter_nd``), ordering (``sort``, ``argsort``, ``topk``), the init
+ops and the sparse-storage ops (``cast_storage``, ``sparse_retain``,
+``_square_sum``: dense in a symbol graph, sparse through ``_invoke``'s
+dispatch on a sparse input).  Op names, aliases and attrs follow the reference registry so a
 graph's JSON stays the same in both packages; each impl is the same
 function in torch ops, differentiable by torch autograd where the JAX
 op is by ``jax.vjp``.
@@ -757,3 +758,82 @@ register("shape_array", lambda x: torch.tensor(x.shape, dtype=torch.int64,
 register("size_array", lambda x: torch.tensor([x.numel()], dtype=torch.int64,
                                               device=x.device),
          num_inputs=1)
+
+
+# ---------------------------------------------------------------------------
+# Sparse-storage ops (ref: cast_storage-inl.h, sparse_retain-inl.h,
+# square_sum-inl.h).  The dense impls serve symbol graphs, whose every
+# array is dense; a sparse input reaches the sparse_impl.
+# ---------------------------------------------------------------------------
+
+def _cast_storage_dense(data, stype="default"):
+    # storage is an NDArray-level property: in a graph the node is the
+    # identity
+    return data
+
+
+def _cast_storage_sparse(inputs, attrs):
+    arr = inputs[0]
+    stype = attrs.get("stype", "default")
+    return (arr.todense() if stype == "default" else arr.tostype(stype),)
+
+
+register("cast_storage", _cast_storage_dense, num_inputs=1,
+         sparse_impl=_cast_storage_sparse,
+         params={"stype": (pStr, "default")})
+
+
+def _sparse_retain_dense(data, indices):
+    mask = torch.zeros(data.shape[0], dtype=torch.bool, device=data.device)
+    mask[indices.long()] = True
+    return torch.where(mask.reshape((-1,) + (1,) * (data.ndim - 1)), data,
+                       torch.zeros((), dtype=data.dtype, device=data.device))
+
+
+def _sparse_retain_sparse(inputs, attrs):
+    return (inputs[0].retain(inputs[1]),)
+
+
+register("sparse_retain", _sparse_retain_dense, num_inputs=2,
+         input_names=["data", "indices"],
+         sparse_impl=_sparse_retain_sparse,
+         sparse_pattern=("row_sparse", "default"))
+
+
+def _square_sum_dense(data, axis=None, keepdims=False, exclude=False):
+    ax = _norm_axis(axis, data.ndim, exclude)
+    sq = data * data
+    return torch.sum(sq, dim=ax, keepdim=bool(keepdims)) if ax else sq
+
+
+def _square_sum_sparse(inputs, attrs):
+    """The row_sparse path: the stored rows only (ref: square_sum-inl.h, a
+    2-D input, axis 0 or 1; axis 1 with keepdims gives row_sparse).
+    Anything else declines to the dense fallback."""
+    from ..ndarray.ndarray import NDArray
+    from ..ndarray.sparse import RowSparseNDArray
+    rsp = inputs[0]
+    if attrs.get("exclude") or len(rsp.shape) != 2:
+        return NotImplemented
+    axis = attrs.get("axis")
+    if isinstance(axis, tuple):
+        axis = axis[0] if len(axis) == 1 else None
+    data = rsp.data.tensor
+    sq = data * data
+    if axis in (1, -1):
+        row_vals = sq.sum(dim=tuple(range(1, data.ndim)))
+        if attrs.get("keepdims"):
+            return (RowSparseNDArray(NDArray(row_vals[:, None]),
+                                     rsp.indices, (rsp.shape[0], 1)),)
+        out = torch.zeros(rsp.shape[0], dtype=data.dtype, device=data.device)
+        out[rsp.indices.tensor.long()] = row_vals
+        return (out,)
+    if axis == 0:
+        out = sq.sum(dim=0)
+        return (out[None] if attrs.get("keepdims") else out,)
+    return (sq.sum(),)
+
+
+register("_square_sum", _square_sum_dense, num_inputs=1,
+         aliases=("square_sum",), sparse_impl=_square_sum_sparse,
+         sparse_pattern=("row_sparse",), params=_REDUCE_PARAMS)

@@ -34,7 +34,7 @@ import torch
 
 from .base import MXNetError, dtype_name
 from . import random as _random
-from .ndarray import NDArray, zeros
+from .ndarray import NDArray, _invoke, zeros
 from .ops import optimizer_ops as _ops
 
 
@@ -130,7 +130,9 @@ class Optimizer:
 
     def update(self, index, weight, grad, state):
         """One update of NDArray ``weight`` from ``grad``: the optimizer's
-        ``fused_update`` with this step's scalars as Python floats."""
+        ``fused_update`` with this step's scalars as Python floats.  A
+        sparse gradient is densified (the storage fallback)."""
+        grad = _dense(grad)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         apply_update(self, weight.tensor, grad.tensor, state_tensors(state),
@@ -140,6 +142,7 @@ class Optimizer:
 
     def update_multi_precision(self, index, weight, grad, state):
         if self.multi_precision and _is_low_precision(weight.dtype):
+            grad = _dense(grad)
             w32 = state[0]
             self.update(index, w32, NDArray(grad.tensor.float()), state[1])
             w32.copyto(weight)
@@ -262,6 +265,12 @@ def _clip_arg(opt):
     return -1.0 if opt.clip_gradient is None else opt.clip_gradient
 
 
+def _dense(grad):
+    """A sparse gradient densified (the storage fallback); a dense one as
+    it is."""
+    return grad.todense() if grad.stype != "default" else grad
+
+
 def _zeros_like(weight, dtype=None):
     return zeros(weight.shape, weight.context,
                  dtype=weight.tensor.dtype if dtype is None else dtype)
@@ -295,9 +304,18 @@ class SGD(Optimizer):
                     clip_gradient=_clip_arg(self))
 
     def update(self, index, weight, grad, state):
+        if isinstance(state, tuple):  # multi-precision: no lazy path
+            grad = _dense(grad)
         self._update_count(index)
         kw = self._kwargs(self._get_lr(index), self._get_wd(index))
-        w, g = weight.tensor, grad.tensor
+        if grad.stype == "row_sparse":  # the registered op's lazy path
+            if state is None:
+                _invoke("sgd_update", [weight, grad], kw, out=weight)
+            else:
+                _invoke("sgd_mom_update", [weight, grad, state],
+                        dict(kw, momentum=self.momentum), out=weight)
+            return
+        w, g = weight.tensor, _dense(grad).tensor
         if isinstance(state, tuple):  # multi-precision: (mom, w32)
             mom, w32 = state
             if mom is not None:
@@ -426,6 +444,18 @@ class Adam(Optimizer):
 
     def create_state(self, index, weight):
         return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        if grad.stype != "row_sparse":
+            return super().update(index, weight, grad, state)
+        # the registered op's lazy path
+        self._update_count(index)
+        _invoke("adam_update", [weight, grad, state[0], state[1]],
+                dict(lr=self._get_lr(index) * self.fused_scalars(index)[0],
+                     beta1=self.beta1, beta2=self.beta2,
+                     epsilon=self.epsilon, wd=self._get_wd(index),
+                     rescale_grad=self.rescale_grad,
+                     clip_gradient=_clip_arg(self)), out=weight)
 
     fused_n_scalars = 1
 

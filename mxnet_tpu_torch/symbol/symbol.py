@@ -627,9 +627,11 @@ def _group_contexts(symbol, group2ctx):
 
 
 def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
-        init=None, **kwargs):
+        init=None, stype=None, **kwargs):
     """Create a variable symbol (ref: mx.sym.Variable).  ``init`` is an
-    initializer's ``dumps()`` string or an initializer."""
+    initializer's ``dumps()`` string or an initializer.  ``stype`` is taken
+    and, as in the JAX package, left out of the graph: every array of a
+    bound graph is dense."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
     attrs = AttrScope.current().get(attr)

@@ -62,10 +62,12 @@ def rand_shape_nd(num_dim, dim=10):
 
 
 def rand_ndarray(shape, stype="default", density=None, dtype=None):
-    if stype != "default":
-        raise MXNetError("rand_ndarray(stype=%r): sparse storage types are "
-                         "not ported yet (ROADMAP A4)" % stype)
-    return array(np.random.uniform(-1, 1, shape), dtype=dtype or np.float32)
+    if stype == "default":
+        return array(np.random.uniform(-1, 1, shape),
+                     dtype=dtype or np.float32)
+    from .ndarray import sparse
+    return sparse.rand_sparse_ndarray(shape, stype, density=density,
+                                      dtype=dtype)[0]
 
 
 def np_reduce(dat, axis, keepdims, numpy_reduce_func):

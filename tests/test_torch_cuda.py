@@ -648,7 +648,8 @@ def test_half_and_double_batchnorm_and_pooling_run_the_kernels(card, dtype):
             assert {n: after[n] - before[n] for n in after} == {
                 "flash_attn_fwd": 0, "flash_attn_fwd_lse": 0,
                 "bn_channel_sums": 2, "max_pool_backward": 1,
-                "avg_pool_backward": 1, "box_nms": 0}
+                "avg_pool_backward": 1, "box_nms": 0,
+                "deformable_im2col": 0}
         assert y.dtype == dtype and ybn[0].dtype == dtype
         assert ybn[1].dtype == torch.float32
         res[dev.type] = [t.detach().cpu() for t in (y, *ybn, dmax, davg)]
@@ -2579,3 +2580,77 @@ def test_box_nms_kernel_raises_outside_its_limits(card):
     with pytest.raises(mx.MXNetError):
         K.box_nms_keep(det[..., 2:6], det[..., 0], det[..., 1] > 0, order,
                        rank, 0.5, False)
+
+
+# Proposal's suppression and deformable convolution's column --------------
+
+@pytest.mark.parametrize("case", [
+    (1, 1, 0.7), (1, 130, 0.7), (2, 1000, 0.7), (3, 300, 0.5),
+    (1, 6000, 0.7)], ids=lambda c: "x".join(map(str, c)))
+def test_proposal_nms_kernel_matches_plain(card, case):
+    """Proposal's mode of ``csrc/box_nms.cu`` (pixel-inclusive IoU, every
+    box in the sweep): the keep flags bit for bit the plain loop's, on
+    boxes with integer corners (many equal IoUs, some exactly at the
+    threshold) and RPN's 6,000."""
+    b, m, thresh = case
+    g = torch.Generator().manual_seed(m)
+    xy = torch.floor(torch.rand(b, m, 2, generator=g) * 500)
+    wh = torch.floor(torch.rand(b, m, 2, generator=g) * 120)
+    boxes = torch.cat([xy, xy + wh], -1).to(card)
+    before = K.launch_counts()["box_nms"]
+    got = K.proposal_nms_keep(boxes, thresh)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["box_nms"] == before + 1
+    want = K._plain_proposal_nms_keep(boxes, thresh)
+    assert torch.equal(got, want)
+
+
+DEFORM_CASES = [  # N, C, H, W, kernel, stride, pad, dilate, deformable groups
+    (1, 4, 9, 11, 3, 1, 1, 1, 1), (2, 16, 20, 24, 3, 2, 2, 2, 4),
+    (1, 8, 7, 5, 1, 1, 0, 1, 2), (1, 512, 38, 63, 3, 1, 2, 2, 4)]
+
+
+@pytest.mark.parametrize("case", DEFORM_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_deformable_im2col_kernel_matches_plain(card, case):
+    """The column bit for bit the plain version's on the card, offsets
+    reaching past every edge; one launch; the last case is Deformable
+    R-FCN's res5 branch2b."""
+    n, c, h, w, k, s, p, d, dg = case
+    ho = (h + 2 * p - (d * (k - 1) + 1)) // s + 1
+    wo = (w + 2 * p - (d * (k - 1) + 1)) // s + 1
+    g = torch.Generator(device=card).manual_seed(c)
+    data = torch.randn(n, c, h, w, generator=g, device=card)
+    off = torch.randn(n, 2 * dg * k * k, ho, wo, generator=g,
+                      device=card) * 3
+    geometry = ((k, k), (s, s), (p, p), (d, d), dg)
+    before = K.launch_counts()["deformable_im2col"]
+    got = K.deformable_im2col(data, off, *geometry)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["deformable_im2col"] == before + 1
+    assert torch.equal(got, K._plain_deformable_im2col(data, off, *geometry))
+
+
+def test_deformable_convolution_on_the_card_matches_the_host(card, no_tf32):
+    """The op forward and backward (the kernel's column, the recomputed
+    plain backward, cuBLAS) against the host within 1e-4 of scale."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    op = get_op("_contrib_DeformableConvolution")
+    attrs = op.normalize_attrs(dict(kernel=(3, 3), pad=(2, 2),
+                                    dilate=(2, 2), num_filter=8,
+                                    num_group=2, num_deformable_group=2))
+    g = torch.Generator().manual_seed(3)
+    inputs = [torch.randn(2, 8, 11, 13, generator=g),
+              torch.randn(2, 36, 11, 13, generator=g) * 2,
+              torch.randn(8, 4, 3, 3, generator=g),
+              torch.randn(8, generator=g)]
+    ct = torch.randn(2, 8, 11, 13, generator=g)
+    res = {}
+    for dev in ("cpu", card):
+        ts = [t.to(dev).requires_grad_() for t in inputs]
+        out = op.impl(*ts, **attrs)
+        grads = torch.autograd.grad(out, ts, ct.to(dev))
+        res[str(dev)] = [x.detach().cpu() for x in (out, *grads)]
+    for got, want in zip(res[str(card)], res["cpu"]):
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)

@@ -226,8 +226,11 @@ def test_stype_and_tostype():
     x = _nd(mx, [1., 2.])
     assert x.stype == "default" == _nd(jmx, [1., 2.]).stype
     assert x.tostype("default") is x
-    with pytest.raises(mx.MXNetError, match="A4"):
-        x.tostype("csr")
+    m = _nd(mx, [[1., 0.], [0., 2.]])
+    csr = m.tostype("csr")
+    assert csr.stype == "csr" == _nd(jmx, [[1., 0.], [0., 2.]]).tostype(
+        "csr").stype
+    np.testing.assert_array_equal(csr.asnumpy(), m.asnumpy())
 
 
 # -- Symbol and Executor ------------------------------------------------------
@@ -423,8 +426,8 @@ def test_check_numeric_and_symbolic_helpers():
         assert tu.default_context() == mx.cpu()
         assert tu.list_gpus() == list(range(mx.num_gpus()))
         assert tu.rand_ndarray((2, 3)).shape == (2, 3)
-        with pytest.raises(mx.MXNetError, match="A4"):
-            tu.rand_ndarray((2, 3), "csr")
+        sparse = tu.rand_ndarray((2, 3), "csr", density=0.5)
+        assert sparse.stype == "csr" and sparse.shape == (2, 3)
         with pytest.raises(mx.MXNetError):
             tu.download("http://example.invalid/x")
 

@@ -2,8 +2,8 @@
 ``sym.contrib`` namespaces and its registry's name -> Op map for the dense
 op surface, against the JAX package's.
 
-The JAX package's contrib namespaces also hold seven detection ops that
-the port does not register yet; they are the stated difference.
+The contrib namespaces hold the same names in both packages, the seven
+detection ops of ``ops/detection_ops.py`` included.
 """
 import numpy as np
 import pytest
@@ -16,9 +16,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.ops import registry as treg
 
 # the JAX package's contrib ops the port does not register yet
-NOT_YET = {"Proposal", "MultiProposal", "PSROIPooling",
-           "DeformableConvolution", "DeformablePSROIPooling",
-           "bipartite_matching", "count_sketch"}
+NOT_YET = set()
 
 # the dense op surface's canonical names and every alias
 DENSE_NAMES = (

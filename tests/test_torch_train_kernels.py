@@ -304,7 +304,8 @@ def test_wrappers_reject_what_the_kernels_cannot_take(bad):
 
 def test_kernel_signature_names_every_family():
     assert K.kernel_signature("cpu") == (("attn", "plain"), ("bn", "plain"),
-                                         ("pool", "plain"), ("nms", "plain"))
+                                         ("pool", "plain"), ("nms", "plain"),
+                                         ("deform", "plain"))
 
 
 @pytest.mark.parametrize("source, struct_name, packer", [
