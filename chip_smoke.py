@@ -536,7 +536,41 @@ CUDA toolkit.  Phases, each of which raises on failure:
       log loss falling, untouched rows bit for bit their initial values,
       the first 3 steps within 1e-5 of the host's; ms a step and the
       pull, dot and push spans.
-21. The ``kernels`` JSON line (each kernel's record with its launches on
+21. ``Custom``, ``mx.rtc`` and the runtime telemetry on one card, TF32
+   off, inputs from ``--seed``:
+   a. MXNet 1.0's ``example/numpy-ops/custom_softmax.py``: the MLP
+      784-128-64-10 with its numpy ``Softmax`` as ``Custom(op_type=
+      'softmax')`` (need_top_grad=False) through ``Module.fit`` over
+      phase 19's MNIST files (``MNISTIter(flat=True)``, batch 100) for
+      one epoch at the example's SGD (lr 0.1, momentum 0.9, wd 1e-5),
+      with the changes the JAX package's contract forces (ROADMAP R17):
+      the label passed to ``Custom`` explicitly and ``np.asarray(
+      in_data[i])`` for ``.asnumpy()``; the fused step's refusal; ms a
+      step beside the same MLP with ``SoftmaxOutput`` from the same
+      initial parameters; after 3 steps both within 1e-5 relative, and
+      the loss falling;
+   b. ``mx.rtc`` with CUDA C through NVRTC: MXNet 1.0's ``test_cuda_rtc``
+      axpy at 2^26 f32 elements bit for bit its plain version (compiled
+      with ``--fmad=false``), timed beside ``torch.add(alpha=)`` and its
+      bytes bound; ``scale<float>``/``scale<double>`` through
+      ``exports``; a row sum over (4096, 4096) with ``extern __shared__``
+      memory sized by ``shared_mem=`` within 1e-5 of ``torch.sum``; the
+      compile cold and cached; a compile error's log; a host context
+      refused;
+   c. phase 4's ResNet-50 v2 Module at batch 32 under ``mx.profiler``:
+      5 general-path steps in ``all`` mode (each op's span inside its
+      ``executor_forward`` span, the dump loads), 5 fused steps in
+      ``symbolic`` mode (still one capture and 102/1/1 launches a step;
+      the replay's ms with the profiler on and off), 10 ``fit`` steps
+      whose ``StepTracker`` components cover 80-100.1% of each step
+      span, with ``device.live_bytes``/``peak_bytes`` from ``torch.cuda``
+      and ``Speedometer(telemetry=True)``'s gauge; the symbol zoo's LeNet
+      behind ``Server(serve_http=True)`` answering 8 requests, then
+      ``GET /metrics`` carrying the JAX package's metric names; in a
+      child process, ``start_jax_trace``/``stop_jax_trace`` around two
+      steps of a BatchNorm and pooling net, whose torch.profiler trace
+      must hold the hand kernels' device events.
+22. The ``kernels`` JSON line (each kernel's record with its launches on
    every path, phase 10's five and the MLP's with 0 of each, LeNet's with
    2 max-pool backwards a step, DCGAN's with 26 channel sums an
    iteration, phase 13's two paths, and its bf16/f16/f64, head_dim 32,
@@ -619,6 +653,12 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def registry_value(snap, name):
+    """A counter's or gauge's value in a telemetry snapshot (0 when the
+    instrument was never touched)."""
+    return snap.get(name, {}).get("value", 0)
 
 
 def time_ms(fn, reps=30, warmup=3):
@@ -1353,7 +1393,7 @@ def serve(mx, seed):
     from mxnet_tpu_torch import executor_cache, threads
     from mxnet_tpu_torch.models import transformer_lm_symbol
     from mxnet_tpu_torch.ops import kernels as K
-    from mxnet_tpu_torch.serving import metrics
+    from mxnet_tpu_torch.observability import telemetry
 
     symbol = transformer_lm_symbol(**GPT2S)
     t0 = time.perf_counter()
@@ -1367,7 +1407,7 @@ def serve(mx, seed):
     requests = [rng.integers(0, GPT2S["vocab_size"], (r, seq)).astype(
         np.float32) for r in REQUEST_ROWS]
 
-    metrics.reset()
+    telemetry.reset()
     K.reset_launch_counts()
     server = mx.serving.Server(max_batch_size=MAX_BATCH)
     try:
@@ -1385,7 +1425,8 @@ def serve(mx, seed):
             raise AssertionError("warmup verify pass built plans")
         warm_launches = K.launch_counts()["flash_attn_fwd"]
         warm_forwards = 2 * len(report["buckets"])
-        batches0 = metrics.snapshot()["counters"].get("serving.batches", 0)
+        before = telemetry.snapshot()
+        batches0 = registry_value(before, "serving.batches")
         done_at = {}
 
         def stamp(i):
@@ -1402,7 +1443,8 @@ def serve(mx, seed):
             outs = [f.result(timeout=600)[0] for f in futs]
             t_end = time.perf_counter()
         launches = K.launch_counts()["flash_attn_fwd"]
-        batches = metrics.snapshot()["counters"]["serving.batches"] - batches0
+        after = telemetry.snapshot()
+        batches = registry_value(after, "serving.batches") - batches0
         forward_ms, copy_ms = dispatch_breakdown(
             server.registry.get("gpt2s").predictor_for(MAX_BATCH),
             np.concatenate(requests[:3])[:MAX_BATCH])
@@ -1435,9 +1477,12 @@ def serve(mx, seed):
              sum(REQUEST_ROWS) / (t_end - t_start),
              float(np.percentile(lat, 50)), float(np.percentile(lat, 99)),
              launches, layers, card_line()))
-    dispatch = metrics.snapshot()["samples"]["serving.dispatch_ms"][-batches:]
-    print("slice: dispatch ms per batch (forward + device-to-host copy): %s"
-          % ", ".join("%.1f" % d for d in dispatch))
+    dispatch = telemetry.delta_snapshot(
+        before.get("serving.dispatch_ms"), after["serving.dispatch_ms"])
+    print("slice: dispatch ms per batch (forward + device-to-host copy): "
+          "mean %.1f over %d batches, max %.1f (the registry's "
+          "serving.dispatch_ms)" % (dispatch["sum"] / dispatch["count"],
+                                    dispatch["count"], dispatch["max"]))
     print("slice: one bucket-%d batch: forward (input upload to last "
           "kernel) %.1f ms, logits to host %.1f ms"
           % (MAX_BATCH, forward_ms, copy_ms))
@@ -3882,7 +3927,7 @@ def paged_decode(mx, seed):
     from mxnet_tpu_torch import executor_cache
     from mxnet_tpu_torch.models import transformer_lm_symbol
     from mxnet_tpu_torch.ops import kernels as K
-    from mxnet_tpu_torch.serving import metrics
+    from mxnet_tpu_torch.observability import telemetry
 
     arrays = gpt2s_params(transformer_lm_symbol(**GPT2S), seed)
     net = gluon_net(mx, GPT2S["num_layers"], arrays, mx.gpu(0))
@@ -3895,7 +3940,7 @@ def paged_decode(mx, seed):
              pool.page_bytes * (pool.num_pages + 1) / 1e9, dec.slot_count,
              dec.max_pages))
     rng = np.random.default_rng(seed + 10)
-    metrics.reset()
+    telemetry.reset()
     try:
         report = dec.warmup()
         print("decode: warmup %d plan builds, %d capture (%.1f ms)"
@@ -3914,7 +3959,7 @@ def paged_decode(mx, seed):
                                  "after warmup" % (w.delta(),
                                                    dec.captures - captures))
         generated = sum(len(s.generated) for s in streams.values())
-        counters = metrics.snapshot()["counters"]
+        snap = telemetry.snapshot()
         stats = pool.stats()
         print("decode: %d streams, %d steps in %.2f s: %.1f generated "
               "tokens/s, %.1f appended tokens/s (%.2f ms a step); pages "
@@ -3923,7 +3968,7 @@ def paged_decode(mx, seed):
               % (len(streams), steps, wall, generated / wall,
                  appended / wall, wall / steps * 1e3,
                  stats["pages_high_water"], pool.num_pages,
-                 counters.get("serving.decode.prefix_hits", 0),
+                 registry_value(snap, "serving.decode.prefix_hits"),
                  stats["cow_clones"], card_line()))
         whole = streams["whole"]
         if whole.prefix_pages != DECODE_HEAD // DECODE_PAGE or clones != 1:
@@ -4445,7 +4490,7 @@ def http_checkpoint(mx, symbol, args, auxs, seed):
     import tempfile
     from urllib import request as urlreq
     from mxnet_tpu_torch.ops import kernels as K
-    from mxnet_tpu_torch.serving import metrics
+    from mxnet_tpu_torch.observability import telemetry
     feat = _image_shape()
     image = np.random.default_rng(seed + 50).standard_normal(
         (1,) + feat, np.float32)
@@ -4453,7 +4498,7 @@ def http_checkpoint(mx, symbol, args, auxs, seed):
         prefix = os.path.join(tmp, "r50")
         mx.model.save_checkpoint(prefix, 1, symbol, args, auxs)
         server = mx.serving.Server(max_batch_size=1, serve_http=True)
-        metrics.reset()
+        telemetry.reset()
         K.reset_launch_counts()
         try:
             server.load_model("r50", prefix, 1, {"data": feat},
@@ -4479,7 +4524,7 @@ def http_checkpoint(mx, symbol, args, auxs, seed):
         finally:
             server.close()
     if health["models"] != ["r50"] \
-            or "serving_requests_total 3" not in prom:
+            or "mxnet_tpu_serving_requests_total 3\n" not in prom:
         raise AssertionError("healthz/metrics: %s / %r"
                              % (health, prom[:200]))
     print("http: load_model of a save_checkpoint checkpoint; POST under "
@@ -11085,6 +11130,681 @@ def train_detection_sparse(mx, seed, root):
     return paths, prop_rec, im2col_rec
 
 
+# -- phase 21: Custom, rtc, the profiler and telemetry -----------------------
+
+# MXNet 1.0's example/numpy-ops/custom_softmax.py: the MLP 784-128-64-10,
+# batch 100, SGD at lr 0.1, momentum 0.9, wd 1e-5; one epoch here
+CUSTOM_MLP = (128, 64, 10)
+CUSTOM_BATCH = 100
+CUSTOM_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 0.00001}
+CUSTOM_CHECKED = 3     # steps held to the built-in SoftmaxOutput's
+CUSTOM_REL = 1e-5
+RTC_N = 1 << 26        # f32 elements of MXNet 1.0's test_cuda_rtc axpy
+RTC_ROWS = (4096, 4096)
+RTC_THREADS = 256
+RTC_SUM_REL = 1e-5
+PROFILE_GENERAL_STEPS = 5
+PROFILE_FUSED_STEPS = 5
+PROFILE_FIT_STEPS = 10
+LENET_REQUESTS = 8
+# the metric names GET /metrics must carry after served requests (the
+# JAX package's, serving/metrics.py)
+SERVING_METRICS = ("serving.requests_total", "serving.request_latency_ms",
+                   "serving.queue_ms", "serving.dispatch_ms",
+                   "serving.batch_size", "serving.batches",
+                   "serving.padded_rows_total", "serving.request_rows",
+                   "serving.queue_depth")
+
+RTC_CUDA = r'''
+extern "C" __global__ void axpy(const float *x, float *y, float alpha,
+                                long long n) {
+    long long i = threadIdx.x + (long long)blockIdx.x * blockDim.x;
+    if (i < n) y[i] += alpha * x[i];
+}
+
+extern "C" __global__ void row_sum(const float *x, float *out, int cols) {
+    extern __shared__ float part[];
+    const float *row = x + (long long)blockIdx.x * cols;
+    float acc = 0.f;
+    for (int j = threadIdx.x; j < cols; j += blockDim.x) acc += row[j];
+    part[threadIdx.x] = acc;
+    __syncthreads();
+    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+        if (threadIdx.x < s) part[threadIdx.x] += part[threadIdx.x + s];
+        __syncthreads();
+    }
+    if (threadIdx.x == 0) out[blockIdx.x] = part[0];
+}
+
+template <typename T>
+__global__ void scale(const T *x, T *y, T a, long long n) {
+    long long i = threadIdx.x + (long long)blockIdx.x * blockDim.x;
+    if (i < n) y[i] = a * x[i];
+}
+'''
+
+
+def register_custom_softmax(mx):
+    """The example's ``Softmax`` op and ``SoftmaxProp`` under op_type
+    'softmax', with the two changes the JAX package's contract forces
+    (ROADMAP R17): ``np.asarray(in_data[i])`` for ``in_data[i].asnumpy()``
+    (the user's code gets numpy arrays), and ``astype(int)`` for numpy's
+    removed ``np.int``.  The third, an explicit ``softmax_label`` input,
+    is in ``custom_mlp``."""
+
+    class Softmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = np.asarray(in_data[0])
+            y = np.exp(x - x.max(axis=1).reshape((x.shape[0], 1)))
+            y /= y.sum(axis=1).reshape((x.shape[0], 1))
+            self.assign(out_data[0], req[0], mx.nd.array(y))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            lab = np.asarray(in_data[1]).ravel().astype(int)
+            y = np.array(out_data[0])
+            y[np.arange(lab.shape[0]), lab] -= 1.0
+            self.assign(in_grad[0], req[0], mx.nd.array(y))
+
+    @mx.operator.register("softmax")
+    class SoftmaxProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super(SoftmaxProp, self).__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def list_outputs(self):
+            return ["output"]
+
+        def infer_shape(self, in_shape):
+            data_shape = in_shape[0]
+            label_shape = (in_shape[0][0],)
+            output_shape = in_shape[0]
+            return [data_shape, label_shape], [output_shape], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Softmax()
+
+
+def custom_mlp(mx, head):
+    """The example's net; ``head`` 'custom' (``Custom(op_type='softmax')``
+    with the label passed explicitly: the JAX package creates no input
+    the prop's ``list_arguments`` names beyond those given) or
+    'builtin' (``SoftmaxOutput``)."""
+    h = mx.sym.Variable("data")
+    for i, n in enumerate(CUSTOM_MLP):
+        h = mx.sym.FullyConnected(data=h, name="fc%d" % (i + 1),
+                                  num_hidden=n)
+        if i < len(CUSTOM_MLP) - 1:
+            h = mx.sym.Activation(data=h, name="relu%d" % (i + 1),
+                                  act_type="relu")
+    label = mx.sym.Variable("softmax_label")
+    if head == "custom":
+        return mx.sym.Custom(data=h, label=label, name="softmax",
+                             op_type="softmax")
+    return mx.sym.SoftmaxOutput(data=h, label=label, name="softmax")
+
+
+def custom_softmax_mlp(mx, seed, root):
+    """21a.  The example's MLP with its Custom softmax through
+    ``Module.fit`` over phase 19's MNIST files (``MNISTIter(flat=True)``),
+    beside the same MLP with ``SoftmaxOutput`` from the same initial
+    parameters; the first steps of both held together."""
+    import torch
+    from mxnet_tpu_torch.module.fused_step import FusedTrainStep
+    register_custom_softmax(mx)
+    files = {split: (os.path.join(root, "%s-images-idx3-ubyte" % split),
+                     os.path.join(root, "%s-labels-idx1-ubyte" % split))
+             for split in MNIST_SIZES}
+    if not all(os.path.exists(p) for pair in files.values() for p in pair):
+        files = write_mnist(root, seed, MNIST_SIZES)
+
+    def it(shuffle=False):
+        image, label = files["train"]
+        return mx.io.MNISTIter(image=image, label=label,
+                               batch_size=CUSTOM_BATCH, shuffle=shuffle,
+                               flat=True, seed=seed)
+
+    first = it()
+    init = mx.mod.Module(custom_mlp(mx, "builtin"), context=mx.gpu(0))
+    init.bind(first.provide_data, first.provide_label)
+    mx.random.seed(seed)
+    init.init_params(mx.initializer.Xavier(magnitude=2))
+    arg0 = {k: v.asnumpy().copy() for k, v in init.get_params()[0].items()}
+
+    def module(head):
+        mod = mx.mod.Module(custom_mlp(mx, head), context=mx.gpu(0))
+        mod.bind(first.provide_data, first.provide_label)
+        mod.init_params(arg_params={k: mx.nd.array(v) for k, v in
+                                    arg0.items()})
+        mod.init_optimizer(optimizer="sgd", optimizer_params=CUSTOM_SGD)
+        return mod
+
+    # the first steps of both heads from one state on the same batches
+    batches = []
+    first.reset()
+    for b in first:
+        batches.append(b)
+        if len(batches) == CUSTOM_CHECKED:
+            break
+    runs = {}
+    for head in ("custom", "builtin"):
+        mod = module(head)
+        for b in batches:
+            mod.forward_backward(b)
+            mod.update()
+        torch.cuda.synchronize()
+        runs[head] = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        if head == "custom":
+            why = FusedTrainStep.refusal(mod)
+            if mod._fused_step is not None or why is None \
+                    or "Custom" not in why:
+                raise AssertionError("the fused step took a Custom graph "
+                                     "on the card (%s)" % why)
+            print("custom-softmax: fused step refused: %s; Module trains "
+                  "through the general path" % why)
+    gap = max(float(np.abs(runs["custom"][k] - runs["builtin"][k]).max()
+                    / max(np.abs(runs["builtin"][k]).max(), 1e-30))
+              for k in arg0)
+    moved = max(float(np.abs(runs["custom"][k] - arg0[k]).max())
+                for k in arg0)
+    print("custom-softmax: after %d SGD steps the parameters are within "
+          "%.3e of the SoftmaxOutput run's (limit %.0e, relative to each "
+          "parameter's largest magnitude); largest move %.3e"
+          % (CUSTOM_CHECKED, gap, CUSTOM_REL, moved))
+    if not gap <= CUSTOM_REL or moved == 0.0:
+        raise AssertionError("Custom softmax: %.3e from SoftmaxOutput "
+                             "after %d steps" % (gap, CUSTOM_CHECKED))
+
+    def ce(mod, batch):
+        mod.forward(batch, is_train=False)
+        p = mod.get_outputs()[0].asnumpy()
+        lab = batch.label[0].asnumpy().astype(np.int64)
+        return float(-np.log(p[np.arange(len(lab)), lab] + 1e-12).mean())
+
+    results = {}
+    for head in ("custom", "builtin"):
+        probe = batches[0]
+        loss0 = ce(module(head), probe)
+        mod = mx.mod.Module(custom_mlp(mx, head), context=mx.gpu(0))
+        times = []
+        marks = {"t": None}
+
+        def on_batch(param):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if marks["t"] is not None:
+                times.append((now - marks["t"]) * 1e3)
+            marks["t"] = now
+
+        train = it(shuffle=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.fit(train, num_epoch=1, optimizer="sgd",
+                optimizer_params=CUSTOM_SGD, eval_metric="ce",
+                arg_params={k: mx.nd.array(v) for k, v in arg0.items()},
+                batch_end_callback=on_batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        loss1 = ce(mod, probe)
+        steps = len(times) + 1
+        results[head] = (loss0, loss1, float(np.median(times)), wall, steps,
+                         mod._fused_step is not None)
+        if not (np.isfinite(loss1) and loss1 < loss0):
+            raise AssertionError("%s head: the loss did not fall (%.4f -> "
+                                 "%.4f)" % (head, loss0, loss1))
+    for head, (l0, l1, ms, wall, steps, fused) in results.items():
+        print("custom-softmax: %s head (%s): one epoch of %d steps in %.2f "
+              "s, %.3f ms a step (median, synchronized); cross-entropy on "
+              "the first batch %.4f -> %.4f; card %s"
+              % (head, "fused step, one CUDA graph a step" if fused
+                 else "general path", steps, wall, ms, l0, l1, card_line()))
+    print("custom-softmax: the host round trip costs %.3f ms a step "
+          "(Custom %.3f against SoftmaxOutput %.3f)"
+          % (results["custom"][2] - results["builtin"][2],
+             results["custom"][2], results["builtin"][2]))
+
+
+def rtc_cuda(mx, seed):
+    """21b.  ``mx.rtc`` with CUDA C: axpy at 2^26 f32 elements, a
+    templated kernel through ``exports``, a shared-memory row sum."""
+    import torch
+    from mxnet_tpu_torch import rtc
+    card = torch.device("cuda", 0)
+    g = torch.Generator(device=card).manual_seed(seed + 70)
+    t0 = time.perf_counter()
+    mod = mx.rtc.CudaModule(RTC_CUDA, options=("--fmad=false",),
+                            exports=("scale<float>", "scale<double>"))
+    cold = mod.compile()
+    again = mx.rtc.CudaModule(RTC_CUDA, options=("--fmad=false",),
+                              exports=("scale<float>", "scale<double>"))
+    cached = again.compile()
+    if mod.compile_cached or not again.compile_cached:
+        raise AssertionError("rtc: the cubin cache did not act")
+    print("rtc: NVRTC compile for %s cold %.3f s, cached %.4f s (the cubin "
+          "under _build/, keyed by source, options and exports); lowered "
+          "%s" % (rtc.ARCH, cold, cached, mod.lowered_names))
+
+    # MXNet 1.0's test_cuda_rtc axpy at 2^26 elements; --fmad=false keeps
+    # alpha * x and the sum rounded apart, as torch's mul then add do
+    n = RTC_N
+    axpy = mod.get_kernel("axpy", "const float *x, float *y, float alpha, "
+                                  "int64_t n")
+    x = torch.randn(n, generator=g, device=card)
+    y0 = torch.randn(n, generator=g, device=card)
+    alpha = 1.7
+    y = y0.clone()
+    grid = ((n + RTC_THREADS - 1) // RTC_THREADS, 1, 1)
+    axpy.launch([mx.nd.NDArray(x), mx.nd.NDArray(y), alpha, n], mx.gpu(0),
+                grid, (RTC_THREADS, 1, 1))
+    plain = y0 + torch.tensor(alpha, device=card) * x
+    torch.cuda.synchronize()
+    exact = torch.equal(y, plain)
+    # timed on one buffer: each launch adds into y
+    xs, ys = mx.nd.NDArray(x), mx.nd.NDArray(y)
+
+    def kernel():
+        axpy.launch([xs, ys, alpha, n], mx.gpu(0), grid, (RTC_THREADS, 1, 1))
+
+    def library():
+        torch.add(y0, x, alpha=alpha)
+
+    def b2b(fn, reps=20):
+        fn()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    bound = 3 * 4 * n / 3.35e12 * 1e3
+    print("rtc: axpy (MXNet 1.0's test_cuda_rtc kernel) at %d f32 elements, "
+          "grid %s block (%d, 1, 1): bit for bit y0 + alpha * x "
+          "(--fmad=false: no contraction into an FMA): %s; one call %.4f "
+          "ms, back to back %.4f ms; torch.add(alpha=) one call %.4f ms, "
+          "back to back %.4f ms; bound %.4f ms (bytes: x, y read, y "
+          "written at 3.35 TB/s); launches %d; card %s"
+          % (n, grid, RTC_THREADS, exact, time_ms(kernel), b2b(kernel),
+             time_ms(library), b2b(library), bound, axpy.launches,
+             card_line()))
+    if not exact:
+        raise AssertionError("rtc axpy differs from its plain version")
+
+    for dt, tdt in (("float", torch.float32), ("double", torch.float64)):
+        k = mod.get_kernel("scale<%s>" % dt, "const %s *x, %s *y, %s a, "
+                           "int64_t n" % (dt, dt, dt))
+        xs_ = torch.randn(1 << 20, generator=g, device=card).to(tdt)
+        out = torch.empty_like(xs_)
+        k.launch([mx.nd.NDArray(xs_), mx.nd.NDArray(out), 0.5, xs_.numel()],
+                 mx.gpu(0), ((xs_.numel() + 255) // 256, 1, 1), (256, 1, 1))
+        if not torch.equal(out, xs_ * 0.5):
+            raise AssertionError("rtc scale<%s> differs" % dt)
+    print("rtc: scale<float> and scale<double> through exports (%s) bit "
+          "for bit x * 0.5 at 2^20 elements"
+          % ", ".join(mod.lowered_names.values()))
+
+    rows, cols = RTC_ROWS
+    xm = torch.rand(rows, cols, generator=g, device=card)
+    out = torch.empty(rows, device=card)
+    k = mod.get_kernel("row_sum", "const float *x, float *out, int cols")
+
+    def row_sum():
+        k.launch([mx.nd.NDArray(xm), mx.nd.NDArray(out), cols], mx.gpu(0),
+                 (rows, 1, 1), (RTC_THREADS, 1, 1),
+                 shared_mem=RTC_THREADS * 4)
+
+    row_sum()
+    want = torch.sum(xm, 1)
+    rel = float(((out - want).abs() / want.abs()).max())
+    print("rtc: row_sum over (%d, %d) f32 with %d bytes of extern "
+          "__shared__ memory a block: within %.2e of torch.sum (limit "
+          "%.0e); one call %.4f ms, torch.sum %.4f ms, bound %.4f ms "
+          "(bytes)" % (rows, cols, RTC_THREADS * 4, rel, RTC_SUM_REL,
+                       time_ms(row_sum), time_ms(lambda: torch.sum(xm, 1)),
+                       rows * cols * 4 / 3.35e12 * 1e3))
+    if not rel <= RTC_SUM_REL:
+        raise AssertionError("rtc row_sum off by %.2e" % rel)
+    try:
+        mx.rtc.CudaModule('extern "C" __global__ void bad(float *x) '
+                          '{ x[0] = undeclared; }').compile()
+    except mx.MXNetError as e:
+        if "undeclared" not in str(e):
+            raise AssertionError("the compile error lost the log: %s" % e)
+        print("rtc: a compile error raises MXNetError with NVRTC's log (%d "
+              "characters)" % len(str(e)))
+    else:
+        raise AssertionError("a bad source compiled")
+    try:
+        mod.get_kernel("axpy", "const float *x, float *y, float alpha, "
+                               "int64_t n").launch(
+            [mx.nd.zeros((4,), ctx=mx.cpu()), mx.nd.zeros((4,),
+                                                          ctx=mx.cpu()),
+             1.0, 4], mx.cpu(), (1, 1, 1), (4, 1, 1))
+    except mx.MXNetError:
+        pass
+    else:
+        raise AssertionError("CUDA C launched on a host context")
+    print("rtc: CUDA C on a host context raises MXNetError; 21b in %.1f s"
+          % (time.perf_counter() - t0))
+
+
+def _events_of(path):
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def _step_coverage(events):
+    """[(step span, covered share)] of StepTracker's step spans."""
+    kids = {}
+    for e in events:
+        if e["name"].startswith("step:"):
+            kids.setdefault(e["args"]["parent_id"], []).append(e)
+    out = []
+    for s in (e for e in events if e["name"] == "step"):
+        parts = kids.get(s["args"]["span_id"], [])
+        out.append((s, {p["name"] for p in parts},
+                    sum(p["dur"] for p in parts) / max(s["dur"], 1e-9)))
+    return out
+
+
+def profile_resnet50(mx, seed, root):
+    """21c.  Phase 4's ResNet-50 v2 Module at batch 32 under the profiler
+    and the registry: general-path steps in 'all' mode, fused steps in
+    'symbolic' mode, a fit with the step tracker and the Speedometer; a
+    served LeNet's /metrics; a torch.profiler device trace."""
+    import torch
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import kernels as K
+    prof, tel = mx.profiler, mx.observability.telemetry
+    symbol = resnet.get_symbol(**RESNET)
+    per_step = expected_train_launches(symbol)
+    rng = np.random.default_rng(seed + 71)
+    steps = max(PROFILE_FIT_STEPS, PROFILE_FUSED_STEPS,
+                PROFILE_GENERAL_STEPS)
+    shape = tuple(int(d) for d in RESNET["image_shape"].split(","))
+    images = rng.random((TRAIN_BATCH * steps,) + shape, dtype=np.float32)
+    labels = rng.integers(0, RESNET["num_classes"],
+                          TRAIN_BATCH * steps).astype(np.float32)
+
+    xavier = mx.initializer.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2)
+
+    def module(bound=True):
+        it = mx.io.NDArrayIter(images, labels, batch_size=TRAIN_BATCH)
+        mod = mx.mod.Module(symbol, context=mx.gpu(0))
+        mx.random.seed(seed)
+        if bound:
+            mod.bind(it.provide_data, it.provide_label)
+            mod.init_params(xavier)
+            mod.init_optimizer(optimizer_params=SGD)
+        return mod, it
+
+    # general path, 'all' mode: an operator span for each op, waited for
+    mod, it = module()
+    mod._fused_step = None
+    batches = list(it)
+    path = os.path.join(root, "profile_all.json")
+    prof.profiler_set_config("all", path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.profiler_set_state("run")
+    try:
+        for b in batches[:PROFILE_GENERAL_STEPS]:
+            mod.forward_backward(b)
+            mod.update()
+        torch.cuda.synchronize()
+    finally:
+        prof.profiler_set_state("stop")
+    wall = (time.perf_counter() - t0) * 1e3 / PROFILE_GENERAL_STEPS
+    events = _events_of(path)
+    spans = {e["args"]["span_id"]: e for e in events
+             if e.get("args", {}).get("span_id")}
+    ops = [e for e in events if e["cat"] == "operator"]
+    outside = 0
+    for e in ops:
+        parent = spans.get(e.get("args", {}).get("parent_id"))
+        if parent is None or parent["name"] != "executor_forward" \
+                or e["ts"] < parent["ts"] \
+                or e["ts"] + e["dur"] > parent["ts"] + parent["dur"] + 1.0:
+            outside += 1
+    n_nodes = sum(1 for n in symbol._topo() if not n.is_var)
+    agg = prof.aggregate_stats(events)
+    top = sorted(agg.get("operator", {}).items(),
+                 key=lambda kv: -kv[1]["total_ms"])[:4]
+    print("profile: %d general-path steps in 'all' mode, %.1f ms a step "
+          "(each op waited for); %d operator spans (%d a step, the graph "
+          "has %d op nodes), %d outside an executor_forward span; the "
+          "dump (%d events, %.1f MB) loads; by total ms %s; card %s"
+          % (PROFILE_GENERAL_STEPS, wall, len(ops),
+             len(ops) // PROFILE_GENERAL_STEPS, n_nodes, outside,
+             len(events), os.path.getsize(path) / 1e6,
+             ", ".join("%s %.2f" % (k, v["total_ms"]) for k, v in top),
+             card_line()))
+    if outside or len(ops) != PROFILE_GENERAL_STEPS * n_nodes:
+        raise AssertionError("operator spans: %d outside, %d recorded"
+                             % (outside, len(ops)))
+
+    # fused steps, 'symbolic' mode: the capture stays whole
+    mod, it = module()
+    batches = list(it)
+    path = os.path.join(root, "profile_symbolic.json")
+    prof.profiler_set_config("symbolic", path)
+    step_launches = []
+    prof.profiler_set_state("run")
+    try:
+        for b in batches[:PROFILE_FUSED_STEPS]:
+            before = K.launch_counts()
+            mod.forward_backward(b)
+            mod.update()
+            torch.cuda.synchronize()
+            after = K.launch_counts()
+            step_launches.append({k: after[k] - before[k] for k in per_step})
+        on_ms = time_steps(mod, batches[0])
+    finally:
+        prof.profiler_set_state("stop")
+    off_ms = time_steps(mod, batches[0])
+    fs = mod._fused_step
+    spans = [e for e in _events_of(path) if e["name"] == "fused_train_step"]
+    print("profile: %d fused steps in 'symbolic' mode: captures %d, replays "
+          "%d, launches a step %s; %d fused_train_step spans; the replay "
+          "%.2f ms a step with the profiler on, %.2f off (medians of %d, "
+          "synchronized); card %s"
+          % (PROFILE_FUSED_STEPS, fs.captures, fs.replays, step_launches,
+             len(spans), on_ms, off_ms, TIMED_STEPS, card_line()))
+    if fs is None or fs.captures != 1 or fs.graph_launches != per_step \
+            or any(d != per_step for d in step_launches):
+        raise AssertionError("the profiled fused step lost its capture")
+
+    # fit with the step tracker and the Speedometer mirrored
+    tel.reset()
+    mod, it = module(bound=False)
+    path = os.path.join(root, "profile_fit.json")
+    prof.profiler_set_config("symbolic", path)
+    speed = mx.callback.Speedometer(TRAIN_BATCH, frequent=5, telemetry=True)
+    prof.profiler_set_state("run")
+    try:
+        mod.fit(it, num_epoch=1, optimizer_params=SGD, eval_metric="ce",
+                initializer=xavier, batch_end_callback=speed)
+        torch.cuda.synchronize()
+    finally:
+        prof.profiler_set_state("stop")
+    cover = _step_coverage(_events_of(path))
+    snap = tel.snapshot()
+    worst = min(c for _, _, c in cover) if cover else 0.0
+    best = max(c for _, _, c in cover) if cover else 0.0
+    names_ok = all(n >= {"step:data_wait", "step:fwd_bwd_dispatch",
+                         "step:update", "step:metric", "step:sync"}
+                   for _, n, _ in cover)
+    live = registry_value(snap, "device.live_bytes")
+    peak = registry_value(snap, "device.peak_bytes")
+    rate = registry_value(snap, "speedometer.samples_per_sec")
+    print("profile: fit of %d steps: %d step spans, the five components "
+          "cover %.1f-%.1f%% of each; module.step.total_ms mean %.2f ms; "
+          "device.live_bytes %d, device.peak_bytes %d (torch.cuda); "
+          "speedometer.samples_per_sec %.1f; card %s"
+          % (PROFILE_FIT_STEPS, len(cover), 100 * worst, 100 * best,
+             snap["module.step.total_ms"]["sum"]
+             / max(snap["module.step.total_ms"]["count"], 1),
+             live, peak, rate, card_line()))
+    if len(cover) != PROFILE_FIT_STEPS or not names_ok \
+            or not 0.8 <= worst <= best <= 1.001 or live <= 0 \
+            or peak < live or rate <= 0:
+        raise AssertionError("the step tracker or the gauges failed")
+    del mod
+    torch.cuda.empty_cache()
+
+    lenet_metrics(mx, seed, root)
+    device_trace_apart(seed, root)
+
+
+def lenet_metrics(mx, seed, root):
+    """21c.  The symbol zoo's LeNet behind ``Server(serve_http=True)``:
+    ``LENET_REQUESTS`` POSTs, then ``GET /metrics``."""
+    import urllib.request as urlreq
+    from mxnet_tpu_torch.models import lenet
+    tel = mx.observability.telemetry
+    symbol = lenet.get_symbol(10)
+    init = mx.mod.Module(symbol, context=mx.gpu(0))
+    init.bind([("data", (1, 1, 28, 28))], [("softmax_label", (1,))],
+              for_training=False)
+    mx.random.seed(seed)
+    init.init_params(mx.initializer.Xavier())
+    args, _ = init.get_params()
+    rng = np.random.default_rng(seed + 72)
+    tel.reset()
+    server = mx.serving.Server(max_batch_size=4, serve_http=True)
+    try:
+        server.add_model("lenet", symbol, args,
+                         input_shapes={"data": (1, 28, 28)})
+        server.warmup()
+        base = "http://%s:%d" % server.http_address
+        t0 = time.perf_counter()
+        for _ in range(LENET_REQUESTS):
+            x = rng.random((1, 1, 28, 28), dtype=np.float32)
+            body = json.dumps({"inputs": {"data": x.tolist()}}).encode()
+            req = urlreq.Request(base + "/predict/lenet", data=body, headers={
+                "Content-Type": "application/json"})
+            with urlreq.urlopen(req, timeout=120) as r:
+                out = np.asarray(json.loads(r.read())["outputs"][0])
+            if out.shape != (1, 10) or not np.isfinite(out).all():
+                raise AssertionError("LeNet response %s" % (out.shape,))
+        wall = time.perf_counter() - t0
+        with urlreq.urlopen(base + "/metrics", timeout=30) as r:
+            prom = r.read().decode()
+    finally:
+        server.close()
+    missing = [n for n in SERVING_METRICS
+               if "mxnet_tpu_" + n.replace(".", "_") not in prom]
+    print("profile: LeNet served %d HTTP requests in %.3f s; GET /metrics: "
+          "%d lines, the JAX package's serving names %s, "
+          "mxnet_tpu_serving_requests_total %s"
+          % (LENET_REQUESTS, wall, len(prom.splitlines()),
+             "all present" if not missing else "missing %s" % missing,
+             LENET_REQUESTS if "mxnet_tpu_serving_requests_total %d\n"
+             % LENET_REQUESTS in prom else "wrong"))
+    if missing or "mxnet_tpu_serving_requests_total %d\n" \
+            % LENET_REQUESTS not in prom:
+        raise AssertionError("/metrics lacks the JAX package's names")
+
+
+TRACE_STEPS = 2
+
+
+def device_trace_apart(seed, root):
+    """Runs ``device_trace_child`` in a process of its own (late in this
+    process torch.profiler loses kernel records) and passes its lines
+    on; raises when it fails."""
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--device-trace", root], capture_output=True, text=True,
+        timeout=600)
+    sys.stdout.write(child.stdout)
+    if child.returncode != 0:
+        sys.stdout.write(child.stderr[-4000:])
+        raise AssertionError("the device trace failed (exit %d)"
+                             % child.returncode)
+
+
+def device_trace_child(mx, seed, root):
+    """``--device-trace ROOT``: ``profiler.start_jax_trace`` /
+    ``stop_jax_trace`` around general-path steps of a BatchNorm and
+    pooling net on the card; the torch.profiler trace written under
+    ``ROOT`` must hold the device events of the hand kernels behind the
+    ``mxtt_*`` entry points (``channel_sums_kernel``, the pooling
+    backwards: ``HAND_KERNELS``)."""
+    import torch
+    s = mx.sym
+    net = s.Variable("data")
+    net = s.Convolution(net, num_filter=64, kernel=(3, 3), pad=(1, 1),
+                        name="conv")
+    net = s.BatchNorm(net, fix_gamma=False, name="bn")
+    net = s.Activation(net, act_type="relu")
+    net = s.Pooling(net, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                    pool_type="max")
+    net = s.Pooling(net, global_pool=True, kernel=(1, 1), pool_type="avg")
+    net = s.SoftmaxOutput(s.FullyConnected(s.Flatten(net), num_hidden=10),
+                          name="softmax")
+    rng = np.random.default_rng(seed + 73)
+    it = mx.io.NDArrayIter(rng.random((32, 3, 56, 56), dtype=np.float32),
+                           rng.integers(0, 10, 32).astype(np.float32),
+                           batch_size=16)
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(mx.initializer.Xavier())
+    mod.init_optimizer(optimizer_params=SGD)
+    mod._fused_step = None
+    batch = next(it)
+    mod.forward_backward(batch)
+    mod.update()
+    torch.cuda.synchronize()
+    from mxnet_tpu_torch.ops import kernels as K
+    K.reset_launch_counts()
+    logdir = mx.profiler.start_jax_trace(os.path.join(root, "device_trace"))
+    for _ in range(TRACE_STEPS):
+        mod.forward_backward(batch)
+        mod.update()
+    torch.cuda.synchronize()
+    path = mx.profiler.stop_jax_trace()
+    events = _events_of(path)
+    names = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        hit = next((k for k in HAND_KERNELS if k in e["name"]), None)
+        if hit is not None:
+            names[hit] = names.get(hit, 0) + 1
+    launched = {k: v for k, v in K.launch_counts().items() if v}
+    print("device-trace: start_jax_trace/stop_jax_trace wrote %s (%d "
+          "events, under %s); hand-kernel device events %s over %d steps, "
+          "the wrappers' launches %s"
+          % (os.path.basename(path), len(events), os.path.basename(logdir),
+             names, TRACE_STEPS, launched))
+    if not names:
+        raise AssertionError("the device trace holds no hand kernel")
+    return 0
+
+
+def train_custom_rtc_profile(mx, seed, root):
+    """Phase 21.  Returns nothing: its launches are not on the ``kernels``
+    line (Custom's MLP runs none of the hand kernels; rtc kernels are the
+    user's)."""
+    import torch
+    clock = time.perf_counter()
+    custom_softmax_mlp(mx, seed, root)
+    lap = time.perf_counter()
+    print("phase 21a in %.1f s" % (lap - clock))
+    rtc_cuda(mx, seed)
+    print("phase 21b in %.1f s" % (time.perf_counter() - lap))
+    lap = time.perf_counter()
+    profile_resnet50(mx, seed, root)
+    torch.cuda.synchronize()
+    print("phase 21c in %.1f s" % (time.perf_counter() - lap))
+    print("phase 21 parts done in %.1f s" % (time.perf_counter() - clock))
+
+
 def ptxas_entries(text):
     """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
     per compiled entry of an ``nvcc -Xptxas=-v`` report.  The kernel is
@@ -11127,6 +11847,8 @@ def main():
                         help=argparse.SUPPRESS)  # rec_profile_apart
     parser.add_argument("--dist-child", metavar="ROOT",
                         help=argparse.SUPPRESS)  # dist_launch
+    parser.add_argument("--device-trace", metavar="ROOT",
+                        help=argparse.SUPPRESS)  # device_trace_apart
     args = parser.parse_args()
     if not os.path.isdir(os.path.join(HERE, "mxnet_tpu_torch")):
         print("chip_smoke: mxnet_tpu_torch/ is not beside this script",
@@ -11155,6 +11877,8 @@ def main():
         return rec_profile_child(mx, args.seed, args.rec_profile)
     if args.dist_child:
         return dist_child(mx, args.seed, args.dist_child)
+    if args.device_trace:
+        return device_trace_child(mx, args.seed, args.device_trace)
     print("card: %s" % card_line())
     print("torch %s, CUDA %s, %d device(s)"
           % (torch.__version__, torch.version.cuda, torch.cuda.device_count()))
@@ -11255,6 +11979,10 @@ def main():
         lap("20 (Faster R-CNN VGG16 served with Proposal and MultiProposal, "
             "Deformable R-FCN's ops at published sizes, a lazy sparse "
             "linear model at Avazu's width)")
+        train_custom_rtc_profile(mx, args.seed, root)
+        lap("21 (MXNet 1.0's Custom-softmax MLP through Module.fit, user "
+            "CUDA C through mx.rtc, ResNet-50 under the profiler and the "
+            "registry, a served LeNet's /metrics, a device trace)")
     # "launches": the path each kernel serves in this script (the serving
     # forward, the LM's training, and the bf16 fused training; LeNet's and
     # DCGAN's are in launches_by_path)

@@ -37,7 +37,10 @@ card) through ``'local'``, ``'device'`` (with 2-bit compression),
 ``tools/launch.py`` starts, ``'dist_sync'`` over ``torch.distributed``.
 ``mx.parallel`` holds the mesh layer: meshes of positions (which may
 share one card), collectives between them, ring attention, mixture of
-experts, GPipe stages and ``ShardedTrainStep``.
+experts, GPipe stages and ``ShardedTrainStep``.  ``mx.operator``'s
+``Custom`` op runs a user's numpy code, ``mx.rtc`` compiles user CUDA C at
+run time, and ``mx.profiler`` and ``mx.observability`` hold the trace
+buffer, the metrics registry and the per-step instrumentation.
 
 Entry points run on the card (``gpu(0)``) unless given ``cpu()``; without
 a card they raise ``MXNetError`` rather than fall back to the host.
@@ -45,8 +48,11 @@ a card they raise ``MXNetError`` rather than fall back to the host.
 from __future__ import annotations
 
 from .base import MXNetError, __version__  # noqa: F401
-from .context import Context, cpu, current_context, gpu, num_gpus  # noqa: F401
+from .context import (Context, cpu, cpu_pinned, current_context,  # noqa: F401
+                      gpu, num_gpus)
+from . import base  # noqa: F401
 from . import ops  # noqa: F401
+from . import operator  # noqa: F401
 from . import autograd  # noqa: F401
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
@@ -97,6 +103,10 @@ from . import engine  # noqa: F401
 from . import libinfo  # noqa: F401
 from . import kvstore_server  # noqa: F401
 from . import parallel  # noqa: F401
+from . import observability  # noqa: F401
+from . import profiler  # noqa: F401
+from . import rtc  # noqa: F401
+from . import contrib  # noqa: F401
 from .kvstore_server import _init_kvstore_server_module
 
 # a process launched in the server or scheduler role parks here, as the

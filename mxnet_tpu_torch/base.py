@@ -25,6 +25,27 @@ class MXNetError(Exception):
     """Error raised by mxnet_tpu_torch (ref: MXGetLastError)."""
 
 
+def check_call(ok, msg=""):
+    """Raise ``MXNetError(msg)`` unless ``ok`` (the reference checks a C
+    call's return code)."""
+    if not ok:
+        raise MXNetError(msg)
+
+
+def get_env(name, default=None, typ=str):
+    """dmlc::GetEnv equivalent: typed environment config (ref:
+    docs/faq/env_var.md)."""
+    val = os.environ.get(name)
+    if val is None:
+        return default
+    if typ is bool:
+        return val not in ("0", "false", "False", "")
+    return typ(val)
+
+
+string_types = (str,)
+
+
 # the TCP store this process rendezvoused on (set by the launcher bridge)
 _DIST_STORE = []
 

@@ -59,15 +59,25 @@ class Speedometer:
     """Log samples/sec (and metrics) every `frequent` batches
     (ref: callback.py:120; format scraped by tools/parse_log.py).
 
-    The JAX package's ``telemetry=True`` mirror into its metrics
-    registry waits for the port's runtime-services slice."""
+    ``telemetry=True`` additionally mirrors the throughput into the
+    metrics registry (``speedometer.samples_per_sec`` gauge and
+    histogram); the log lines are the same either way."""
 
-    def __init__(self, batch_size, frequent=50, auto_reset=True):
+    def __init__(self, batch_size, frequent=50, auto_reset=True,
+                 telemetry=False):
         self.batch_size = batch_size
         self.frequent = frequent
         self.auto_reset = auto_reset
+        self.telemetry = telemetry
         self._tic = None       # None = timer not started (epoch boundary)
         self._prev_batch = 0
+
+    def _mirror(self, speed):
+        from .observability import telemetry as _telemetry
+        _telemetry.gauge("speedometer.samples_per_sec",
+                         help="last Speedometer throughput").set(speed)
+        _telemetry.histogram("speedometer.samples_per_sec_hist",
+                             help="Speedometer throughput").observe(speed)
 
     def __call__(self, param):
         nbatch = param.nbatch
@@ -82,6 +92,8 @@ class Speedometer:
             return
 
         speed = self.frequent * self.batch_size / (time.time() - self._tic)
+        if self.telemetry:
+            self._mirror(speed)
         metric = param.eval_metric
         if metric is None:
             logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",

@@ -88,6 +88,12 @@ def gpu(device_id=0):
     return Context(2, device_id)
 
 
+def cpu_pinned(device_id=0):
+    """Page-locked host memory (ref: mx.cpu_pinned); tensors live on the
+    host, as on ``cpu()``."""
+    return Context(3, device_id)
+
+
 def current_context():
     return Context.default_ctx()
 

@@ -31,8 +31,10 @@ import torch
 from .base import MXNetError, dtype_name, torch_dtype
 from .ndarray import NDArray, zeros as nd_zeros
 from .ndarray.ndarray import _to_tensor
-from .ops.registry import get_op
+from .ops.registry import call_op, get_op
 from . import executor_cache
+from . import profiler as _profiler
+from .observability import tracing as _tracing
 
 
 class _Program:
@@ -42,9 +44,13 @@ class _Program:
     order; nodes are identified by position, never by name (an exported
     graph repeats op names).  ``steps`` holds, per op node, the op, its
     normalized attrs, its input slots, its first output slot and the
-    slots whose last reader it is (freed right after it runs)."""
+    slots whose last reader it is (freed right after it runs).  ``kinds``
+    holds the run kinds seen (``'fwd'``, ``'fwd_bwd'``): the first run of
+    each counts as one build (``note_kind``), as the JAX package traces
+    each program of a signature at its first use."""
 
     def __init__(self, symbol, known_shapes=None):
+        self.kinds = set()
         order = symbol._topo()
         symbol._mark_aux(order)
         resolved = _resolve_init_shapes(symbol, order, known_shapes or {})
@@ -97,6 +103,12 @@ class _Program:
             self.steps.append((op, attrs, tuple(ins), first, n_out, free,
                                mutates))
 
+    def note_kind(self, kind):
+        """Count this plan's first run of ``kind`` as a build."""
+        if kind not in self.kinds:
+            self.kinds.add(kind)
+            executor_cache.note_trace(kind)
+
     def evaluate(self, values, train=False, tap=None, tap_inputs=False,
                  device=None):
         """Run the plan on ``device`` (by default the variables' device);
@@ -123,7 +135,7 @@ class _Program:
                 attrs = dict(attrs, _train=train)
             if op.takes_device:
                 attrs = dict(attrs, _device=device)
-            out = op.impl(*[env[s] for s in ins], **attrs)
+            out = call_op(op, [env[s] for s in ins], attrs)
             if not isinstance(out, tuple):
                 out = (out,)
             env[first:first + n_out] = out[:n_out]
@@ -246,7 +258,16 @@ class Executor:
         into the bound arguments first.  Under ``is_train`` the ops run in
         training mode, the BatchNorm moving statistics are written back
         into ``aux_dict``, and, when the executor takes gradients, the
-        run is recorded for ``backward``."""
+        run is recorded for ``backward``.  While the profiler records,
+        one ``executor_forward`` span (ref: kOnlySymbolic,
+        profiler.h:94-121)."""
+        if _tracing._recording:
+            with _profiler.synced_span("executor_forward", self._device,
+                                       dev=str(self._ctx)):
+                return self._forward(is_train, kwargs)
+        return self._forward(is_train, kwargs)
+
+    def _forward(self, is_train, kwargs):
         self._recorded = None
         for k, v in kwargs.items():
             if k not in self.arg_dict:
@@ -257,6 +278,8 @@ class Executor:
             with torch.inference_mode():
                 dst.tensor.copy_(src)
         train = bool(is_train)
+        self._prog.note_kind("fwd_bwd" if train and self._grad_names
+                             else "fwd")
         if train and self._grad_names:
             outs, new_aux, leaves = self._record(**self._tap())
             self._recorded = (outs, leaves)
@@ -308,6 +331,13 @@ class Executor:
         the forward is run again in training mode from the bound arrays
         (outputs and aux states left as they are), as the reference
         does."""
+        if _tracing._recording:
+            with _profiler.synced_span("executor_backward", self._device,
+                                       dev=str(self._ctx)):
+                return self._backward(out_grads)
+        return self._backward(out_grads)
+
+    def _backward(self, out_grads):
         if not self.outputs:
             raise MXNetError("backward() called before forward()")
         if not self._grad_names:
@@ -315,6 +345,7 @@ class Executor:
         if self._recorded is not None:
             outs, leaves = self._recorded
         else:
+            self._prog.note_kind("fwd_bwd")
             outs, _, leaves = self._record()
         if isinstance(out_grads, NDArray):
             out_grads = [out_grads]
@@ -346,6 +377,13 @@ class Executor:
 
     def forward_backward(self, is_train=True, out_grads=None):
         """forward(is_train) then, when training, backward(out_grads)."""
+        if _tracing._recording:
+            with _profiler.synced_span("executor_fwd_bwd", self._device,
+                                       dev=str(self._ctx)):
+                return self._forward_backward(is_train, out_grads)
+        return self._forward_backward(is_train, out_grads)
+
+    def _forward_backward(self, is_train, out_grads):
         self.forward(is_train=is_train)
         if is_train:
             self.backward(out_grads=out_grads)

@@ -486,6 +486,8 @@ class ParameterDict:
                    force_reinit=False):
         if init is None:
             init = init_mod.Uniform()
+        if verbose:
+            init.set_verbosity(verbose=verbose)
         for param in self.values():
             param.initialize(None, ctx, init, force_reinit=force_reinit)
 

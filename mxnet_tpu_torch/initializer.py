@@ -106,6 +106,16 @@ class Initializer:
 
     def __init__(self, **kwargs):
         self._kwargs = kwargs
+        self._verbose = False
+        self._print_func = None
+
+    def set_verbosity(self, verbose=False, print_func=None):
+        """Record whether to report each initialized array (ref:
+        Initializer.set_verbosity; the JAX package keeps the flag and
+        prints nothing, and so does the port)."""
+        self._verbose = verbose
+        self._print_func = print_func or (lambda _: None)
+        return self
 
     def dumps(self):
         return json.dumps([type(self).__name__.lower(), self._kwargs])

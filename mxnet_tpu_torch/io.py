@@ -21,16 +21,19 @@ import gzip
 import os
 import struct
 import threading
+import time
 import warnings
 from collections import namedtuple
 
 import numpy as np
 import torch
 
+from . import profiler as _profiler
 from . import threads as _threads
 from .base import MXNetError
 from .context import cpu, current_context
 from .ndarray import NDArray, array
+from .observability.instrument import note_io_wait
 from .test_utils import synthetic_image_dataset
 
 
@@ -50,6 +53,15 @@ class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
         if layout is None:
             return 0
         return layout.find("N")
+
+    @staticmethod
+    def get_list(shapes, types):
+        """DataDescs from (name, shape) pairs and optional (name, dtype)
+        pairs (ref: DataDesc.get_list)."""
+        if types is not None:
+            type_dict = dict(types)
+            return [DataDesc(x[0], x[1], type_dict[x[0]]) for x in shapes]
+        return [DataDesc(x[0], x[1]) for x in shapes]
 
 
 class DataBatch:
@@ -87,7 +99,13 @@ class DataIter:
         raise StopIteration
 
     def __next__(self):
-        return self.next()
+        # every for-loop/``next()`` consumer funnels through here: time
+        # the wait so the registry can answer "is the step input-bound?"
+        # (the io.next_batch_wait_ms histogram)
+        t0 = time.perf_counter()
+        batch = self.next()
+        note_io_wait(time.perf_counter() - t0)
+        return batch
 
     def iter_next(self):
         pass
@@ -875,6 +893,16 @@ class DevicePrefetchIter(DataIter):
         return self._uploader.hand_over(*out)
 
 
+def _engine_span(name, fn):
+    """``fn`` run under a profiler span of category ``engine`` (a flag
+    check while the profiler is stopped), as the JAX package's engine
+    ops are."""
+    def op():
+        with _profiler.record_span(name, category="engine"):
+            fn()
+    return op
+
+
 class EnginePipelineIter(DataIter):
     """Engine-scheduled input pipeline: record read, decode/augment and
     batch assembly run as ``NativeEngine`` ops with variable dependencies
@@ -953,8 +981,8 @@ class EnginePipelineIter(DataIter):
 
         # produce ops serialize on the iterator's variable (the base
         # iterator and the augmenter RNG are single-threaded state)
-        self._engine.push(produce, mutable_vars=(self._iter_var,
-                                                 slot["var"]))
+        self._engine.push(_engine_span("engine_decode_augment", produce),
+                          mutable_vars=(self._iter_var, slot["var"]))
 
     def _record_seed(self, gidx):
         """Per-record augmentation seed: a function of (iterator seed,
@@ -1056,7 +1084,8 @@ class EnginePipelineIter(DataIter):
 
         # the read op serializes on the iterator's variable (the stream
         # position is the only single-threaded state left)
-        self._engine.push(read, mutable_vars=(self._iter_var, slot["var"]))
+        self._engine.push(_engine_span("engine_read", read),
+                          mutable_vars=(self._iter_var, slot["var"]))
 
         def u01(gidx):
             """The seq chain's randomness: three uniforms per record (crop
@@ -1181,7 +1210,7 @@ class EnginePipelineIter(DataIter):
                         slot["label"][j] = label
                 except Exception as e:
                     slot["error"] = e
-            return decode
+            return _engine_span("engine_decode_augment", decode)
 
         for k in range(W):
             self._engine.push(make_decode(k), const_vars=(slot["var"],),
@@ -1241,7 +1270,10 @@ class EnginePipelineIter(DataIter):
         self._arm(slot)  # refill behind the consumer
         self._idx += 1
         if self._uploader is not None:
-            batch = self._uploader.hand_over(*self._uploader.upload(batch))
+            with _profiler.record_span("engine_device_upload",
+                                       category="engine"):
+                batch = self._uploader.hand_over(
+                    *self._uploader.upload(batch))
         return batch
 
     def reset(self):

@@ -22,6 +22,8 @@ from collections import deque
 
 from ..base import MXNetError
 from ..io import DataIter
+from ..observability.instrument import (note_pipeline_h2d_ahead,
+                                        suppress_pipeline_wait)
 
 
 class PipelineDataIter(DataIter):
@@ -64,12 +66,15 @@ class PipelineDataIter(DataIter):
         self._exhausted = False
         if self._prime:
             self._pending = deque()
-            for _ in range(self._prime):
-                staged = next(self._gen, None)
-                if staged is None:
-                    self._exhausted = True
-                    break
-                self._pending.append(staged)
+            # priming waits on the pipeline's spin-up, outside the fit
+            # loop's steps: it must not count into the starvation ratio
+            with suppress_pipeline_wait():
+                for _ in range(self._prime):
+                    staged = next(self._gen, None)
+                    if staged is None:
+                        self._exhausted = True
+                        break
+                    self._pending.append(staged)
 
     def next(self):
         if self._closed:
@@ -86,6 +91,7 @@ class PipelineDataIter(DataIter):
                 upcoming = next(self._gen, None)
                 if upcoming is not None:
                     self._pending.append(upcoming)
+                    note_pipeline_h2d_ahead()
                 else:
                     self._exhausted = True
             return out.hand_over()

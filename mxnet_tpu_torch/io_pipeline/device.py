@@ -29,6 +29,8 @@ import torch
 
 from ..io import DataBatch, DataDesc, _Uploader
 from ..ndarray import NDArray
+from ..observability import tracing as _tracing
+from ..observability.instrument import note_pipeline_h2d
 
 
 def double_buffer_enabled():
@@ -69,7 +71,21 @@ class DeviceTransfer:
         self.provide_label = provide_label
 
     def stage(self, host_batch):
-        """Issue the upload of ``host_batch``; returns a StagedBatch."""
+        """Issue the upload of ``host_batch``; returns a StagedBatch.  The
+        host time of issuing it is the ``io_pipeline.h2d_ms`` histogram
+        (and a ``pipe:h2d`` span while the profiler records)."""
+        t0 = _tracing.now_us()
+        staged = self._stage(host_batch)
+        t1 = _tracing.now_us()
+        note_pipeline_h2d((t1 - t0) / 1e6)
+        if _tracing.is_recording():
+            _tracing.emit_complete(
+                "pipe:h2d", t0, t1 - t0, category="io_pipeline", pid="io",
+                args={"rows": int(host_batch.data.shape[0]),
+                      "seq": host_batch.seq})
+        return staged
+
+    def _stage(self, host_batch):
         batch = DataBatch([_host_array(host_batch.data)],
                           [_host_array(host_batch.label)],
                           pad=host_batch.pad,

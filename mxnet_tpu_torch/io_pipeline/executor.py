@@ -22,8 +22,9 @@ Two pool modes:
   mode.
 
 Knobs: ``MXNET_TPU_IO_WORKERS``, ``MXNET_TPU_IO_PREFETCH_DEPTH``.  The
-JAX package's consumer-wait telemetry comes with the port's
-observability layer.
+consumer's blocked time is the ``io_pipeline.queue_wait_ms`` histogram
+(and, while the profiler records, a ``pipe:queue_wait`` span); the task
+queue's depth and the reorder buffer's fill are live gauges.
 """
 from __future__ import annotations
 
@@ -35,10 +36,27 @@ import warnings
 
 from .. import threads as _threads
 from ..base import MXNetError
+from ..observability import tracing as _tracing
+from ..observability.instrument import (arm_pipeline_gauges,
+                                        disarm_pipeline_gauges,
+                                        note_pipeline_decode,
+                                        note_pipeline_wait)
 
 
 class PipelineClosed(MXNetError):
     """The pipeline was shut down while this operation was blocked."""
+
+
+def _note_consumer_wait(t0_us, t1_us):
+    """The one place consumer-blocked time becomes telemetry: the
+    io_pipeline.queue_wait_ms observation plus (when recording and not
+    suppressed by arm-time priming) the matching ``pipe:queue_wait``
+    span.  Shared by the thread-pool get, the process-pool window, and
+    the upload stage so the three paths cannot diverge."""
+    if note_pipeline_wait((t1_us - t0_us) / 1e6) \
+            and _tracing.is_recording():
+        _tracing.emit_complete("pipe:queue_wait", t0_us, t1_us - t0_us,
+                               category="io_pipeline", pid="io")
 
 
 class _Failure:
@@ -151,7 +169,8 @@ class PrefetchExecutor:
     _POLL_S = 0.05  # worker/feeder wakeup cadence while blocked
 
     def __init__(self, fn, num_workers=None, depth=None, mode="thread",
-                 name="io_pipeline", initializer=None, initargs=()):
+                 name="io_pipeline", initializer=None, initargs=(),
+                 timed=True):
         if mode not in ("thread", "process"):
             raise ValueError("mode must be 'thread' or 'process', got %r"
                              % (mode,))
@@ -168,6 +187,9 @@ class PrefetchExecutor:
         self.initializer = initializer
         self.initargs = tuple(initargs)
         self._pool = None  # persistent process pool (mode='process')
+        # timed=False when another stage (the process-mode upload thread)
+        # consumes this run: its blocking is not the consumer's starvation
+        self.timed = bool(timed)
 
     def close(self):
         """Release the persistent process pool, if any, and wait for its
@@ -226,6 +248,10 @@ class PrefetchExecutor:
                 except PipelineClosed:
                     return
 
+        # live per-stage queue-depth gauges, re-armed every run so they
+        # survive a telemetry.reset() between epochs; the last-armed run
+        # owns them when several pipelines are live
+        gauge_token = arm_pipeline_gauges(task_q.qsize, rb.fill)
         threads = [_threads.spawn(feeder, "io_pipeline",
                                   "%s-feeder" % self.name, start=False)]
         threads += [_threads.spawn(worker, "io_pipeline",
@@ -236,7 +262,7 @@ class PrefetchExecutor:
             t.start()
         try:
             for _ in range(n):
-                item = rb.get()
+                item = self._timed_get(rb) if self.timed else rb.get()
                 if isinstance(item, _Failure):
                     raise item.exc
                 yield item
@@ -256,6 +282,16 @@ class PrefetchExecutor:
             if leaked:
                 warnings.warn("io_pipeline workers did not stop: %s"
                               % leaked)
+            disarm_pipeline_gauges(gauge_token)
+
+    @staticmethod
+    def _timed_get(rb):
+        """One in-order take, with the consumer's blocked time recorded
+        as the pipeline-starvation signal."""
+        t0 = _tracing.now_us()
+        item = rb.get()
+        _note_consumer_wait(t0, _tracing.now_us())
+        return item
 
     # -- process pool --------------------------------------------------------
     def _ensure_pool(self):
@@ -277,12 +313,34 @@ class PrefetchExecutor:
         window = self.num_workers + self.depth
         pool = self._ensure_pool()
         pending = deque()
+        gauge_token = arm_pipeline_gauges(lambda: len(pending), lambda: 0)
         try:
             it = iter(tasks)
             for task in itertools.islice(it, window):
                 pending.append(pool.submit(self.fn, task))
             while pending:
-                res = pending.popleft().result()
+                fut = pending.popleft()
+                t0 = _tracing.now_us()
+                res = fut.result()
+                t1 = _tracing.now_us()
+                if self.timed:
+                    # this run is consumed directly: blocking here is
+                    # consumer starvation
+                    _note_consumer_wait(t0, t1)
+                decode_s = getattr(res, "decode_s", None)
+                if decode_s is not None:
+                    # worker-measured decode time (the workers' registries
+                    # never reach the parent); the span is back-dated to
+                    # arrival minus duration
+                    rows = getattr(getattr(res, "data", None), "shape",
+                                   (0,))[0]
+                    note_pipeline_decode(decode_s, int(rows))
+                    if _tracing.is_recording():
+                        _tracing.emit_complete(
+                            "pipe:decode", t1 - decode_s * 1e6,
+                            decode_s * 1e6, category="io_pipeline",
+                            pid="io", args={"seq": getattr(res, "seq",
+                                                           -1)})
                 for task in itertools.islice(it, 1):
                     pending.append(pool.submit(self.fn, task))
                 yield res
@@ -291,6 +349,7 @@ class PrefetchExecutor:
             # abandoned
             for fut in pending:
                 fut.cancel()
+            disarm_pipeline_gauges(gauge_token)
 
 
 class ThreadedStage:
@@ -306,8 +365,11 @@ class ThreadedStage:
     _POLL_S = 0.05
     _END = object()
 
-    def __init__(self, gen, depth=2, name="io_pipeline-stage"):
+    def __init__(self, gen, depth=2, name="io_pipeline-stage", timed=False):
         self._gen = gen
+        # timed=True when the foreground consumer is the pipeline's
+        # consumer (the process-mode upload stage)
+        self._timed = bool(timed)
         self._q = _queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
         self._done = False
@@ -340,6 +402,7 @@ class ThreadedStage:
         return self
 
     def __next__(self):
+        t0 = _tracing.now_us() if self._timed else 0
         while True:
             if self._done:
                 raise StopIteration
@@ -357,6 +420,8 @@ class ThreadedStage:
                 # next() must see exhaustion, not poll forever
                 self._done = True
                 raise item.exc
+            if self._timed:
+                _note_consumer_wait(t0, _tracing.now_us())
             return item
 
     def close(self):

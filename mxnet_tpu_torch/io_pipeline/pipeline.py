@@ -25,6 +25,8 @@ import math
 import threading
 
 from ..base import MXNetError
+from ..observability import tracing as _tracing
+from ..observability.instrument import note_pipeline_decode
 from .device import DeviceTransfer, describe_batch, double_buffer_enabled
 from .executor import PrefetchExecutor, ThreadedStage
 from .sharding import epoch_plan
@@ -145,7 +147,8 @@ class Pipeline:
                     process_decode_task, self.num_workers,
                     self.prefetch_depth, mode="process",
                     initializer=process_pool_init,
-                    initargs=(self.source, self.decode, self.seed))
+                    initargs=(self.source, self.decode, self.seed),
+                    timed=not self.double_buffer)
             yield from self._proc_exec.run(plan)
             return
         tls = threading.local()
@@ -158,7 +161,15 @@ class Pipeline:
                 reader = tls.reader = self.source.open_reader()
                 with lock:
                     readers.append(reader)
+            t0 = _tracing.now_us()
             out = decode_task(task, reader, self.decode, self.seed)
+            t1 = _tracing.now_us()
+            note_pipeline_decode((t1 - t0) / 1e6, len(task.positions))
+            if _tracing.is_recording():
+                _tracing.emit_complete("pipe:decode", t0, t1 - t0,
+                                       category="io_pipeline", pid="io",
+                                       args={"seq": task.seq,
+                                             "rows": len(task.positions)})
             if transfer is not None:
                 out = transfer.stage(out)
             return out
@@ -199,7 +210,8 @@ class Pipeline:
         if self.mode == "process" and self.double_buffer:
             stage = ThreadedStage(
                 (transfer.stage(hb) for hb in source),
-                depth=self.prefetch_depth or 2, name="io_pipeline-upload")
+                depth=self.prefetch_depth or 2, name="io_pipeline-upload",
+                timed=True)
             source = stage
         try:
             for item in source:

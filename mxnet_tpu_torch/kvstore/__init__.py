@@ -16,16 +16,20 @@ include/mxnet/kvstore.h).  Stores:
 
 A context is named by its position among a key's pushed copies, so two
 contexts on one card (``[gpu(0)] * 2``) are two merge owners and keep two
-compression residuals.  The JAX package's ``record_kv`` telemetry waits
-for the observability slice.
+compression residuals.  Each push and pull reports its payload bytes and
+host wall time (``observability.instrument.record_kv``), as the JAX
+package's do.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
 from ..base import MXNetError
 from ..ndarray import NDArray
 from .. import optimizer as opt
+from ..observability.instrument import record_kv
 
 
 class KVStore:
@@ -130,18 +134,22 @@ class KVStore:
             merged.copyto(stored)
 
     def push(self, key, value, priority=0):
+        t0 = time.perf_counter()
         keys, values = _key_value(key, value)
         for k, v in zip(keys, values):
             self._apply(k, self._reduce(v, key=k))
+        record_kv("push", value, time.perf_counter() - t0, self._type)
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         if out is None:
             raise MXNetError("pull needs out=")
+        t0 = time.perf_counter()
         keys, outs = _key_value(key, out)
         for k, olist in zip(keys, outs):
             stored = self._stored[k]
             for o in [olist] if isinstance(olist, NDArray) else olist:
                 stored.copyto(o)
+        record_kv("pull", out, time.perf_counter() - t0, self._type)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
         """Pull only the rows ``row_ids`` names (ref: kvstore.h

@@ -28,20 +28,23 @@ equal.  ``dist_async`` is sync-equivalent, as in the JAX package.
   concatenated codes (``wire_bytes_pushed`` counts what crossed).
 - The JAX package keeps an LRU of jitted collective programs; torch's
   collectives are not compiled programs, so there is nothing to cache.
-  Its ``record_comm_exposed`` telemetry waits for the observability
-  slice.
+- Each cross-process collective reports its payload and host wall time
+  as exposed communication (``record_comm_exposed``), as the JAX
+  package's does.
 """
 from __future__ import annotations
 
 import datetime
 import itertools
 import os
+import time
 
 import torch
 import torch.distributed as dist
 
 from ..base import MXNetError, dist_store, maybe_initialize_distributed_from_env
 from ..ndarray import NDArray
+from ..observability.instrument import record_comm_exposed
 from . import KVStore, _compression, _key_value
 
 # process-global, so store keys are never reused within the job
@@ -157,15 +160,19 @@ class DistKVStore(KVStore):
         for k, v in zip(keys, values):
             merged = self._reduce(v, key=k)  # this process's contexts first
             g = merged.tensor
+            t0 = time.perf_counter()
             if self._gc is not None:
                 # the 2-bit codes are the payload: gather them, sum locally
                 packed = self._gc.quantize(k, g)
-                self.wire_bytes_pushed += packed.numel()
+                nbytes = packed.numel()
                 summed = self._gc.dequantize_sum(self._allgather(packed),
                                                  g.shape, g.dtype)
             else:
-                self.wire_bytes_pushed += g.numel() * g.element_size()
+                nbytes = g.numel() * g.element_size()
                 summed = self._allreduce(g)
+            self.wire_bytes_pushed += nbytes
+            record_comm_exposed("push", nbytes, time.perf_counter() - t0,
+                                self._type)
             self._apply(k, NDArray(summed))
 
     def push_pull_list(self, keys, push_values, pull_outs, priority=0):
@@ -177,6 +184,8 @@ class DistKVStore(KVStore):
             if self._stored.get(k) is None:
                 raise MXNetError("key %r has not been initialized" % (k,))
         reduced = [None] * len(keys)
+        t0 = time.perf_counter()
+        wire0 = self.wire_bytes_pushed
         if self._gc is not None:
             packed = [self._gc.quantize(k, m.tensor)
                       for k, m in zip(keys, merged)]
@@ -205,6 +214,8 @@ class DistKVStore(KVStore):
                     reduced[i] = summed[offset:offset + n].view(
                         merged[i].shape)
                     offset += n
+        record_comm_exposed("push_pull", self.wire_bytes_pushed - wire0,
+                            time.perf_counter() - t0, self._type)
         for k, m, arr, out in zip(keys, merged, reduced, pull_outs):
             self._apply(k, NDArray(arr))
             self.pull(k, out=out, priority=priority)

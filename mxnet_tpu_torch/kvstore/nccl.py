@@ -23,16 +23,20 @@ As the reference's NCCL store, this store leaves the optimizer to each
 context (``model._create_kvstore`` sets ``update_on_kvstore=False``): the
 replicas apply one update to one reduced gradient and stay equal bit for
 bit.  The NCCL branch runs only where the copies sit on distinct cards.
-The JAX package's ``record_kv``/``record_comm_exposed`` telemetry waits
-for the observability slice.
+Pushes and pulls report bytes and host wall time (``record_kv``), and
+the reductions their one-copy payload as exposed communication
+(``record_comm_exposed``), as the JAX package's ``tpu_ici`` does.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 import torch.distributed
 
 from ..base import MXNetError
 from ..ndarray import NDArray
+from ..observability.instrument import record_comm_exposed, record_kv
 from . import KVStore, _key_value, _tree_sum
 
 
@@ -87,6 +91,8 @@ class NcclKVStore(KVStore):
         self._replicas[k] = {t.device: t for t in sums}
 
     def push(self, key, value, priority=0):
+        t0 = time.perf_counter()
+        comm_bytes = 0
         keys, values = _key_value(key, value)
         for k, v in zip(keys, values):
             stored = self._stored.get(k)
@@ -104,6 +110,9 @@ class NcclKVStore(KVStore):
             if len(vals) == 1:
                 sums = [vals[0].tensor.clone()]  # the value at push time
             else:
+                # the collective's payload per copy (metadata, no sync)
+                comm_bytes += vals[0].tensor.numel() \
+                    * vals[0].tensor.element_size()
                 sums = allreduce_arrays([x.tensor for x in vals])
             if self._updater is None:
                 self._keep(k, sums)
@@ -111,10 +120,17 @@ class NcclKVStore(KVStore):
             dev = stored.tensor.device
             self._apply(k, NDArray(next((t for t in sums if t.device == dev),
                                         sums[0])))
+        dt = time.perf_counter() - t0
+        record_kv("push", value, dt, self._type)
+        if comm_bytes:
+            # the store's reduction is exposed communication: the step
+            # waits on it
+            record_comm_exposed("push", comm_bytes, dt, self._type)
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         if out is None:
             raise MXNetError("pull needs out=")
+        t0 = time.perf_counter()
         keys, outs = _key_value(key, out)
         for k, olist in zip(keys, outs):
             if self._stored[k].stype != "default":
@@ -125,6 +141,7 @@ class NcclKVStore(KVStore):
             for o in [olist] if isinstance(olist, NDArray) else olist:
                 with torch.no_grad():
                     o.tensor.copy_(local.get(o.tensor.device, stored))
+        record_kv("pull", out, time.perf_counter() - t0, self._type)
 
     def push_pull(self, key, push_value, pull_out, priority=0):
         """One reduction a key; each output reads its device's copy."""
@@ -149,10 +166,13 @@ class NcclKVStore(KVStore):
                 continue
             group = (dtypes.pop(), tuple(x.context for x in vals))
             groups.setdefault(group, []).append((k, vals, o))
+        t0 = time.perf_counter()
+        comm_bytes = 0
         for (_, ctxs), items in groups.items():
             flats = [torch.cat([vals[i].tensor.reshape(-1)
                                 for _, vals, _ in items])
                      for i in range(len(ctxs))]
+            comm_bytes += flats[0].numel() * flats[0].element_size()
             sums = allreduce_arrays(flats)
             offset = 0
             for k, vals, o in items:
@@ -161,6 +181,9 @@ class NcclKVStore(KVStore):
                                for s in sums])
                 offset += n
                 self.pull(k, out=o, priority=priority)
+        if comm_bytes:
+            record_comm_exposed("push_pull", comm_bytes,
+                                time.perf_counter() - t0, self._type)
         for k, v, o in alone:
             self.push_pull(k, v, o, priority)
 

@@ -30,5 +30,5 @@ def features():
         "CUDNN": torch.backends.cudnn.is_available(),
         "HAND_KERNELS": bool(find_lib_path()),
         "DIST_KVSTORE": True,
-        "PROFILER": False,
+        "PROFILER": True,
     }

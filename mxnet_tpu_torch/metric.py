@@ -56,6 +56,14 @@ class EvalMetric:
             self.sum_metric += contribution
             self.num_inst += weight
 
+    def update_dict(self, label, pred):
+        """Update from {name: array} dicts (Module's named outputs)."""
+        preds = ([pred[k] for k in self.output_names]
+                 if self.output_names is not None else list(pred.values()))
+        labels = ([label[k] for k in self.label_names]
+                  if self.label_names is not None else list(label.values()))
+        self.update(labels, preds)
+
     def reset(self):
         self.sum_metric = 0.0
         self.num_inst = 0
@@ -70,6 +78,15 @@ class EvalMetric:
         if not isinstance(names, list):
             names, values = [names], [values]
         return list(zip(names, values))
+
+    def get_config(self):
+        """The metric's constructor arguments with its class and names
+        (ref: EvalMetric.get_config)."""
+        config = dict(self._init_kwargs)
+        config.update(metric=type(self).__name__, name=self.name,
+                      output_names=self.output_names,
+                      label_names=self.label_names)
+        return config
 
     def __str__(self):
         return "EvalMetric: {}".format(dict(self.get_name_value()))
@@ -121,9 +138,16 @@ class CompositeEvalMetric(EvalMetric):
     def add(self, metric):
         self.metrics.append(create(metric))
 
+    def get_metric(self, index):
+        return self.metrics[index]
+
     def update(self, labels, preds):
         for m in self.metrics:
             m.update(labels, preds)
+
+    def update_dict(self, labels, preds):
+        for m in self.metrics:
+            m.update_dict(labels, preds)
 
     def reset(self):
         for m in getattr(self, "metrics", ()):

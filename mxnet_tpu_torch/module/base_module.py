@@ -10,9 +10,12 @@ callbacks (a checkpoint); a ``monitor`` is installed right after
 and handed to ``prepare`` (a BucketingModule binds its bucket ahead).
 ``score``, ``iter_predict`` and ``predict`` run predict-mode forwards
 over an iterator; ``save_params`` / ``load_params`` use the ``.params``
-format with ``arg:``/``aux:`` names.  The JAX package's step telemetry,
-health sentinel and elastic checkpoint hooks wait for the
-runtime-services slice.
+format with ``arg:``/``aux:`` names.  Each training step decomposes
+into ``observability.instrument.StepTracker``'s five components
+(data_wait / fwd_bwd_dispatch / update / metric / sync): nested profiler
+spans and registry histograms, one flag check each when both sinks are
+off.  The JAX package's health sentinel and elastic checkpoint hooks
+wait for later runtime-services slices.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from .. import metric as metric_mod
 from ..context import cpu
 from ..initializer import Uniform
 from ..io import DataIter
+from ..observability.instrument import StepTracker
 
 
 class BatchEndParam:
@@ -89,9 +93,70 @@ class BaseModule:
         self.optimizer_initialized = False
         self._symbol = None
 
+    # -- abstract surface (ref: BaseModule; each raises until a subclass
+    #    defines it) --------------------------------------------------------
     @property
     def symbol(self):
         return self._symbol
+
+    @property
+    def data_names(self):
+        raise NotImplementedError()
+
+    @property
+    def output_names(self):
+        raise NotImplementedError()
+
+    @property
+    def data_shapes(self):
+        raise NotImplementedError()
+
+    @property
+    def label_shapes(self):
+        raise NotImplementedError()
+
+    @property
+    def output_shapes(self):
+        raise NotImplementedError()
+
+    def get_params(self):
+        raise NotImplementedError()
+
+    def init_params(self, initializer=Uniform(0.01), arg_params=None,
+                    aux_params=None, allow_missing=False, force_init=False,
+                    allow_extra=False):
+        raise NotImplementedError()
+
+    def install_monitor(self, mon):
+        raise NotImplementedError()
+
+    def forward(self, data_batch, is_train=None):
+        raise NotImplementedError()
+
+    def backward(self, out_grads=None):
+        raise NotImplementedError()
+
+    def get_outputs(self, merge_multi_context=True):
+        raise NotImplementedError()
+
+    def get_input_grads(self, merge_multi_context=True):
+        raise NotImplementedError()
+
+    def update(self):
+        raise NotImplementedError()
+
+    def update_metric(self, eval_metric, labels):
+        raise NotImplementedError()
+
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        raise NotImplementedError()
+
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        raise NotImplementedError()
 
     def _ready(self, optimizer=False, grads=False):
         """The delegation precondition: bound and initialized."""
@@ -256,23 +321,35 @@ class BaseModule:
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
+            tracker = StepTracker(epoch=epoch)
             it = iter(train_data)
-            batch = next(it, None)
+            with tracker.component("data_wait"):
+                batch = next(it, None)
             nbatch = 0
             while batch is not None:
                 if monitor is not None:
-                    monitor.tic()
-                self.forward_backward(batch)
-                self.update()
-                upcoming = next(it, None)
+                    with tracker.component("sync"):
+                        monitor.tic()
+                with tracker.component("fwd_bwd_dispatch"):
+                    self.forward_backward(batch)
+                with tracker.component("update"):
+                    self.update()
+                with tracker.component("data_wait"):
+                    upcoming = next(it, None)
                 if upcoming is not None:
-                    self.prepare(upcoming)
-                self.update_metric(eval_metric, batch.label)
+                    # the next batch's transfer while the step executes
+                    with tracker.component("sync"):
+                        self.prepare(upcoming)
+                with tracker.component("metric"):
+                    self.update_metric(eval_metric, batch.label)
                 if monitor is not None:
-                    monitor.toc_print()
-                _each_callback(batch_end_callback, BatchEndParam(
-                    epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
-                    locals=locals()))
+                    with tracker.component("sync"):
+                        monitor.toc_print()
+                with tracker.component("sync"):
+                    _each_callback(batch_end_callback, BatchEndParam(
+                        epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
+                        locals=locals()))
+                tracker.step_end(nbatch)
                 batch = upcoming
                 nbatch += 1
             for name, val in eval_metric.get_name_value():

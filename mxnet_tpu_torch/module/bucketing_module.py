@@ -96,6 +96,9 @@ class BucketingModule(BaseModule):
             self._buckets[bucket_key] = module
         self._active_key = bucket_key
 
+    def switch_bucket_key(self, key):
+        self.switch_bucket(key, None, None)
+
     def _reset_bind(self):
         self.binded = False
         self._buckets = {}

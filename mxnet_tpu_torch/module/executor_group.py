@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import logging
 
+from .. import profiler as _profiler
 from ..base import MXNetError
 from ..context import cpu
 from ..io import DataDesc
@@ -283,9 +284,14 @@ class DataParallelExecutorGroup:
         if not self.for_training:
             raise MXNetError("re-bind with for_training=True to run "
                              "backward")
-        self._load_batch(data_batch)
-        for exe in self.execs:
-            exe.forward_backward(is_train=True)
+        # the batch upload and each executor's step under one span (the
+        # executors' spans become its children); a flag check while the
+        # profiler is stopped
+        with _profiler.record_span("exec_group_fwd_bwd",
+                                   category="symbolic"):
+            self._load_batch(data_batch)
+            for exe in self.execs:
+                exe.forward_backward(is_train=True)
 
     def get_output_shapes(self):
         """[(output name, shape)] over the whole batch: the last

@@ -76,8 +76,12 @@ when ``n > 1``.
 Otherwise ``refusal`` keeps the JAX package's gating: a store that
 updates, a store on one context, several contexts without a collective
 store or with unequal slices, a monitor, ``grad_req='add'`` or
-``inputs_need_grad`` take the general path.  The health sentinel, the
-memory profiler and the program cache wait for A5.
+``inputs_need_grad`` take the general path; on the card so does a graph
+holding a ``Custom`` node (its host round trip cannot be captured).  A
+step with a bucketed reduction reports its plan's wire bytes
+(``instrument.note_comm_overlapped``).  The health sentinel, the
+memory profiler and the program cache wait for later runtime-services
+slices.
 """
 from __future__ import annotations
 
@@ -87,7 +91,9 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from .. import executor_cache
 from ..ndarray import NDArray
+from ..observability import instrument as _instrument
 from ..ops import kernels as _kernels
 from .. import optimizer as _opt
 from .. import random as _random
@@ -159,6 +165,13 @@ class FusedTrainStep:
         if module.inputs_need_grad:
             return "inputs_need_grad"
         exe = group.execs[0]
+        if exe._device.type == "cuda":
+            for k, step in enumerate(exe._prog.steps):
+                if step[0].name == "Custom":
+                    # the user's Python runs on host copies: a CUDA graph
+                    # cannot capture the round trip
+                    return "Custom op (node %s) runs its Python on the " \
+                           "host" % exe._prog.taps[k][0]
         draws = opt.fused_needs_rng or any(
             step[0].needs_rng for step in exe._prog.steps)
         if exe._device.type == "cuda" and draws and not hasattr(
@@ -166,6 +179,13 @@ class FusedTrainStep:
             return ("the step draws random numbers and this torch cannot "
                     "register a generator with a CUDA graph")
         return None
+
+    @staticmethod
+    def supports(module):
+        """The JAX package's gating as a flag: whether ``refusal`` is
+        None.  ``Module`` consults both, so patching this to return False
+        keeps a module on the general path, as in the JAX package."""
+        return FusedTrainStep.refusal(module) is None
 
     def join_refusal(self, module):
         """Why ``module`` cannot share this step's state (None when it
@@ -262,6 +282,7 @@ class FusedTrainStep:
         # position is on one card
         self._graphable = self.device.type == "cuda" \
             and len(set(self.devices)) == 1
+        self._traced = False
         self.graph = None
         self.captures = 0
         self.replays = 0
@@ -631,6 +652,11 @@ class FusedTrainStep:
             # optimizer states and residuals (same symbol, same parameter
             # list)
             self.__init__(module, share=self)
+        if not self._traced:
+            # the step's first run builds it (the JAX package traces its
+            # step program here)
+            self._traced = True
+            executor_cache.note_trace("fused_step")
         self.ran = True
         self._refresh()
         self._load(data_batch)
@@ -652,6 +678,9 @@ class FusedTrainStep:
                 collectives.add_counts(self.graph_collectives)
                 outs = [[o.clone() for o in g] for g in self._outs]
         self.collectives = record.counts
+        if self._comm_plan is not None:
+            # the plan's wire bytes, on the host (no launch, no sync)
+            _instrument.note_comm_overlapped(self._comm_plan)
         for exe, mine in zip(self.execs, outs):
             exe.outputs = [NDArray(o) for o in mine]
         self._note_seen()

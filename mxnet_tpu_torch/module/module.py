@@ -42,6 +42,7 @@ import logging
 import pickle
 import warnings
 
+from .. import profiler as _profiler
 from ..base import MXNetError
 from ..context import cpu, current_context
 from ..initializer import InitDesc, Uniform
@@ -58,6 +59,16 @@ from .fused_step import FusedTrainStep
 def _descs(shapes):
     return [d if isinstance(d, DataDesc) else DataDesc(*d)
             for d in (shapes or [])]
+
+
+def _fused_refusal(module):
+    """Why the fused step cannot serve ``module`` (None when it can):
+    ``FusedTrainStep.refusal``'s reason, or that ``supports`` (which a
+    caller may patch, as the JAX package's tests do) declines."""
+    why = FusedTrainStep.refusal(module)
+    if why is None and not FusedTrainStep.supports(module):
+        why = "FusedTrainStep.supports is False"
+    return why
 
 
 class Module(BaseModule):
@@ -319,7 +330,7 @@ class Module(BaseModule):
         else:
             self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
-        why = FusedTrainStep.refusal(self)
+        why = _fused_refusal(self)
         self._fused_step = FusedTrainStep(self) if why is None else None
         self._fused_pending = False
         if why is not None:
@@ -346,7 +357,7 @@ class Module(BaseModule):
         if anchor is None:
             self._fused_step = None
             return
-        why = FusedTrainStep.refusal(self) or anchor.join_refusal(self)
+        why = _fused_refusal(self) or anchor.join_refusal(self)
         if why is None:
             self._fused_step = FusedTrainStep(self, share=anchor)
         else:
@@ -364,6 +375,10 @@ class Module(BaseModule):
         if self._fused_step is not None:
             # _fused_pending stays: a fused forward_backward that applied
             # its update already still turns the next update() into a no-op
+            self.logger.warning(
+                "monitor installed: leaving the fused train-step path for "
+                "the tap-capable general path (expect slower steps while "
+                "the monitor is active)")
             self._retire_fused_step("monitor installed")
 
     def _retire_fused_step(self, why):
@@ -405,7 +420,11 @@ class Module(BaseModule):
                 self._retire_fused_step(
                     "repeated forward_backward or a batch shape change")
             else:
-                self._fused_step.run(data_batch)
+                # a host-side span around the step (its replay is not
+                # waited for); a flag check while the profiler is stopped
+                with _profiler.record_span("fused_train_step",
+                                           category="symbolic"):
+                    self._fused_step.run(data_batch)
                 self._fused_pending = True
                 return
         self._fused_pending = False

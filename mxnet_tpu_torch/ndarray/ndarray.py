@@ -31,7 +31,7 @@ import torch.utils.dlpack
 
 from ..base import MXNetError, dtype_name, np_dtype, torch_dtype
 from ..context import Context, context_of, cpu, current_context
-from ..ops.registry import get_op
+from ..ops.registry import call_op, get_op
 from .. import autograd as ag
 
 
@@ -540,7 +540,7 @@ def _invoke(op_name, inputs, attrs, out=None):
         nattrs["_train"] = ag.is_training()
     recording = ag.is_recording()
     with torch.set_grad_enabled(recording):
-        outs = op.impl(*[i.tensor for i in inputs], **nattrs)
+        outs = call_op(op, [i.tensor for i in inputs], nattrs)
     if not isinstance(outs, tuple):
         outs = (outs,)
     n_vis = op.str_outputs(nattrs)

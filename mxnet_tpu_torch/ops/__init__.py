@@ -11,3 +11,4 @@ from . import random_ops  # noqa: F401
 from . import image_ops  # noqa: F401
 from . import extra  # noqa: F401
 from . import detection_ops  # noqa: F401
+from .. import operator as _custom  # noqa: F401,E402  (registers Custom)

@@ -5,13 +5,16 @@ function on ``torch.Tensor``s plus its typed attr table and, where the op
 declares one, a shape and a type rule.  Where an op has no shape rule,
 :func:`eval_shape_op` runs it on ``device="meta"`` tensors, which carry a
 shape and a dtype but no storage — the role ``jax.eval_shape`` plays in
-the JAX package.
+the JAX package.  :func:`call_op` runs an op for the imperative path and
+the executor's plan; under the profiler's ``all`` mode it records one
+``operator`` span per call.
 """
 from __future__ import annotations
 
 import torch
 
 from ..base import MXNetError, dtype_name, shape_attr, str_to_attr, torch_dtype
+from ..observability import tracing as _tracing
 
 # ---------------------------------------------------------------------------
 # Attr type converters (dmlc::Parameter reflection)
@@ -178,6 +181,45 @@ def get_op(name):
 
 def op_registry():
     return _REGISTRY
+
+
+def call_op(op, tensors, attrs):
+    """``op.impl(*tensors, **attrs)``.  While the profiler records in
+    ``all`` mode, one span per call (ref: the reference's per-op timing
+    hook, threaded_engine.h:326-338): the end stamp waits for the op's
+    work on its card's stream, so profiling trades the asynchronous
+    launches away, as in the reference.  During a CUDA graph capture the
+    span records the host time only (``args.capturing``): synchronizing
+    would break the capture.  Off, the cost is one flag check."""
+    if not _tracing._recording:
+        return op.impl(*tensors, **attrs)
+    return _profiled_call(op, tensors, attrs)
+
+
+def _profiled_call(op, tensors, attrs):
+    from .. import profiler
+    if not profiler.op_spans_enabled():
+        return op.impl(*tensors, **attrs)
+    device = next((t.device for t in tensors
+                   if isinstance(t, torch.Tensor)), attrs.get("_device"))
+    on_card = device is not None and device.type == "cuda"
+    capturing = on_card and torch.cuda.is_current_stream_capturing()
+    t0 = _tracing.now_us()
+    out = op.impl(*tensors, **attrs)
+    if on_card and not capturing:
+        torch.cuda.current_stream(device).synchronize()
+    t1 = _tracing.now_us()
+    args = {}
+    parent = _tracing.current_span()
+    if parent is not None and getattr(parent, "_live", False):
+        args["parent_id"] = parent._id
+    if capturing:
+        args["capturing"] = True
+    dev = "host" if device is None else "%s(%d)" % (
+        "gpu" if on_card else "cpu", device.index or 0)
+    _tracing.emit_complete(op.name, t0, t1 - t0, category="operator",
+                           pid=dev, args=args or None)
+    return out
 
 
 def apply_op(op, inputs, attrs):

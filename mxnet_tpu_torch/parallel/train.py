@@ -157,6 +157,9 @@ class ShardedTrainStep:
             else:
                 loss = self._overlap(batch)
         self.collectives = record.counts
+        if self.comm_plan is not None:
+            from ..observability.instrument import note_comm_overlapped
+            note_comm_overlapped(self.comm_plan)
         return loss
 
     def lower(self, batch_struct=None):

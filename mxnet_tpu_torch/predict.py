@@ -97,6 +97,21 @@ class Predictor:
         """Positional output names — the order ``get_output`` indexes."""
         return list(self._symbol.list_outputs())
 
+    @property
+    def num_outputs(self):
+        return len(self._symbol.list_outputs())
+
+    def reshape(self, input_shapes):
+        """MXPredReshape in place: re-bind this predictor to new input
+        shapes (the executor's ``reshape``, sharing every array whose
+        shape is unchanged).  As in the C predict contract, any new input
+        size is allowed and dependent arrays (labels, states) reshape
+        implicitly."""
+        self._exe = self._exe.reshape(partial_shaping=True,
+                                      allow_up_sizing=True, **input_shapes)
+        self._out_shapes = self._infer_out_shapes()
+        return self
+
     def get_output_shape(self, index=0):
         """MXPredGetOutputShape — valid immediately after create."""
         if self._exe.outputs:

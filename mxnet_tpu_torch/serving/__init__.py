@@ -14,7 +14,8 @@ Counterpart of ``mxnet_tpu/serving``:
 - the paged-KV tier for autoregressive transformer decode: the block
   pool with prefix reuse and copy-on-write (``kv_cache.py``) and the
   decoder, one CUDA graph a step on the card (``decode.py``);
-- typed rejections (``errors.py``) and counters (``metrics.py``).
+- typed rejections (``errors.py``) and the serving instruments on the
+  metrics registry (``metrics.py``).
 """
 from __future__ import annotations
 

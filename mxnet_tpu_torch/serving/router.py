@@ -453,6 +453,9 @@ class FleetServer(Server):
                  http_host="127.0.0.1", http_port=0, auto_start=True):
         # the group exists before Server.__init__ calls _make_batcher
         self.group = ReplicaGroup(n_replicas, ctxs=ctxs)
+        # the fleet-size gauge: shed rate and queue depth read against
+        # the replica count that produced them
+        metrics.register_replica_gauge(self.group)
         super().__init__(registry=self.group.primary_registry,
                          max_batch_size=max_batch_size,
                          batch_window_ms=batch_window_ms,

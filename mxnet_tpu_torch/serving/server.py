@@ -23,10 +23,10 @@ Counterpart of ``mxnet_tpu/serving/server.py``::
 
 The HTTP front end (stdlib ``http.server``, JSON in and out,
 ``serve_http=True``): ``POST /v1/models/<name>:predict`` or
-``/predict/<name>``, ``GET /healthz`` and ``GET /metrics`` (the port's
-``serving.metrics`` snapshot in the Prometheus text format; the full
-telemetry registry comes with the runtime-services slice).  ``prewarm``
-and the autotune cadence wait for that slice too.
+``/predict/<name>``, ``GET /healthz`` and ``GET /metrics`` (the metrics
+registry in the Prometheus text format, ``telemetry.to_prometheus()``,
+with the JAX package's names).  ``prewarm`` and the autotune cadence
+wait for a later runtime-services slice.
 """
 from __future__ import annotations
 
@@ -39,6 +39,7 @@ import numpy as np
 
 from .. import threads as _threads
 from ..base import MXNetError
+from ..observability import telemetry as _telemetry
 from . import metrics
 from .admission import AdmissionController, Request
 from .batcher import DynamicBatcher
@@ -59,6 +60,7 @@ class Server:
         self.batch_window_ms = float(batch_window_ms)
         self.admission = AdmissionController(queue_depth)
         self.batcher = self._make_batcher()
+        metrics.register_queue_gauge(self.admission)
         self._closed = False
         self._close_lock = _threads.package_lock("Server._close_lock")
         self._httpd = None
@@ -323,7 +325,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(200, {"status": "ok",
                              "models": self.server.owner.registry.names()})
         elif self.path == "/metrics":
-            self._send(200, metrics.to_prometheus(),
+            self._send(200, _telemetry.to_prometheus(),
                        content_type="text/plain; version=0.0.4")
         else:
             self._send(404, {"error": "not_found", "path": self.path})

@@ -605,6 +605,10 @@ class Symbol:
         are)."""
         return self.bind(ctx or current_context(), kwargs).forward()
 
+    def tocsr(self):
+        """Raises, as in the JAX package (a Symbol has no storage)."""
+        raise MXNetError("not supported")
+
 
 def _group_contexts(symbol, group2ctx):
     """{variable name: context} under ``group2ctx`` (the reference's

@@ -5,7 +5,8 @@ through :func:`spawn` and named ``mxnet_tpu_torch/<subsystem>/<role>``, so
 a test can assert that closing a Server leaves no package thread behind
 by scanning :func:`threading.enumerate` for the prefix.  The lock
 factories return the plain ``threading`` primitives; the lock-order
-sanitizer hooks of the JAX package come with the observability slice.
+sanitizer hooks of the JAX package come with a later runtime-services
+slice (analysis).
 """
 from __future__ import annotations
 

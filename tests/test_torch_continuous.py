@@ -223,14 +223,14 @@ def test_raising_eos_fn_fails_only_its_stream(parts):
 
 
 def test_occupancy_metrics_and_close(parts):
-    serving.metrics.reset()
+    mx.observability.telemetry.reset()
     cb = _batcher(parts, 2, ctx=mx.cpu())
     cb.warmup()
     s1 = cb.submit({"data": _seqs(17, (6,))[0]})
     cb.step()
-    counters = serving.metrics.snapshot()["counters"]
-    assert counters["serving.decode.iterations"] >= 1
-    assert counters["serving.decode.joins"] >= 1
+    snap = mx.observability.snapshot()
+    assert snap["serving.decode.iterations"]["value"] >= 1
+    assert snap["serving.decode.joins"]["value"] >= 1
     cb.close()
     assert s1.done
     with pytest.raises(mx.base.MXNetError):

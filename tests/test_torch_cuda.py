@@ -7,7 +7,11 @@ the kernels with nvcc (a few seconds).  Tolerances: flash attention and
 the channel sums f32 atol=rtol=1e-4 (f32 sums in another order); bf16
 compared in f32 at atol=2e-2 (output rounding to bf16); the pooling
 gradients exactly, since kernel and plain version form each pixel's sum
-from the same terms in the same order.
+from the same terms in the same order.  The ``mx.rtc`` tests compile user
+CUDA C with NVRTC (MXNet 1.0's ``test_cuda_rtc`` axpy, a template through
+``exports``, a shared-memory row sum within 1e-5 of torch); with them
+``Custom`` under autograd, the fused step's refusal of it, ``all``-mode
+op spans during a graph capture, and the device-memory gauge.
 """
 import numpy as np
 import pytest
@@ -2654,3 +2658,236 @@ def test_deformable_convolution_on_the_card_matches_the_host(card, no_tf32):
     for got, want in zip(res[str(card)], res["cpu"]):
         scale = max(1.0, float(want.abs().max()))
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+# -- mx.rtc's CUDA C route, Custom, the profiler and telemetry --------------
+
+RTC_SOURCE = r'''
+extern "C" __global__ void axpy(const float *x, float *y, float alpha) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    y[i] += alpha * x[i];
+}
+
+extern "C" __global__ void saxpy(const float *x, float *y, float alpha) {
+    extern __shared__ float smem[];
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    smem[threadIdx.x] = x[i];
+    y[i] += alpha * smem[threadIdx.x];
+}
+
+extern "C" __global__ void axpy_n(const float *x, float *y, float alpha,
+                                  int n) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    if (i < n) y[i] = alpha * x[i] + y[i];
+}
+
+extern "C" __global__ void row_sum(const float *x, float *out, int cols) {
+    extern __shared__ float part[];
+    const float *row = x + (long long)blockIdx.x * cols;
+    float acc = 0.f;
+    for (int j = threadIdx.x; j < cols; j += blockDim.x) acc += row[j];
+    part[threadIdx.x] = acc;
+    __syncthreads();
+    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+        if (threadIdx.x < s) part[threadIdx.x] += part[threadIdx.x + s];
+        __syncthreads();
+    }
+    if (threadIdx.x == 0) out[blockIdx.x] = part[0];
+}
+
+template <typename T>
+__global__ void scale(const T *x, T *y, T a, int n) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    if (i < n) y[i] = a * x[i];
+}
+'''
+
+
+def test_rtc_cuda_axpy_as_mxnet_tests_it(card):
+    """MXNet 1.0's ``test_cuda_rtc``: axpy, then saxpy through dynamic
+    shared memory, at grid (1, 1, 1) and (2, 1, 1)."""
+    module = mx.rtc.CudaModule(RTC_SOURCE)
+    axpy = module.get_kernel("axpy", "const float *x, float *y, float alpha")
+    x = mx.nd.ones((10,), ctx=mx.gpu(0))
+    y = mx.nd.zeros((10,), ctx=mx.gpu(0))
+    axpy.launch([x, y, 3.0], mx.gpu(0), (1, 1, 1), (10, 1, 1))
+    assert (y.asnumpy() == 3).all()
+    saxpy = module.get_kernel("saxpy", "const float *x, float *y, "
+                                       "float alpha")
+    saxpy.launch([x, y, 4.0], mx.gpu(0), (1, 1, 1), (10, 1, 1), 10 * 4)
+    assert (y.asnumpy() == 7).all()
+    saxpy.launch([x, y, 5.0], mx.gpu(0), (2, 1, 1), (5, 1, 1), 5 * 4)
+    assert (y.asnumpy() == 12).all()
+    assert axpy.launches == 1 and saxpy.launches == 2
+
+
+def test_rtc_cuda_axpy_is_exact_without_contraction(card):
+    """``--fmad=false``: the kernel rounds ``alpha * x`` and the sum
+    apart, as torch's multiply then add do, so the result is bit for
+    bit; the default (contracted to one FMA) stays within one rounding."""
+    n = 1 << 20
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn(n, generator=g, device=card)
+    y0 = torch.randn(n, generator=g, device=card)
+    for options, exact in ((("--fmad=false",), True), ((), False)):
+        k = mx.rtc.CudaModule(RTC_SOURCE, options=options).get_kernel(
+            "axpy_n", "const float *x, float *y, float alpha, int n")
+        y = mx.nd.NDArray(y0.clone())
+        k.launch([mx.nd.NDArray(x), y, 1.7, n], mx.gpu(0),
+                 ((n + 255) // 256, 1, 1), (256, 1, 1))
+        plain = y0 + torch.tensor(1.7, device=card) * x
+        if exact:
+            assert torch.equal(y.tensor, plain)
+        else:
+            torch.testing.assert_close(y.tensor, plain, rtol=1e-6,
+                                       atol=1e-6)
+
+
+def test_rtc_cuda_template_through_exports(card):
+    mod = mx.rtc.CudaModule(RTC_SOURCE,
+                            exports=("scale<float>", "scale<double>"))
+    for dt, cname, tdt in (("float", "float32", torch.float32),
+                           ("double", "float64", torch.float64)):
+        k = mod.get_kernel("scale<%s>" % dt, "const %s *x, %s *y, %s a, "
+                           "int n" % (dt, dt, dt))
+        x = torch.arange(100, dtype=tdt, device=card)
+        y = torch.zeros(100, dtype=tdt, device=card)
+        k.launch([mx.nd.NDArray(x), mx.nd.NDArray(y), 0.5, 100], mx.gpu(0),
+                 (1, 1, 1), (128, 1, 1))
+        assert torch.equal(y, x * 0.5), cname
+    assert mod.lowered_names["scale<float>"].startswith("_Z")
+
+
+def test_rtc_cuda_shared_memory_row_sum(card):
+    rows, cols, threads = 512, 4096, 256
+    g = torch.Generator(device=card).manual_seed(1)
+    x = torch.rand(rows, cols, generator=g, device=card)
+    out = torch.empty(rows, device=card)
+    k = mx.rtc.CudaModule(RTC_SOURCE).get_kernel(
+        "row_sum", "const float *x, float *out, int cols")
+    k.launch([mx.nd.NDArray(x), mx.nd.NDArray(out), cols], mx.gpu(0),
+             (rows, 1, 1), (threads, 1, 1), shared_mem=threads * 4)
+    want = x.double().sum(1)
+    assert float(((out.double() - want).abs() / want).max()) <= 1e-5
+
+
+def test_rtc_cuda_checks_arguments(card):
+    k = mx.rtc.CudaModule(RTC_SOURCE).get_kernel(
+        "axpy", "const float *x, float *y, float alpha")
+    f64 = mx.nd.NDArray(torch.zeros(4, dtype=torch.float64, device=card))
+    f32 = mx.nd.NDArray(torch.zeros(4, device=card))
+    strided = mx.nd.NDArray(torch.zeros(8, device=card)[::2])
+    host = mx.nd.zeros((4,), ctx=mx.cpu())
+    for args, what in (([f64, f32, 1.0], "float32"),
+                       ([strided, f32, 1.0], "contiguous"),
+                       ([host, f32, 1.0], "lies on"),
+                       ([f32, f32, f32], "number"),
+                       ([f32, f32], "expects 3")):
+        with pytest.raises(mx.MXNetError, match=what):
+            k.launch(args, mx.gpu(0), (1, 1, 1), (4, 1, 1))
+    assert k.launches == 0
+
+
+def test_rtc_cuda_compile_error_carries_the_log(card):
+    mod = mx.rtc.CudaModule(
+        'extern "C" __global__ void bad(float *x) { x[0] = undeclared; }')
+    k = mod.get_kernel("bad", "float *x")
+    with pytest.raises(mx.MXNetError) as e:
+        k.launch([mx.nd.zeros((1,), ctx=mx.gpu(0))], mx.gpu(0), (1, 1, 1),
+                 (1, 1, 1))
+    assert "rtc compilation failed" in str(e.value)
+    assert "undeclared" in str(e.value) and "error" in str(e.value)
+
+
+class _CardSquare(mx.operator.CustomOp):
+    def forward(self, is_train, req, in_data, out_data, aux):
+        self.assign(out_data[0], req[0], in_data[0] ** 2)
+
+    def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+        self.assign(in_grad[0], req[0], 2 * in_data[0] * out_grad[0])
+
+
+@mx.operator.register("card_square")
+class _CardSquareProp(mx.operator.CustomOpProp):
+    def create_operator(self, ctx, shapes, dtypes):
+        return _CardSquare()
+
+
+def test_custom_under_autograd_on_the_card(card):
+    x = mx.nd.array(np.array([1.0, -2.0, 3.0], np.float32), ctx=mx.gpu(0))
+    x.attach_grad()
+    with mx.autograd.record():
+        y = mx.nd.Custom(x, op_type="card_square")
+        loss = mx.nd.sum(y * y)
+    loss.backward()
+    assert y.tensor.device == card and x.grad.tensor.device == card
+    np.testing.assert_array_equal(y.asnumpy(), [1, 4, 9])
+    # d/dx sum(x^4) = 4 x^3
+    np.testing.assert_array_equal(x.grad.asnumpy(), [4, -32, 108])
+
+
+def test_fused_step_refuses_custom_on_the_card(card):
+    from mxnet_tpu_torch.module.fused_step import FusedTrainStep
+    h = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=4,
+                              name="fc")
+    net = mx.sym.MakeLoss(mx.sym.Custom(h, op_type="card_square",
+                                        name="sq"))
+    mod = mx.mod.Module(net, context=mx.gpu(0), label_names=None)
+    mod.bind([("data", (8, 5))], None)
+    mod.init_params(mx.initializer.Xavier())
+    mod.init_optimizer()
+    why = FusedTrainStep.refusal(mod)
+    assert why is not None and "Custom" in why and "sq" in why
+    assert mod._fused_step is None
+    batch = mx.io.DataBatch([mx.nd.ones((8, 5), ctx=mx.gpu(0))], None)
+    w0 = mod.get_params()[0]["fc_weight"].asnumpy()
+    mod.forward_backward(batch)
+    mod.update()
+    assert not np.array_equal(mod.get_params()[0]["fc_weight"].asnumpy(), w0)
+
+
+def test_all_mode_op_spans_during_a_capture(card, deterministic, tmp_path):
+    """In ``all`` mode a fused step's capture records each op's span
+    without synchronizing (which would break the capture): the step still
+    captures once and replays, equal to a run with the profiler off."""
+    prof = mx.profiler
+    prof.profiler_set_config("all", str(tmp_path / "capture.json"))
+    runs = []
+    try:
+        for on in (False, True):
+            mod, batches = _graph_module("float32", batches=3)
+            if on:
+                prof.profiler_set_state("run")
+            _steps(mod, batches)
+            if on:
+                prof.profiler_set_state("stop")
+            fs = mod._fused_step
+            assert fs.captures == 1 and fs.replays == 2
+            runs.append(mod.get_params()[0])
+    finally:
+        mx.observability.tracing.set_recording(False)
+        prof.profiler_set_config("symbolic", "profile.json")
+    for k, v in runs[0].items():
+        np.testing.assert_array_equal(runs[1][k].asnumpy(), v.asnumpy())
+    import json
+    with open(tmp_path / "capture.json") as f:
+        events = json.load(f)["traceEvents"]
+    ops = [e for e in events if e["cat"] == "operator"]
+    captured = [e for e in ops if e.get("args", {}).get("capturing")]
+    assert captured and len(captured) < len(ops)
+    assert sum(e["name"] == "fused_train_step" for e in events) == 3
+
+
+def test_sample_device_memory_reads_torch_cuda(card):
+    inst = mx.observability.instrument
+    keep = torch.empty(64 << 20, dtype=torch.uint8, device=card)
+    live = inst.sample_device_memory()
+    sample = inst.last_memory_sample()
+    stats = torch.cuda.memory_stats(card)
+    assert live >= keep.numel() and live == sample["live_bytes"]
+    assert sample["peak_bytes"] >= live
+    assert live <= stats["allocated_bytes.all.current"] * \
+        torch.cuda.device_count()
+    snap = mx.observability.snapshot()
+    assert snap["device.live_bytes"]["value"] == live
+    del keep

@@ -59,6 +59,10 @@ def test_scan_covers_the_package():
                    "parallel/comm.py", "parallel/ring.py", "parallel/moe.py",
                    "parallel/pipeline.py", "parallel/train.py",
                    "module/_spmd.py", "module/sharded.py",
-                   "module/pipeline_module.py"):
+                   "module/pipeline_module.py", "operator.py", "rtc.py",
+                   "contrib/__init__.py", "contrib/tensorboard.py",
+                   "profiler.py", "observability/__init__.py",
+                   "observability/tracing.py", "observability/telemetry.py",
+                   "observability/instrument.py"):
         assert os.path.join("mxnet_tpu_torch", *module.split("/")) in names
     assert len(names) > 20

@@ -3,8 +3,9 @@
 - Every route of ``Server(serve_http=True)``: ``POST
   /v1/models/<name>:predict`` and ``/predict/<name>`` answer what
   ``submit`` answers, bit for bit (f32 survives JSON exactly);
-  ``GET /healthz`` and ``/metrics`` (the port's metrics in the Prometheus
-  text format); typed rejections map to their status (404, 400, 413).
+  ``GET /healthz`` and ``/metrics`` (the metrics registry in the
+  Prometheus text format, with the JAX package's names); typed
+  rejections map to their status (404, 400, 413).
 - ``load_model`` of a checkpoint the JAX package wrote with
   ``save_checkpoint``: its responses agree with the JAX ``Predictor`` on
   the same inputs within atol=rtol=1e-5 (f32, sums in another order).
@@ -105,9 +106,9 @@ def test_healthz_and_metrics(http_server):
     with urlreq.urlopen(base + "/metrics", timeout=30) as r:
         assert r.headers["Content-Type"].startswith("text/plain")
         prom = r.read().decode()
-    assert "# TYPE serving_requests_total counter" in prom
-    assert 'serving_request_latency_ms{quantile="0.99"}' in prom
-    assert "serving_batches " in prom
+    assert "# TYPE mxnet_tpu_serving_requests_total counter" in prom
+    assert 'mxnet_tpu_serving_request_latency_ms_bucket{le="+Inf"}' in prom
+    assert "mxnet_tpu_serving_batches " in prom
 
 
 def test_rejections_map_to_http_statuses(http_server):

@@ -150,7 +150,7 @@ def test_least_loaded_routing_shifts_load_off_slow_replica(make_fleet):
 
 
 def test_replica_quarantine_drains_not_the_server(make_fleet):
-    serving.metrics.reset()
+    mx.observability.telemetry.reset()
     fleet = make_fleet()
     fleet.warmup()
 
@@ -173,9 +173,9 @@ def test_replica_quarantine_drains_not_the_server(make_fleet):
     assert r1.healthy
     out = fleet.submit("mlp", {"data": payloads[0]}, timeout=30)
     assert out[0].shape == (8, 3)
-    counters = serving.metrics.snapshot()["counters"]
-    assert counters.get("serving.replica_quarantined", 0) >= 1
-    assert counters.get("serving.replica.1.dispatches", 0) >= 1
+    snap = mx.observability.snapshot()
+    assert snap["serving.replica_quarantined"]["value"] >= 1
+    assert snap["serving.replica.1.dispatches"]["value"] >= 1
 
 
 def test_fully_quarantined_group_rejects_typed(make_fleet):
@@ -196,7 +196,7 @@ def test_fully_quarantined_group_rejects_typed(make_fleet):
 
 
 def test_overload_shedding_is_typed_overloaded(make_fleet):
-    serving.metrics.reset()
+    mx.observability.telemetry.reset()
     fleet = make_fleet(queue_depth=2, auto_start=False)
     queued = [fleet.submit_async(
         "mlp", {"data": rng.rand(1, FEAT).astype(np.float32)})
@@ -204,8 +204,8 @@ def test_overload_shedding_is_typed_overloaded(make_fleet):
     with pytest.raises(serving.Overloaded):
         fleet.submit_async("mlp",
                            {"data": rng.rand(1, FEAT).astype(np.float32)})
-    counters = serving.metrics.snapshot()["counters"]
-    assert counters.get("serving.rejected_total.overloaded", 0) >= 1
+    snap = mx.observability.snapshot()
+    assert snap["serving.rejected_total.overloaded"]["value"] >= 1
     fleet.start()
     for f in queued:
         f.result(timeout=30)
@@ -228,18 +228,18 @@ def test_default_replicas_env(monkeypatch):
 
 
 def test_declared_slo_lands_in_the_metrics(make_fleet):
-    serving.metrics.reset()
+    mx.observability.telemetry.reset()
     fleet = make_fleet(max_batch_size=4, model="slomodel", slo_ms=123.0)
     fleet.warmup()
     for _ in range(4):
         fleet.submit("slomodel",
                      {"data": rng.rand(2, FEAT).astype(np.float32)},
                      timeout=30)
-    snap = serving.metrics.snapshot()
-    assert snap["gauges"]["serving.slo_ms.slomodel"] == 123.0
-    assert len(snap["samples"]["serving.request_latency_ms.slomodel"]) == 4
-    prom = serving.metrics.to_prometheus()
-    assert "serving_slo_ms_slomodel 123.0" in prom
+    snap = mx.observability.snapshot()
+    assert snap["serving.slo_ms.slomodel"]["value"] == 123.0
+    assert snap["serving.request_latency_ms.slomodel"]["count"] == 4
+    prom = mx.observability.telemetry.to_prometheus()
+    assert "mxnet_tpu_serving_slo_ms_slomodel 123\n" in prom
 
 
 def test_slo_env_default(monkeypatch, weights):

@@ -177,9 +177,10 @@ def test_rejections_are_typed(exported):
             server.submit("nope", _tokens(1, seed=0))
         with pytest.raises(RequestTooLarge):
             server.submit("lm", _tokens(3, seed=0))
-        counters = mx.serving.metrics.snapshot()["counters"]
-        assert counters["serving.rejected_total.model_not_found"] >= 1
-        assert counters["serving.rejected_total.request_too_large"] >= 1
+        snap = mx.observability.snapshot()
+        assert snap["serving.rejected_total.model_not_found"]["value"] >= 1
+        assert snap["serving.rejected_total.request_too_large"]["value"] \
+            >= 1
     assert _no_threads_left()
 
 
