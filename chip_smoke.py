@@ -278,21 +278,22 @@ CUDA toolkit.  Phases, each of which raises on failure:
       deterministic update ops at (2600, 650), within 1e-4.
 13. BASELINE configs 2 and 3 from files (kept for phase 14), f32 with
    TF32 off:
-   a. 640 ImageNet-like records written from ``--seed`` through the
+   a. 320 ImageNet-like records written from ``--seed`` through the
       port's ``recordio.pack_img`` (JPEG quality 95, shorter side 256,
       longer 256-384, 1000 labels, a class's smooth pattern plus noise)
       with a ``.idx``; the iterators alone in images/s (``ImageIter``, and
       ``ImageRecordIter(ctx=gpu(0))`` at ``preprocess_threads`` 1 and 4);
       ResNet-50 (``models/resnet.py``, 1000 classes) through
-      ``Module.fit`` for one epoch of 20 batches of 32 at
+      ``Module.fit`` for one epoch of 10 batches of 32 at
       ``train_imagenet.py``'s settings (SGD lr 0.1, momentum 0.9, wd
       1e-4), fed (i) by ``common/data.py:get_rec_iter``'s ``ImageIter``
       call and (ii) by MXNet 1.0's ``ImageRecordIter(preprocess_threads=
       4, ctx=gpu(0))``: the fused step carries each fit, 102
       ``bn_channel_sums``, 1 max- and 1 avg-pool backward a step, ms per
       step, images/s and the step's wait on ``next()``, a profiled
-      iteration of run (ii) in a process of its own (``--rec-profile``,
-      its device launches equal to the replay's); the native reader
+      iteration of run (ii) in a process of its own, which 13b's profile
+      shares once the CIFAR files exist (``--file-profiles``, its device
+      launches equal to the replay's); the native reader
       and engine were the ones used; the first 3 batches on the card
       equal the host's at 4 and 1 threads bit for bit; the first 3 steps
       against the host by phase 4's rule, each from the host run's state
@@ -306,21 +307,22 @@ CUDA toolkit.  Phases, each of which raises on failure:
       wd 1e-4)``, one epoch of 195 steps: ms per step and images/s, the
       loader's time apart, train accuracy above chance, 38
       ``bn_channel_sums`` and 1 ``avg_pool_backward`` a step, a profiled
-      iteration's busy share in a process of its own (``--cifar-
-      profile``), the first 3 steps against the host by phase 4's rule,
+      iteration's busy share in the process of 13a's profile
+      (``--file-profiles``), the first 3 steps against the host by phase
+      4's rule,
       each from the host run's state before it (a step in which a ReLU
       unit flips between card and host held to 5e-2);
    c. the deterministic image ops through ``check_consistency`` over
       [cpu(0), gpu(0)] at (128, 3, 32, 32) / (128, 32, 32, 3) and HWC
       (224, 224, 3) within 1e-6; the random ones by their moments over
-      10,000 draws of a 2x2 image (6 standard errors).
+      5,000 draws of a 2x2 image (6 standard errors).
 14. Data input through ``mx.io_pipeline`` and detection data, f32 with
    TF32 off, over phase 13's files:
    a. BASELINE config 2's ResNet-50 (13a's symbol and settings) through
       ``Module.fit(train_data=Pipeline(...))``: ``RecordFileSource`` over
       13a's records, ``ImageRecordDecoder`` with a random 224 crop, a
       random mirror and ImageNet's mean and std, shuffled from ``--seed``;
-      one epoch of 20 batches of 32 with 4 thread workers, then one with
+      one epoch of 10 batches of 32 with 4 thread workers, then one with
       4 spawn-process workers.  The host batches of both modes bit for bit
       the 1-worker run's; every batch the steps read on the card bit for
       bit its host batch; 102 ``bn_channel_sums``, 1 max- and 1 avg-pool
@@ -411,7 +413,7 @@ CUDA toolkit.  Phases, each of which raises on failure:
       busy share, peak memory, the collectives' count and span a step
       (BatchNorm psums, gradient psums, tp all-gathers), the launches a
       step (the single-context path's, twice);
-   b. a stack of 12 GPT-2-small blocks (pre-LN as ``transformer_lm_
+   b. a stack of 6 GPT-2-small blocks (pre-LN as ``transformer_lm_
       symbol`` writes them: LN, causal ``multi_head_attention`` with 12
       heads, +x, LN, exact-GELU FFN to 3072, +x) through
       ``mx.mod.PipelineModule`` with an embedding-plus-positions stem
@@ -570,16 +572,52 @@ CUDA toolkit.  Phases, each of which raises on failure:
       child process, ``start_jax_trace``/``stop_jax_trace`` around two
       steps of a BatchNorm and pooling net, whose torch.profiler trace
       must hold the hand kernels' device events.
-22. The ``kernels`` JSON line (each kernel's record with its launches on
+22. The health sentinel, the flight recorder and memprof on one card, f32
+   with TF32 off, inputs from ``--seed``:
+   a. phase 4's ResNet-50 v2 at batch 32 through ``Module.fit`` on the
+      fused step, first with ``MXNET_TPU_HEALTH`` off (the parent's graph:
+      102/1/1 launches, no ``health.*`` series), then on with
+      ``MXNET_TPU_MEMPROF=1`` over 4 batches whose fourth holds a NaN
+      image: each step's in-graph vector (the eager step's, then the
+      replays') within 1e-5 relative of its float64 recomputation from the
+      same step's outputs, gradients and masters; ``TrainingDivergedError``
+      at step 3 after exactly one flight dump whose steps run 0-3; one
+      plan build and one capture, whose record's graph-pool bytes equal
+      the allocator's segments of the graph's pool; the replay's and the
+      step's ms, device kernels and device ms a replay, off and on; then
+      the general path over ``[gpu(0)] * 2`` at batch 2: each executor's
+      vector against its recomputation, the module's against ``combine``;
+   b. the zoo TransformerLM at GPT-2 small's widths with a per-token
+      softmax through ``Module.fit`` at batch 8 x 1024, 4 steps under the
+      sentinel: the first 8 of its 12 attention nodes' taps within 1e-5
+      of scale x max||q|| x max||k|| recomputed in float64 from each
+      node's inputs (a monitored forward from the step's weights), 12
+      flash LSE launches a step; ms a step with the taps off and on;
+   c. in a child process, started during 22a-b and handed its batch
+      after them: ResNet-50's general-path step at twice the card's
+      capacity at 22a's peak an image (at least 1,024 images) runs out of
+      memory twice and through ``fit`` under the sentinel:
+      ``torch.cuda.OutOfMemoryError`` each time, unchanged, after exactly
+      one dump, never overwritten; the dump's memory section (program
+      records, the census and its largest group, ``device_memory`` with
+      the card's total as ``bytes_limit``);
+   d. phase 3's GPT-2-small ``Server`` under the sentinel and memprof
+      beside the symbol zoo's MLP with an inf planted in ``fc3_weight``:
+      ``warmup()``'s memory section (the card's total, the headroom), 8
+      finite GPT-2-small responses, 4 non-finite ones shipped and counted
+      exactly (``serving.nonfinite_responses``, ``serving_nonfinite``
+      notes); phase 10's paged decoder's ``KVBlockPool`` row at 8 streams
+      equal to the pool's own count, gone after ``close``.
+23. The ``kernels`` JSON line (each kernel's record with its launches on
    every path, phase 10's five and the MLP's with 0 of each, LeNet's with
    2 max-pool backwards a step, DCGAN's with 26 channel sums an
    iteration, phase 13's two paths, and its bf16/f16/f64, head_dim 32,
    LeNet, DCGAN, ResNet-18 and LeNet-STN instances; phase 14's paths;
    phase 15's three; phase 16's three, with 0 of each; phase 17's two;
-   phase 18's four; phase 19's two; phase 20's three), after a line of
-   the same keys for the hand kernels with no TPU counterpart
-   (``box_nms`` with its Proposal instance, ``deformable_im2col``), then
-   the result line.
+   phase 18's four; phase 19's two; phase 20's three; phase 22's three),
+   after a line of the same keys for the hand kernels with no TPU
+   counterpart (``box_nms`` with its Proposal instance,
+   ``deformable_im2col``), then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is not beside this script.
@@ -6009,8 +6047,8 @@ def train_dcgan_phase(mx, seed):
 # BASELINE config 2: examples/image-classification/train_imagenet.py at its
 # settings (ResNet-50 of models/resnet.py, 1000 classes, 3x224x224, batch
 # 32, SGD lr 0.1, momentum 0.9, wd 1e-4).  Cut: num_examples 1,281,167 ->
-# 640 written records, one epoch of 20 batches.
-REC_IMAGES = 640
+# 320 written records, one epoch of 10 batches.
+REC_IMAGES = 320
 REC_BATCH = 32
 REC_CLASSES = 1000
 REC_SHAPE = (3, 224, 224)
@@ -6043,8 +6081,8 @@ CIFAR_HOST_BATCH = 8          # images of each card-vs-host step
 RESNET18_BN_SHAPES = ((128, 64, 32, 32), (128, 128, 16, 16),
                       (128, 256, 8, 8), (128, 512, 4, 4))
 RESNET18_POOL = (128, 512, 4, 4)
-IMAGE_OP_DRAWS = 10000        # random image ops: draws (calls) of each
-IMAGE_OP_GRAPH_CALLS = 1000   # of them in one captured CUDA graph
+IMAGE_OP_DRAWS = 5000         # random image ops: draws (calls) of each
+IMAGE_OP_GRAPH_CALLS = 500    # of them in one captured CUDA graph
 IMAGE_OP_SIGMAS = 6.0
 IMAGE_OP_TOL = 1e-6
 
@@ -6501,21 +6539,6 @@ def rec_host_steps(mx, symbol, arg0, aux0, images, labels, seed,
     teacher_forced_steps(tag, run, states, batches, seed)
 
 
-def rec_profile_apart(seed, root):
-    """Runs ``rec_profile_child`` in a process of its own (as phase 6 does:
-    late in this process torch.profiler loses kernel records) and passes
-    its lines on; raises when it fails."""
-    child = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
-         "--rec-profile", root], capture_output=True, text=True,
-        timeout=600)
-    sys.stdout.write(child.stdout)
-    if child.returncode != 0:
-        sys.stdout.write(child.stderr[-4000:])
-        raise AssertionError("the profiled .rec step failed (exit %d)"
-                             % child.returncode)
-
-
 def rec_profile_child(mx, seed, root):
     """``--rec-profile ROOT``: run (ii) of 13a on ``ROOT/train.rec``: 3
     steps, then one iteration (``next()`` of ``ImageRecordIter(
@@ -6590,7 +6613,6 @@ def train_imagenet_rec(mx, seed, root):
             per_step)
     launches = K.launch_counts()
     it.close()
-    rec_profile_apart(seed, root)
     used = {k: io_native.OPENED[k] - opened[k] for k in opened}
     print("rec: the runs' native readers %d, engines %d, native decode "
           "chain calls %d (it builds where OpenCV's headers exist: %s); "
@@ -6742,26 +6764,35 @@ def train_cifar(mx, seed, root):
     if not last >= CIFAR_MIN_ACC:
         raise AssertionError("cifar: train accuracy %.4f over the last %d "
                              "steps, not above chance" % (last, CIFAR_LAST))
-    cifar_profile_apart(seed, root)
+    file_profiles_apart(seed, os.path.dirname(root))
     cifar_host_steps(mx, seed, root)
     return launches
 
 
-def cifar_profile_apart(seed, root):
-    """Runs ``cifar_profile_child`` in a process of its own (as phase 6
-    does) and passes its lines on."""
+def file_profiles_apart(seed, root):
+    """Runs ``rec_profile_child`` on ``ROOT/train.rec`` and then
+    ``cifar_profile_child`` on ``ROOT/cifar`` in one process of its own (as
+    phase 6 does: late in this process torch.profiler loses kernel
+    records; one process start serves both) and passes its lines on."""
     t0 = time.perf_counter()
     child = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
-         "--cifar-profile", root], capture_output=True, text=True,
+         "--file-profiles", root], capture_output=True, text=True,
         timeout=900)
     sys.stdout.write(child.stdout)
     if child.returncode != 0:
         sys.stdout.write(child.stderr[-4000:])
-        raise AssertionError("the profiled CIFAR step failed (exit %d)"
-                             % child.returncode)
-    print("cifar: profiled step in a process of its own: %.1f s"
+        raise AssertionError("the profiled .rec and CIFAR steps failed "
+                             "(exit %d)" % child.returncode)
+    print("rec, cifar: profiled steps in one process of their own: %.1f s"
           % (time.perf_counter() - t0))
+
+
+def file_profiles_child(mx, seed, root):
+    """``--file-profiles ROOT``: 13a's profiled replay, then 13b's
+    profiled iteration."""
+    rc = rec_profile_child(mx, seed, root)
+    return rc or cifar_profile_child(mx, seed, os.path.join(root, "cifar"))
 
 
 def cifar_profile_child(mx, seed, root):
@@ -8599,19 +8630,27 @@ def dp4_loss(cfg=MESH_LM):
     return loss_fn
 
 
-def _with_env(env, fn):
-    saved = {k: os.environ.get(k) for k in COMM_ENV}
-    for k in COMM_ENV:
+@contextlib.contextmanager
+def _env(env, keys):
+    """The environment ``env`` for a block, every other one of ``keys``
+    unset; restored afterwards."""
+    saved = {k: os.environ.get(k) for k in keys}
+    for k in keys:
         os.environ.pop(k, None)
     os.environ.update(env)
     try:
-        return fn()
+        yield
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def _with_env(env, fn):
+    with _env(env, COMM_ENV):
+        return fn()
 
 
 def dp4_run(mx, tag, params, batch, env, steps):
@@ -8798,10 +8837,11 @@ SHARD_BATCH = 32              # the single-context paths' batch
 SHARD_STEPS = 5               # the first is warm-up for the medians
 SHARD_CHECKED = 2             # steps held to the plain Module
 MODULE_REL = 1e-3             # phase 4's rule: max(1e-3, 4 x the floor)
-# GPT-2 small's published widths (GPT2S) as pipeline stages: the 12 blocks
-# of the LM, each a stage; batch 8 as phase 5; SGD as phase 16
+# GPT-2 small's published widths (GPT2S) as pipeline stages: 6 of the LM's
+# 12 blocks (the depth cut to keep the script's time), each a stage; batch
+# 8 as phase 5; SGD as phase 16
 PIPE_GPT = dict(vocab=50257, d_model=768, heads=12, seq=1024, ffn=3072,
-                stages=12, batch=8, lr=0.01, momentum=0.9)
+                stages=6, batch=8, lr=0.01, momentum=0.9)
 PIPE_SIZES = dict(dp=2, pp=2)
 PIPE_STEPS = 4
 PIPE_CHECKED = 2
@@ -11805,6 +11845,684 @@ def train_custom_rtc_profile(mx, seed, root):
     print("phase 21 parts done in %.1f s" % (time.perf_counter() - clock))
 
 
+# -- phase 22: the health sentinel, the flight recorder and memprof -----------
+
+HEALTH_NAN_BATCH = 3      # 22a: the batch whose first image is NaN
+HEALTH_REL = 1e-5         # 22a: the in-graph vector against its recomputation
+HEALTH_DP_BATCH = 2       # 22a: the general path over [gpu(0)] * 2
+HEALTH_TIMED = 5          # steps timed with the sentinel on and off
+TAPS_STEPS = 4            # 22b: GPT-2-small Module LM steps under the taps
+TAPS_TIMED = 3
+TAP_REL = 1e-5
+OOM_MIN_BATCH = 1024      # 22c: at least this many images
+POISONED_REQUESTS = 4     # 22d: requests to the model with an inf planted
+HEALTH_DECODE_PROMPT = (17, 48)   # 22d: the 8 streams' prompt tokens
+HEALTH_DECODE_NEW = 8
+HEALTH_ENV = ("MXNET_TPU_HEALTH", "MXNET_TPU_MEMPROF",
+              "MXNET_TPU_FLIGHT_PATH")
+
+
+def health_env(health=None, memprof=None, flight_path=None):
+    """The sentinel's environment for a block (``HEALTH_ENV``: each set
+    from its argument, or unset when it is None)."""
+    values = (health, memprof, flight_path)
+    return _env({k: str(v) for k, v in zip(HEALTH_ENV, values)
+                 if v is not None}, HEALTH_ENV)
+
+
+def plain_health(layout, outs, params, grads, new=None):
+    """The packed health vector recomputed eagerly on the card in float64,
+    slot by slot as ``health.pack_summary`` defines it, from the step's
+    outputs, parameters (before the update), gradients and, for the exact
+    update ratio, the parameters after it (else the slot is -1)."""
+    import torch
+
+    def l2(ts):
+        return float(torch.stack([t.double().square().sum()
+                                  for t in ts]).sum().sqrt())
+    mask = sum(float(1 << i) for i, o in enumerate(outs[:layout.n_outputs])
+               if bool(torch.isfinite(o).all()))
+    pn = l2(params)
+    ratio = -1.0 if new is None else \
+        l2([a.double() - b.double() for a, b in zip(new, params)]) \
+        / max(pn, 1e-12)
+    maxes = [float(torch.stack([g.double().abs().max()
+                                for g in grads[a:b]]).max())
+             for _, a, b in layout.groups]
+    return np.array([mask, float(outs[0].double().mean()), l2(grads), pn,
+                     ratio] + maxes)
+
+
+def vector_gap(got, want):
+    """Largest relative gap over the slots; NaN in both is agreement, NaN
+    in one of them is an infinite gap."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    both = np.isnan(got) & np.isnan(want)
+    gap = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    gap[both] = 0.0
+    gap[np.isnan(gap)] = np.inf
+    return float(gap.max())
+
+
+def _count_dumps(recorder):
+    """Wrap ``recorder.dump``: the returned list collects each dump's
+    reason."""
+    reasons, real = [], recorder.dump
+
+    def dump(path=None, reason="on_demand", sections=None):
+        reasons.append(reason)
+        return real(path=path, reason=reason, sections=sections)
+    recorder.dump = dump
+    return reasons
+
+
+def _pool_segments(pool):
+    """Reserved bytes of the allocator's segments in a CUDA graph's pool
+    (``torch.cuda.memory_snapshot``)."""
+    import torch
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == tuple(pool))
+
+
+def health_resnet50(mx, seed, root):
+    """22a.  Returns (the sentinel's fit's launches, ResNet-50's peak bytes
+    at batch 32)."""
+    import torch
+    from mxnet_tpu_torch import executor_cache
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.observability import (flight_recorder, health,
+                                               memprof, telemetry)
+    from mxnet_tpu_torch.ops import kernels as K
+
+    symbol = resnet.get_symbol(**RESNET)
+    per_step = expected_train_launches(symbol)
+    rng = np.random.default_rng(seed + 220)
+    n = TRAIN_BATCH * TRAIN_BATCHES
+    shape = tuple(int(d) for d in RESNET["image_shape"].split(","))
+    images = rng.random((n,) + shape, dtype=np.float32)
+    labels = rng.integers(0, RESNET["num_classes"], n).astype(np.float32)
+    poisoned = images.copy()
+    poisoned[HEALTH_NAN_BATCH * TRAIN_BATCH] = np.nan
+
+    # the flag off: the parent's graph, nothing of the sentinel
+    clock = time.perf_counter()
+    with health_env():
+        telemetry.reset()
+        torch.cuda.reset_peak_memory_stats()
+        mod_off = mx.mod.Module(symbol, context=mx.gpu(0))
+        it = mx.io.NDArrayIter(images[:2 * TRAIN_BATCH],
+                               labels[:2 * TRAIN_BATCH],
+                               batch_size=TRAIN_BATCH)
+        mod_off.bind(it.provide_data, it.provide_label)
+        mx.random.seed(seed)
+        mod_off.init_params(mx.initializer.Xavier(
+            rnd_type="gaussian", factor_type="in", magnitude=2))
+        arg0, aux0 = ({k: v.asnumpy().copy() for k, v in t.items()}
+                      for t in mod_off.get_params())
+        mod_off.fit(it, num_epoch=1, optimizer_params=SGD, eval_metric="ce")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        fs_off = mod_off._fused_step
+        series = [k for k in telemetry.snapshot() if k.startswith("health.")]
+        if fs_off is None or fs_off.captures != 1 \
+                or fs_off.graph_launches != per_step or series \
+                or fs_off.last_health is not None:
+            raise AssertionError(
+                "health off: the graph's launches %s (the parent's %s), "
+                "health series %s" % (fs_off and fs_off.graph_launches,
+                                      per_step, series))
+        it.reset()
+        batch = next(it)
+        step_off = time_steps(mod_off, batch, steps=HEALTH_TIMED)
+        replay_off = time_ms(fs_off.graph.replay, reps=HEALTH_TIMED)
+        dev_off = device_ms_per_call(fs_off.graph.replay, calls=2)
+    del mod_off, fs_off
+    _release()
+    parts = {"off": time.perf_counter() - clock}
+
+    # the flag on, memprof on: batch HEALTH_NAN_BATCH holds a NaN image
+    dump_path = os.path.join(root, "health_flight.json")
+    arg_nd, _ = mx.convert.params_from_numpy(arg0, mx.cpu())
+    aux_nd, _ = mx.convert.params_from_numpy(aux0, mx.cpu())
+    gaps, raised = [], None
+    with health_env(health=1, memprof=1, flight_path=dump_path):
+        flight_recorder.reset()
+        memprof.reset()
+        dumps = _count_dumps(flight_recorder.get_recorder())
+        misses0 = executor_cache.stats()["misses"]
+        mod_on = mx.mod.Module(symbol, context=mx.gpu(0))
+        it = mx.io.NDArrayIter(poisoned, labels, batch_size=TRAIN_BATCH)
+
+        def check(param):
+            step, summary = mod_on._last_health_summary
+            fs = mod_on._fused_step
+            grads, old = fs.health_inputs
+            want = plain_health(fs.health_layout,
+                                [o.tensor for o in mod_on.get_outputs()],
+                                old, grads, new=fs._masters)
+            got = [summary[s] for s in fs.health_layout.slots]
+            gaps.append((step, vector_gap(got, want), got[0], got[2]))
+
+        K.reset_launch_counts()
+        try:
+            mod_on.fit(it, num_epoch=1, arg_params=arg_nd,
+                       aux_params=aux_nd, optimizer_params=SGD,
+                       eval_metric="ce", batch_end_callback=check)
+        except health.TrainingDivergedError as exc:
+            raised = exc
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        fs_on = mod_on._fused_step
+        records = memprof.program_records()
+        misses = executor_cache.stats()["misses"] - misses0
+        pool_bytes = _pool_segments(fs_on.graph.pool())
+        mod_on.set_params(arg_nd, aux_nd)
+        step_on = time_steps(mod_on, batch, steps=HEALTH_TIMED)
+        replay_on = time_ms(fs_on.graph.replay, reps=HEALTH_TIMED)
+        dev_on = device_ms_per_call(fs_on.graph.replay, calls=2)
+    print("health resnet50: the in-graph vector of each step against its "
+          "plain recomputation on the card: %s (largest relative gap; "
+          "finite_mask, grad_norm); card %s"
+          % ("; ".join("step %d %.3g (%g, %.6g)" % g for g in gaps),
+             card_line()))
+    if raised is None or raised.step != HEALTH_NAN_BATCH \
+            or raised.dump_path != dump_path:
+        raise AssertionError("health resnet50: the NaN batch %d raised %r"
+                             % (HEALTH_NAN_BATCH, raised))
+    if [g[0] for g in gaps] != list(range(HEALTH_NAN_BATCH + 1)) \
+            or max(g[1] for g in gaps) > HEALTH_REL:
+        raise AssertionError("health resnet50: steps %s, gaps over %g"
+                             % (gaps, HEALTH_REL))
+    doc = json.load(open(dump_path))
+    if dumps != ["anomaly_nonfinite"] \
+            or doc["first_anomaly_step"] != HEALTH_NAN_BATCH \
+            or [s["step"] for s in doc["steps"]] \
+            != list(range(HEALTH_NAN_BATCH + 1)):
+        raise AssertionError(
+            "health resnet50: dumps %s, first anomaly %s, steps %s"
+            % (dumps, doc["first_anomaly_step"],
+               [s["step"] for s in doc["steps"]]))
+    want_launches = {k: v * (HEALTH_NAN_BATCH + 1) for k, v in per_step.items()}
+    if {k: launches[k] for k in per_step} != want_launches \
+            or fs_on.graph_launches != per_step or fs_on.captures != 1:
+        raise AssertionError("health resnet50: launches %s, graph %s"
+                             % (launches, fs_on.graph_launches))
+    kinds = [r["kind"] for r in records]
+    cap = [r for r in records if r["kind"] == "fused_step"]
+    if misses != 1 or kinds != ["fwd_bwd", "fused_step"] \
+            or cap[0]["memory"]["graph_pool_bytes"] != pool_bytes \
+            or not cap[0]["memory"]["warmup_peak_bytes"]:
+        raise AssertionError(
+            "health resnet50: %d plan builds, records %s, graph pool %s "
+            "against the allocator's %d"
+            % (misses, kinds, cap and cap[0]["memory"], pool_bytes))
+    mem = cap[0]["memory"]
+    print("health resnet50: NaN in batch %d raised TrainingDivergedError at "
+          "step %d after %s; the dump's steps %s, first anomaly %d; %d plan "
+          "build and %d capture with the flag on (records %s); capture "
+          "%.1f ms, graph pool %.1f MB (the allocator's segments of the "
+          "pool %.1f MB), warm-up step's peak %.1f MB, arguments %.1f MB"
+          % (HEALTH_NAN_BATCH, raised.step, dumps,
+             [s["step"] for s in doc["steps"]], doc["first_anomaly_step"],
+             misses, fs_on.captures, kinds, cap[0]["compile_ms"],
+             mem["graph_pool_bytes"] / 1e6, pool_bytes / 1e6,
+             mem["warmup_peak_bytes"] / 1e6, mem["argument_bytes"] / 1e6))
+    print("health resnet50: replay ms (CUDA events, one replay) off %.3f, on "
+          "%.3f (+%.3f); step ms (synchronized, median of %d) off %.2f, on "
+          "%.2f; device kernels a replay off %s, on %s; device ms a replay "
+          "off %s, on %s; hand-kernel launches a step %s either way; peak "
+          "memory at batch %d %.2f GB; card %s"
+          % (replay_off, replay_on, replay_on - replay_off, HEALTH_TIMED,
+             step_off, step_on,
+             "not measured" if dev_off is None else "%.0f" % dev_off[1],
+             "not measured" if dev_on is None else "%.0f" % dev_on[1],
+             "not measured" if dev_off is None else "%.3f" % dev_off[0],
+             "not measured" if dev_on is None else "%.3f" % dev_on[0],
+             per_step, TRAIN_BATCH, peak / 1e9, card_line()))
+    del mod_on, fs_on
+    _release()
+    parts["on"] = time.perf_counter() - clock - parts["off"]
+
+    # the general path over [gpu(0)] * 2: each executor's vector against
+    # its recomputation, the module's against combine over the two
+    with health_env(health=1):
+        mod = mx.mod.Module(symbol, context=[mx.gpu(0), mx.gpu(0)])
+        mod.bind([("data", (HEALTH_DP_BATCH,) + shape)],
+                 [("softmax_label", (HEALTH_DP_BATCH,))])
+        mod.init_params(arg_params=arg_nd, aux_params=aux_nd)
+        mod.init_optimizer(kvstore="local", optimizer="sgd",
+                           optimizer_params=SGD)
+        if mod._fused_step is not None:
+            raise AssertionError("health resnet50: [gpu(0)] * 2 under "
+                                 "'local' took the fused step")
+        mod.forward_backward(mx.io.DataBatch(
+            [mx.nd.array(images[:HEALTH_DP_BATCH], ctx=mx.cpu())],
+            [mx.nd.array(labels[:HEALTH_DP_BATCH], ctx=mx.cpu())]))
+        vecs, gaps = [], []
+        for exe in mod._exec_group.execs:
+            vec = exe._last_health.cpu().numpy()
+            names = exe._grad_names
+            want = plain_health(
+                exe.health_layout, [o.tensor for o in exe.outputs],
+                [exe.arg_dict[k].tensor for k in names],
+                [exe.grad_dict[k].tensor for k in names])
+            gaps.append(vector_gap(vec, want))
+            vecs.append(vec)
+        combined, layout = mod._take_health_vector()
+        mod.update()
+    want = health.combine(vecs, layout)
+    print("health resnet50: general path over [gpu(0)] * 2 at batch %d: "
+          "each executor's vector against its recomputation %s; the "
+          "module's combined vector %s combine() of the two"
+          % (HEALTH_DP_BATCH, ", ".join("%.3g" % g for g in gaps),
+             "equals" if np.array_equal(combined, want) else "DIFFERS from"))
+    if max(gaps) > HEALTH_REL or not np.array_equal(combined, want):
+        raise AssertionError("health resnet50: the general path's vectors")
+    del mod
+    _release()
+    parts["general"] = time.perf_counter() - clock - sum(parts.values())
+    print("health resnet50: s of the flag-off run %.1f, the flag-on run "
+          "%.1f, the general path %.1f" % (parts["off"], parts["on"],
+                                          parts["general"]))
+    return launches, peak
+
+
+def _logit_bounds(query, key, wq, bq, wk, bk, heads):
+    """scale * max_row ||q|| * max_row ||k|| of one attention node, in
+    float64 from its inputs."""
+    b, s, e = query.shape
+    d = e // heads
+    q = (query.double() @ wq.double().t() + bq.double()).reshape(b, s,
+                                                                 heads, d)
+    k = (key.double() @ wk.double().t() + bk.double()).reshape(b, s,
+                                                               heads, d)
+    return float(q.norm(dim=-1).max() * k.norm(dim=-1).max()) / d ** 0.5
+
+
+def health_lm_taps(mx, seed):
+    """22b.  Returns the taps' fit's launches and the GPT-2-small weights
+    (numpy, from ``seed``)."""
+    import torch
+    from mxnet_tpu_torch.observability import health
+    from mxnet_tpu_torch.ops import kernels as K
+
+    class Tokens(mx.metric.EvalMetric):
+        """Counts the label tokens: a metric that copies no [8, 1024,
+        50257] output to the host."""
+
+        def __init__(self):
+            super().__init__("tokens")
+
+        def update(self, labels, preds):
+            self.sum_metric += sum(int(l.size) for l in labels)
+            self.num_inst += 1
+
+    logits, symbol = overlap_lm(mx)
+    arrays = gpt2s_params(logits, seed)
+    rng = np.random.default_rng(seed + 221)
+    seq, vocab = GPT2S["seq_len"], GPT2S["vocab_size"]
+    n = OVERLAP_BATCH * TAPS_STEPS
+    tokens = rng.integers(0, vocab, (n, seq)).astype(np.float32)
+    targets = rng.integers(0, vocab, (n, seq)).astype(np.float32)
+    arg_nd, _ = mx.convert.params_from_numpy(arrays, mx.cpu())
+
+    def fitted(steps):
+        it = mx.io.NDArrayIter(tokens[:OVERLAP_BATCH * steps],
+                               targets[:OVERLAP_BATCH * steps],
+                               batch_size=OVERLAP_BATCH)
+        mod = mx.mod.Module(symbol, context=mx.gpu(0))
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(arg_params=arg_nd)
+        return mod, it
+
+    with health_env():
+        mod, it = fitted(2)
+        mod.fit(it, num_epoch=1, optimizer_params=OVERLAP_SGD,
+                eval_metric=Tokens())
+        it.reset()
+        batch = next(it)
+        ms_off = time_steps(mod, batch, steps=TAPS_TIMED, warmup=1)
+    del mod
+    _release()
+    with health_env(health=1):
+        mod, it = fitted(TAPS_STEPS)
+        exe = mod._exec_group.execs[0]
+        snaps = [{k: v.tensor.clone() for k, v in exe.arg_dict.items()
+                  if k in arrays}]
+        vectors = []
+        take = mod._take_health_vector
+
+        def take_raw():
+            got = take()
+            vectors.append(np.array(got[0]))
+            return got
+        mod._take_health_vector = take_raw
+
+        def snapshot(param):
+            snaps.append({k: v.tensor.clone()
+                          for k, v in exe.arg_dict.items() if k in arrays})
+        K.reset_launch_counts()
+        mod.fit(it, num_epoch=1, optimizer_params=OVERLAP_SGD,
+                eval_metric=Tokens(), batch_end_callback=snapshot)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        layout = mod._fused_step.health_layout
+        it.reset()
+        batch = next(it)
+        ms_on = time_steps(mod, batch, steps=TAPS_TIMED, warmup=1)
+    del mod, exe
+    _release()
+    taps = [s for s in layout.slots if s.startswith("max_abs_attn_logit/")]
+    if len(taps) != health.MAX_TAPS or len(vectors) != TAPS_STEPS:
+        raise AssertionError("lm taps: %d tap slots, %d vectors"
+                             % (len(taps), len(vectors)))
+    # each step's bounds, recomputed from the attention nodes' inputs
+    check = logits.simple_bind(mx.gpu(0), grad_req="null",
+                               data=(OVERLAP_BATCH, seq))
+    seen = {}
+
+    def grab(name, arr):
+        if name.startswith("attn_"):
+            seen.setdefault(name[len("attn_"):], []).append(arr.tensor)
+    check.set_monitor_callback(grab, monitor_all=True)
+    gaps = []
+    for s in range(TAPS_STEPS):
+        seen.clear()
+        with torch.no_grad():
+            for k, v in snaps[s].items():
+                check.arg_dict[k].tensor.copy_(v)
+        check.forward(is_train=False, data=mx.nd.array(
+            tokens[s * OVERLAP_BATCH:(s + 1) * OVERLAP_BATCH], ctx=mx.cpu()))
+        want = [_logit_bounds(*(seen[k][i] for k in (
+            "query", "key", "query_weight", "query_bias", "key_weight",
+            "key_bias")), GPT2S["num_heads"])
+            for i in range(health.MAX_TAPS)]
+        got = vectors[s][-health.MAX_TAPS:]
+        gaps.append(vector_gap(got, want))
+        if s == 0:
+            first = (got, want)
+    del check, snaps
+    _release()
+    lse = launches.get("flash_attn_fwd_lse", 0)
+    print("lm taps: GPT-2-small Module LM, batch %d x %d, %d steps under the "
+          "sentinel: the %d attention taps of each step against scale * "
+          "max||q|| * max||k|| recomputed in float64 from the nodes' inputs: "
+          "largest relative gap %s (step 0: %s against %s); flash LSE "
+          "launches %d (%d a step); ms a step (median of %d) taps off %.2f, "
+          "on %.2f; card %s"
+          % (OVERLAP_BATCH, seq, TAPS_STEPS, len(taps),
+             ", ".join("%.3g" % g for g in gaps),
+             ", ".join("%.4f" % v for v in first[0][:3]),
+             ", ".join("%.4f" % v for v in first[1][:3]), lse,
+             lse // TAPS_STEPS, TAPS_TIMED, ms_off, ms_on, card_line()))
+    if max(gaps) > TAP_REL or lse != GPT2S["num_layers"] * TAPS_STEPS:
+        raise AssertionError("lm taps: gaps %s, LSE launches %d"
+                             % (gaps, lse))
+    return launches, arrays
+
+
+def oom_child(mx, seed, batch):
+    """22c's child: ResNet-50's general-path step at ``batch`` images must
+    run out of the card's memory; checks the black box and prints its
+    findings as one JSON line.  Exit code 0 only when all hold."""
+    import torch
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.observability import flight_recorder
+
+    symbol = resnet.get_symbol(**RESNET)
+    shape = tuple(int(d) for d in RESNET["image_shape"].split(","))
+    recorder = flight_recorder.get_recorder()
+    dumps = _count_dumps(recorder)
+    caught = []
+    exe = symbol.simple_bind(mx.gpu(0), grad_req="write",
+                             data=(batch,) + shape, softmax_label=(batch,))
+    for _ in range(2):
+        try:
+            exe.forward_backward(is_train=True)
+            torch.cuda.synchronize()
+            caught.append(None)
+        except Exception as exc:  # noqa: BLE001 -- its type is the check
+            caught.append((type(exc).__name__, "CUDA out of memory"
+                           in str(exc), getattr(exc, "_mxtpu_oom_recorded",
+                                                False)))
+    del exe
+    torch.cuda.empty_cache()
+    after_two = list(dumps)
+    # the fit loop's hook under the sentinel: no second dump over the first
+    rng = np.random.default_rng(seed + 222)
+    it = mx.io.NDArrayIter(
+        np.zeros((batch,) + shape, np.float32),
+        rng.integers(0, 1000, batch).astype(np.float32), batch_size=batch)
+    fit_exc = None
+    try:
+        mx.mod.Module(symbol, context=mx.gpu(0)).fit(
+            it, num_epoch=1, optimizer_params=SGD)
+    except Exception as exc:  # noqa: BLE001 -- its type is the check
+        fit_exc = type(exc).__name__
+    out = {"batch": batch, "caught": caught, "dumps_after_two": after_two,
+           "dumps": dumps, "fit_exception": fit_exc,
+           "oom_anomalies": recorder.anomaly_count("oom"),
+           "card_total": torch.cuda.mem_get_info()[1]}
+    print("oom child: %s" % json.dumps(out))
+    ok = (all(c is not None and c[0] == "OutOfMemoryError" and c[1] and c[2]
+              for c in caught) and after_two == ["oom"] and dumps == ["oom"]
+          and fit_exc == "OutOfMemoryError" and out["oom_anomalies"] == 3)
+    return 0 if ok else 1
+
+
+def oom_blackbox_start(seed, root):
+    """22c's child, started while 22a-b run: it imports torch and the
+    package (the few seconds a process takes to start) and then waits for
+    its batch on stdin before it touches the card, so that this process's
+    allocator is untouched."""
+    env = dict(os.environ, MXNET_TPU_FLIGHT_PATH=os.path.join(
+        root, "oom_flight.json"), MXNET_TPU_MEMPROF="1", MXNET_TPU_HEALTH="1")
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--oom-child",
+         "--seed", str(seed)], env=env, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def oom_blackbox_finish(child, root, peak):
+    """22c: hand the started child its batch, twice what the card holds at
+    ResNet-50's measured peak an image (at least OOM_MIN_BATCH), and check
+    what it and its dump say."""
+    import torch
+    total = torch.cuda.mem_get_info()[1]
+    batch = max(OOM_MIN_BATCH, TRAIN_BATCH * int(np.ceil(
+        2.0 * total / peak)))
+    dump_path = os.path.join(root, "oom_flight.json")
+    t0 = time.perf_counter()
+    try:
+        out, err = child.communicate("%d\n" % batch, timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    wall = time.perf_counter() - t0
+    lines = [l for l in out.splitlines() if l.startswith("oom child: ")]
+    if child.returncode != 0 or not lines:
+        raise AssertionError("oom child failed (rc %d): %s\n%s"
+                             % (child.returncode, out[-3000:], err[-3000:]))
+    found = json.loads(lines[-1][len("oom child: "):])
+    doc = json.load(open(dump_path))
+    mem = doc.get("memory") or {}
+    census = mem.get("census") or {}
+    devices = mem.get("device_memory") or []
+    oom = [a for a in doc["anomalies"] if a["rule"] == "oom"]
+    if doc["reason"] != "oom" or not mem.get("programs") \
+            or not census.get("groups") \
+            or devices[0]["bytes_limit"] != total \
+            or oom[0]["context"] != "executor_forward":
+        raise AssertionError("oom dump: reason %s, %d program records, "
+                             "census %s, devices %s, anomalies %s"
+                             % (doc["reason"], len(mem.get("programs", [])),
+                                census.get("group_count"), devices, oom))
+    top = census["groups"][0]
+    print("oom blackbox: ResNet-50's general-path step at batch %d (%.1f GB "
+          "peak at batch %d) in a child (%.1f s once given its batch): %s; "
+          "one dump (%s), "
+          "reason %s, context %s; memory section: %d program records, "
+          "census %d tensors in %d groups, %.2f GB, the largest %s %s x%d "
+          "%.2f GB; device_memory bytes_limit %d (the card's total %d), in "
+          "use %d, peak %d; card %s"
+          % (batch, peak / 1e9, TRAIN_BATCH, wall, found["caught"],
+             found["dumps"], doc["reason"], oom[0]["context"],
+             len(mem["programs"]), census["array_count"],
+             census["group_count"], census["total_bytes"] / 1e9,
+             top["shape"], top["dtype"], top["count"],
+             top["total_bytes"] / 1e9, devices[0]["bytes_limit"], total,
+             devices[0]["bytes_in_use"], devices[0]["peak_bytes_in_use"],
+             card_line()))
+
+
+def health_serving(mx, seed, arrays):
+    """22d, over 22b's GPT-2-small weights.  Returns the serving path's
+    launches."""
+    import torch
+    from mxnet_tpu_torch import executor_cache, threads
+    from mxnet_tpu_torch.models import mlp, transformer_lm_symbol
+    from mxnet_tpu_torch.observability import (flight_recorder, memprof,
+                                               telemetry)
+    from mxnet_tpu_torch.ops import kernels as K
+
+    clock = time.perf_counter()
+    symbol = transformer_lm_symbol(**GPT2S)
+    arg_params, _ = mx.convert.params_from_numpy(arrays, mx.cpu())
+    seq = GPT2S["seq_len"]
+    rng = np.random.default_rng(seed + 223)
+    requests = [rng.integers(0, GPT2S["vocab_size"], (r, seq)).astype(
+        np.float32) for r in REQUEST_ROWS]
+    small = mlp.get_symbol(num_classes=10)
+    shapes, _, _ = small.infer_shape(data=(1, 784))
+    bad = {k: rng.standard_normal(s).astype(np.float32) * 0.05
+           for k, s in zip(small.list_arguments(), shapes)
+           if k not in ("data", "softmax_label")}
+    bad["fc3_weight"][3, 7] = np.inf  # the output projection
+    bad_params, _ = mx.convert.params_from_numpy(bad, mx.cpu())
+    with health_env(health=1, memprof=1):
+        executor_cache.clear()
+        memprof.reset()
+        telemetry.reset()
+        flight_recorder.reset()
+        server = mx.serving.Server(max_batch_size=MAX_BATCH)
+        try:
+            server.add_model("gpt2s", symbol, arg_params,
+                             input_shapes={"data": (seq,)})
+            server.add_model("poisoned", small, bad_params,
+                             input_shapes={"data": (784,)})
+            report = server.warmup()
+            mem = report["memory"]
+            K.reset_launch_counts()
+            futs = [server.submit_async("gpt2s", {"data": x})
+                    for x in requests]
+            outs = [f.result(timeout=600)[0] for f in futs]
+            launches = K.launch_counts()
+            counted = registry_value(telemetry.snapshot(),
+                                     "serving.nonfinite_responses")
+            bad_outs = [server.submit(
+                "poisoned", {"data": rng.random((1, 784), np.float32)},
+                timeout=60)[0] for _ in range(POISONED_REQUESTS)]
+            after = registry_value(telemetry.snapshot(),
+                                   "serving.nonfinite_responses")
+        finally:
+            server.close()
+        notes = [e for e in flight_recorder.get_recorder()._events
+                 if e["kind"] == "serving_nonfinite"]
+    if threads.live_package_threads():
+        raise AssertionError("server threads survived close()")
+    total = torch.cuda.mem_get_info()[1]
+    print("health serving: warmup's memory section: per-model buckets %s, "
+          "footprint %.3f GB, device_limit_bytes %s (the card's total %d), "
+          "headroom %.4f; card %s"
+          % ({m: sorted(v) for m, v in mem["per_model"].items()},
+             mem["footprint_bytes"] / 1e9, mem["device_limit_bytes"], total,
+             mem["headroom_frac"], card_line()))
+    if mem["device_limit_bytes"] != total or set(mem["per_model"]) \
+            != {"gpt2s", "poisoned"} or mem["headroom_frac"] is None:
+        raise AssertionError("health serving: the memory section %s" % mem)
+    if not all(np.isfinite(o).all() for o in outs) or counted != 0:
+        raise AssertionError("health serving: GPT-2-small's responses "
+                             "counted %s non-finite" % counted)
+    if any(np.isfinite(o).all() for o in bad_outs) \
+            or after != POISONED_REQUESTS \
+            or len(notes) != POISONED_REQUESTS \
+            or any(n["payload"]["model"] != "poisoned" for n in notes):
+        raise AssertionError(
+            "health serving: %d poisoned responses, counter %s, %d notes"
+            % (len(bad_outs), after, len(notes)))
+    print("health serving: %d GPT-2-small requests finite (flash launches "
+          "%d); %d responses of the model with an inf in fc3_weight shipped "
+          "non-finite: serving.nonfinite_responses %d, serving_nonfinite "
+          "notes %d" % (len(outs), launches["flash_attn_fwd"],
+                        len(bad_outs), after, len(notes)))
+
+    served = time.perf_counter() - clock
+
+    # the paged decoder's pool in the memory report, at 8 streams
+    net = gluon_net(mx, GPT2S["num_layers"], arrays, mx.gpu(0))
+    params, config = net.decode_param_arrays(), net.config
+    del net
+    pool = mx.serving.KVBlockPool(
+        config["num_layers"], config["num_heads"],
+        config["embed_dim"] // config["num_heads"], num_pages=DECODE_PAGES,
+        page_size=DECODE_PAGE, name="kv_health", ctx=mx.gpu(0))
+    dec = mx.serving.PagedTransformerDecoder(
+        params, config, slot_count=DECODE_SLOTS, pool=pool)
+    try:
+        dec.warmup()
+        streams = [dec.submit(rng.integers(0, GPT2S["vocab_size"],
+                                           int(rng.integers(
+                                               *HEALTH_DECODE_PROMPT))),
+                              max_new_tokens=HEALTH_DECODE_NEW)
+                   for _ in range(DECODE_SLOTS)]
+        dec.step()
+        row = [r for r in memprof.pool_records() if r["name"] == "kv_health"]
+        used, active = pool.pages_used(), sum(
+            1 for s in streams if s.pages)
+        dec.drain()
+    finally:
+        dec.close()
+        pool.close()
+    print("health serving: paged decoder's pool row %s at %d streams "
+          "(the pool's count %d); s of the server %.1f, the decoder %.1f"
+          % (row, active, used, served,
+             time.perf_counter() - clock - served))
+    if len(row) != 1 or row[0]["pages_used"] != used or active \
+            != DECODE_SLOTS or row[0]["bytes_used"] != used * pool.page_bytes:
+        raise AssertionError("health serving: the pool row %s, the pool's "
+                             "%d pages at %d streams" % (row, used, active))
+    if [r for r in memprof.pool_records() if r["name"] == "kv_health"]:
+        raise AssertionError("health serving: the closed pool's row stayed")
+    del dec, pool, params
+    _release()
+    return launches
+
+
+def train_health(mx, seed, root):
+    """Phase 22.  Returns {path: launches}."""
+    clock = time.perf_counter()
+    paths = {}
+    child = oom_blackbox_start(seed, root)
+    try:
+        paths["module_fit_health"], peak = health_resnet50(mx, seed, root)
+        lap = time.perf_counter()
+        print("health: 22a in %.1f s" % (lap - clock))
+        paths["module_lm_taps"], arrays = health_lm_taps(mx, seed)
+        print("health: 22b in %.1f s" % (time.perf_counter() - lap))
+        lap = time.perf_counter()
+        oom_blackbox_finish(child, root, peak)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    print("health: 22c in %.1f s" % (time.perf_counter() - lap))
+    lap = time.perf_counter()
+    paths["serve_health"] = health_serving(mx, seed, arrays)
+    print("health: 22d in %.1f s" % (time.perf_counter() - lap))
+    return paths
+
+
 def ptxas_entries(text):
     """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
     per compiled entry of an ``nvcc -Xptxas=-v`` report.  The kernel is
@@ -11841,14 +12559,14 @@ def main():
                         help=argparse.SUPPRESS)  # lenet_profile_apart
     parser.add_argument("--dcgan-profile", action="store_true",
                         help=argparse.SUPPRESS)  # dcgan_profile_apart
-    parser.add_argument("--cifar-profile", metavar="ROOT",
-                        help=argparse.SUPPRESS)  # cifar_profile_apart
-    parser.add_argument("--rec-profile", metavar="ROOT",
-                        help=argparse.SUPPRESS)  # rec_profile_apart
+    parser.add_argument("--file-profiles", metavar="ROOT",
+                        help=argparse.SUPPRESS)  # file_profiles_apart
     parser.add_argument("--dist-child", metavar="ROOT",
                         help=argparse.SUPPRESS)  # dist_launch
     parser.add_argument("--device-trace", metavar="ROOT",
                         help=argparse.SUPPRESS)  # device_trace_apart
+    parser.add_argument("--oom-child", action="store_true",
+                        help=argparse.SUPPRESS)  # oom_blackbox_start
     args = parser.parse_args()
     if not os.path.isdir(os.path.join(HERE, "mxnet_tpu_torch")):
         print("chip_smoke: mxnet_tpu_torch/ is not beside this script",
@@ -11871,14 +12589,15 @@ def main():
         return lenet_profile_child(mx, args.seed)
     if args.dcgan_profile:
         return dcgan_profile_child(mx, args.seed)
-    if args.cifar_profile:
-        return cifar_profile_child(mx, args.seed, args.cifar_profile)
-    if args.rec_profile:
-        return rec_profile_child(mx, args.seed, args.rec_profile)
+    if args.file_profiles:
+        return file_profiles_child(mx, args.seed, args.file_profiles)
     if args.dist_child:
         return dist_child(mx, args.seed, args.dist_child)
     if args.device_trace:
         return device_trace_child(mx, args.seed, args.device_trace)
+    if args.oom_child:
+        # started ahead of its turn: the batch arrives on stdin
+        return oom_child(mx, args.seed, int(sys.stdin.readline()))
     print("card: %s" % card_line())
     print("torch %s, CUDA %s, %d device(s)"
           % (torch.__version__, torch.version.cuda, torch.cuda.device_count()))
@@ -11983,6 +12702,10 @@ def main():
         lap("21 (MXNet 1.0's Custom-softmax MLP through Module.fit, user "
             "CUDA C through mx.rtc, ResNet-50 under the profiler and the "
             "registry, a served LeNet's /metrics, a device trace)")
+        paths.update(train_health(mx, args.seed, root))
+        lap("22 (ResNet-50 under the health sentinel and memprof, the "
+            "GPT-2-small Module LM's attention taps, the OOM black box in a "
+            "child, serving under the sentinel)")
     # "launches": the path each kernel serves in this script (the serving
     # forward, the LM's training, and the bf16 fused training; LeNet's and
     # DCGAN's are in launches_by_path)

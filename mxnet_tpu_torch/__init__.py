@@ -104,6 +104,7 @@ from . import libinfo  # noqa: F401
 from . import kvstore_server  # noqa: F401
 from . import parallel  # noqa: F401
 from . import observability  # noqa: F401
+from .observability.health import TrainingDivergedError  # noqa: F401
 from . import profiler  # noqa: F401
 from . import rtc  # noqa: F401
 from . import contrib  # noqa: F401

@@ -20,6 +20,14 @@ over detached leaf views of the arguments that take a gradient, and
 consumed are the ones differentiated, even though the forward has
 already written the advanced BatchNorm moving statistics back into
 ``aux_dict``.
+
+Under the health sentinel (``MXNET_TPU_HEALTH=1``, resolved at bind into
+the plan key) a training run collects the attention ops' logit taps and
+``backward`` packs the health vector (``observability/health.py``) from
+the run's outputs, parameters and gradients into ``_last_health``, where
+the fit loop reads it.  Each dispatch runs under an OOM guard: a device
+out-of-memory writes the memory post-mortem (``observability/memprof``)
+before it propagates.
 """
 from __future__ import annotations
 
@@ -34,6 +42,8 @@ from .ndarray.ndarray import _to_tensor
 from .ops.registry import call_op, get_op
 from . import executor_cache
 from . import profiler as _profiler
+from .observability import health as _health
+from .observability import memprof as _memprof
 from .observability import tracing as _tracing
 
 
@@ -49,8 +59,11 @@ class _Program:
     each counts as one build (``note_kind``), as the JAX package traces
     each program of a signature at its first use."""
 
-    def __init__(self, symbol, known_shapes=None):
+    def __init__(self, symbol, known_shapes=None, health=False,
+                 grad_names=()):
         self.kinds = set()
+        # the memprof record of this plan's build (executor_cache sets it)
+        self.memprof_record = None
         order = symbol._topo()
         symbol._mark_aux(order)
         resolved = _resolve_init_shapes(symbol, order, known_shapes or {})
@@ -102,12 +115,20 @@ class _Program:
                                  and s not in keep}))
             self.steps.append((op, attrs, tuple(ins), first, n_out, free,
                                mutates))
+        # the sentinel's slot map, from the plan's static structure
+        self.health_layout = _health.HealthLayout(
+            len(self.out_slots), grad_names,
+            tap_names=_health.attention_tap_names(order)) \
+            if health else None
 
     def note_kind(self, kind):
-        """Count this plan's first run of ``kind`` as a build."""
+        """Count this plan's first run of ``kind`` as a build; True when
+        this run is that first one."""
         if kind not in self.kinds:
             self.kinds.add(kind)
             executor_cache.note_trace(kind)
+            return True
+        return False
 
     def evaluate(self, values, train=False, tap=None, tap_inputs=False,
                  device=None):
@@ -221,6 +242,11 @@ class Executor:
         self._prog = executor_cache.get_program(
             symbol, arg_dict, aux_dict, self._device,
             tuple(self._grad_names))
+        # health sentinel: the plan's layout, and the last training run's
+        # packed vector (on the device until the fit loop reads it)
+        self.health_layout = self._prog.health_layout
+        self._health_on = self.health_layout is not None
+        self._last_health = None
 
     @property
     def arg_arrays(self):
@@ -261,11 +287,12 @@ class Executor:
         run is recorded for ``backward``.  While the profiler records,
         one ``executor_forward`` span (ref: kOnlySymbolic,
         profiler.h:94-121)."""
-        if _tracing._recording:
-            with _profiler.synced_span("executor_forward", self._device,
-                                       dev=str(self._ctx)):
-                return self._forward(is_train, kwargs)
-        return self._forward(is_train, kwargs)
+        with _memprof.oom_guard("executor_forward"):
+            if _tracing._recording:
+                with _profiler.synced_span("executor_forward", self._device,
+                                           dev=str(self._ctx)):
+                    return self._forward(is_train, kwargs)
+            return self._forward(is_train, kwargs)
 
     def _forward(self, is_train, kwargs):
         self._recorded = None
@@ -278,16 +305,24 @@ class Executor:
             with torch.inference_mode():
                 dst.tensor.copy_(src)
         train = bool(is_train)
-        self._prog.note_kind("fwd_bwd" if train and self._grad_names
-                             else "fwd")
-        if train and self._grad_names:
-            outs, new_aux, leaves = self._record(**self._tap())
-            self._recorded = (outs, leaves)
-        else:
-            values = self._values()
-            with torch.inference_mode():
-                outs, new_aux = self._prog.evaluate(
-                    values, train=train, device=self._device, **self._tap())
+        kind = "fwd_bwd" if train and self._grad_names else "fwd"
+        # the plan's first run of any kind fills its memprof record
+        first = self._prog.note_kind(kind) and len(self._prog.kinds) == 1
+        rec = self._prog.memprof_record if first else None
+        if rec is not None:
+            rec["kind"] = kind
+        with _memprof.first_run(rec, self._device, self._bound_tensors) \
+                as run_outs:
+            if train and self._grad_names:
+                outs, new_aux, leaves, taps = self._record(**self._tap())
+                self._recorded = (outs, leaves, taps)
+            else:
+                values = self._values()
+                with torch.inference_mode():
+                    outs, new_aux = self._prog.evaluate(
+                        values, train=train, device=self._device,
+                        **self._tap())
+            run_outs.extend(outs)
         if train:
             with torch.no_grad():
                 for name, value in new_aux.items():
@@ -296,6 +331,10 @@ class Executor:
                         dst.copy_(value)
         self.outputs = [NDArray(o.detach()) for o in outs]
         return self.outputs
+
+    def _bound_tensors(self):
+        return [a.tensor for table in (self.arg_dict, self.aux_dict)
+                for a in table.values()]
 
     def _values(self, leaves=None):
         """{name: tensor} of the bound arrays (``leaves`` in place of
@@ -310,17 +349,23 @@ class Executor:
 
     def _record(self, **tap):
         """A training-mode run of the graph over the bound arrays under
-        torch autograd: (outputs, new aux values, {name: leaf}) for the
-        arguments that take a gradient, each leaf on its argument's
-        context."""
+        torch autograd: (outputs, new aux values, {name: leaf}, taps) for
+        the arguments that take a gradient, each leaf on its argument's
+        context; ``taps`` holds the attention ops' logit bounds when the
+        plan is health-on (else None)."""
         # leaves share storage with the bound arrays: no copy
         leaves = {n: self.arg_dict[n].tensor.detach().requires_grad_(True)
                   for n in self._grad_names}
         with torch.enable_grad():
             values = self._values(leaves)
-            outs, new_aux = self._prog.evaluate(values, train=True,
-                                                device=self._device, **tap)
-        return outs, new_aux, leaves
+            if not self._health_on:
+                outs, new_aux = self._prog.evaluate(
+                    values, train=True, device=self._device, **tap)
+                return outs, new_aux, leaves, None
+            with _health.collect_taps() as taps:
+                outs, new_aux = self._prog.evaluate(
+                    values, train=True, device=self._device, **tap)
+        return outs, new_aux, leaves, list(taps)
 
     def backward(self, out_grads=None, is_train=True):
         """Gradients of the last forward into ``grad_dict`` (honoring
@@ -331,11 +376,12 @@ class Executor:
         the forward is run again in training mode from the bound arrays
         (outputs and aux states left as they are), as the reference
         does."""
-        if _tracing._recording:
-            with _profiler.synced_span("executor_backward", self._device,
-                                       dev=str(self._ctx)):
-                return self._backward(out_grads)
-        return self._backward(out_grads)
+        with _memprof.oom_guard("executor_backward"):
+            if _tracing._recording:
+                with _profiler.synced_span("executor_backward",
+                                           self._device, dev=str(self._ctx)):
+                    return self._backward(out_grads)
+            return self._backward(out_grads)
 
     def _backward(self, out_grads):
         if not self.outputs:
@@ -343,10 +389,10 @@ class Executor:
         if not self._grad_names:
             return
         if self._recorded is not None:
-            outs, leaves = self._recorded
+            outs, leaves, taps = self._recorded
         else:
             self._prog.note_kind("fwd_bwd")
-            outs, _, leaves = self._record()
+            outs, _, leaves, taps = self._record()
         if isinstance(out_grads, NDArray):
             out_grads = [out_grads]
         heads = [None] * len(outs) if out_grads is None else list(out_grads)
@@ -374,14 +420,22 @@ class Executor:
                     dst.add_(g)
                 else:
                     dst.copy_(g)
+            if self._health_on:
+                # the in-run numerics summary over tensors this run holds
+                params = [leaves[n].detach() for n in names]
+                self._last_health = _health.pack_summary(
+                    self.health_layout, [o.detach() for o in outs], params,
+                    [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, grads)], taps=taps)
 
     def forward_backward(self, is_train=True, out_grads=None):
         """forward(is_train) then, when training, backward(out_grads)."""
-        if _tracing._recording:
-            with _profiler.synced_span("executor_fwd_bwd", self._device,
-                                       dev=str(self._ctx)):
-                return self._forward_backward(is_train, out_grads)
-        return self._forward_backward(is_train, out_grads)
+        with _memprof.oom_guard("executor_fwd_bwd"):
+            if _tracing._recording:
+                with _profiler.synced_span("executor_fwd_bwd", self._device,
+                                           dev=str(self._ctx)):
+                    return self._forward_backward(is_train, out_grads)
+            return self._forward_backward(is_train, out_grads)
 
     def _forward_backward(self, is_train, out_grads):
         self.forward(is_train=is_train)

@@ -329,7 +329,8 @@ class HybridBlock(Block):
             aux_dict = {n: p.data(ctx) for n, p in bound if n in aux_names}
             grads = tuple(n for n, p in bound if p.grad_req != "null")
             prog = executor_cache.get_program(out, arg_dict, aux_dict,
-                                              ctx.torch_device(), grads)
+                                              ctx.torch_device(), grads,
+                                              health=False)
             plan = (prog, input_names, bound, set(aux_names))
             self._cached_plans[key] = plan
         prog, input_names, bound, aux_names = plan

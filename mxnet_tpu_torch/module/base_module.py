@@ -14,12 +14,22 @@ format with ``arg:``/``aux:`` names.  Each training step decomposes
 into ``observability.instrument.StepTracker``'s five components
 (data_wait / fwd_bwd_dispatch / update / metric / sync): nested profiler
 spans and registry histograms, one flag check each when both sinks are
-off.  The JAX package's health sentinel and elastic checkpoint hooks
-wait for later runtime-services slices.
+off.
+
+Under ``MXNET_TPU_HEALTH=1`` the loop runs the health sentinel: after the
+next batch's ``prepare`` it takes the step's packed vector
+(``_capture_health``), records the step in the flight recorder with the
+latest device-memory sample, then lets ``HealthMonitor.observe`` judge it
+(record first, judge second: a raising rule's dump already holds the
+offending step).  A ``TrainingDivergedError`` propagates after its dump;
+any other exception leaving ``fit`` goes through the OOM black box
+(always) and, with the sentinel on, the flight recorder's exception dump.
+The elastic checkpoint hooks wait for a later runtime-services slice.
 """
 from __future__ import annotations
 
 import logging
+import math
 import time
 
 import torch
@@ -28,7 +38,11 @@ from .. import metric as metric_mod
 from ..context import cpu
 from ..initializer import Uniform
 from ..io import DataIter
-from ..observability.instrument import StepTracker
+from ..log import module_logger as _module_logger
+from ..observability import flight_recorder as _flight
+from ..observability import health as _health
+from ..observability import instrument as _instrument
+from ..observability import memprof as _memprof
 
 
 class BatchEndParam:
@@ -85,7 +99,10 @@ class BaseModule:
     """Abstract train/predict driver over a bound computation."""
 
     def __init__(self, logger=logging):
-        self.logger = logger
+        # the bare ``logging`` default goes under the package root, so the
+        # flight recorder's one handler sees every module record
+        self.logger = _module_logger("module") if logger is logging \
+            else logger
         self.binded = False
         self.for_training = False
         self.inputs_need_grad = False
@@ -318,60 +335,155 @@ class BaseModule:
             validation_metric if validation_metric is not None
             else eval_metric)
         eval_metric = metric_mod.create(eval_metric)
-        for epoch in range(begin_epoch, num_epoch):
-            tic = time.time()
-            eval_metric.reset()
-            tracker = StepTracker(epoch=epoch)
-            it = iter(train_data)
-            with tracker.component("data_wait"):
-                batch = next(it, None)
-            nbatch = 0
-            while batch is not None:
-                if monitor is not None:
-                    with tracker.component("sync"):
-                        monitor.tic()
-                with tracker.component("fwd_bwd_dispatch"):
-                    self.forward_backward(batch)
-                with tracker.component("update"):
-                    self.update()
-                with tracker.component("data_wait"):
-                    upcoming = next(it, None)
-                if upcoming is not None:
-                    # the next batch's transfer while the step executes
-                    with tracker.component("sync"):
-                        self.prepare(upcoming)
-                with tracker.component("metric"):
-                    self.update_metric(eval_metric, batch.label)
-                if monitor is not None:
-                    with tracker.component("sync"):
-                        monitor.toc_print()
+        try:
+            for epoch in range(begin_epoch, num_epoch):
+                self._run_epoch(epoch, train_data, eval_metric,
+                                batch_end_callback, monitor)
+                # the trained values into the module's parameter dicts, so
+                # that the callbacks and the next epoch see the same tensors
+                arg_now, aux_now = self.get_params()
+                self.set_params(arg_now, aux_now)
+                if epoch_end_callback is not None:
+                    for cb in _as_list(epoch_end_callback):
+                        cb(epoch, self.symbol, arg_now, aux_now)
+                if eval_data:
+                    for name, val in self.score(
+                            eval_data, validation_metric,
+                            score_end_callback=eval_end_callback,
+                            batch_end_callback=eval_batch_end_callback,
+                            epoch=epoch):
+                        self.logger.info("Epoch[%d] Validation-%s=%f",
+                                         epoch, name, val)
+                train_data.reset()
+        except _health.TrainingDivergedError:
+            raise  # its flight dump is written already
+        except Exception as exc:
+            # the OOM black box, always: an out-of-memory may surface at
+            # any sync point of the step, and this frame sees them all
+            oomed = _memprof.maybe_record_oom("fit", exc) is not None \
+                or (_memprof.is_oom(exc)
+                    and _flight.get_recorder().has_dumped("oom"))
+            if _health.enabled():
+                _flight.note_exception(exc)
+                # a second dump at a fixed MXNET_TPU_FLIGHT_PATH would
+                # overwrite the OOM post-mortem
+                if not oomed:
+                    _flight.dump_once(reason="fit_exception")
+            raise
+
+    def _run_epoch(self, epoch, train_data, eval_metric, batch_end_callback,
+                   monitor):
+        """One pass over ``train_data``: each step's components timed by
+        the tracker, the next batch fetched and prepared during the step,
+        and under the sentinel the step's health vector taken after that
+        prepare, recorded, then judged."""
+        tic = time.time()
+        eval_metric.reset()
+        tracker = _instrument.StepTracker(epoch=epoch)
+        health_mon = self._ensure_health_monitor() \
+            if _health.enabled() else None
+        it = iter(train_data)
+        with tracker.component("data_wait"):
+            batch = next(it, None)
+        nbatch = 0
+        while batch is not None:
+            if monitor is not None:
                 with tracker.component("sync"):
-                    _each_callback(batch_end_callback, BatchEndParam(
-                        epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
-                        locals=locals()))
-                tracker.step_end(nbatch)
-                batch = upcoming
-                nbatch += 1
-            for name, val in eval_metric.get_name_value():
-                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                             time.time() - tic)
-            # the trained values into the module's parameter dicts, so that
-            # the callbacks and the next epoch see the same tensors
-            arg_now, aux_now = self.get_params()
-            self.set_params(arg_now, aux_now)
-            if epoch_end_callback is not None:
-                for cb in _as_list(epoch_end_callback):
-                    cb(epoch, self.symbol, arg_now, aux_now)
-            if eval_data:
-                for name, val in self.score(
-                        eval_data, validation_metric,
-                        score_end_callback=eval_end_callback,
-                        batch_end_callback=eval_batch_end_callback,
-                        epoch=epoch):
-                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
-                                     name, val)
-            train_data.reset()
+                    monitor.tic()
+            with tracker.component("fwd_bwd_dispatch"):
+                self.forward_backward(batch)
+            with tracker.component("update"):
+                self.update()
+            with tracker.component("data_wait"):
+                upcoming = next(it, None)
+            if upcoming is not None:
+                # the next batch's transfer while the step executes
+                with tracker.component("sync"):
+                    self.prepare(upcoming)
+            pending_health = None
+            if health_mon is not None:
+                # after the next batch's prepare: reading the vector waits
+                # for the step, which must not hold up the data
+                with tracker.component("sync"):
+                    pending_health = self._capture_health()
+            with tracker.component("metric"):
+                self.update_metric(eval_metric, batch.label)
+            if monitor is not None:
+                with tracker.component("sync"):
+                    monitor.toc_print()
+            with tracker.component("sync"):
+                _each_callback(batch_end_callback, BatchEndParam(
+                    epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
+                    locals=locals()))
+            timings = tracker.step_end(nbatch)
+            if pending_health is not None:
+                # record first, judge second
+                step, summary = pending_health
+                _flight.record_step(
+                    step, epoch=epoch, batch=nbatch, health=summary,
+                    timings=timings, mem=_instrument.last_memory_sample())
+                health_mon.observe(step, summary)
+            batch = upcoming
+            nbatch += 1
+        for name, val in eval_metric.get_name_value():
+            self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+        self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                         time.time() - tic)
+
+    # -- health sentinel -----------------------------------------------------
+    def _take_health_vector(self):
+        """``(numpy vector, layout)`` of this step, or None: subclasses
+        with executors override it."""
+        return None
+
+    def _ensure_health_monitor(self):
+        """One rolling-rule monitor per module, shared across epochs."""
+        mon = getattr(self, "_health_mon", None)
+        if mon is None:
+            mon = self._health_mon = _health.HealthMonitor(
+                logger=self.logger)
+        return mon
+
+    def _capture_health(self):
+        """Take and unpack this step's health vector: ``(global step,
+        summary)`` or None.  Stashes the summary for a
+        ``Monitor(stats='health')`` and, where the run did not compute the
+        update ratio (the general path), estimates it from the
+        optimizer's step scale."""
+        step = getattr(self, "_health_step", 0)
+        self._health_step = step + 1
+        taken = self._take_health_vector()
+        if taken is None:
+            return None
+        vec, layout = taken
+        summary = layout.unpack(vec)
+        opt = getattr(self, "_optimizer", None)
+        if summary.get("update_ratio", -1.0) < 0 and opt is not None:
+            gn = summary.get("grad_norm", float("nan"))
+            pn = summary.get("param_norm", 0.0)
+            if pn > 0 and math.isfinite(gn):
+                summary["update_ratio"] = \
+                    opt.health_update_scale() * gn / pn
+        self._last_health_summary = (step, summary)
+        return step, summary
+
+    def _install_health_monitor(self, mon):
+        """Bind a ``Monitor(stats='health')`` to this module: it reads the
+        summaries the fit loop stashes here, taps nothing and leaves the
+        fused step in place."""
+        mon.install_module(self)
+        if not getattr(self, "_health_mon_announced", False):
+            self._health_mon_announced = True
+            if _health.enabled():
+                self.logger.info(
+                    "monitor(stats='health') installed: per-step "
+                    "stats come from the in-step health sentinel;"
+                    " the fused train step stays active")
+            else:
+                self.logger.warning(
+                    "monitor(stats='health') installed but "
+                    "MXNET_TPU_HEALTH is not 1: the sentinel is off "
+                    "and the monitor will report nothing")
 
     # -- parameter files -----------------------------------------------------
     def save_params(self, fname):

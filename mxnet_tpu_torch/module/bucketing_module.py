@@ -269,11 +269,22 @@ class BucketingModule(BaseModule):
         self._active.update_metric(eval_metric, labels)
 
     def install_monitor(self, mon):
-        """Monitor every bucket bound so far (their fused steps retire)."""
+        """Monitor every bucket bound so far (their fused steps retire).
+        A ``Monitor(stats='health')`` binds to this module instead: the
+        fit loop stashes the sentinel's summaries here, not on the
+        buckets."""
         if not self.binded:
             raise AssertionError("install_monitor() needs bind()")
+        if getattr(mon, "stats", "tensors") == "health":
+            self._install_health_monitor(mon)
+            return
         for module in self._buckets.values():
             module.install_monitor(mon)
+
+    def _take_health_vector(self):
+        """The active bucket's vector: the module whose step just ran."""
+        active = self._active
+        return active._take_health_vector() if active is not None else None
 
     @property
     def _optimizer(self):

@@ -79,12 +79,29 @@ store or with unequal slices, a monitor, ``grad_req='add'`` or
 ``inputs_need_grad`` take the general path; on the card so does a graph
 holding a ``Custom`` node (its host round trip cannot be captured).  A
 step with a bucketed reduction reports its plan's wire bytes
-(``instrument.note_comm_overlapped``).  The health sentinel, the
-memory profiler and the program cache wait for later runtime-services
-slices.
+(``instrument.note_comm_overlapped``).
+
+**Health and memory.**  Under ``MXNET_TPU_HEALTH=1`` (resolved when the
+step is built, so a health-on step captures a graph of its own) the step
+computes the packed health vector inside itself, inside the CUDA graph on
+the card: the outputs' finiteness, the gradient and parameter norms, the
+group maxima, the attention taps and the exact update ratio
+``|Δw|/|w|`` from a copy of the masters taken before the update.  After
+each step the vector is copied into a pinned host buffer behind an event
+(``last_health``); ``take_health`` waits for that event only when the fit
+loop reads it, after the next batch's ``prepare``.  The step's gradients
+and pre-update masters stay reachable (``health_inputs``) for a plain
+recomputation.  Each build opens a memprof program record: at the first
+step on the host, and on the card at the eager warm-up step that precedes
+each capture, whose record gets the capture's time and, under
+``MXNET_TPU_MEMPROF=1``, the warm-up step's peak and the graph pool's
+bytes.  A device out-of-memory in a step writes the memory post-mortem
+(``observability/memprof``) before it propagates.  The program cache
+waits for a later runtime-services slice.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -93,7 +110,9 @@ import torch
 from ..base import MXNetError
 from .. import executor_cache
 from ..ndarray import NDArray
+from ..observability import health as _health
 from ..observability import instrument as _instrument
+from ..observability import memprof as _memprof
 from ..ops import kernels as _kernels
 from .. import optimizer as _opt
 from .. import random as _random
@@ -102,6 +121,10 @@ from ..parallel import comm as _comm
 
 # eager steps on the capture stream before the graph is captured
 WARMUP_STEPS = 1
+
+# the health vector's slots that the exact update ratio reads and fills
+_PARAM_NORM = _health.HealthLayout.HEAD.index("param_norm")
+_RATIO = _health.HealthLayout.HEAD.index("update_ratio")
 
 # reserved key for the compression residuals inside the fused_v2 states
 # dict (the JAX package's); older loaders skip it (not a parameter name)
@@ -293,6 +316,20 @@ class FusedTrainStep:
         self._eager_on_card = 0
         self._stream = torch.cuda.Stream(self.device) \
             if self._graphable else None
+        # health sentinel, resolved here: the step's own slot map, the
+        # vector of the last step (device), its pinned host copy and event
+        self._health_on = _health.enabled()
+        self.health_layout = _health.HealthLayout(
+            len(exe._prog.out_slots), self.param_names,
+            tap_names=_health.attention_tap_names(exe._symbol._topo())) \
+            if self._health_on else None
+        self._hvec = None
+        self.last_health = None
+        self.health_inputs = None
+        self._health_host = self._health_event = None
+        # memprof: this build's program record and its capture probe
+        self._memprof_label = "fused@%s" % exe._symbol.structural_hash()[:10]
+        self._probe = None
 
     @property
     def ran(self):
@@ -479,8 +516,9 @@ class FusedTrainStep:
         each position's outputs.  The body of the eager step and of the
         graph."""
         values, leaves = self._leaves()
+        taps = None
         if self.n_dev == 1:
-            with torch.enable_grad():
+            with torch.enable_grad(), self._tap_frame() as taps:
                 outs, new_aux = self.exe._prog.evaluate(
                     values[0], train=True, device=self.device)
             grads = self._grads(outs, leaves[0])
@@ -501,10 +539,85 @@ class FusedTrainStep:
             grads = self._psum([flat[k * p:(k + 1) * p]
                                 for k in range(self.n_dev)], leaves)
         else:
-            outs, new_aux, grads = self._global_step(values, leaves[0])
+            with self._tap_frame() as taps:
+                outs, new_aux, grads = self._global_step(values, leaves[0])
         self._write_aux(new_aux)
+        old = self._copy_masters() if self._health_on else None
         self._update(grads)
+        if self._health_on:
+            self._pack_health(outs, grads, old, taps)
         return [[o.detach() for o in g] for g in outs]
+
+    def _tap_frame(self):
+        """The attention taps' frame of a health-on step (the positions of
+        the split and bucketed paths each run the graph alone, so their
+        tap slots hold -1)."""
+        return _health.collect_taps() if self._health_on \
+            else contextlib.nullcontext()
+
+    def _copy_masters(self):
+        """A copy of every master before the update (the exact update
+        ratio's baseline)."""
+        with torch.no_grad():
+            return list(torch._foreach_mul(self._masters, 1.0))
+
+    def _pack_health(self, outs, grads, old, taps):
+        """The step's packed health vector (``_hvec``, on the first
+        position's device): ``pack_summary`` over the global outputs, the
+        pre-update masters and the gradients, with the exact update ratio
+        ``|Δw|/|w|``."""
+        f32 = torch.float32
+        with torch.no_grad():
+            grads = [torch.zeros_like(w) if g is None else g
+                     for g, w in zip(grads, old)]
+            new = self._masters
+            if all(w.dtype == f32 for w in old):
+                diffs = torch._foreach_sub(new, old)
+            else:
+                diffs = [a.float() - b.float() for a, b in zip(new, old)]
+            upd = torch.linalg.vector_norm(torch.stack(list(
+                torch._foreach_norm(list(diffs), 2, dtype=f32))))
+            if self.n_dev == 1:
+                flat = outs[0]
+            else:
+                # the positions' rows of each output, joined
+                flat = [torch.cat([g[i].reshape(-1).to(self.device)
+                                   for g in outs])
+                        for i in range(len(outs[0]))]
+            hvec = _health.pack_summary(
+                self.health_layout, [o.detach() for o in flat], old, grads,
+                taps=taps)
+            # the ratio's denominator is the vector's own param norm
+            hvec[_RATIO] = upd / torch.clamp(hvec[_PARAM_NORM], min=1e-12)
+        self._hvec = hvec
+        self.health_inputs = (grads, old)
+
+    def _publish_health(self):
+        """Hand the last step's vector to the host: a non-blocking copy
+        into the pinned buffer and an event on the card (no wait here)."""
+        hvec = self._hvec
+        if hvec.device.type != "cuda":
+            self.last_health = hvec
+            return
+        if self._health_host is None:
+            self._health_host = torch.empty(hvec.shape, dtype=hvec.dtype,
+                                            pin_memory=True)
+            self._health_event = torch.cuda.Event()
+        self._health_host.copy_(hvec, non_blocking=True)
+        self._health_event.record(torch.cuda.current_stream(self.device))
+        self.last_health = self._health_host
+
+    def take_health(self):
+        """The last step's health vector as a numpy array (None when the
+        sentinel is off or it was taken already): waits for the copy's
+        event, the step's only synchronization with the host."""
+        vec = self.last_health
+        if vec is None:
+            return None
+        self.last_health = None
+        if vec is self._health_host:
+            self._health_event.synchronize()
+        return vec.detach().to("cpu").numpy().copy()
 
     def _global_step(self, values, leaves):
         """The graph over the global batch on the first position: the
@@ -652,7 +765,8 @@ class FusedTrainStep:
             # optimizer states and residuals (same symbol, same parameter
             # list)
             self.__init__(module, share=self)
-        if not self._traced:
+        first = not self._traced
+        if first:
             # the step's first run builds it (the JAX package traces its
             # step program here)
             self._traced = True
@@ -663,11 +777,25 @@ class FusedTrainStep:
         self._per_step_scalars()
         for exe in self.execs:
             exe._recorded = None
-        with collectives.watch() as record:
+        with _memprof.oom_guard("fused_step" if self.n_dev == 1
+                                else "fused_step_dp"), \
+                collectives.watch() as record:
             if not self._graphable:
-                outs = self._compute()
+                rec = _memprof.note_build("fused_step", self._memprof_label) \
+                    if first else None
+                with _memprof.first_run(rec, self.device,
+                                        self._arguments) as run_outs:
+                    outs = self._compute()
+                    run_outs.extend(o for g in outs for o in g)
             elif self.graph is None and self._eager_on_card < WARMUP_STEPS:
-                outs = self._eager_on_stream()
+                if self._eager_on_card == 0:
+                    # a capture sequence starts: one record for it
+                    self._probe = _memprof.CaptureProbe(
+                        _memprof.note_build("fused_step",
+                                            self._memprof_label),
+                        self.device)
+                with self._probe.warmup():
+                    outs = self._eager_on_stream()
                 self._eager_on_card += 1
             else:
                 if self.graph is None:
@@ -677,6 +805,8 @@ class FusedTrainStep:
                 _kernels.add_launch_counts(self.graph_launches)
                 collectives.add_counts(self.graph_collectives)
                 outs = [[o.clone() for o in g] for g in self._outs]
+            if self._health_on:
+                self._publish_health()
         self.collectives = record.counts
         if self._comm_plan is not None:
             # the plan's wire bytes, on the host (no launch, no sync)
@@ -696,18 +826,35 @@ class FusedTrainStep:
                 o.record_stream(cur)
         return outs
 
+    def _arguments(self):
+        """What a step reads and keeps: the bound tensors, the masters
+        that are not the storage, and the optimizer states."""
+        out = list(self._bound_tensors())
+        out += [self.shared.masters[n] for j, n in
+                enumerate(self.param_names) if self.mixed[j]]
+        for st in self.states:
+            out += _opt.state_leaves(st)
+        return out
+
     def _capture(self):
         graph = torch.cuda.CUDAGraph()
         if hasattr(graph, "register_generator_state"):
             # replays then draw fresh numbers from the port's generator
             graph.register_generator_state(_random.generator(self.device))
+        if self._probe is None:
+            self._probe = _memprof.CaptureProbe(
+                _memprof.note_build("fused_step", self._memprof_label),
+                self.device)
+        probe, self._probe = self._probe, None
         t0 = time.perf_counter()
         try:
             # thread_local: an input pipeline's workers go on uploading the
             # next batches on their own threads (pinned allocations, event
             # waits on a side stream) while this step is captured; in the
             # global mode any such call invalidates the capture
-            with _kernels.captured_launches() as launches, \
+            with probe.capture(self._arguments,
+                               lambda: [o for g in outs for o in g]), \
+                    _kernels.captured_launches() as launches, \
                     collectives.captured() as issued, \
                     torch.cuda.device(self.device), \
                     torch.cuda.graph(graph, stream=self._stream,

@@ -46,6 +46,7 @@ from .. import profiler as _profiler
 from ..base import MXNetError
 from ..context import cpu, current_context
 from ..initializer import InitDesc, Uniform
+from ..observability import health as _health
 from ..io import DataDesc
 from ..ndarray import zeros as nd_zeros
 from .. import optimizer as opt
@@ -368,9 +369,14 @@ class Module(BaseModule):
 
     def install_monitor(self, mon):
         """Tap every op output of this module's executor; the fused step,
-        which has no tap points, retires with its sharers."""
+        which has no tap points, retires with its sharers.  A
+        ``Monitor(stats='health')`` taps nothing: it reads the sentinel's
+        per-step summaries, and the fused step stays."""
         if not self.binded:
             raise AssertionError("install_monitor() needs bind()")
+        if getattr(mon, "stats", "tensors") == "health":
+            self._install_health_monitor(mon)
+            return
         self._exec_group.install_monitor(mon)
         if self._fused_step is not None:
             # _fused_pending stays: a fused forward_backward that applied
@@ -380,6 +386,30 @@ class Module(BaseModule):
                 "the tap-capable general path (expect slower steps while "
                 "the monitor is active)")
             self._retire_fused_step("monitor installed")
+
+    def _take_health_vector(self):
+        """This step's packed health vector as ``(numpy vector, layout)``,
+        or None when the sentinel is off or nothing ran: the fused step's
+        pinned copy, else each executor's vector, combined over the
+        contexts (``health.combine``).  One small device-to-host copy a
+        step."""
+        fs = self._fused_step
+        if fs is not None and fs.last_health is not None:
+            return fs.take_health(), fs.health_layout
+        group = self._exec_group
+        if group is None or not group.execs:
+            return None
+        vecs, layout = [], None
+        for exe in group.execs:
+            vec = exe._last_health
+            if vec is None:
+                return None
+            vecs.append(vec.detach().to("cpu").numpy())
+            layout = exe.health_layout
+            exe._last_health = None
+        if len(vecs) == 1:
+            return vecs[0], layout
+        return _health.combine(vecs, layout), layout
 
     def _retire_fused_step(self, why):
         """Leave the fused step for the general path, the optimizer state

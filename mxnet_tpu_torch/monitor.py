@@ -8,8 +8,13 @@ arguments' statistics and returns ``(step, name, rendered value)`` rows.
 A monitored Module leaves the fused train step for the general path,
 which has the per-op tap points (the fused step's optimizer state goes
 to the Updater).  The default statistic is the JAX package's: the norm
-over the square root of the size.  ``stats="health"``, the health
-sentinel's readings, waits for the runtime-services slice.
+over the square root of the size.
+
+``stats="health"`` reads the health sentinel's per-step summaries
+(``MXNET_TPU_HEALTH=1``, ``observability/health.py``) that the fit loop
+stashes on the module: grad and param norms, group maxima, the update
+ratio and finiteness, as ``health/<slot>`` rows filtered by ``pattern``.
+It taps nothing, so the fused train step stays.
 """
 from __future__ import annotations
 
@@ -17,7 +22,6 @@ import logging
 import re
 from math import sqrt
 
-from .base import MXNetError
 from .ndarray import NDArray
 
 
@@ -48,10 +52,6 @@ class Monitor:
         if stats not in ("tensors", "health"):
             raise ValueError("stats must be 'tensors' or 'health', got %r"
                              % (stats,))
-        if stats == "health":
-            raise MXNetError(
-                "Monitor(stats='health') reads the health sentinel, which "
-                "waits for the runtime-services slice (slice 8)")
         self.stats = stats
         self.stat_func = stat_func or _default_stat
         self.interval = interval
@@ -59,6 +59,7 @@ class Monitor:
         self.queue = []
         self.step = 0
         self.exes = []
+        self._module = None
         self.re_prog = re.compile(pattern)
         self.sort = sort
 
@@ -69,9 +70,17 @@ class Monitor:
         self.stat_helper = stat_helper
 
     def install(self, exe):
-        """Tap this executor's op outputs."""
+        """Tap this executor's op outputs (a health monitor taps
+        nothing)."""
+        if self.stats == "health":
+            return
         exe.set_monitor_callback(self.stat_helper)
         self.exes.append(exe)
+
+    def install_module(self, module):
+        """Health mode: read the module's per-step sentinel summary (set
+        by the fit loop) instead of executor taps."""
+        self._module = module
 
     def _sync_args(self):
         for exe in self.exes:
@@ -91,6 +100,19 @@ class Monitor:
         return [(step, name, rendered value)]."""
         if not self.activated:
             return []
+        if self.stats == "health":
+            self.activated = False
+            payload = getattr(self._module, "_last_health_summary", None) \
+                if self._module is not None else None
+            if payload is None:
+                return []
+            step, summary = payload
+            results = [(step, "health/" + key, "%g" % value)
+                       for key, value in summary.items()
+                       if self.re_prog.match("health/" + key)]
+            if self.sort:
+                results.sort(key=lambda item: item[1])
+            return results
         self._sync_args()
         for exe in self.exes:
             for name, arr in exe.arg_dict.items():

@@ -18,6 +18,14 @@ Three layers, lowest first:
   fwd_bwd_dispatch / update / metric / sync), the input-starvation
   accounting behind ``io.DataIter``, kvstore push/pull bytes and
   latency, and the device-memory gauges over ``torch.cuda``.
+- ``flight_recorder``: the bounded black box: the last N step records,
+  recent ``mxnet_tpu_torch.*`` log lines, anomalies and events, dumped as
+  one JSON file on anomaly, unhandled exception or demand.
+- ``health``: the training health sentinel: the in-step numerics summary
+  (``MXNET_TPU_HEALTH=1``) and the host-side ``HealthMonitor`` rules.
+- ``memprof``: build records per plan and per CUDA-graph capture,
+  per-program device memory (``MXNET_TPU_MEMPROF=1``), the live-tensor
+  census and the OOM black box.
 
 Every call site stays outside a captured CUDA graph: instrumentation adds
 no launch and no synchronize to a step.
@@ -27,8 +35,14 @@ from __future__ import annotations
 from . import tracing
 from . import telemetry
 from . import instrument
+from . import flight_recorder
+from . import health
+from . import memprof
 from .tracing import span, emit_instant
 from .telemetry import counter, gauge, histogram, snapshot
+from .health import HealthMonitor, TrainingDivergedError
 
-__all__ = ["tracing", "telemetry", "instrument", "span", "emit_instant",
-           "counter", "gauge", "histogram", "snapshot"]
+__all__ = ["tracing", "telemetry", "instrument", "flight_recorder",
+           "health", "memprof", "span", "emit_instant",
+           "counter", "gauge", "histogram", "snapshot", "HealthMonitor",
+           "TrainingDivergedError"]

@@ -8,18 +8,38 @@ whole softmax(QK^T)V contraction through the flash-attention kernel
   [batch, seq, heads, head_dim]; causal and padding masks.
 - ``multi_head_attention``: the q/k/v/out projections around the same
   core, so one graph node carries a whole attention block.
+
+Under the health sentinel each node notes a bound on its max|logit|
+(``_note_logit_bound``) before the flash kernel runs.
 """
 from __future__ import annotations
 
 import torch
 
+from ..observability import health as _health
 from . import kernels as _k
 from .registry import pBool, pFloat, pInt, register
+
+
+def _note_logit_bound(q, k, scale):
+    """Health tap: an upper bound on this node's max|logit| by
+    Cauchy-Schwarz, ``scale * max_row||q|| * max_row||k||``, over
+    [batch, seq, heads, head_dim] q and k.  O(BSHD), so the flash kernel
+    never has to materialize the S^2 logits; computed only while the
+    executor collects taps (a health-on training run)."""
+    if not _health.collecting():
+        return
+    with torch.no_grad():
+        s = scale if scale else 1.0 / float(int(q.shape[-1])) ** 0.5
+        qn = torch.linalg.vector_norm(q.float(), dim=-1).amax()
+        kn = torch.linalg.vector_norm(k.float(), dim=-1).amax()
+        _health.note_tap(qn * kn * s)
 
 
 def _sdpa(query, key, value, *rest, causal=False, scale=0.0,
           use_lengths=False):
     kv_lens = rest[0] if use_lengths else None
+    _note_logit_bound(query, key, scale)
     return _k.attention(query, key, value, causal=causal,
                         scale=(scale if scale else None), kv_lens=kv_lens)
 
@@ -77,6 +97,7 @@ def _mha(query, key, value, q_weight, q_bias, k_weight, k_bias, v_weight,
     k = (torch.matmul(key, k_weight.t()) + k_bias).reshape(b, sk, h, -1)
     v = (torch.matmul(value, v_weight.t()) + v_bias).reshape(b, sk, h, -1)
     kv_lens = rest[0] if use_lengths else None
+    _note_logit_bound(q, k, scale)
     o = _k.attention(q, k, v, causal=causal,
                      scale=(scale if scale else None), kv_lens=kv_lens)
     return torch.matmul(o.reshape(b, sq, -1), out_weight.t()) + out_bias

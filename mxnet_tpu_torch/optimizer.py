@@ -184,6 +184,16 @@ class Optimizer:
         multi_precision (``(w32, state)``; SGD's is ``(mom, w32)``)."""
         return (master_nd, state_nd)
 
+    def health_update_scale(self, index=0):
+        """Host-side magnitude of this optimizer's step per unit raw
+        gradient: ``lr * |rescale_grad|``.  The health sentinel's general
+        path carries grad and param norms but not the applied update, so
+        its update/param ratio is estimated as
+        ``scale * grad_norm / param_norm`` (the fused train step computes
+        the exact ratio in the step).  Momentum and adaptive terms are
+        ignored: an order-of-magnitude signal for a divergence detector."""
+        return float(abs(self._get_lr(index)) * abs(self.rescale_grad))
+
     def _clip(self, g):
         g = g * self.rescale_grad
         if self.clip_gradient is not None:

@@ -11,6 +11,13 @@ The dispatch thread must never die: every per-batch failure is caught
 and delivered to that batch's futures, then the loop continues.  Padding
 rows are zeros; the graph evaluates row-wise, so padding never changes a
 real row's result.
+
+Under the health sentinel (``MXNET_TPU_HEALTH=1``) each batch's host
+outputs are checked for non-finite values (counted, noted in the flight
+recorder; the batch still ships), and a failed batch is noted and dumps
+the flight recorder once per process.  A device out-of-memory writes the
+memory post-mortem (``observability/memprof``) always, before the
+clients see their errors.
 """
 from __future__ import annotations
 
@@ -21,6 +28,9 @@ from concurrent.futures import InvalidStateError
 import numpy as np
 
 from .. import threads as _threads
+from ..observability import flight_recorder as _flight
+from ..observability import health as _health
+from ..observability import memprof as _memprof
 from . import metrics
 from .registry import bucket_for
 
@@ -86,14 +96,40 @@ def run_group(model, batch, rows, replica=None):
     if replica is not None:
         metrics.record_replica_dispatch(replica, model.name, rows, ms)
     metrics.record_batch(model.name, bucket, rows)
+    if _health.enabled():
+        _note_output_health(model.name, bucket, outs)
     split_results(batch, outs, bucket)
     return bucket
 
 
+def _note_output_health(model_name, bucket, outs):
+    """Served-output numerics check: ``isfinite`` over the host outputs
+    already fetched (no device sync).  Warn-only: the batch ships."""
+    bad = [i for i, o in enumerate(outs)
+           if not np.all(np.isfinite(np.asarray(o)))]
+    if bad:
+        metrics.record_nonfinite_response(model_name, len(bad))
+        _flight.note("serving_nonfinite",
+                     {"model": model_name, "bucket": bucket,
+                      "outputs": bad})
+
+
 def fail_batch(batch, exc, model_name):
     """Deliver ``exc`` to every request of a failed batch, counting one
-    rejection per request actually failed."""
+    rejection per request actually failed.  First the black boxes: the
+    OOM post-mortem (always) and, under the sentinel, the failure's note
+    and one dump per process (skipped when the OOM dump exists: at a
+    fixed ``MXNET_TPU_FLIGHT_PATH`` it would be overwritten)."""
     reason = getattr(exc, "reason", "dispatch_error")
+    _memprof.maybe_record_oom("serving:%s" % model_name, exc)
+    if _health.enabled():
+        _flight.note("serving_dispatch_error",
+                     {"model": model_name,
+                      "error": "%s: %s" % (type(exc).__name__, exc),
+                      "requests": len(batch)})
+        if not (_memprof.is_oom(exc)
+                and _flight.get_recorder().has_dumped("oom")):
+            _flight.dump_once(reason="serving_exception")
     for r in batch:
         if _fail_future(r.future, exc):
             metrics.record_rejection(reason, model=model_name)

@@ -107,6 +107,8 @@ def select_carry(mask, carried, zeros):
         return zeros
 
     def pick(c, z):
+        # a carry leaf written from outside may be an NDArray
+        c = getattr(c, "tensor", c)
         keep = (mask != 0).reshape((-1,) + (1,) * (c.ndim - 1))
         return torch.where(keep, c, z)
 

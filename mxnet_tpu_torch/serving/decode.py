@@ -14,6 +14,7 @@ indirection into one device-resident block pool:
 - **On the card** ``warmup()`` captures the step once as a CUDA graph;
   every iteration then copies its inputs into the graph's static buffers
   and replays it, so after warmup nothing is built and nothing captured.
+  The capture opens a memprof program record (``decode_step``).
   **On the host** the step runs eagerly.
 - Inactive slots write into trash page 0 and attend over nothing: the
   ``valid`` SELECT zeroes the gathered operands and masks the scores
@@ -46,6 +47,7 @@ import torch
 from .. import executor_cache
 from ..base import MXNetError
 from ..context import current_context
+from ..observability import memprof as _memprof
 from . import metrics
 from .continuous import SlotScheduler, _Stream
 from .errors import Overloaded
@@ -286,9 +288,15 @@ class PagedTransformerDecoder(SlotScheduler):
         workspaces exist before capture)."""
         static = [torch.from_numpy(a).to(self.device)
                   for a in self._inputs()]
+        # one memprof record a capture: its time and, under the flag, the
+        # warm-up run's peak and the graph pool's bytes
+        probe = _memprof.CaptureProbe(_memprof.note_build(
+            "decode_step", "paged_decode@L%dH%dD%dS%d" % (
+                self.pool.num_layers, self.pool.num_heads,
+                self.pool.head_dim, self.slot_count)), self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
+        with probe.warmup(), torch.cuda.stream(side):
             self._eager(static)
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
@@ -296,7 +304,10 @@ class PagedTransformerDecoder(SlotScheduler):
         try:
             # thread_local: a server's other threads may use the card
             # while this step is captured
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with probe.capture(
+                    lambda: [self.pool.k_pool, self.pool.v_pool] + static
+                    + list(self._params.values()), lambda: list(outs)), \
+                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 outs = self._eager(static)
         except Exception as exc:
             raise MXNetError("capturing the paged decode step as a CUDA "

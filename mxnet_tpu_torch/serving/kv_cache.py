@@ -20,14 +20,16 @@ K/V rows through a page table:
   a CUDA graph that reads them (``decode.py``) stays valid.
 
 Config: ``MXNET_TPU_KV_POOL_PAGES`` (capacity in pages, default 64) and
-``MXNET_TPU_KV_PAGE_TOKENS`` (tokens per page, default 16).  The
-memory-profiler row of the JAX package's pool waits for the runtime
-services slice; :meth:`KVBlockPool.stats` and ``page_bytes`` stand in.
+``MXNET_TPU_KV_PAGE_TOKENS`` (tokens per page, default 16).  The pool
+registers with the memory profiler (``memprof.register_pool``), so
+``memprof.report()`` and ``traceview --memory`` carry one row for it:
+pages used of its pages, at ``page_bytes`` each.
 """
 from __future__ import annotations
 
 import functools
 import os
+import weakref
 from collections import OrderedDict
 
 import torch
@@ -35,6 +37,7 @@ import torch
 from .. import executor_cache
 from .. import threads as _threads
 from ..context import current_context
+from ..observability import memprof as _memprof
 from . import metrics
 from .errors import Overloaded
 
@@ -115,6 +118,11 @@ class KVBlockPool:
         # k + v, all layers: the footprint of one logical page
         self.page_bytes = (2 * self.num_layers * self.page_size
                            * self.num_heads * self.head_dim * 4)
+        ref = weakref.ref(self)
+        _memprof.register_pool(
+            self.name, self.page_bytes, self.num_pages,
+            lambda: (lambda p: p.pages_used() if p is not None else 0)(
+                ref()))
         metrics.record_kv_pool(0, self.num_pages, high_water=0)
 
     # -- accounting (host) -------------------------------------------------
@@ -257,5 +265,5 @@ class KVBlockPool:
             self._hash_of[page] = chain_hash
 
     def close(self):
-        """Kept for the JAX package's API: it unregisters the pool's
-        memory-profiler row here, which waits for its slice."""
+        """Unregister the pool's memory-profiler row."""
+        _memprof.unregister_pool(self.name)

@@ -234,6 +234,19 @@ def record_kv_cow(n=1):
                       help="shared KV pages cloned copy-on-write").inc(n)
 
 
+def record_nonfinite_response(model, n_outputs):
+    """Served-output health (``MXNET_TPU_HEALTH=1``): a dispatched batch
+    produced non-finite values in ``n_outputs`` of its outputs.  The
+    responses still ship (a caller may legitimately serve inf logits),
+    but the counter and the instant make a poisoned model visible."""
+    telemetry.counter("serving.nonfinite_responses",
+                      help="batches with non-finite output values").inc()
+    if tracing.is_recording():
+        tracing.emit_instant("serving_nonfinite", category="serving",
+                             args={"model": model,
+                                   "outputs": n_outputs})
+
+
 def record_request_done(request, t_done=None):
     """Request completed (at ``t_done``, by default now): latency histograms + the request/queue spans.
     Spans are emitted from the dispatch thread with explicit timestamps

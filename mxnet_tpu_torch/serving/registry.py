@@ -8,7 +8,9 @@ predictor's weight arrays (``Predictor.reshaped``).  After
 so steady-state dispatches build nothing (``executor_cache.watch_traces``).
 ``quantize="int8"`` (default: ``MXNET_TPU_QUANTIZE``) serves the int8
 rewrite of the graph, done once in the base predictor and shared by every
-bucket.  Bucket staging by the autotuner and the persistent-cache
+bucket.  Under ``MXNET_TPU_MEMPROF=1`` warmup keeps each bucket's
+footprint (``bucket_memory``) from the memprof record of the bucket's
+plan.  Bucket staging by the autotuner and the persistent-cache
 ``prewarm`` wait for their slices.
 """
 from __future__ import annotations
@@ -91,6 +93,8 @@ class ServedModel:
         # not atomic, and warmup from the caller thread must not
         # interleave with the dispatch thread on the same bucket
         self._run_lock = _threads.package_lock("ServedModel._run_lock")
+        # bucket -> memprof byte footprint of its plan (filled by warmup)
+        self.bucket_memory = {}
 
     def _bind_shapes(self, bucket):
         return {k: (bucket,) + v for k, v in self.input_shapes.items()}
@@ -115,13 +119,22 @@ class ServedModel:
 
     def warmup(self):
         """Run every bucket once so its plan is cached; returns
-        {bucket: plan builds added}."""
+        {bucket: plan builds added}.  A bucket whose plan carries a
+        memprof footprint records it in ``bucket_memory`` (a later sweep
+        keeps the first one's)."""
         traced = {}
         for b in self.buckets:
             with executor_cache.watch_traces() as w:
                 self.run_batch(b, {k: np.zeros((b,) + v, dtype=np.float32)
                                    for k, v in self.input_shapes.items()})
             traced[b] = w.total()
+            rec = self.predictor_for(b)._exe._prog.memprof_record
+            mem = rec.get("memory") if rec is not None else None
+            if mem and b not in self.bucket_memory:
+                self.bucket_memory[b] = {
+                    k: mem.get(k, 0) for k in ("argument_bytes",
+                                               "output_bytes", "temp_bytes",
+                                               "total_bytes")}
         return traced
 
 

@@ -49,6 +49,7 @@ import numpy as np
 from .. import executor_cache
 from .. import threads as _threads
 from ..base import MXNetError
+from ..observability import flight_recorder as _flight
 from . import metrics
 from .batcher import DynamicBatcher, fail_batch, run_group
 from .errors import BadRequest, NoHealthyReplica, ServerClosed, ServingError
@@ -237,6 +238,10 @@ class Replica:
                    type(exc).__name__, exc, len(stranded))
         metrics.record_replica_quarantined(
             self.index, "%s: %s" % (type(exc).__name__, exc))
+        _flight.note("serving_replica_quarantined",
+                     {"replica": self.index,
+                      "error": "%s: %s" % (type(exc).__name__, exc),
+                      "stranded_groups": len(stranded)})
         if self._group is not None:
             self._group.redispatch(stranded)
 
@@ -519,5 +524,8 @@ class FleetServer(Server):
                     "the verify sweep across %d replicas (delta: %s)"
                     % (second_sweep.total(), len(self.group),
                        second_sweep.delta()))
+        memory = self._warmup_memory_report(self.registry.names())
+        if memory is not None and "memory" not in report:
+            report["memory"] = memory
         report["replicas"] = self.group.stats()
         return report

@@ -39,6 +39,8 @@ import numpy as np
 
 from .. import threads as _threads
 from ..base import MXNetError
+from ..log import module_logger as _module_logger
+from ..observability import memprof as _memprof
 from ..observability import telemetry as _telemetry
 from . import metrics
 from .admission import AdmissionController, Request
@@ -111,10 +113,22 @@ class Server:
     def start(self):
         self.batcher.start()
 
+    # a summed warmup footprint within this fraction of device capacity
+    # is "thin": one more replica, bucket or model likely runs out
+    THIN_MEMORY_MARGIN = 0.10
+
     def warmup(self, verify=True):
         """Run every bucket of every registered model.  With ``verify``
         a second sweep must build zero plans, or MXNetError.  Returns
-        {model: {"buckets", "traces_first_pass"[, "traces_verify_pass"]}}."""
+        {model: {"buckets", "traces_first_pass"[, "traces_verify_pass"]}}.
+
+        Under ``MXNET_TPU_MEMPROF=1`` the report gains a ``memory``
+        section: each model's per-bucket footprints (the memprof records
+        of the bucket plans), the summed serving footprint (per-bucket
+        temp and output bytes, plus each model's widest argument block
+        once: bucket predictors share their weights) and, on the card,
+        the headroom against its total memory, warning under
+        ``THIN_MEMORY_MARGIN``."""
         report = {}
         names = self.registry.names()
         # warm EVERY model before verifying any: the counters are
@@ -133,7 +147,61 @@ class Server:
                         "%d plan builds on the second sweep (per bucket: "
                         "%s) — steady-state serving would rebuild"
                         % (name, report[name]["traces_verify_pass"], second))
+        memory = self._warmup_memory_report(names)
+        if memory is not None:
+            if "memory" in report:
+                # a model named "memory" keeps its entry
+                _module_logger(__name__).warning(
+                    'a served model is named "memory": the warmup '
+                    "report's footprint section is omitted (rename the "
+                    "model to get it)")
+            else:
+                report["memory"] = memory
         return report
+
+    def _warmup_memory_report(self, names):
+        """The summed-footprint-against-capacity section of the warmup
+        report (None when no bucket plan was measured)."""
+        per_model = {}
+        footprint = 0
+        for name in names:
+            bm = self.registry.get(name).bucket_memory
+            if not bm:
+                continue
+            per_model[name] = {str(b): dict(v) for b, v in bm.items()}
+            footprint += max(v.get("argument_bytes", 0)
+                             for v in bm.values())
+            footprint += sum(v.get("temp_bytes", 0)
+                             + v.get("output_bytes", 0)
+                             for v in bm.values())
+        if not per_model:
+            return None
+        limits = [d["bytes_limit"] for d in _memprof.device_memory()
+                  if d.get("bytes_limit")]
+        memory = {"per_model": per_model,
+                  "footprint_bytes": int(footprint),
+                  "device_limit_bytes": int(limits[0]) if limits else None,
+                  "headroom_frac": None}
+        _telemetry.gauge(
+            "serving.warmup_footprint_bytes",
+            help="summed per-bucket plan footprint measured at "
+                 "warmup").set(footprint)
+        if limits:
+            headroom = (limits[0] - footprint) / float(limits[0])
+            memory["headroom_frac"] = round(headroom, 4)
+            if headroom < self.THIN_MEMORY_MARGIN:
+                _module_logger(__name__).warning(
+                    "serving warmup footprint %d bytes leaves only "
+                    "%.1f%% of device capacity (%d bytes) — thin margin "
+                    "(< %.0f%%): one more bucket, model, or replica "
+                    "likely runs out of memory",
+                    footprint, headroom * 100.0, limits[0],
+                    self.THIN_MEMORY_MARGIN * 100.0)
+                _telemetry.counter(
+                    "serving.warmup_thin_memory_margin",
+                    help="warmups whose footprint left under the thin-"
+                         "margin threshold of device capacity").inc()
+        return memory
 
     def close(self, drain=True, timeout=None):
         """Refuse new admissions (``ServerClosed``) and, with ``drain``,

@@ -11,7 +11,9 @@ from the same terms in the same order.  The ``mx.rtc`` tests compile user
 CUDA C with NVRTC (MXNet 1.0's ``test_cuda_rtc`` axpy, a template through
 ``exports``, a shared-memory row sum within 1e-5 of torch); with them
 ``Custom`` under autograd, the fused step's refusal of it, ``all``-mode
-op spans during a graph capture, and the device-memory gauge.
+op spans during a graph capture, and the device-memory gauge; the health
+vector packed inside the fused step's CUDA graph against its plain
+recomputation (1e-5 relative) and the OOM black box.
 """
 import numpy as np
 import pytest
@@ -2891,3 +2893,78 @@ def test_sample_device_memory_reads_torch_cuda(card):
     snap = mx.observability.snapshot()
     assert snap["device.live_bytes"]["value"] == live
     del keep
+
+
+def _plain_health(layout, outs, params, grads, new):
+    """The packed health vector recomputed eagerly in float64 from the
+    step's outputs, masters before and after the update, and gradients."""
+    def l2(ts):
+        return float(torch.stack([t.double().square().sum()
+                                  for t in ts]).sum().sqrt())
+    mask = sum(float(1 << i) for i, o in enumerate(outs[:layout.n_outputs])
+               if bool(torch.isfinite(o).all()))
+    pn = l2(params)
+    ratio = l2([a.double() - b.double() for a, b in zip(new, params)]) / pn
+    maxes = [float(torch.stack([g.double().abs().max()
+                                for g in grads[a:b]]).max())
+             for _, a, b in layout.groups]
+    return np.array([mask, float(outs[0].double().mean()), l2(grads), pn,
+                     ratio] + maxes)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_health_vector_from_inside_the_graph(card, deterministic,
+                                             monkeypatch, dtype):
+    """Under MXNET_TPU_HEALTH=1 the fused step packs the health vector in
+    its eager step and inside its CUDA graph: each step's vector, read
+    from the pinned copy, against its plain float64 recomputation from
+    the same step's outputs, gradients and masters, within 1e-5 relative
+    (f32 reductions in another order)."""
+    monkeypatch.setenv("MXNET_TPU_HEALTH", "1")
+    mod, batches = _graph_module(dtype)
+    fs = mod._fused_step
+    assert fs.health_layout is not None
+    for b in batches:
+        mod.forward_backward(b)
+        mod.update()
+        vec = fs.take_health()
+        grads, old = fs.health_inputs
+        want = _plain_health(fs.health_layout,
+                             [o.tensor for o in mod.get_outputs()], old,
+                             grads, fs._masters)
+        np.testing.assert_allclose(vec, want, rtol=1e-5, atol=0)
+        assert fs.take_health() is None
+    assert fs.captures == 1 and fs.replays == 3
+
+
+def test_oom_black_box_on_the_card(card, tmp_path, monkeypatch):
+    """A forward that cannot fit on the card: torch.cuda.OutOfMemoryError
+    propagates after one flight dump with the memory report (the card's
+    total as ``bytes_limit``); a second one writes no second dump."""
+    import json
+    import os
+    from mxnet_tpu_torch.observability import flight_recorder
+    dump = tmp_path / "oom.json"
+    monkeypatch.setenv("MXNET_TPU_FLIGHT_PATH", str(dump))
+    flight_recorder.reset()
+    try:
+        exe = mx.sym.tile(mx.sym.Variable("data"),
+                          reps=(1 << 18, 1 << 18)).simple_bind(
+            mx.gpu(0), data=(4, 4), grad_req="null")
+        with pytest.raises(torch.cuda.OutOfMemoryError) as err:
+            exe.forward()
+        assert err.value._mxtpu_oom_recorded
+        with open(dump) as f:
+            doc = json.load(f)
+        assert doc["reason"] == "oom"
+        assert doc["anomalies"][0]["context"] == "executor_forward"
+        rows = doc["memory"]["device_memory"]
+        assert rows[0]["bytes_limit"] == torch.cuda.mem_get_info(0)[1]
+        assert doc["memory"]["census"]["array_count"] > 0
+        os.remove(dump)
+        with pytest.raises(torch.cuda.OutOfMemoryError):
+            exe.forward()
+        assert not dump.exists()
+        assert flight_recorder.get_recorder().anomaly_count("oom") == 2
+    finally:
+        flight_recorder.reset()

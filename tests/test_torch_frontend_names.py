@@ -81,11 +81,14 @@ def test_executor_cache_stats_keys_and_knobs(monkeypatch):
     monkeypatch.delenv("MXNET_TPU_EXEC_CACHE")
     monkeypatch.setenv("MXNET_TPU_EXEC_CACHE_SIZE", "1")
     ec.reset_stats()
+    mt.observability.memprof.reset()
     for batch in (3, 4, 3):
         sym.simple_bind(mt.cpu(), data=(batch, 4), grad_req="null")
     s = ec.stats()
     assert (s["misses"], s["evictions"], s["entries"]) == (3, 2, 1)
-    assert s["programs"] == [] and s["compile_ms"]["count"] == 0
+    # one memprof record a plan build; no CUDA-graph capture on the host
+    assert [r["kind"] for r in s["programs"]] == ["fwd"] * 3
+    assert s["compile_ms"]["count"] == 0
     assert s["disk"]["enabled"] is False
     ec.clear()
 

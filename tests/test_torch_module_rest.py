@@ -190,8 +190,14 @@ def test_monitor_all_taps_inputs_too():
 
 
 def test_monitor_health_waits_for_its_slice():
-    with pytest.raises(mt.MXNetError, match="slice 8"):
-        mt.Monitor(1, stats="health")
+    # the sentinel's slice is in: a health monitor builds and taps nothing
+    mon = mt.Monitor(1, stats="health")
+    assert mon.stats == "health"
+    exe = mt.sym.FullyConnected(mt.sym.Variable("data"), num_hidden=2,
+                                name="fc").simple_bind(mt.cpu(),
+                                                       data=(2, 3))
+    mon.install(exe)
+    assert mon.exes == [] and exe._monitor_callback is None
 
 
 def test_fit_with_monitor_logs_every_interval(caplog):
